@@ -1,8 +1,8 @@
 """PyTorch port of ``bayesianfiltering_tpu`` for NVIDIA Hopper GPUs.
 
 Same module layout and public names as the JAX package, which stays the
-reference. The EKF, Gaussian-sum filter and AGSF run their per-step linear
-algebra in hand-written CUDA kernels (``csrc/``, built at first use by
+reference. The EKF and UKF, the Gaussian-sum filters and the AGSF family
+run their per-step linear algebra in hand-written CUDA kernels (``csrc/``, built at first use by
 :mod:`bayesianfiltering_tpu_torch._build`) on CUDA tensors, and in plain
 PyTorch twins on CPU tensors. Importing the package applies the precision
 policy of :mod:`bayesianfiltering_tpu_torch.config`.
@@ -15,7 +15,12 @@ from bayesianfiltering_tpu_torch.inference import (
     extended_kalman_filter,
     gaussian_sum_filter,
     speedy_augmented_gaussian_sum_filter,
+    speedy_unscented_agsf,
+    unscented_agsf,
+    unscented_gaussian_sum_filter,
+    unscented_kalman_filter,
 )
+from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
 from bayesianfiltering_tpu_torch.models import (
     NonlinearSSM,
     ParamsNLSSM,
@@ -32,6 +37,11 @@ __all__ = [
     "extended_kalman_filter",
     "gaussian_sum_filter",
     "speedy_augmented_gaussian_sum_filter",
+    "unscented_kalman_filter",
+    "unscented_gaussian_sum_filter",
+    "unscented_agsf",
+    "speedy_unscented_agsf",
+    "ParamsUKF",
     "NonlinearSSM",
     "ParamsNLSSM",
     "params_from_jax",

@@ -70,6 +70,16 @@ _SIGNATURES = {
     "bft_bank_update_f64": ([_P] * 9 + [_I, _I, _I, _D, _P], _I),
     "bft_bank_predict_cov_f32": ([_P] * 5 + [_I, _I, _I, _P], _I),
     "bft_bank_predict_cov_f64": ([_P] * 5 + [_I, _I, _I, _P], _I),
+    "bft_ut_sigma_scratch_elems": ([_I, _I, _I, _I], _LL),
+    "bft_ut_update_scratch_elems": ([_I, _I, _I, _I], _LL),
+    "bft_ut_sigma_f32": ([_P] * 4 + [_I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_f64": ([_P] * 4 + [_I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_aug_f32": ([_P] * 7 + [_I, _I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_aug_f64": ([_P] * 7 + [_I, _I, _I, _D, _I, _P], _I),
+    "bft_ut_update_f32": ([_P] * 12 + [_I] * 5 + [_D, _D, _P], _I),
+    "bft_ut_update_f64": ([_P] * 12 + [_I] * 5 + [_D, _D, _P], _I),
+    "bft_ut_predict_f32": ([_P] * 5 + [_I, _I, _I, _D, _D, _D, _P], _I),
+    "bft_ut_predict_f64": ([_P] * 5 + [_I, _I, _I, _D, _D, _D, _P], _I),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -99,21 +109,27 @@ def _nvcc() -> str:
 
 
 def _compile(out: Path) -> str:
-    """Compile every ``csrc/*.cu`` to an object, link them into ``out``.
-    Returns nvcc's messages (register and spill counts from ptxas)."""
+    """Compile every ``csrc/*.cu`` to an object, one nvcc per source, all
+    started together, then link them into ``out``. Returns nvcc's messages
+    (register and spill counts from ptxas)."""
     nvcc = _nvcc()
     tmp = out.parent / f"tmp.{os.getpid()}"
     tmp.mkdir(parents=True, exist_ok=True)
+    srcs = sorted(_CSRC.glob("*.cu"))
+    objs = [str(tmp / (src.stem + ".o")) for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(srcs, objs)]
     log = []
-    objs = []
-    for src in sorted(_CSRC.glob("*.cu")):
-        obj = tmp / (src.stem + ".o")
-        r = subprocess.run([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                           capture_output=True, text=True)
-        log.append(r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{log[-1]}")
-        objs.append(str(obj))
+    failed = []
+    for src, proc in zip(srcs, procs):
+        out_text, _ = proc.communicate()
+        log.append(out_text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name}:\n{out_text}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     lib = tmp / out.name
     r = subprocess.run([nvcc, "-shared", "-o", str(lib), *objs],
                        capture_output=True, text=True)
@@ -156,6 +172,15 @@ def check(err: int, kernel: Kernel) -> None:
 
 def ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def scratch(elems: int, kernel: Kernel, batch: int, like: torch.Tensor):
+    """The global scratch a launcher asked for: ``elems`` per block (0 when
+    its workspace fits in shared memory, negative on a failed device
+    query), for ``batch`` blocks, in ``like``'s dtype and device."""
+    if elems < 0:
+        raise RuntimeError(f"{kernel.name}: device attribute query failed")
+    return like.new_empty(batch * elems) if elems else None
 
 
 def symbol(kernel: Kernel, t) -> Callable:
@@ -223,4 +248,4 @@ def kernel_op(plain: Callable, launch: Callable, num_tensors: int) -> Callable:
 
 
 __all__ = ["Kernel", "KERNELS", "register", "reset_launch_counts", "load",
-           "check", "check_operands", "kernel_op", "BUILD_DIR"]
+           "check", "check_operands", "kernel_op", "scratch", "BUILD_DIR"]

@@ -1,10 +1,43 @@
-// Shared helpers for the filter kernels: constants, block-wide small
-// matrix products, and the plain C entry points every library exports.
+// Shared helpers for the filter kernels: constants, per-block workspaces
+// (dynamic shared memory, or a global scratch above the opt-in limit), and
+// block-wide small matrix products.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace bft {
+
+constexpr size_t kStaticSmemSlack = 256;  // the kernels' static __shared__
+
+// 0 when a per-block workspace of ws_elems fits in shared memory, else the
+// per-block element count of the global scratch the caller must pass; -1
+// on a CUDA error.
+inline long long scratch_elems(size_t ws_elems, int itemsize, int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  const size_t bytes = ws_elems * size_t(itemsize);
+  return bytes + kStaticSmemSlack <= size_t(optin) ? 0
+                                                   : (long long)ws_elems;
+}
+
+// The block's workspace: its slice of the global scratch when one is
+// given, else the dynamic shared memory.
+template <typename T>
+__device__ T* workspace(T* scratch, size_t per_block) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return scratch != nullptr ? scratch + size_t(blockIdx.x) * per_block
+                            : reinterpret_cast<T*>(smem_raw);
+}
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory.
+template <typename K>
+int set_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return int(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+}
 
 constexpr double kLog2Pi = 1.8378770664093453;  // log(2π)
 constexpr double kRelJitter = 1e-6;             // ops/ekf.py _REL_JITTER
@@ -15,6 +48,13 @@ __device__ inline float dlog(float x) { return logf(x); }
 __device__ inline double dlog(double x) { return log(x); }
 __device__ inline float dabs(float x) { return fabsf(x); }
 __device__ inline double dabs(double x) { return fabs(x); }
+template <typename T> __device__ T qnan();
+template <> __device__ inline float qnan<float>() {
+  return __int_as_float(0x7fc00000);
+}
+template <> __device__ inline double qnan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
 
 // Row-major products over a whole thread block. Each output element is one
 // dot product owned by one thread; the caller synchronises afterwards.

@@ -38,7 +38,6 @@ namespace {
 using namespace bft;
 
 constexpr int kThreads = 256;
-constexpr size_t kStaticSmemSlack = 256;  // the kernels' static __shared__
 
 size_t update_ws_elems(int dx, int dy) {
   return size_t(dy) * dx * 4      // H P, Hᵀ, Z, and K Rt (dx × dy)
@@ -48,25 +47,6 @@ size_t update_ws_elems(int dx, int dy) {
 
 size_t predict_ws_elems(int dx, int dq) {
   return size_t(dx) * dx * 2 + size_t(dx) * dq * 2;  // Fx P, Fxᵀ, Fq Q, Fqᵀ
-}
-
-// 0 when the workspace fits in shared memory, else the per-block element
-// count of the global scratch the caller must pass; -1 on a CUDA error.
-long long scratch_elems(size_t ws_elems, int itemsize, int device) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  const size_t bytes = ws_elems * size_t(itemsize);
-  return bytes + kStaticSmemSlack <= size_t(optin) ? 0
-                                                   : (long long)ws_elems;
-}
-
-template <typename T>
-__device__ T* workspace(T* scratch, size_t per_block) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  return scratch != nullptr ? scratch + size_t(blockIdx.x) * per_block
-                            : reinterpret_cast<T*>(smem_raw);
 }
 
 // Xᵀ (cols × rows) from X (rows × cols): reads coalesced, once per launch.
@@ -295,13 +275,6 @@ __global__ void __launch_bounds__(kThreads) ekf_predict_cov_kernel(
   block_symmetrize(cov, dx);
 }
 
-template <typename K>
-int set_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return int(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
-}
-
 template <typename T>
 int launch_update(const void* m, const void* P, const void* H, const void* R,
                   const void* inn, void* ll, void* mean, void* cov, void* kt,
@@ -343,12 +316,12 @@ const char* bft_error_string(int code) {
 
 long long bft_ekf_update_scratch_elems(int dx, int dy, int itemsize,
                                        int device) {
-  return scratch_elems(update_ws_elems(dx, dy), itemsize, device);
+  return bft::scratch_elems(update_ws_elems(dx, dy), itemsize, device);
 }
 
 long long bft_ekf_predict_cov_scratch_elems(int dx, int dq, int itemsize,
                                             int device) {
-  return scratch_elems(predict_ws_elems(dx, dq), itemsize, device);
+  return bft::scratch_elems(predict_ws_elems(dx, dq), itemsize, device);
 }
 
 int bft_ekf_update_f32(const void* m, const void* P, const void* H,

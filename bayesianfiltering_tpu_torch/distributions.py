@@ -8,7 +8,7 @@ torch, so parity tests hand JAX's draws over).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -74,4 +74,40 @@ def mvn_sample(mean: torch.Tensor, cov: torch.Tensor,
     return mvn_sample_chol(mean, cholesky_nan(cov), shape, generator, eps)
 
 
-__all__ = ["mvn_logpdf", "mvn_sample", "mvn_sample_chol", "standard_normal"]
+class MVN:
+    """Multivariate normal with a full covariance: the subset of
+    ``MultivariateNormalFullCovariance`` the reference uses (construction
+    from ``(loc, covariance_matrix)``, ``sample``, ``log_prob``)."""
+
+    def __init__(self, loc: torch.Tensor = None,
+                 covariance_matrix: torch.Tensor = None):
+        if loc is None or covariance_matrix is None:
+            raise ValueError("MVN requires loc and covariance_matrix")
+        self.loc = torch.atleast_1d(loc)
+        self.covariance_matrix = torch.atleast_2d(covariance_matrix)
+
+    def sample(self, sample_shape: Union[int, Sequence[int]] = (),
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Draws from ``generator`` or from the standard normals ``eps``
+        (shape ``sample_shape + batch + (dim,)``); one of them is
+        required."""
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        return mvn_sample(self.loc, self.covariance_matrix,
+                          tuple(sample_shape), generator, eps)
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        return mvn_logpdf(x, self.loc, self.covariance_matrix)
+
+    def mean(self) -> torch.Tensor:
+        return self.loc
+
+    def covariance(self) -> torch.Tensor:
+        return self.covariance_matrix
+
+
+MultivariateNormalFullCovariance = MVN
+
+__all__ = ["mvn_logpdf", "mvn_sample", "mvn_sample_chol", "standard_normal",
+           "MVN", "MultivariateNormalFullCovariance"]

@@ -1,12 +1,13 @@
-"""Filter entry points: the EKF, the Gaussian-sum filter and the AGSF
+"""Filter entry points: the EKF and UKF, the Gaussian-sum filters (EKF and
+UKF moments) and the AGSF family
 (counterpart of ``bayesianfiltering_tpu/inference.py``).
 
 Each filter is a Python loop over time of batched step primitives; the
-linear algebra of every step runs in the CUDA kernels K1–K4 on CUDA
-tensors (through ``ops.fused_ekf`` and ``ops.bank_update``) and in their
-plain twins on CPU tensors. The EKF takes a written-out leading batch of
-sequences; the mixture filters use the component axis as the kernels'
-batch.
+linear algebra of every step runs in the CUDA kernels on CUDA tensors — K1–K4
+for EKF moments (``ops.fused_ekf``, ``ops.bank_update``), K6–K9 for UKF
+moments (``ops.fused_ut``) — and in their plain versions on CPU tensors.
+The EKF and UKF take a written-out leading batch of sequences; the mixture
+filters use the component axis as the kernels' batch.
 
 Randomness: every stochastic entry point takes a ``torch.Generator`` or its
 standard-normal / uniform draws made beforehand (:class:`AGSFDraws`).
@@ -23,6 +24,9 @@ from bayesianfiltering_tpu_torch.distributions import mvn_sample, standard_norma
 from bayesianfiltering_tpu_torch.models.params import ParamsNLSSM
 from bayesianfiltering_tpu_torch.ops import bank_update as _bank
 from bayesianfiltering_tpu_torch.ops import fused_ekf as _fused
+from bayesianfiltering_tpu_torch.ops import fused_ut as _fut
+from bayesianfiltering_tpu_torch.ops import ukf as _ukf
+from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
 from bayesianfiltering_tpu_torch.utils import resampling as _rs
 
 # ---------------------------------------------------------------------------
@@ -156,7 +160,78 @@ def extended_kalman_filter(
 
 
 # ---------------------------------------------------------------------------
-# Gaussian-sum filter (a bank of EKFs)
+# UKF
+# ---------------------------------------------------------------------------
+
+
+def _ukf_condition(num_iter: int, residual_fn):
+    """The non-additive UKF update: K7 and K8 for ``num_iter`` ≤ 1, the
+    plain iterated posterior linearization (IPLF) for ``num_iter`` > 1."""
+    def condition(m, P, h, R, u, y, uparams, r0):
+        if int(num_iter) > 1:
+            return _ukf.ukf_condition_on_nonadditive_iterated(
+                m, P, h, R, u, y, uparams, r0, num_iter, residual_fn)
+        return _fut.fused_ukf_condition_on_nonadditive(
+            m, P, h, R, u, y, uparams, r0, residual_fn)
+    return condition
+
+
+def unscented_kalman_filter(
+    params: ParamsNLSSM,
+    uparams: ParamsUKF,
+    emissions: torch.Tensor,
+    inputs: Optional[torch.Tensor] = None,
+    additive: bool = False,
+    num_iter: int = 1,
+) -> PosteriorGaussianFiltered:
+    """UKF for nonlinear SSMs. ``additive=True`` selects the additive-noise
+    quadrature (fewer sigma points), otherwise state-noise augmentation;
+    ``num_iter > 1`` runs the iterated posterior-linearization update
+    (IPLF, non-additive only, plain PyTorch).
+
+    ``emissions`` is (T, dy) or a batch of sequences (B, T, dy); the
+    outputs carry the same leading batch axis. Each step is, on CUDA
+    tensors, K6+K8 and K6+K9 (additive) or K7+K8 and K7+K9 (augmented).
+    """
+    if additive and num_iter > 1:
+        raise ValueError("num_iter > 1 (IPLF) is only implemented for the "
+                         "non-additive quadrature; pass additive=False")
+    batched = emissions.ndim == 3
+    E = emissions if batched else emissions[None]
+    B, T = E.shape[:2]
+    f, h = params.dynamics_function, params.emission_function
+    inputs = _process_input(inputs, T, E)
+    residual_fn = params.emission_residual
+    if additive:
+        predict = _fut.fused_ukf_predict_additive
+
+        def condition(m, P, h, R, u, y, uparams, r0):
+            return _fut.fused_ukf_condition_on_additive(
+                m, P, h, R, u, y, uparams, r0, residual_fn)
+    else:
+        predict = _fut.fused_ukf_predict_nonadditive
+        condition = _ukf_condition(num_iter, residual_fn)
+
+    dx = params.initial_mean.shape[-1]
+    m = params.initial_mean.expand(B, dx)
+    P = params.initial_covariance.expand(B, dx, dx)
+    ll = E.new_zeros(B)
+    fm, pm = E.new_empty(B, T, dx), E.new_empty(B, T, dx)
+    fP, pP = E.new_empty(B, T, dx, dx), E.new_empty(B, T, dx, dx)
+    for t in range(T):
+        Q, q0, R, r0 = _slice_noise(params, t)
+        ll_t, m_f, P_f = condition(m, P, h, R, inputs[t], E[:, t], uparams,
+                                   r0)
+        m, P = predict(m_f, P_f, f, _predict_input(inputs, t, T), Q,
+                       uparams, q0)
+        ll = ll + ll_t
+        fm[:, t], fP[:, t], pm[:, t], pP[:, t] = m_f, P_f, m, P
+    post = PosteriorGaussianFiltered(ll, fm, fP, pm, pP)
+    return post if batched else PosteriorGaussianFiltered(*(x[0] for x in post))
+
+
+# ---------------------------------------------------------------------------
+# Gaussian-sum filters (banks of EKFs / UKFs)
 # ---------------------------------------------------------------------------
 
 
@@ -228,8 +303,49 @@ def gaussian_sum_filter(
         **{k: torch.stack(v, dim=1) for k, v in out.items()})
 
 
+def unscented_gaussian_sum_filter(
+    params: ParamsNLSSM,
+    uparams: ParamsUKF,
+    emissions: torch.Tensor,
+    num_components: int = 1,
+    num_iter: int = 1,
+    inputs: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    init_eps: Optional[torch.Tensor] = None,
+) -> PosteriorGaussianSumFiltered:
+    """Gaussian-sum filter with UKF moments (non-additive quadrature) on
+    ``emissions`` (T, dy). The initial means come from ``generator`` or
+    from the standard normals ``init_eps`` (M, dx). Each step is, on CUDA
+    tensors, K7+K8 (update) and K7+K9 (predict) over the bank."""
+    T = emissions.shape[0]
+    f, h = params.dynamics_function, params.emission_function
+    inputs = _process_input(inputs, T, emissions)
+    condition = _ukf_condition(num_iter, params.emission_residual)
+
+    weights, pred_means, pred_covs = _init_mixture(params, num_components,
+                                                   generator, init_eps)
+    ll = emissions.new_zeros(())
+    out = {k: [] for k in ("weights", "means", "covariances",
+                           "predicted_means", "predicted_covariances")}
+    for t in range(T):
+        Q, q0, R, r0 = _slice_noise(params, t)
+        lls, f_means, f_covs = condition(pred_means, pred_covs, h, R,
+                                         inputs[t], emissions[t], uparams, r0)
+        weights, step_ll = _reweight(lls, weights)
+        pred_means, pred_covs = _fut.fused_ukf_predict_nonadditive(
+            f_means, f_covs, f, _predict_input(inputs, t, T), Q, uparams, q0)
+        ll = ll + step_ll
+        for k, v in (("weights", weights), ("means", f_means),
+                     ("covariances", f_covs), ("predicted_means", pred_means),
+                     ("predicted_covariances", pred_covs)):
+            out[k].append(v)
+    return PosteriorGaussianSumFiltered(
+        marginal_loglik=ll,
+        **{k: torch.stack(v, dim=1) for k, v in out.items()})
+
+
 # ---------------------------------------------------------------------------
-# Augmented Gaussian-sum filter
+# Augmented Gaussian-sum filters (AGSF family)
 # ---------------------------------------------------------------------------
 
 
@@ -279,21 +395,31 @@ def _select_split_cov(strategy: str, alpha, covs):
 
 
 def _agsf_engine(params: ParamsNLSSM, emissions, num_components, draws,
-                 opt_args, inputs, reduction, autocov, num_iter, jitter):
+                 opt_args, inputs, reduction, autocov, num_iter, jitter,
+                 moments="ekf", uparams: Optional[ParamsUKF] = None):
     """AGSF loop: split → predict → split → update → reweight → reduce.
-    Per step: one K4 (predict of M·N) and one K3 (update of M·N·L) launch
-    per iteration on CUDA tensors."""
+    Per step on CUDA tensors: with EKF moments one K4 (predict of M·N) and
+    one K3 (update of M·N·L) launch per iteration; with UKF moments K7+K9
+    and K7+K8."""
     M, N, L = (int(c) for c in num_components)
     T = emissions.shape[0]
-    f, h, F_x, H_x, F_q, H_r = _jacobians(params)
+    use_ekf = moments == "ekf"
+    f, h = params.dynamics_function, params.emission_function
+    if use_ekf:
+        f, h, F_x, H_x, F_q, H_r = _jacobians(params)
+    else:
+        ukf_condition = _ukf_condition(num_iter, params.emission_residual)
     inputs = _process_input(inputs, T, emissions)
     residual_fn = params.emission_residual
     alpha0, alpha1 = opt_args
 
     weights, means, covs = _init_mixture(params, M, eps=draws.init)
     outputs = {"weights": [], "means": [], "covariances": []}
-    aux = {k: [] for k in ("Deltas", "Lambdas", "updated_means", "pre_weights",
-                           "step_loglik", "grads_dyn", "grads_obs", "gain")}
+    names = ("Deltas", "Lambdas", "updated_means", "pre_weights",
+             "step_loglik")
+    if use_ekf:
+        names += ("grads_dyn", "grads_obs", "gain")
+    aux = {k: [] for k in names}
     for t in range(T):
         Q, q0, R, r0 = _slice_noise(params, t)
         u, y = inputs[t], emissions[t]
@@ -302,32 +428,47 @@ def _agsf_engine(params: ParamsNLSSM, emissions, num_components, draws,
         deltas = _select_split_cov(autocov, alpha0, covs)
         to_predict = split_gaussian_sum(GaussianSum(means, covs, weights),
                                         deltas, N, eps=draws.split1[t])
-        pred_means, pred_covs, grads_dyn = _bank.bank_ekf_predict(
-            to_predict.means, to_predict.covariances, f, F_x, F_q, Q, q0, u)
+        if use_ekf:
+            pred_means, pred_covs, grads_dyn = _bank.bank_ekf_predict(
+                to_predict.means, to_predict.covariances, f, F_x, F_q, Q, q0,
+                u)
+        else:
+            pred_means, pred_covs = _fut.fused_ukf_predict_nonadditive(
+                to_predict.means, to_predict.covariances, f, u, Q, uparams,
+                q0)
 
         # autocov 2 + branch 2: M·N -> M·N·L, then update
         lambdas = _select_split_cov(autocov, alpha1, pred_covs)
         to_update = split_gaussian_sum(
             GaussianSum(pred_means, pred_covs, to_predict.weights), lambdas, L,
             eps=draws.split2[t])
-        upd = _bank.bank_ekf_condition_on_iterated(
-            to_update.means, to_update.covariances, h, H_x, H_r, R, r0, u, y,
-            num_iter, jitter, residual_fn)
-        new_weights, step_ll = _reweight(upd.log_likelihood, to_update.weights)
+        if use_ekf:
+            upd = _bank.bank_ekf_condition_on_iterated(
+                to_update.means, to_update.covariances, h, H_x, H_r, R, r0, u,
+                y, num_iter, jitter, residual_fn)
+            lls, upd_means, upd_covs = upd.log_likelihood, upd.mean, upd.cov
+        else:
+            lls, upd_means, upd_covs = ukf_condition(
+                to_update.means, to_update.covariances, h, R, u, y, uparams,
+                r0)
+        new_weights, step_ll = _reweight(lls, to_update.weights)
 
         # reduce M·N·L -> M
         reduced = containers.reduce_gaussian_sum(
-            GaussianSum(upd.mean, upd.cov, new_weights), M, reduction,
+            GaussianSum(upd_means, upd_covs, new_weights), M, reduction,
             u=None if draws.reduce is None else draws.reduce[t])
         means, covs, weights = reduced
 
         outputs["weights"].append(weights)
         outputs["means"].append(means)
         outputs["covariances"].append(covs)
-        for k, v in (("Deltas", deltas), ("Lambdas", lambdas),
-                     ("updated_means", upd.mean), ("pre_weights", new_weights),
-                     ("step_loglik", step_ll), ("grads_dyn", grads_dyn),
-                     ("grads_obs", upd.jacobian), ("gain", upd.gain)):
+        step = {"Deltas": deltas, "Lambdas": lambdas,
+                "updated_means": upd_means, "pre_weights": new_weights,
+                "step_loglik": step_ll}
+        if use_ekf:
+            step.update(grads_dyn=grads_dyn, grads_obs=upd.jacobian,
+                        gain=upd.gain)
+        for k, v in step.items():
             aux[k].append(v)
 
     aux = {k: torch.stack(v) for k, v in aux.items()}
@@ -368,6 +509,14 @@ def augmented_gaussian_sum_filter(
     stacked along a leading time axis. ``compat_fixed_keys`` (the
     reference's fixed keys) is not ported.
     """
+    return _agsf(params, emissions, num_components, generator, num_iter,
+                 opt_args, inputs, autocov, reduction, compat_fixed_keys,
+                 jitter, draws, "ekf", None)
+
+
+def _agsf(params, emissions, num_components, generator, num_iter, opt_args,
+          inputs, autocov, reduction, compat_fixed_keys, jitter, draws,
+          moments, uparams):
     if compat_fixed_keys:
         raise NotImplementedError("compat_fixed_keys is not ported")
     if reduction == "optimal":
@@ -378,11 +527,40 @@ def augmented_gaussian_sum_filter(
         draws = agsf_draws(generator, emissions.shape[0], num_components,
                            params.initial_mean.shape[-1], reduction, emissions)
     return _agsf_engine(params, emissions, num_components, draws, opt_args,
-                        inputs, reduction, autocov, num_iter, jitter)
+                        inputs, reduction, autocov, num_iter, jitter, moments,
+                        uparams)
 
 
 # The reference's vectorized rewrite is this package's only implementation.
 speedy_augmented_gaussian_sum_filter = augmented_gaussian_sum_filter
+
+
+def unscented_agsf(
+    params: ParamsNLSSM,
+    uparams: ParamsUKF,
+    emissions: torch.Tensor,
+    num_components: Sequence[int],
+    generator: Optional[torch.Generator] = None,
+    num_iter: int = 1,
+    opt_args: Tuple[float, float] = (0.1, 0.1),
+    inputs: Optional[torch.Tensor] = None,
+    autocov: str = "prop",
+    reduction: str = "multinomial",
+    compat_fixed_keys: bool = False,
+    jitter: float = 0.0,
+    draws: Optional[AGSFDraws] = None,
+):
+    """AGSF with unscented moments (non-additive quadrature): the loop of
+    :func:`augmented_gaussian_sum_filter` with the UKF predict (K7+K9) and
+    update (K7+K8, or the plain IPLF for ``num_iter > 1``) over the bank.
+    ``aux`` holds Deltas, Lambdas, updated means and pre-reduction weights;
+    there are no Jacobians or gains."""
+    return _agsf(params, emissions, num_components, generator, num_iter,
+                 opt_args, inputs, autocov, reduction, compat_fixed_keys,
+                 jitter, draws, "ukf", uparams)
+
+
+speedy_unscented_agsf = unscented_agsf
 
 
 __all__ = [
@@ -390,8 +568,13 @@ __all__ = [
     "PosteriorGaussianSumFiltered",
     "AGSFDraws",
     "agsf_draws",
+    "ParamsUKF",
     "extended_kalman_filter",
+    "unscented_kalman_filter",
     "gaussian_sum_filter",
+    "unscented_gaussian_sum_filter",
     "augmented_gaussian_sum_filter",
     "speedy_augmented_gaussian_sum_filter",
+    "unscented_agsf",
+    "speedy_unscented_agsf",
 ]

@@ -5,13 +5,22 @@ Each constructor returns ``(model, params, bpf_params)``. Model functions
 use the non-additive convention ``f(x, q, u)`` / ``h(x, r, u)`` and act on
 a trailing state axis, so they take a batch of states as they are. Their
 constant matrices follow the dtype and device of the state they are given.
+Components are taken as width-1 slices, never as 0-dim scalars:
+``torch.func.jacfwd`` promotes a python float times a 0-dim float32 tensor
+to float64.
+
+Every constructor builds on the card unless ``device`` names another
+(:func:`~bayesianfiltering_tpu_torch.config.resolve_device`; without a card
+an unnamed device raises).
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from bayesianfiltering_tpu_torch.config import resolve_device
 from bayesianfiltering_tpu_torch.distributions import mvn_logpdf
 from bayesianfiltering_tpu_torch.models.nonlinear import NonlinearSSM
 from bayesianfiltering_tpu_torch.models.params import ParamsBPF, ParamsNLSSM
@@ -48,7 +57,7 @@ def linear_gaussian(state_dim: int = 3, emission_dim: int = 3,
                     q: float = 1.0, r: float = 0.1,
                     dtype: torch.dtype = torch.float32, device=None):
     """Linear-Gaussian SSM x' = a·x + q, y = h_scale·I x + r."""
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=resolve_device(device))
     A = a * torch.eye(state_dim, **kw)
     H = h_scale * torch.eye(emission_dim, state_dim, **kw)
     f = lambda x, qn, u: x @ _like(A, x).mT + qn
@@ -59,6 +68,48 @@ def linear_gaussian(state_dim: int = 3, emission_dim: int = 3,
                    r * torch.eye(emission_dim, **kw))
 
 
+def _parts(x):
+    return x[..., 0:1], x[..., 1:2], x[..., 2:3], x[..., 3:4]
+
+
+def _cv(dt: float, scale: float = 1.0):
+    """Constant-velocity step of (px, vx, py, vy), times ``scale``."""
+    def cv(x):
+        px, vx, py, vy = _parts(x)
+        return scale * torch.cat([px + dt * vx, vx, py + dt * vy, vy], dim=-1)
+    return cv
+
+
+def _ct(dt: float):
+    """Coordinated-turn step at rate ω = 0.1·a/|v|."""
+    def ct(x, a):
+        px, vx, py, vy = _parts(x)
+        w = 0.1 * a / torch.sqrt(vx ** 2 + vy ** 2)
+        s, c = torch.sin(dt * w), torch.cos(dt * w)
+        return torch.cat([px + s / w * vx - (1 - c) / w * vy,
+                          c * vx - s * vy,
+                          (1 - c) / w * vx + py + s / w * vy,
+                          s * vx + c * vy], dim=-1)
+    return ct
+
+
+def _noise(q):
+    """G q with G = [[0.5, 0], [1, 0], [0, 0.5], [0, 1]]."""
+    q0, q1 = q[..., 0:1], q[..., 1:2]
+    return torch.cat([0.5 * q0, q0, 0.5 * q1, q1], dim=-1)
+
+
+def _maneuver_dynamics(cv, ct, acc: float):
+    """CV / left turn / right turn blended by the maneuver input u ∈ {0, 1,
+    2}, plus G q."""
+    def f(x, q, u):
+        u = torch.as_tensor(u).to(x).reshape(-1)
+        return (0.5 * (u - 1) * (u - 2) * cv(x)
+                - u * (u - 2) * ct(x, acc)
+                + 0.5 * u * (u - 1) * ct(x, -acc)) + _noise(q)
+    return f
+
+
 def bearings_only_tracking(dt: float = 0.5, acc: float = 0.5,
                            maneuvering: bool = True, r: float = 25e-6,
                            wrap_bearing: bool = True,
@@ -67,40 +118,14 @@ def bearings_only_tracking(dt: float = 0.5, acc: float = 0.5,
     (px, vx, py, vy), constant-velocity / coordinated-turn dynamics blended
     by u, bearing atan2(py, px); ``wrap_bearing`` wraps the bearing
     innovation to (−π, π]."""
-    kw = dict(dtype=dtype, device=device)
-    # Components are taken as width-1 slices, never as 0-dim scalars:
-    # torch.func.jacfwd promotes a python float times a 0-dim float32 tensor
-    # to float64.
-    def parts(x):
-        return x[..., 0:1], x[..., 1:2], x[..., 2:3], x[..., 3:4]
-
-    def cv(x):
-        px, vx, py, vy = parts(x)
-        return torch.cat([px + dt * vx, vx, py + dt * vy, vy], dim=-1)
-
-    def ct(x, a):
-        # coordinated turn at rate ω = 0.1·a/|v|
-        px, vx, py, vy = parts(x)
-        w = 0.1 * a / torch.sqrt(vx ** 2 + vy ** 2)
-        s, c = torch.sin(dt * w), torch.cos(dt * w)
-        return torch.cat([px + s / w * vx - (1 - c) / w * vy,
-                          c * vx - s * vy,
-                          (1 - c) / w * vx + py + s / w * vy,
-                          s * vx + c * vy], dim=-1)
-
-    def noise(q):
-        q0, q1 = q[..., 0:1], q[..., 1:2]
-        return torch.cat([0.5 * q0, q0, 0.5 * q1, q1], dim=-1)
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    cv, ct = _cv(dt), _ct(dt)
 
     if maneuvering:
-        def f(x, q, u):
-            u = torch.as_tensor(u).to(x).reshape(-1)
-            return (0.5 * (u - 1) * (u - 2) * cv(x)
-                    - u * (u - 2) * ct(x, acc)
-                    + 0.5 * u * (u - 1) * ct(x, -acc)) + noise(q)
+        f = _maneuver_dynamics(cv, ct, acc)
     else:
         def f(x, q, u):
-            return cv(x) + noise(q)
+            return cv(x) + _noise(q)
 
     def h(x, rn, u):
         return torch.atan2(x[..., 2:3], x[..., 0:1]) + rn
@@ -117,7 +142,61 @@ def bot_maneuver_inputs(seq_length: int, device=None) -> torch.Tensor:
     """The three-phase maneuver schedule 1…1, 0…0, 2…2."""
     third = seq_length // 3
     return torch.tensor([1] * third + [0] * third
-                        + [2] * (seq_length - 2 * third), device=device)
+                        + [2] * (seq_length - 2 * third),
+                        device=resolve_device(device))
+
+
+# The reference builds the range-bearing model's CV matrix as 1.05 times a
+# float32 array, so its entries carry float32(1.05) even in float64 runs.
+_CV_GROWTH = float(np.float32(1.05))
+
+
+def range_bearing_tracking(dt: float = 0.5, acc: float = 0.5,
+                           q: float = 1e-5, r: float = 25e-6,
+                           wrap_bearing: bool = True,
+                           dtype: torch.dtype = torch.float32, device=None):
+    """The T=500 BOT experiment's model: mildly unstable maneuvering
+    dynamics (1.05·CV), Q = q·I₂, and range + bearing observations
+    (atan2(py, px), √(px² + py²)) with R = r·I₂ and analytic emission
+    Jacobians; ``wrap_bearing`` wraps the bearing innovation."""
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    f = _maneuver_dynamics(_cv(dt, _CV_GROWTH), _ct(dt), acc)
+
+    def h(x, rn, u):
+        px, _, py, _ = _parts(x)
+        return torch.cat([torch.atan2(py, px),
+                          torch.sqrt(px ** 2 + py ** 2)], dim=-1) + rn
+
+    def h_jac_x(x, rn, u):
+        px, _, py, _ = _parts(x)
+        rho2 = px ** 2 + py ** 2
+        rho = torch.sqrt(rho2)
+        zero = torch.zeros_like(px)
+        return torch.stack([
+            torch.cat([-py / rho2, zero, px / rho2, zero], dim=-1),
+            torch.cat([px / rho, zero, py / rho, zero], dim=-1)], dim=-2)
+
+    def h_jac_r(x, rn, u):
+        return torch.eye(2, dtype=x.dtype, device=x.device)
+
+    extras = {}
+    if wrap_bearing:
+        extras["emission_residual"] = angular_residual((0,))
+    return _bundle(4, 2, 2, 2, torch.tensor([-0.05, 0.001, 0.7, -0.05], **kw),
+                   torch.diag(torch.tensor([0.1, 0.005, 0.1, 0.01], **kw)),
+                   f, q * torch.eye(2, **kw), h, r * torch.eye(2, **kw),
+                   emission_jacobian_x=h_jac_x, emission_jacobian_r=h_jac_r,
+                   **extras)
+
+
+def bot_experiment_inputs(seq_length: int, device=None) -> torch.Tensor:
+    """The 2/5–1/5–2/5 maneuver schedule 1…1, 0…0, 2…2 of the T=500 BOT
+    experiment."""
+    two_fifth = int(2 * seq_length / 5)
+    fifth = int(seq_length / 5)
+    return torch.tensor([1] * two_fifth + [0] * fifth
+                        + [2] * (seq_length - two_fifth - fifth),
+                        device=resolve_device(device))
 
 
 def lorenz96(state_dim: int = 40, emission_dim: Optional[int] = None,
@@ -129,7 +208,7 @@ def lorenz96(state_dim: int = 40, emission_dim: Optional[int] = None,
     strided linear observations y_i = x_{2i}. ``integrator`` is "euler"
     (the reference's step; unstable at dt=0.01 for long noisy runs) or
     "rk4" (stable; used to generate benchmark data)."""
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=resolve_device(device))
     if emission_dim is None:
         emission_dim = state_dim // 2
     H = torch.zeros(emission_dim, state_dim, **kw)
@@ -166,4 +245,4 @@ def lorenz96(state_dim: int = 40, emission_dim: Optional[int] = None,
 
 
 __all__ = ["linear_gaussian", "bearings_only_tracking", "bot_maneuver_inputs",
-           "lorenz96"]
+           "lorenz96", "range_bearing_tracking", "bot_experiment_inputs"]

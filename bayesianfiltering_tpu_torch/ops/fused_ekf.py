@@ -42,12 +42,6 @@ _update_plain = chol_update_precomputed
 _predict_plain = predict_cov_precomputed
 
 
-def _scratch(elems: int, kernel, batch: int, like: torch.Tensor):
-    if elems < 0:
-        raise RuntimeError(f"{kernel.name}: device attribute query failed")
-    return like.new_empty(batch * elems) if elems else None
-
-
 def _launch_update(m, P, Hx, Rt, innov, jitter):
     B, dx = m.shape
     dy = innov.shape[-1]
@@ -59,7 +53,7 @@ def _launch_update(m, P, Hx, Rt, innov, jitter):
     cov, kt = torch.empty_like(P), m.new_empty(B, dy, dx)
     if B:
         with torch.cuda.device(m.device):
-            scratch = _scratch(lib.bft_ekf_update_scratch_elems(
+            scratch = _build.scratch(lib.bft_ekf_update_scratch_elems(
                 dx, dy, m.element_size(), m.device.index), K1, B, m)
             err = _build.symbol(K1, m)(
                 m.data_ptr(), P.data_ptr(), Hx.data_ptr(), Rt.data_ptr(),
@@ -80,7 +74,7 @@ def _launch_predict(Fx, P, Fq, Q):
     cov = torch.empty_like(P)
     if B:
         with torch.cuda.device(P.device):
-            scratch = _scratch(lib.bft_ekf_predict_cov_scratch_elems(
+            scratch = _build.scratch(lib.bft_ekf_predict_cov_scratch_elems(
                 dx, dq, P.element_size(), P.device.index), K2, B, P)
             err = _build.symbol(K2, P)(
                 Fx.data_ptr(), P.data_ptr(), Fq.data_ptr(), Q.data_ptr(),

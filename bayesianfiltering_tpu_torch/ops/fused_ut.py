@@ -1,0 +1,328 @@
+"""Unscented-transform steps through the CUDA kernels K6–K9
+(counterpart of ``bayesianfiltering_tpu/ops/fused_ut.py``).
+
+``csrc/fused_ut.cu`` holds four kernels, each replacing one TPU kernel of
+``bayesianfiltering_tpu/ops/fused_ut.py`` and taking a leading batch axis:
+
+- K6 ``ut_sigma_kernel`` (``_sigma_kernel`` ``:100``): 2n sigma points
+  m ± c·Fᵀ, F = chol(P) or the 14-step Newton–Schulz √P;
+- K7 ``ut_sigma_aug_kernel`` (``_sigma_aug_kernel`` ``:149``): the points of
+  N([m; bias], blkdiag(P, C)) without forming the block-diagonal; C and the
+  bias are shared by the batch and C is factored once per launch;
+- K8 ``ut_update_kernel`` (``_ut_update_kernel`` ``:225``): S, chol(S),
+  L⁻¹, C, Kᵀ = S⁻¹C, the grouped Joseph covariance, μ and log N;
+- K9 ``ut_predict_kernel`` (``_ut_predict_kernel`` ``:319``): μ and
+  Σ = sym(Σw ccᵀ (+Q)).
+
+The model evaluations f(pts), h(pts) run between them in PyTorch. K8 takes
+μy and the innovation from the wrapper, which applies the model's residual
+function (e.g. a wrapped bearing), so the models with an
+``emission_residual`` run the update kernel too (the TPU package skips its
+kernel for them).
+
+On CUDA tensors the wrappers launch the kernel or raise; on CPU tensors
+they run the plain versions beside them. The band is the TPU package's:
+every factor and moment dimension ≤ 128; a CUDA input outside it raises
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import torch
+
+from bayesianfiltering_tpu_torch import _build
+from bayesianfiltering_tpu_torch.ops.ekf import _residual
+from bayesianfiltering_tpu_torch.ops.ukf import (
+    ParamsUKF,
+    _ut_moments,
+    eval_aug_rows,
+    eval_rows,
+    ukf_gain_update,
+    ut_cov,
+    ut_cross,
+    ut_mean,
+    ut_weights,
+)
+from bayesianfiltering_tpu_torch.utils.linalg import symmetrize
+from bayesianfiltering_tpu_torch.utils.sigma_points import (
+    factor,
+    points_blockdiag,
+    points_from_factor,
+)
+
+_DIM_MAX = 128
+_METHODS = {"cholesky": 0, "sqrtm": 1}  # csrc/fused_ut.cu kCholesky, kSqrtm
+
+_SRC = "bayesianfiltering_tpu_torch/csrc/fused_ut.cu"
+K6 = _build.register("bft_ut_sigma", _SRC,
+                     "bayesianfiltering_tpu/ops/fused_ut.py:100")
+K7 = _build.register("bft_ut_sigma_aug", _SRC,
+                     "bayesianfiltering_tpu/ops/fused_ut.py:149")
+K8 = _build.register("bft_ut_update", _SRC,
+                     "bayesianfiltering_tpu/ops/fused_ut.py:225")
+K9 = _build.register("bft_ut_predict", _SRC,
+                     "bayesianfiltering_tpu/ops/fused_ut.py:319")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _sigma_plain(m, P, scale, method):
+    return points_from_factor(m, factor(P, method), scale)
+
+
+def _sigma_aug_plain(m, P, bias, C, scale, method):
+    return points_blockdiag(m, P, bias, C, scale, method)
+
+
+def _ut_update_plain(pts, hpts, center_y, mu_y, m, P, R, innov, w_side, w0c,
+                     add_r):
+    """The UT update from the sigma points ``pts`` (B, rows, ≥ dx; state in
+    the first dx columns), their images ``hpts`` (B, rows, dy), the image
+    of the mean ``center_y`` and ``mu_y``. Returns ``(ll, mean, cov)``."""
+    S, cen = ut_cov(center_y, hpts, mu_y, w_side, w0c)
+    if add_r:
+        S = S + R
+    C = ut_cross(cen, pts, m, w_side)
+    return ukf_gain_update(m, P, symmetrize(S), C, innov)
+
+
+def _ut_predict_plain(fpts, center, Q, w_side, w0m, w0c, add_q):
+    """μ and sym(Σw ccᵀ (+Q)) of the propagated points ``fpts``
+    (B, rows, dx)."""
+    mu, cov, _ = _ut_moments(center, fpts, (w_side, w0m, w0c))
+    if add_q:
+        cov = cov + Q
+    return mu, symmetrize(cov)
+
+
+# ---------------------------------------------------------------------------
+# launchers
+# ---------------------------------------------------------------------------
+
+def _launch_sigma(m, P, scale, method):
+    B, n = m.shape
+    _build.check_operands(K6, (m, (B, n)), (P, (B, n, n)))
+    lib = _build.load()
+    pts = m.new_empty(B, 2 * n, n)
+    if B:
+        code = _METHODS[method]
+        with torch.cuda.device(m.device):
+            scratch = _build.scratch(lib.bft_ut_sigma_scratch_elems(
+                n, code, m.element_size(), m.device.index), K6, B, m)
+            err = _build.symbol(K6, m)(
+                m.data_ptr(), P.data_ptr(), pts.data_ptr(),
+                _build.ptr(scratch), B, n, scale, code,
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(err, K6)
+        K6.launches += 1
+    return pts
+
+
+def _launch_sigma_aug(m, P, bias, C, scale, method):
+    B, dx = m.shape
+    dn = bias.shape[-1]
+    na = dx + dn
+    _build.check_operands(K7, (m, (B, dx)), (P, (B, dx, dx)), (bias, (dn,)),
+                          (C, (dn, dn)))
+    lib = _build.load()
+    pts = m.new_empty(B, 2 * na, na)
+    if B:
+        code = _METHODS[method]
+        noise_pts = m.new_empty(2 * dn, dn)
+        with torch.cuda.device(m.device):
+            dev, size = m.device.index, m.element_size()
+            per_x = lib.bft_ut_sigma_scratch_elems(dx, code, size, dev)
+            per_n = lib.bft_ut_sigma_scratch_elems(dn, code, size, dev)
+            if per_x < 0 or per_n < 0:
+                raise RuntimeError(f"{K7.name}: device attribute query failed")
+            scratch = _build.scratch(max(B * per_x, per_n), K7, 1, m)
+            err = _build.symbol(K7, m)(
+                m.data_ptr(), P.data_ptr(), bias.data_ptr(), C.data_ptr(),
+                pts.data_ptr(), noise_pts.data_ptr(), _build.ptr(scratch), B,
+                dx, dn, scale, code, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, K7)
+        K7.launches += 1
+    return pts
+
+
+def _launch_update(pts, hpts, center_y, mu_y, m, P, R, innov, w_side, w0c,
+                   add_r):
+    B, dx = m.shape
+    rows, ld = pts.shape[1:]
+    dy = hpts.shape[-1]
+    operands = [(pts, (B, rows, ld)), (hpts, (B, rows, dy)),
+                (center_y, (B, dy)), (mu_y, (B, dy)), (m, (B, dx)),
+                (P, (B, dx, dx)), (innov, (B, dy))]
+    if add_r:
+        operands.append((R, (dy, dy)))
+    _build.check_operands(K8, *operands)
+    if ld < dx:
+        raise ValueError(f"{K8.name}: sigma points of width {ld} < dx={dx}")
+    lib = _build.load()
+    ll, mean, cov = m.new_empty(B), torch.empty_like(m), torch.empty_like(P)
+    if B:
+        with torch.cuda.device(m.device):
+            scratch = _build.scratch(lib.bft_ut_update_scratch_elems(
+                dx, dy, m.element_size(), m.device.index), K8, B, m)
+            err = _build.symbol(K8, m)(
+                pts.data_ptr(), hpts.data_ptr(), center_y.data_ptr(),
+                mu_y.data_ptr(), m.data_ptr(), P.data_ptr(),
+                R.data_ptr() if add_r else None, innov.data_ptr(),
+                ll.data_ptr(), mean.data_ptr(), cov.data_ptr(),
+                _build.ptr(scratch), B, rows, ld, dx, dy, w_side, w0c,
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(err, K8)
+        K8.launches += 1
+    return ll, mean, cov
+
+
+def _launch_predict(fpts, center, Q, w_side, w0m, w0c, add_q):
+    B, rows, dx = fpts.shape
+    operands = [(fpts, (B, rows, dx)), (center, (B, dx))]
+    if add_q:
+        operands.append((Q, (dx, dx)))
+    _build.check_operands(K9, *operands)
+    mu, cov = center.new_empty(B, dx), center.new_empty(B, dx, dx)
+    if B:
+        with torch.cuda.device(fpts.device):
+            err = _build.symbol(K9, fpts)(
+                fpts.data_ptr(), center.data_ptr(),
+                Q.data_ptr() if add_q else None, mu.data_ptr(),
+                cov.data_ptr(), B, rows, dx, w_side, w0m, w0c,
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(err, K9)
+        K9.launches += 1
+    return mu, cov
+
+
+_sigma_op = _build.kernel_op(_sigma_plain, _launch_sigma, 2)
+_sigma_aug_op = _build.kernel_op(_sigma_aug_plain, _launch_sigma_aug, 4)
+_update_op = _build.kernel_op(_ut_update_plain, _launch_update, 8)
+_predict_op = _build.kernel_op(_ut_predict_plain, _launch_predict, 3)
+
+
+def _band(x: torch.Tensor, kernel, **dims) -> None:
+    if x.is_cuda and any(d > _DIM_MAX for d in dims.values()):
+        raise NotImplementedError(
+            f"{kernel.name} band is every dimension <= {_DIM_MAX}; got "
+            + ", ".join(f"{k}={v}" for k, v in dims.items()))
+
+
+def _method(uparams: ParamsUKF) -> str:
+    if uparams.sqrt_method not in _METHODS:
+        raise ValueError(f"unknown sqrt_method {uparams.sqrt_method!r}")
+    return uparams.sqrt_method
+
+
+# ---------------------------------------------------------------------------
+# kernel ops: K on CUDA tensors, the plain versions on CPU tensors
+# ---------------------------------------------------------------------------
+
+def fused_sigma(m, P, scale: float, method: str):
+    """Sigma points (B, 2n, n) of ``m`` (B, n), ``P`` (B, n, n). K6."""
+    _band(m, K6, n=m.shape[-1])
+    return _sigma_op(m.contiguous(), P.contiguous(), float(scale), method)
+
+
+def fused_sigma_aug(m, P, bias, C, scale: float, method: str):
+    """Augmented sigma points (B, 2na, na) of ``N([m; bias], blkdiag(P,
+    C))``, ``bias`` (dn,) and ``C`` (dn, dn) shared. K7."""
+    _band(m, K7, na=m.shape[-1] + bias.shape[-1])
+    return _sigma_aug_op(m.contiguous(), P.contiguous(), bias.contiguous(),
+                         C.contiguous(), float(scale), method)
+
+
+def fused_ut_update(pts, hpts, center_y, mu_y, m, P, R, innov, w_side, w0c,
+                    add_r: bool):
+    """UT measurement update from propagated sigma points. ``R`` (dy, dy)
+    is added to S only when ``add_r``. Returns ``(ll, mean, cov)``. K8."""
+    _band(m, K8, dx=m.shape[-1], dy=hpts.shape[-1])
+    return _update_op(pts.contiguous(), hpts.contiguous(),
+                      center_y.contiguous(), mu_y.contiguous(),
+                      m.contiguous(), P.contiguous(), R.contiguous(),
+                      innov.contiguous(), float(w_side), float(w0c),
+                      bool(add_r))
+
+
+def fused_ut_predict(fpts, center, Q, w_side, w0m, w0c, add_q: bool):
+    """UT predict moments ``(μ, Σ)`` of propagated sigma points; ``Q``
+    (dx, dx) is added only when ``add_q``. K9."""
+    _band(fpts, K9, dx=fpts.shape[-1])
+    return _predict_op(fpts.contiguous(), center.contiguous(), Q.contiguous(),
+                       float(w_side), float(w0m), float(w0c), bool(add_q))
+
+
+# ---------------------------------------------------------------------------
+# filter-facing drop-ins for ops/ukf.py
+# ---------------------------------------------------------------------------
+
+def fused_ukf_predict_additive(m, P, f, u, Q, uparams: ParamsUKF, q0):
+    """Drop-in for ``ops.ukf.ukf_predict_additive``: K6, then f over the
+    points, then K9."""
+    dx = m.shape[-1]
+    scale, (w_side, w0m, w0c) = ut_weights(dx, uparams)
+    pts = fused_sigma(m, P, scale, _method(uparams))
+    q0z = m.new_zeros(dx)
+    fpts = eval_rows(f, pts, q0z, u)
+    center = eval_rows(f, m, q0z, u)
+    return fused_ut_predict(fpts, center, Q, w_side, w0m, w0c, True)
+
+
+def fused_ukf_predict_nonadditive(m, P, f, u, Q, uparams: ParamsUKF, q0):
+    """Drop-in for ``ops.ukf.ukf_predict_nonadditive``: K7, then f over the
+    augmented points, then K9."""
+    dx = m.shape[-1]
+    scale, (w_side, w0m, w0c) = ut_weights(dx + q0.shape[-1], uparams)
+    pts = fused_sigma_aug(m, P, q0, Q, scale, _method(uparams))
+    fpts = eval_aug_rows(f, pts, dx, u)
+    center = eval_rows(f, m, q0, u)
+    return fused_ut_predict(fpts, center, Q, w_side, w0m, w0c, False)
+
+
+def _update(pts, hpts, center, m, P, R, y, weights, add_r, residual_fn):
+    w_side, w0m, w0c = weights
+    mu_y = ut_mean(center, hpts, w_side, w0m)
+    innov = _residual(y, mu_y, residual_fn)
+    return fused_ut_update(pts, hpts, center, mu_y, m, P, R, innov, w_side,
+                           w0c, add_r)
+
+
+def fused_ukf_condition_on_additive(m, P, h, R, u, y, uparams: ParamsUKF,
+                                    r0=None, residual_fn=None):
+    """Drop-in for ``ops.ukf.ukf_condition_on_additive``: K6, then h over
+    the points, then K8. Returns ``(ll, mean, cov)``."""
+    dx = m.shape[-1]
+    y = torch.atleast_1d(y)
+    scale, weights = ut_weights(dx, uparams)
+    pts = fused_sigma(m, P, scale, _method(uparams))
+    r0z = m.new_zeros(y.shape[-1])
+    hpts = eval_rows(h, pts, r0z, u)
+    center = eval_rows(h, m, r0z, u)
+    return _update(pts, hpts, center, m, P, R, y, weights, True, residual_fn)
+
+
+def fused_ukf_condition_on_nonadditive(m, P, h, R, u, y, uparams: ParamsUKF,
+                                       r0=None, residual_fn=None):
+    """Drop-in for ``ops.ukf.ukf_condition_on_nonadditive``: K7, then h over
+    the augmented points, then K8 on their state part. Returns
+    ``(ll, mean, cov)``."""
+    dx = m.shape[-1]
+    y = torch.atleast_1d(y)
+    scale, weights = ut_weights(dx + r0.shape[-1], uparams)
+    pts = fused_sigma_aug(m, P, r0, R, scale, _method(uparams))
+    hpts = eval_aug_rows(h, pts, dx, u)
+    center = eval_rows(h, m, r0, u)
+    return _update(pts, hpts, center, m, P, R, y, weights, False, residual_fn)
+
+
+__all__ = [
+    "fused_sigma",
+    "fused_sigma_aug",
+    "fused_ut_update",
+    "fused_ut_predict",
+    "fused_ukf_predict_additive",
+    "fused_ukf_predict_nonadditive",
+    "fused_ukf_condition_on_additive",
+    "fused_ukf_condition_on_nonadditive",
+]

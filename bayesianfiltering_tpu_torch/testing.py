@@ -34,4 +34,37 @@ def predict_inputs(rng: np.random.Generator, B: int, dx: int, dq: int):
             spd(rng, 1, dq)[0])
 
 
-__all__ = ["to_torch", "spd", "update_inputs", "predict_inputs"]
+def sigma_inputs(rng: np.random.Generator, B: int, n: int):
+    """``(m, P)`` for the sigma-point kernel."""
+    return rng.standard_normal((B, n)), spd(rng, B, n)
+
+
+def sigma_aug_inputs(rng: np.random.Generator, B: int, dx: int, dn: int):
+    """``(m, P, bias, C)`` for the augmented sigma points, bias and C
+    shared."""
+    return (rng.standard_normal((B, dx)), spd(rng, B, dx),
+            0.1 * rng.standard_normal(dn), spd(rng, 1, dn, 0.5)[0])
+
+
+def ut_update_inputs(rng: np.random.Generator, B: int, rows: int, ld: int,
+                     dx: int, dy: int):
+    """``(pts, hpts, center_y, mu_y, m, P, R, innov)`` for the UT update:
+    ``rows`` sigma points of width ``ld`` ≥ dx (state first), images that
+    depend on the state part, R shared."""
+    pts = rng.standard_normal((B, rows, ld))
+    G = rng.standard_normal((dx, dy)) / np.sqrt(dx)
+    hpts = pts[..., :dx] @ G + 0.3 * rng.standard_normal((B, rows, dy))
+    return (pts, hpts, rng.standard_normal((B, dy)), hpts.mean(axis=-2),
+            rng.standard_normal((B, dx)), spd(rng, B, dx),
+            spd(rng, 1, dy, 0.5)[0], rng.standard_normal((B, dy)))
+
+
+def ut_predict_inputs(rng: np.random.Generator, B: int, rows: int, dx: int):
+    """``(fpts, center, Q)`` for the UT predict moments, Q shared."""
+    return (rng.standard_normal((B, rows, dx)), rng.standard_normal((B, dx)),
+            spd(rng, 1, dx)[0])
+
+
+__all__ = ["to_torch", "spd", "update_inputs", "predict_inputs",
+           "sigma_inputs", "sigma_aug_inputs", "ut_update_inputs",
+           "ut_predict_inputs"]

@@ -8,6 +8,11 @@ contract is bridged: ``jnp.linalg.cholesky`` returns NaN for an input that
 is not positive definite, where ``torch.linalg.cholesky`` raises.
 :func:`cholesky_nan` restores the NaN contract from ``cholesky_ex``'s
 ``info``.
+
+The PSD square root keeps the JAX package's algorithm, not an exact root:
+14 trace-normalised Newton–Schulz steps up to ``_BLOCK_MAX`` (the sigma
+points of the UKF family are built from it, and an exact root drifts from
+the reference on ill-conditioned matrices), eigh above.
 """
 from __future__ import annotations
 
@@ -56,4 +61,62 @@ def cholesky_guarded(p: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, torch.zeros_like(chol), chol)
 
 
-__all__ = ["symmetrize", "cholesky_nan", "psd_solve", "cholesky_guarded"]
+# Newton–Schulz up to this size, eigh above (the JAX package's dispatch
+# constant, kept here as the port's own copy).
+_BLOCK_MAX = 128
+_NS_ITERS = 14
+
+
+def project_to_psd(delta: torch.Tensor) -> torch.Tensor:
+    """Projection of a symmetric matrix onto the PSD cone (eigenvalue
+    clamp), batched."""
+    evals, evecs = torch.linalg.eigh(symmetrize(delta))
+    projected = (evecs * evals.clamp_min(0.0)[..., None, :]) @ evecs.mT
+    return symmetrize(projected)
+
+
+def project_to_psd_ns(delta: torch.Tensor, num_iters: int = 16) -> torch.Tensor:
+    """PSD projection by the polar form ``(A + (A²)^{1/2}) / 2`` with the
+    Newton–Schulz root (``floor=1e-5`` keeps the iteration alive on a
+    rounding-indefinite A²)."""
+    a = symmetrize(delta)
+    root = sqrtm_psd_ns(a @ a, num_iters, floor=1e-5)
+    return symmetrize(0.5 * (a + root))
+
+
+def sqrtm_psd_eigh(p: torch.Tensor) -> torch.Tensor:
+    """Symmetric PSD square root by eigendecomposition, batched."""
+    evals, evecs = torch.linalg.eigh(symmetrize(p))
+    root = torch.sqrt(evals.clamp_min(0.0))
+    return symmetrize((evecs * root[..., None, :]) @ evecs.mT)
+
+
+def sqrtm_psd_ns(p: torch.Tensor, num_iters: int = _NS_ITERS,
+                 floor: float = 0.0) -> torch.Tensor:
+    """Symmetric PSD square root by the trace-normalised coupled
+    Newton–Schulz iteration ``T = (3I − Z Y)/2, Y ← Y T, Z ← T Z``,
+    batched. ``floor`` > 0 shifts the normalised spectrum up (see the JAX
+    package's ``sqrtm_psd_ns``); the sigma-point path keeps it 0."""
+    n = p.shape[-1]
+    eye = torch.eye(n, dtype=p.dtype, device=p.device)
+    p = symmetrize(p)
+    s = torch.diagonal(p, dim1=-2, dim2=-1).sum(-1)[..., None, None] + 1e-30
+    y = p / s + floor * eye
+    z = eye.expand(p.shape)
+    for _ in range(num_iters):
+        t = 0.5 * (3.0 * eye - z @ y)
+        y = y @ t
+        z = t @ z
+    return symmetrize(y * torch.sqrt(s))
+
+
+def sqrtm_psd(p: torch.Tensor) -> torch.Tensor:
+    """PSD square root: Newton–Schulz up to ``_BLOCK_MAX``, eigh above."""
+    if p.shape[-1] <= _BLOCK_MAX:
+        return sqrtm_psd_ns(p)
+    return sqrtm_psd_eigh(p)
+
+
+__all__ = ["symmetrize", "cholesky_nan", "psd_solve", "cholesky_guarded",
+           "project_to_psd", "project_to_psd_ns", "sqrtm_psd_eigh",
+           "sqrtm_psd_ns", "sqrtm_psd"]

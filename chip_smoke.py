@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -8,20 +8,28 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. Environment: torch and CUDA versions, the card's name and power limit.
-2. Build the CUDA kernels (K1–K4) from ``bayesianfiltering_tpu_torch/csrc``.
-3. Each kernel against its plain PyTorch twin on the card, float32 and
-   float64, at the main path's shapes and at its size band's edge; a
-   non-positive-definite S must give NaN on both sides. Times each kernel
-   and its twin with CUDA events at the main-path shape.
-4. Kernel path (card) against plain path (CPU) end to end: the batched EKF
-   on Lorenz-96, the GSF and the AGSF on bearings-only tracking, with the
-   same data and the same draws.
-5. The main path, with every launch counter reset just before: the
-   batched EKF on Lorenz-96 (dx=64, dy=32, B=512 sequences, T=1000; data
-   from the RK4 model, filter on the Euler model), timed with CUDA events
-   after a warm-up; then the GSF (M=50) and the AGSF [50,2,2] at T=100 and
-   the AGSF [8,2,2] at T=12 on bearings-only tracking. Checks finiteness,
-   shapes and that every kernel of the path was launched.
+2. Build the CUDA kernels (K1–K4, K6–K9) from
+   ``bayesianfiltering_tpu_torch/csrc``, one nvcc per source, in parallel.
+3. Each kernel against its plain PyTorch version on the card, float32 and
+   float64, at the main paths' shapes and at its size band's edge; a
+   non-positive-definite S or P must give NaN on both sides. Times each
+   kernel and its plain version with CUDA events at the main-path shape and
+   computes its bound (bytes over 3.35 TB/s or flops over the peak rate,
+   whichever is larger).
+4. Kernel path (card) against plain path (CPU) end to end, with the same
+   data and the same draws: the batched EKF and UKF (additive and
+   augmented) on Lorenz-96, the GSF and AGSF on bearings-only tracking, the
+   UGSF and UAGSF on range-bearing tracking.
+5. The main paths, each with every launch counter reset just before it and
+   read just after: the batched EKF on Lorenz-96 (dx=64, dy=32, B=512
+   sequences, T=1000; data from the RK4 model, filter on the Euler model);
+   the GSF and AGSF on bearings-only tracking; the batched UKF on the same
+   Lorenz-96 data, additive and augmented (Cholesky sigma points, T=1000)
+   and additive with the Newton–Schulz root (T=100); the UGSF (M=100) and
+   the UAGSF ([16,2,2], systematic) on range-bearing tracking at T=500.
+   Checks finiteness, shapes and the launch counts of every kernel.
+6. The device's busy and idle share of the batched UKF step under
+   torch.profiler.
 
 The last three lines: a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -56,6 +64,17 @@ MIXTURE_TOL = 1e-8
 
 EKF_DX, EKF_DY, EKF_B, EKF_T = 64, 32, 512, 1000
 CMP_B, CMP_T = 16, 100
+UKF_SQRTM_T = 100
+BOT_EXP_T, RB_CMP_T = 500, 50
+UGSF_M, UAGSF_COMPS = 100, [16, 2, 2]
+PROFILE_T = 10
+
+# Roofline of an H100 SXM at its 700 W limit (NVIDIA's data sheet): memory
+# 3.35 TB/s; CUDA-core (non-tensor) peaks 67 TFLOP/s in float32 and
+# 34 TFLOP/s in float64. TF32 and the tensor cores are off by the precision
+# policy, so they are not the bound.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 def log(msg: str) -> None:
@@ -94,54 +113,225 @@ def cuda_time_ms(fn, reps: int = 50) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: kernels against their twins
+# Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(dev) -> dict:
+# Floating-point operations per batch element: the least the function
+# needs, counted from the algorithm (a multiply-add is 2). A symmetric
+# output — a Gram matrix X Xᵀ or a congruence X A Xᵀ — is counted once, as a
+# SYRK computes it (n²k for n×n over an inner k, not 2n²k); a product with a
+# triangular factor counts half; a transpose is free.
+def update_flops(dx, dy):
+    """K1, K3: H P (2dy·dx²), S = (H P)Hᵀ + Rt (dy²·dx), chol S and L⁻¹
+    (dy³/3 each), L⁻¹ H P and Kᵀ (dy²·dx each), I − K H (2dx²·dy),
+    (I − K H) P (2dx³), the Joseph congruences (dx³ and dx²·dy), K Rt
+    (2dx·dy²), μ and z."""
+    return (3 * dx ** 3 + 5 * dx * dx * dy + 5 * dx * dy * dy
+            + 2 * dy ** 3 / 3 + 2 * dx * dy + dy * dy)
+
+
+def predict_flops(dx, dq):
+    """K2, K4: F_x P (2dx³), its congruence with F_x (dx³), F_q Q
+    (2dx·dq²), its congruence with F_q (dx²·dq)."""
+    return 3 * dx ** 3 + 2 * dx * dq * dq + dx * dx * dq
+
+
+def factor_flops(n, method):
+    """K6, K7: Cholesky n³/3, or 14 Newton–Schulz rounds of 3 products of
+    commuting matrices (symmetric only in exact arithmetic, so counted in
+    full)."""
+    return n ** 3 / 3 if method == "cholesky" else 14 * 3 * 2 * n ** 3
+
+
+def ut_update_flops(rows, dx, dy):
+    """K8: centring (rows·(dx + dy)), S over the rows (rows·dy²), C
+    (2rows·dx·dy), chol S and L⁻¹ (dy³/3 each), L⁻¹C and Kᵀ (dy²·dx
+    each), K L (dx·dy²), the symmetric KC and (KL)(KL)ᵀ (dx²·dy each), μ
+    and z."""
+    return (rows * dy * dy + 2 * rows * dx * dy + rows * (dx + dy)
+            + 2 * dy ** 3 / 3 + 3 * dx * dy * dy + 2 * dx * dx * dy
+            + 2 * dx * dy + 3 * dy * dy)
+
+
+def ut_predict_flops(rows, dx):
+    """K9: μ and the centring (2rows·dx), Σ over the rows (rows·dx²), the
+    center's outer product."""
+    return rows * dx * dx + 2 * rows * dx + dx * dx + 2 * dx
+
+
+def bound(tensors, outputs, flops, dtype_name):
+    """(bound_ms, bound_by): every input read once and every output written
+    once at the memory rate, or the operations at the CUDA-core peak."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors + outputs)
+    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else
+                                     "operations")
+
+
+def kernel_cases():
+    """(kernel, wrapper, plain, shape, make inputs, static args, flops per
+    launch, timed) — timed is "main" for the kernel's main-path shape,
+    "also" for a second timed shape of the main path, else None."""
+    from bayesianfiltering_tpu_torch import testing
+    from bayesianfiltering_tpu_torch.ops import bank_update as bu
+    from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
+    from bayesianfiltering_tpu_torch.ops import fused_ut as fu
+    from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF, ut_weights
+
+    up = ParamsUKF(1.0, 2.0, 0.0)
+    cases = []
+
+    def upd(kernel, wrap, plain, B, dx, dy, timed=None):
+        cases.append((kernel, wrap, plain, f"B={B},dx={dx},dy={dy}",
+                      lambda r: testing.update_inputs(r, B, dx, dy), (0.0,),
+                      B * update_flops(dx, dy), timed))
+
+    def pred(kernel, wrap, plain, B, dx, dq, timed=None):
+        cases.append((kernel, wrap, plain, f"B={B},dx={dx},dq={dq}",
+                      lambda r: testing.predict_inputs(r, B, dx, dq), (),
+                      B * predict_flops(dx, dq), timed))
+
+    def sigma(B, n, method, timed=None):
+        cases.append((fu.K6, fu.fused_sigma, fu._sigma_plain,
+                      f"B={B},n={n},{method}",
+                      lambda r: testing.sigma_inputs(r, B, n),
+                      (ut_weights(n, up)[0], method),
+                      B * factor_flops(n, method) + 2 * B * n * n, timed))
+
+    def sigma_aug(B, dx, dn, method, timed=None):
+        cases.append((fu.K7, fu.fused_sigma_aug, fu._sigma_aug_plain,
+                      f"B={B},dx={dx},dn={dn},{method}",
+                      lambda r: testing.sigma_aug_inputs(r, B, dx, dn),
+                      (ut_weights(dx + dn, up)[0], method),
+                      B * factor_flops(dx, method) + factor_flops(dn, method)
+                      + 2 * B * (dx + dn) ** 2, timed))
+
+    def ut_update(B, rows, ld, dx, dy, add_r, timed=None):
+        w_side, _, w0c = ut_weights(rows // 2, up)[1]
+        cases.append((fu.K8, fu.fused_ut_update, fu._ut_update_plain,
+                      f"B={B},rows={rows},ld={ld},dx={dx},dy={dy},"
+                      f"{'+R' if add_r else 'no R'}",
+                      lambda r: testing.ut_update_inputs(r, B, rows, ld, dx,
+                                                         dy),
+                      (w_side, w0c, add_r),
+                      B * ut_update_flops(rows, dx, dy), timed))
+
+    def ut_predict(B, rows, dx, add_q, timed=None):
+        w_side, w0m, w0c = ut_weights(rows // 2, up)[1]
+        cases.append((fu.K9, fu.fused_ut_predict, fu._ut_predict_plain,
+                      f"B={B},rows={rows},dx={dx},{'+Q' if add_q else 'no Q'}",
+                      lambda r: testing.ut_predict_inputs(r, B, rows, dx),
+                      (w_side, w0m, w0c, add_q),
+                      B * ut_predict_flops(rows, dx), timed))
+
+    upd(fe.K1, fe.fused_update, fe._update_plain, 512, 64, 32, "main")
+    upd(fe.K1, fe.fused_update, fe._update_plain, 2, 512, 128)
+    pred(fe.K2, fe.fused_predict_cov, fe._predict_plain, 512, 64, 64, "main")
+    pred(fe.K2, fe.fused_predict_cov, fe._predict_plain, 2, 512, 512)
+    upd(bu.K3, bu.bank_chol_update, bu._update_plain, 200, 4, 1, "main")
+    upd(bu.K3, bu.bank_chol_update, bu._update_plain, 4096, 8, 8)
+    pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 200, 4, 2, "main")
+    pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 4096, 8, 8)
+    # Lorenz-96 UKF (dx=64, dy=32, augmented na = 128 and 96), the
+    # range-bearing banks (na = 6 at M = 32..100) and the band edge n = 128
+    sigma(512, 64, "cholesky", "main")
+    sigma(512, 64, "sqrtm", "also")
+    sigma(4, 128, "cholesky")
+    sigma(4, 128, "sqrtm")
+    sigma_aug(512, 64, 64, "cholesky", "main")
+    sigma_aug(512, 64, 32, "cholesky")
+    sigma_aug(512, 64, 64, "sqrtm")
+    sigma_aug(512, 64, 32, "sqrtm")
+    sigma_aug(100, 4, 2, "cholesky")
+    sigma_aug(32, 4, 2, "sqrtm")
+    sigma_aug(2, 100, 28, "cholesky")
+    sigma_aug(2, 100, 28, "sqrtm")
+    ut_update(512, 128, 64, 64, 32, True, "main")
+    ut_update(512, 192, 96, 64, 32, False, "also")
+    ut_update(100, 12, 6, 4, 2, False)
+    ut_update(64, 12, 6, 4, 2, False)
+    ut_update(2, 256, 128, 128, 128, True)
+    ut_predict(512, 128, 64, True, "main")
+    ut_predict(512, 256, 64, False, "also")
+    ut_predict(100, 12, 4, False)
+    ut_predict(32, 12, 4, False)
+    ut_predict(2, 256, 128, True)
+    return cases
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def nan_checks(dev) -> None:
+    """A non-positive-definite S (K1, K3, K8) or P (K6, K7) gives NaN in the
+    same places on both sides, and never an exception."""
     import numpy as np
     import torch
 
     from bayesianfiltering_tpu_torch import testing
     from bayesianfiltering_tpu_torch.ops import bank_update as bu
     from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
+    from bayesianfiltering_tpu_torch.ops import fused_ut as fu
 
-    # (kernel, wrapper, plain twin, shape name, make inputs, main path?)
-    upd = lambda B, dx, dy: lambda rng: testing.update_inputs(rng, B, dx, dy)
-    pred = lambda B, dx, dq: lambda rng: testing.predict_inputs(rng, B, dx, dq)
-    cases = [
-        (fe.K1, fe.fused_update, fe._update_plain, "B=512,dx=64,dy=32",
-         upd(512, 64, 32), True),
-        (fe.K1, fe.fused_update, fe._update_plain, "B=2,dx=512,dy=128",
-         upd(2, 512, 128), False),
-        (fe.K2, fe.fused_predict_cov, fe._predict_plain, "B=512,dx=64,dq=64",
-         pred(512, 64, 64), True),
-        (fe.K2, fe.fused_predict_cov, fe._predict_plain, "B=2,dx=512,dq=512",
-         pred(2, 512, 512), False),
-        (bu.K3, bu.bank_chol_update, bu._update_plain, "M=200,dx=4,dy=1",
-         upd(200, 4, 1), True),
-        (bu.K3, bu.bank_chol_update, bu._update_plain, "M=4096,dx=8,dy=8",
-         upd(4096, 8, 8), False),
-        (bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, "M=200,dx=4,dq=2",
-         pred(200, 4, 2), True),
-        (bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, "M=4096,dx=8,dq=8",
-         pred(4096, 8, 8), False),
-    ]
+    def neg_eye(x):
+        return -1e3 * torch.eye(x.shape[-1], dtype=x.dtype,
+                                device=x.device).expand_as(x).contiguous()
+
+    rng = np.random.default_rng(SEED)
+    f64 = lambda arrays: [torch.as_tensor(a, dtype=torch.float64, device=dev)
+                          for a in arrays]
+    checks = []
+    for kernel, wrap, plain, dims in ((fe.K1, fe.fused_update,
+                                       fe._update_plain, (512, 64, 32)),
+                                      (bu.K3, bu.bank_chol_update,
+                                       bu._update_plain, (200, 4, 1))):
+        a = f64(testing.update_inputs(rng, *dims))
+        a[3] = neg_eye(a[3])
+        checks.append((kernel, wrap, plain, a + [0.0]))
+    a = f64(testing.sigma_inputs(rng, 8, 64))
+    a[1] = neg_eye(a[1])
+    checks.append((fu.K6, fu.fused_sigma, fu._sigma_plain,
+                   a + [2.0, "cholesky"]))
+    a = f64(testing.sigma_aug_inputs(rng, 8, 64, 32))
+    a[1] = neg_eye(a[1])
+    checks.append((fu.K7, fu.fused_sigma_aug, fu._sigma_aug_plain,
+                   a + [2.0, "cholesky"]))
+    a = f64(testing.ut_update_inputs(rng, 8, 128, 64, 64, 32))
+    a[6] = neg_eye(a[6])
+    checks.append((fu.K8, fu.fused_ut_update, fu._ut_update_plain,
+                   a + [1 / 128, 0.0, True]))
+    for kernel, wrap, plain, args in checks:
+        got, want = _as_tuple(wrap(*args)), _as_tuple(plain(*args))
+        torch.cuda.synchronize()
+        same = all(torch.equal(torch.isnan(g), torch.isnan(w))
+                   for g, w in zip(got, want))
+        if not (same and any(torch.isnan(g).any() for g in got)):
+            raise RuntimeError(f"{kernel.name}: a non-PD input did not give "
+                               "NaN in the same places on both sides")
+        log(f"kernel {kernel.name} non-PD input: NaN on both sides ok")
+
+
+def check_kernels(dev) -> dict:
+    """Phase 3. Returns, per kernel name, the timing of its main-path shape
+    (float32) and of any second main-path shape."""
+    import numpy as np
+    import torch
+
     report = {}
-    for kernel, wrapper, plain, shape, make, main in cases:
+    for (kernel, wrapper, plain, shape, make, static, flops,
+         timed) in kernel_cases():
         raw = make(np.random.default_rng(SEED))
-        is_update = len(raw) == 5
         for dtype in (torch.float32, torch.float64):
-            args = [torch.as_tensor(a, dtype=dtype, device=dev) for a in raw]
-            if is_update:
-                args.append(0.0)
+            args = [torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+                    for a in raw]
             before = kernel.launches
-            got = wrapper(*args)
-            want = plain(*args)
+            got = _as_tuple(wrapper(*args, *static))
+            want = _as_tuple(plain(*args, *static))
             torch.cuda.synchronize()
             if kernel.launches != before + 1:
                 raise RuntimeError(f"{kernel.name} did not launch at {shape}")
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
             name = str(dtype).split(".")[-1]
             errs = [rel_err(g, w) for g, w in zip(got, want)]
             ok = max(errs) <= KERNEL_TOL[name]
@@ -149,29 +339,26 @@ def check_kernels(dev) -> dict:
                 f"{max(errs):.3e} (tol {KERNEL_TOL[name]:.0e}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok or not all(torch.isfinite(g).all() for g in got):
-                raise RuntimeError(f"{kernel.name} disagrees with its twin "
-                                   f"at {shape} {name}: {errs}")
-            if main and dtype == torch.float32:
+                raise RuntimeError(f"{kernel.name} disagrees with its plain "
+                                   f"version at {shape} {name}: {errs}")
+            if timed and dtype == torch.float32:
                 abs_err = max(float((g - w).abs().max())
                               for g, w in zip(got, want))
-                ms = cuda_time_ms(lambda: wrapper(*args))
-                plain_ms = cuda_time_ms(lambda: plain(*args))
-                report[kernel.name] = dict(shape=shape, max_abs_err=abs_err,
-                                           ms=ms, plain_ms=plain_ms)
-                log(f"  time at {shape} float32: kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms")
-        if is_update and main:
-            # a non-PD S gives NaN on both sides, never an exception
-            bad = [torch.as_tensor(a, dtype=torch.float64, device=dev)
-                   for a in raw] + [0.0]
-            bad[3] = -1e3 * torch.eye(bad[3].shape[-1], dtype=bad[3].dtype,
-                                      device=dev).expand_as(bad[3])
-            got, want = wrapper(*bad), plain(*bad)
-            torch.cuda.synchronize()
-            if not (torch.isnan(got[0]).all() and torch.isnan(want[0]).all()
-                    and torch.isnan(got[1]).all()):
-                raise RuntimeError(f"{kernel.name}: non-PD S did not give NaN")
-            log(f"kernel {kernel.name} non-PD S: NaN on both sides ok")
+                ms = cuda_time_ms(lambda: wrapper(*args, *static))
+                plain_ms = cuda_time_ms(lambda: plain(*args, *static))
+                bound_ms, bound_by = bound(args, list(got), flops, name)
+                entry = dict(shape=shape + ",float32", max_abs_err=abs_err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, bound_share=bound_ms / ms)
+                if timed == "main":
+                    report.setdefault(kernel.name, {}).update(entry)
+                else:
+                    report.setdefault(kernel.name, {}).setdefault(
+                        "also", []).append(entry)
+                log(f"  time at {shape} float32: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.3g} ms "
+                    f"({bound_by}), bound share {bound_ms / ms:.3g}")
+    nan_checks(dev)
     return report
 
 
@@ -239,6 +426,45 @@ def mixture_draws(comps, T, dx, like):
     return inf.agsf_draws(gen, T, comps, dx, "systematic", like)
 
 
+def ukf_params(method="cholesky"):
+    """ParamsUKF(1, 0, 0), the setting of every experiment."""
+    from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
+
+    return ParamsUKF(1.0, 0.0, 0.0, method)
+
+
+def rb_problem(T, dtype, dev):
+    """The T=500 BOT experiment's range-bearing model and schedule."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models import zoo
+
+    model, params, _ = zoo.range_bearing_tracking(dtype=dtype, device=dev)
+    inputs = zoo.bot_experiment_inputs(T, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2 * T)
+    states, emissions = model.sample(params, T, inputs=inputs, generator=gen)
+    return params, inputs, states, emissions
+
+
+UKF_MIXTURE_RUNS = [
+    # the BOT experiment's UGSF (M=100) and its recommended UAGSF recipe
+    ("ugsf M=100", UGSF_M),
+    ("uagsf [16,2,2]", UAGSF_COMPS),
+]
+
+
+def run_ukf_mixture(label, comps, params, inputs, emissions, draws):
+    from bayesianfiltering_tpu_torch import inference as inf
+
+    if label.startswith("ugsf"):
+        return inf.unscented_gaussian_sum_filter(
+            params, ukf_params(), emissions, comps, inputs=inputs,
+            init_eps=draws.init)
+    return inf.unscented_agsf(params, ukf_params(), emissions, comps,
+                              opt_args=(0.9, 0.9), inputs=inputs,
+                              reduction="systematic", draws=draws)[0]
+
+
 def compare_paths(dev) -> None:
     """Phase 4: kernel path on the card vs plain path on the CPU."""
     import torch
@@ -269,7 +495,8 @@ def compare_paths(dev) -> None:
         params, inputs, _, emissions = bot_problem(T, torch.float64, dev)
         draws = mixture_draws(comps, T, 4, emissions)
         got, _ = run_mixture(label, comps, params, inputs, emissions, draws)
-        cpu_params = zoo.bearings_only_tracking(dtype=torch.float64)[1]
+        cpu_params = zoo.bearings_only_tracking(dtype=torch.float64,
+                                                device="cpu")[1]
         cpu_draws = type(draws)(*(None if d is None else d.cpu() for d in draws))
         want, _ = run_mixture(label, comps, cpu_params, inputs.cpu(),
                               emissions.cpu(), cpu_draws)
@@ -283,67 +510,242 @@ def compare_paths(dev) -> None:
         if not ok:
             raise RuntimeError(f"{label} kernel path disagrees with the plain path")
 
+    for additive in (True, False):
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[-1]
+            em = em64.to(dtype)
+            params = {d: zoo.lorenz96(EKF_DX, EKF_DY, dtype=dtype, device=d)[1]
+                      for d in (dev, "cpu")}
+            got = inf.unscented_kalman_filter(params[dev], ukf_params(), em,
+                                              additive=additive)
+            want = inf.unscented_kalman_filter(params["cpu"], ukf_params(),
+                                               em.cpu(), additive=additive)
+            torch.cuda.synchronize()
+            e_m = rel_err(got.filtered_means, want.filtered_means)
+            e_ll = rel_err(got.marginal_loglik, want.marginal_loglik)
+            ok = max(e_m, e_ll) <= EKF_TOL[name]
+            log(f"ukf {'additive' if additive else 'augmented'} lorenz96 "
+                f"B={CMP_B} T={CMP_T} {name} card vs cpu: means {e_m:.3e}, "
+                f"loglik {e_ll:.3e} (tol {EKF_TOL[name]:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("UKF kernel path disagrees with the plain "
+                                   "path")
+
+    params, inputs, _, emissions = rb_problem(RB_CMP_T, torch.float64, dev)
+    cpu_params = zoo.range_bearing_tracking(dtype=torch.float64,
+                                            device="cpu")[1]
+    for label, comps in UKF_MIXTURE_RUNS:
+        draws = mixture_draws(comps, RB_CMP_T, 4, emissions)
+        got = run_ukf_mixture(label, comps, params, inputs, emissions, draws)
+        cpu_draws = type(draws)(*(None if d is None else d.cpu()
+                                  for d in draws))
+        want = run_ukf_mixture(label, comps, cpu_params, inputs.cpu(),
+                               emissions.cpu(), cpu_draws)
+        torch.cuda.synchronize()
+        errs = [rel_err(got.means, want.means),
+                rel_err(got.weights, want.weights),
+                rel_err(got.marginal_loglik, want.marginal_loglik)]
+        ok = max(errs) <= MIXTURE_TOL
+        log(f"{label} range-bearing T={RB_CMP_T} float64 card vs cpu: means "
+            f"{errs[0]:.3e}, weights {errs[1]:.3e}, loglik {errs[2]:.3e} "
+            f"(tol {MIXTURE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label} kernel path disagrees with the plain "
+                               "path")
+
+
+def run_path(label, fn, expect):
+    """Run one main path with every launch counter reset just before it and
+    read just after. ``expect`` maps kernel names to their exact launch
+    count, or to None for "at least one"."""
+    import torch
+
+    from bayesianfiltering_tpu_torch import _build
+
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _build.KERNELS}
+    for name, want in expect.items():
+        if (counts[name] == 0) if want is None else (counts[name] != want):
+            raise RuntimeError(f"{label}: {name} launched {counts[name]} "
+                               f"times, expected {want or 'at least one'}")
+    log(f"{label}: launches {({k: v for k, v in counts.items() if v})}")
+    return out, counts
+
+
+def timed(fn):
+    """``fn()`` between two CUDA events; returns (result, seconds)."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / 1e3
+
+
+def check_gaussian_posterior(label, post, shape):
+    import torch
+
+    if tuple(post.filtered_means.shape) != shape:
+        raise RuntimeError(f"{label}: means shape "
+                           f"{tuple(post.filtered_means.shape)}")
+    if not (torch.isfinite(post.filtered_means).all()
+            and torch.isfinite(post.filtered_covariances).all()
+            and torch.isfinite(post.marginal_loglik).all()):
+        raise RuntimeError(f"{label}: outputs are not finite")
+
+
+def check_mixture(label, post, T):
+    import torch
+
+    M = post.means.shape[0]
+    if tuple(post.means.shape) != (M, T, 4) or not (
+            torch.isfinite(post.means).all()
+            and torch.isfinite(post.weights).all()
+            and torch.isfinite(post.marginal_loglik)):
+        raise RuntimeError(f"{label}: outputs not finite or misshapen")
+    return (post.weights[..., None] * post.means).sum(0)
+
 
 def main_path(dev, card: str) -> dict:
-    """Phase 5: the main path with fresh launch counters."""
+    """Phase 5: each main path with fresh launch counters. Returns every
+    kernel's launches summed over the paths."""
     import torch
 
     from bayesianfiltering_tpu_torch import _build
     from bayesianfiltering_tpu_torch import inference as inf
+    from bayesianfiltering_tpu_torch.utils import metrics
+
+    total = {k.name: 0 for k in _build.KERNELS}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
 
     params, _, emissions = lorenz96_data(dev, torch.float32)
     bot = {T: bot_problem(T, torch.float32, dev) for _, _, T in MIXTURE_RUNS}
     draws = {label: mixture_draws(comps, T, 4, bot[T][3])
              for label, comps, T in MIXTURE_RUNS}
-    # warm-up: a short EKF run at the full batch and width
+    # warm-up: short runs at the full batch and width
     inf.extended_kalman_filter(params, emissions[:, :20])
+    for additive in (True, False):
+        inf.unscented_kalman_filter(params, ukf_params(), emissions[:, :20],
+                                    additive=additive)
     torch.cuda.synchronize()
 
-    _build.reset_launch_counts()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    post = inf.extended_kalman_filter(params, emissions)
-    end.record()
-    torch.cuda.synchronize()
-    secs = start.elapsed_time(end) / 1e3
-    counts = {k.name: k.launches for k in _build.KERNELS}
-    if tuple(post.filtered_means.shape) != (EKF_B, EKF_T, EKF_DX):
-        raise RuntimeError(f"EKF means shape {tuple(post.filtered_means.shape)}")
-    if not (torch.isfinite(post.filtered_means).all()
-            and torch.isfinite(post.marginal_loglik).all()):
-        raise RuntimeError("EKF outputs are not finite")
-    for name in ("bft_ekf_update", "bft_ekf_predict_cov"):
-        if counts[name] < EKF_T:
-            raise RuntimeError(f"{name} launched {counts[name]} times, "
-                               f"expected at least {EKF_T}")
-    rate = EKF_B * EKF_T / secs
+    # the batched EKF
+    (post, secs), counts = run_path(
+        "ekf lorenz96",
+        lambda: timed(lambda: inf.extended_kalman_filter(params, emissions)),
+        {"bft_ekf_update": EKF_T, "bft_ekf_predict_cov": EKF_T})
+    add(counts)
+    check_gaussian_posterior("ekf", post, (EKF_B, EKF_T, EKF_DX))
     log(f"ekf lorenz96 dx={EKF_DX} dy={EKF_DY} B={EKF_B} T={EKF_T} float32: "
-        f"{secs:.3f} s, launches {counts}")
-    log(f"timestep-equiv/s: {rate:.1f} ({card})")
+        f"{secs:.3f} s, timestep-equiv/s: {EKF_B * EKF_T / secs:.1f} ({card})")
 
-    before = dict(counts)
+    # the GSF and AGSF on bearings-only tracking
     for label, comps, T in MIXTURE_RUNS:
         params_b, inputs, states, em = bot[T]
         t0 = time.perf_counter()
-        post, _ = run_mixture(label, comps, params_b, inputs, em, draws[label])
-        torch.cuda.synchronize()
+        (post, _), counts = run_path(
+            f"{label} bot",
+            lambda: run_mixture(label, comps, params_b, inputs, em,
+                                draws[label]),
+            {"bft_bank_update": None, "bft_bank_predict_cov": None})
         wall = time.perf_counter() - t0
-        M = post.means.shape[0]
-        if tuple(post.means.shape) != (M, T, 4) or not (
-                torch.isfinite(post.means).all()
-                and torch.isfinite(post.weights).all()
-                and torch.isfinite(post.marginal_loglik)):
-            raise RuntimeError(f"{label}: outputs not finite or misshapen")
-        est = (post.weights[..., None] * post.means).sum(0)
+        add(counts)
+        est = check_mixture(label, post, T)
         rmse = float(((est - states) ** 2).mean().sqrt())
         log(f"{label} bot T={T} float32: wall {wall:.3f} s, rmse {rmse:.4f}, "
             f"loglik {float(post.marginal_loglik):.3f}")
-    counts = {k.name: k.launches for k in _build.KERNELS}
-    for name in ("bft_bank_update", "bft_bank_predict_cov"):
-        if counts[name] <= before[name]:
-            raise RuntimeError(f"{name} was not launched by the GSF/AGSF runs")
-    log(f"launches over the main path: {counts}")
-    return counts
+
+    # the batched UKF on the same Lorenz-96 data
+    for additive, method, T in ((True, "cholesky", EKF_T),
+                                (False, "cholesky", EKF_T),
+                                (True, "sqrtm", UKF_SQRTM_T)):
+        kind = "additive" if additive else "augmented"
+        sigma = "bft_ut_sigma" if additive else "bft_ut_sigma_aug"
+        up, em = ukf_params(method), emissions[:, :T]
+        (post, secs), counts = run_path(
+            f"ukf {kind} {method} lorenz96",
+            lambda: timed(lambda: inf.unscented_kalman_filter(
+                params, up, em, additive=additive)),
+            {sigma: 2 * T, "bft_ut_update": T, "bft_ut_predict": T})
+        add(counts)
+        check_gaussian_posterior("ukf", post, (EKF_B, T, EKF_DX))
+        log(f"ukf {kind} {method} lorenz96 dx={EKF_DX} dy={EKF_DY} B={EKF_B} "
+            f"T={T} float32: {secs:.3f} s, timestep-equiv/s: "
+            f"{EKF_B * T / secs:.1f} ({card})")
+
+    # the UGSF and UAGSF on the T=500 range-bearing experiment
+    params_r, inputs, states, em = rb_problem(BOT_EXP_T, torch.float32, dev)
+    for label, comps in UKF_MIXTURE_RUNS:
+        d = mixture_draws(comps, BOT_EXP_T, 4, em)
+        t0 = time.perf_counter()
+        post, counts = run_path(
+            f"{label} range-bearing",
+            lambda: run_ukf_mixture(label, comps, params_r, inputs, em, d),
+            {"bft_ut_sigma_aug": 2 * BOT_EXP_T, "bft_ut_update": BOT_EXP_T,
+             "bft_ut_predict": BOT_EXP_T})
+        wall = time.perf_counter() - t0
+        add(counts)
+        est = check_mixture(label, post, BOT_EXP_T)
+        log(f"{label} range-bearing T={BOT_EXP_T} float32: wall {wall:.3f} s, "
+            f"rmse {float(metrics.rmse(est, states)):.4f} (utils.metrics.rmse), "
+            f"loglik {float(post.marginal_loglik):.3f} ({card})")
+    log(f"launches over the main paths: {total}")
+    return total
+
+
+def profile_ukf(dev, card: str) -> None:
+    """Phase 6: device busy and idle share of the batched UKF step
+    (B=512, dx=64) over PROFILE_T steps under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesianfiltering_tpu_torch import inference as inf
+
+    params, _, emissions = lorenz96_data(dev, torch.float32)
+    em = emissions[:, :PROFILE_T]
+    # the first profiled region also pays the tracer's start-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        inf.unscented_kalman_filter(params, ukf_params(), em[:, :1])
+        torch.cuda.synchronize()
+    for additive in (True, False):
+        kind = "additive" if additive else "augmented"
+        run = lambda: inf.unscented_kalman_filter(params, ukf_params(), em,
+                                                  additive=additive)
+        run()
+        _, untraced = timed(run)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # device-side events only: a host op's self device time repeats
+        # the kernels it launched
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU]
+        device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+        if device_s == 0:
+            log(f"profile ukf {kind}: the profiler saw no device time; busy "
+                "share not measured")
+            continue
+        log(f"profile ukf {kind} B={EKF_B} dx={EKF_DX} {PROFILE_T} steps "
+            f"float32: wall {wall:.4f} s traced, {untraced:.4f} s untraced; "
+            f"device {device_s:.4f} s; busy {device_s / wall:.3f} of the "
+            f"traced wall, {device_s / untraced:.3f} of the untraced wall "
+            f"({card})")
+        for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:8]:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+                f"{e.key[:90]}")
 
 
 def main() -> int:
@@ -384,14 +786,21 @@ def main() -> int:
     timing = check_kernels(dev)
     compare_paths(dev)
     counts = main_path(dev, card)
+    profile_ukf(dev, card)
 
     kernels = []
     for k in _build.KERNELS:
         t = timing[k.name]
+        log(f"{k.name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.3g} ms ({t['bound_by']}), bound share "
+            f"{t['bound_share']:.3g}, launches {counts[k.name]} ({card})")
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": counts[k.name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "shape": t["shape"]})
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": None,
+                        "bound_share": t["bound_share"], "shape": t["shape"],
+                        "also": t.get("also", [])})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ from bayesianfiltering_tpu_torch import _build, inference, testing
 from bayesianfiltering_tpu_torch.models import zoo
 from bayesianfiltering_tpu_torch.ops import bank_update as bu
 from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
+from bayesianfiltering_tpu_torch.ops import fused_ut as fu
+from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
 
 pytestmark = pytest.mark.cuda
 
@@ -96,7 +98,8 @@ def test_ekf_kernel_path_matches_plain_path(dev):
     got = inference.extended_kalman_filter(params, emissions, num_iter=2)
     torch.cuda.synchronize()
     assert fe.K1.launches == 25 * 2 and fe.K2.launches == 25
-    _, cpu_params, _ = zoo.lorenz96(16, 8, dtype=torch.float64)
+    _, cpu_params, _ = zoo.lorenz96(16, 8, dtype=torch.float64,
+                                    device="cpu")
     want = inference.extended_kalman_filter(cpu_params, emissions.cpu(),
                                             num_iter=2)
     assert_close(got.filtered_means, want.filtered_means, 1e-9)
@@ -105,8 +108,9 @@ def test_ekf_kernel_path_matches_plain_path(dev):
 
 def test_agsf_kernel_path_matches_plain_path(dev):
     T = 10
-    model, params, _ = zoo.bearings_only_tracking(dtype=torch.float64)
-    inputs = zoo.bot_maneuver_inputs(T)
+    model, params, _ = zoo.bearings_only_tracking(dtype=torch.float64,
+                                                  device="cpu")
+    inputs = zoo.bot_maneuver_inputs(T, device="cpu")
     gen = torch.Generator().manual_seed(1)
     _, emissions = model.sample(params, T, inputs=inputs, generator=gen)
     draws = inference.agsf_draws(gen, T, [6, 2, 2], 4, "systematic",
@@ -136,3 +140,104 @@ def test_outside_the_kernel_band_raises(dev):
     with pytest.raises(NotImplementedError):
         fe.fused_update(*args)
     assert fe.K1.launches == before
+
+
+UT_CASES = [
+    (fu.K6, lambda r: testing.sigma_inputs(r, 5, 16),
+     lambda *a: fu.fused_sigma(*a, 2.0, "cholesky"),
+     lambda *a: fu._sigma_plain(*a, 2.0, "cholesky")),
+    (fu.K6, lambda r: testing.sigma_inputs(r, 3, 128),
+     lambda *a: fu.fused_sigma(*a, 2.0, "sqrtm"),
+     lambda *a: fu._sigma_plain(*a, 2.0, "sqrtm")),
+    (fu.K7, lambda r: testing.sigma_aug_inputs(r, 7, 12, 5),
+     lambda *a: fu.fused_sigma_aug(*a, 1.5, "sqrtm"),
+     lambda *a: fu._sigma_aug_plain(*a, 1.5, "sqrtm")),
+    (fu.K7, lambda r: testing.sigma_aug_inputs(r, 33, 4, 2),
+     lambda *a: fu.fused_sigma_aug(*a, 1.5, "cholesky"),
+     lambda *a: fu._sigma_aug_plain(*a, 1.5, "cholesky")),
+    (fu.K8, lambda r: testing.ut_update_inputs(r, 5, 40, 20, 20, 6),
+     lambda *a: fu.fused_ut_update(*a, 1 / 40, 0.3, True),
+     lambda *a: fu._ut_update_plain(*a, 1 / 40, 0.3, True)),
+    (fu.K8, lambda r: testing.ut_update_inputs(r, 33, 12, 6, 4, 2),
+     lambda *a: fu.fused_ut_update(*a, 1 / 12, 0.0, False),
+     lambda *a: fu._ut_update_plain(*a, 1 / 12, 0.0, False)),
+    (fu.K9, lambda r: testing.ut_predict_inputs(r, 5, 36, 18),
+     lambda *a: fu.fused_ut_predict(*a, 1 / 36, 0.1, 0.4, True),
+     lambda *a: fu._ut_predict_plain(*a, 1 / 36, 0.1, 0.4, True)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", range(len(UT_CASES)))
+def test_ut_kernel_matches_plain(dev, dtype, case):
+    kernel, make, wrapper, plain = UT_CASES[case]
+    args = [testing.to_torch(a, dtype, dev)
+            for a in make(np.random.default_rng(case))]
+    before = kernel.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = plain(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("additive", [True, False])
+def test_ukf_kernel_path_matches_plain_path(dev, additive):
+    _, params, _ = zoo.lorenz96(16, 8, dtype=torch.float64, device=dev)
+    model, data_params, _ = zoo.lorenz96(16, 8, integrator="rk4",
+                                         dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    _, emissions = model.sample(data_params, 20, generator=gen,
+                                batch_shape=(4,))
+    up = ParamsUKF(1.0, 0.0, 0.0, "cholesky")
+    _build.reset_launch_counts()
+    got = inference.unscented_kalman_filter(params, up, emissions,
+                                            additive=additive)
+    torch.cuda.synchronize()
+    sigma = fu.K6 if additive else fu.K7
+    assert (sigma.launches, fu.K8.launches, fu.K9.launches) == (40, 20, 20)
+    _, cpu_params, _ = zoo.lorenz96(16, 8, dtype=torch.float64,
+                                    device="cpu")
+    want = inference.unscented_kalman_filter(cpu_params, up, emissions.cpu(),
+                                             additive=additive)
+    assert_close(got.filtered_means, want.filtered_means, 1e-9)
+    assert_close(got.marginal_loglik, want.marginal_loglik, 1e-9)
+
+
+def test_uagsf_kernel_path_matches_plain_path(dev):
+    T = 10
+    model, params, _ = zoo.range_bearing_tracking(dtype=torch.float64,
+                                                  device="cpu")
+    inputs = zoo.bot_experiment_inputs(T, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    _, emissions = model.sample(params, T, inputs=inputs, generator=gen)
+    draws = inference.agsf_draws(gen, T, [6, 2, 2], 4, "systematic",
+                                 emissions)
+    _, gpu_params, _ = zoo.range_bearing_tracking(dtype=torch.float64,
+                                                  device=dev)
+    up = ParamsUKF(1.0, 0.0, 0.0)
+    _build.reset_launch_counts()
+    got, _ = inference.unscented_agsf(
+        gpu_params, up, emissions.to(dev), [6, 2, 2], inputs=inputs.to(dev),
+        opt_args=(0.9, 0.9), reduction="systematic",
+        draws=inference.AGSFDraws(*(d.to(dev) for d in draws)))
+    torch.cuda.synchronize()
+    assert (fu.K7.launches, fu.K8.launches, fu.K9.launches) == (2 * T, T, T)
+    want, _ = inference.unscented_agsf(
+        params, up, emissions, [6, 2, 2], inputs=inputs, opt_args=(0.9, 0.9),
+        reduction="systematic", draws=draws)
+    for name in ("means", "weights", "marginal_loglik"):
+        assert_close(getattr(got, name), getattr(want, name), 1e-8)
+
+
+def test_ut_outside_the_band_raises(dev):
+    m, P = testing.sigma_inputs(np.random.default_rng(3), 1, 129)
+    args = [testing.to_torch(a, torch.float32, dev) for a in (m, P)]
+    before = fu.K6.launches
+    with pytest.raises(NotImplementedError):
+        fu.fused_sigma(*args, 1.0, "cholesky")
+    assert fu.K6.launches == before

@@ -83,7 +83,7 @@ def run_both(jmodel_fn, tmodel_fn, emissions, dtype, inputs=None, **kw):
             lambda e: jgf.extended_kalman_filter(jp, e, inputs=j_in, **kw)))(
             jnp.asarray(emissions, dtype))
         want = jax.tree_util.tree_map(np.asarray, want)
-    _, tp, _ = tmodel_fn(dtype=getattr(torch, dtype))
+    _, tp, _ = tmodel_fn(dtype=getattr(torch, dtype), device="cpu")
     t_in = None if inputs is None else torch.as_tensor(inputs)
     got = inf.extended_kalman_filter(
         tp, torch.as_tensor(emissions.astype(dtype)), inputs=t_in, **kw)
@@ -99,7 +99,7 @@ def check(got, want, dtype):
 @pytest.fixture(scope="module")
 def lorenz96_case(x64):
     model, params, _ = zoo.lorenz96(8, 4, integrator="rk4",
-                                    dtype=torch.float64)
+                                    dtype=torch.float64, device="cpu")
     return sample_emissions(model, params, 30, 3, 0)
 
 
@@ -116,8 +116,9 @@ def test_bearings_only_tracking_with_inputs(x64):
     """Maneuver inputs exercise the u_{t+1} predict alignment and the
     wrapped bearing residual."""
     T = 24
-    inputs = zoo.bot_maneuver_inputs(T)
-    model, params, _ = zoo.bearings_only_tracking(dtype=torch.float64)
+    inputs = zoo.bot_maneuver_inputs(T, device="cpu")
+    model, params, _ = zoo.bearings_only_tracking(dtype=torch.float64,
+                                                 device="cpu")
     emissions = sample_emissions(model, params, T, 2, 1, inputs)
     got, want = run_both(jzoo.bearings_only_tracking,
                          zoo.bearings_only_tracking, emissions, "float64",
@@ -127,7 +128,8 @@ def test_bearings_only_tracking_with_inputs(x64):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_linear_gaussian(x64, dtype):
-    model, params, _ = zoo.linear_gaussian(3, 2, dtype=torch.float64)
+    model, params, _ = zoo.linear_gaussian(3, 2, dtype=torch.float64,
+                                          device="cpu")
     emissions = sample_emissions(model, params, 20, 2, 2)
     got, want = run_both(lambda: jzoo.linear_gaussian(3, 2),
                          lambda **k: zoo.linear_gaussian(3, 2, **k),
@@ -139,7 +141,7 @@ def test_single_sequence_matches_batch_row(lorenz96_case):
     """(T, dy) emissions give the (B, T, dy) run's row, without a batch
     axis."""
     emissions = lorenz96_case
-    _, tp, _ = zoo.lorenz96(8, 4, dtype=torch.float64)
+    _, tp, _ = zoo.lorenz96(8, 4, dtype=torch.float64, device="cpu")
     batch = inf.extended_kalman_filter(tp, torch.as_tensor(emissions))
     one = inf.extended_kalman_filter(tp, torch.as_tensor(emissions[1]))
     assert one.filtered_means.shape == (30, 8)
@@ -148,7 +150,7 @@ def test_single_sequence_matches_batch_row(lorenz96_case):
 
 
 def test_unported_options_raise(lorenz96_case):
-    _, tp, _ = zoo.lorenz96(8, 4, dtype=torch.float64)
+    _, tp, _ = zoo.lorenz96(8, 4, dtype=torch.float64, device="cpu")
     e = torch.as_tensor(lorenz96_case)
     with pytest.raises(NotImplementedError):
         inf.extended_kalman_filter(tp, e, compat_scalar=True)

@@ -53,7 +53,8 @@ def bot(x64):
     inputs = jzoo.bot_maneuver_inputs(T_BOT)
     states, emissions = jmodel.sample(jparams, jr.PRNGKey(0), T_BOT,
                                       inputs=inputs)
-    _, tparams, _ = zoo.bearings_only_tracking(dtype=torch.float64)
+    _, tparams, _ = zoo.bearings_only_tracking(dtype=torch.float64,
+                                          device="cpu")
     return dict(jparams=jparams, tparams=tparams, inputs=np.asarray(inputs),
                 states=np.asarray(states), emissions=np.asarray(emissions))
 

@@ -51,24 +51,30 @@ def assert_close(got, want, tol=TOL):
                                atol=tol * max(1.0, float(np.max(np.abs(want)))))
 
 
+CPU64 = dict(dtype=torch.float64, device="cpu")
 MODELS = {
     "lorenz96_euler": (lambda: jzoo.lorenz96(6, 3),
-                       lambda: zoo.lorenz96(6, 3, dtype=torch.float64), None),
+                       lambda: zoo.lorenz96(6, 3, **CPU64), None),
     "lorenz96_rk4": (lambda: jzoo.lorenz96(6, 3, integrator="rk4"),
-                     lambda: zoo.lorenz96(6, 3, integrator="rk4",
-                                          dtype=torch.float64), None),
+                     lambda: zoo.lorenz96(6, 3, integrator="rk4", **CPU64),
+                     None),
     "lorenz96_wide_emission": (
         lambda: jzoo.lorenz96(4, 3),
-        lambda: zoo.lorenz96(4, 3, dtype=torch.float64), None),
+        lambda: zoo.lorenz96(4, 3, **CPU64), None),
     "bot_u0": (jzoo.bearings_only_tracking,
-               lambda: zoo.bearings_only_tracking(dtype=torch.float64), 0),
+               lambda: zoo.bearings_only_tracking(**CPU64), 0),
     "bot_u1": (jzoo.bearings_only_tracking,
-               lambda: zoo.bearings_only_tracking(dtype=torch.float64), 1),
+               lambda: zoo.bearings_only_tracking(**CPU64), 1),
     "bot_u2": (jzoo.bearings_only_tracking,
-               lambda: zoo.bearings_only_tracking(dtype=torch.float64), 2),
+               lambda: zoo.bearings_only_tracking(**CPU64), 2),
+    "range_bearing_u0": (jzoo.range_bearing_tracking,
+                         lambda: zoo.range_bearing_tracking(**CPU64), 0),
+    "range_bearing_u1": (jzoo.range_bearing_tracking,
+                         lambda: zoo.range_bearing_tracking(**CPU64), 1),
+    "range_bearing_u2": (jzoo.range_bearing_tracking,
+                         lambda: zoo.range_bearing_tracking(**CPU64), 2),
     "linear_gaussian": (lambda: jzoo.linear_gaussian(3, 2),
-                        lambda: zoo.linear_gaussian(3, 2, dtype=torch.float64),
-                        None),
+                        lambda: zoo.linear_gaussian(3, 2, **CPU64), None),
 }
 
 
@@ -103,7 +109,8 @@ def test_zoo_functions_and_jacobians(name):
 
 def test_params_from_jax_round_trip_and_shape_errors():
     _, jp, _ = jzoo.bearings_only_tracking()
-    _, template, _ = zoo.bearings_only_tracking(dtype=torch.float32)
+    _, template, _ = zoo.bearings_only_tracking(dtype=torch.float32,
+                                                device="cpu")
     got = params_from_jax(jp, template, dtype=torch.float64, device="cpu")
     for name in ARRAY_FIELDS:
         value = getattr(got, name)
@@ -127,12 +134,13 @@ def test_sample_with_injected_noise(name):
     T, key = 9, jr.PRNGKey(5)
     if name == "bot":
         jmodel, jp, _ = jzoo.bearings_only_tracking()
-        tmodel, tp, _ = zoo.bearings_only_tracking(dtype=torch.float64)
+        tmodel, tp, _ = zoo.bearings_only_tracking(dtype=torch.float64,
+                                                     device="cpu")
         inputs = jzoo.bot_maneuver_inputs(T)
     else:
         jmodel, jp, _ = jzoo.lorenz96(6, 3, integrator="rk4")
         tmodel, tp, _ = zoo.lorenz96(6, 3, integrator="rk4",
-                                     dtype=torch.float64)
+                                     dtype=torch.float64, device="cpu")
         inputs = None
     want_x, want_y = jmodel.sample(jp, key, T, inputs=inputs)
     k_init, k_dyn, k_obs = jr.split(key, 3)
@@ -181,11 +189,12 @@ def test_filters_on_cpu_tensors_never_launch_a_kernel():
     """CPU tensors take the plain twins through the whole main path."""
     _build.reset_launch_counts()
     g = torch.Generator().manual_seed(0)
-    model, params, _ = zoo.lorenz96(8, 4, dtype=torch.float64)
+    model, params, _ = zoo.lorenz96(8, 4, dtype=torch.float64, device="cpu")
     _, emissions = model.sample(params, 5, generator=g, batch_shape=(2,))
     inference.extended_kalman_filter(params, emissions)
-    model, params, _ = zoo.bearings_only_tracking(dtype=torch.float64)
-    inputs = zoo.bot_maneuver_inputs(4)
+    model, params, _ = zoo.bearings_only_tracking(dtype=torch.float64,
+                                                  device="cpu")
+    inputs = zoo.bot_maneuver_inputs(4, device="cpu")
     _, emissions = model.sample(params, 4, inputs=inputs, generator=g)
     inference.gaussian_sum_filter(params, emissions, 3, inputs=inputs,
                                   generator=g)
@@ -194,7 +203,9 @@ def test_filters_on_cpu_tensors_never_launch_a_kernel():
                                             reduction="stratified")
     assert {k.name: k.launches for k in _build.KERNELS} == {
         "bft_ekf_update": 0, "bft_ekf_predict_cov": 0,
-        "bft_bank_update": 0, "bft_bank_predict_cov": 0}
+        "bft_bank_update": 0, "bft_bank_predict_cov": 0,
+        "bft_ut_sigma": 0, "bft_ut_sigma_aug": 0, "bft_ut_update": 0,
+        "bft_ut_predict": 0}
 
 
 def test_precision_policy_is_applied_on_import():
@@ -210,6 +221,8 @@ def test_importing_the_port_loads_no_jax():
         "import bayesianfiltering_tpu_torch.inference\n"
         "import bayesianfiltering_tpu_torch.testing\n"
         "import bayesianfiltering_tpu_torch.ops.bank_update\n"
+        "import bayesianfiltering_tpu_torch.ops.fused_ut\n"
+        "import bayesianfiltering_tpu_torch.utils.metrics\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0]"
         ".startswith('jax'))\n"
         "print(loaded)\n"
