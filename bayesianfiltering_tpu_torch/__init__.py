@@ -1,8 +1,10 @@
 """PyTorch port of ``bayesianfiltering_tpu`` for NVIDIA Hopper GPUs.
 
 Same module layout and public names as the JAX package, which stays the
-reference. The EKF and UKF, the Gaussian-sum filters and the AGSF family
-run their per-step linear algebra in hand-written CUDA kernels (``csrc/``, built at first use by
+reference. The EKF and UKF, the Gaussian-sum filters, the AGSF family, the
+bootstrap particle filter's resampling and the temporally parallel Kalman
+filter and smoother run their hot loops in hand-written CUDA kernels
+(``csrc/``, built at first use by
 :mod:`bayesianfiltering_tpu_torch._build`) on CUDA tensors, and in plain
 PyTorch twins on CPU tensors. Importing the package applies the precision
 policy of :mod:`bayesianfiltering_tpu_torch.config`.
@@ -12,6 +14,7 @@ from bayesianfiltering_tpu_torch import containers, distributions, inference
 from bayesianfiltering_tpu_torch.containers import GaussianSum
 from bayesianfiltering_tpu_torch.inference import (
     augmented_gaussian_sum_filter,
+    bootstrap_particle_filter,
     extended_kalman_filter,
     gaussian_sum_filter,
     speedy_augmented_gaussian_sum_filter,
@@ -34,6 +37,7 @@ __all__ = [
     "inference",
     "GaussianSum",
     "augmented_gaussian_sum_filter",
+    "bootstrap_particle_filter",
     "extended_kalman_filter",
     "gaussian_sum_filter",
     "speedy_augmented_gaussian_sum_filter",

@@ -80,6 +80,13 @@ _SIGNATURES = {
     "bft_ut_update_f64": ([_P] * 12 + [_I] * 5 + [_D, _D, _P], _I),
     "bft_ut_predict_f32": ([_P] * 5 + [_I, _I, _I, _D, _D, _D, _P], _I),
     "bft_ut_predict_f64": ([_P] * 5 + [_I, _I, _I, _D, _D, _D, _P], _I),
+    "bft_resample_parents_i32": ([_P, _P, _I, _I, _P], _I),
+    "bft_bank_combine_f32": ([_P] * 15 + [_I] * 4 + [_P], _I),
+    "bft_bank_combine_f64": ([_P] * 15 + [_I] * 4 + [_P], _I),
+    "bft_bank_smoother_elements_f32": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    "bft_bank_smoother_elements_f64": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    "bft_bank_smoother_combine_f32": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    "bft_bank_smoother_combine_f64": ([_P] * 9 + [_I] * 4 + [_P], _I),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -183,10 +190,13 @@ def scratch(elems: int, kernel: Kernel, batch: int, like: torch.Tensor):
     return like.new_empty(batch * elems) if elems else None
 
 
+_SUFFIXES = {torch.float32: "f32", torch.float64: "f64", torch.int32: "i32"}
+
+
 def symbol(kernel: Kernel, t) -> Callable:
-    """The C entry point of ``kernel`` for ``t``'s dtype (f32 or f64)."""
-    suffix = "f32" if t.dtype == torch.float32 else "f64"
-    return getattr(load(), f"{kernel.name}_{suffix}")
+    """The C entry point of ``kernel`` for ``t``'s dtype (f32, f64, or i32
+    for the integer kernel K5)."""
+    return getattr(load(), f"{kernel.name}_{_SUFFIXES[t.dtype]}")
 
 
 def check_operands(kernel: Kernel, *operands) -> None:

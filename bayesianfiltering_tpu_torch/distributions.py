@@ -26,11 +26,13 @@ def mvn_logpdf(x: torch.Tensor, mean: torch.Tensor,
     cov = torch.atleast_2d(cov)
     dim = x.shape[-1]
     chol = cholesky_nan(cov)
-    diff = x - mean
-    batch = torch.broadcast_shapes(diff.shape[:-1], chol.shape[:-2])
-    z = torch.linalg.solve_triangular(
-        chol.expand(batch + chol.shape[-2:]),
-        diff.expand(batch + diff.shape[-1:])[..., None], upper=False)[..., 0]
+    # invert the factor and multiply: for one factor shared by the batch
+    # the product folds into a single GEMM (a triangular solve with a
+    # million right-hand sides, a particle filter's likelihoods, took
+    # seconds per call on an H100)
+    eye = torch.eye(dim, dtype=chol.dtype, device=chol.device)
+    linv = torch.linalg.solve_triangular(chol, eye, upper=False)
+    z = ((x - mean)[..., None, :] @ linv.mT)[..., 0, :]
     logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
     return -0.5 * (dim * _LOG_2PI + logdet + (z * z).sum(-1))
 
@@ -61,7 +63,7 @@ def mvn_sample_chol(mean: torch.Tensor, chol: torch.Tensor,
     batch = torch.broadcast_shapes(mean.shape[:-1], chol.shape[:-2])
     eps = standard_normal(tuple(shape) + batch + mean.shape[-1:], mean,
                           generator, eps)
-    return mean + (chol @ eps[..., None])[..., 0]
+    return mean + (eps[..., None, :] @ chol.mT)[..., 0, :]
 
 
 def mvn_sample(mean: torch.Tensor, cov: torch.Tensor,

@@ -1,27 +1,32 @@
 """Filter entry points: the EKF and UKF, the Gaussian-sum filters (EKF and
-UKF moments) and the AGSF family
+UKF moments), the AGSF family and the bootstrap particle filter
 (counterpart of ``bayesianfiltering_tpu/inference.py``).
 
 Each filter is a Python loop over time of batched step primitives; the
 linear algebra of every step runs in the CUDA kernels on CUDA tensors — K1–K4
 for EKF moments (``ops.fused_ekf``, ``ops.bank_update``), K6–K9 for UKF
-moments (``ops.fused_ut``) — and in their plain versions on CPU tensors.
-The EKF and UKF take a written-out leading batch of sequences; the mixture
-filters use the component axis as the kernels' batch.
+moments (``ops.fused_ut``), K5 for the systematic and stratified
+resampling of the particle filter and the AGSF reductions
+(``ops.resample_gather``) — and in their plain
+versions on CPU tensors. The EKF and UKF take a written-out leading batch
+of sequences; the mixture filters use the component axis as the kernels'
+batch.
 
 Randomness: every stochastic entry point takes a ``torch.Generator`` or its
-standard-normal / uniform draws made beforehand (:class:`AGSFDraws`).
+standard-normal / uniform draws made beforehand (:class:`AGSFDraws`,
+:class:`BPFDraws`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from bayesianfiltering_tpu_torch import containers
 from bayesianfiltering_tpu_torch.containers import GaussianSum, split_gaussian_sum
 from bayesianfiltering_tpu_torch.distributions import mvn_sample, standard_normal
-from bayesianfiltering_tpu_torch.models.params import ParamsNLSSM
+from bayesianfiltering_tpu_torch.models.params import ParamsBPF, ParamsNLSSM
 from bayesianfiltering_tpu_torch.ops import bank_update as _bank
 from bayesianfiltering_tpu_torch.ops import fused_ekf as _fused
 from bayesianfiltering_tpu_torch.ops import fused_ut as _fut
@@ -563,11 +568,122 @@ def unscented_agsf(
 speedy_unscented_agsf = unscented_agsf
 
 
+# ---------------------------------------------------------------------------
+# Bootstrap particle filter
+# ---------------------------------------------------------------------------
+
+
+class BPFDraws(NamedTuple):
+    """The randomness of one bootstrap-PF run: ``init`` (P, dx) standard
+    normals of the initial particles; ``dynamics`` (T, P, dq) standard
+    normals of the dynamics noise; ``resample`` the resampler's uniforms per
+    step, ``(T,) + UNIFORM_SHAPES[resampler](P)`` — (T,) for "systematic",
+    (T, P) for "multinomial" and "stratified". Each step's uniforms are
+    there whether or not the step resamples, as the JAX key schedule splits
+    a resampling key every step."""
+
+    init: torch.Tensor
+    dynamics: torch.Tensor
+    resample: torch.Tensor
+
+
+def bpf_draws(generator: torch.Generator, num_timesteps: int,
+              num_particles: int, state_dim: int, noise_dim: int,
+              resampler: str, like: torch.Tensor) -> BPFDraws:
+    """Fresh :class:`BPFDraws` from ``generator``, in ``like``'s dtype and
+    device."""
+    T, P = int(num_timesteps), int(num_particles)
+    normal = lambda *shape: standard_normal(shape, like, generator)
+    resample = torch.rand((T,) + _rs.UNIFORM_SHAPES[resampler](P),
+                          generator=generator, dtype=like.dtype,
+                          device=like.device)
+    return BPFDraws(normal(P, state_dim), normal(T, P, noise_dim), resample)
+
+
+def bootstrap_particle_filter(
+    params: ParamsBPF,
+    emissions: torch.Tensor,
+    num_particles: int,
+    generator: Optional[torch.Generator] = None,
+    inputs: Optional[torch.Tensor] = None,
+    ess_threshold: float = 0.5,
+    resampler: str = "systematic",
+    store: str = "all",
+    draws: Optional[BPFDraws] = None,
+) -> Dict[str, torch.Tensor]:
+    """Bootstrap PF with ESS-adaptive resampling on ``emissions`` (T, dy).
+
+    Per step: propagate every particle through the dynamics with one
+    batched noise draw, add the emission log-likelihoods to the log
+    weights, normalise them with ``logsumexp``, and resample (``resampler``
+    ∈ {"multinomial", "systematic", "stratified"}) when the effective sample
+    size falls below ``ess_threshold``·P. A step that does not resample
+    passes the log weights through unchanged (a round trip through exp and
+    log would turn an underflowed weight into a permanent −inf). The
+    decision is made on the host, one synchronisation per step, as the JAX
+    package's ``lax.cond``. On CUDA tensors the systematic and stratified
+    resamplers run K5 for the counts→parents inversion, exact at every
+    weight profile (the JAX package's TPU deferral is not ported).
+
+    The randomness comes from ``generator`` (drawn step by step) or from
+    ``draws`` (:class:`BPFDraws`, e.g. the JAX key schedule's normals and
+    uniforms). ``store="all"`` returns ``{"weights": (P, T), "particles":
+    (P, T, dx)}``, particle-major as the JAX function returns them; any
+    other value returns ``{"means": (T, dx), "ess": (T,)}``, which is what
+    fits at a million particles.
+    """
+    if draws is None and generator is None:
+        raise ValueError("pass a torch.Generator or the draws")
+    T = emissions.shape[0]
+    P = int(num_particles)
+    f = params.dynamics_function
+    log_prob = params.emission_distribution_log_prob
+    inputs = _process_input(inputs, T, emissions)
+    resample_fn = _rs.get_resampler(resampler)
+    uniform = -math.log(P)
+
+    particles = mvn_sample(params.initial_mean, params.initial_covariance,
+                           (P,), generator,
+                           None if draws is None else draws.init)
+    log_w = emissions.new_full((P,), uniform)
+    out = {k: [] for k in (("weights", "particles") if store == "all"
+                           else ("means", "ess"))}
+    for t in range(T):
+        Q, q0, _, _ = _slice_noise(params, t)
+        u, y = inputs[t], emissions[t]
+        q = mvn_sample(q0, Q, (P,), generator,
+                       None if draws is None else draws.dynamics[t])
+        particles = f(particles, q, u)
+
+        log_w = log_w + log_prob(particles, y, u)
+        log_w = log_w - torch.logsumexp(log_w, 0)
+        weights = torch.exp(log_w)
+        ess = _rs.effective_sample_size(weights)
+        if bool(ess < ess_threshold * P):
+            idx = resample_fn(weights, P, generator,
+                              None if draws is None else draws.resample[t])
+            particles = particles[idx]
+            log_w = torch.full_like(log_w, uniform)
+            weights = torch.exp(log_w)
+
+        if store == "all":
+            out["weights"].append(weights)
+            out["particles"].append(particles)
+        else:
+            out["means"].append(weights @ particles)
+            out["ess"].append(ess)
+    return {k: torch.stack(v, dim=1 if store == "all" else 0)
+            for k, v in out.items()}
+
+
 __all__ = [
     "PosteriorGaussianFiltered",
     "PosteriorGaussianSumFiltered",
     "AGSFDraws",
     "agsf_draws",
+    "BPFDraws",
+    "bpf_draws",
+    "bootstrap_particle_filter",
     "ParamsUKF",
     "extended_kalman_filter",
     "unscented_kalman_filter",

@@ -73,23 +73,34 @@ ARRAY_FIELDS = (
 )
 
 
-def params_from_jax(arrays: Any, template: ParamsNLSSM, *,
-                    dtype: torch.dtype, device) -> ParamsNLSSM:
-    """The port's :class:`ParamsNLSSM` with the array fields of a JAX
-    ``ParamsNLSSM`` and the callables of ``template``.
+def params_from_jax(arrays: Any, template, *, dtype: torch.dtype, device):
+    """The port's params with the array fields of their JAX counterpart and
+    the callables of ``template``.
 
-    ``arrays`` holds the six array fields (:data:`ARRAY_FIELDS`) as numpy
-    arrays, either as a mapping or as attributes (a JAX ``ParamsNLSSM``
-    itself works: its arrays convert with ``np.asarray``). ``template`` is
-    the matching port model's params, e.g. from the port's zoo; every array
-    must have the template's shape, or ValueError is raised.
+    ``template`` is the matching port params — a :class:`ParamsNLSSM` or
+    :class:`ParamsBPF` (e.g. from the port's zoo; the six
+    :data:`ARRAY_FIELDS` are carried) or an
+    :class:`~bayesianfiltering_tpu_torch.ops.linear.ParamsLGSSM` (all its
+    fields are arrays; an optional bias must be None on both sides or on
+    neither). ``arrays`` holds the fields as numpy-convertible arrays,
+    either as a mapping or as attributes (the JAX ``ParamsNLSSM``,
+    ``ParamsBPF`` or ``ParamsLGSSM`` itself works). Every array must have
+    the template's shape, or ValueError is raised.
     """
+    from bayesianfiltering_tpu_torch.ops.linear import ParamsLGSSM
+
     get = (arrays.__getitem__ if isinstance(arrays, Mapping)
            else lambda name: getattr(arrays, name))
+    names = (ParamsLGSSM._fields if isinstance(template, ParamsLGSSM)
+             else ARRAY_FIELDS)
     fields = {}
-    for name in ARRAY_FIELDS:
-        value = np.asarray(get(name))
-        want = tuple(getattr(template, name).shape)
+    for name in names:
+        value, want = get(name), getattr(template, name)
+        if value is None or want is None:
+            if (value is None) != (want is None):
+                raise ValueError(f"{name}: None on one side only")
+            continue
+        value, want = np.asarray(value), tuple(want.shape)
         if value.shape != want:
             raise ValueError(f"{name}: shape {value.shape} does not match the "
                              f"template's {want}")

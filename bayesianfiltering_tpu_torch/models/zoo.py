@@ -68,6 +68,26 @@ def linear_gaussian(state_dim: int = 3, emission_dim: int = 3,
                    r * torch.eye(emission_dim, **kw))
 
 
+def linear_gaussian_lgssm(state_dim: int = 3, emission_dim: int = 3,
+                          a: float = 0.8, h_scale: float = 0.1,
+                          q: float = 1.0, r: float = 0.1,
+                          dtype: torch.dtype = torch.float32, device=None):
+    """The model of :func:`linear_gaussian` as a
+    :class:`~bayesianfiltering_tpu_torch.ops.linear.ParamsLGSSM`, for the
+    exact Kalman filter."""
+    from bayesianfiltering_tpu_torch.ops.linear import ParamsLGSSM
+
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    return ParamsLGSSM(
+        initial_mean=torch.zeros(state_dim, **kw),
+        initial_covariance=torch.eye(state_dim, **kw),
+        dynamics_matrix=a * torch.eye(state_dim, **kw),
+        dynamics_covariance=q * torch.eye(state_dim, **kw),
+        emission_matrix=h_scale * torch.eye(emission_dim, state_dim, **kw),
+        emission_covariance=r * torch.eye(emission_dim, **kw),
+    )
+
+
 def _parts(x):
     return x[..., 0:1], x[..., 1:2], x[..., 2:3], x[..., 3:4]
 
@@ -244,5 +264,6 @@ def lorenz96(state_dim: int = 40, emission_dim: Optional[int] = None,
                    h, R)
 
 
-__all__ = ["linear_gaussian", "bearings_only_tracking", "bot_maneuver_inputs",
-           "lorenz96", "range_bearing_tracking", "bot_experiment_inputs"]
+__all__ = ["linear_gaussian", "linear_gaussian_lgssm", "bearings_only_tracking",
+           "bot_maneuver_inputs", "lorenz96", "range_bearing_tracking",
+           "bot_experiment_inputs"]

@@ -1,0 +1,139 @@
+"""The parallel RTS smoother's elements and combine over a bank through the
+CUDA kernels K11 and K12
+(counterpart of ``bayesianfiltering_tpu/ops/bank_smoother.py``).
+
+Both live in ``csrc/bank_combine.cu``, one thread per lane, dx ≤ 8, float32
+and float64:
+
+- K11 ``bank_smoother_elements_kernel`` replaces ``_elements_kernel``
+  (``bayesianfiltering_tpu/ops/bank_smoother.py:53``): the smoothing gain
+  ``G = (Pp⁻¹ F Pf)ᵀ`` by an in-kernel Cholesky of Pp and forward
+  substitution, ``g = mf − G mp``, ``L = sym(Pf − (G Lp)(G Lp)ᵀ)``. The
+  TPU kernel's 1e-30 diagonal floor is dropped (it kept zero-padded lanes
+  factorable; the padding here has unit pivots), so a Pp that is not
+  positive definite gives NaN, as the plain version's ``psd_solve`` does.
+- K12 ``bank_smoother_combine_kernel`` replaces
+  ``_smoother_combine_kernel`` (``:169``): ``E = E1 E2``,
+  ``g = E1 g2 + g1``, ``L = sym(E1 L2 E1ᵀ + L1)``.
+
+On CUDA tensors the wrappers launch the kernels, or raise
+NotImplementedError outside the band; on CPU tensors the plain versions
+run.
+"""
+from __future__ import annotations
+
+import torch
+
+from bayesianfiltering_tpu_torch import _build
+from bayesianfiltering_tpu_torch.ops.associative import _smoother_combine
+from bayesianfiltering_tpu_torch.ops.bank_combine import (
+    as_lanes,
+    periodic_views,
+    should_use_kernel,
+)
+from bayesianfiltering_tpu_torch.utils.linalg import psd_solve, symmetrize
+
+_SRC = "bayesianfiltering_tpu_torch/csrc/bank_combine.cu"
+K11 = _build.register("bft_bank_smoother_elements", _SRC,
+                      "bayesianfiltering_tpu/ops/bank_smoother.py:53")
+K12 = _build.register("bft_bank_smoother_combine", _SRC,
+                      "bayesianfiltering_tpu/ops/bank_smoother.py:169")
+
+_CORES = (2, 1, 2)  # E, g, L
+
+
+def _elements_plain(fm, fP, pm, pP, F):
+    """RTS elements by ``psd_solve``: ``G = (Pp⁻¹ F Pf)ᵀ``,
+    ``g = mf − G mp``, ``L = sym(Pf − G Pp Gᵀ)``; ``F`` (dx, dx) shared or
+    (M, dx, dx)."""
+    G = psd_solve(pP, F @ fP).mT
+    g = fm - (G @ pm[..., None])[..., 0]
+    L = symmetrize(fP - G @ pP @ G.mT)
+    return G, g, L
+
+
+def _launch_elements(fm, fP, pm, pP, F):
+    M, dx = fm.shape
+    banked = F.ndim == 3
+    _build.check_operands(K11, (fm, (M, dx)), (fP, (M, dx, dx)),
+                          (pm, (M, dx)), (pP, (M, dx, dx)),
+                          (F, (M, dx, dx) if banked else (dx, dx)))
+    E, g, L = torch.empty_like(fP), torch.empty_like(fm), torch.empty_like(fP)
+    if M:
+        with torch.cuda.device(fm.device):
+            err = _build.symbol(K11, fm)(
+                fm.data_ptr(), fP.data_ptr(), pm.data_ptr(), pP.data_ptr(),
+                F.data_ptr(), E.data_ptr(), g.data_ptr(), L.data_ptr(), M,
+                int(banked), dx, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, K11)
+        K11.launches += 1
+    return E, g, L
+
+
+_bank_elements = _build.kernel_op(_elements_plain, _launch_elements, 5)
+
+
+def bank_smoother_elements(fm, fP, pm, pP, F):
+    """Per-step RTS smoothing elements ``(G, g, L)`` over a bank of M steps:
+    ``fm``, ``pm`` (M, dx), ``fP``, ``pP`` (M, dx, dx), ``F`` (M, dx, dx) —
+    a shared transition expanded to M (stride 0) goes to K11 once, not
+    copied M times. One K11 launch on CUDA tensors (dx ≤ 8, float32 or
+    float64, else NotImplementedError), the plain version on CPU tensors."""
+    dx = fm.shape[-1]
+    if not should_use_kernel(K11.name, dx, fm, fP, pm, pP, F):
+        return _elements_plain(fm, fP, pm, pP, F)
+    if F.ndim == 3 and F.stride(0) == 0:
+        F = F[0]
+    return _bank_elements(fm.contiguous(), fP.contiguous(), pm.contiguous(),
+                          pP.contiguous(), F.contiguous())
+
+
+def _scombine_lanes(*xs):
+    """The plain smoothing combine on lanes-form operands (the kernel op's
+    backward re-runs it): returns (M, ...) outputs."""
+    v = periodic_views(xs)
+    out = _smoother_combine(tuple(v[:3]), tuple(v[3:]))
+    return tuple(o.reshape((-1,) + o.shape[2:]) for o in out)
+
+
+def _launch_combine(*xs):
+    Ml, Mr = xs[0].shape[0], xs[3].shape[0]
+    M, dx = max(Ml, Mr), xs[0].shape[-1]
+    shapes = [(Ml, dx, dx), (Ml, dx), (Ml, dx, dx),
+              (Mr, dx, dx), (Mr, dx), (Mr, dx, dx)]
+    _build.check_operands(K12, *zip(xs, shapes))
+    if M and (M % Ml or M % Mr):
+        raise ValueError(f"{K12.name}: lanes {Ml} and {Mr} do not tile {M}")
+    E1 = xs[0]
+    outs = (E1.new_empty(M, dx, dx), E1.new_empty(M, dx),
+            E1.new_empty(M, dx, dx))
+    if M:
+        with torch.cuda.device(E1.device):
+            err = _build.symbol(K12, E1)(
+                *(x.data_ptr() for x in xs), *(o.data_ptr() for o in outs),
+                M, Ml, Mr, dx, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, K12)
+        K12.launches += 1
+    return outs
+
+
+_bank_scombine = _build.kernel_op(_scombine_lanes, _launch_combine, 6)
+
+
+def bank_smoother_combine(earlier, later):
+    """Affine smoothing composition ``earlier ∘ later`` over banks with
+    broadcastable leading batch axes (semantics of
+    ``ops.associative._smoother_combine``): one K12 launch on CUDA tensors
+    (dx ≤ 8, float32 or float64, else NotImplementedError), the plain
+    version on CPU tensors."""
+    dx = earlier[0].shape[-1]
+    if not should_use_kernel(K12.name, dx, *earlier, *later):
+        return _smoother_combine(earlier, later)
+    batch = torch.broadcast_shapes(earlier[0].shape[:-2], later[0].shape[:-2])
+    flat = [as_lanes(x, batch, core)[0]
+            for x, core in zip((*earlier, *later), _CORES * 2)]
+    out = _bank_scombine(*flat)
+    return tuple(o.reshape(tuple(batch) + o.shape[1:]) for o in out)
+
+
+__all__ = ["bank_smoother_elements", "bank_smoother_combine", "K11", "K12"]

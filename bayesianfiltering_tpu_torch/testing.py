@@ -65,6 +65,83 @@ def ut_predict_inputs(rng: np.random.Generator, B: int, rows: int, dx: int):
             spd(rng, 1, dx)[0])
 
 
+def filter_elements(rng: np.random.Generator, M: int, dx: int, dy: int = 2,
+                    singular_head: int = 0):
+    """``(A, b, C, J, η)`` filtering elements over a bank of M: C PSD (its
+    first ``singular_head`` lanes exactly zero, the rank-deficient-Q
+    regime), J of rank dy < dx."""
+    A = 0.5 * rng.standard_normal((M, dx, dx))
+    cr = 0.3 * rng.standard_normal((M, dx, dx))
+    C = cr @ np.swapaxes(cr, -1, -2) + 0.01 * np.eye(dx)
+    C[:singular_head] = 0.0
+    jr = 0.4 * rng.standard_normal((M, dx, dy))
+    return (A, rng.standard_normal((M, dx)), C, jr @ np.swapaxes(jr, -1, -2),
+            rng.standard_normal((M, dx)))
+
+
+def guard_lanes(rng: np.random.Generator, left, lanes=(0, 1)):
+    """``left`` with C of lane ``lanes[0]`` rank-deficient with a tiny
+    negative eigenvalue (−1e-8, below the combine's ε) and C of lane
+    ``lanes[1]`` holding an infinite off-diagonal pair: lanes whose
+    Cholesky fails."""
+    A, b, C, J, eta = (np.array(x, copy=True) for x in left)
+    dx = C.shape[-1]
+    q, _ = np.linalg.qr(rng.standard_normal((dx, dx)))
+    evals = np.zeros(dx)
+    evals[: max(1, dx - 2)] = 1e-2
+    evals[-1] = -1e-8
+    C[lanes[0]] = (q * evals) @ q.T
+    C[lanes[1], 1 % dx, 0] = C[lanes[1], 0, 1 % dx] = np.inf
+    return A, b, C, J, eta
+
+
+def smoother_element_inputs(rng: np.random.Generator, M: int, dx: int):
+    """``(fm, fP, pm, pP, F)`` for the RTS elements, F per lane."""
+    return (rng.standard_normal((M, dx)), spd(rng, M, dx),
+            rng.standard_normal((M, dx)), spd(rng, M, dx) + np.eye(dx),
+            0.5 * rng.standard_normal((M, dx, dx)))
+
+
+def smoother_elements(rng: np.random.Generator, M: int, dx: int):
+    """``(E, g, L)`` smoothing elements over a bank of M, L PSD."""
+    return (0.5 * rng.standard_normal((M, dx, dx)),
+            rng.standard_normal((M, dx)), spd(rng, M, dx))
+
+
+def resampling_counts(profile: str, n: int, rng: np.random.Generator):
+    """Cumulative child counts (float, monotone, in [0, n]) of n outputs
+    over n particles for the weight profiles that K5 is held to:
+    "dirichlet" (Dirichlet(0.5) weights, comb offset 0.3), "last" (all mass
+    on the last particle), "first" (all on the first), "spread" (3/4 of the
+    outputs on particle 0, the rest thinly over all others: a 2048-output
+    tile then draws parents spanning more than the TPU kernel's 4096-wide
+    window), "tail" (the total saturated at n−1, the float rounding edge
+    of ``ceil(n·cdf − u0)``)."""
+    i = np.arange(n, dtype=np.float64)
+    if profile in ("dirichlet", "tail"):
+        w = rng.dirichlet(np.full(n, 0.5 if profile == "dirichlet" else 1.0))
+        cdf = np.cumsum(w)
+        cdf /= cdf[-1]
+        u0 = 0.3 if profile == "dirichlet" else 0.5
+        counts = np.clip(np.ceil(n * cdf - u0), 0, n)
+        if profile == "tail":
+            counts = np.minimum(counts, n - 1)
+    elif profile == "last":
+        counts = np.where(i < n - 1, 0.0, float(n))
+    elif profile == "first":
+        counts = np.full(n, float(n))
+    elif profile == "spread":
+        counts = np.clip(np.ceil(0.75 * n + (i / (n - 1)) * 0.25 * n), 0, n)
+    else:
+        raise ValueError(f"unknown profile {profile!r}")
+    return np.maximum.accumulate(counts)
+
+
+PARENT_PROFILES = ("dirichlet", "last", "first", "spread", "tail")
+
+
 __all__ = ["to_torch", "spd", "update_inputs", "predict_inputs",
            "sigma_inputs", "sigma_aug_inputs", "ut_update_inputs",
-           "ut_predict_inputs"]
+           "ut_predict_inputs", "filter_elements", "guard_lanes",
+           "smoother_element_inputs", "smoother_elements",
+           "resampling_counts", "PARENT_PROFILES"]

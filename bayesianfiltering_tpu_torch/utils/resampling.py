@@ -1,17 +1,25 @@
-"""Resampling for the Gaussian-sum reduction
-(counterpart of ``bayesianfiltering_tpu/utils/resampling.py``).
+"""Resampling for the Gaussian-sum reduction and the bootstrap particle
+filter (counterpart of ``bayesianfiltering_tpu/utils/resampling.py``).
 
 Every resampler takes its uniforms ``u`` made beforehand or a
 ``torch.Generator``: multinomial and stratified draw (num_samples,)
 uniforms, systematic one scalar. Everything is cumulative sums, sorted
-search and a scatter — no data-dependent shapes, so nothing synchronises
-with the device.
+search and a counts→parents inversion — no data-dependent shapes, so
+nothing synchronises with the device. The inversion runs the CUDA kernel
+K5 (``ops.resample_gather``) on CUDA tensors, at every size, and its plain
+version, the scatter form, on CPU tensors. The JAX package's 2¹⁶ gate is
+not kept: it sized the TPU kernel's window, and K5 has none.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+
+def effective_sample_size(weights: torch.Tensor) -> torch.Tensor:
+    """ESS = 1 / Σ w² for normalized weights."""
+    return 1.0 / torch.sum(weights * weights, dim=-1)
 
 
 def _uniform(shape, like: torch.Tensor,
@@ -56,6 +64,18 @@ def _scatter_counts_to_parents(counts: torch.Tensor,
     return torch.cumsum(marker[:num_samples], 0) - 1
 
 
+def _counts_to_parents(counts: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """Expand cumulative child counts into a parent index per output slot,
+    ``parent(j) = min{i : counts_i > j}``, as int64 indices like the other
+    resamplers': K5 on CUDA tensors, the scatter form on CPU tensors
+    (``ops.resample_gather.windowed_parents``)."""
+    from bayesianfiltering_tpu_torch.ops.resample_gather import (
+        windowed_parents,
+    )
+
+    return windowed_parents(counts, num_samples).long()
+
+
 def multinomial_resample(weights, num_samples, generator=None, u=None):
     """IID categorical draws."""
     return _inverse_cdf(weights, _uniform((num_samples,), weights, generator,
@@ -74,7 +94,7 @@ def systematic_counts(weights, num_samples, generator=None, u=None):
 
 def systematic_resample(weights, num_samples, generator=None, u=None):
     """Systematic (low-variance) resampling: one uniform, a strided comb."""
-    return _scatter_counts_to_parents(
+    return _counts_to_parents(
         systematic_counts(weights, num_samples, generator, u), num_samples)
 
 
@@ -95,7 +115,7 @@ def stratified_counts(weights, num_samples, generator=None, u=None):
 
 def stratified_resample(weights, num_samples, generator=None, u=None):
     """Stratified resampling: one uniform per stratum [j/n, (j+1)/n)."""
-    return _scatter_counts_to_parents(
+    return _counts_to_parents(
         stratified_counts(weights, num_samples, generator, u), num_samples)
 
 
@@ -103,6 +123,13 @@ _RESAMPLERS = {
     "multinomial": multinomial_resample,
     "systematic": systematic_resample,
     "stratified": stratified_resample,
+}
+
+# the cumulative-count cores of the counts-based resamplers (multinomial has
+# no closed-form counts)
+_COUNTS_FNS = {
+    "systematic": systematic_counts,
+    "stratified": stratified_counts,
 }
 
 # shape of the uniforms each resampler draws, given num_samples
@@ -122,12 +149,20 @@ def get_resampler(name: str):
         ) from None
 
 
+def get_counts_fn(name: str):
+    """The cumulative-count core of a counts-based resampler, or None
+    (multinomial)."""
+    return _COUNTS_FNS.get(name)
+
+
 __all__ = [
+    "effective_sample_size",
     "multinomial_resample",
     "systematic_counts",
     "systematic_resample",
     "stratified_counts",
     "stratified_resample",
     "get_resampler",
+    "get_counts_fn",
     "UNIFORM_SHAPES",
 ]

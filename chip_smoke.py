@@ -8,28 +8,44 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. Environment: torch and CUDA versions, the card's name and power limit.
-2. Build the CUDA kernels (K1–K4, K6–K9) from
+2. Build the CUDA kernels (K1–K12) from
    ``bayesianfiltering_tpu_torch/csrc``, one nvcc per source, in parallel.
 3. Each kernel against its plain PyTorch version on the card, float32 and
    float64, at the main paths' shapes and at its size band's edge; a
-   non-positive-definite S or P must give NaN on both sides. Times each
-   kernel and its plain version with CUDA events at the main-path shape and
-   computes its bound (bytes over 3.35 TB/s or flops over the peak rate,
-   whichever is larger).
+   non-positive-definite S or P must give NaN on both sides, and K10's
+   guard lanes (a C1 with a −1e-8 eigenvalue, a C1 with an infinite entry)
+   the same finite and non-finite entries. K5 (integer parents) must equal
+   its plain version exactly at n = 2²⁰ and 65,536 on five weight
+   profiles, and at the Gaussian-sum reductions' m counts → n slots. Times each kernel and its plain version with CUDA events at
+   the main-path shape and computes its bound (bytes over 3.35 TB/s or
+   flops over the peak rate, whichever is larger), and reads the kernel's
+   own device time from torch.profiler (the CUDA-event time of a loop of
+   wrapper calls is the host's time where the kernel is shorter than its
+   wrapper); K5 also gets the time of ``torch.searchsorted``, one PyTorch
+   call computing its function.
 4. Kernel path (card) against plain path (CPU) end to end, with the same
    data and the same draws: the batched EKF and UKF (additive and
    augmented) on Lorenz-96, the GSF and AGSF on bearings-only tracking, the
-   UGSF and UAGSF on range-bearing tracking.
+   UGSF and UAGSF on range-bearing tracking, the bootstrap PF (float64,
+   65,536 particles, so K5 runs) on Lorenz-96 dx=8, and the parallel
+   Kalman smoother at T=4,096, chunk 128.
 5. The main paths, each with every launch counter reset just before it and
    read just after: the batched EKF on Lorenz-96 (dx=64, dy=32, B=512
    sequences, T=1000; data from the RK4 model, filter on the Euler model);
-   the GSF and AGSF on bearings-only tracking; the batched UKF on the same
+   the GSF and AGSF on bearings-only tracking (the AGSF's systematic
+   reduction runs K5 once per step); the batched UKF on the same
    Lorenz-96 data, additive and augmented (Cholesky sigma points, T=1000)
    and additive with the Newton–Schulz root (T=100); the UGSF (M=100) and
-   the UAGSF ([16,2,2], systematic) on range-bearing tracking at T=500.
-   Checks finiteness, shapes and the launch counts of every kernel.
-6. The device's busy and idle share of the batched UKF step under
-   torch.profiler.
+   the UAGSF ([16,2,2], systematic, K5 once per step) on range-bearing
+   tracking at T=500;
+   the bootstrap PF at 1M particles on Lorenz-96 dx=8, dy=4, T=100
+   (systematic, ESS threshold 0.5; K5 once per resampling step); the
+   parallel Kalman smoother at T=1M, dx=4, dy=2, chunk 128 (K10 and K12
+   320 times each, K11 once). Checks finiteness, shapes and the launch
+   counts of every kernel.
+6. The device's busy and idle share, and the kernels with the most
+   device time, under torch.profiler: the batched UKF step, ten steps of
+   the 1M-particle BPF, one run of the T=1M parallel smoother.
 
 The last three lines: a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -68,6 +84,38 @@ UKF_SQRTM_T = 100
 BOT_EXP_T, RB_CMP_T = 500, 50
 UGSF_M, UAGSF_COMPS = 100, [16, 2, 2]
 PROFILE_T = 10
+# path A: experiments/headline_bench.py's 1M-particle BPF row
+BPF_DX, BPF_DY, BPF_P, BPF_T = 8, 4, 1_000_000, 100
+BPF_CMP_P, BPF_CMP_T = 65_536, 20
+# path B: experiments/parallel_kf_bench.py's linear workload
+KF_DX, KF_DY, KF_T, KF_CHUNK, KF_CMP_T = 4, 2, 1_000_000, 128, 4096
+# chunked_associative_scan at T = 1M, chunk 128: 128 in-chunk combines
+# over G = 7,813 lanes, 128 over 62, 62 sequential ones on the top level,
+# then the two broadcast combines over (128, 62) and (128, 7,813)
+KF_COMBINES = 128 + 128 + 62 + 1 + 1
+KF_LANES = -(-KF_T // KF_CHUNK)                       # 7,813
+# each kernel's CUDA symbols (K7 is its points kernel and the one-block
+# factor of the shared noise covariance)
+KERNEL_SYMBOLS = {
+    "bft_ekf_update": ("ekf_update_kernel",),
+    "bft_ekf_predict_cov": ("ekf_predict_cov_kernel",),
+    "bft_bank_update": ("bank_update_kernel",),
+    "bft_bank_predict_cov": ("bank_predict_cov_kernel",),
+    "bft_resample_parents": ("resample_parents_kernel",),
+    "bft_ut_sigma": ("ut_sigma_kernel",),
+    "bft_ut_sigma_aug": ("ut_sigma_aug_kernel", "ut_noise_sigma_kernel"),
+    "bft_ut_update": ("ut_update_kernel",),
+    "bft_ut_predict": ("ut_predict_kernel",),
+    "bft_bank_combine": ("bank_combine_kernel",),
+    "bft_bank_smoother_elements": ("bank_smoother_elements_kernel",),
+    "bft_bank_smoother_combine": ("bank_smoother_combine_kernel",),
+}
+KERNEL_IDS = {"bft_ekf_update": 1, "bft_ekf_predict_cov": 2,
+              "bft_bank_update": 3, "bft_bank_predict_cov": 4,
+              "bft_resample_parents": 5, "bft_ut_sigma": 6,
+              "bft_ut_sigma_aug": 7, "bft_ut_update": 8, "bft_ut_predict": 9,
+              "bft_bank_combine": 10, "bft_bank_smoother_elements": 11,
+              "bft_bank_smoother_combine": 12}
 
 # Roofline of an H100 SXM at its 700 W limit (NVIDIA's data sheet): memory
 # 3.35 TB/s; CUDA-core (non-tensor) peaks 67 TFLOP/s in float32 and
@@ -110,6 +158,28 @@ def cuda_time_ms(fn, reps: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, symbols, reps: int = 20):
+    """The kernel's own device time per call of ``fn``, from torch.profiler:
+    the device time of the events named by ``symbols`` over ``reps`` calls.
+    CUDA events around a loop of calls (``cuda_time_ms``) measure the
+    wrapper's host time instead whenever the kernel is shorter than it.
+    None when the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU
+                and any(s in e.key for s in symbols))
+    return total / 1e3 / reps if total else None
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +229,26 @@ def ut_predict_flops(rows, dx):
     return rows * dx * dx + 2 * rows * dx + dx * dx + 2 * dx
 
 
+def combine_flops(n):
+    """K10: chol(C1 + εI) n³/3, J2U with the triangular U n³, the congruence
+    UᵀJ2U n³/2, chol and L⁻¹ of the inner matrix n³/3 each, its inverse
+    L⁻ᵀL⁻¹ n³/3, V = inner⁻¹(J2U)ᵀ 2n³, U V n³, A2 M⁻¹ and A 2n³ each,
+    A2M C1 A2ᵀ 3n³ (a product and a symmetric one), A1ᵀ (M⁻ᵀ J2) A1 5n³,
+    five matrix-vector products for b and η 10n²: 107n³/6 + 10n²."""
+    return 107 * n ** 3 / 6 + 10 * n * n
+
+
+def elements_flops(n):
+    """K11: chol(Pp) and L⁻¹ n³/3 each, F Pf 2n³, the two triangular solves
+    n³ each, G Lp n³, the symmetric (G Lp)(G Lp)ᵀ n³, G mp 2n²."""
+    return 20 * n ** 3 / 3 + 2 * n * n
+
+
+def scombine_flops(n):
+    """K12: E1 E2 2n³, E1 L2 2n³, the symmetric (E1 L2) E1ᵀ n³, E1 g2 2n²."""
+    return 5 * n ** 3 + 2 * n * n
+
+
 def bound(tensors, outputs, flops, dtype_name):
     """(bound_ms, bound_by): every input read once and every output written
     once at the memory rate, or the operations at the CUDA-core peak."""
@@ -174,6 +264,9 @@ def kernel_cases():
     launch, timed) — timed is "main" for the kernel's main-path shape,
     "also" for a second timed shape of the main path, else None."""
     from bayesianfiltering_tpu_torch import testing
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+    from bayesianfiltering_tpu_torch.ops import bank_combine as bc
+    from bayesianfiltering_tpu_torch.ops import bank_smoother as bs
     from bayesianfiltering_tpu_torch.ops import bank_update as bu
     from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
     from bayesianfiltering_tpu_torch.ops import fused_ut as fu
@@ -181,6 +274,45 @@ def kernel_cases():
 
     up = ParamsUKF(1.0, 2.0, 0.0)
     cases = []
+
+    def pairs(make_bank, M, dx, chunk):
+        """Left and right operands over M lanes, or the chunked scan's step
+        4: left (1, M) against right (chunk, M)."""
+        def make(r):
+            if chunk is None:
+                return make_bank(r, M, dx) + make_bank(r, M, dx)
+            left = tuple(x[None] for x in make_bank(r, M, dx))
+            right = tuple(x.reshape((chunk, M) + x.shape[1:])
+                          for x in make_bank(r, chunk * M, dx))
+            return left + right
+        return make
+
+    def fcombine(M, dx, chunk=None, timed=None):
+        shape = f"M={M},dx={dx}" if chunk is None else \
+            f"(1,{M}) x ({chunk},{M}),dx={dx}"
+        cases.append((bc.K10, lambda *a: bc.bank_filter_combine(a[:5], a[5:]),
+                      lambda *a: tas._combine(a[:5], a[5:]), shape,
+                      pairs(testing.filter_elements, M, dx, chunk), (),
+                      M * (chunk or 1) * combine_flops(dx), timed))
+
+    def scombine(M, dx, chunk=None, timed=None):
+        shape = f"M={M},dx={dx}" if chunk is None else \
+            f"(1,{M}) x ({chunk},{M}),dx={dx}"
+        cases.append((bs.K12,
+                      lambda *a: bs.bank_smoother_combine(a[:3], a[3:]),
+                      lambda *a: tas._smoother_combine(a[:3], a[3:]), shape,
+                      pairs(testing.smoother_elements, M, dx, chunk), (),
+                      M * (chunk or 1) * scombine_flops(dx), timed))
+
+    def elements(M, dx, timed=None):
+        def make(r):  # F shared by every lane, as on the smoother's path
+            fm, fP, pm, pP, F = testing.smoother_element_inputs(r, M, dx)
+            return fm, fP, pm, pP, F[0]
+        cases.append((bs.K11,
+                      lambda fm, fP, pm, pP, F: bs.bank_smoother_elements(
+                          fm, fP, pm, pP, F.expand(M, dx, dx)),
+                      bs._elements_plain, f"M={M},dx={dx},F shared", make, (),
+                      M * elements_flops(dx), timed))
 
     def upd(kernel, wrap, plain, B, dx, dy, timed=None):
         cases.append((kernel, wrap, plain, f"B={B},dx={dx},dy={dy}",
@@ -257,6 +389,20 @@ def kernel_cases():
     ut_predict(100, 12, 4, False)
     ut_predict(32, 12, 4, False)
     ut_predict(2, 256, 128, True)
+    # the parallel Kalman smoother at T = 1M, chunk 128, dx = 4: in-chunk
+    # combines over 7,813 lanes (128 of the 320) and the broadcast of step
+    # 4 over 1,000,064; the elements over 999,999 steps; the band edge
+    fcombine(KF_LANES, KF_DX, timed="main")
+    fcombine(KF_LANES, KF_DX, chunk=KF_CHUNK, timed="also")
+    fcombine(62, 2)
+    fcombine(4096, 8)
+    elements(KF_T - 1, KF_DX, timed="main")
+    elements(4096, 8)
+    elements(100, 3)
+    scombine(KF_LANES, KF_DX, timed="main")
+    scombine(KF_LANES, KF_DX, chunk=KF_CHUNK, timed="also")
+    scombine(4096, 8)
+    scombine(62, 3, chunk=5)
     return cases
 
 
@@ -265,12 +411,13 @@ def _as_tuple(x):
 
 
 def nan_checks(dev) -> None:
-    """A non-positive-definite S (K1, K3, K8) or P (K6, K7) gives NaN in the
-    same places on both sides, and never an exception."""
+    """A non-positive-definite S (K1, K3, K8), P (K6, K7) or Pp (K11) gives
+    NaN in the same places on both sides, and never an exception."""
     import numpy as np
     import torch
 
     from bayesianfiltering_tpu_torch import testing
+    from bayesianfiltering_tpu_torch.ops import bank_smoother as bs
     from bayesianfiltering_tpu_torch.ops import bank_update as bu
     from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
     from bayesianfiltering_tpu_torch.ops import fused_ut as fu
@@ -302,6 +449,9 @@ def nan_checks(dev) -> None:
     a[6] = neg_eye(a[6])
     checks.append((fu.K8, fu.fused_ut_update, fu._ut_update_plain,
                    a + [1 / 128, 0.0, True]))
+    a = f64(testing.smoother_element_inputs(rng, 64, 4))
+    a[3] = neg_eye(a[3])
+    checks.append((bs.K11, bs.bank_smoother_elements, bs._elements_plain, a))
     for kernel, wrap, plain, args in checks:
         got, want = _as_tuple(wrap(*args)), _as_tuple(plain(*args))
         torch.cuda.synchronize()
@@ -311,6 +461,111 @@ def nan_checks(dev) -> None:
             raise RuntimeError(f"{kernel.name}: a non-PD input did not give "
                                "NaN in the same places on both sides")
         log(f"kernel {kernel.name} non-PD input: NaN on both sides ok")
+
+
+def guard_checks(dev) -> None:
+    """K10's Cholesky guard: lane 0's C1 has a −1e-8 eigenvalue (below the
+    combine's jitter ε), lane 1's an infinite off-diagonal pair. Both
+    factors fail and are zeroed (M⁻¹ = I) on both sides: the outputs must
+    be non-finite in the same places, the finite ones within KERNEL_TOL,
+    and lane 0 finite throughout."""
+    import numpy as np
+    import torch
+
+    from bayesianfiltering_tpu_torch import testing
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+    from bayesianfiltering_tpu_torch.ops import bank_combine as bc
+
+    for dx in (KF_DX, 8):
+        rng = np.random.default_rng(SEED + dx)
+        raw = (testing.guard_lanes(rng, testing.filter_elements(rng, 96, dx))
+               + testing.filter_elements(rng, 96, dx))
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[-1]
+            a = [torch.as_tensor(x, dtype=dtype, device=dev) for x in raw]
+            got = bc.bank_filter_combine(a[:5], a[5:])
+            want = tas._combine(a[:5], a[5:])
+            torch.cuda.synchronize()
+            errs = []
+            for g, w in zip(got, want):
+                bad = ~torch.isfinite(w)
+                if not torch.equal(bad, ~torch.isfinite(g)):
+                    raise RuntimeError(f"K10 guard dx={dx} {name}: non-finite "
+                                       "entries differ from the plain version")
+                errs.append(rel_err(torch.where(bad, 0, g),
+                                    torch.where(bad, 0, w)))
+            if max(errs) > KERNEL_TOL[name] or not all(
+                    torch.isfinite(g[0]).all() for g in got):
+                raise RuntimeError(f"K10 guard dx={dx} {name}: {errs}")
+            log(f"kernel {bc.K10.name} guard lanes dx={dx} {name}: same "
+                f"non-finite entries, rel err {max(errs):.3e} ok")
+
+
+def check_parents(dev) -> dict:
+    """K5 against its plain version (the scatter), exactly, at n = 2²⁰ and
+    65,536 on the five weight profiles and at the Gaussian-sum reductions'
+    m counts → n slots; then K5, the scatter and
+    ``torch.searchsorted`` timed at the path's n = 1M. Bound: 4 bytes read
+    and 4 written per slot (the n·log₂ n comparisons take less at any
+    CUDA-core rate)."""
+    import numpy as np
+    import torch
+
+    from bayesianfiltering_tpu_torch import testing
+    from bayesianfiltering_tpu_torch.ops import resample_gather as rg
+    from bayesianfiltering_tpu_torch.utils import resampling as rs
+
+    rng = np.random.default_rng(SEED)
+    for n in (1 << 20, 1 << 16):
+        for profile in testing.PARENT_PROFILES:
+            counts = torch.as_tensor(testing.resampling_counts(profile, n, rng),
+                                     device=dev)
+            before = rg.K5.launches
+            got = rg.windowed_parents(counts, n)
+            want = rg._parents_plain(counts.clamp(0, n).to(torch.int32), n)
+            torch.cuda.synchronize()
+            if rg.K5.launches != before + 1 or not torch.equal(got, want):
+                raise RuntimeError(f"K5 differs from its plain version at "
+                                   f"n={n}, {profile}")
+            log(f"kernel {rg.K5.name} n={n} {profile}: equal to the plain "
+                "version ok")
+    # the Gaussian-sum reductions keep n of m components (AGSF [50,2,2],
+    # [8,2,2], UAGSF [16,2,2])
+    for m, n in ((200, 50), (32, 8), (64, 16)):
+        w = torch.as_tensor(rng.dirichlet(np.full(m, 0.5)), device=dev)
+        counts = rs.systematic_counts(w, n, u=torch.tensor(0.37))
+        before = rg.K5.launches
+        got = rg.windowed_parents(counts, n)
+        want = rg._parents_plain(counts.clamp(0, n).to(torch.int32), n)
+        torch.cuda.synchronize()
+        if rg.K5.launches != before + 1 or not torch.equal(got, want):
+            raise RuntimeError(f"K5 differs from its plain version at m={m}, "
+                               f"n={n}")
+        log(f"kernel {rg.K5.name} m={m} n={n}: equal to the plain version ok")
+    n = BPF_P
+    counts = torch.as_tensor(testing.resampling_counts("dirichlet", n, rng),
+                             device=dev).to(torch.int32)
+    slots = torch.arange(n, dtype=torch.int32, device=dev)
+    library = lambda: torch.searchsorted(counts, slots,
+                                         right=True).clamp_max_(n - 1)
+    got = rg._parents_launch(counts, n)
+    if not torch.equal(got.long(), library()):
+        raise RuntimeError("K5 differs from torch.searchsorted")
+    ms = cuda_time_ms(lambda: rg._parents_launch(counts, n))
+    plain_ms = cuda_time_ms(lambda: rg._parents_plain(counts, n))
+    library_ms = cuda_time_ms(library)
+    dev_ms = device_ms(lambda: rg._parents_launch(counts, n),
+                       KERNEL_SYMBOLS[rg.K5.name])
+    bound_ms, bound_by = bound([counts], [got], n * np.log2(n), "float32")
+    log(f"  time at n={n} int32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.searchsorted {library_ms:.4f} ms, bound {bound_ms:.3g} ms "
+        f"({bound_by}), bound share {bound_ms / ms:.3g}; device time "
+        f"{dev_ms} ms")
+    return dict(shape=f"n={n},int32,Dirichlet(0.5)", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / ms,
+                device_ms=dev_ms,
+                device_bound_share=bound_ms / dev_ms if dev_ms else None)
 
 
 def check_kernels(dev) -> dict:
@@ -346,10 +601,15 @@ def check_kernels(dev) -> dict:
                               for g, w in zip(got, want))
                 ms = cuda_time_ms(lambda: wrapper(*args, *static))
                 plain_ms = cuda_time_ms(lambda: plain(*args, *static))
+                dev_ms = device_ms(lambda: wrapper(*args, *static),
+                                   KERNEL_SYMBOLS[kernel.name])
                 bound_ms, bound_by = bound(args, list(got), flops, name)
                 entry = dict(shape=shape + ",float32", max_abs_err=abs_err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, bound_share=bound_ms / ms)
+                             bound_by=bound_by, bound_share=bound_ms / ms,
+                             device_ms=dev_ms,
+                             device_bound_share=(bound_ms / dev_ms
+                                                 if dev_ms else None))
                 if timed == "main":
                     report.setdefault(kernel.name, {}).update(entry)
                 else:
@@ -357,8 +617,11 @@ def check_kernels(dev) -> dict:
                         "also", []).append(entry)
                 log(f"  time at {shape} float32: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {bound_ms:.3g} ms "
-                    f"({bound_by}), bound share {bound_ms / ms:.3g}")
+                    f"({bound_by}), bound share {bound_ms / ms:.3g}; "
+                    f"device time {dev_ms} ms")
     nan_checks(dev)
+    guard_checks(dev)
+    report["bft_resample_parents"] = check_parents(dev)
     return report
 
 
@@ -465,6 +728,45 @@ def run_ukf_mixture(label, comps, params, inputs, emissions, draws):
                               reduction="systematic", draws=draws)[0]
 
 
+def kf_problem(T, dtype, dev):
+    """Path B's model (experiments/parallel_kf_bench.py): dx=4, dy=2,
+    F = 0.99·I + 0.01·N(0,1)/dx, H = N(0,1)/dx, Q = R = 0.1·I, from the
+    seed; emissions N(0, 1), made on the device."""
+    import numpy as np
+    import torch
+
+    from bayesianfiltering_tpu_torch.ops.linear import ParamsLGSSM
+
+    rng = np.random.default_rng(SEED)
+    dx, dy = KF_DX, KF_DY
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
+    params = ParamsLGSSM(
+        initial_mean=t(np.zeros(dx)), initial_covariance=t(np.eye(dx)),
+        dynamics_matrix=t(0.99 * np.eye(dx)
+                          + 0.01 * rng.standard_normal((dx, dx)) / dx),
+        dynamics_covariance=t(0.1 * np.eye(dx)),
+        emission_matrix=t(rng.standard_normal((dy, dx)) / dx),
+        emission_covariance=t(0.1 * np.eye(dy)))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ys = torch.randn(T, dy, generator=gen, dtype=dtype, device=dev)
+    return params, ys
+
+
+def bpf_problem(T, dtype, dev):
+    """Path A's model (experiments/headline_bench.py): Lorenz-96 dx=8, dy=4,
+    data from the RK4 model, one sequence; the filter on the Euler model."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models import zoo
+
+    _, _, bpf = zoo.lorenz96(BPF_DX, BPF_DY, dtype=dtype, device=dev)
+    dm, dp, _ = zoo.lorenz96(BPF_DX, BPF_DY, integrator="rk4", dtype=dtype,
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + T)
+    states, emissions = dm.sample(dp, T, generator=gen)
+    return bpf, states, emissions
+
+
 def compare_paths(dev) -> None:
     """Phase 4: kernel path on the card vs plain path on the CPU."""
     import torch
@@ -554,6 +856,55 @@ def compare_paths(dev) -> None:
             raise RuntimeError(f"{label} kernel path disagrees with the plain "
                                "path")
 
+    # the bootstrap PF over K5's gate, float64, the same draws on both
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+    from bayesianfiltering_tpu_torch.ops import resample_gather as rg
+
+    bpf, _, em = bpf_problem(BPF_CMP_T, torch.float64, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    draws = inf.bpf_draws(gen, BPF_CMP_T, BPF_CMP_P, BPF_DX, BPF_DX,
+                          "systematic", em)
+    before = rg.K5.launches
+    got = inf.bootstrap_particle_filter(bpf, em, BPF_CMP_P, store="summary",
+                                        draws=draws)
+    torch.cuda.synchronize()
+    launched = rg.K5.launches - before
+    cpu_bpf = zoo.lorenz96(BPF_DX, BPF_DY, dtype=torch.float64,
+                           device="cpu")[2]
+    want = inf.bootstrap_particle_filter(
+        cpu_bpf, em.cpu(), BPF_CMP_P, store="summary",
+        draws=inf.BPFDraws(*(d.cpu() for d in draws)))
+    errs = [rel_err(got["means"], want["means"]),
+            rel_err(got["ess"], want["ess"])]
+    ok = max(errs) <= MIXTURE_TOL and launched > 0
+    log(f"bpf lorenz96 dx={BPF_DX} P={BPF_CMP_P} T={BPF_CMP_T} float64 card vs "
+        f"cpu: means {errs[0]:.3e}, ess {errs[1]:.3e} (tol {MIXTURE_TOL:.0e}),"
+        f" K5 launches {launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("BPF kernel path disagrees with the plain path")
+
+    # the parallel Kalman smoother, chunk 128
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        params, ys = kf_problem(KF_CMP_T, dtype, dev)
+        got = tas.parallel_kalman_smoother(params, ys, chunk=KF_CHUNK)
+        cpu_params = type(params)(*(x.cpu() for x in params[:6]))
+        want = tas.parallel_kalman_smoother(cpu_params, ys.cpu(),
+                                            chunk=KF_CHUNK)
+        torch.cuda.synchronize()
+        errs = {n: rel_err(getattr(got, n), getattr(want, n))
+                for n in ("filtered_means", "filtered_covariances",
+                          "smoothed_means", "smoothed_covariances",
+                          "marginal_loglik")}
+        ok = max(errs.values()) <= EKF_TOL[name]
+        log(f"parallel kalman smoother T={KF_CMP_T} chunk={KF_CHUNK} {name} "
+            f"card vs cpu: " + ", ".join(f"{n} {e:.3e}"
+                                         for n, e in errs.items())
+            + f" (tol {EKF_TOL[name]:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("parallel smoother kernel path disagrees with "
+                               "the plain path")
+
 
 def run_path(label, fn, expect):
     """Run one main path with every launch counter reset just before it and
@@ -570,7 +921,8 @@ def run_path(label, fn, expect):
     for name, want in expect.items():
         if (counts[name] == 0) if want is None else (counts[name] != want):
             raise RuntimeError(f"{label}: {name} launched {counts[name]} "
-                               f"times, expected {want or 'at least one'}")
+                               "times, expected "
+                               f"{'at least one' if want is None else want}")
     log(f"{label}: launches {({k: v for k, v in counts.items() if v})}")
     return out, counts
 
@@ -655,7 +1007,10 @@ def main_path(dev, card: str) -> dict:
             f"{label} bot",
             lambda: run_mixture(label, comps, params_b, inputs, em,
                                 draws[label]),
-            {"bft_bank_update": None, "bft_bank_predict_cov": None})
+            # the AGSF reduces M·N·L → M once per step through K5; the GSF
+            # never resamples
+            {"bft_bank_update": None, "bft_bank_predict_cov": None,
+             "bft_resample_parents": 0 if label.startswith("gsf") else T})
         wall = time.perf_counter() - t0
         add(counts)
         est = check_mixture(label, post, T)
@@ -690,25 +1045,113 @@ def main_path(dev, card: str) -> dict:
             f"{label} range-bearing",
             lambda: run_ukf_mixture(label, comps, params_r, inputs, em, d),
             {"bft_ut_sigma_aug": 2 * BOT_EXP_T, "bft_ut_update": BOT_EXP_T,
-             "bft_ut_predict": BOT_EXP_T})
+             "bft_ut_predict": BOT_EXP_T,
+             "bft_resample_parents": 0 if label.startswith("ugsf")
+             else BOT_EXP_T})
         wall = time.perf_counter() - t0
         add(counts)
         est = check_mixture(label, post, BOT_EXP_T)
         log(f"{label} range-bearing T={BOT_EXP_T} float32: wall {wall:.3f} s, "
             f"rmse {float(metrics.rmse(est, states)):.4f} (utils.metrics.rmse), "
             f"loglik {float(post.marginal_loglik):.3f} ({card})")
+    # path A: the bootstrap PF at 1M particles
+    bpf, states, em = bpf_problem(BPF_T, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    inf.bootstrap_particle_filter(bpf, em[:5], BPF_P, gen, store="summary")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (out, secs), counts = run_path(
+        "bpf lorenz96",
+        lambda: timed(lambda: inf.bootstrap_particle_filter(
+            bpf, em, BPF_P, gen, store="summary")),
+        {"bft_resample_parents": None})
+    add(counts)
+    resampled = int((out["ess"] < 0.5 * BPF_P).sum())
+    if counts["bft_resample_parents"] != resampled:
+        raise RuntimeError(f"bpf: K5 launched {counts['bft_resample_parents']} "
+                           f"times for {resampled} resampling steps")
+    if (tuple(out["means"].shape) != (BPF_T, BPF_DX)
+            or tuple(out["ess"].shape) != (BPF_T,)
+            or not torch.isfinite(out["means"]).all()):
+        raise RuntimeError("bpf: outputs not finite or misshapen")
+    log(f"bpf lorenz96 dx={BPF_DX} dy={BPF_DY} P={BPF_P} T={BPF_T} float32: "
+        f"{secs:.4f} s, {BPF_T / secs:.1f} steps/s, "
+        f"{BPF_P * BPF_T / secs:.4e} particle-steps/s, {resampled} "
+        f"resampling steps, rmse {float(metrics.rmse(out['means'], states)):.4f}"
+        f", peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({card})")
+
+    # path B: the parallel Kalman smoother at T = 1M
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+
+    params, ys = kf_problem(KF_T, torch.float32, dev)
+    tas.parallel_kalman_smoother(params, ys[:KF_CMP_T], chunk=KF_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (post, secs), counts = run_path(
+        "parallel kalman smoother",
+        lambda: timed(lambda: tas.parallel_kalman_smoother(params, ys,
+                                                           chunk=KF_CHUNK)),
+        {"bft_bank_combine": KF_COMBINES, "bft_bank_smoother_elements": 1,
+         "bft_bank_smoother_combine": KF_COMBINES})
+    add(counts)
+    for name in ("filtered_means", "smoothed_means", "smoothed_covariances"):
+        x = getattr(post, name)
+        if x.shape[0] != KF_T or not torch.isfinite(x).all():
+            raise RuntimeError(f"parallel smoother: {name} not finite or "
+                               "misshapen")
+    log(f"parallel kalman smoother dx={KF_DX} dy={KF_DY} T={KF_T} "
+        f"chunk={KF_CHUNK} float32: {secs:.4f} s, {KF_T / secs:.1f} steps/s, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({card})")
     log(f"launches over the main paths: {total}")
     return total
 
 
-def profile_ukf(dev, card: str) -> None:
-    """Phase 6: device busy and idle share of the batched UKF step
-    (B=512, dx=64) over PROFILE_T steps under torch.profiler."""
+def profile_run(label: str, run, card: str) -> None:
+    """The device's busy share of ``run()`` under torch.profiler, against
+    the traced and the untraced wall, and the kernels with the most device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    run()
+    _, untraced = timed(run)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # device-side events only: a host op's self device time repeats the
+    # kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    if device_s == 0:
+        log(f"profile {label}: the profiler saw no device time; busy share "
+            "not measured")
+        return
+    log(f"profile {label}: wall {wall:.4f} s traced, {untraced:.4f} s "
+        f"untraced; device {device_s:.4f} s; busy {device_s / wall:.3f} of "
+        f"the traced wall, {device_s / untraced:.3f} of the untraced wall "
+        f"({card})")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+
+
+def profile_ukf(dev, card: str) -> None:
+    """Phase 6: device busy and idle share of the batched UKF step
+    (B=512, dx=64) over PROFILE_T steps, of PROFILE_T steps of path A and
+    of one run of path B, under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from bayesianfiltering_tpu_torch import inference as inf
+    from bayesianfiltering_tpu_torch.ops import associative as tas
 
     params, _, emissions = lorenz96_data(dev, torch.float32)
     em = emissions[:, :PROFILE_T]
@@ -718,34 +1161,20 @@ def profile_ukf(dev, card: str) -> None:
         torch.cuda.synchronize()
     for additive in (True, False):
         kind = "additive" if additive else "augmented"
-        run = lambda: inf.unscented_kalman_filter(params, ukf_params(), em,
-                                                  additive=additive)
-        run()
-        _, untraced = timed(run)
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        # device-side events only: a host op's self device time repeats
-        # the kernels it launched
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU]
-        device_s = sum(e.self_device_time_total for e in kernels) / 1e6
-        if device_s == 0:
-            log(f"profile ukf {kind}: the profiler saw no device time; busy "
-                "share not measured")
-            continue
-        log(f"profile ukf {kind} B={EKF_B} dx={EKF_DX} {PROFILE_T} steps "
-            f"float32: wall {wall:.4f} s traced, {untraced:.4f} s untraced; "
-            f"device {device_s:.4f} s; busy {device_s / wall:.3f} of the "
-            f"traced wall, {device_s / untraced:.3f} of the untraced wall "
-            f"({card})")
-        for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                        reverse=True)[:8]:
-            log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
-                f"{e.key[:90]}")
+        profile_run(
+            f"ukf {kind} B={EKF_B} dx={EKF_DX} {PROFILE_T} steps float32",
+            lambda: inf.unscented_kalman_filter(params, ukf_params(), em,
+                                                additive=additive), card)
+
+    bpf, _, bem = bpf_problem(PROFILE_T, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    profile_run(f"bpf P={BPF_P} dx={BPF_DX} {PROFILE_T} steps float32",
+                lambda: inf.bootstrap_particle_filter(bpf, bem, BPF_P, gen,
+                                                      store="summary"), card)
+    kparams, ys = kf_problem(KF_T, torch.float32, dev)
+    profile_run(f"parallel kalman smoother T={KF_T} chunk={KF_CHUNK} float32",
+                lambda: tas.parallel_kalman_smoother(kparams, ys,
+                                                     chunk=KF_CHUNK), card)
 
 
 def main() -> int:
@@ -789,18 +1218,25 @@ def main() -> int:
     profile_ukf(dev, card)
 
     kernels = []
-    for k in _build.KERNELS:
+    for k in sorted(_build.KERNELS, key=lambda k: KERNEL_IDS[k.name]):
         t = timing[k.name]
-        log(f"{k.name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.3g} ms ({t['bound_by']}), bound share "
-            f"{t['bound_share']:.3g}, launches {counts[k.name]} ({card})")
-        kernels.append({"name": k.name, "route": "cuda", "source": k.source,
+        lib = t.get("library_ms")
+        log(f"K{KERNEL_IDS[k.name]} {k.name}: {t['ms']:.4f} ms (device "
+            f"{t['device_ms']} ms), plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.3g} ms "
+            f"({t['bound_by']}), bound share {t['bound_share']:.3g}, library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, launches "
+            f"{counts[k.name]} ({card})")
+        kernels.append({"name": k.name, "id": f"K{KERNEL_IDS[k.name]}",
+                        "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": counts[k.name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": None,
-                        "bound_share": t["bound_share"], "shape": t["shape"],
-                        "also": t.get("also", [])})
+                        "bound_by": t["bound_by"], "library_ms": lib,
+                        "bound_share": t["bound_share"],
+                        "device_ms": t["device_ms"],
+                        "device_bound_share": t["device_bound_share"],
+                        "shape": t["shape"], "also": t.get("also", [])})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 twin, and the filters' kernel path against their plain path on the CPU.
 
-Needs a CUDA device; every test skips without one. This file imports no
+Needs a CUDA device; every test skips without one. Covers K1–K12. This file imports no
 JAX, so it also runs where JAX is not installed (the repository's
 conftest.py imports JAX, hence ``--noconftest``):
 
@@ -17,9 +17,14 @@ import torch
 
 from bayesianfiltering_tpu_torch import _build, inference, testing
 from bayesianfiltering_tpu_torch.models import zoo
+from bayesianfiltering_tpu_torch.ops import associative as tas
+from bayesianfiltering_tpu_torch.ops import bank_combine as bc
+from bayesianfiltering_tpu_torch.ops import bank_smoother as bs
 from bayesianfiltering_tpu_torch.ops import bank_update as bu
 from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
 from bayesianfiltering_tpu_torch.ops import fused_ut as fu
+from bayesianfiltering_tpu_torch.ops import linear
+from bayesianfiltering_tpu_torch.ops import resample_gather as rg
 from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
 
 pytestmark = pytest.mark.cuda
@@ -123,7 +128,7 @@ def test_agsf_kernel_path_matches_plain_path(dev):
         reduction="systematic",
         draws=inference.AGSFDraws(*(d.to(dev) for d in draws)))
     torch.cuda.synchronize()
-    assert bu.K3.launches == T and bu.K4.launches == T
+    assert (bu.K3.launches, bu.K4.launches, rg.K5.launches) == (T, T, T)
     want, _ = inference.augmented_gaussian_sum_filter(
         params, emissions, [6, 2, 2], inputs=inputs, reduction="systematic",
         draws=draws)
@@ -226,7 +231,8 @@ def test_uagsf_kernel_path_matches_plain_path(dev):
         opt_args=(0.9, 0.9), reduction="systematic",
         draws=inference.AGSFDraws(*(d.to(dev) for d in draws)))
     torch.cuda.synchronize()
-    assert (fu.K7.launches, fu.K8.launches, fu.K9.launches) == (2 * T, T, T)
+    assert (fu.K7.launches, fu.K8.launches, fu.K9.launches,
+            rg.K5.launches) == (2 * T, T, T, T)
     want, _ = inference.unscented_agsf(
         params, up, emissions, [6, 2, 2], inputs=inputs, opt_args=(0.9, 0.9),
         reduction="systematic", draws=draws)
@@ -241,3 +247,209 @@ def test_ut_outside_the_band_raises(dev):
     with pytest.raises(NotImplementedError):
         fu.fused_sigma(*args, 1.0, "cholesky")
     assert fu.K6.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K5: parents from cumulative counts
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [65536, 70001])
+@pytest.mark.parametrize("profile", testing.PARENT_PROFILES)
+def test_parents_kernel_equals_plain(dev, n, profile):
+    counts = testing.to_torch(
+        testing.resampling_counts(profile, n, np.random.default_rng(n)),
+        device=dev)
+    before = rg.K5.launches
+    got = rg.windowed_parents(counts, n)
+    torch.cuda.synchronize()
+    assert rg.K5.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), rg.windowed_parents(counts.cpu(), n))
+
+
+@pytest.mark.parametrize("m,n", [(200, 200), (200, 50), (24, 6)])
+def test_small_resampling_runs_the_kernel(dev, m, n):
+    """The Gaussian-sum reductions keep n of m components: K5 runs there
+    too (it has no size gate), with the CPU's int64 indices."""
+    w = torch.rand(m, device=dev, dtype=torch.float64)
+    before = rg.K5.launches
+    idx = inference._rs.systematic_resample(w / w.sum(), n,
+                                            u=torch.tensor(0.3))
+    torch.cuda.synchronize()
+    assert rg.K5.launches == before + 1 and idx.dtype == torch.int64
+    want = inference._rs.systematic_resample((w / w.sum()).cpu(), n,
+                                             u=torch.tensor(0.3))
+    assert torch.equal(idx.cpu(), want)
+
+
+def test_bpf_kernel_path_matches_plain_path(dev):
+    P, T = 65536, 8
+    _, _, bpf = zoo.lorenz96(4, 2, dtype=torch.float64, device=dev)
+    model, data_params, _ = zoo.lorenz96(4, 2, integrator="rk4",
+                                         dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, emissions = model.sample(data_params, T, generator=gen)
+    draws = inference.bpf_draws(gen, T, P, 4, 4, "systematic", emissions)
+    _build.reset_launch_counts()
+    got = inference.bootstrap_particle_filter(
+        bpf, emissions, P, store="summary", ess_threshold=2.0, draws=draws)
+    torch.cuda.synchronize()
+    assert rg.K5.launches == T
+    cpu_bpf = zoo.lorenz96(4, 2, dtype=torch.float64, device="cpu")[2]
+    want = inference.bootstrap_particle_filter(
+        cpu_bpf, emissions.cpu(), P, store="summary", ess_threshold=2.0,
+        draws=inference.BPFDraws(*(d.cpu() for d in draws)))
+    for name in ("means", "ess"):
+        assert_close(got[name], want[name], 1e-9)
+
+
+# ---------------------------------------------------------------------------
+# K10–K12: the parallel Kalman smoother's combines and elements
+# ---------------------------------------------------------------------------
+
+
+def _dev(arrays, dtype, dev):
+    return [testing.to_torch(a, dtype, dev) for a in arrays]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,M", [(4, 130), (8, 129), (1, 5), (3, 1)])
+def test_filter_combine_kernel_matches_plain(dev, dtype, dx, M):
+    rng = np.random.default_rng(dx * M)
+    left = _dev(testing.filter_elements(rng, M, dx, singular_head=M // 4),
+                dtype, dev)
+    right = _dev(testing.filter_elements(rng, M, dx), dtype, dev)
+    before = bc.K10.launches
+    got = bc.bank_filter_combine(left, right)
+    torch.cuda.synchronize()
+    assert bc.K10.launches == before + 1
+    for g, w in zip(got, tas._combine(left, right)):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_combine_kernels_broadcast_the_left_operand(dev, dtype):
+    """The chunked scan's step 4: (1, G) against (chunk, G), read in place
+    (lane m mod G), not materialised."""
+    rng = np.random.default_rng(1)
+    G, C = 7, 5
+    for make, wrap, plain, n in (
+            (testing.filter_elements, bc.bank_filter_combine, tas._combine,
+             5),
+            (testing.smoother_elements, bs.bank_smoother_combine,
+             tas._smoother_combine, 3)):
+        left = [x[None] for x in _dev(make(rng, G, 4), dtype, dev)]
+        right = [x.reshape((C, G) + x.shape[1:])
+                 for x in _dev(make(rng, C * G, 4), dtype, dev)]
+        got = wrap(left, right)
+        torch.cuda.synchronize()
+        for g, w in zip(got, plain(left, right)):
+            assert g.shape[:2] == (C, G)
+            assert_close(g, w, TOL[dtype])
+        assert len(got) == n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_filter_combine_guard_lanes(dev, dtype):
+    """A C1 with a −1e-8 eigenvalue and one with an infinite entry: both
+    factors are zeroed on both sides, and the outputs are non-finite in the
+    same places."""
+    rng = np.random.default_rng(2)
+    left = _dev(testing.guard_lanes(rng, testing.filter_elements(rng, 64, 4)),
+                dtype, dev)
+    right = _dev(testing.filter_elements(rng, 64, 4), dtype, dev)
+    got = bc.bank_filter_combine(left, right)
+    want = tas._combine(left, right)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        bad = ~torch.isfinite(w)
+        assert torch.equal(bad, ~torch.isfinite(g))
+        assert torch.isfinite(g[0]).all()
+        assert_close(torch.where(bad, 0, g), torch.where(bad, 0, w),
+                     TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,M,shared", [(4, 1000, True), (8, 129, False),
+                                         (2, 7, True)])
+def test_elements_kernel_matches_plain(dev, dtype, dx, M, shared):
+    fm, fP, pm, pP, F = _dev(
+        testing.smoother_element_inputs(np.random.default_rng(dx), M, dx),
+        dtype, dev)
+    if shared:
+        F = F[0].expand(M, dx, dx)
+    before = bs.K11.launches
+    got = bs.bank_smoother_elements(fm, fP, pm, pP, F)
+    torch.cuda.synchronize()
+    assert bs.K11.launches == before + 1
+    for g, w in zip(got, bs._elements_plain(fm, fP, pm, pP, F)):
+        assert_close(g, w, TOL[dtype])
+
+
+def test_elements_kernel_nan_on_non_pd(dev):
+    fm, fP, pm, pP, F = _dev(
+        testing.smoother_element_inputs(np.random.default_rng(3), 9, 4),
+        torch.float64, dev)
+    pP = -pP
+    for g, w in zip(bs.bank_smoother_elements(fm, fP, pm, pP, F),
+                    bs._elements_plain(fm, fP, pm, pP, F)):
+        assert torch.isnan(g).all() and torch.isnan(w).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,M", [(4, 300), (8, 129)])
+def test_smoother_combine_kernel_matches_plain(dev, dtype, dx, M):
+    rng = np.random.default_rng(dx + M)
+    e1 = _dev(testing.smoother_elements(rng, M, dx), dtype, dev)
+    e2 = _dev(testing.smoother_elements(rng, M, dx), dtype, dev)
+    before = bs.K12.launches
+    got = bs.bank_smoother_combine(e1, e2)
+    torch.cuda.synchronize()
+    assert bs.K12.launches == before + 1
+    for g, w in zip(got, tas._smoother_combine(e1, e2)):
+        assert_close(g, w, TOL[dtype])
+
+
+def test_parallel_smoother_kernel_path_matches_plain_path(dev):
+    """T=1000, chunk 16: 16 + 16 + 4 + 1 + 1 = 38 combines of each kind."""
+    rng = np.random.default_rng(4)
+    dx, dy, T = 4, 2, 1000
+    fields = (np.zeros(dx), np.eye(dx),
+              0.99 * np.eye(dx) + 0.01 * rng.standard_normal((dx, dx)) / dx,
+              0.1 * np.eye(dx), rng.standard_normal((dy, dx)) / dx,
+              0.1 * np.eye(dy))
+    ys = rng.standard_normal((T, dy))
+    runs = []
+    for device in (dev, "cpu"):
+        params = linear.ParamsLGSSM(*_dev(fields, torch.float64, device))
+        _build.reset_launch_counts()
+        runs.append(tas.parallel_kalman_smoother(
+            params, testing.to_torch(ys, torch.float64, device), chunk=16))
+        torch.cuda.synchronize()
+        if device == dev:
+            assert (bc.K10.launches, bs.K11.launches,
+                    bs.K12.launches) == (38, 1, 38)
+    got, want = runs
+    for name in ("filtered_means", "filtered_covariances", "smoothed_means",
+                 "smoothed_covariances", "marginal_loglik"):
+        assert_close(getattr(got, name), getattr(want, name), 1e-9)
+
+
+@pytest.mark.parametrize("dx,dtype", [(9, torch.float64),
+                                      (4, torch.float16)])
+def test_outside_the_combine_band_raises(dev, dx, dtype):
+    """dx = 9, or a half-precision operand, is outside K10–K12's band: a
+    CUDA input raises instead of running the plain version."""
+    rng = np.random.default_rng(5)
+    fl = lambda: _dev(testing.filter_elements(rng, 4, dx), dtype, dev)
+    sm = lambda: _dev(testing.smoother_elements(rng, 4, dx), dtype, dev)
+    el = _dev(testing.smoother_element_inputs(rng, 4, dx), dtype, dev)
+    _build.reset_launch_counts()
+    for call in (lambda: bc.bank_filter_combine(fl(), fl()),
+                 lambda: bs.bank_smoother_combine(sm(), sm()),
+                 lambda: bs.bank_smoother_elements(*el)):
+        with pytest.raises(NotImplementedError, match="band"):
+            call()
+    assert (bc.K10.launches, bs.K11.launches, bs.K12.launches) == (0, 0, 0)
