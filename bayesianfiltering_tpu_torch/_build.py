@@ -72,14 +72,15 @@ _SIGNATURES = {
     "bft_bank_predict_cov_f64": ([_P] * 5 + [_I, _I, _I, _P], _I),
     "bft_ut_sigma_scratch_elems": ([_I, _I, _I, _I], _LL),
     "bft_ut_update_scratch_elems": ([_I, _I, _I, _I], _LL),
+    "bft_ut_predict_scratch_elems": ([_I, _I, _I], _LL),
     "bft_ut_sigma_f32": ([_P] * 4 + [_I, _I, _D, _I, _P], _I),
     "bft_ut_sigma_f64": ([_P] * 4 + [_I, _I, _D, _I, _P], _I),
     "bft_ut_sigma_aug_f32": ([_P] * 7 + [_I, _I, _I, _D, _I, _P], _I),
     "bft_ut_sigma_aug_f64": ([_P] * 7 + [_I, _I, _I, _D, _I, _P], _I),
     "bft_ut_update_f32": ([_P] * 12 + [_I] * 5 + [_D, _D, _P], _I),
     "bft_ut_update_f64": ([_P] * 12 + [_I] * 5 + [_D, _D, _P], _I),
-    "bft_ut_predict_f32": ([_P] * 5 + [_I, _I, _I, _D, _D, _D, _P], _I),
-    "bft_ut_predict_f64": ([_P] * 5 + [_I, _I, _I, _D, _D, _D, _P], _I),
+    "bft_ut_predict_f32": ([_P] * 6 + [_I, _I, _I, _D, _D, _D, _P], _I),
+    "bft_ut_predict_f64": ([_P] * 6 + [_I, _I, _I, _D, _D, _D, _P], _I),
     "bft_resample_parents_i32": ([_P, _P, _I, _I, _P], _I),
     "bft_bank_combine_f32": ([_P] * 15 + [_I] * 4 + [_P], _I),
     "bft_bank_combine_f64": ([_P] * 15 + [_I] * 4 + [_P], _I),
@@ -87,6 +88,13 @@ _SIGNATURES = {
     "bft_bank_smoother_elements_f64": ([_P] * 8 + [_I] * 3 + [_P], _I),
     "bft_bank_smoother_combine_f32": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "bft_bank_smoother_combine_f64": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    "bft_block_scratch_elems": ([_I] * 5, _LL),
+    "bft_block_combine_f32": ([_P] * 16 + [_I] * 4 + [_P], _I),
+    "bft_block_combine_f64": ([_P] * 16 + [_I] * 4 + [_P], _I),
+    "bft_block_smoother_elements_f32": ([_P] * 9 + [_I] * 3 + [_P], _I),
+    "bft_block_smoother_elements_f64": ([_P] * 9 + [_I] * 3 + [_P], _I),
+    "bft_block_smoother_combine_f32": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    "bft_block_smoother_combine_f64": ([_P] * 10 + [_I] * 4 + [_P], _I),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

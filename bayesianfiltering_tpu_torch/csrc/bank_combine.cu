@@ -1,6 +1,9 @@
 // The associative Kalman filtering combine (K10), the RTS smoothing
 // elements (K11) and the smoothing combine (K12), each over a bank of M
-// lanes with state dimension dx ≤ 8.
+// lanes, in two size bands: one thread per lane for dx ≤ 8 (the lane
+// kernels, `bank_*_kernel`) and one thread block per lane for
+// 8 < dx ≤ 512 (the block kernels, `block_*_kernel`, after the lane
+// kernels below).
 //
 // Replaces the TPU kernels bayesianfiltering_tpu/ops/bank_combine.py
 // `_combine_kernel` (K10, body `_combine_lattice`) and
@@ -46,6 +49,8 @@
 //        1e-30 kept its zero-padded lanes factorable; padding here has unit
 //        pivots).
 //   K12  E = E1 E2,  g = E1 g2 + g1,  L = sym(E1 L2 E1ᵀ + L1).
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -488,6 +493,367 @@ int launch_scombine(const void* E1, const void* g1, const void* L1,
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The block kernels, 8 < dx ≤ 512: the same three functions, one thread
+// block per lane.
+//
+// A lane's lattice no longer fits one thread's registers (at dx = 64 one
+// Woodbury combine is ~3.7M multiply-adds over six 64×64 intermediates), so
+// a block of kBlockThreads threads shares it: the products are the
+// block-cooperative dot products of common.cuh under fused_ekf.cu's layout
+// rule (consecutive threads own consecutive output columns; an operand that
+// would be read with a stride is transposed once into the workspace), the
+// factorisations are common.cuh's one-barrier-per-column Cholesky and
+// whole-column substitution. The intermediates live in the block's
+// workspace: dynamic shared memory when it fits (K10 at dx = 64 holds six
+// 64×64 matrices, 98 KB in float32, two blocks per SM), otherwise the
+// caller's global scratch. Inputs are read in place from global memory
+// (L1/L2 serve the repeated reads).
+//
+// The chunked scan launches these over anything from one lane (its top
+// level) to T lanes (its last broadcast, 65,536 at T = 65,536), so the grid
+// is persistent: min(M, what the SMs hold at once) blocks, each looping over
+// lanes m = blockIdx.x, blockIdx.x + gridDim.x, ... The scratch is then
+// bounded by the blocks in flight (kScratchBlocksPerSM per SM), not by M.
+//
+// What bounds them: the products run on the CUDA cores in the working type
+// (TF32 is off); at dx = 64 in float32 K10 does ~32 flops per byte it must
+// move and K11 ~27, above the card's ratio of 20, so both are
+// operation-bound, and K12 (~14) is bytes-bound. A block is held back by
+// shared-memory bandwidth in its products and by the n barriers of each
+// factorisation; at the scan's narrow levels (a few lanes) by latency.
+// ---------------------------------------------------------------------------
+
+constexpr int kBlockThreads = 256;
+constexpr int kScratchBlocksPerSM = 2;
+
+size_t block_combine_ws(int n) { return 6 * size_t(n) * n + 3 * size_t(n); }
+size_t block_elements_ws(int n) { return 4 * size_t(n) * n; }
+size_t block_scombine_ws(int n) { return 3 * size_t(n) * n; }
+
+size_t block_ws(int kind, int n) {
+  return kind == 0 ? block_combine_ws(n)
+                   : kind == 1 ? block_elements_ws(n) : block_scombine_ws(n);
+}
+
+// The global scratch, in elements, that a block kernel with a per-lane
+// workspace of ws elements needs over M lanes: 0 when the workspace fits in
+// shared memory, else kScratchBlocksPerSM workspaces per SM (at most M);
+// -1 on a failed device query.
+long long block_scratch_elems(size_t ws, int itemsize, int M, int device) {
+  int sms = 0;
+  const long long need = scratch_elems(ws, itemsize, device);
+  if (need <= 0) return need;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess)
+    return -1;
+  return (long long)std::min(M, kScratchBlocksPerSM * sms) * need;
+}
+
+// The launch shape of a block kernel over M lanes: a persistent grid of as
+// many blocks as the SMs hold at once with the workspace in dynamic shared
+// memory, or, when one lane's workspace exceeds the opt-in limit, one
+// block per scratch workspace. False on a failed device query.
+template <typename K>
+bool block_plan(K kernel, size_t ws, int itemsize, int M, int device,
+                int* grid, size_t* smem, long long* scratch) {
+  int sms = 0;
+  *scratch = block_scratch_elems(ws, itemsize, M, device);
+  if (*scratch < 0 ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess)
+    return false;
+  if (*scratch > 0) {
+    *grid = int(*scratch / (long long)ws);
+    *smem = 0;
+    return true;
+  }
+  int per_sm = 0;
+  *smem = ws * size_t(itemsize);
+  if (set_smem(kernel, *smem) != 0 ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kBlockThreads, *smem) != cudaSuccess)
+    return false;
+  *grid = std::min(M, std::max(per_sm, 1) * sms);
+  return true;
+}
+
+// K10, block variant. Woodbury combine of one lane per loop iteration;
+// the comments name each workspace matrix S0..S5 as it is reused.
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads) block_combine_kernel(
+    const T* __restrict__ A1g, const T* __restrict__ b1g,
+    const T* __restrict__ C1g, const T* __restrict__ J1g,
+    const T* __restrict__ e1g, const T* __restrict__ A2g,
+    const T* __restrict__ b2g, const T* __restrict__ C2g,
+    const T* __restrict__ J2g, const T* __restrict__ e2g, T* __restrict__ Ag,
+    T* __restrict__ bg, T* __restrict__ Cg, T* __restrict__ Jg,
+    T* __restrict__ eg, int M, int Ml, int Mr, int n, T* scratch,
+    size_t ws_elems) {
+  __shared__ int s_bad;
+  __shared__ T s_eps;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t dd = size_t(n) * n;
+  T* S0 = workspace(scratch, ws_elems);
+  T* S1 = S0 + dd;
+  T* S2 = S1 + dd;
+  T* S3 = S2 + dd;
+  T* S4 = S3 + dd;
+  T* S5 = S4 + dd;
+  T* v0 = S5 + dd;  // b1 + C1 η2
+  T* v1 = v0 + n;   // η2 − J2 b1
+  T* v2 = v1 + n;   // M⁻ᵀ (η2 − J2 b1)
+
+  for (int m = blockIdx.x; m < M; m += gridDim.x) {
+    const size_t l = Ml == M ? m : m % Ml;  // lane of the left operand
+    const size_t r = Mr == M ? m : m % Mr;  // lane of the right operand
+    const T* A1 = A1g + l * dd;
+    const T* C1 = C1g + l * dd;
+    const T* J1 = J1g + l * dd;
+    const T* b1 = b1g + l * n;
+    const T* e1 = e1g + l * n;
+    const T* A2 = A2g + r * dd;
+    const T* C2 = C2g + r * dd;
+    const T* J2 = J2g + r * dd;
+    const T* b2 = b2g + r * n;
+    const T* e2 = e2g + r * n;
+
+    // ε = 1e-7·tr(C1)/dx + 1e-30; S0 = the lower triangle of C1 + εI,
+    // column-major, factored in place: U, zeroed unless every pivot is
+    // positive (then M⁻¹ = I)
+    if (tid == 0) {
+      T tr = T(0);
+      for (int i = 0; i < n; ++i) tr += C1[i * n + i];
+      s_eps = T(1e-7) * tr / T(n) + T(1e-30);
+    }
+    __syncthreads();
+    const T eps = s_eps;
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int j = idx / n, i = idx % n;
+      S0[idx] = i >= j ? C1[i * n + j] + (i == j ? eps : T(0)) : T(0);
+    }
+    __syncthreads();
+    block_cholesky_cm(S0, n, &s_bad, T(0));  // S0 = Uᵀ (row-major)
+    block_transpose(S1, S0, n, n);           // S1 = U
+    __syncthreads();
+    block_mm_nn(S2, J2, S1, n, n, n);        // S2 = J2 U
+    __syncthreads();
+    block_mm_nn(S3, S0, S2, n, n, n);        // S3 = Uᵀ J2 U
+    __syncthreads();
+
+    // inner = I + sym(Uᵀ J2 U), symmetric, so its row-major storage is the
+    // column-major lower triangle; factor in place (NaN on failure, as
+    // cholesky_nan), then S4 = its L⁻¹ and S0 = inner⁻¹ = L⁻ᵀ L⁻¹
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int i = idx / n, j = idx % n;
+      if (i < j) {
+        const T v = T(0.5) * (S3[i * n + j] + S3[j * n + i]);
+        S3[i * n + j] = v;
+        S3[j * n + i] = v;
+      } else if (i == j) {
+        S3[idx] = T(0.5) * (S3[idx] + S3[idx]) + T(1);
+      }
+    }
+    __syncthreads();
+    block_cholesky_cm(S3, n, &s_bad, qnan<T>());
+    block_tri_inv_cm(S4, S3, n);
+    __syncthreads();
+    block_mm_tn(S0, S4, S4, n, n, n);        // S0 = inner⁻¹
+    block_transpose(S5, S2, n, n);           // S5 = (J2 U)ᵀ
+    __syncthreads();
+
+    // M⁻¹ = I − U inner⁻¹ (J2 U)ᵀ
+    block_mm_nn(S3, S0, S5, n, n, n);        // S3 = V = inner⁻¹ (J2 U)ᵀ
+    __syncthreads();
+    block_mm_nn(S2, S1, S3, n, n, n);        // S2 = U V
+    __syncthreads();
+    for (int idx = tid; idx < n * n; idx += nt)
+      S2[idx] = (idx / n == idx % n ? T(1) : T(0)) - S2[idx];  // S2 = M⁻¹
+    __syncthreads();
+
+    // A = (A2 M⁻¹) A1; the vectors b1 + C1 η2 and η2 − J2 b1
+    block_mm_nn(S0, A2, S2, n, n, n);        // S0 = A2M = A2 M⁻¹
+    for (int i = tid; i < n; i += nt) {
+      T acc = b1[i];
+      for (int k = 0; k < n; ++k) acc += C1[i * n + k] * e2[k];
+      v0[i] = acc;
+      T w = T(0);
+      for (int k = 0; k < n; ++k) w += J2[i * n + k] * b1[k];
+      v1[i] = e2[i] - w;
+    }
+    __syncthreads();
+    block_mm_nn(Ag + size_t(m) * dd, S0, A1, n, n, n);
+
+    // b = A2M (b1 + C1 η2) + b2;  v2 = M⁻ᵀ (η2 − J2 b1)
+    for (int i = tid; i < n; i += nt) {
+      T acc = T(0);
+      for (int k = 0; k < n; ++k) acc += S0[i * n + k] * v0[k];
+      bg[size_t(m) * n + i] = acc + b2[i];
+      T t = T(0);
+      for (int k = 0; k < n; ++k) t += S2[k * n + i] * v1[k];
+      v2[i] = t;
+    }
+    // C = sym(A2M C1 A2ᵀ + C2)
+    block_mm_nn(S3, S0, C1, n, n, n);        // S3 = A2M C1
+    block_transpose(S4, A2, n, n);           // S4 = A2ᵀ
+    __syncthreads();
+    block_mm_nn(S5, S3, S4, n, n, n);        // S5 = A2M C1 A2ᵀ
+    // η = A1ᵀ v2 + η1
+    for (int i = tid; i < n; i += nt) {
+      T acc = T(0);
+      for (int k = 0; k < n; ++k) acc += A1[k * n + i] * v2[k];
+      eg[size_t(m) * n + i] = acc + e1[i];
+    }
+    __syncthreads();
+    T* C = Cg + size_t(m) * dd;
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int i = idx / n, j = idx % n;
+      C[idx] = T(0.5) * ((S5[i * n + j] + S5[j * n + i])
+                         + (C2[i * n + j] + C2[j * n + i]));
+    }
+
+    // J = sym(A1ᵀ (M⁻ᵀ J2) A1 + J1)
+    block_mm_tn(S3, S2, J2, n, n, n);        // S3 = M⁻ᵀ J2
+    __syncthreads();
+    block_mm_nn(S4, S3, A1, n, n, n);        // S4 = M⁻ᵀ J2 A1
+    __syncthreads();
+    block_mm_tn(S5, A1, S4, n, n, n);        // S5 = A1ᵀ M⁻ᵀ J2 A1
+    __syncthreads();
+    T* J = Jg + size_t(m) * dd;
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int i = idx / n, j = idx % n;
+      J[idx] = T(0.5) * ((S5[i * n + j] + S5[j * n + i])
+                         + (J1[i * n + j] + J1[j * n + i]));
+    }
+    __syncthreads();
+  }
+}
+
+// K11, block variant: the RTS elements of one lane per loop iteration.
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads) block_smoother_elements_kernel(
+    const T* __restrict__ fmg, const T* __restrict__ fPg,
+    const T* __restrict__ pmg, const T* __restrict__ pPg,
+    const T* __restrict__ Fg, T* __restrict__ Eg, T* __restrict__ gg,
+    T* __restrict__ Lg, int M, int f_banked, int n, T* scratch,
+    size_t ws_elems) {
+  __shared__ int s_bad;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t dd = size_t(n) * n;
+  T* S0 = workspace(scratch, ws_elems);
+  T* S1 = S0 + dd;
+  T* S2 = S1 + dd;
+  T* S3 = S2 + dd;
+
+  for (int m = blockIdx.x; m < M; m += gridDim.x) {
+    const T* Pp = pPg + size_t(m) * dd;
+    const T* Pf = fPg + size_t(m) * dd;
+    const T* F = Fg + (f_banked ? size_t(m) * dd : 0);
+    const T* mf = fmg + size_t(m) * n;
+    const T* mp = pmg + size_t(m) * n;
+
+    // Lp = chol(Pp) in S0 (column-major, so S0 = Lpᵀ row-major), NaN unless
+    // every pivot is positive; S1 = Lp⁻¹
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int j = idx / n, i = idx % n;
+      S0[idx] = i >= j ? Pp[i * n + j] : T(0);
+    }
+    __syncthreads();
+    block_cholesky_cm(S0, n, &s_bad, qnan<T>());
+    block_tri_inv_cm(S1, S0, n);
+    block_mm_nn(S2, F, Pf, n, n, n);         // S2 = F Pf
+    __syncthreads();
+    block_mm_nn(S3, S1, S2, n, n, n);        // S3 = Lp⁻¹ F Pf
+    __syncthreads();
+    block_mm_tn(S2, S1, S3, n, n, n);        // S2 = Gᵀ = Pp⁻¹ F Pf
+    __syncthreads();
+
+    // G = S2ᵀ; g = mf − G mp
+    T* E = Eg + size_t(m) * dd;
+    for (int idx = tid; idx < n * n; idx += nt)
+      E[idx] = S2[(idx % n) * n + idx / n];
+    for (int i = tid; i < n; i += nt) {
+      T acc = T(0);
+      for (int k = 0; k < n; ++k) acc += S2[k * n + i] * mp[k];
+      gg[size_t(m) * n + i] = mf[i] - acc;
+    }
+
+    // L = sym(Pf) − sym((G Lp)(G Lp)ᵀ), with (G Lp)ᵀ = Lpᵀ Gᵀ
+    block_mm_nn(S3, S0, S2, n, n, n);        // S3 = (G Lp)ᵀ
+    __syncthreads();
+    block_mm_tn(S1, S3, S3, n, n, n);        // S1 = (G Lp)(G Lp)ᵀ
+    __syncthreads();
+    T* L = Lg + size_t(m) * dd;
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int i = idx / n, j = idx % n;
+      L[idx] = T(0.5) * (Pf[i * n + j] + Pf[j * n + i])
+               - T(0.5) * (S1[i * n + j] + S1[j * n + i]);
+    }
+    __syncthreads();
+  }
+}
+
+// K12, block variant: the smoothing combine of one lane per loop iteration.
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads) block_smoother_combine_kernel(
+    const T* __restrict__ E1g, const T* __restrict__ g1g,
+    const T* __restrict__ L1g, const T* __restrict__ E2g,
+    const T* __restrict__ g2g, const T* __restrict__ L2g, T* __restrict__ Eg,
+    T* __restrict__ gg, T* __restrict__ Lg, int M, int Ml, int Mr, int n,
+    T* scratch, size_t ws_elems) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t dd = size_t(n) * n;
+  T* S0 = workspace(scratch, ws_elems);
+  T* S1 = S0 + dd;
+  T* S2 = S1 + dd;
+
+  for (int m = blockIdx.x; m < M; m += gridDim.x) {
+    const size_t l = Ml == M ? m : m % Ml;
+    const size_t r = Mr == M ? m : m % Mr;
+    const T* E1 = E1g + l * dd;
+    const T* L1 = L1g + l * dd;
+    const T* g1 = g1g + l * n;
+    const T* E2 = E2g + r * dd;
+    const T* L2 = L2g + r * dd;
+    const T* g2 = g2g + r * n;
+
+    block_mm_nn(Eg + size_t(m) * dd, E1, E2, n, n, n);  // E = E1 E2
+    for (int i = tid; i < n; i += nt) {                 // g = E1 g2 + g1
+      T acc = T(0);
+      for (int k = 0; k < n; ++k) acc += E1[i * n + k] * g2[k];
+      gg[size_t(m) * n + i] = acc + g1[i];
+    }
+    block_mm_nn(S0, E1, L2, n, n, n);        // S0 = E1 L2
+    block_transpose(S1, E1, n, n);           // S1 = E1ᵀ
+    __syncthreads();
+    block_mm_nn(S2, S0, S1, n, n, n);        // S2 = E1 L2 E1ᵀ
+    __syncthreads();
+    T* L = Lg + size_t(m) * dd;              // L = sym(E1 L2 E1ᵀ + L1)
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int i = idx / n, j = idx % n;
+      L[idx] = T(0.5) * ((S2[i * n + j] + S2[j * n + i])
+                         + (L1[i * n + j] + L1[j * n + i]));
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, typename K, typename... Args>
+int launch_block(K kernel, int kind, void* scratch, int M, int dx,
+                 void* stream, Args... args) {
+  int dev = 0, grid = 0;
+  size_t smem = 0;
+  long long need = 0;
+  const size_t ws = block_ws(kind, dx);
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      !block_plan(kernel, ws, int(sizeof(T)), M, dev, &grid, &smem, &need) ||
+      (need > 0 && scratch == nullptr))
+    return int(cudaErrorInvalidValue);
+  kernel<<<grid, kBlockThreads, smem, cudaStream_t(stream)>>>(
+      args..., need > 0 ? static_cast<T*>(scratch) : nullptr, ws);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -540,5 +906,52 @@ int bft_bank_smoother_combine_f64(const void* E1, const void* g1,
   return launch_scombine<double>(E1, g1, L1, E2, g2, L2, E, g, L, M, Ml, Mr,
                                  dx, stream);
 }
+
+long long bft_block_scratch_elems(int kind, int M, int dx, int itemsize,
+                                  int device) {
+  return block_scratch_elems(block_ws(kind, dx), itemsize, M, device);
+}
+
+#define BFT_BLOCK_COMBINE_ENTRY(NAME, T)                                     \
+  int NAME(const void* A1, const void* b1, const void* C1, const void* J1,   \
+           const void* e1, const void* A2, const void* b2, const void* C2,   \
+           const void* J2, const void* e2, void* A, void* b, void* C,        \
+           void* J, void* e, void* scratch, int M, int Ml, int Mr, int dx,   \
+           void* stream) {                                                   \
+    using P = const T*;                                                      \
+    return launch_block<T>(block_combine_kernel<T>, 0, scratch, M, dx,       \
+                           stream, P(A1), P(b1), P(C1), P(J1), P(e1), P(A2), \
+                           P(b2), P(C2), P(J2), P(e2), (T*)A, (T*)b, (T*)C,  \
+                           (T*)J, (T*)e, M, Ml, Mr, dx);                     \
+  }
+BFT_BLOCK_COMBINE_ENTRY(bft_block_combine_f32, float)
+BFT_BLOCK_COMBINE_ENTRY(bft_block_combine_f64, double)
+#undef BFT_BLOCK_COMBINE_ENTRY
+
+#define BFT_BLOCK_ELEMENTS_ENTRY(NAME, T)                                    \
+  int NAME(const void* fm, const void* fP, const void* pm, const void* pP,   \
+           const void* F, void* E, void* g, void* L, void* scratch, int M,   \
+           int f_banked, int dx, void* stream) {                             \
+    using P = const T*;                                                      \
+    return launch_block<T>(block_smoother_elements_kernel<T>, 1, scratch, M, \
+                           dx, stream, P(fm), P(fP), P(pm), P(pP), P(F),     \
+                           (T*)E, (T*)g, (T*)L, M, f_banked, dx);            \
+  }
+BFT_BLOCK_ELEMENTS_ENTRY(bft_block_smoother_elements_f32, float)
+BFT_BLOCK_ELEMENTS_ENTRY(bft_block_smoother_elements_f64, double)
+#undef BFT_BLOCK_ELEMENTS_ENTRY
+
+#define BFT_BLOCK_SCOMBINE_ENTRY(NAME, T)                                    \
+  int NAME(const void* E1, const void* g1, const void* L1, const void* E2,   \
+           const void* g2, const void* L2, void* E, void* g, void* L,        \
+           void* scratch, int M, int Ml, int Mr, int dx, void* stream) {     \
+    using P = const T*;                                                      \
+    return launch_block<T>(block_smoother_combine_kernel<T>, 2, scratch, M,  \
+                           dx, stream, P(E1), P(g1), P(L1), P(E2), P(g2),    \
+                           P(L2), (T*)E, (T*)g, (T*)L, M, Ml, Mr, dx);       \
+  }
+BFT_BLOCK_SCOMBINE_ENTRY(bft_block_smoother_combine_f32, float)
+BFT_BLOCK_SCOMBINE_ENTRY(bft_block_smoother_combine_f64, double)
+#undef BFT_BLOCK_SCOMBINE_ENTRY
 
 }  // extern "C"

@@ -49,13 +49,6 @@ size_t predict_ws_elems(int dx, int dq) {
   return size_t(dx) * dx * 2 + size_t(dx) * dq * 2;  // Fx P, Fxᵀ, Fq Q, Fqᵀ
 }
 
-// Xᵀ (cols × rows) from X (rows × cols): reads coalesced, once per launch.
-template <typename T>
-__device__ void block_transpose(T* XT, const T* X, int rows, int cols) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x)
-    XT[(idx % cols) * rows + idx / cols] = X[idx];
-}
-
 // Layout rule for every product below: consecutive threads own consecutive
 // output columns j, so the operand indexed by the output row is read as a
 // broadcast and the one indexed by j as consecutive words (conflict-free
@@ -104,7 +97,7 @@ __global__ void __launch_bounds__(kThreads) ekf_update_kernel(
   }
   __syncthreads();
 
-  // 3. S = sym(Rt + G), in place by pairs; clear L and L⁻¹
+  // 3. S = sym(Rt + G), in place by pairs; clear L
   for (int idx = tid; idx < dy * dy; idx += nt) {
     const int i = idx / dy, j = idx % dy;
     if (i < j) {
@@ -116,7 +109,6 @@ __global__ void __launch_bounds__(kThreads) ekf_update_kernel(
       S[idx] = R[idx] + S[idx];
     }
     Lc[idx] = T(0);
-    Li[idx] = T(0);
   }
   __syncthreads();
 
@@ -154,14 +146,7 @@ __global__ void __launch_bounds__(kThreads) ekf_update_kernel(
   }
 
   // 6. L⁻¹ by forward substitution, whole columns per thread
-  for (int j = tid; j < dy; j += nt) {
-    Li[j * dy + j] = T(1) / Lc[j * dy + j];
-    for (int i = j + 1; i < dy; ++i) {
-      T acc = T(0);
-      for (int k = j; k < i; ++k) acc += Lc[k * dy + i] * Li[k * dy + j];
-      Li[i * dy + j] = -acc / Lc[i * dy + i];
-    }
-  }
+  block_tri_inv_cm(Li, Lc, dy);
   __syncthreads();
 
   // 7. Z = L⁻¹ H P

@@ -16,7 +16,8 @@
 // 84 n³ flops: at n=64, B=512 about 11 GFLOP per launch, the heaviest
 // arithmetic of the UKF path). The moments (K8, K9) are 2n-row reductions
 // (rows·d² flops) over sigma-point tensors that do not fit one block's
-// shared memory at the band edge (256 rows × 128 columns). Every product is
+// shared memory (2,048 rows × 1,024 columns at the band edge). Every
+// product is
 // far too small per block to feed the tensor cores, and TF32 is off by the
 // precision policy, so all arithmetic runs on the CUDA cores in the working
 // type; each block is bound by shared-memory bandwidth in its products and
@@ -24,8 +25,13 @@
 //
 // What the simple design does about it:
 // - One workspace per block in dynamic shared memory (opted in above 48 KB)
-//   or, when it exceeds the opt-in limit (Newton–Schulz at n=128, K8 at
-//   dx=dy=128 in float64), a global scratch from the caller.
+//   or, when it exceeds the opt-in limit (the Cholesky above n = 170 in
+//   float64 and 240 in float32, Newton–Schulz above 85 and 120, K8 at
+//   dx=dy=128 in float64, K9 above dx ≈ 160 in float64), a global scratch
+//   from the caller, B workspaces. The band reaches every dimension
+//   ≤ 1,024 (the Lorenz-96 dx=512 configuration, additive and augmented);
+//   there one element is one block on one of the card's 132 SMs, so a
+//   single sequence (B = 1) leaves the rest of the card idle.
 // - Products follow fused_ekf.cu's layout rule: consecutive threads own
 //   consecutive output columns, so one operand is a broadcast and the other
 //   consecutive words.
@@ -87,46 +93,6 @@ bool plan(size_t ws, T* scratch, size_t* smem, T** use_scratch) {
   return true;
 }
 
-// In-place Cholesky of the n×n symmetric matrix held column-major in Lc
-// (Lc[j*n + i] = S[i][j] for i ≥ j on entry, L[i][j] on exit), one barrier
-// per column: the thread that completes row j+1 of column j also takes
-// pivot j+1. The strict upper part is zeroed; the whole factor is NaN
-// unless every pivot is positive. Ends synchronised.
-template <typename T>
-__device__ void block_cholesky_cm(T* Lc, int n, int* s_bad) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if (tid == 0) {
-    *s_bad = 0;
-    const T d = Lc[0];
-    if (!(d > T(0))) *s_bad = 1;
-    Lc[0] = dsqrt(d);
-  }
-  __syncthreads();
-  for (int j = 0; j + 1 < n; ++j) {
-    const T ljj = Lc[j * n + j];
-    for (int i = j + 1 + tid; i < n; i += nt) {
-      T s = Lc[j * n + i];
-      for (int k = 0; k < j; ++k) s -= Lc[k * n + i] * Lc[k * n + j];
-      const T lij = s / ljj;
-      Lc[j * n + i] = lij;
-      if (i == j + 1) {
-        T d = Lc[i * n + i];
-        for (int k = 0; k <= j; ++k) d -= Lc[k * n + i] * Lc[k * n + i];
-        if (!(d > T(0))) *s_bad = 1;
-        Lc[i * n + i] = dsqrt(d);
-      }
-    }
-    __syncthreads();
-  }
-  const bool bad = *s_bad != 0;
-  for (int idx = tid; idx < n * n; idx += nt) {
-    const int k = idx / n, i = idx % n;  // Lc[k*n + i] = L[i][k]
-    if (bad) Lc[idx] = qnan<T>();
-    else if (i < k) Lc[idx] = T(0);
-  }
-  __syncthreads();
-}
-
 // The sigma-point factor of the n×n matrix P (global, row-major), stored
 // transposed: F[k*n + i] = L[i][k] for the Cholesky factor, or the
 // symmetric Newton–Schulz root. ws holds factor_ws_elems(n, method)
@@ -142,7 +108,7 @@ __device__ T* block_factor(const T* P, int n, int method, T* ws, int* s_bad,
       ws[idx] = i >= j ? P[i * n + j] : T(0);
     }
     __syncthreads();
-    block_cholesky_cm(ws, n, s_bad);
+    block_cholesky_cm(ws, n, s_bad, qnan<T>());
     return ws;
   }
   // Trace-normalised coupled Newton–Schulz: T = (3I − Z Y)/2, Y ← Y T,
@@ -296,7 +262,7 @@ __global__ void __launch_bounds__(kUtThreads) ut_update_kernel(
   T* zv = inn + dy;             // dy, L⁻¹ innovation
   T* mx = zv + dy;              // dx
 
-  // 1. vectors; clear the accumulators and L⁻¹
+  // 1. vectors; clear the accumulators
   for (int i = tid; i < dy; i += nt) {
     const T u = mu_all[b * dy + i];
     mu[i] = u;
@@ -304,7 +270,7 @@ __global__ void __launch_bounds__(kUtThreads) ut_update_kernel(
     inn[i] = inn_all[b * dy + i];
   }
   for (int i = tid; i < dx; i += nt) mx[i] = m_all[b * dx + i];
-  for (int idx = tid; idx < dy * dy; idx += nt) S[idx] = Li[idx] = T(0);
+  for (int idx = tid; idx < dy * dy; idx += nt) S[idx] = T(0);
   for (int idx = tid; idx < dy * dx; idx += nt) C[idx] = T(0);
   __syncthreads();
 
@@ -369,16 +335,9 @@ __global__ void __launch_bounds__(kUtThreads) ut_update_kernel(
 
   // 5. Cholesky in place (S is symmetric, so its row-major storage is the
   //    column-major lower triangle), then L⁻¹ by whole-column substitution
-  block_cholesky_cm(S, dy, &s_bad);
+  block_cholesky_cm(S, dy, &s_bad, qnan<T>());
   const T* Lc = S;
-  for (int j = tid; j < dy; j += nt) {
-    Li[j * dy + j] = T(1) / Lc[j * dy + j];
-    for (int i = j + 1; i < dy; ++i) {
-      T acc = T(0);
-      for (int k = j; k < i; ++k) acc += Lc[k * dy + i] * Li[k * dy + j];
-      Li[i * dy + j] = -acc / Lc[i * dy + i];
-    }
-  }
+  block_tri_inv_cm(Li, Lc, dy);
   __syncthreads();
 
   // 6. Z = L⁻¹ C, then Kᵀ = W = L⁻ᵀ Z = S⁻¹ C
@@ -449,14 +408,14 @@ __global__ void __launch_bounds__(kUtThreads) ut_update_kernel(
 template <typename T>
 __global__ void __launch_bounds__(kUtThreads) ut_predict_kernel(
     const T* __restrict__ fpts_all, const T* __restrict__ center_all,
-    const T* __restrict__ Q, T* mu_all, T* cov_all, int rows, int dx,
-    T w_side, T w0m, T w0c) {
+    const T* __restrict__ Q, T* mu_all, T* cov_all, T* scratch,
+    size_t ws_elems, int rows, int dx, T w_side, T w0m, T w0c) {
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const T* fp = fpts_all + b * rows * dx;
   T* cov = cov_all + b * dx * dx;
 
-  T* ws = workspace(static_cast<T*>(nullptr), 0);
+  T* ws = workspace(scratch, ws_elems);
   T* acc = ws;                  // dx × dx
   T* Xc = acc + dx * dx;        // kRowChunk × dx staged fpts − μ
   T* mu = Xc + kRowChunk * dx;  // dx
@@ -565,19 +524,19 @@ int launch_update(const void* pts, const void* hpts, const void* center,
 
 template <typename T>
 int launch_predict(const void* fpts, const void* center, const void* Q,
-                   void* mu, void* cov, int B, int rows, int dx,
-                   double w_side, double w0m, double w0c,
+                   void* mu, void* cov, void* scratch, int B, int rows,
+                   int dx, double w_side, double w0m, double w0c,
                    cudaStream_t stream) {
   const size_t ws = predict_ws_elems(dx);
   size_t smem = 0;
   T* scr = nullptr;
-  if (!plan(ws, static_cast<T*>(nullptr), &smem, &scr))
-    return int(cudaErrorInvalidValue);  // dx ≤ 128 always fits
+  if (!plan(ws, static_cast<T*>(scratch), &smem, &scr))
+    return int(cudaErrorInvalidValue);
   if (int err = set_smem(ut_predict_kernel<T>, smem)) return err;
   ut_predict_kernel<T><<<B, kUtThreads, smem, stream>>>(
       static_cast<const T*>(fpts), static_cast<const T*>(center),
       static_cast<const T*>(Q), static_cast<T*>(mu), static_cast<T*>(cov),
-      rows, dx, T(w_side), T(w0m), T(w0c));
+      scr, ws, rows, dx, T(w_side), T(w0m), T(w0c));
   return int(cudaGetLastError());
 }
 
@@ -593,6 +552,10 @@ long long bft_ut_sigma_scratch_elems(int n, int method, int itemsize,
 long long bft_ut_update_scratch_elems(int dx, int dy, int itemsize,
                                       int device) {
   return bft::scratch_elems(update_ws_elems(dx, dy), itemsize, device);
+}
+
+long long bft_ut_predict_scratch_elems(int dx, int itemsize, int device) {
+  return bft::scratch_elems(predict_ws_elems(dx), itemsize, device);
 }
 
 int bft_ut_sigma_f32(const void* m, const void* P, void* pts, void* scratch,
@@ -647,17 +610,19 @@ int bft_ut_update_f64(const void* pts, const void* hpts, const void* center,
 }
 
 int bft_ut_predict_f32(const void* fpts, const void* center, const void* Q,
-                       void* mu, void* cov, int B, int rows, int dx,
-                       double w_side, double w0m, double w0c, void* stream) {
-  return launch_predict<float>(fpts, center, Q, mu, cov, B, rows, dx, w_side,
-                               w0m, w0c, cudaStream_t(stream));
+                       void* mu, void* cov, void* scratch, int B, int rows,
+                       int dx, double w_side, double w0m, double w0c,
+                       void* stream) {
+  return launch_predict<float>(fpts, center, Q, mu, cov, scratch, B, rows,
+                               dx, w_side, w0m, w0c, cudaStream_t(stream));
 }
 
 int bft_ut_predict_f64(const void* fpts, const void* center, const void* Q,
-                       void* mu, void* cov, int B, int rows, int dx,
-                       double w_side, double w0m, double w0c, void* stream) {
-  return launch_predict<double>(fpts, center, Q, mu, cov, B, rows, dx,
-                                w_side, w0m, w0c, cudaStream_t(stream));
+                       void* mu, void* cov, void* scratch, int B, int rows,
+                       int dx, double w_side, double w0m, double w0c,
+                       void* stream) {
+  return launch_predict<double>(fpts, center, Q, mu, cov, scratch, B, rows,
+                                dx, w_side, w0m, w0c, cudaStream_t(stream));
 }
 
 }  // extern "C"

@@ -131,12 +131,15 @@ def extended_kalman_filter(
     log-likelihood accumulates the innovation densities. Each step is one
     K1 launch per iteration and one K2 launch on CUDA tensors.
 
-    ``compat_scalar`` and ``update_chunk`` are not ported yet.
+    ``update_chunk`` runs the sequential chunked measurement update
+    (:func:`~bayesianfiltering_tpu_torch.ops.fused_ekf.fused_ekf_condition_on_chunked`):
+    ⌈dy/update_chunk⌉ K1 launches per iteration, exact when the effective
+    emission noise is block-diagonal with respect to the chunks (e.g.
+    diagonal R, the Lorenz-96 dx=512 configuration), an approximation
+    otherwise. ``compat_scalar`` is not ported yet.
     """
     if compat_scalar:
         raise NotImplementedError("compat_scalar is not ported yet")
-    if update_chunk is not None:
-        raise NotImplementedError("update_chunk is not ported yet")
     batched = emissions.ndim == 3
     E = emissions if batched else emissions[None]
     B, T = E.shape[:2]
@@ -152,9 +155,14 @@ def extended_kalman_filter(
     fP, pP = E.new_empty(B, T, dx, dx), E.new_empty(B, T, dx, dx)
     for t in range(T):
         Q, q0, R, r0 = _slice_noise(params, t)
-        upd = _fused.fused_ekf_condition_on_iterated(
-            m, P, h, H_x, H_r, R, r0, inputs[t], E[:, t], num_iter, jitter,
-            residual_fn)
+        if update_chunk is None:
+            upd = _fused.fused_ekf_condition_on_iterated(
+                m, P, h, H_x, H_r, R, r0, inputs[t], E[:, t], num_iter,
+                jitter, residual_fn)
+        else:
+            upd = _fused.fused_ekf_condition_on_chunked(
+                m, P, h, H_x, H_r, R, r0, inputs[t], E[:, t], update_chunk,
+                num_iter, jitter, residual_fn)
         m, P, _ = _fused.fused_ekf_predict(
             upd.mean, upd.cov, f, F_x, F_q, Q, q0,
             _predict_input(inputs, t, T))

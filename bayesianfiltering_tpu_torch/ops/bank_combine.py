@@ -1,11 +1,16 @@
 """The associative Kalman filtering combine over a bank through the CUDA
 kernel K10 (counterpart of ``bayesianfiltering_tpu/ops/bank_combine.py``).
 
-K10 (``csrc/bank_combine.cu``, ``bank_combine_kernel``) replaces the TPU
-kernel ``_combine_kernel`` (``bayesianfiltering_tpu/ops/bank_combine.py:268``,
-body ``_combine_lattice :147``): the whole Woodbury combine of
+K10 (``csrc/bank_combine.cu``) replaces the TPU kernel ``_combine_kernel``
+(``bayesianfiltering_tpu/ops/bank_combine.py:268``, body
+``_combine_lattice :147``): the whole Woodbury combine of
 :func:`~bayesianfiltering_tpu_torch.ops.associative._combine` in one
-launch, one thread per lane, for dx ≤ 8 in float32 and float64.
+launch, in float32 and float64, in two size bands with a symbol and a
+launch counter each: ``bank_combine_kernel`` (:data:`K10`), one thread per
+lane, for dx ≤ 8, and ``block_combine_kernel`` (:data:`K10B`), one thread
+block per lane on a persistent grid, for 8 < dx ≤ 512. The choice is by
+size alone (:func:`band_kernel`); outside the band a CUDA input raises
+NotImplementedError (the port has no plain path on the card).
 
 Cholesky guard: the kernel zeroes a lane's factor of C1 + εI unless every
 pivot is positive, which is what the plain version does (``cholesky_nan``
@@ -21,6 +26,7 @@ m mod G; any other broadcast is materialised first.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -28,28 +34,45 @@ import torch
 from bayesianfiltering_tpu_torch import _build
 from bayesianfiltering_tpu_torch.ops.associative import _combine
 
-_BANK_MAX = 8
+_LANE_MAX = 8     # lane kernels: one thread per lane
+_BLOCK_MAX = 512  # block kernels: one thread block per lane
 
-K10 = _build.register("bft_bank_combine",
-                      "bayesianfiltering_tpu_torch/csrc/bank_combine.cu",
+_SRC = "bayesianfiltering_tpu_torch/csrc/bank_combine.cu"
+K10 = _build.register("bft_bank_combine", _SRC,
                       "bayesianfiltering_tpu/ops/bank_combine.py:268")
+K10B = _build.register("bft_block_combine", _SRC,
+                       "bayesianfiltering_tpu/ops/bank_combine.py:268")
 
 _CORES = (2, 1, 2, 2, 1)  # trailing core axes of A, b, C, J, η
+# workspace kinds of csrc/bank_combine.cu ``block_ws``
+BLOCK_COMBINE, BLOCK_ELEMENTS, BLOCK_SCOMBINE = 0, 1, 2
 
 
-def should_use_kernel(name: str, dx: int, *arrays) -> bool:
+def band_kernel(lane: _build.Kernel, block: _build.Kernel, dx: int,
+                *arrays):
     """The band check of the combine kernels K10–K12 (the counterpart of
-    the JAX package's ``should_use_pallas``): True for CUDA operands with
-    dx ≤ 8 in float32 or float64, False for CPU operands (the plain version
-    runs); a CUDA operand outside the band raises NotImplementedError."""
+    the JAX package's ``should_use_pallas``): for CUDA operands in float32
+    or float64, ``lane`` at dx ≤ 8 and ``block`` at 8 < dx ≤ 512; None for
+    CPU operands (the plain version runs); a CUDA operand outside the band
+    raises NotImplementedError."""
     if not any(a.is_cuda for a in arrays):
-        return False
+        return None
     dtypes = {a.dtype for a in arrays}
-    if dx > _BANK_MAX or not dtypes <= {torch.float32, torch.float64}:
+    if dx > _BLOCK_MAX or not dtypes <= {torch.float32, torch.float64}:
         raise NotImplementedError(
-            f"{name} kernel band is dx <= {_BANK_MAX}, float32/float64; got "
-            f"dx={dx}, {sorted(map(str, dtypes))}")
-    return True
+            f"{lane.name}/{block.name} kernel band is dx <= {_BLOCK_MAX} "
+            f"(one thread per lane to dx = {_LANE_MAX}, one block above), "
+            f"float32/float64; got dx={dx}, {sorted(map(str, dtypes))}")
+    return lane if dx <= _LANE_MAX else block
+
+
+def block_scratch(kind: int, kernel: _build.Kernel, M: int, like):
+    """The global scratch a block kernel asks for over M lanes (None when
+    its workspace fits in shared memory), bounded by the blocks in
+    flight."""
+    elems = _build.load().bft_block_scratch_elems(
+        kind, M, like.shape[-1], like.element_size(), like.device.index)
+    return _build.scratch(elems, kernel, 1, like)
 
 
 def as_lanes(x: torch.Tensor, batch, core: int):
@@ -84,29 +107,36 @@ def _combine_lanes(*xs):
     return tuple(o.reshape((-1,) + o.shape[2:]) for o in out)
 
 
-def _launch(*xs):
+def _launch(kernel, *xs):
     Ml, Mr = xs[0].shape[0], xs[5].shape[0]
     M, dx = max(Ml, Mr), xs[0].shape[-1]
     shapes = [(Ml, dx, dx), (Ml, dx), (Ml, dx, dx), (Ml, dx, dx), (Ml, dx),
               (Mr, dx, dx), (Mr, dx), (Mr, dx, dx), (Mr, dx, dx), (Mr, dx)]
-    _build.check_operands(K10, *zip(xs, shapes))
+    _build.check_operands(kernel, *zip(xs, shapes))
     if M and (M % Ml or M % Mr):
-        raise ValueError(f"{K10.name}: lanes {Ml} and {Mr} do not tile {M}")
+        raise ValueError(f"{kernel.name}: lanes {Ml} and {Mr} do not tile "
+                         f"{M}")
     A1 = xs[0]
     outs = (A1.new_empty(M, dx, dx), A1.new_empty(M, dx),
             A1.new_empty(M, dx, dx), A1.new_empty(M, dx, dx),
             A1.new_empty(M, dx))
     if M:
         with torch.cuda.device(A1.device):
-            err = _build.symbol(K10, A1)(
-                *(x.data_ptr() for x in xs), *(o.data_ptr() for o in outs),
-                M, Ml, Mr, dx, torch.cuda.current_stream().cuda_stream)
-        _build.check(err, K10)
-        K10.launches += 1
+            ptrs = [x.data_ptr() for x in (*xs, *outs)]
+            if kernel is K10B:
+                ptrs.append(_build.ptr(
+                    block_scratch(BLOCK_COMBINE, kernel, M, A1)))
+            err = _build.symbol(kernel, A1)(
+                *ptrs, M, Ml, Mr, dx, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, kernel)
+        kernel.launches += 1
     return outs
 
 
-_bank_combine = _build.kernel_op(_combine_lanes, _launch, 10)
+_bank_combine = _build.kernel_op(_combine_lanes,
+                                 functools.partial(_launch, K10), 10)
+_block_combine = _build.kernel_op(_combine_lanes,
+                                  functools.partial(_launch, K10B), 10)
 
 
 def bank_filter_combine(left, right):
@@ -115,18 +145,19 @@ def bank_filter_combine(left, right):
     ``left``/``right`` are 5-tuples ``(A, b, C, J, η)`` with broadcastable
     leading batch axes (matrices batch+(dx, dx), vectors batch+(dx,)).
     Semantics of ``ops.associative._combine(..., solver="woodbury")``; on
-    CUDA tensors the whole combine is one K10 launch (dx ≤ 8, float32 or
-    float64, else NotImplementedError), on CPU tensors the plain combine
-    runs.
+    CUDA tensors the whole combine is one K10 launch (the lane kernel at
+    dx ≤ 8, the block kernel at 8 < dx ≤ 512, float32 or float64, else
+    NotImplementedError), on CPU tensors the plain combine runs.
     """
     dx = left[0].shape[-1]
-    if not should_use_kernel(K10.name, dx, *left, *right):
+    kernel = band_kernel(K10, K10B, dx, *left, *right)
+    if kernel is None:
         return _combine(left, right, solver="woodbury")
     batch = torch.broadcast_shapes(left[0].shape[:-2], right[0].shape[:-2])
     flat = [as_lanes(x, batch, core)[0]
             for x, core in zip((*left, *right), _CORES * 2)]
-    out = _bank_combine(*flat)
+    out = (_bank_combine if kernel is K10 else _block_combine)(*flat)
     return tuple(o.reshape(tuple(batch) + o.shape[1:]) for o in out)
 
 
-__all__ = ["bank_filter_combine", "should_use_kernel", "K10"]
+__all__ = ["bank_filter_combine", "band_kernel", "K10", "K10B"]

@@ -2,8 +2,11 @@
 CUDA kernels K11 and K12
 (counterpart of ``bayesianfiltering_tpu/ops/bank_smoother.py``).
 
-Both live in ``csrc/bank_combine.cu``, one thread per lane, dx ≤ 8, float32
-and float64:
+Both live in ``csrc/bank_combine.cu``, float32 and float64, each in two
+size bands with a symbol and a launch counter each: one thread per lane at
+dx ≤ 8 (``bank_smoother_*_kernel``, :data:`K11`, :data:`K12`) and one
+thread block per lane on a persistent grid at 8 < dx ≤ 512
+(``block_smoother_*_kernel``, :data:`K11B`, :data:`K12B`):
 
 - K11 ``bank_smoother_elements_kernel`` replaces ``_elements_kernel``
   (``bayesianfiltering_tpu/ops/bank_smoother.py:53``): the smoothing gain
@@ -22,14 +25,19 @@ run.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from bayesianfiltering_tpu_torch import _build
 from bayesianfiltering_tpu_torch.ops.associative import _smoother_combine
 from bayesianfiltering_tpu_torch.ops.bank_combine import (
+    BLOCK_ELEMENTS,
+    BLOCK_SCOMBINE,
     as_lanes,
+    band_kernel,
+    block_scratch,
     periodic_views,
-    should_use_kernel,
 )
 from bayesianfiltering_tpu_torch.utils.linalg import psd_solve, symmetrize
 
@@ -38,6 +46,10 @@ K11 = _build.register("bft_bank_smoother_elements", _SRC,
                       "bayesianfiltering_tpu/ops/bank_smoother.py:53")
 K12 = _build.register("bft_bank_smoother_combine", _SRC,
                       "bayesianfiltering_tpu/ops/bank_smoother.py:169")
+K11B = _build.register("bft_block_smoother_elements", _SRC,
+                       "bayesianfiltering_tpu/ops/bank_smoother.py:53")
+K12B = _build.register("bft_block_smoother_combine", _SRC,
+                       "bayesianfiltering_tpu/ops/bank_smoother.py:169")
 
 _CORES = (2, 1, 2)  # E, g, L
 
@@ -52,40 +64,49 @@ def _elements_plain(fm, fP, pm, pP, F):
     return G, g, L
 
 
-def _launch_elements(fm, fP, pm, pP, F):
+def _launch_elements(kernel, fm, fP, pm, pP, F):
     M, dx = fm.shape
     banked = F.ndim == 3
-    _build.check_operands(K11, (fm, (M, dx)), (fP, (M, dx, dx)),
+    _build.check_operands(kernel, (fm, (M, dx)), (fP, (M, dx, dx)),
                           (pm, (M, dx)), (pP, (M, dx, dx)),
                           (F, (M, dx, dx) if banked else (dx, dx)))
     E, g, L = torch.empty_like(fP), torch.empty_like(fm), torch.empty_like(fP)
     if M:
         with torch.cuda.device(fm.device):
-            err = _build.symbol(K11, fm)(
-                fm.data_ptr(), fP.data_ptr(), pm.data_ptr(), pP.data_ptr(),
-                F.data_ptr(), E.data_ptr(), g.data_ptr(), L.data_ptr(), M,
-                int(banked), dx, torch.cuda.current_stream().cuda_stream)
-        _build.check(err, K11)
-        K11.launches += 1
+            ptrs = [x.data_ptr() for x in (fm, fP, pm, pP, F, E, g, L)]
+            if kernel is K11B:
+                ptrs.append(_build.ptr(
+                    block_scratch(BLOCK_ELEMENTS, kernel, M, fm)))
+            err = _build.symbol(kernel, fm)(
+                *ptrs, M, int(banked), dx,
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(err, kernel)
+        kernel.launches += 1
     return E, g, L
 
 
-_bank_elements = _build.kernel_op(_elements_plain, _launch_elements, 5)
+_bank_elements = _build.kernel_op(
+    _elements_plain, functools.partial(_launch_elements, K11), 5)
+_block_elements = _build.kernel_op(
+    _elements_plain, functools.partial(_launch_elements, K11B), 5)
 
 
 def bank_smoother_elements(fm, fP, pm, pP, F):
     """Per-step RTS smoothing elements ``(G, g, L)`` over a bank of M steps:
     ``fm``, ``pm`` (M, dx), ``fP``, ``pP`` (M, dx, dx), ``F`` (M, dx, dx) —
     a shared transition expanded to M (stride 0) goes to K11 once, not
-    copied M times. One K11 launch on CUDA tensors (dx ≤ 8, float32 or
-    float64, else NotImplementedError), the plain version on CPU tensors."""
+    copied M times. One K11 launch on CUDA tensors (the lane kernel at
+    dx ≤ 8, the block kernel at 8 < dx ≤ 512, float32 or float64, else
+    NotImplementedError), the plain version on CPU tensors."""
     dx = fm.shape[-1]
-    if not should_use_kernel(K11.name, dx, fm, fP, pm, pP, F):
+    kernel = band_kernel(K11, K11B, dx, fm, fP, pm, pP, F)
+    if kernel is None:
         return _elements_plain(fm, fP, pm, pP, F)
     if F.ndim == 3 and F.stride(0) == 0:
         F = F[0]
-    return _bank_elements(fm.contiguous(), fP.contiguous(), pm.contiguous(),
-                          pP.contiguous(), F.contiguous())
+    op = _bank_elements if kernel is K11 else _block_elements
+    return op(fm.contiguous(), fP.contiguous(), pm.contiguous(),
+              pP.contiguous(), F.contiguous())
 
 
 def _scombine_lanes(*xs):
@@ -96,44 +117,54 @@ def _scombine_lanes(*xs):
     return tuple(o.reshape((-1,) + o.shape[2:]) for o in out)
 
 
-def _launch_combine(*xs):
+def _launch_combine(kernel, *xs):
     Ml, Mr = xs[0].shape[0], xs[3].shape[0]
     M, dx = max(Ml, Mr), xs[0].shape[-1]
     shapes = [(Ml, dx, dx), (Ml, dx), (Ml, dx, dx),
               (Mr, dx, dx), (Mr, dx), (Mr, dx, dx)]
-    _build.check_operands(K12, *zip(xs, shapes))
+    _build.check_operands(kernel, *zip(xs, shapes))
     if M and (M % Ml or M % Mr):
-        raise ValueError(f"{K12.name}: lanes {Ml} and {Mr} do not tile {M}")
+        raise ValueError(f"{kernel.name}: lanes {Ml} and {Mr} do not tile "
+                         f"{M}")
     E1 = xs[0]
     outs = (E1.new_empty(M, dx, dx), E1.new_empty(M, dx),
             E1.new_empty(M, dx, dx))
     if M:
         with torch.cuda.device(E1.device):
-            err = _build.symbol(K12, E1)(
-                *(x.data_ptr() for x in xs), *(o.data_ptr() for o in outs),
-                M, Ml, Mr, dx, torch.cuda.current_stream().cuda_stream)
-        _build.check(err, K12)
-        K12.launches += 1
+            ptrs = [x.data_ptr() for x in (*xs, *outs)]
+            if kernel is K12B:
+                ptrs.append(_build.ptr(
+                    block_scratch(BLOCK_SCOMBINE, kernel, M, E1)))
+            err = _build.symbol(kernel, E1)(
+                *ptrs, M, Ml, Mr, dx, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, kernel)
+        kernel.launches += 1
     return outs
 
 
-_bank_scombine = _build.kernel_op(_scombine_lanes, _launch_combine, 6)
+_bank_scombine = _build.kernel_op(
+    _scombine_lanes, functools.partial(_launch_combine, K12), 6)
+_block_scombine = _build.kernel_op(
+    _scombine_lanes, functools.partial(_launch_combine, K12B), 6)
 
 
 def bank_smoother_combine(earlier, later):
     """Affine smoothing composition ``earlier ∘ later`` over banks with
     broadcastable leading batch axes (semantics of
     ``ops.associative._smoother_combine``): one K12 launch on CUDA tensors
-    (dx ≤ 8, float32 or float64, else NotImplementedError), the plain
-    version on CPU tensors."""
+    (the lane kernel at dx ≤ 8, the block kernel at 8 < dx ≤ 512, float32
+    or float64, else NotImplementedError), the plain version on CPU
+    tensors."""
     dx = earlier[0].shape[-1]
-    if not should_use_kernel(K12.name, dx, *earlier, *later):
+    kernel = band_kernel(K12, K12B, dx, *earlier, *later)
+    if kernel is None:
         return _smoother_combine(earlier, later)
     batch = torch.broadcast_shapes(earlier[0].shape[:-2], later[0].shape[:-2])
     flat = [as_lanes(x, batch, core)[0]
             for x, core in zip((*earlier, *later), _CORES * 2)]
-    out = _bank_scombine(*flat)
+    out = (_bank_scombine if kernel is K12 else _block_scombine)(*flat)
     return tuple(o.reshape(tuple(batch) + o.shape[1:]) for o in out)
 
 
-__all__ = ["bank_smoother_elements", "bank_smoother_combine", "K11", "K12"]
+__all__ = ["bank_smoother_elements", "bank_smoother_combine", "K11", "K12",
+           "K11B", "K12B"]

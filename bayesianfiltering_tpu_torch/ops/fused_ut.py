@@ -21,9 +21,11 @@ function (e.g. a wrapped bearing), so the models with an
 kernel for them).
 
 On CUDA tensors the wrappers launch the kernel or raise; on CPU tensors
-they run the plain versions beside them. The band is the TPU package's:
-every factor and moment dimension ≤ 128; a CUDA input outside it raises
-NotImplementedError.
+they run the plain versions beside them. The band is every factor and
+moment dimension ≤ 1,024 (the TPU package caps its kernels at 128 for TPU
+reasons and runs XLA above; the CUDA kernels factor in global scratch
+instead, so the Lorenz-96 dx=512 configuration runs through them); a CUDA
+input outside it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ from bayesianfiltering_tpu_torch.utils.sigma_points import (
     points_from_factor,
 )
 
-_DIM_MAX = 128
+_DIM_MAX = 1024
 _METHODS = {"cholesky": 0, "sqrtm": 1}  # csrc/fused_ut.cu kCholesky, kSqrtm
 
 _SRC = "bayesianfiltering_tpu_torch/csrc/fused_ut.cu"
@@ -183,14 +185,17 @@ def _launch_predict(fpts, center, Q, w_side, w0m, w0c, add_q):
     if add_q:
         operands.append((Q, (dx, dx)))
     _build.check_operands(K9, *operands)
+    lib = _build.load()
     mu, cov = center.new_empty(B, dx), center.new_empty(B, dx, dx)
     if B:
         with torch.cuda.device(fpts.device):
+            scratch = _build.scratch(lib.bft_ut_predict_scratch_elems(
+                dx, fpts.element_size(), fpts.device.index), K9, B, fpts)
             err = _build.symbol(K9, fpts)(
                 fpts.data_ptr(), center.data_ptr(),
                 Q.data_ptr() if add_q else None, mu.data_ptr(),
-                cov.data_ptr(), B, rows, dx, w_side, w0m, w0c,
-                torch.cuda.current_stream().cuda_stream)
+                cov.data_ptr(), _build.ptr(scratch), B, rows, dx, w_side,
+                w0m, w0c, torch.cuda.current_stream().cuda_stream)
         _build.check(err, K9)
         K9.launches += 1
     return mu, cov

@@ -66,33 +66,51 @@ def ut_predict_inputs(rng: np.random.Generator, B: int, rows: int, dx: int):
 
 
 def filter_elements(rng: np.random.Generator, M: int, dx: int, dy: int = 2,
-                    singular_head: int = 0):
+                    singular_head: int = 0, normalized: bool = False):
     """``(A, b, C, J, η)`` filtering elements over a bank of M: C PSD (its
     first ``singular_head`` lanes exactly zero, the rank-deficient-Q
-    regime), J of rank dy < dx."""
-    A = 0.5 * rng.standard_normal((M, dx, dx))
-    cr = 0.3 * rng.standard_normal((M, dx, dx))
+    regime), J of rank dy < dx. ``normalized`` divides the random factors
+    of A, C and J by √dx, so that their spectra stay O(1) (and the
+    combine well conditioned in float32) at any width."""
+    f = 1.0 / np.sqrt(dx) if normalized else 1.0
+    A = 0.5 * f * rng.standard_normal((M, dx, dx))
+    cr = 0.3 * f * rng.standard_normal((M, dx, dx))
     C = cr @ np.swapaxes(cr, -1, -2) + 0.01 * np.eye(dx)
     C[:singular_head] = 0.0
-    jr = 0.4 * rng.standard_normal((M, dx, dy))
+    jr = 0.4 * f * rng.standard_normal((M, dx, dy))
     return (A, rng.standard_normal((M, dx)), C, jr @ np.swapaxes(jr, -1, -2),
             rng.standard_normal((M, dx)))
 
 
-def guard_lanes(rng: np.random.Generator, left, lanes=(0, 1)):
+def guard_lanes(rng: np.random.Generator, left, lanes=(0, 1),
+                neg: float = -1e-8):
     """``left`` with C of lane ``lanes[0]`` rank-deficient with a tiny
-    negative eigenvalue (−1e-8, below the combine's ε) and C of lane
-    ``lanes[1]`` holding an infinite off-diagonal pair: lanes whose
-    Cholesky fails."""
+    negative eigenvalue (``neg``, −1e-8 by default: below the combine's ε;
+    a wide float32 factor needs a larger one, since its rounding alone
+    reaches ~1e-8) and C of lane ``lanes[1]`` holding an infinite
+    off-diagonal pair: lanes whose Cholesky fails."""
     A, b, C, J, eta = (np.array(x, copy=True) for x in left)
     dx = C.shape[-1]
     q, _ = np.linalg.qr(rng.standard_normal((dx, dx)))
     evals = np.zeros(dx)
     evals[: max(1, dx - 2)] = 1e-2
-    evals[-1] = -1e-8
+    evals[-1] = neg
     C[lanes[0]] = (q * evals) @ q.T
     C[lanes[1], 1 % dx, 0] = C[lanes[1], 0, 1 % dx] = np.inf
     return A, b, C, J, eta
+
+
+def lgssm_fields(rng: np.random.Generator, dx: int, dy: int):
+    """The fields of ``ParamsLGSSM`` for the parallel Kalman benchmark's
+    model (``experiments/parallel_kf_bench.py``): F = 0.99·I + 0.01·N/dx,
+    H = N/dx, Q = R = 0.1·I, a standard normal prior."""
+    return dict(
+        initial_mean=np.zeros(dx), initial_covariance=np.eye(dx),
+        dynamics_matrix=0.99 * np.eye(dx)
+        + 0.01 * rng.standard_normal((dx, dx)) / dx,
+        dynamics_covariance=0.1 * np.eye(dx),
+        emission_matrix=rng.standard_normal((dy, dx)) / dx,
+        emission_covariance=0.1 * np.eye(dy))
 
 
 def smoother_element_inputs(rng: np.random.Generator, M: int, dx: int):
@@ -143,5 +161,6 @@ PARENT_PROFILES = ("dirichlet", "last", "first", "spread", "tail")
 __all__ = ["to_torch", "spd", "update_inputs", "predict_inputs",
            "sigma_inputs", "sigma_aug_inputs", "ut_update_inputs",
            "ut_predict_inputs", "filter_elements", "guard_lanes",
+           "lgssm_fields",
            "smoother_element_inputs", "smoother_elements",
            "resampling_counts", "PARENT_PROFILES"]

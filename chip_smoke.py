@@ -8,13 +8,16 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. Environment: torch and CUDA versions, the card's name and power limit.
-2. Build the CUDA kernels (K1–K12) from
-   ``bayesianfiltering_tpu_torch/csrc``, one nvcc per source, in parallel.
+2. Build the CUDA kernels (K1–K12, and the block variants K10b–K12b of
+   the combines above dx = 8) from ``bayesianfiltering_tpu_torch/csrc``,
+   one nvcc per source, in parallel.
 3. Each kernel against its plain PyTorch version on the card, float32 and
-   float64, at the main paths' shapes and at its size band's edge; a
+   float64, at the main paths' shapes and at its size band's edge (K1 to
+   dy = 512, K6–K9 to 1,024, the block combines at dx = 9, 64 and 512); a
    non-positive-definite S or P must give NaN on both sides, and K10's
    guard lanes (a C1 with a −1e-8 eigenvalue, a C1 with an infinite entry)
-   the same finite and non-finite entries. K5 (integer parents) must equal
+   the same finite and non-finite entries (dx = 4 to 512). K5 (integer
+   parents) must equal
    its plain version exactly at n = 2²⁰ and 65,536 on five weight
    profiles, and at the Gaussian-sum reductions' m counts → n slots. Times each kernel and its plain version with CUDA events at
    the main-path shape and computes its bound (bytes over 3.35 TB/s or
@@ -27,8 +30,11 @@ and prints no result):
    data and the same draws: the batched EKF and UKF (additive and
    augmented) on Lorenz-96, the GSF and AGSF on bearings-only tracking, the
    UGSF and UAGSF on range-bearing tracking, the bootstrap PF (float64,
-   65,536 particles, so K5 runs) on Lorenz-96 dx=8, and the parallel
-   Kalman smoother at T=4,096, chunk 128.
+   65,536 particles, so K5 runs) on Lorenz-96 dx=8, the parallel
+   Kalman smoother at T=4,096, chunk 128, BASELINE config 5 (Lorenz-96
+   dx=512, dy=256, float64, T=20: the EKF's joint and chunked updates and
+   the additive UKF) and path C (the parallel smoother at dx=64, dy=32,
+   T=1,024, both solvers, float32 and float64).
 5. The main paths, each with every launch counter reset just before it and
    read just after: the batched EKF on Lorenz-96 (dx=64, dy=32, B=512
    sequences, T=1000; data from the RK4 model, filter on the Euler model);
@@ -41,11 +47,17 @@ and prints no result):
    the bootstrap PF at 1M particles on Lorenz-96 dx=8, dy=4, T=100
    (systematic, ESS threshold 0.5; K5 once per resampling step); the
    parallel Kalman smoother at T=1M, dx=4, dy=2, chunk 128 (K10 and K12
-   320 times each, K11 once). Checks finiteness, shapes and the launch
-   counts of every kernel.
+   320 times each, K11 once); BASELINE config 5 (Lorenz-96 dx=512,
+   dy=256, one sequence, T=200: the EKF with the joint update, the EKF with
+   ``update_chunk=128``, the additive UKF); path C (the parallel smoother
+   on ``zoo.linear_gaussian_lgssm(64, 32)`` at T=65,536, chunk 128, both
+   solvers: only the block combines launch). The new paths run three
+   times each in one process and report the median and the range. Checks
+   finiteness, shapes and the launch counts of every kernel.
 6. The device's busy and idle share, and the kernels with the most
    device time, under torch.profiler: the batched UKF step, ten steps of
-   the 1M-particle BPF, one run of the T=1M parallel smoother.
+   the 1M-particle BPF, one run of the T=1M parallel smoother, ten steps
+   of config 5's EKF and UKF, one run of path C.
 
 The last three lines: a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -54,6 +66,7 @@ from __future__ import annotations
 
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -94,6 +107,20 @@ KF_DX, KF_DY, KF_T, KF_CHUNK, KF_CMP_T = 4, 2, 1_000_000, 128, 4096
 # then the two broadcast combines over (128, 62) and (128, 7,813)
 KF_COMBINES = 128 + 128 + 62 + 1 + 1
 KF_LANES = -(-KF_T // KF_CHUNK)                       # 7,813
+# BASELINE config 5 (experiments/headline_bench.py:90-98): Lorenz-96
+# dx=512, dy=256, one sequence, T=200, RK4 data, Euler filter
+C5_DX, C5_DY, C5_T, C5_CMP_T, C5_CHUNK = 512, 256, 200, 20, 128
+C5_PROFILE_T = 3  # its steps are ~0.1-0.2 s each on the card
+# path C: the parallel smoother above the lane band, at bench.py's
+# Lorenz-96 filter widths; T cut from path B's 1M to 65,536 (the elements
+# at dx=64 take ~256x the bytes of dx=4)
+PC_DX, PC_DY, PC_T, PC_CMP_T = 64, 32, 65_536, 1024
+# chunked_associative_scan at T = 65,536, chunk 128: 128 in-chunk combines
+# over G = 512 lanes, 128 over 4, 4 sequential ones, then the broadcasts
+# over (128, 4) and (128, 512)
+PC_COMBINES = 128 + 128 + 4 + 1 + 1
+PC_LANES = PC_T // KF_CHUNK                           # 512
+REPS = 3  # calls of each new path in one process: median and range
 # each kernel's CUDA symbols (K7 is its points kernel and the one-block
 # factor of the shared noise covariance)
 KERNEL_SYMBOLS = {
@@ -109,13 +136,22 @@ KERNEL_SYMBOLS = {
     "bft_bank_combine": ("bank_combine_kernel",),
     "bft_bank_smoother_elements": ("bank_smoother_elements_kernel",),
     "bft_bank_smoother_combine": ("bank_smoother_combine_kernel",),
+    "bft_block_combine": ("block_combine_kernel",),
+    "bft_block_smoother_elements": ("block_smoother_elements_kernel",),
+    "bft_block_smoother_combine": ("block_smoother_combine_kernel",),
 }
-KERNEL_IDS = {"bft_ekf_update": 1, "bft_ekf_predict_cov": 2,
-              "bft_bank_update": 3, "bft_bank_predict_cov": 4,
-              "bft_resample_parents": 5, "bft_ut_sigma": 6,
-              "bft_ut_sigma_aug": 7, "bft_ut_update": 8, "bft_ut_predict": 9,
-              "bft_bank_combine": 10, "bft_bank_smoother_elements": 11,
-              "bft_bank_smoother_combine": 12}
+# the kernels' IDs, in the order of the kernel table; K10b–K12b are the
+# block variants (8 < dx ≤ 512) of K10–K12
+KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_predict_cov": "K2",
+              "bft_bank_update": "K3", "bft_bank_predict_cov": "K4",
+              "bft_resample_parents": "K5", "bft_ut_sigma": "K6",
+              "bft_ut_sigma_aug": "K7", "bft_ut_update": "K8",
+              "bft_ut_predict": "K9", "bft_bank_combine": "K10",
+              "bft_block_combine": "K10b",
+              "bft_bank_smoother_elements": "K11",
+              "bft_block_smoother_elements": "K11b",
+              "bft_bank_smoother_combine": "K12",
+              "bft_block_smoother_combine": "K12b"}
 
 # Roofline of an H100 SXM at its 700 W limit (NVIDIA's data sheet): memory
 # 3.35 TB/s; CUDA-core (non-tensor) peaks 67 TFLOP/s in float32 and
@@ -146,12 +182,23 @@ def rel_err(a, b) -> float:
     return float(d.max()) / max(1.0, float(b[~torch.isnan(b)].abs().max()))
 
 
+def _reps(first_ms: float, most: int) -> int:
+    """Calls to time after a first one of ``first_ms``: ``most``, or fewer
+    for a long call (about a quarter of a second of calls, at least 3)."""
+    return most if first_ms * most <= 250 else max(3, int(250 / first_ms))
+
+
 def cuda_time_ms(fn, reps: int = 50) -> float:
+    """Milliseconds per call of ``fn``: CUDA events around a loop of calls
+    after a timed warm-up call (fewer calls when one is long)."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    reps = _reps(start.elapsed_time(end), reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -170,8 +217,10 @@ def device_ms(fn, symbols, reps: int = 20):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    reps = _reps(1e3 * (time.perf_counter() - t0), reps)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -287,18 +336,27 @@ def kernel_cases():
             return left + right
         return make
 
+    def wide_filter_elements(r, M, dx):
+        """Above the lane band: J of rank dx/2 (dy = dx/2, as path C) and
+        the factors scaled by 1/√dx, so that the combine stays well
+        conditioned in float32 at dx = 512."""
+        return testing.filter_elements(r, M, dx, dx // 2, normalized=True)
+
     def fcombine(M, dx, chunk=None, timed=None):
         shape = f"M={M},dx={dx}" if chunk is None else \
             f"(1,{M}) x ({chunk},{M}),dx={dx}"
-        cases.append((bc.K10, lambda *a: bc.bank_filter_combine(a[:5], a[5:]),
+        lane = dx <= 8
+        cases.append((bc.K10 if lane else bc.K10B,
+                      lambda *a: bc.bank_filter_combine(a[:5], a[5:]),
                       lambda *a: tas._combine(a[:5], a[5:]), shape,
-                      pairs(testing.filter_elements, M, dx, chunk), (),
+                      pairs(testing.filter_elements if lane
+                            else wide_filter_elements, M, dx, chunk), (),
                       M * (chunk or 1) * combine_flops(dx), timed))
 
     def scombine(M, dx, chunk=None, timed=None):
         shape = f"M={M},dx={dx}" if chunk is None else \
             f"(1,{M}) x ({chunk},{M}),dx={dx}"
-        cases.append((bs.K12,
+        cases.append((bs.K12 if dx <= 8 else bs.K12B,
                       lambda *a: bs.bank_smoother_combine(a[:3], a[3:]),
                       lambda *a: tas._smoother_combine(a[:3], a[3:]), shape,
                       pairs(testing.smoother_elements, M, dx, chunk), (),
@@ -308,7 +366,7 @@ def kernel_cases():
         def make(r):  # F shared by every lane, as on the smoother's path
             fm, fP, pm, pP, F = testing.smoother_element_inputs(r, M, dx)
             return fm, fP, pm, pP, F[0]
-        cases.append((bs.K11,
+        cases.append((bs.K11 if dx <= 8 else bs.K11B,
                       lambda fm, fP, pm, pP, F: bs.bank_smoother_elements(
                           fm, fP, pm, pP, F.expand(M, dx, dx)),
                       bs._elements_plain, f"M={M},dx={dx},F shared", make, (),
@@ -359,8 +417,15 @@ def kernel_cases():
 
     upd(fe.K1, fe.fused_update, fe._update_plain, 512, 64, 32, "main")
     upd(fe.K1, fe.fused_update, fe._update_plain, 2, 512, 128)
+    # config 5: the joint update (dy = 256) and the chunked one (2 × 128);
+    # the band edge dy = 512
+    upd(fe.K1, fe.fused_update, fe._update_plain, 1, C5_DX, C5_DY, "also")
+    upd(fe.K1, fe.fused_update, fe._update_plain, 1, C5_DX, C5_CHUNK, "also")
+    upd(fe.K1, fe.fused_update, fe._update_plain, 2, 512, 512)
     pred(fe.K2, fe.fused_predict_cov, fe._predict_plain, 512, 64, 64, "main")
     pred(fe.K2, fe.fused_predict_cov, fe._predict_plain, 2, 512, 512)
+    pred(fe.K2, fe.fused_predict_cov, fe._predict_plain, 1, C5_DX, C5_DX,
+         "also")
     upd(bu.K3, bu.bank_chol_update, bu._update_plain, 200, 4, 1, "main")
     upd(bu.K3, bu.bank_chol_update, bu._update_plain, 4096, 8, 8)
     pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 200, 4, 2, "main")
@@ -389,6 +454,19 @@ def kernel_cases():
     ut_predict(100, 12, 4, False)
     ut_predict(32, 12, 4, False)
     ut_predict(2, 256, 128, True)
+    # config 5's additive UKF (n = 512, 1,024 points, dy = 256), the
+    # augmented widths at config 5 (na = 1,024 in the predict, 768 in the
+    # update) and the band edge 1,024
+    sigma(1, C5_DX, "cholesky", "also")
+    sigma(1, 1024, "cholesky")
+    sigma(1, 256, "sqrtm")
+    sigma_aug(2, C5_DX, C5_DX, "cholesky")
+    ut_update(1, 2 * C5_DX, C5_DX, C5_DX, C5_DY, True, "also")
+    ut_update(1, 2 * (C5_DX + C5_DY), C5_DX + C5_DY, C5_DX, C5_DY, False)
+    ut_update(1, 2048, 1024, 1024, 1024, True)
+    ut_predict(1, 2 * C5_DX, C5_DX, True, "also")
+    ut_predict(1, 4 * C5_DX, C5_DX, False)
+    ut_predict(1, 2048, 1024, True)
     # the parallel Kalman smoother at T = 1M, chunk 128, dx = 4: in-chunk
     # combines over 7,813 lanes (128 of the 320) and the broadcast of step
     # 4 over 1,000,064; the elements over 999,999 steps; the band edge
@@ -403,6 +481,21 @@ def kernel_cases():
     scombine(KF_LANES, KF_DX, chunk=KF_CHUNK, timed="also")
     scombine(4096, 8)
     scombine(62, 3, chunk=5)
+    # the block variants: path C (dx = 64, T = 65,536, chunk 128) combines
+    # over G = 512 lanes in step 2 and broadcasts (1, 512) × (128, 512) in
+    # step 4; its elements over 65,535 steps; the lower band edge dx = 9
+    # and the upper one, a few lanes at dx = 512
+    fcombine(PC_LANES, PC_DX, timed="main")
+    fcombine(PC_LANES, PC_DX, chunk=KF_CHUNK, timed="also")
+    fcombine(130, 9)
+    fcombine(3, 512)
+    elements(PC_T - 1, PC_DX, timed="main")
+    elements(130, 9)
+    elements(2, 512)
+    scombine(PC_LANES, PC_DX, timed="main")
+    scombine(PC_LANES, PC_DX, chunk=KF_CHUNK, timed="also")
+    scombine(300, 9)
+    scombine(2, 512)
     return cases
 
 
@@ -452,6 +545,10 @@ def nan_checks(dev) -> None:
     a = f64(testing.smoother_element_inputs(rng, 64, 4))
     a[3] = neg_eye(a[3])
     checks.append((bs.K11, bs.bank_smoother_elements, bs._elements_plain, a))
+    a = f64(testing.smoother_element_inputs(rng, 16, PC_DX))
+    a[3] = neg_eye(a[3])
+    checks.append((bs.K11B, bs.bank_smoother_elements, bs._elements_plain,
+                   a))
     for kernel, wrap, plain, args in checks:
         got, want = _as_tuple(wrap(*args)), _as_tuple(plain(*args))
         torch.cuda.synchronize()
@@ -468,7 +565,10 @@ def guard_checks(dev) -> None:
     combine's jitter ε), lane 1's an infinite off-diagonal pair. Both
     factors fail and are zeroed (M⁻¹ = I) on both sides: the outputs must
     be non-finite in the same places, the finite ones within KERNEL_TOL,
-    and lane 0 finite throughout."""
+    and lane 0 finite throughout. Lane kernel at dx = 4 and 8, block
+    kernel at 9, 64 and 512 (there in float32 with a −1e-4 eigenvalue: a
+    wide float32 factor's rounding alone reaches 1e-8, so −1e-8 could
+    factor on one side and fail on the other)."""
     import numpy as np
     import torch
 
@@ -476,16 +576,26 @@ def guard_checks(dev) -> None:
     from bayesianfiltering_tpu_torch.ops import associative as tas
     from bayesianfiltering_tpu_torch.ops import bank_combine as bc
 
-    for dx in (KF_DX, 8):
-        rng = np.random.default_rng(SEED + dx)
-        raw = (testing.guard_lanes(rng, testing.filter_elements(rng, 96, dx))
-               + testing.filter_elements(rng, 96, dx))
+    for dx in (KF_DX, 8, 9, PC_DX, 512):
+        M = 96 if dx <= PC_DX else 4
+        kernel = bc.K10 if dx <= 8 else bc.K10B
         for dtype in (torch.float32, torch.float64):
             name = str(dtype).split(".")[-1]
+            rng = np.random.default_rng(SEED + dx)
+            if dx <= 8:
+                elems = lambda: testing.filter_elements(rng, M, dx)
+            else:
+                elems = lambda: testing.filter_elements(rng, M, dx, dx // 2,
+                                                        normalized=True)
+            neg = -1e-8 if dx <= 8 or dtype == torch.float64 else -1e-4
+            raw = testing.guard_lanes(rng, elems(), neg=neg) + elems()
             a = [torch.as_tensor(x, dtype=dtype, device=dev) for x in raw]
+            before = kernel.launches
             got = bc.bank_filter_combine(a[:5], a[5:])
             want = tas._combine(a[:5], a[5:])
             torch.cuda.synchronize()
+            if kernel.launches != before + 1:
+                raise RuntimeError(f"{kernel.name} did not launch at dx={dx}")
             errs = []
             for g, w in zip(got, want):
                 bad = ~torch.isfinite(w)
@@ -497,7 +607,7 @@ def guard_checks(dev) -> None:
             if max(errs) > KERNEL_TOL[name] or not all(
                     torch.isfinite(g[0]).all() for g in got):
                 raise RuntimeError(f"K10 guard dx={dx} {name}: {errs}")
-            log(f"kernel {bc.K10.name} guard lanes dx={dx} {name}: same "
+            log(f"kernel {kernel.name} guard lanes dx={dx} {name}: same "
                 f"non-finite entries, rel err {max(errs):.3e} ok")
 
 
@@ -735,20 +845,14 @@ def kf_problem(T, dtype, dev):
     import numpy as np
     import torch
 
+    from bayesianfiltering_tpu_torch import testing
     from bayesianfiltering_tpu_torch.ops.linear import ParamsLGSSM
 
-    rng = np.random.default_rng(SEED)
-    dx, dy = KF_DX, KF_DY
-    t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)
-    params = ParamsLGSSM(
-        initial_mean=t(np.zeros(dx)), initial_covariance=t(np.eye(dx)),
-        dynamics_matrix=t(0.99 * np.eye(dx)
-                          + 0.01 * rng.standard_normal((dx, dx)) / dx),
-        dynamics_covariance=t(0.1 * np.eye(dx)),
-        emission_matrix=t(rng.standard_normal((dy, dx)) / dx),
-        emission_covariance=t(0.1 * np.eye(dy)))
+    fields = testing.lgssm_fields(np.random.default_rng(SEED), KF_DX, KF_DY)
+    params = ParamsLGSSM(**{k: torch.as_tensor(v, dtype=dtype, device=dev)
+                            for k, v in fields.items()})
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    ys = torch.randn(T, dy, generator=gen, dtype=dtype, device=dev)
+    ys = torch.randn(T, KF_DY, generator=gen, dtype=dtype, device=dev)
     return params, ys
 
 
@@ -765,6 +869,64 @@ def bpf_problem(T, dtype, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + T)
     states, emissions = dm.sample(dp, T, generator=gen)
     return bpf, states, emissions
+
+
+def config5_data(T, dtype, dev):
+    """BASELINE config 5 (experiments/headline_bench.py:90-98): the Euler
+    filter model's parameters and one sequence of RK4 data, Lorenz-96
+    dx=512, dy=256."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models import zoo
+
+    _, params, _ = zoo.lorenz96(C5_DX, C5_DY, dtype=dtype, device=dev)
+    dm, dp, _ = zoo.lorenz96(C5_DX, C5_DY, integrator="rk4", dtype=dtype,
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + C5_DX)
+    states, emissions = dm.sample(dp, T, generator=gen)
+    if not torch.isfinite(emissions).all():
+        raise RuntimeError("config 5 RK4 data are not finite")
+    return params, states, emissions
+
+
+def config5_runs():
+    """Config 5's three filters: (label, call on (params, emissions), the
+    exact launches per step of each kernel)."""
+    from bayesianfiltering_tpu_torch import inference as inf
+
+    return [
+        ("ekf512", lambda p, e: inf.extended_kalman_filter(p, e),
+         {"bft_ekf_update": 1, "bft_ekf_predict_cov": 1}),
+        ("ekf512 update_chunk=128",
+         lambda p, e: inf.extended_kalman_filter(p, e, update_chunk=C5_CHUNK),
+         {"bft_ekf_update": C5_DY // C5_CHUNK, "bft_ekf_predict_cov": 1}),
+        ("ukf512 additive cholesky",
+         lambda p, e: inf.unscented_kalman_filter(p, ukf_params(), e,
+                                                  additive=True),
+         {"bft_ut_sigma": 2, "bft_ut_update": 1, "bft_ut_predict": 1}),
+    ]
+
+
+def path_c_problem(T, dtype, dev):
+    """Path C: ``zoo.linear_gaussian_lgssm(64, 32)`` (the widths of
+    bench.py's Lorenz-96 filter) with N(0, 1) emissions made on the device,
+    as path B's."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models import zoo
+
+    params = zoo.linear_gaussian_lgssm(PC_DX, PC_DY, dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + PC_DX)
+    ys = torch.randn(T, PC_DY, generator=gen, dtype=dtype, device=dev)
+    return params, ys
+
+
+def path_c_expect(solver):
+    """Path C's exact launches: the block combines only (the native
+    solver's filtering combine has no kernel)."""
+    return {"bft_block_combine": PC_COMBINES if solver == "woodbury" else 0,
+            "bft_block_smoother_elements": 1,
+            "bft_block_smoother_combine": PC_COMBINES}
 
 
 def compare_paths(dev) -> None:
@@ -905,11 +1067,56 @@ def compare_paths(dev) -> None:
             raise RuntimeError("parallel smoother kernel path disagrees with "
                                "the plain path")
 
+    # BASELINE config 5 in float64 at T = 20
+    params, _, em = config5_data(C5_CMP_T, torch.float64, dev)
+    cpu_params = zoo.lorenz96(C5_DX, C5_DY, dtype=torch.float64,
+                              device="cpu")[1]
+    for label, run, _ in config5_runs():
+        got = run(params, em)
+        want = run(cpu_params, em.cpu())
+        torch.cuda.synchronize()
+        errs = {n: rel_err(getattr(got, n), getattr(want, n))
+                for n in ("filtered_means", "filtered_covariances",
+                          "marginal_loglik")}
+        ok = max(errs.values()) <= EKF_TOL["float64"]
+        log(f"{label} lorenz96 dx={C5_DX} dy={C5_DY} T={C5_CMP_T} float64 "
+            "card vs cpu: " + ", ".join(f"{n} {e:.3e}"
+                                        for n, e in errs.items())
+            + f" (tol {EKF_TOL['float64']:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label} kernel path disagrees with the "
+                               "plain path")
 
-def run_path(label, fn, expect):
+    # path C: the parallel smoother above the lane band, both solvers
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        params, ys = path_c_problem(PC_CMP_T, dtype, dev)
+        cpu_params = type(params)(*(x.cpu() for x in params[:6]))
+        for solver in ("woodbury", "native"):
+            got = tas.parallel_kalman_smoother(params, ys, solver=solver,
+                                               chunk=KF_CHUNK)
+            want = tas.parallel_kalman_smoother(cpu_params, ys.cpu(),
+                                                solver=solver, chunk=KF_CHUNK)
+            torch.cuda.synchronize()
+            errs = {n: rel_err(getattr(got, n), getattr(want, n))
+                    for n in ("filtered_means", "filtered_covariances",
+                              "smoothed_means", "smoothed_covariances",
+                              "marginal_loglik")}
+            ok = max(errs.values()) <= EKF_TOL[name]
+            log(f"path C parallel kalman smoother dx={PC_DX} dy={PC_DY} "
+                f"T={PC_CMP_T} chunk={KF_CHUNK} {solver} {name} card vs cpu: "
+                + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f" (tol {EKF_TOL[name]:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"path C ({solver}, {name}) kernel path "
+                                   "disagrees with the plain path")
+
+
+def run_path(label, fn, expect, others_zero=False):
     """Run one main path with every launch counter reset just before it and
     read just after. ``expect`` maps kernel names to their exact launch
-    count, or to None for "at least one"."""
+    count, or to None for "at least one"; with ``others_zero`` every other
+    kernel must not have launched."""
     import torch
 
     from bayesianfiltering_tpu_torch import _build
@@ -918,6 +1125,8 @@ def run_path(label, fn, expect):
     out = fn()
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in _build.KERNELS}
+    if others_zero:
+        expect = {**{name: 0 for name in counts}, **expect}
     for name, want in expect.items():
         if (counts[name] == 0) if want is None else (counts[name] != want):
             raise RuntimeError(f"{label}: {name} launched {counts[name]} "
@@ -925,6 +1134,28 @@ def run_path(label, fn, expect):
                                f"{'at least one' if want is None else want}")
     log(f"{label}: launches {({k: v for k, v in counts.items() if v})}")
     return out, counts
+
+
+def repeated(label, fn, expect, add):
+    """``REPS`` calls of one path in one process, each with every counter
+    reset just before it and read just after (``run_path``, every kernel
+    outside ``expect`` held to 0). Adds the first call's launches to the
+    totals; returns the last output and each call's seconds (CUDA
+    events)."""
+    secs = []
+    for i in range(REPS):
+        (out, sec), counts = run_path(f"{label} (call {i + 1})",
+                                      lambda: timed(fn), expect,
+                                      others_zero=True)
+        if i == 0:
+            add(counts)
+        secs.append(sec)
+    return out, secs
+
+
+def spread(secs) -> str:
+    return (f"median {statistics.median(secs):.4f} s (min {min(secs):.4f}, "
+            f"max {max(secs):.4f}; {len(secs)} calls)")
 
 
 def timed(fn):
@@ -1104,6 +1335,46 @@ def main_path(dev, card: str) -> dict:
         f"chunk={KF_CHUNK} float32: {secs:.4f} s, {KF_T / secs:.1f} steps/s, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"({card})")
+
+    # BASELINE config 5: Lorenz-96 dx=512, dy=256, one sequence, T=200
+    params, states, em = config5_data(C5_T, torch.float32, dev)
+    for _, run, _ in config5_runs():  # warm-up
+        run(params, em[:3])
+    torch.cuda.synchronize()
+    for label, run, per_step in config5_runs():
+        post, secs = repeated(
+            f"{label} lorenz96", lambda: run(params, em),
+            {name: n * C5_T for name, n in per_step.items()}, add)
+        check_gaussian_posterior(label, post, (C5_T, C5_DX))
+        med = statistics.median(secs)
+        log(f"{label} lorenz96 dx={C5_DX} dy={C5_DY} B=1 T={C5_T} float32: "
+            f"{spread(secs)}, {C5_T / med:.1f} steps/s at the median, rmse "
+            f"{float(metrics.rmse(post.filtered_means, states)):.4f} "
+            f"({card})")
+
+    # path C: the parallel smoother at dx=64, T=65,536, both solvers
+    params, ys = path_c_problem(PC_T, torch.float32, dev)
+    for solver in ("woodbury", "native"):
+        tas.parallel_kalman_smoother(params, ys[:PC_CMP_T], solver=solver,
+                                     chunk=KF_CHUNK)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        post, secs = repeated(
+            f"path C parallel kalman smoother {solver}",
+            lambda: tas.parallel_kalman_smoother(params, ys, solver=solver,
+                                                 chunk=KF_CHUNK),
+            path_c_expect(solver), add)
+        for name in ("filtered_means", "smoothed_means",
+                     "smoothed_covariances"):
+            x = getattr(post, name)
+            if x.shape[0] != PC_T or not torch.isfinite(x).all():
+                raise RuntimeError(f"path C ({solver}): {name} not finite or "
+                                   "misshapen")
+        med = statistics.median(secs)
+        log(f"path C parallel kalman smoother {solver} dx={PC_DX} "
+            f"dy={PC_DY} T={PC_T} chunk={KF_CHUNK} float32: {spread(secs)}, "
+            f"{PC_T / med:.1f} steps/s at the median, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
     log(f"launches over the main paths: {total}")
     return total
 
@@ -1145,8 +1416,9 @@ def profile_run(label: str, run, card: str) -> None:
 
 def profile_ukf(dev, card: str) -> None:
     """Phase 6: device busy and idle share of the batched UKF step
-    (B=512, dx=64) over PROFILE_T steps, of PROFILE_T steps of path A and
-    of one run of path B, under torch.profiler."""
+    (B=512, dx=64) over PROFILE_T steps, of PROFILE_T steps of path A, of
+    one run of path B, of C5_PROFILE_T steps of each config-5 filter and of
+    one run of path C, under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1174,6 +1446,15 @@ def profile_ukf(dev, card: str) -> None:
     kparams, ys = kf_problem(KF_T, torch.float32, dev)
     profile_run(f"parallel kalman smoother T={KF_T} chunk={KF_CHUNK} float32",
                 lambda: tas.parallel_kalman_smoother(kparams, ys,
+                                                     chunk=KF_CHUNK), card)
+    params5, _, em5 = config5_data(C5_PROFILE_T, torch.float32, dev)
+    for label, run, _ in config5_runs():
+        profile_run(f"config 5 {label} B=1 dx={C5_DX} {C5_PROFILE_T} steps "
+                    "float32", lambda: run(params5, em5), card)
+    cparams, cys = path_c_problem(PC_T, torch.float32, dev)
+    profile_run(f"path C parallel kalman smoother woodbury T={PC_T} "
+                f"dx={PC_DX} chunk={KF_CHUNK} float32",
+                lambda: tas.parallel_kalman_smoother(cparams, cys,
                                                      chunk=KF_CHUNK), card)
 
 
@@ -1212,22 +1493,31 @@ def main() -> int:
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {entry}: {line.strip()}")
 
+    t0 = time.perf_counter()
     timing = check_kernels(dev)
+    log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     compare_paths(dev)
+    log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     counts = main_path(dev, card)
+    log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     profile_ukf(dev, card)
+    log(f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
-    for k in sorted(_build.KERNELS, key=lambda k: KERNEL_IDS[k.name]):
+    order = list(KERNEL_IDS)
+    for k in sorted(_build.KERNELS, key=lambda k: order.index(k.name)):
         t = timing[k.name]
         lib = t.get("library_ms")
-        log(f"K{KERNEL_IDS[k.name]} {k.name}: {t['ms']:.4f} ms (device "
+        log(f"{KERNEL_IDS[k.name]} {k.name}: {t['ms']:.4f} ms (device "
             f"{t['device_ms']} ms), plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.3g} ms "
             f"({t['bound_by']}), bound share {t['bound_share']:.3g}, library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}, launches "
             f"{counts[k.name]} ({card})")
-        kernels.append({"name": k.name, "id": f"K{KERNEL_IDS[k.name]}",
+        kernels.append({"name": k.name, "id": KERNEL_IDS[k.name],
                         "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": counts[k.name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 twin, and the filters' kernel path against their plain path on the CPU.
 
-Needs a CUDA device; every test skips without one. Covers K1–K12. This file imports no
+Needs a CUDA device; every test skips without one. Covers K1–K12, with
+the block variants of K10–K12 and the wide bands of K1 and K6–K9. This file imports no
 JAX, so it also runs where JAX is not installed (the repository's
 conftest.py imports JAX, hence ``--noconftest``):
 
@@ -137,9 +138,9 @@ def test_agsf_kernel_path_matches_plain_path(dev):
 
 
 def test_outside_the_kernel_band_raises(dev):
-    """The band is the TPU package's (dx ≤ 512, dy ≤ 128): a CUDA input
-    outside it raises instead of falling back to the plain twin."""
-    raw = testing.update_inputs(np.random.default_rng(1), 1, 4, 129)
+    """The band is dx ≤ 512, dy ≤ 512: a CUDA input outside it raises
+    instead of falling back to the plain twin."""
+    raw = testing.update_inputs(np.random.default_rng(1), 1, 4, 513)
     args = [testing.to_torch(a, torch.float32, dev) for a in raw]
     before = fe.K1.launches
     with pytest.raises(NotImplementedError):
@@ -241,7 +242,7 @@ def test_uagsf_kernel_path_matches_plain_path(dev):
 
 
 def test_ut_outside_the_band_raises(dev):
-    m, P = testing.sigma_inputs(np.random.default_rng(3), 1, 129)
+    m, P = testing.sigma_inputs(np.random.default_rng(3), 1, 1025)
     args = [testing.to_torch(a, torch.float32, dev) for a in (m, P)]
     before = fu.K6.launches
     with pytest.raises(NotImplementedError):
@@ -437,11 +438,12 @@ def test_parallel_smoother_kernel_path_matches_plain_path(dev):
         assert_close(getattr(got, name), getattr(want, name), 1e-9)
 
 
-@pytest.mark.parametrize("dx,dtype", [(9, torch.float64),
+@pytest.mark.parametrize("dx,dtype", [(513, torch.float64),
                                       (4, torch.float16)])
 def test_outside_the_combine_band_raises(dev, dx, dtype):
-    """dx = 9, or a half-precision operand, is outside K10–K12's band: a
-    CUDA input raises instead of running the plain version."""
+    """dx = 513, or a half-precision operand, is outside K10–K12's band
+    (lane kernels to dx = 8, block kernels to 512): a CUDA input raises
+    instead of running the plain version."""
     rng = np.random.default_rng(5)
     fl = lambda: _dev(testing.filter_elements(rng, 4, dx), dtype, dev)
     sm = lambda: _dev(testing.smoother_elements(rng, 4, dx), dtype, dev)
@@ -452,4 +454,267 @@ def test_outside_the_combine_band_raises(dev, dx, dtype):
                  lambda: bs.bank_smoother_elements(*el)):
         with pytest.raises(NotImplementedError, match="band"):
             call()
-    assert (bc.K10.launches, bs.K11.launches, bs.K12.launches) == (0, 0, 0)
+    assert all(k.launches == 0 for k in COMBINE_KERNELS)
+
+
+# ---------------------------------------------------------------------------
+# The wide bands: K1 to dy = 512, K6–K9 to 1,024, K10–K12's block variants
+# (8 < dx ≤ 512). Tolerances at these widths: float64 1e-10 as above;
+# float32 1e-3, the bound chip_smoke.py holds every kernel to, since a
+# float32 factor of a 256–1,024-wide S or P loses more digits than the
+# small shapes above.
+# ---------------------------------------------------------------------------
+
+COMBINE_KERNELS = (bc.K10, bs.K11, bs.K12, bc.K10B, bs.K11B, bs.K12B)
+WIDE_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
+
+WIDE_CASES = [
+    # (kernel, make inputs, wrapper, plain)
+    (fe.K1, lambda r: testing.update_inputs(r, 2, 512, 256),
+     lambda *a: fe.fused_update(*a, 0.0), lambda *a: fe._update_plain(*a)),
+    (fe.K1, lambda r: testing.update_inputs(r, 1, 64, 512),
+     lambda *a: fe.fused_update(*a, 0.0), lambda *a: fe._update_plain(*a)),
+    (fu.K6, lambda r: testing.sigma_inputs(r, 2, 512),
+     lambda *a: fu.fused_sigma(*a, 1.0, "cholesky"),
+     lambda *a: fu._sigma_plain(*a, 1.0, "cholesky")),
+    (fu.K6, lambda r: testing.sigma_inputs(r, 1, 1024),
+     lambda *a: fu.fused_sigma(*a, 1.0, "cholesky"),
+     lambda *a: fu._sigma_plain(*a, 1.0, "cholesky")),
+    (fu.K7, lambda r: testing.sigma_aug_inputs(r, 2, 512, 512),
+     lambda *a: fu.fused_sigma_aug(*a, 1.0, "cholesky"),
+     lambda *a: fu._sigma_aug_plain(*a, 1.0, "cholesky")),
+    (fu.K8, lambda r: testing.ut_update_inputs(r, 1, 1024, 512, 512, 256),
+     lambda *a: fu.fused_ut_update(*a, 1 / 1024, 0.0, True),
+     lambda *a: fu._ut_update_plain(*a, 1 / 1024, 0.0, True)),
+    (fu.K8, lambda r: testing.ut_update_inputs(r, 1, 1536, 768, 512, 256),
+     lambda *a: fu.fused_ut_update(*a, 1 / 1536, 0.0, False),
+     lambda *a: fu._ut_update_plain(*a, 1 / 1536, 0.0, False)),
+    (fu.K9, lambda r: testing.ut_predict_inputs(r, 2, 1024, 512),
+     lambda *a: fu.fused_ut_predict(*a, 1 / 1024, 0.0, 0.0, True),
+     lambda *a: fu._ut_predict_plain(*a, 1 / 1024, 0.0, 0.0, True)),
+    (fu.K9, lambda r: testing.ut_predict_inputs(r, 1, 2048, 1024),
+     lambda *a: fu.fused_ut_predict(*a, 1 / 2048, 0.0, 0.0, False),
+     lambda *a: fu._ut_predict_plain(*a, 1 / 2048, 0.0, 0.0, False)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", range(len(WIDE_CASES)))
+def test_wide_band_kernel_matches_plain(dev, dtype, case):
+    kernel, make, wrapper, plain = WIDE_CASES[case]
+    args = _dev(make(np.random.default_rng(case)), dtype, dev)
+    before = kernel.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = plain(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,M", [(9, 130), (64, 33), (200, 3), (512, 2)])
+def test_block_filter_combine_matches_plain(dev, dtype, dx, M):
+    rng = np.random.default_rng(dx * M)
+    left = _dev(testing.filter_elements(rng, M, dx, dx // 2, M // 4, True),
+                dtype, dev)
+    right = _dev(testing.filter_elements(rng, M, dx, dx // 2,
+                                         normalized=True), dtype, dev)
+    _build.reset_launch_counts()
+    got = bc.bank_filter_combine(left, right)
+    torch.cuda.synchronize()
+    assert (bc.K10.launches, bc.K10B.launches) == (0, 1)
+    for g, w in zip(got, tas._combine(left, right)):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_filter_combine_guard_lanes(dev, dtype):
+    """K10's guard in the block variant at dx = 64: the same non-finite
+    entries as the plain version, lane 0 (a negative eigenvalue: −1e-8 in
+    float64, −1e-4 in float32, whose rounding at this width reaches
+    1e-8) finite throughout."""
+    rng = np.random.default_rng(6)
+    neg = -1e-8 if dtype == torch.float64 else -1e-4
+    left = _dev(testing.guard_lanes(
+        rng, testing.filter_elements(rng, 40, 64, 32, normalized=True),
+        neg=neg), dtype, dev)
+    right = _dev(testing.filter_elements(rng, 40, 64, 32, normalized=True),
+                 dtype, dev)
+    before = bc.K10B.launches
+    got = bc.bank_filter_combine(left, right)
+    want = tas._combine(left, right)
+    torch.cuda.synchronize()
+    assert bc.K10B.launches == before + 1
+    for g, w in zip(got, want):
+        bad = ~torch.isfinite(w)
+        assert torch.equal(bad, ~torch.isfinite(g))
+        assert torch.isfinite(g[0]).all()
+        assert_close(torch.where(bad, 0, g), torch.where(bad, 0, w),
+                     WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_combines_broadcast_the_left_operand(dev, dtype):
+    """The chunked scan's step 4 at dx = 64: (1, G) against (chunk, G)."""
+    rng = np.random.default_rng(7)
+    G, C, dx = 5, 4, 64
+    for make, wrap, plain, kernel in (
+            (lambda r, M: testing.filter_elements(r, M, dx, 32,
+                                                  normalized=True),
+             bc.bank_filter_combine, tas._combine, bc.K10B),
+            (lambda r, M: testing.smoother_elements(r, M, dx),
+             bs.bank_smoother_combine, tas._smoother_combine, bs.K12B)):
+        left = [x[None] for x in _dev(make(rng, G), dtype, dev)]
+        right = [x.reshape((C, G) + x.shape[1:])
+                 for x in _dev(make(rng, C * G), dtype, dev)]
+        before = kernel.launches
+        got = wrap(left, right)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for g, w in zip(got, plain(left, right)):
+            assert g.shape[:2] == (C, G)
+            assert_close(g, w, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,M,shared", [(9, 130, True), (64, 40, False),
+                                         (64, 300, True), (512, 2, True)])
+def test_block_elements_kernel_matches_plain(dev, dtype, dx, M, shared):
+    fm, fP, pm, pP, F = _dev(
+        testing.smoother_element_inputs(np.random.default_rng(dx + M), M,
+                                        dx), dtype, dev)
+    if shared:
+        F = F[0].expand(M, dx, dx)
+    _build.reset_launch_counts()
+    got = bs.bank_smoother_elements(fm, fP, pm, pP, F)
+    torch.cuda.synchronize()
+    assert (bs.K11.launches, bs.K11B.launches) == (0, 1)
+    for g, w in zip(got, bs._elements_plain(fm, fP, pm, pP, F)):
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+def test_block_elements_kernel_nan_on_non_pd(dev):
+    fm, fP, pm, pP, F = _dev(
+        testing.smoother_element_inputs(np.random.default_rng(8), 5, 64),
+        torch.float64, dev)
+    pP = -pP
+    got = bs.bank_smoother_elements(fm, fP, pm, pP, F)
+    torch.cuda.synchronize()
+    assert bs.K11B.launches > 0
+    for g, w in zip(got, bs._elements_plain(fm, fP, pm, pP, F)):
+        assert torch.isnan(g).all() and torch.isnan(w).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,M", [(9, 300), (64, 70), (512, 2)])
+def test_block_smoother_combine_matches_plain(dev, dtype, dx, M):
+    rng = np.random.default_rng(dx + M)
+    e1 = _dev(testing.smoother_elements(rng, M, dx), dtype, dev)
+    e2 = _dev(testing.smoother_elements(rng, M, dx), dtype, dev)
+    _build.reset_launch_counts()
+    got = bs.bank_smoother_combine(e1, e2)
+    torch.cuda.synchronize()
+    assert (bs.K12.launches, bs.K12B.launches) == (0, 1)
+    for g, w in zip(got, tas._smoother_combine(e1, e2)):
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+def _smoother_run(dx, dy, T, solver, device, chunk=16):
+    rng = np.random.default_rng(dx)
+    fields = testing.lgssm_fields(rng, dx, dy)
+    ys = rng.standard_normal((T, dy))
+    params = linear.ParamsLGSSM(**{k: testing.to_torch(v, torch.float64,
+                                                       device)
+                                   for k, v in fields.items()})
+    _build.reset_launch_counts()
+    out = tas.parallel_kalman_smoother(
+        params, testing.to_torch(ys, torch.float64, device), solver=solver,
+        chunk=chunk)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in COMBINE_KERNELS}
+
+
+def test_the_band_picks_lane_kernels_at_8_and_block_kernels_at_9(dev):
+    """One schedule, two widths: dx = 8 launches only the lane kernels,
+    dx = 9 only the block kernels, the same number of times."""
+    _, lane = _smoother_run(8, 3, 200, "woodbury", dev)
+    _, block = _smoother_run(9, 3, 200, "woodbury", dev)
+    names = [k.name for k in COMBINE_KERNELS]
+    assert [lane[n] for n in names[3:]] == [0, 0, 0]
+    assert [block[n] for n in names[:3]] == [0, 0, 0]
+    assert [block[n] for n in names[3:]] == [lane[n] for n in names[:3]]
+    assert lane["bft_bank_smoother_elements"] == 1
+    assert lane["bft_bank_combine"] > 1
+
+
+@pytest.mark.parametrize("solver", ["woodbury", "native"])
+def test_block_parallel_smoother_matches_plain_path(dev, solver):
+    """dx = 24 through the block kernels (the native solver's filter has no
+    kernel; its smoother still runs K11 and K12) against the CPU."""
+    got, counts = _smoother_run(24, 12, 700, solver, dev)
+    want, _ = _smoother_run(24, 12, 700, solver, "cpu")
+    assert counts["bft_block_combine"] == (0 if solver == "native" else
+                                           counts["bft_block_smoother_combine"])
+    assert counts["bft_block_smoother_elements"] == 1
+    assert counts["bft_bank_combine"] == counts["bft_bank_smoother_combine"] == 0
+    for name in ("filtered_means", "filtered_covariances", "smoothed_means",
+                 "smoothed_covariances", "marginal_loglik"):
+        assert_close(getattr(got, name), getattr(want, name), 1e-9)
+
+
+@pytest.mark.parametrize("update_chunk", [None, 128])
+def test_wide_ekf_kernel_path_matches_plain_path(dev, update_chunk):
+    """Lorenz-96 at dx = 512, dy = 256, one sequence: K1 once per step, or
+    twice with ``update_chunk=128``."""
+    T = 3
+    data_model, data_params, _ = zoo.lorenz96(512, 256, integrator="rk4",
+                                              dtype=torch.float64,
+                                              device="cpu")
+    _, emissions = data_model.sample(data_params, T,
+                                     generator=torch.Generator().manual_seed(9))
+    runs = []
+    for device in (dev, "cpu"):
+        _, params, _ = zoo.lorenz96(512, 256, dtype=torch.float64,
+                                    device=device)
+        _build.reset_launch_counts()
+        runs.append(inference.extended_kalman_filter(
+            params, emissions.to(device), update_chunk=update_chunk))
+        if device == dev:
+            torch.cuda.synchronize()
+            assert (fe.K1.launches, fe.K2.launches) == (
+                T * (1 if update_chunk is None else 2), T)
+    got, want = runs
+    assert_close(got.filtered_means, want.filtered_means, 1e-9)
+    assert_close(got.marginal_loglik, want.marginal_loglik, 1e-9)
+
+
+def test_wide_ukf_kernel_path_matches_plain_path(dev):
+    """The additive UKF at dx = 512, dy = 256: K6 twice, K8 and K9 once per
+    step."""
+    T = 2
+    up = ParamsUKF(1.0, 0.0, 0.0, "cholesky")
+    data_model, data_params, _ = zoo.lorenz96(512, 256, integrator="rk4",
+                                              dtype=torch.float64,
+                                              device="cpu")
+    _, emissions = data_model.sample(data_params, T,
+                                     generator=torch.Generator().manual_seed(10))
+    runs = []
+    for device in (dev, "cpu"):
+        _, params, _ = zoo.lorenz96(512, 256, dtype=torch.float64,
+                                    device=device)
+        _build.reset_launch_counts()
+        runs.append(inference.unscented_kalman_filter(
+            params, up, emissions.to(device), additive=True))
+        if device == dev:
+            torch.cuda.synchronize()
+            assert (fu.K6.launches, fu.K8.launches, fu.K9.launches) == (
+                2 * T, T, T)
+    got, want = runs
+    assert_close(got.filtered_means, want.filtered_means, 1e-9)
+    assert_close(got.marginal_loglik, want.marginal_loglik, 1e-9)

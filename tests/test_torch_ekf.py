@@ -154,5 +154,3 @@ def test_unported_options_raise(lorenz96_case):
     e = torch.as_tensor(lorenz96_case)
     with pytest.raises(NotImplementedError):
         inf.extended_kalman_filter(tp, e, compat_scalar=True)
-    with pytest.raises(NotImplementedError):
-        inf.extended_kalman_filter(tp, e, update_chunk=2)
