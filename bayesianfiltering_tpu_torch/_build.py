@@ -60,12 +60,17 @@ def reset_launch_counts() -> None:
 _P, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _SIGNATURES = {
     "bft_error_string": ([_I], ctypes.c_char_p),
-    "bft_ekf_update_scratch_elems": ([_I, _I, _I, _I], _LL),
-    "bft_ekf_predict_cov_scratch_elems": ([_I, _I, _I, _I], _LL),
-    "bft_ekf_update_f32": ([_P] * 10 + [_I, _I, _I, _D, _P], _I),
-    "bft_ekf_update_f64": ([_P] * 10 + [_I, _I, _I, _D, _P], _I),
-    "bft_ekf_predict_cov_f32": ([_P] * 6 + [_I, _I, _I, _P], _I),
-    "bft_ekf_predict_cov_f64": ([_P] * 6 + [_I, _I, _I, _P], _I),
+    "bft_smem_optin": ([_I], _I),
+    "bft_ekf_update_f32": ([_P] * 9 + [_I, _I, _I, _D, _P], _I),
+    "bft_ekf_update_f64": ([_P] * 9 + [_I, _I, _I, _D, _P], _I),
+    "bft_ekf_predict_cov_f32": ([_P] * 5 + [_I, _I, _I, _P], _I),
+    "bft_ekf_predict_cov_f64": ([_P] * 5 + [_I, _I, _I, _P], _I),
+    "bft_ekf_update_tiled_scratch_elems": ([_I, _I], _LL),
+    "bft_ekf_predict_cov_tiled_scratch_elems": ([_I, _I], _LL),
+    "bft_ekf_update_tiled_f32": ([_P] * 10 + [_I, _I, _I, _D, _P], _I),
+    "bft_ekf_update_tiled_f64": ([_P] * 10 + [_I, _I, _I, _D, _P], _I),
+    "bft_ekf_predict_cov_tiled_f32": ([_P] * 6 + [_I, _I, _I, _P], _I),
+    "bft_ekf_predict_cov_tiled_f64": ([_P] * 6 + [_I, _I, _I, _P], _I),
     "bft_bank_update_f32": ([_P] * 9 + [_I, _I, _I, _D, _P], _I),
     "bft_bank_update_f64": ([_P] * 9 + [_I, _I, _I, _D, _P], _I),
     "bft_bank_predict_cov_f32": ([_P] * 5 + [_I, _I, _I, _P], _I),
@@ -185,6 +190,22 @@ def check(err: int, kernel: Kernel) -> None:
         raise RuntimeError(f"{kernel.name} launch failed: {msg} ({err})")
 
 
+_OPTIN = {}
+
+
+def smem_optin(device: torch.device) -> int:
+    """The CUDA device's shared-memory opt-in per block, in bytes: the
+    bound on a per-element kernel's workspace."""
+    index = torch.device(device).index or 0
+    if index not in _OPTIN:
+        optin = load().bft_smem_optin(index)
+        if optin < 0:
+            raise RuntimeError(f"device {index}: shared-memory opt-in query "
+                               "failed")
+        _OPTIN[index] = optin
+    return _OPTIN[index]
+
+
 def ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -266,4 +287,5 @@ def kernel_op(plain: Callable, launch: Callable, num_tensors: int) -> Callable:
 
 
 __all__ = ["Kernel", "KERNELS", "register", "reset_launch_counts", "load",
-           "check", "check_operands", "kernel_op", "scratch", "BUILD_DIR"]
+           "check", "check_operands", "kernel_op", "scratch", "smem_optin",
+           "BUILD_DIR"]

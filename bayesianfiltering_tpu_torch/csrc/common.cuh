@@ -22,13 +22,19 @@ inline long long scratch_elems(size_t ws_elems, int itemsize, int device) {
                                                    : (long long)ws_elems;
 }
 
+// The block's dynamic shared memory.
+template <typename T>
+__device__ T* shared_workspace() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return reinterpret_cast<T*>(smem_raw);
+}
+
 // The block's workspace: its slice of the global scratch when one is
 // given, else the dynamic shared memory.
 template <typename T>
 __device__ T* workspace(T* scratch, size_t per_block) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   return scratch != nullptr ? scratch + size_t(blockIdx.x) * per_block
-                            : reinterpret_cast<T*>(smem_raw);
+                            : shared_workspace<T>();
 }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.

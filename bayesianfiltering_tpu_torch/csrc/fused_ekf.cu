@@ -14,9 +14,10 @@
 // latency of the dy dependent Cholesky columns, each closed by a block
 // barrier; occupancy is set by the working set. What the simple design
 // does about it: every intermediate (H P, Hᵀ, S, L, L⁻¹, (I − K H)ᵀ,
-// (I − K H) P, K Rt) stays in dynamic shared memory when it fits (19,456
-// elements at the main-path shape: 78 KB in f32, two blocks per SM); above
-// the opt-in limit the wrapper passes a global-memory scratch instead. The
+// (I − K H) P, K Rt) stays in dynamic shared memory (19,456 elements at the
+// main-path shape: 78 KB in f32, two blocks per SM). An element whose
+// workspace exceeds the opt-in limit goes to the tiled variants K1t and K2t
+// instead (ekf_tiled.cu; ops/fused_ekf.py chooses by shape). The
 // factorisation needs one barrier per column (the thread that finishes row
 // j+1 also takes pivot j+1), and L⁻¹ needs none: each thread
 // forward-substitutes whole columns. Products are plain per-thread dot
@@ -60,7 +61,7 @@ __global__ void __launch_bounds__(kThreads) ekf_update_kernel(
     const T* __restrict__ m_all, const T* __restrict__ P_all,
     const T* __restrict__ H_all, const T* __restrict__ R_all,
     const T* __restrict__ inn_all, T* ll_all, T* mean_all, T* cov_all,
-    T* kt_all, T* scratch, size_t ws_elems, int dx, int dy, T jitter) {
+    T* kt_all, int dx, int dy, T jitter) {
   __shared__ T s_floor;
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -72,7 +73,7 @@ __global__ void __launch_bounds__(kThreads) ekf_update_kernel(
   T* cov = cov_all + b * dx * dx;
   T* W = kt_all + b * dy * dx;  // Kᵀ = S⁻¹ H P, an output read back below
 
-  T* ws = workspace(scratch, ws_elems);
+  T* ws = shared_workspace<T>();
   T* HP = ws;              // dy × dx
   T* HT = HP + dy * dx;    // dx × dy
   T* Z = HT + dx * dy;     // dy × dx; reused for z = L⁻¹ innov
@@ -230,7 +231,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) ekf_predict_cov_kernel(
     const T* __restrict__ Fx_all, const T* __restrict__ P_all,
     const T* __restrict__ Fq_all, const T* __restrict__ Q, T* cov_all,
-    T* scratch, size_t ws_elems, int dx, int dq) {
+    int dx, int dq) {
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const T* Fx = Fx_all + b * dx * dx;
@@ -238,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) ekf_predict_cov_kernel(
   const T* Fq = Fq_all + b * dx * dq;
   T* cov = cov_all + b * dx * dx;
 
-  T* ws = workspace(scratch, ws_elems);
+  T* ws = shared_workspace<T>();
   T* FP = ws;              // dx × dx
   T* FxT = FP + dx * dx;   // dx × dx
   T* FQ = FxT + dx * dx;   // dx × dq
@@ -263,31 +264,27 @@ __global__ void __launch_bounds__(kThreads) ekf_predict_cov_kernel(
 template <typename T>
 int launch_update(const void* m, const void* P, const void* H, const void* R,
                   const void* inn, void* ll, void* mean, void* cov, void* kt,
-                  void* scratch, int B, int dx, int dy, double jitter,
-                  void* stream) {
-  const size_t ws = update_ws_elems(dx, dy);
-  const size_t smem = scratch != nullptr ? 0 : ws * sizeof(T);
+                  int B, int dx, int dy, double jitter, void* stream) {
+  const size_t smem = update_ws_elems(dx, dy) * sizeof(T);
   if (int err = set_smem(ekf_update_kernel<T>, smem)) return err;
   ekf_update_kernel<T><<<B, kThreads, smem, cudaStream_t(stream)>>>(
       static_cast<const T*>(m), static_cast<const T*>(P),
       static_cast<const T*>(H), static_cast<const T*>(R),
       static_cast<const T*>(inn), static_cast<T*>(ll), static_cast<T*>(mean),
-      static_cast<T*>(cov), static_cast<T*>(kt), static_cast<T*>(scratch), ws,
-      dx, dy, T(jitter));
+      static_cast<T*>(cov), static_cast<T*>(kt), dx, dy, T(jitter));
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch_predict(const void* Fx, const void* P, const void* Fq,
-                   const void* Q, void* cov, void* scratch, int B, int dx,
-                   int dq, void* stream) {
-  const size_t ws = predict_ws_elems(dx, dq);
-  const size_t smem = scratch != nullptr ? 0 : ws * sizeof(T);
+                   const void* Q, void* cov, int B, int dx, int dq,
+                   void* stream) {
+  const size_t smem = predict_ws_elems(dx, dq) * sizeof(T);
   if (int err = set_smem(ekf_predict_cov_kernel<T>, smem)) return err;
   ekf_predict_cov_kernel<T><<<B, kThreads, smem, cudaStream_t(stream)>>>(
       static_cast<const T*>(Fx), static_cast<const T*>(P),
       static_cast<const T*>(Fq), static_cast<const T*>(Q),
-      static_cast<T*>(cov), static_cast<T*>(scratch), ws, dx, dq);
+      static_cast<T*>(cov), dx, dq);
   return int(cudaGetLastError());
 }
 
@@ -299,43 +296,43 @@ const char* bft_error_string(int code) {
   return cudaGetErrorString(cudaError_t(code));
 }
 
-long long bft_ekf_update_scratch_elems(int dx, int dy, int itemsize,
-                                       int device) {
-  return bft::scratch_elems(update_ws_elems(dx, dy), itemsize, device);
-}
-
-long long bft_ekf_predict_cov_scratch_elems(int dx, int dq, int itemsize,
-                                            int device) {
-  return bft::scratch_elems(predict_ws_elems(dx, dq), itemsize, device);
+// The device's shared-memory opt-in per block in bytes (the bound on K1's
+// and K2's workspaces), or -1 on a CUDA error.
+int bft_smem_optin(int device) {
+  int optin = 0;
+  return cudaDeviceGetAttribute(&optin,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                device) == cudaSuccess
+             ? optin
+             : -1;
 }
 
 int bft_ekf_update_f32(const void* m, const void* P, const void* H,
                        const void* R, const void* inn, void* ll, void* mean,
-                       void* cov, void* kt, void* scratch, int B, int dx,
-                       int dy, double jitter, void* stream) {
-  return launch_update<float>(m, P, H, R, inn, ll, mean, cov, kt, scratch, B,
-                              dx, dy, jitter, stream);
+                       void* cov, void* kt, int B, int dx, int dy,
+                       double jitter, void* stream) {
+  return launch_update<float>(m, P, H, R, inn, ll, mean, cov, kt, B, dx, dy,
+                              jitter, stream);
 }
 
 int bft_ekf_update_f64(const void* m, const void* P, const void* H,
                        const void* R, const void* inn, void* ll, void* mean,
-                       void* cov, void* kt, void* scratch, int B, int dx,
-                       int dy, double jitter, void* stream) {
-  return launch_update<double>(m, P, H, R, inn, ll, mean, cov, kt, scratch,
-                               B, dx, dy, jitter, stream);
+                       void* cov, void* kt, int B, int dx, int dy,
+                       double jitter, void* stream) {
+  return launch_update<double>(m, P, H, R, inn, ll, mean, cov, kt, B, dx, dy,
+                               jitter, stream);
 }
 
 int bft_ekf_predict_cov_f32(const void* Fx, const void* P, const void* Fq,
-                            const void* Q, void* cov, void* scratch, int B,
-                            int dx, int dq, void* stream) {
-  return launch_predict<float>(Fx, P, Fq, Q, cov, scratch, B, dx, dq, stream);
+                            const void* Q, void* cov, int B, int dx, int dq,
+                            void* stream) {
+  return launch_predict<float>(Fx, P, Fq, Q, cov, B, dx, dq, stream);
 }
 
 int bft_ekf_predict_cov_f64(const void* Fx, const void* P, const void* Fq,
-                            const void* Q, void* cov, void* scratch, int B,
-                            int dx, int dq, void* stream) {
-  return launch_predict<double>(Fx, P, Fq, Q, cov, scratch, B, dx, dq,
-                                stream);
+                            const void* Q, void* cov, int B, int dx, int dq,
+                            void* stream) {
+  return launch_predict<double>(Fx, P, Fq, Q, cov, B, dx, dq, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-"""Batched EKF update and predict through the CUDA kernels K1 and K2
-(counterpart of ``bayesianfiltering_tpu/ops/fused_ekf.py``).
+"""Batched EKF update and predict through the CUDA kernels K1 and K2, and
+their tiled variants K1t and K2t (counterpart of
+``bayesianfiltering_tpu/ops/fused_ekf.py``).
 
 K1 (``csrc/fused_ekf.cu``, ``ekf_update_kernel``) replaces the TPU kernel
 ``_update_kernel`` (``bayesianfiltering_tpu/ops/fused_ekf.py:61``): S,
@@ -7,16 +8,23 @@ chol(S), L⁻¹, Kᵀ = S⁻¹ H P, the Joseph covariance, the mean and the
 log-likelihood in one launch. K2 (``ekf_predict_cov_kernel``) replaces
 ``_predict_kernel`` (``:146``): Σ⁺ = sym(F_x P F_xᵀ + F_q Q F_qᵀ). Unlike
 the TPU kernels, both take a leading batch axis (one thread block per
-element), so the batched filter runs through them.
+element), so the batched filter runs through them. Their workspace lives
+in the block's shared memory.
 
-On CUDA tensors the wrappers launch the kernel or raise; on CPU tensors
+K1t and K2t (``csrc/ekf_tiled.cu``) replace the same TPU kernels for
+elements whose workspace does not fit there: every product is tiled over
+the whole card and the Cholesky is blocked (``csrc/tiled.cuh``), so one
+sequence at dx = 512 uses every SM. The choice is by shape alone
+(:func:`update_kernel`, :func:`predict_kernel`).
+
+On CUDA tensors the wrappers launch a kernel or raise; on CPU tensors
 they run the plain twins beside them. The band is dx, dy ≤ 512 for the
 update and dx, dq ≤ 512 for the predict; a CUDA input outside it raises
 NotImplementedError. (The TPU package caps its update kernel at dy ≤ 128,
 where its in-kernel factorisation was verified on the TPU, and offers the
-sequential chunked update for larger dy; K1 factors S in global scratch
-instead, so both the joint update and the chunked one,
-:func:`fused_ekf_condition_on_chunked`, run on the card at dy = 256.)
+sequential chunked update for larger dy; here both the joint update and
+the chunked one, :func:`fused_ekf_condition_on_chunked`, run on the card
+at dy = 256.)
 """
 from __future__ import annotations
 
@@ -38,57 +46,104 @@ _DIM_MAX = 512
 _DY_MAX = 512
 _CHUNK = 128  # the JAX package's default chunk (its kernel's dy band)
 
-K1 = _build.register("bft_ekf_update",
-                     "bayesianfiltering_tpu_torch/csrc/fused_ekf.cu",
+_SRC = "bayesianfiltering_tpu_torch/csrc/fused_ekf.cu"
+_TILED_SRC = "bayesianfiltering_tpu_torch/csrc/ekf_tiled.cu"
+K1 = _build.register("bft_ekf_update", _SRC,
                      "bayesianfiltering_tpu/ops/fused_ekf.py:61")
-K2 = _build.register("bft_ekf_predict_cov",
-                     "bayesianfiltering_tpu_torch/csrc/fused_ekf.cu",
+K2 = _build.register("bft_ekf_predict_cov", _SRC,
                      "bayesianfiltering_tpu/ops/fused_ekf.py:146")
+K1T = _build.register("bft_ekf_update_tiled", _TILED_SRC,
+                      "bayesianfiltering_tpu/ops/fused_ekf.py:61")
+K2T = _build.register("bft_ekf_predict_cov_tiled", _TILED_SRC,
+                      "bayesianfiltering_tpu/ops/fused_ekf.py:146")
 
 _update_plain = chol_update_precomputed
 _predict_plain = predict_cov_precomputed
+
+# The per-element kernels' shared-memory workspace, in elements
+# (``update_ws_elems`` and ``predict_ws_elems`` of csrc/fused_ekf.cu), and
+# the room left for their static shared memory (``kStaticSmemSlack``).
+_SMEM_SLACK = 256
+
+
+def _update_ws(dx: int, dy: int) -> int:
+    return 4 * dy * dx + 3 * dy * dy + 2 * dx * dx
+
+
+def _predict_ws(dx: int, dq: int) -> int:
+    return 2 * dx * dx + 2 * dx * dq
+
+
+def _fits(elems: int, itemsize: int, smem_optin: int) -> bool:
+    return elems * itemsize + _SMEM_SLACK <= smem_optin
+
+
+def update_kernel(dx: int, dy: int, itemsize: int,
+                  smem_optin: int) -> _build.Kernel:
+    """The update kernel for one shape: K1 (one block per element) where
+    its workspace fits in a block's shared memory, ``smem_optin`` bytes
+    (the device's opt-in limit), K1t (tiled over the card) otherwise."""
+    return K1 if _fits(_update_ws(dx, dy), itemsize, smem_optin) else K1T
+
+
+def predict_kernel(dx: int, dq: int, itemsize: int,
+                   smem_optin: int) -> _build.Kernel:
+    """The predict kernel for one shape: K2 where its workspace fits in
+    ``smem_optin`` bytes of shared memory, K2t otherwise."""
+    return K2 if _fits(_predict_ws(dx, dq), itemsize, smem_optin) else K2T
 
 
 def _launch_update(m, P, Hx, Rt, innov, jitter):
     B, dx = m.shape
     dy = innov.shape[-1]
-    _build.check_operands(K1, (m, (B, dx)), (P, (B, dx, dx)),
+    kernel = update_kernel(dx, dy, m.element_size(),
+                           _build.smem_optin(m.device))
+    _build.check_operands(kernel, (m, (B, dx)), (P, (B, dx, dx)),
                           (Hx, (B, dy, dx)), (Rt, (B, dy, dy)),
                           (innov, (B, dy)))
-    lib = _build.load()
-    ll, mean = m.new_empty(B), torch.empty_like(m)
-    cov, kt = torch.empty_like(P), m.new_empty(B, dy, dx)
+    tiled = kernel is K1T
+    ll, mean, cov = m.new_empty(B), torch.empty_like(m), torch.empty_like(P)
+    # K1t writes the gain K (B, dx, dy), K1 its transpose (B, dy, dx)
+    gain = m.new_empty(B, dx, dy) if tiled else m.new_empty(B, dy, dx)
     if B:
         with torch.cuda.device(m.device):
-            scratch = _build.scratch(lib.bft_ekf_update_scratch_elems(
-                dx, dy, m.element_size(), m.device.index), K1, B, m)
-            err = _build.symbol(K1, m)(
-                m.data_ptr(), P.data_ptr(), Hx.data_ptr(), Rt.data_ptr(),
-                innov.data_ptr(), ll.data_ptr(), mean.data_ptr(),
-                cov.data_ptr(), kt.data_ptr(), _build.ptr(scratch), B, dx, dy,
-                jitter, torch.cuda.current_stream().cuda_stream)
-        _build.check(err, K1)
-        K1.launches += 1
-    return ll, mean, cov, kt.mT
+            ptrs = [m.data_ptr(), P.data_ptr(), Hx.data_ptr(), Rt.data_ptr(),
+                    innov.data_ptr(), ll.data_ptr(), mean.data_ptr(),
+                    cov.data_ptr(), gain.data_ptr()]
+            if tiled:  # K1t's per-element workspace
+                scratch = m.new_empty(
+                    B * _build.load().bft_ekf_update_tiled_scratch_elems(
+                        dx, dy))
+                ptrs.append(scratch.data_ptr())
+            err = _build.symbol(kernel, m)(
+                *ptrs, B, dx, dy, jitter,
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(err, kernel)
+        kernel.launches += 1
+    return ll, mean, cov, gain if tiled else gain.mT
 
 
 def _launch_predict(Fx, P, Fq, Q):
     B, dx = Fx.shape[:2]
     dq = Fq.shape[-1]
-    _build.check_operands(K2, (Fx, (B, dx, dx)), (P, (B, dx, dx)),
+    kernel = predict_kernel(dx, dq, P.element_size(),
+                            _build.smem_optin(P.device))
+    _build.check_operands(kernel, (Fx, (B, dx, dx)), (P, (B, dx, dx)),
                           (Fq, (B, dx, dq)), (Q, (dq, dq)))
-    lib = _build.load()
     cov = torch.empty_like(P)
     if B:
         with torch.cuda.device(P.device):
-            scratch = _build.scratch(lib.bft_ekf_predict_cov_scratch_elems(
-                dx, dq, P.element_size(), P.device.index), K2, B, P)
-            err = _build.symbol(K2, P)(
-                Fx.data_ptr(), P.data_ptr(), Fq.data_ptr(), Q.data_ptr(),
-                cov.data_ptr(), _build.ptr(scratch), B, dx, dq,
-                torch.cuda.current_stream().cuda_stream)
-        _build.check(err, K2)
-        K2.launches += 1
+            ptrs = [Fx.data_ptr(), P.data_ptr(), Fq.data_ptr(), Q.data_ptr(),
+                    cov.data_ptr()]
+            if kernel is K2T:  # F_x P and F_q Q
+                scratch = P.new_empty(
+                    B * _build.load().bft_ekf_predict_cov_tiled_scratch_elems(
+                        dx, dq))
+                ptrs.append(scratch.data_ptr())
+            err = _build.symbol(kernel, P)(
+                *ptrs, B, dx, dq, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, kernel)
+        kernel.launches += 1
     return cov
 
 
@@ -100,7 +155,8 @@ def fused_update(m, P, Hx, Rt, innov, jitter=0.0):
     """Batched Joseph-form update on precomputed linearizations: ``m``
     (B, dx), ``P`` (B, dx, dx), ``Hx`` (B, dy, dx), ``Rt`` (B, dy, dy),
     ``innov`` (B, dy). Returns ``(ll, mean, cov, gain)`` with the gain
-    (B, dx, dy). K1 on CUDA, the plain twin on CPU."""
+    (B, dx, dy). K1 or K1t on CUDA (:func:`update_kernel`), the plain twin
+    on CPU."""
     dx, dy = P.shape[-1], innov.shape[-1]
     if m.is_cuda and (dx > _DIM_MAX or dy > _DY_MAX):
         raise NotImplementedError(
@@ -112,7 +168,8 @@ def fused_update(m, P, Hx, Rt, innov, jitter=0.0):
 
 def fused_predict_cov(Fx, P, Fq, Q):
     """Batched Σ⁺ = sym(F_x P F_xᵀ + F_q Q F_qᵀ) with ``Q`` (dq, dq)
-    shared. K2 on CUDA, the plain twin on CPU."""
+    shared. K2 or K2t on CUDA (:func:`predict_kernel`), the plain twin on
+    CPU."""
     dx, dq = P.shape[-1], Fq.shape[-1]
     if P.is_cuda and (dx > _DIM_MAX or dq > _DIM_MAX):
         raise NotImplementedError(
@@ -125,7 +182,7 @@ def fused_predict_cov(Fx, P, Fq, Q):
 def fused_ekf_condition_on_iterated(m, P, h, H_x, H_r, R, r0, u, y,
                                     num_iter=1, jitter=0.0,
                                     residual_fn=None) -> EKFUpdate:
-    """Batched (iterated) EKF measurement update, one K1 launch per
+    """Batched (iterated) EKF measurement update, one K1 or K1t launch per
     iteration."""
     return ekf_condition_on_iterated(m, P, h, H_x, H_r, R, r0, u, y,
                                      num_iter, jitter, residual_fn,
@@ -149,8 +206,8 @@ def fused_ekf_condition_on_chunked(m, P, h, H_x, H_r, R, r0, u, y,
                                    residual_fn=None) -> EKFUpdate:
     """Sequential (chunked) EKF measurement update for large emission
     dimensions, batched: the emission vector in ``chunk``-sized blocks, one
-    K1 launch per block (⌈dy/chunk⌉ per iteration), the counterpart of
-    ``bayesianfiltering_tpu/ops/fused_ekf.py``
+    K1 or K1t launch per block (⌈dy/chunk⌉ per iteration), the counterpart
+    of ``bayesianfiltering_tpu/ops/fused_ekf.py``
     ``fused_ekf_condition_on_chunked``.
 
     EXACT (the same posterior and total log-likelihood as the joint update)
@@ -195,13 +252,15 @@ def fused_ekf_condition_on_chunked(m, P, h, H_x, H_r, R, r0, u, y,
 
 
 def fused_ekf_predict(m, P, f, F_x, F_q, Q, q0, u):
-    """Batched EKF predict with the covariance propagation in K2. Returns
-    ``(μ⁺, Σ⁺, F_x(m))``."""
+    """Batched EKF predict with the covariance propagation in K2 or K2t.
+    Returns ``(μ⁺, Σ⁺, F_x(m))``."""
     return ekf_predict(m, P, f, F_x, F_q, Q, q0, u,
                        predict_cov=fused_predict_cov)
 
 
 __all__ = [
+    "update_kernel",
+    "predict_kernel",
     "fused_update",
     "fused_predict_cov",
     "fused_ekf_condition_on_iterated",

@@ -8,24 +8,31 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. Environment: torch and CUDA versions, the card's name and power limit.
-2. Build the CUDA kernels (K1–K12, and the block variants K10b–K12b of
-   the combines above dx = 8) from ``bayesianfiltering_tpu_torch/csrc``,
-   one nvcc per source, in parallel.
+2. Build the CUDA kernels (K1–K12, the tiled variants K1t/K2t of the EKF
+   update and predict, and the block variants K10b–K12b of the combines
+   above dx = 8) from ``bayesianfiltering_tpu_torch/csrc``, one nvcc per
+   source, in parallel.
 3. Each kernel against its plain PyTorch version on the card, float32 and
-   float64, at the main paths' shapes and at its size band's edge (K1 to
-   dy = 512, K6–K9 to 1,024, the block combines at dx = 9, 64 and 512); a
-   non-positive-definite S or P must give NaN on both sides, and K10's
+   float64, at the main paths' shapes and at its size band's edge (K1/K1t
+   to dy = 512, K6–K9 to 1,024, the block combines at dx = 9, 64 and 512;
+   the EKF kernels also at shapes that are not multiples of a tile and on
+   both sides of the rule that picks K1/K2 or K1t/K2t, each shape
+   expecting the kernel the rule names); a
+   non-positive-definite S or P must give NaN on both sides (K1t with the
+   failing pivot in its first and in a later panel), and K10's
    guard lanes (a C1 with a −1e-8 eigenvalue, a C1 with an infinite entry)
    the same finite and non-finite entries (dx = 4 to 512). K5 (integer
-   parents) must equal
-   its plain version exactly at n = 2²⁰ and 65,536 on five weight
-   profiles, and at the Gaussian-sum reductions' m counts → n slots. Times each kernel and its plain version with CUDA events at
-   the main-path shape and computes its bound (bytes over 3.35 TB/s or
-   flops over the peak rate, whichever is larger), and reads the kernel's
+   parents) must equal its plain version exactly at n = 2²⁰ and 65,536 on
+   five weight profiles, and at the Gaussian-sum reductions' m counts → n
+   slots. Times each kernel and its plain version with CUDA events at the
+   main-path shape (float32; K1t and K2t float64 too) and computes its
+   bound (bytes over 3.35 TB/s or flops over the peak rate, whichever is
+   larger), and reads the kernel's
    own device time from torch.profiler (the CUDA-event time of a loop of
    wrapper calls is the host's time where the kernel is shorter than its
    wrapper); K5 also gets the time of ``torch.searchsorted``, one PyTorch
-   call computing its function.
+   call computing its function, and both are timed by device time alike:
+   the profiler's, and CUDA events around a CUDA graph of 100 calls.
 4. Kernel path (card) against plain path (CPU) end to end, with the same
    data and the same draws: the batched EKF and UKF (additive and
    augmented) on Lorenz-96, the GSF and AGSF on bearings-only tracking, the
@@ -49,7 +56,8 @@ and prints no result):
    parallel Kalman smoother at T=1M, dx=4, dy=2, chunk 128 (K10 and K12
    320 times each, K11 once); BASELINE config 5 (Lorenz-96 dx=512,
    dy=256, one sequence, T=200: the EKF with the joint update, the EKF with
-   ``update_chunk=128``, the additive UKF); path C (the parallel smoother
+   ``update_chunk=128`` — K1t/K2t, never K1/K2 — and the additive UKF);
+   path C (the parallel smoother
    on ``zoo.linear_gaussian_lgssm(64, 32)`` at T=65,536, chunk 128, both
    solvers: only the block combines launch). The new paths run three
    times each in one process and report the median and the range. Checks
@@ -57,7 +65,8 @@ and prints no result):
 6. The device's busy and idle share, and the kernels with the most
    device time, under torch.profiler: the batched UKF step, ten steps of
    the 1M-particle BPF, one run of the T=1M parallel smoother, ten steps
-   of config 5's EKF and UKF, one run of path C.
+   of each of config 5's filters (the EKF's split between K1t/K2t and the
+   host), one run of path C.
 
 The last three lines: a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -110,7 +119,7 @@ KF_LANES = -(-KF_T // KF_CHUNK)                       # 7,813
 # BASELINE config 5 (experiments/headline_bench.py:90-98): Lorenz-96
 # dx=512, dy=256, one sequence, T=200, RK4 data, Euler filter
 C5_DX, C5_DY, C5_T, C5_CMP_T, C5_CHUNK = 512, 256, 200, 20, 128
-C5_PROFILE_T = 3  # its steps are ~0.1-0.2 s each on the card
+C5_PROFILE_T = 10
 # path C: the parallel smoother above the lane band, at bench.py's
 # Lorenz-96 filter widths; T cut from path B's 1M to 65,536 (the elements
 # at dx=64 take ~256x the bytes of dx=4)
@@ -126,6 +135,9 @@ REPS = 3  # calls of each new path in one process: median and range
 KERNEL_SYMBOLS = {
     "bft_ekf_update": ("ekf_update_kernel",),
     "bft_ekf_predict_cov": ("ekf_predict_cov_kernel",),
+    "bft_ekf_update_tiled": ("tiled_gemm_kernel", "ekf_tiled_prep_kernel",
+                             "chol_diag_kernel", "ekf_tiled_loglik_kernel"),
+    "bft_ekf_predict_cov_tiled": ("tiled_gemm_kernel",),
     "bft_bank_update": ("bank_update_kernel",),
     "bft_bank_predict_cov": ("bank_predict_cov_kernel",),
     "bft_resample_parents": ("resample_parents_kernel",),
@@ -140,9 +152,11 @@ KERNEL_SYMBOLS = {
     "bft_block_smoother_elements": ("block_smoother_elements_kernel",),
     "bft_block_smoother_combine": ("block_smoother_combine_kernel",),
 }
-# the kernels' IDs, in the order of the kernel table; K10b–K12b are the
-# block variants (8 < dx ≤ 512) of K10–K12
-KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_predict_cov": "K2",
+# the kernels' IDs, in the order of the kernel table; K1t/K2t are the
+# tiled variants of K1/K2, K10b–K12b the block variants (8 < dx ≤ 512) of
+# K10–K12
+KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_update_tiled": "K1t",
+              "bft_ekf_predict_cov": "K2", "bft_ekf_predict_cov_tiled": "K2t",
               "bft_bank_update": "K3", "bft_bank_predict_cov": "K4",
               "bft_resample_parents": "K5", "bft_ut_sigma": "K6",
               "bft_ut_sigma_aug": "K7", "bft_ut_update": "K8",
@@ -152,6 +166,10 @@ KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_predict_cov": "K2",
               "bft_block_smoother_elements": "K11b",
               "bft_bank_smoother_combine": "K12",
               "bft_block_smoother_combine": "K12b"}
+
+# kernels timed in float64 as well at their main-path shapes (config 5's
+# filters run in float64 too; the rest are timed in float32 only)
+TIMED_FLOAT64 = ("bft_ekf_update_tiled", "bft_ekf_predict_cov_tiled")
 
 # Roofline of an H100 SXM at its 700 W limit (NVIDIA's data sheet): memory
 # 3.35 TB/s; CUDA-core (non-tensor) peaks 67 TFLOP/s in float32 and
@@ -229,6 +247,32 @@ def device_ms(fn, symbols, reps: int = 20):
                 if e.device_type != DeviceType.CPU
                 and any(s in e.key for s in symbols))
     return total / 1e3 / reps if total else None
+
+
+def graph_ms(fn, calls: int = 100, replays: int = 5) -> float:
+    """Milliseconds per call of ``fn`` from CUDA events around the replay
+    of a CUDA graph of ``calls`` calls: device time with no host cost per
+    call, the same method for a kernel and a library call."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +355,9 @@ def bound(tensors, outputs, flops, dtype_name):
 def kernel_cases():
     """(kernel, wrapper, plain, shape, make inputs, static args, flops per
     launch, timed) — timed is "main" for the kernel's main-path shape,
-    "also" for a second timed shape of the main path, else None."""
+    "also" for a second timed shape of the main path, else None. The
+    kernel is a function of the first operand where a rule picks it by
+    shape and dtype (the EKF's K1/K1t and K2/K2t)."""
     from bayesianfiltering_tpu_torch import testing
     from bayesianfiltering_tpu_torch.ops import associative as tas
     from bayesianfiltering_tpu_torch.ops import bank_combine as bc
@@ -320,6 +366,7 @@ def kernel_cases():
     from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
     from bayesianfiltering_tpu_torch.ops import fused_ut as fu
     from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF, ut_weights
+    from bayesianfiltering_tpu_torch import _build
 
     up = ParamsUKF(1.0, 2.0, 0.0)
     cases = []
@@ -415,17 +462,35 @@ def kernel_cases():
                       (w_side, w0m, w0c, add_q),
                       B * ut_predict_flops(rows, dx), timed))
 
-    upd(fe.K1, fe.fused_update, fe._update_plain, 512, 64, 32, "main")
-    upd(fe.K1, fe.fused_update, fe._update_plain, 2, 512, 128)
-    # config 5: the joint update (dy = 256) and the chunked one (2 × 128);
-    # the band edge dy = 512
-    upd(fe.K1, fe.fused_update, fe._update_plain, 1, C5_DX, C5_DY, "also")
-    upd(fe.K1, fe.fused_update, fe._update_plain, 1, C5_DX, C5_CHUNK, "also")
-    upd(fe.K1, fe.fused_update, fe._update_plain, 2, 512, 512)
-    pred(fe.K2, fe.fused_predict_cov, fe._predict_plain, 512, 64, 64, "main")
-    pred(fe.K2, fe.fused_predict_cov, fe._predict_plain, 2, 512, 512)
-    pred(fe.K2, fe.fused_predict_cov, fe._predict_plain, 1, C5_DX, C5_DX,
-         "also")
+    def ekf_upd(B, dx, dy, timed=None):
+        rule = lambda a: fe.update_kernel(dx, dy, a.element_size(),
+                                          _build.smem_optin(a.device))
+        upd(rule, fe.fused_update, fe._update_plain, B, dx, dy, timed)
+
+    def ekf_pred(B, dx, dq, timed=None):
+        rule = lambda a: fe.predict_kernel(dx, dq, a.element_size(),
+                                           _build.smem_optin(a.device))
+        pred(rule, fe.fused_predict_cov, fe._predict_plain, B, dx, dq, timed)
+
+    # K1/K2 on the batched Lorenz-96 filter; K1t/K2t at config 5 (the joint
+    # update, dy = 256, and the chunked one, 2 × 128), at the band edge
+    # dy = 512, at sizes that are not multiples of a tile (64 or 32) or a
+    # panel (32), and on both sides of the rule's edge (dx = 128 | 129,
+    # dy = 40 and dx = dq = 120 | 121 in float32)
+    ekf_upd(512, 64, 32, "main")
+    ekf_upd(2, 512, 128)
+    ekf_upd(1, C5_DX, C5_DY, "main")
+    ekf_upd(1, C5_DX, C5_CHUNK, "also")
+    ekf_upd(2, 512, 512)
+    for B, dx, dy in ((1, 511, 33), (3, 511, 1), (3, 100, 33), (3, 65, 300),
+                      (1, 65, 1), (1, 128, 40), (1, 129, 40)):
+        ekf_upd(B, dx, dy)
+    ekf_pred(512, 64, 64, "main")
+    ekf_pred(2, 512, 512)
+    ekf_pred(1, C5_DX, C5_DX, "main")
+    for B, dx, dq in ((2, 511, 1), (3, 65, 200), (1, 120, 120),
+                      (1, 121, 121), (3, 100, 33)):
+        ekf_pred(B, dx, dq)
     upd(bu.K3, bu.bank_chol_update, bu._update_plain, 200, 4, 1, "main")
     upd(bu.K3, bu.bank_chol_update, bu._update_plain, 4096, 8, 8)
     pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 200, 4, 2, "main")
@@ -504,8 +569,10 @@ def _as_tuple(x):
 
 
 def nan_checks(dev) -> None:
-    """A non-positive-definite S (K1, K3, K8), P (K6, K7) or Pp (K11) gives
-    NaN in the same places on both sides, and never an exception."""
+    """A non-positive-definite S (K1, K1t, K3, K8), P (K6, K7) or Pp (K11)
+    gives NaN in the same places on both sides, and never an exception.
+    K1t's S fails at its first pivot, or only at a pivot of its third
+    panel."""
     import numpy as np
     import torch
 
@@ -530,6 +597,11 @@ def nan_checks(dev) -> None:
         a = f64(testing.update_inputs(rng, *dims))
         a[3] = neg_eye(a[3])
         checks.append((kernel, wrap, plain, a + [0.0]))
+    # K1t at dx = 200, dy = 70 in float64 (three panels of 32, 32, 6)
+    for fail_at in (0, 69):
+        a = f64(testing.update_inputs(rng, 2, 200, 70))
+        a[3][:, fail_at, fail_at] = -1e3
+        checks.append((fe.K1T, fe.fused_update, fe._update_plain, a + [0.0]))
     a = f64(testing.sigma_inputs(rng, 8, 64))
     a[1] = neg_eye(a[1])
     checks.append((fu.K6, fu.fused_sigma, fu._sigma_plain,
@@ -550,8 +622,12 @@ def nan_checks(dev) -> None:
     checks.append((bs.K11B, bs.bank_smoother_elements, bs._elements_plain,
                    a))
     for kernel, wrap, plain, args in checks:
+        before = kernel.launches
         got, want = _as_tuple(wrap(*args)), _as_tuple(plain(*args))
         torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            raise RuntimeError(f"{kernel.name} did not launch on a non-PD "
+                               "input")
         same = all(torch.equal(torch.isnan(g), torch.isnan(w))
                    for g, w in zip(got, want))
         if not (same and any(torch.isnan(g).any() for g in got)):
@@ -615,9 +691,11 @@ def check_parents(dev) -> dict:
     """K5 against its plain version (the scatter), exactly, at n = 2²⁰ and
     65,536 on the five weight profiles and at the Gaussian-sum reductions'
     m counts → n slots; then K5, the scatter and
-    ``torch.searchsorted`` timed at the path's n = 1M. Bound: 4 bytes read
-    and 4 written per slot (the n·log₂ n comparisons take less at any
-    CUDA-core rate)."""
+    ``torch.searchsorted`` timed at the path's n = 1M: by events around a
+    loop of calls, and K5 and ``torch.searchsorted`` alike by the
+    profiler's device time and by events around a CUDA graph of 100 calls.
+    Bound: 4 bytes read and 4 written per slot (the n·log₂ n comparisons
+    take less at any CUDA-core rate)."""
     import numpy as np
     import torch
 
@@ -666,16 +744,23 @@ def check_parents(dev) -> dict:
     library_ms = cuda_time_ms(library)
     dev_ms = device_ms(lambda: rg._parents_launch(counts, n),
                        KERNEL_SYMBOLS[rg.K5.name])
+    library_dev_ms = device_ms(library, ("",))  # every kernel of the call
+    k_graph_ms = graph_ms(lambda: rg._parents_launch(counts, n))
+    library_graph_ms = graph_ms(library)
     bound_ms, bound_by = bound([counts], [got], n * np.log2(n), "float32")
     log(f"  time at n={n} int32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.searchsorted {library_ms:.4f} ms, bound {bound_ms:.3g} ms "
         f"({bound_by}), bound share {bound_ms / ms:.3g}; device time "
-        f"{dev_ms} ms")
+        f"{dev_ms} ms, torch.searchsorted {library_dev_ms} ms; CUDA graph of "
+        f"100 calls: kernel {k_graph_ms:.4f} ms, torch.searchsorted "
+        f"{library_graph_ms:.4f} ms per call")
     return dict(shape=f"n={n},int32,Dirichlet(0.5)", max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bound_share=bound_ms / ms,
                 device_ms=dev_ms,
-                device_bound_share=bound_ms / dev_ms if dev_ms else None)
+                device_bound_share=bound_ms / dev_ms if dev_ms else None,
+                library_device_ms=library_dev_ms, graph_ms=k_graph_ms,
+                library_graph_ms=library_graph_ms)
 
 
 def check_kernels(dev) -> dict:
@@ -685,12 +770,13 @@ def check_kernels(dev) -> dict:
     import torch
 
     report = {}
-    for (kernel, wrapper, plain, shape, make, static, flops,
+    for (pick, wrapper, plain, shape, make, static, flops,
          timed) in kernel_cases():
         raw = make(np.random.default_rng(SEED))
         for dtype in (torch.float32, torch.float64):
             args = [torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
                     for a in raw]
+            kernel = pick(args[0]) if callable(pick) else pick
             before = kernel.launches
             got = _as_tuple(wrapper(*args, *static))
             want = _as_tuple(plain(*args, *static))
@@ -706,7 +792,8 @@ def check_kernels(dev) -> dict:
             if not ok or not all(torch.isfinite(g).all() for g in got):
                 raise RuntimeError(f"{kernel.name} disagrees with its plain "
                                    f"version at {shape} {name}: {errs}")
-            if timed and dtype == torch.float32:
+            if timed and (dtype == torch.float32
+                          or kernel.name in TIMED_FLOAT64):
                 abs_err = max(float((g - w).abs().max())
                               for g, w in zip(got, want))
                 ms = cuda_time_ms(lambda: wrapper(*args, *static))
@@ -714,18 +801,18 @@ def check_kernels(dev) -> dict:
                 dev_ms = device_ms(lambda: wrapper(*args, *static),
                                    KERNEL_SYMBOLS[kernel.name])
                 bound_ms, bound_by = bound(args, list(got), flops, name)
-                entry = dict(shape=shape + ",float32", max_abs_err=abs_err,
+                entry = dict(shape=f"{shape},{name}", max_abs_err=abs_err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bound_share=bound_ms / ms,
                              device_ms=dev_ms,
                              device_bound_share=(bound_ms / dev_ms
                                                  if dev_ms else None))
-                if timed == "main":
+                if timed == "main" and dtype == torch.float32:
                     report.setdefault(kernel.name, {}).update(entry)
                 else:
                     report.setdefault(kernel.name, {}).setdefault(
                         "also", []).append(entry)
-                log(f"  time at {shape} float32: kernel {ms:.4f} ms, plain "
+                log(f"  time at {shape} {name}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {bound_ms:.3g} ms "
                     f"({bound_by}), bound share {bound_ms / ms:.3g}; "
                     f"device time {dev_ms} ms")
@@ -891,15 +978,17 @@ def config5_data(T, dtype, dev):
 
 def config5_runs():
     """Config 5's three filters: (label, call on (params, emissions), the
-    exact launches per step of each kernel)."""
+    exact launches per step of each kernel). The EKF's elements do not fit
+    one SM's shared memory, so they run the tiled K1t/K2t."""
     from bayesianfiltering_tpu_torch import inference as inf
 
     return [
         ("ekf512", lambda p, e: inf.extended_kalman_filter(p, e),
-         {"bft_ekf_update": 1, "bft_ekf_predict_cov": 1}),
+         {"bft_ekf_update_tiled": 1, "bft_ekf_predict_cov_tiled": 1}),
         ("ekf512 update_chunk=128",
          lambda p, e: inf.extended_kalman_filter(p, e, update_chunk=C5_CHUNK),
-         {"bft_ekf_update": C5_DY // C5_CHUNK, "bft_ekf_predict_cov": 1}),
+         {"bft_ekf_update_tiled": C5_DY // C5_CHUNK,
+          "bft_ekf_predict_cov_tiled": 1}),
         ("ukf512 additive cholesky",
          lambda p, e: inf.unscented_kalman_filter(p, ukf_params(), e,
                                                   additive=True),
@@ -1224,7 +1313,8 @@ def main_path(dev, card: str) -> dict:
     (post, secs), counts = run_path(
         "ekf lorenz96",
         lambda: timed(lambda: inf.extended_kalman_filter(params, emissions)),
-        {"bft_ekf_update": EKF_T, "bft_ekf_predict_cov": EKF_T})
+        {"bft_ekf_update": EKF_T, "bft_ekf_predict_cov": EKF_T,
+         "bft_ekf_update_tiled": 0, "bft_ekf_predict_cov_tiled": 0})
     add(counts)
     check_gaussian_posterior("ekf", post, (EKF_B, EKF_T, EKF_DX))
     log(f"ekf lorenz96 dx={EKF_DX} dy={EKF_DY} B={EKF_B} T={EKF_T} float32: "
@@ -1379,10 +1469,11 @@ def main_path(dev, card: str) -> dict:
     return total
 
 
-def profile_run(label: str, run, card: str) -> None:
+def profile_run(label: str, run, card: str, host: bool = False) -> None:
     """The device's busy share of ``run()`` under torch.profiler, against
     the traced and the untraced wall, and the kernels with the most device
-    time."""
+    time; with ``host``, also the host operations (and CUDA runtime calls)
+    with the most self CPU time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1412,6 +1503,15 @@ def profile_run(label: str, run, card: str) -> None:
                     reverse=True)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
+    if host:
+        ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU]
+        log(f"  host: {sum(e.self_cpu_time_total for e in ops) / 1e3:.3f} ms "
+            "of self CPU time traced; the most:")
+        for e in sorted(ops, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:8]:
+            log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+                f"host {e.key[:84]}")
 
 
 def profile_ukf(dev, card: str) -> None:
@@ -1450,7 +1550,8 @@ def profile_ukf(dev, card: str) -> None:
     params5, _, em5 = config5_data(C5_PROFILE_T, torch.float32, dev)
     for label, run, _ in config5_runs():
         profile_run(f"config 5 {label} B=1 dx={C5_DX} {C5_PROFILE_T} steps "
-                    "float32", lambda: run(params5, em5), card)
+                    "float32", lambda: run(params5, em5), card,
+                    host=label.startswith("ekf"))
     cparams, cys = path_c_problem(PC_T, torch.float32, dev)
     profile_run(f"path C parallel kalman smoother woodbury T={PC_T} "
                 f"dx={PC_DX} chunk={KF_CHUNK} float32",
@@ -1486,10 +1587,11 @@ def main() -> int:
     log(f"kernel build: {_build.build_seconds:.1f} s")
     entry = "?"
     for line in _build.build_log.splitlines():
-        found = re.search(r"([a-z_]+_kernel)I([fd])E?(Li(\d))?", line)
+        found = re.search(r"([a-z_]+_kernel)I([fd])((?:Li\d+E)*)", line)
         if "Compiling entry function" in line and found:
-            entry = f"{found[1]}<{'float' if found[2] == 'f' else 'double'}" \
-                    + (f",{found[4]}>" if found[4] else ">")
+            ints = re.findall(r"Li(\d+)E", found[3])
+            entry = (f"{found[1]}<{'float' if found[2] == 'f' else 'double'}"
+                     + "".join(f",{i}" for i in ints) + ">")
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {entry}: {line.strip()}")
 
@@ -1526,7 +1628,11 @@ def main() -> int:
                         "bound_share": t["bound_share"],
                         "device_ms": t["device_ms"],
                         "device_bound_share": t["device_bound_share"],
-                        "shape": t["shape"], "also": t.get("also", [])})
+                        "shape": t["shape"], "also": t.get("also", []),
+                        **{key: t[key] for key in ("graph_ms",
+                                                   "library_graph_ms",
+                                                   "library_device_ms")
+                           if key in t}})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

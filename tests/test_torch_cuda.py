@@ -2,7 +2,8 @@
 twin, and the filters' kernel path against their plain path on the CPU.
 
 Needs a CUDA device; every test skips without one. Covers K1–K12, with
-the block variants of K10–K12 and the wide bands of K1 and K6–K9. This file imports no
+the tiled variants K1t/K2t, the block variants of K10–K12 and the wide
+bands of K1 and K6–K9. This file imports no
 JAX, so it also runs where JAX is not installed (the repository's
 conftest.py imports JAX, hence ``--noconftest``):
 
@@ -46,7 +47,7 @@ def assert_close(got, want, tol):
     assert float((got - want).abs().max()) <= tol * scale
 
 
-UPDATE_CASES = [(fe.K1, fe.fused_update, 5, 16, 8), (fe.K1, fe.fused_update, 2, 130, 70),
+UPDATE_CASES = [(fe.K1, fe.fused_update, 5, 16, 8), (fe.K1T, fe.fused_update, 2, 130, 70),
                 (bu.K3, bu.bank_chol_update, 300, 4, 1),
                 (bu.K3, bu.bank_chol_update, 129, 8, 7)]
 PREDICT_CASES = [(fe.K2, fe.fused_predict_cov, 5, 16, 9),
@@ -142,10 +143,10 @@ def test_outside_the_kernel_band_raises(dev):
     instead of falling back to the plain twin."""
     raw = testing.update_inputs(np.random.default_rng(1), 1, 4, 513)
     args = [testing.to_torch(a, torch.float32, dev) for a in raw]
-    before = fe.K1.launches
+    before = fe.K1.launches, fe.K1T.launches
     with pytest.raises(NotImplementedError):
         fe.fused_update(*args)
-    assert fe.K1.launches == before
+    assert (fe.K1.launches, fe.K1T.launches) == before
 
 
 UT_CASES = [
@@ -470,9 +471,9 @@ WIDE_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 
 WIDE_CASES = [
     # (kernel, make inputs, wrapper, plain)
-    (fe.K1, lambda r: testing.update_inputs(r, 2, 512, 256),
+    (fe.K1T, lambda r: testing.update_inputs(r, 2, 512, 256),
      lambda *a: fe.fused_update(*a, 0.0), lambda *a: fe._update_plain(*a)),
-    (fe.K1, lambda r: testing.update_inputs(r, 1, 64, 512),
+    (fe.K1T, lambda r: testing.update_inputs(r, 1, 64, 512),
      lambda *a: fe.fused_update(*a, 0.0), lambda *a: fe._update_plain(*a)),
     (fu.K6, lambda r: testing.sigma_inputs(r, 2, 512),
      lambda *a: fu.fused_sigma(*a, 1.0, "cholesky"),
@@ -670,8 +671,8 @@ def test_block_parallel_smoother_matches_plain_path(dev, solver):
 
 @pytest.mark.parametrize("update_chunk", [None, 128])
 def test_wide_ekf_kernel_path_matches_plain_path(dev, update_chunk):
-    """Lorenz-96 at dx = 512, dy = 256, one sequence: K1 once per step, or
-    twice with ``update_chunk=128``."""
+    """Lorenz-96 at dx = 512, dy = 256, one sequence: K1t once per step, or
+    twice with ``update_chunk=128``, K2t once, and no K1/K2."""
     T = 3
     data_model, data_params, _ = zoo.lorenz96(512, 256, integrator="rk4",
                                               dtype=torch.float64,
@@ -687,8 +688,9 @@ def test_wide_ekf_kernel_path_matches_plain_path(dev, update_chunk):
             params, emissions.to(device), update_chunk=update_chunk))
         if device == dev:
             torch.cuda.synchronize()
-            assert (fe.K1.launches, fe.K2.launches) == (
+            assert (fe.K1T.launches, fe.K2T.launches) == (
                 T * (1 if update_chunk is None else 2), T)
+            assert fe.K1.launches == fe.K2.launches == 0
     got, want = runs
     assert_close(got.filtered_means, want.filtered_means, 1e-9)
     assert_close(got.marginal_loglik, want.marginal_loglik, 1e-9)
@@ -718,3 +720,97 @@ def test_wide_ukf_kernel_path_matches_plain_path(dev):
     got, want = runs
     assert_close(got.filtered_means, want.filtered_means, 1e-9)
     assert_close(got.marginal_loglik, want.marginal_loglik, 1e-9)
+
+
+# ---------------------------------------------------------------------------
+# K1t and K2t, the tiled variants of K1 and K2: the shape rule picks the
+# variant (per element where the workspace fits in shared memory, tiled
+# otherwise); every case asserts that the kernel the rule names launched
+# and the other did not. Shapes: config 5, the bands' edges, sizes that
+# are not multiples of a tile or a panel, and both sides of the rule's
+# edge (at dx = 128/129, dy = 40 in float32; float64 is tiled at both).
+# ---------------------------------------------------------------------------
+
+VARIANT_UPDATE_SHAPES = [(1, 512, 256), (1, 512, 128), (2, 512, 512),
+                         (1, 511, 33), (3, 511, 1), (3, 100, 33),
+                         (3, 65, 300), (1, 128, 40), (1, 129, 40)]
+VARIANT_PREDICT_SHAPES = [(1, 512, 512), (2, 511, 1), (3, 65, 200),
+                          (1, 120, 120), (1, 121, 121), (3, 100, 33)]
+
+
+def _expect_one(pair, want):
+    """Exactly ``want`` of the two kernels in ``pair`` launched, once."""
+    assert {k.name: k.launches for k in pair} == {
+        k.name: int(k is want) for k in pair}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,dx,dy", VARIANT_UPDATE_SHAPES)
+def test_update_variant_matches_twin(dev, dtype, B, dx, dy):
+    args = _dev(testing.update_inputs(np.random.default_rng(dx + dy), B, dx,
+                                      dy), dtype, dev)
+    want_kernel = fe.update_kernel(dx, dy, args[0].element_size(),
+                                   _build.smem_optin(dev))
+    _build.reset_launch_counts()
+    got = fe.fused_update(*args, 1e-4)
+    torch.cuda.synchronize()
+    _expect_one((fe.K1, fe.K1T), want_kernel)
+    for g, w in zip(got, fe._update_plain(*args, 1e-4)):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,dx,dq", VARIANT_PREDICT_SHAPES)
+def test_predict_variant_matches_twin(dev, dtype, B, dx, dq):
+    args = _dev(testing.predict_inputs(np.random.default_rng(dx + dq), B, dx,
+                                       dq), dtype, dev)
+    want_kernel = fe.predict_kernel(dx, dq, args[0].element_size(),
+                                    _build.smem_optin(dev))
+    _build.reset_launch_counts()
+    got = fe.fused_predict_cov(*args)
+    torch.cuda.synchronize()
+    _expect_one((fe.K2, fe.K2T), want_kernel)
+    assert_close(got, fe._predict_plain(*args), WIDE_TOL[dtype])
+
+
+def test_the_rule_sends_config_5_to_the_tiled_kernels(dev):
+    optin = _build.smem_optin(dev)
+    for itemsize in (4, 8):
+        assert fe.update_kernel(512, 256, itemsize, optin) is fe.K1T
+        assert fe.update_kernel(512, 128, itemsize, optin) is fe.K1T
+        assert fe.predict_kernel(512, 512, itemsize, optin) is fe.K2T
+        assert fe.update_kernel(64, 32, itemsize, optin) is fe.K1
+        assert fe.predict_kernel(64, 64, itemsize, optin) is fe.K2
+
+
+@pytest.mark.parametrize("fail_at", [0, 69])
+def test_tiled_update_nan_on_non_pd(dev, fail_at):
+    """A negative pivot in K1t's first panel, or only in its third: every
+    output is NaN on both sides."""
+    raw = testing.update_inputs(np.random.default_rng(3), 2, 200, 70)
+    raw[3][:, fail_at, fail_at] = -1e3
+    args = _dev(raw, torch.float64, dev)
+    _build.reset_launch_counts()
+    got = fe.fused_update(*args)
+    torch.cuda.synchronize()
+    assert fe.K1T.launches == 1
+    for g, w in zip(got, fe._update_plain(*args)):
+        assert torch.isnan(g).all() and torch.isnan(w).all()
+
+
+def test_batched_lorenz96_keeps_the_per_element_kernels(dev):
+    """The batched filter (B = 512, dx = 64, dy = 32) runs K1 and K2, never
+    the tiled variants."""
+    _, params, _ = zoo.lorenz96(64, 32, dtype=torch.float32, device=dev)
+    model, data_params, _ = zoo.lorenz96(64, 32, integrator="rk4",
+                                         dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    _, emissions = model.sample(data_params, 3, generator=gen,
+                                batch_shape=(512,))
+    _build.reset_launch_counts()
+    post = inference.extended_kalman_filter(params, emissions)
+    torch.cuda.synchronize()
+    assert (fe.K1.launches, fe.K2.launches) == (3, 3)
+    assert fe.K1T.launches == fe.K2T.launches == 0
+    assert torch.isfinite(post.filtered_means).all()

@@ -1,0 +1,234 @@
+"""The EKF kernels' variant rule and the tiled update's schedule, on the CPU.
+
+``ops/fused_ekf.py`` runs the per-element kernels K1/K2 where their
+workspace fits in a block's shared memory and the tiled variants K1t/K2t
+otherwise. The rule is held at its edges with the H100's shared-memory
+opt-in (232,448 bytes per block) and with a smaller one.
+
+K1t (``csrc/ekf_tiled.cu``) factors the augmented matrix
+[S; (H P)ᵀ; innovᵀ; I] right-looking in panels of 32 and forms the gain as
+K = Zᵀ L⁻¹. That schedule is written out below in numpy, step for step as
+the launches compute it, and held to the JAX package's XLA twin
+(``fused_ekf._update_xla``) at shapes that are not multiples of the panel
+or of a tile, with a non-positive-definite S failing in the first or in a
+later panel. The port's wrappers on CPU tensors (the plain twins) are held
+to JAX at the same shapes. The CUDA kernels themselves run only on the
+card (tests/test_torch_cuda.py).
+
+The references run in float64. Tolerances (relative to max(1,
+max|reference|)): float64 1e-9, float32 1e-4, as
+tests/test_torch_kernels.py: the same formulas in another order, and
+float32 rounding through a Cholesky of S.
+"""
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bayesianfiltering_tpu.ops import fused_ekf as jfe
+from bayesianfiltering_tpu_torch import testing
+from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
+
+torch.set_num_threads(1)
+
+H100_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100
+NB = 32               # csrc/ekf_tiled.cu kNb
+TOL = {"float64": 1e-9, "float32": 1e-4}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def x64():
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", old)
+
+
+def assert_close(got, want, dtype):
+    got = np.asarray(got.detach() if isinstance(got, torch.Tensor) else got,
+                     np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    scale = max(1.0, float(np.nanmax(np.abs(want))))
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL[dtype] * scale)
+
+
+# the JAX references compile at XLA's lowest optimisation level (their
+# blocked factorisations unroll) and once per shape, in float64
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+JITTER = 1e-4
+
+
+def _jax_run(fn, *args):
+    args = [jnp.asarray(a, jnp.float64) for a in args]
+    compiled = jax.jit(fn).lower(*args).compile(FAST_COMPILE)
+    return [np.asarray(x) for x in compiled(*args)]
+
+
+@functools.lru_cache(maxsize=None)
+def update_case(B, dx, dy):
+    """Inputs and the JAX reference of the update at one shape."""
+    args = testing.update_inputs(np.random.default_rng(dx + dy), B, dx, dy)
+    update = jax.vmap(lambda *a: jfe._update_xla(*a, JITTER))
+    return args, _jax_run(update, *args)
+
+
+# ---------------------------------------------------------------------------
+# The rule
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dx,dy,itemsize,optin,want", [
+    (64, 32, 4, H100_OPTIN, "K1"),     # the batched Lorenz-96 filter
+    (64, 32, 8, H100_OPTIN, "K1"),
+    (128, 40, 4, H100_OPTIN, "K1"),    # 58,048 elements: fits to the byte
+    (129, 40, 4, H100_OPTIN, "K1T"),
+    (100, 50, 4, H100_OPTIN, "K1"),
+    (100, 50, 8, H100_OPTIN, "K1T"),
+    (512, 256, 4, H100_OPTIN, "K1T"),  # config 5, joint update
+    (512, 128, 4, H100_OPTIN, "K1T"),  # config 5, chunked update
+    (64, 32, 4, 48 * 1024, "K1T"),     # a card without the opt-in
+])
+def test_update_variant_rule(dx, dy, itemsize, optin, want):
+    assert fe.update_kernel(dx, dy, itemsize, optin) is getattr(fe, want)
+
+
+@pytest.mark.parametrize("dx,dq,itemsize,optin,want", [
+    (64, 64, 4, H100_OPTIN, "K2"),
+    (64, 64, 8, H100_OPTIN, "K2"),
+    (120, 120, 4, H100_OPTIN, "K2"),   # 57,600 elements
+    (121, 121, 4, H100_OPTIN, "K2T"),
+    (512, 512, 4, H100_OPTIN, "K2T"),  # config 5
+    (64, 64, 8, 64 * 1024, "K2T"),
+])
+def test_predict_variant_rule(dx, dq, itemsize, optin, want):
+    assert fe.predict_kernel(dx, dq, itemsize, optin) is getattr(fe, want)
+
+
+def test_the_rule_flips_once_along_each_dimension():
+    """Growing any dimension moves a shape from the per-element kernel to
+    the tiled one and never back."""
+    for itemsize in (4, 8):
+        for dy in (1, 33, 128):
+            picks = [fe.update_kernel(dx, dy, itemsize, H100_OPTIN).name
+                     for dx in range(1, 300)]
+            flip = picks.index(fe.K1T.name)
+            assert set(picks[:flip]) <= {fe.K1.name}
+            assert set(picks[flip:]) == {fe.K1T.name}
+        picks = [fe.predict_kernel(dx, dx, itemsize, H100_OPTIN).name
+                 for dx in range(1, 200)]
+        flip = picks.index(fe.K2T.name)
+        assert set(picks[:flip]) == {fe.K2.name}
+        assert set(picks[flip:]) == {fe.K2T.name}
+
+
+# ---------------------------------------------------------------------------
+# K1t's schedule
+# ---------------------------------------------------------------------------
+
+def _chol_nan(a):
+    try:
+        return np.linalg.cholesky(a)
+    except np.linalg.LinAlgError:
+        return np.full_like(a, np.nan)
+
+
+def tiled_update(m, P, H, R, inn, jitter, nb=NB):
+    """One element of K1t, launch by launch."""
+    dx, dy = P.shape[-1], inn.shape[-1]
+    rows = 2 * dy + dx + 1
+    W, L = np.zeros((rows, dy)), np.zeros((rows, dy))
+    W[dy:dy + dx] = P.T @ H.T                      # (H P)ᵀ
+    G = np.tril((W[dy:dy + dx]).T @ H.T)           # lower(H P Hᵀ)
+    Rs = 0.5 * (R + R.T)
+    floor = jitter + 1e-6 * np.abs(np.diag(G) + np.diag(R)).max()
+    W[:dy] = np.tril(G + Rs, -1) + np.diag(np.diag(G) + np.diag(R) + floor)
+    W[dy + dx] = inn
+    W[dy + dx + 1:] = np.eye(dy)
+    for k in range(0, dy, nb):
+        below = min(k + nb, dy)
+        Lkk = _chol_nan(W[k:below, k:below])
+        inv = np.linalg.inv(Lkk) if np.isfinite(Lkk).all() else Lkk
+        L[k:below, k:below] = Lkk
+        L[below:, k:below] = W[below:, k:below] @ inv.T
+        if below < dy:
+            upd = L[below:, k:below] @ L[below:dy, k:below].T
+            W[below:, below:] -= np.tril(upd)      # lower tiles only
+    Zt, z, Linv_t = L[dy:dy + dx], L[dy + dx], L[dy + dx + 1:]
+    K = Zt @ Linv_t.T
+    ll = -0.5 * (dy * math.log(2 * math.pi)
+                 + 2 * np.log(np.diag(L[:dy])).sum() + (z ** 2).sum())
+    A = np.eye(dx) - K @ H
+    cov = np.tril((A @ P) @ A.T + (K @ Rs) @ K.T)
+    cov = cov + np.tril(cov, -1).T                  # mirrored
+    return ll, m + K @ inn, cov, K
+
+
+def _tiled_batch(args, jitter):
+    outs = [tiled_update(*(a[b] for a in args), jitter)
+            for b in range(args[0].shape[0])]
+    return [np.stack(x) for x in zip(*outs)]
+
+
+TILED_SHAPES = [(2, 9, 1), (1, 65, 33), (3, 100, 40)]
+
+
+@pytest.mark.parametrize("B,dx,dy", TILED_SHAPES)
+def test_tiled_update_schedule_matches_the_reference(B, dx, dy):
+    args, want = update_case(B, dx, dy)
+    for g, w in zip(_tiled_batch(args, JITTER), want):
+        assert_close(g, w, "float64")
+
+
+@pytest.mark.parametrize("B,dx,dy", [(1, 20, 97), (2, 7, 64)])
+def test_tiled_update_schedule_over_more_panels_matches_the_plain_twin(
+        B, dx, dy):
+    """Three and four panels (the port's plain twin is held to JAX above
+    and in tests/test_torch_kernels.py; JAX's unrolled factorisation
+    compiles slowly at these widths)."""
+    args = testing.update_inputs(np.random.default_rng(dy), B, dx, dy)
+    want = fe._update_plain(*(torch.as_tensor(a) for a in args), JITTER)
+    for g, w in zip(_tiled_batch(args, JITTER), want):
+        assert_close(g, w, "float64")
+
+
+@pytest.mark.parametrize("fail_at", [0, 69])
+def test_tiled_update_schedule_gives_nan_on_a_non_pd_s(fail_at):
+    """A negative pivot in the first panel, or only in the third: every
+    output is NaN, as in the plain twin."""
+    m, P, H, R, inn = testing.update_inputs(np.random.default_rng(3), 1, 12,
+                                            70)
+    R[0, fail_at, fail_at] = -1e3
+    got = _tiled_batch((m, P, H, R, inn), 0.0)
+    want = fe._update_plain(*(torch.as_tensor(a) for a in (m, P, H, R, inn)))
+    for g, w in zip(got, want):
+        assert np.isnan(g).all() and torch.isnan(w).all()
+
+
+# ---------------------------------------------------------------------------
+# The wrappers at K1t's and K2t's shapes (the plain twins on CPU tensors)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B,dx,dy", TILED_SHAPES)
+def test_update_wrapper_at_tiled_shapes_matches_jax(dtype, B, dx, dy):
+    args, want = update_case(B, dx, dy)
+    got = fe.fused_update(*(torch.as_tensor(np.asarray(a, dtype))
+                            for a in args), JITTER)
+    for g, w in zip(got, want):
+        assert_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B,dx,dq", [(1, 121, 121), (3, 65, 9), (2, 9, 33)])
+def test_predict_wrapper_at_tiled_shapes_matches_jax(dtype, B, dx, dq):
+    args = testing.predict_inputs(np.random.default_rng(dx + dq), B, dx, dq)
+    want = _jax_run(jax.vmap(lambda *a: (jfe._predict_xla(*a),),
+                             in_axes=(0, 0, 0, None)), *args)[0]
+    got = fe.fused_predict_cov(*(torch.as_tensor(np.asarray(a, dtype))
+                                 for a in args))
+    assert_close(got, want, dtype)

@@ -203,6 +203,7 @@ def test_filters_on_cpu_tensors_never_launch_a_kernel():
                                             reduction="stratified")
     assert {k.name: k.launches for k in _build.KERNELS} == {
         "bft_ekf_update": 0, "bft_ekf_predict_cov": 0,
+        "bft_ekf_update_tiled": 0, "bft_ekf_predict_cov_tiled": 0,
         "bft_bank_update": 0, "bft_bank_predict_cov": 0,
         "bft_ut_sigma": 0, "bft_ut_sigma_aug": 0, "bft_ut_update": 0,
         "bft_ut_predict": 0, "bft_resample_parents": 0,

@@ -2,8 +2,8 @@
 package on the CPU.
 
 - BASELINE config 5's Lorenz-96 (dx = 512, dy = 256, one sequence) through
-  the EKF with the joint update (K1 at dy = 256 on the card), the EKF with
-  the sequential chunked update (``update_chunk=128``: two K1 launches per
+  the EKF with the joint update (K1t at dy = 256 on the card), the EKF with
+  the sequential chunked update (``update_chunk=128``: two K1t launches per
   step) and the additive UKF with Cholesky sigma points (K6, K8, K9 at
   n = 512).
 - The temporally parallel Kalman filter and smoother above dx = 8 (dx = 12,
