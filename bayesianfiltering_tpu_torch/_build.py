@@ -76,16 +76,20 @@ _SIGNATURES = {
     "bft_bank_predict_cov_f32": ([_P] * 5 + [_I, _I, _I, _P], _I),
     "bft_bank_predict_cov_f64": ([_P] * 5 + [_I, _I, _I, _P], _I),
     "bft_ut_sigma_scratch_elems": ([_I, _I, _I, _I], _LL),
-    "bft_ut_update_scratch_elems": ([_I, _I, _I, _I], _LL),
-    "bft_ut_predict_scratch_elems": ([_I, _I, _I], _LL),
+    "bft_ut_update_tiled_scratch_elems": ([_I, _I, _I], _LL),
+    "bft_ut_predict_tiled_scratch_elems": ([_I, _I, _I], _LL),
     "bft_ut_sigma_f32": ([_P] * 4 + [_I, _I, _D, _I, _P], _I),
     "bft_ut_sigma_f64": ([_P] * 4 + [_I, _I, _D, _I, _P], _I),
     "bft_ut_sigma_aug_f32": ([_P] * 7 + [_I, _I, _I, _D, _I, _P], _I),
     "bft_ut_sigma_aug_f64": ([_P] * 7 + [_I, _I, _I, _D, _I, _P], _I),
-    "bft_ut_update_f32": ([_P] * 12 + [_I] * 5 + [_D, _D, _P], _I),
-    "bft_ut_update_f64": ([_P] * 12 + [_I] * 5 + [_D, _D, _P], _I),
-    "bft_ut_predict_f32": ([_P] * 6 + [_I, _I, _I, _D, _D, _D, _P], _I),
-    "bft_ut_predict_f64": ([_P] * 6 + [_I, _I, _I, _D, _D, _D, _P], _I),
+    "bft_ut_update_f32": ([_P] * 11 + [_I] * 5 + [_D, _D, _P], _I),
+    "bft_ut_update_f64": ([_P] * 11 + [_I] * 5 + [_D, _D, _P], _I),
+    "bft_ut_predict_f32": ([_P] * 5 + [_I, _I, _I, _D, _D, _D, _P], _I),
+    "bft_ut_predict_f64": ([_P] * 5 + [_I, _I, _I, _D, _D, _D, _P], _I),
+    "bft_ut_update_tiled_f32": ([_P] * 12 + [_I] * 5 + [_D, _D, _P], _I),
+    "bft_ut_update_tiled_f64": ([_P] * 12 + [_I] * 5 + [_D, _D, _P], _I),
+    "bft_ut_predict_tiled_f32": ([_P] * 6 + [_I, _I, _I, _D, _D, _D, _P], _I),
+    "bft_ut_predict_tiled_f64": ([_P] * 6 + [_I, _I, _I, _D, _D, _D, _P], _I),
     "bft_resample_parents_i32": ([_P, _P, _I, _I, _P], _I),
     "bft_bank_combine_f32": ([_P] * 15 + [_I] * 4 + [_P], _I),
     "bft_bank_combine_f64": ([_P] * 15 + [_I] * 4 + [_P], _I),
@@ -193,6 +197,19 @@ def check(err: int, kernel: Kernel) -> None:
 _OPTIN = {}
 
 
+# Room the per-element kernels keep for their static shared memory
+# (``kStaticSmemSlack`` of csrc/common.cuh).
+SMEM_SLACK = 256
+
+
+def fits_smem(elems: int, itemsize: int, smem_optin: int) -> bool:
+    """Whether a per-element workspace of ``elems`` elements fits in a
+    block's shared memory beside the static slack, under an opt-in of
+    ``smem_optin`` bytes: the rule between a per-element kernel and its
+    tiled variant."""
+    return elems * itemsize + SMEM_SLACK <= smem_optin
+
+
 def smem_optin(device: torch.device) -> int:
     """The CUDA device's shared-memory opt-in per block, in bytes: the
     bound on a per-element kernel's workspace."""
@@ -288,4 +305,5 @@ def kernel_op(plain: Callable, launch: Callable, num_tensors: int) -> Callable:
 
 __all__ = ["Kernel", "KERNELS", "register", "reset_launch_counts", "load",
            "check", "check_operands", "kernel_op", "scratch", "smem_optin",
+           "fits_smem", "SMEM_SLACK",
            "BUILD_DIR"]

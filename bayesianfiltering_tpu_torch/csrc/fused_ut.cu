@@ -24,14 +24,18 @@
 // by barrier latency in its factorisations.
 //
 // What the simple design does about it:
-// - One workspace per block in dynamic shared memory (opted in above 48 KB)
-//   or, when it exceeds the opt-in limit (the Cholesky above n = 170 in
-//   float64 and 240 in float32, Newton–Schulz above 85 and 120, K8 at
-//   dx=dy=128 in float64, K9 above dx ≈ 160 in float64), a global scratch
-//   from the caller, B workspaces. The band reaches every dimension
-//   ≤ 1,024 (the Lorenz-96 dx=512 configuration, additive and augmented);
-//   there one element is one block on one of the card's 132 SMs, so a
-//   single sequence (B = 1) leaves the rest of the card idle.
+// - One workspace per block in dynamic shared memory (opted in above 48 KB).
+//   K6 and K7 fall back to a global scratch from the caller, B workspaces,
+//   when it exceeds the opt-in limit (the Cholesky above n = 170 in float64
+//   and 240 in float32, Newton–Schulz above 85 and 120); their band reaches
+//   every dimension ≤ 1,024 (the Lorenz-96 dx=512 configuration, additive
+//   and augmented), where one element is one block on one of the card's
+//   132 SMs, so a single sequence (B = 1) leaves the rest of the card idle.
+//   K8 and K9 stop where their workspace stops fitting in shared memory
+//   (K9 above dx = 232 in float32 and 161 in float64; K8 at config 5's
+//   dx = 512, dy = 256): there ops/fused_ut.py runs their tiled variants
+//   K8t and K9t (ut_tiled.cu), products and a blocked Cholesky spread
+//   over the whole card.
 // - Products follow fused_ekf.cu's layout rule: consecutive threads own
 //   consecutive output columns, so one operand is a broadcast and the other
 //   consecutive words.
@@ -79,7 +83,7 @@ size_t predict_ws_elems(int dx) {
   return size_t(dx) * dx + size_t(kRowChunk) * dx + 2 * size_t(dx);
 }
 
-// Workspace plan of a launch: dynamic shared memory, or the caller's
+// Workspace plan of a K6/K7 launch: dynamic shared memory, or the caller's
 // scratch when the workspace exceeds the opt-in limit. False when that
 // scratch is missing or the device query failed.
 template <typename T>
@@ -237,8 +241,8 @@ __global__ void __launch_bounds__(kUtThreads) ut_update_kernel(
     const T* __restrict__ center_all, const T* __restrict__ mu_all,
     const T* __restrict__ m_all, const T* __restrict__ P_all,
     const T* __restrict__ R, const T* __restrict__ inn_all, T* ll_all,
-    T* mean_all, T* cov_all, T* scratch, size_t ws_elems, int rows, int ld,
-    int dx, int dy, T w_side, T w0c) {
+    T* mean_all, T* cov_all, int rows, int ld, int dx, int dy, T w_side,
+    T w0c) {
   __shared__ int s_bad;
   __shared__ T s_floor;
   const size_t b = blockIdx.x;
@@ -248,7 +252,7 @@ __global__ void __launch_bounds__(kUtThreads) ut_update_kernel(
   const T* P = P_all + b * dx * dx;
   T* cov = cov_all + b * dx * dx;
 
-  T* ws = workspace(scratch, ws_elems);
+  T* ws = shared_workspace<T>();
   T* S = ws;                    // dy × dy; factored in place (column-major L)
   T* Li = S + dy * dy;          // dy × dy, lower, row-major
   T* C = Li + dy * dy;          // dy × dx cross-covariance
@@ -408,14 +412,14 @@ __global__ void __launch_bounds__(kUtThreads) ut_update_kernel(
 template <typename T>
 __global__ void __launch_bounds__(kUtThreads) ut_predict_kernel(
     const T* __restrict__ fpts_all, const T* __restrict__ center_all,
-    const T* __restrict__ Q, T* mu_all, T* cov_all, T* scratch,
-    size_t ws_elems, int rows, int dx, T w_side, T w0m, T w0c) {
+    const T* __restrict__ Q, T* mu_all, T* cov_all, int rows, int dx,
+    T w_side, T w0m, T w0c) {
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const T* fp = fpts_all + b * rows * dx;
   T* cov = cov_all + b * dx * dx;
 
-  T* ws = workspace(scratch, ws_elems);
+  T* ws = shared_workspace<T>();
   T* acc = ws;                  // dx × dx
   T* Xc = acc + dx * dx;        // kRowChunk × dx staged fpts − μ
   T* mu = Xc + kRowChunk * dx;  // dx
@@ -503,40 +507,32 @@ int launch_sigma_aug(const void* m, const void* P, const void* bias,
 template <typename T>
 int launch_update(const void* pts, const void* hpts, const void* center,
                   const void* mu, const void* m, const void* P, const void* R,
-                  const void* inn, void* ll, void* mean, void* cov,
-                  void* scratch, int B, int rows, int ld, int dx, int dy,
-                  double w_side, double w0c, cudaStream_t stream) {
-  const size_t ws = update_ws_elems(dx, dy);
-  size_t smem = 0;
-  T* scr = nullptr;
-  if (!plan(ws, static_cast<T*>(scratch), &smem, &scr))
-    return int(cudaErrorInvalidValue);
+                  const void* inn, void* ll, void* mean, void* cov, int B,
+                  int rows, int ld, int dx, int dy, double w_side, double w0c,
+                  cudaStream_t stream) {
+  const size_t smem = update_ws_elems(dx, dy) * sizeof(T);
   if (int err = set_smem(ut_update_kernel<T>, smem)) return err;
   ut_update_kernel<T><<<B, kUtThreads, smem, stream>>>(
       static_cast<const T*>(pts), static_cast<const T*>(hpts),
       static_cast<const T*>(center), static_cast<const T*>(mu),
       static_cast<const T*>(m), static_cast<const T*>(P),
       static_cast<const T*>(R), static_cast<const T*>(inn),
-      static_cast<T*>(ll), static_cast<T*>(mean), static_cast<T*>(cov), scr,
-      ws, rows, ld, dx, dy, T(w_side), T(w0c));
+      static_cast<T*>(ll), static_cast<T*>(mean), static_cast<T*>(cov), rows,
+      ld, dx, dy, T(w_side), T(w0c));
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch_predict(const void* fpts, const void* center, const void* Q,
-                   void* mu, void* cov, void* scratch, int B, int rows,
-                   int dx, double w_side, double w0m, double w0c,
+                   void* mu, void* cov, int B, int rows, int dx,
+                   double w_side, double w0m, double w0c,
                    cudaStream_t stream) {
-  const size_t ws = predict_ws_elems(dx);
-  size_t smem = 0;
-  T* scr = nullptr;
-  if (!plan(ws, static_cast<T*>(scratch), &smem, &scr))
-    return int(cudaErrorInvalidValue);
+  const size_t smem = predict_ws_elems(dx) * sizeof(T);
   if (int err = set_smem(ut_predict_kernel<T>, smem)) return err;
   ut_predict_kernel<T><<<B, kUtThreads, smem, stream>>>(
       static_cast<const T*>(fpts), static_cast<const T*>(center),
       static_cast<const T*>(Q), static_cast<T*>(mu), static_cast<T*>(cov),
-      scr, ws, rows, dx, T(w_side), T(w0m), T(w0c));
+      rows, dx, T(w_side), T(w0m), T(w0c));
   return int(cudaGetLastError());
 }
 
@@ -547,15 +543,6 @@ extern "C" {
 long long bft_ut_sigma_scratch_elems(int n, int method, int itemsize,
                                      int device) {
   return bft::scratch_elems(factor_ws_elems(n, method), itemsize, device);
-}
-
-long long bft_ut_update_scratch_elems(int dx, int dy, int itemsize,
-                                      int device) {
-  return bft::scratch_elems(update_ws_elems(dx, dy), itemsize, device);
-}
-
-long long bft_ut_predict_scratch_elems(int dx, int itemsize, int device) {
-  return bft::scratch_elems(predict_ws_elems(dx), itemsize, device);
 }
 
 int bft_ut_sigma_f32(const void* m, const void* P, void* pts, void* scratch,
@@ -590,39 +577,35 @@ int bft_ut_sigma_aug_f64(const void* m, const void* P, const void* bias,
 int bft_ut_update_f32(const void* pts, const void* hpts, const void* center,
                       const void* mu, const void* m, const void* P,
                       const void* R, const void* inn, void* ll, void* mean,
-                      void* cov, void* scratch, int B, int rows, int ld,
-                      int dx, int dy, double w_side, double w0c,
-                      void* stream) {
+                      void* cov, int B, int rows, int ld, int dx, int dy,
+                      double w_side, double w0c, void* stream) {
   return launch_update<float>(pts, hpts, center, mu, m, P, R, inn, ll, mean,
-                              cov, scratch, B, rows, ld, dx, dy, w_side, w0c,
+                              cov, B, rows, ld, dx, dy, w_side, w0c,
                               cudaStream_t(stream));
 }
 
 int bft_ut_update_f64(const void* pts, const void* hpts, const void* center,
                       const void* mu, const void* m, const void* P,
                       const void* R, const void* inn, void* ll, void* mean,
-                      void* cov, void* scratch, int B, int rows, int ld,
-                      int dx, int dy, double w_side, double w0c,
-                      void* stream) {
+                      void* cov, int B, int rows, int ld, int dx, int dy,
+                      double w_side, double w0c, void* stream) {
   return launch_update<double>(pts, hpts, center, mu, m, P, R, inn, ll, mean,
-                               cov, scratch, B, rows, ld, dx, dy, w_side,
-                               w0c, cudaStream_t(stream));
+                               cov, B, rows, ld, dx, dy, w_side, w0c,
+                               cudaStream_t(stream));
 }
 
 int bft_ut_predict_f32(const void* fpts, const void* center, const void* Q,
-                       void* mu, void* cov, void* scratch, int B, int rows,
-                       int dx, double w_side, double w0m, double w0c,
-                       void* stream) {
-  return launch_predict<float>(fpts, center, Q, mu, cov, scratch, B, rows,
-                               dx, w_side, w0m, w0c, cudaStream_t(stream));
+                       void* mu, void* cov, int B, int rows, int dx,
+                       double w_side, double w0m, double w0c, void* stream) {
+  return launch_predict<float>(fpts, center, Q, mu, cov, B, rows, dx, w_side,
+                               w0m, w0c, cudaStream_t(stream));
 }
 
 int bft_ut_predict_f64(const void* fpts, const void* center, const void* Q,
-                       void* mu, void* cov, void* scratch, int B, int rows,
-                       int dx, double w_side, double w0m, double w0c,
-                       void* stream) {
-  return launch_predict<double>(fpts, center, Q, mu, cov, scratch, B, rows,
-                                dx, w_side, w0m, w0c, cudaStream_t(stream));
+                       void* mu, void* cov, int B, int rows, int dx,
+                       double w_side, double w0m, double w0c, void* stream) {
+  return launch_predict<double>(fpts, center, Q, mu, cov, B, rows, dx,
+                                w_side, w0m, w0c, cudaStream_t(stream));
 }
 
 }  // extern "C"

@@ -60,12 +60,9 @@ K2T = _build.register("bft_ekf_predict_cov_tiled", _TILED_SRC,
 _update_plain = chol_update_precomputed
 _predict_plain = predict_cov_precomputed
 
+
 # The per-element kernels' shared-memory workspace, in elements
-# (``update_ws_elems`` and ``predict_ws_elems`` of csrc/fused_ekf.cu), and
-# the room left for their static shared memory (``kStaticSmemSlack``).
-_SMEM_SLACK = 256
-
-
+# (``update_ws_elems`` and ``predict_ws_elems`` of csrc/fused_ekf.cu).
 def _update_ws(dx: int, dy: int) -> int:
     return 4 * dy * dx + 3 * dy * dy + 2 * dx * dx
 
@@ -74,23 +71,21 @@ def _predict_ws(dx: int, dq: int) -> int:
     return 2 * dx * dx + 2 * dx * dq
 
 
-def _fits(elems: int, itemsize: int, smem_optin: int) -> bool:
-    return elems * itemsize + _SMEM_SLACK <= smem_optin
-
-
 def update_kernel(dx: int, dy: int, itemsize: int,
                   smem_optin: int) -> _build.Kernel:
     """The update kernel for one shape: K1 (one block per element) where
     its workspace fits in a block's shared memory, ``smem_optin`` bytes
     (the device's opt-in limit), K1t (tiled over the card) otherwise."""
-    return K1 if _fits(_update_ws(dx, dy), itemsize, smem_optin) else K1T
+    fits = _build.fits_smem(_update_ws(dx, dy), itemsize, smem_optin)
+    return K1 if fits else K1T
 
 
 def predict_kernel(dx: int, dq: int, itemsize: int,
                    smem_optin: int) -> _build.Kernel:
     """The predict kernel for one shape: K2 where its workspace fits in
     ``smem_optin`` bytes of shared memory, K2t otherwise."""
-    return K2 if _fits(_predict_ws(dx, dq), itemsize, smem_optin) else K2T
+    fits = _build.fits_smem(_predict_ws(dx, dq), itemsize, smem_optin)
+    return K2 if fits else K2T
 
 
 def _launch_update(m, P, Hx, Rt, innov, jitter):

@@ -14,6 +14,15 @@
 - K9 ``ut_predict_kernel`` (``_ut_predict_kernel`` ``:319``): μ and
   Σ = sym(Σw ccᵀ (+Q)).
 
+K8 and K9 keep their workspace in one block's shared memory. Where it
+does not fit (config 5's Lorenz-96 dx=512, the band's edges), the tiled
+variants in ``csrc/ut_tiled.cu`` replace the same TPU kernels: K8t
+centres the points, forms S and Cᵀ as products over the whole card and
+factors [S; Cᵀ; innovᵀ; I] with the EKF's blocked Cholesky (K1t's,
+``csrc/tiled_chol.cuh``); K9t centres the points and forms Σ as one
+product. The choice is by shape alone (:func:`update_kernel`,
+:func:`predict_kernel`).
+
 The model evaluations f(pts), h(pts) run between them in PyTorch. K8 takes
 μy and the innovation from the wrapper, which applies the model's residual
 function (e.g. a wrapped bearing), so the models with an
@@ -23,9 +32,9 @@ kernel for them).
 On CUDA tensors the wrappers launch the kernel or raise; on CPU tensors
 they run the plain versions beside them. The band is every factor and
 moment dimension ≤ 1,024 (the TPU package caps its kernels at 128 for TPU
-reasons and runs XLA above; the CUDA kernels factor in global scratch
-instead, so the Lorenz-96 dx=512 configuration runs through them); a CUDA
-input outside it raises NotImplementedError.
+reasons and runs XLA above; here K6/K7 factor in global scratch and
+K8/K9 hand over to K8t/K9t, so the Lorenz-96 dx=512 configuration runs
+through kernels); a CUDA input outside it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ _DIM_MAX = 1024
 _METHODS = {"cholesky": 0, "sqrtm": 1}  # csrc/fused_ut.cu kCholesky, kSqrtm
 
 _SRC = "bayesianfiltering_tpu_torch/csrc/fused_ut.cu"
+_TILED_SRC = "bayesianfiltering_tpu_torch/csrc/ut_tiled.cu"
 K6 = _build.register("bft_ut_sigma", _SRC,
                      "bayesianfiltering_tpu/ops/fused_ut.py:100")
 K7 = _build.register("bft_ut_sigma_aug", _SRC,
@@ -63,6 +73,40 @@ K8 = _build.register("bft_ut_update", _SRC,
                      "bayesianfiltering_tpu/ops/fused_ut.py:225")
 K9 = _build.register("bft_ut_predict", _SRC,
                      "bayesianfiltering_tpu/ops/fused_ut.py:319")
+K8T = _build.register("bft_ut_update_tiled", _TILED_SRC,
+                      "bayesianfiltering_tpu/ops/fused_ut.py:225")
+K9T = _build.register("bft_ut_predict_tiled", _TILED_SRC,
+                      "bayesianfiltering_tpu/ops/fused_ut.py:319")
+
+_ROW_CHUNK = 16  # csrc/fused_ut.cu kRowChunk
+
+
+# K8's and K9's shared-memory workspace, in elements (``update_ws_elems``
+# and ``predict_ws_elems`` of csrc/fused_ut.cu).
+def _update_ws(dx: int, dy: int) -> int:
+    return (2 * dy * dy + 3 * dy * dx + _ROW_CHUNK * (dx + dy) + 4 * dy
+            + dx)
+
+
+def _predict_ws(dx: int) -> int:
+    return dx * dx + _ROW_CHUNK * dx + 2 * dx
+
+
+def update_kernel(dx: int, dy: int, itemsize: int,
+                  smem_optin: int) -> _build.Kernel:
+    """The UT update kernel for one shape: K8 (one block per element)
+    where its workspace fits in a block's shared memory, ``smem_optin``
+    bytes (the device's opt-in limit), K8t (tiled over the card)
+    otherwise."""
+    fits = _build.fits_smem(_update_ws(dx, dy), itemsize, smem_optin)
+    return K8 if fits else K8T
+
+
+def predict_kernel(dx: int, itemsize: int, smem_optin: int) -> _build.Kernel:
+    """The UT predict kernel for one shape: K9 where its workspace fits in
+    ``smem_optin`` bytes of shared memory, K9t otherwise."""
+    fits = _build.fits_smem(_predict_ws(dx), itemsize, smem_optin)
+    return K9 if fits else K9T
 
 
 # ---------------------------------------------------------------------------
@@ -158,24 +202,29 @@ def _launch_update(pts, hpts, center_y, mu_y, m, P, R, innov, w_side, w0c,
                 (P, (B, dx, dx)), (innov, (B, dy))]
     if add_r:
         operands.append((R, (dy, dy)))
-    _build.check_operands(K8, *operands)
+    kernel = update_kernel(dx, dy, m.element_size(),
+                           _build.smem_optin(m.device))
+    _build.check_operands(kernel, *operands)
     if ld < dx:
-        raise ValueError(f"{K8.name}: sigma points of width {ld} < dx={dx}")
-    lib = _build.load()
+        raise ValueError(f"{kernel.name}: sigma points of width {ld} < "
+                         f"dx={dx}")
     ll, mean, cov = m.new_empty(B), torch.empty_like(m), torch.empty_like(P)
     if B:
         with torch.cuda.device(m.device):
-            scratch = _build.scratch(lib.bft_ut_update_scratch_elems(
-                dx, dy, m.element_size(), m.device.index), K8, B, m)
-            err = _build.symbol(K8, m)(
-                pts.data_ptr(), hpts.data_ptr(), center_y.data_ptr(),
-                mu_y.data_ptr(), m.data_ptr(), P.data_ptr(),
-                R.data_ptr() if add_r else None, innov.data_ptr(),
-                ll.data_ptr(), mean.data_ptr(), cov.data_ptr(),
-                _build.ptr(scratch), B, rows, ld, dx, dy, w_side, w0c,
+            ptrs = [pts.data_ptr(), hpts.data_ptr(), center_y.data_ptr(),
+                    mu_y.data_ptr(), m.data_ptr(), P.data_ptr(),
+                    R.data_ptr() if add_r else None, innov.data_ptr(),
+                    ll.data_ptr(), mean.data_ptr(), cov.data_ptr()]
+            if kernel is K8T:  # K8t's per-element workspace
+                scratch = m.new_empty(
+                    B * _build.load().bft_ut_update_tiled_scratch_elems(
+                        rows, dx, dy))
+                ptrs.append(scratch.data_ptr())
+            err = _build.symbol(kernel, m)(
+                *ptrs, B, rows, ld, dx, dy, w_side, w0c,
                 torch.cuda.current_stream().cuda_stream)
-        _build.check(err, K8)
-        K8.launches += 1
+        _build.check(err, kernel)
+        kernel.launches += 1
     return ll, mean, cov
 
 
@@ -184,20 +233,25 @@ def _launch_predict(fpts, center, Q, w_side, w0m, w0c, add_q):
     operands = [(fpts, (B, rows, dx)), (center, (B, dx))]
     if add_q:
         operands.append((Q, (dx, dx)))
-    _build.check_operands(K9, *operands)
-    lib = _build.load()
+    kernel = predict_kernel(dx, fpts.element_size(),
+                            _build.smem_optin(fpts.device))
+    _build.check_operands(kernel, *operands)
     mu, cov = center.new_empty(B, dx), center.new_empty(B, dx, dx)
     if B:
         with torch.cuda.device(fpts.device):
-            scratch = _build.scratch(lib.bft_ut_predict_scratch_elems(
-                dx, fpts.element_size(), fpts.device.index), K9, B, fpts)
-            err = _build.symbol(K9, fpts)(
-                fpts.data_ptr(), center.data_ptr(),
-                Q.data_ptr() if add_q else None, mu.data_ptr(),
-                cov.data_ptr(), _build.ptr(scratch), B, rows, dx, w_side,
-                w0m, w0c, torch.cuda.current_stream().cuda_stream)
-        _build.check(err, K9)
-        K9.launches += 1
+            ptrs = [fpts.data_ptr(), center.data_ptr(),
+                    Q.data_ptr() if add_q else None, mu.data_ptr(),
+                    cov.data_ptr()]
+            if kernel is K9T:  # sym(Q), the centred points and d0
+                scratch = fpts.new_empty(
+                    _build.load().bft_ut_predict_tiled_scratch_elems(
+                        B, rows, dx))
+                ptrs.append(scratch.data_ptr())
+            err = _build.symbol(kernel, fpts)(
+                *ptrs, B, rows, dx, w_side, w0m, w0c,
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(err, kernel)
+        kernel.launches += 1
     return mu, cov
 
 
@@ -241,7 +295,8 @@ def fused_sigma_aug(m, P, bias, C, scale: float, method: str):
 def fused_ut_update(pts, hpts, center_y, mu_y, m, P, R, innov, w_side, w0c,
                     add_r: bool):
     """UT measurement update from propagated sigma points. ``R`` (dy, dy)
-    is added to S only when ``add_r``. Returns ``(ll, mean, cov)``. K8."""
+    is added to S only when ``add_r``. Returns ``(ll, mean, cov)``. K8 or
+    K8t on CUDA (:func:`update_kernel`), the plain version on CPU."""
     _band(m, K8, dx=m.shape[-1], dy=hpts.shape[-1])
     return _update_op(pts.contiguous(), hpts.contiguous(),
                       center_y.contiguous(), mu_y.contiguous(),
@@ -252,7 +307,8 @@ def fused_ut_update(pts, hpts, center_y, mu_y, m, P, R, innov, w_side, w0c,
 
 def fused_ut_predict(fpts, center, Q, w_side, w0m, w0c, add_q: bool):
     """UT predict moments ``(μ, Σ)`` of propagated sigma points; ``Q``
-    (dx, dx) is added only when ``add_q``. K9."""
+    (dx, dx) is added only when ``add_q``. K9 or K9t on CUDA
+    (:func:`predict_kernel`), the plain version on CPU."""
     _band(fpts, K9, dx=fpts.shape[-1])
     return _predict_op(fpts.contiguous(), center.contiguous(), Q.contiguous(),
                        float(w_side), float(w0m), float(w0c), bool(add_q))
@@ -264,7 +320,7 @@ def fused_ut_predict(fpts, center, Q, w_side, w0m, w0c, add_q: bool):
 
 def fused_ukf_predict_additive(m, P, f, u, Q, uparams: ParamsUKF, q0):
     """Drop-in for ``ops.ukf.ukf_predict_additive``: K6, then f over the
-    points, then K9."""
+    points, then K9 (or K9t)."""
     dx = m.shape[-1]
     scale, (w_side, w0m, w0c) = ut_weights(dx, uparams)
     pts = fused_sigma(m, P, scale, _method(uparams))
@@ -276,7 +332,7 @@ def fused_ukf_predict_additive(m, P, f, u, Q, uparams: ParamsUKF, q0):
 
 def fused_ukf_predict_nonadditive(m, P, f, u, Q, uparams: ParamsUKF, q0):
     """Drop-in for ``ops.ukf.ukf_predict_nonadditive``: K7, then f over the
-    augmented points, then K9."""
+    augmented points, then K9 (or K9t)."""
     dx = m.shape[-1]
     scale, (w_side, w0m, w0c) = ut_weights(dx + q0.shape[-1], uparams)
     pts = fused_sigma_aug(m, P, q0, Q, scale, _method(uparams))
@@ -296,7 +352,7 @@ def _update(pts, hpts, center, m, P, R, y, weights, add_r, residual_fn):
 def fused_ukf_condition_on_additive(m, P, h, R, u, y, uparams: ParamsUKF,
                                     r0=None, residual_fn=None):
     """Drop-in for ``ops.ukf.ukf_condition_on_additive``: K6, then h over
-    the points, then K8. Returns ``(ll, mean, cov)``."""
+    the points, then K8 (or K8t). Returns ``(ll, mean, cov)``."""
     dx = m.shape[-1]
     y = torch.atleast_1d(y)
     scale, weights = ut_weights(dx, uparams)
@@ -310,7 +366,7 @@ def fused_ukf_condition_on_additive(m, P, h, R, u, y, uparams: ParamsUKF,
 def fused_ukf_condition_on_nonadditive(m, P, h, R, u, y, uparams: ParamsUKF,
                                        r0=None, residual_fn=None):
     """Drop-in for ``ops.ukf.ukf_condition_on_nonadditive``: K7, then h over
-    the augmented points, then K8 on their state part. Returns
+    the augmented points, then K8 (or K8t) on their state part. Returns
     ``(ll, mean, cov)``."""
     dx = m.shape[-1]
     y = torch.atleast_1d(y)
@@ -322,6 +378,8 @@ def fused_ukf_condition_on_nonadditive(m, P, h, R, u, y, uparams: ParamsUKF,
 
 
 __all__ = [
+    "update_kernel",
+    "predict_kernel",
     "fused_sigma",
     "fused_sigma_aug",
     "fused_ut_update",

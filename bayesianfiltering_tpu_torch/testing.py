@@ -2,6 +2,9 @@
 
 Inputs are made with a numpy ``Generator`` so that the JAX package and the
 port can be fed the very same arrays; :func:`to_torch` moves them over.
+:func:`augmented_prep` and :func:`augmented_factor` write out, in numpy,
+the preparation and the blocked Cholesky that the tiled update kernels
+K1t and K8t share, for tests that follow their schedules step by step.
 """
 from __future__ import annotations
 
@@ -63,6 +66,61 @@ def ut_predict_inputs(rng: np.random.Generator, B: int, rows: int, dx: int):
     """``(fpts, center, Q)`` for the UT predict moments, Q shared."""
     return (rng.standard_normal((B, rows, dx)), rng.standard_normal((B, dx)),
             spd(rng, 1, dx)[0])
+
+
+def _chol_lower_nan(a):
+    """Cholesky factor of the symmetric matrix whose lower triangle ``a``
+    holds (its strict upper part is never read), NaN throughout where it
+    is not positive definite."""
+    lo = np.tril(a)
+    try:
+        return np.linalg.cholesky(lo + np.tril(lo, -1).T)
+    except np.linalg.LinAlgError:
+        return np.full_like(a, np.nan)
+
+
+def augmented_prep(W, L, R, inn, jitter: float = 0.0):
+    """``chol_prep_kernel`` of ``csrc/tiled_chol.cuh`` on one element, in
+    place: S = G + sym(R) + (jitter + 1e-6·max|diag(G + R)|)·I into W's top
+    square (its lower part) from G in L's (its lower part), L's strict
+    upper top square zeroed, the innovation and the identity into W's last
+    dy + 1 rows. ``R`` may be None (S = G + floor). Returns sym(R)."""
+    dy = inn.shape[-1]
+    G = L[:dy]
+    Rm = np.zeros((dy, dy)) if R is None else R
+    Rs = 0.5 * (Rm + Rm.T)
+    diag = np.diag(G) + np.diag(Rm)
+    strict = np.tri(dy, k=-1, dtype=bool)
+    W[:dy][strict] = (G + Rs)[strict]
+    W[:dy][np.diag_indices(dy)] = diag + (jitter + 1e-6 * np.abs(diag).max())
+    G[strict.T] = 0.0
+    W[-dy - 1] = inn
+    W[-dy:] = np.eye(dy)
+    return Rs
+
+
+def augmented_factor(W, L, dy: int, nb: int = 32) -> None:
+    """The blocked right-looking Cholesky of ``csrc/tiled_chol.cuh`` on the
+    augmented matrix ``W`` ((2dy + dx + 1) × dy: S in its lower top square,
+    then X, vᵀ and I), in place and launch by launch: each panel's n × n
+    diagonal block is factored into ``L`` (NaN throughout unless every pivot
+    is positive) and inverted, the rows below it become W's panel times the
+    inverse transposed, and the trailing matrix below takes a lower update.
+    Entries that the kernels never write (W's and L's strict upper part in
+    the top square outside the diagonal blocks) are left as they were, so
+    that scratch seeded with NaN shows any read of them."""
+    for k in range(0, dy, nb):
+        below = min(k + nb, dy)
+        Lkk = _chol_lower_nan(W[k:below, k:below])
+        inv = np.linalg.inv(Lkk) if np.isfinite(Lkk).all() else Lkk
+        L[k:below, k:below] = Lkk
+        L[below:, k:below] = W[below:, k:below] @ inv.T
+        if below < dy:
+            upd = L[below:, k:below] @ L[below:dy, k:below].T
+            rows, cols = upd.shape
+            lower = np.arange(cols)[None, :] <= np.arange(rows)[:, None]
+            W[below:, below:dy] = np.where(lower, W[below:, below:dy] - upd,
+                                           W[below:, below:dy])
 
 
 def filter_elements(rng: np.random.Generator, M: int, dx: int, dy: int = 2,
@@ -159,6 +217,7 @@ PARENT_PROFILES = ("dirichlet", "last", "first", "spread", "tail")
 
 
 __all__ = ["to_torch", "spd", "update_inputs", "predict_inputs",
+           "augmented_prep", "augmented_factor",
            "sigma_inputs", "sigma_aug_inputs", "ut_update_inputs",
            "ut_predict_inputs", "filter_elements", "guard_lanes",
            "lgssm_fields",

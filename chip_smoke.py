@@ -9,23 +9,26 @@ and prints no result):
 
 1. Environment: torch and CUDA versions, the card's name and power limit.
 2. Build the CUDA kernels (K1–K12, the tiled variants K1t/K2t of the EKF
-   update and predict, and the block variants K10b–K12b of the combines
-   above dx = 8) from ``bayesianfiltering_tpu_torch/csrc``, one nvcc per
-   source, in parallel.
+   update and predict and K8t/K9t of the UT update and predict, and the
+   block variants K10b–K12b of the combines above dx = 8) from
+   ``bayesianfiltering_tpu_torch/csrc``, one nvcc per source, in
+   parallel.
 3. Each kernel against its plain PyTorch version on the card, float32 and
    float64, at the main paths' shapes and at its size band's edge (K1/K1t
-   to dy = 512, K6–K9 to 1,024, the block combines at dx = 9, 64 and 512;
-   the EKF kernels also at shapes that are not multiples of a tile and on
-   both sides of the rule that picks K1/K2 or K1t/K2t, each shape
-   expecting the kernel the rule names); a
-   non-positive-definite S or P must give NaN on both sides (K1t with the
-   failing pivot in its first and in a later panel), and K10's
+   to dy = 512, K6–K9/K8t/K9t to 1,024, the block combines at dx = 9, 64
+   and 512; the EKF and UT update and predict kernels also at shapes that
+   are not multiples of a tile and on both sides of the rules that pick
+   K1/K2 or K1t/K2t and K8/K9 or K8t/K9t, each shape expecting the kernel
+   the rule names); a
+   non-positive-definite S or P must give NaN on both sides (K1t and K8t
+   with the failing pivot in their first and in a later panel), and K10's
    guard lanes (a C1 with a −1e-8 eigenvalue, a C1 with an infinite entry)
    the same finite and non-finite entries (dx = 4 to 512). K5 (integer
    parents) must equal its plain version exactly at n = 2²⁰ and 65,536 on
    five weight profiles, and at the Gaussian-sum reductions' m counts → n
    slots. Times each kernel and its plain version with CUDA events at the
-   main-path shape (float32; K1t and K2t float64 too) and computes its
+   main-path shape (float32; K1t, K2t, K8t and K9t float64 too) and
+   computes its
    bound (bytes over 3.35 TB/s or flops over the peak rate, whichever is
    larger), and reads the kernel's
    own device time from torch.profiler (the CUDA-event time of a loop of
@@ -56,7 +59,8 @@ and prints no result):
    parallel Kalman smoother at T=1M, dx=4, dy=2, chunk 128 (K10 and K12
    320 times each, K11 once); BASELINE config 5 (Lorenz-96 dx=512,
    dy=256, one sequence, T=200: the EKF with the joint update, the EKF with
-   ``update_chunk=128`` — K1t/K2t, never K1/K2 — and the additive UKF);
+   ``update_chunk=128`` — K1t/K2t, never K1/K2 — and the additive UKF —
+   K8t/K9t, never K8/K9);
    path C (the parallel smoother
    on ``zoo.linear_gaussian_lgssm(64, 32)`` at T=65,536, chunk 128, both
    solvers: only the block combines launch). The new paths run three
@@ -66,7 +70,7 @@ and prints no result):
    device time, under torch.profiler: the batched UKF step, ten steps of
    the 1M-particle BPF, one run of the T=1M parallel smoother, ten steps
    of each of config 5's filters (the EKF's split between K1t/K2t and the
-   host), one run of path C.
+   host, the UKF's between K6, K8t and K9t), one run of path C.
 
 The last three lines: a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -135,8 +139,8 @@ REPS = 3  # calls of each new path in one process: median and range
 KERNEL_SYMBOLS = {
     "bft_ekf_update": ("ekf_update_kernel",),
     "bft_ekf_predict_cov": ("ekf_predict_cov_kernel",),
-    "bft_ekf_update_tiled": ("tiled_gemm_kernel", "ekf_tiled_prep_kernel",
-                             "chol_diag_kernel", "ekf_tiled_loglik_kernel"),
+    "bft_ekf_update_tiled": ("tiled_gemm_kernel", "chol_prep_kernel",
+                             "chol_diag_kernel", "chol_loglik_kernel"),
     "bft_ekf_predict_cov_tiled": ("tiled_gemm_kernel",),
     "bft_bank_update": ("bank_update_kernel",),
     "bft_bank_predict_cov": ("bank_predict_cov_kernel",),
@@ -145,6 +149,11 @@ KERNEL_SYMBOLS = {
     "bft_ut_sigma_aug": ("ut_sigma_aug_kernel", "ut_noise_sigma_kernel"),
     "bft_ut_update": ("ut_update_kernel",),
     "bft_ut_predict": ("ut_predict_kernel",),
+    "bft_ut_update_tiled": ("tiled_gemm_kernel", "ut_tiled_centre_kernel",
+                            "chol_prep_kernel", "chol_diag_kernel",
+                            "chol_loglik_kernel", "ut_tiled_cov_kernel"),
+    "bft_ut_predict_tiled": ("tiled_gemm_kernel", "ut_tiled_mean_kernel",
+                             "ut_tiled_centre_rows_kernel"),
     "bft_bank_combine": ("bank_combine_kernel",),
     "bft_bank_smoother_elements": ("bank_smoother_elements_kernel",),
     "bft_bank_smoother_combine": ("bank_smoother_combine_kernel",),
@@ -152,15 +161,16 @@ KERNEL_SYMBOLS = {
     "bft_block_smoother_elements": ("block_smoother_elements_kernel",),
     "bft_block_smoother_combine": ("block_smoother_combine_kernel",),
 }
-# the kernels' IDs, in the order of the kernel table; K1t/K2t are the
-# tiled variants of K1/K2, K10b–K12b the block variants (8 < dx ≤ 512) of
-# K10–K12
+# the kernels' IDs, in the order of the kernel table; K1t/K2t and K8t/K9t
+# are the tiled variants of K1/K2 and K8/K9, K10b–K12b the block variants
+# (8 < dx ≤ 512) of K10–K12
 KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_update_tiled": "K1t",
               "bft_ekf_predict_cov": "K2", "bft_ekf_predict_cov_tiled": "K2t",
               "bft_bank_update": "K3", "bft_bank_predict_cov": "K4",
               "bft_resample_parents": "K5", "bft_ut_sigma": "K6",
               "bft_ut_sigma_aug": "K7", "bft_ut_update": "K8",
-              "bft_ut_predict": "K9", "bft_bank_combine": "K10",
+              "bft_ut_update_tiled": "K8t", "bft_ut_predict": "K9",
+              "bft_ut_predict_tiled": "K9t", "bft_bank_combine": "K10",
               "bft_block_combine": "K10b",
               "bft_bank_smoother_elements": "K11",
               "bft_block_smoother_elements": "K11b",
@@ -169,7 +179,8 @@ KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_update_tiled": "K1t",
 
 # kernels timed in float64 as well at their main-path shapes (config 5's
 # filters run in float64 too; the rest are timed in float32 only)
-TIMED_FLOAT64 = ("bft_ekf_update_tiled", "bft_ekf_predict_cov_tiled")
+TIMED_FLOAT64 = ("bft_ekf_update_tiled", "bft_ekf_predict_cov_tiled",
+                 "bft_ut_update_tiled", "bft_ut_predict_tiled")
 
 # Roofline of an H100 SXM at its 700 W limit (NVIDIA's data sheet): memory
 # 3.35 TB/s; CUDA-core (non-tensor) peaks 67 TFLOP/s in float32 and
@@ -307,7 +318,7 @@ def factor_flops(n, method):
 
 
 def ut_update_flops(rows, dx, dy):
-    """K8: centring (rows·(dx + dy)), S over the rows (rows·dy²), C
+    """K8, K8t: centring (rows·(dx + dy)), S over the rows (rows·dy²), C
     (2rows·dx·dy), chol S and L⁻¹ (dy³/3 each), L⁻¹C and Kᵀ (dy²·dx
     each), K L (dx·dy²), the symmetric KC and (KL)(KL)ᵀ (dx²·dy each), μ
     and z."""
@@ -317,7 +328,7 @@ def ut_update_flops(rows, dx, dy):
 
 
 def ut_predict_flops(rows, dx):
-    """K9: μ and the centring (2rows·dx), Σ over the rows (rows·dx²), the
+    """K9, K9t: μ and the centring (2rows·dx), Σ over the rows (rows·dx²), the
     center's outer product."""
     return rows * dx * dx + 2 * rows * dx + dx * dx + 2 * dx
 
@@ -357,7 +368,8 @@ def kernel_cases():
     launch, timed) — timed is "main" for the kernel's main-path shape,
     "also" for a second timed shape of the main path, else None. The
     kernel is a function of the first operand where a rule picks it by
-    shape and dtype (the EKF's K1/K1t and K2/K2t)."""
+    shape and dtype (the EKF's K1/K1t and K2/K2t, the UT's K8/K8t and
+    K9/K9t)."""
     from bayesianfiltering_tpu_torch import testing
     from bayesianfiltering_tpu_torch.ops import associative as tas
     from bayesianfiltering_tpu_torch.ops import bank_combine as bc
@@ -446,7 +458,9 @@ def kernel_cases():
 
     def ut_update(B, rows, ld, dx, dy, add_r, timed=None):
         w_side, _, w0c = ut_weights(rows // 2, up)[1]
-        cases.append((fu.K8, fu.fused_ut_update, fu._ut_update_plain,
+        rule = lambda a: fu.update_kernel(dx, dy, a.element_size(),
+                                          _build.smem_optin(a.device))
+        cases.append((rule, fu.fused_ut_update, fu._ut_update_plain,
                       f"B={B},rows={rows},ld={ld},dx={dx},dy={dy},"
                       f"{'+R' if add_r else 'no R'}",
                       lambda r: testing.ut_update_inputs(r, B, rows, ld, dx,
@@ -456,7 +470,9 @@ def kernel_cases():
 
     def ut_predict(B, rows, dx, add_q, timed=None):
         w_side, w0m, w0c = ut_weights(rows // 2, up)[1]
-        cases.append((fu.K9, fu.fused_ut_predict, fu._ut_predict_plain,
+        rule = lambda a: fu.predict_kernel(dx, a.element_size(),
+                                           _build.smem_optin(a.device))
+        cases.append((rule, fu.fused_ut_predict, fu._ut_predict_plain,
                       f"B={B},rows={rows},dx={dx},{'+Q' if add_q else 'no Q'}",
                       lambda r: testing.ut_predict_inputs(r, B, rows, dx),
                       (w_side, w0m, w0c, add_q),
@@ -519,19 +535,28 @@ def kernel_cases():
     ut_predict(100, 12, 4, False)
     ut_predict(32, 12, 4, False)
     ut_predict(2, 256, 128, True)
-    # config 5's additive UKF (n = 512, 1,024 points, dy = 256), the
-    # augmented widths at config 5 (na = 1,024 in the predict, 768 in the
-    # update) and the band edge 1,024
+    # config 5's additive UKF (n = 512, 1,024 points, dy = 256: K8t and
+    # K9t), the augmented widths at config 5 (na = 1,024 in the predict,
+    # 768 in the update) and the band edge 1,024; K8t and K9t also at
+    # shapes that are not multiples of a tile or a panel (dy = 129) and on
+    # both sides of their rules' edges (K8 at dx = 489 | 490, dy = 32 in
+    # float32 and 233 | 234 in float64; K9 at dx = 232 | 233 and 161 | 162)
     sigma(1, C5_DX, "cholesky", "also")
     sigma(1, 1024, "cholesky")
     sigma(1, 256, "sqrtm")
     sigma_aug(2, C5_DX, C5_DX, "cholesky")
-    ut_update(1, 2 * C5_DX, C5_DX, C5_DX, C5_DY, True, "also")
+    ut_update(1, 2 * C5_DX, C5_DX, C5_DX, C5_DY, True, "main")
     ut_update(1, 2 * (C5_DX + C5_DY), C5_DX + C5_DY, C5_DX, C5_DY, False)
     ut_update(1, 2048, 1024, 1024, 1024, True)
-    ut_predict(1, 2 * C5_DX, C5_DX, True, "also")
+    ut_update(2, 300, 150, 100, 129, False)
+    for dx in (489, 490, 233, 234):
+        ut_update(1, 2 * dx, dx, dx, 32, True)
+    ut_predict(1, 2 * C5_DX, C5_DX, True, "main")
     ut_predict(1, 4 * C5_DX, C5_DX, False)
     ut_predict(1, 2048, 1024, True)
+    ut_predict(3, 600, 300, False)
+    for dx in (232, 233, 161, 162):
+        ut_predict(1, 2 * dx, dx, True)
     # the parallel Kalman smoother at T = 1M, chunk 128, dx = 4: in-chunk
     # combines over 7,813 lanes (128 of the 320) and the broadcast of step
     # 4 over 1,000,064; the elements over 999,999 steps; the band edge
@@ -569,10 +594,10 @@ def _as_tuple(x):
 
 
 def nan_checks(dev) -> None:
-    """A non-positive-definite S (K1, K1t, K3, K8), P (K6, K7) or Pp (K11)
-    gives NaN in the same places on both sides, and never an exception.
-    K1t's S fails at its first pivot, or only at a pivot of its third
-    panel."""
+    """A non-positive-definite S (K1, K1t, K3, K8, K8t), P (K6, K7) or Pp
+    (K11) gives NaN in the same places on both sides, and never an
+    exception. K1t's and K8t's S fail at their first pivot, or only at a
+    pivot of their third panel."""
     import numpy as np
     import torch
 
@@ -614,6 +639,12 @@ def nan_checks(dev) -> None:
     a[6] = neg_eye(a[6])
     checks.append((fu.K8, fu.fused_ut_update, fu._ut_update_plain,
                    a + [1 / 128, 0.0, True]))
+    # K8t at dx = 200, dy = 70 in float64 (three panels of 32, 32, 6)
+    for fail_at in (0, 69):
+        a = f64(testing.ut_update_inputs(rng, 2, 400, 200, 200, 70))
+        a[6][fail_at, fail_at] = -1e3
+        checks.append((fu.K8T, fu.fused_ut_update, fu._ut_update_plain,
+                       a + [1 / 400, 2.0, True]))
     a = f64(testing.smoother_element_inputs(rng, 64, 4))
     a[3] = neg_eye(a[3])
     checks.append((bs.K11, bs.bank_smoother_elements, bs._elements_plain, a))
@@ -978,8 +1009,9 @@ def config5_data(T, dtype, dev):
 
 def config5_runs():
     """Config 5's three filters: (label, call on (params, emissions), the
-    exact launches per step of each kernel). The EKF's elements do not fit
-    one SM's shared memory, so they run the tiled K1t/K2t."""
+    exact launches per step of each kernel). The EKF's and the UKF's
+    update and predict elements do not fit one SM's shared memory, so they
+    run the tiled K1t/K2t and K8t/K9t."""
     from bayesianfiltering_tpu_torch import inference as inf
 
     return [
@@ -992,7 +1024,8 @@ def config5_runs():
         ("ukf512 additive cholesky",
          lambda p, e: inf.unscented_kalman_filter(p, ukf_params(), e,
                                                   additive=True),
-         {"bft_ut_sigma": 2, "bft_ut_update": 1, "bft_ut_predict": 1}),
+         {"bft_ut_sigma": 2, "bft_ut_update_tiled": 1,
+          "bft_ut_predict_tiled": 1}),
     ]
 
 
@@ -1350,7 +1383,8 @@ def main_path(dev, card: str) -> dict:
             f"ukf {kind} {method} lorenz96",
             lambda: timed(lambda: inf.unscented_kalman_filter(
                 params, up, em, additive=additive)),
-            {sigma: 2 * T, "bft_ut_update": T, "bft_ut_predict": T})
+            {sigma: 2 * T, "bft_ut_update": T, "bft_ut_predict": T,
+             "bft_ut_update_tiled": 0, "bft_ut_predict_tiled": 0})
         add(counts)
         check_gaussian_posterior("ukf", post, (EKF_B, T, EKF_DX))
         log(f"ukf {kind} {method} lorenz96 dx={EKF_DX} dy={EKF_DY} B={EKF_B} "
@@ -1366,7 +1400,8 @@ def main_path(dev, card: str) -> dict:
             f"{label} range-bearing",
             lambda: run_ukf_mixture(label, comps, params_r, inputs, em, d),
             {"bft_ut_sigma_aug": 2 * BOT_EXP_T, "bft_ut_update": BOT_EXP_T,
-             "bft_ut_predict": BOT_EXP_T,
+             "bft_ut_predict": BOT_EXP_T, "bft_ut_update_tiled": 0,
+             "bft_ut_predict_tiled": 0,
              "bft_resample_parents": 0 if label.startswith("ugsf")
              else BOT_EXP_T})
         wall = time.perf_counter() - t0
@@ -1469,11 +1504,41 @@ def main_path(dev, card: str) -> dict:
     return total
 
 
-def profile_run(label: str, run, card: str, host: bool = False) -> None:
+def ukf_split(prof) -> dict:
+    """Device ms of K6, K8t and K9t in a trace of config 5's UKF. K8t and
+    K9t share the product kernel, so their launches are told apart in
+    launch order: K8t runs from its centring pass to its covariance pass,
+    K9t from its mean pass to its one product."""
+    from torch.autograd import DeviceType
+
+    events = sorted((e for e in prof.events()
+                     if e.device_type != DeviceType.CPU),
+                    key=lambda e: e.time_range.start)
+    split = {"K6": 0.0, "K8t": 0.0, "K9t": 0.0, "other": 0.0}
+    owner = None
+    for e in events:
+        name, us = e.name, e.time_range.elapsed_us()
+        if "ut_sigma_kernel" in name:
+            split["K6"] += us
+            continue
+        if "ut_tiled_centre_kernel" in name:
+            owner = "K8t"
+        elif "ut_tiled_mean_kernel" in name:
+            owner = "K9t"
+        split[owner or "other"] += us
+        if "ut_tiled_cov_kernel" in name or (
+                owner == "K9t" and "tiled_gemm_kernel" in name):
+            owner = None
+    return {k: v / 1e3 for k, v in split.items()}
+
+
+def profile_run(label: str, run, card: str, host: bool = False,
+                split=None) -> None:
     """The device's busy share of ``run()`` under torch.profiler, against
     the traced and the untraced wall, and the kernels with the most device
     time; with ``host``, also the host operations (and CUDA runtime calls)
-    with the most self CPU time."""
+    with the most self CPU time; with ``split``, the device time that it
+    attributes to each kernel of the path."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1503,6 +1568,11 @@ def profile_run(label: str, run, card: str, host: bool = False) -> None:
                     reverse=True)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
+    if split is not None:
+        parts = split(prof)
+        log("  split of the device time: " + ", ".join(
+            f"{k} {v:.3f} ms ({v / 1e3 / device_s:.3f})"
+            for k, v in parts.items()))
     if host:
         ops = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CPU]
@@ -1551,7 +1621,8 @@ def profile_ukf(dev, card: str) -> None:
     for label, run, _ in config5_runs():
         profile_run(f"config 5 {label} B=1 dx={C5_DX} {C5_PROFILE_T} steps "
                     "float32", lambda: run(params5, em5), card,
-                    host=label.startswith("ekf"))
+                    host=label.startswith("ekf"),
+                    split=ukf_split if label.startswith("ukf") else None)
     cparams, cys = path_c_problem(PC_T, torch.float32, dev)
     profile_run(f"path C parallel kalman smoother woodbury T={PC_T} "
                 f"dx={PC_DX} chunk={KF_CHUNK} float32",

@@ -2,8 +2,8 @@
 twin, and the filters' kernel path against their plain path on the CPU.
 
 Needs a CUDA device; every test skips without one. Covers K1–K12, with
-the tiled variants K1t/K2t, the block variants of K10–K12 and the wide
-bands of K1 and K6–K9. This file imports no
+the tiled variants K1t/K2t and K8t/K9t, the block variants of K10–K12 and
+the wide bands of K1 and K6–K9. This file imports no
 JAX, so it also runs where JAX is not installed (the repository's
 conftest.py imports JAX, hence ``--noconftest``):
 
@@ -484,16 +484,17 @@ WIDE_CASES = [
     (fu.K7, lambda r: testing.sigma_aug_inputs(r, 2, 512, 512),
      lambda *a: fu.fused_sigma_aug(*a, 1.0, "cholesky"),
      lambda *a: fu._sigma_aug_plain(*a, 1.0, "cholesky")),
-    (fu.K8, lambda r: testing.ut_update_inputs(r, 1, 1024, 512, 512, 256),
+    # K8 and K9 hand these shapes to their tiled variants
+    (fu.K8T, lambda r: testing.ut_update_inputs(r, 1, 1024, 512, 512, 256),
      lambda *a: fu.fused_ut_update(*a, 1 / 1024, 0.0, True),
      lambda *a: fu._ut_update_plain(*a, 1 / 1024, 0.0, True)),
-    (fu.K8, lambda r: testing.ut_update_inputs(r, 1, 1536, 768, 512, 256),
+    (fu.K8T, lambda r: testing.ut_update_inputs(r, 1, 1536, 768, 512, 256),
      lambda *a: fu.fused_ut_update(*a, 1 / 1536, 0.0, False),
      lambda *a: fu._ut_update_plain(*a, 1 / 1536, 0.0, False)),
-    (fu.K9, lambda r: testing.ut_predict_inputs(r, 2, 1024, 512),
+    (fu.K9T, lambda r: testing.ut_predict_inputs(r, 2, 1024, 512),
      lambda *a: fu.fused_ut_predict(*a, 1 / 1024, 0.0, 0.0, True),
      lambda *a: fu._ut_predict_plain(*a, 1 / 1024, 0.0, 0.0, True)),
-    (fu.K9, lambda r: testing.ut_predict_inputs(r, 1, 2048, 1024),
+    (fu.K9T, lambda r: testing.ut_predict_inputs(r, 1, 2048, 1024),
      lambda *a: fu.fused_ut_predict(*a, 1 / 2048, 0.0, 0.0, False),
      lambda *a: fu._ut_predict_plain(*a, 1 / 2048, 0.0, 0.0, False)),
 ]
@@ -697,8 +698,9 @@ def test_wide_ekf_kernel_path_matches_plain_path(dev, update_chunk):
 
 
 def test_wide_ukf_kernel_path_matches_plain_path(dev):
-    """The additive UKF at dx = 512, dy = 256: K6 twice, K8 and K9 once per
-    step."""
+    """The additive UKF at dx = 512, dy = 256: K6 twice, K8t and K9t once
+    per step, and no K8/K9 (their workspace does not fit in shared
+    memory)."""
     T = 2
     up = ParamsUKF(1.0, 0.0, 0.0, "cholesky")
     data_model, data_params, _ = zoo.lorenz96(512, 256, integrator="rk4",
@@ -715,8 +717,9 @@ def test_wide_ukf_kernel_path_matches_plain_path(dev):
             params, up, emissions.to(device), additive=True))
         if device == dev:
             torch.cuda.synchronize()
-            assert (fu.K6.launches, fu.K8.launches, fu.K9.launches) == (
+            assert (fu.K6.launches, fu.K8T.launches, fu.K9T.launches) == (
                 2 * T, T, T)
+            assert fu.K8.launches == fu.K9.launches == 0
     got, want = runs
     assert_close(got.filtered_means, want.filtered_means, 1e-9)
     assert_close(got.marginal_loglik, want.marginal_loglik, 1e-9)
@@ -813,4 +816,104 @@ def test_batched_lorenz96_keeps_the_per_element_kernels(dev):
     torch.cuda.synchronize()
     assert (fe.K1.launches, fe.K2.launches) == (3, 3)
     assert fe.K1T.launches == fe.K2T.launches == 0
+    assert torch.isfinite(post.filtered_means).all()
+
+
+# ---------------------------------------------------------------------------
+# K8t and K9t, the tiled variants of K8 and K9, picked by the same kind of
+# shape rule: config 5 at B = 1, 2, 3, the band's edges, sizes that are not
+# multiples of a tile or a panel, no R or Q, an asymmetric Q, and both
+# sides of the rule's edge (K8 at dx = 489 | 490, dy = 32 in float32 and
+# 233 | 234 in float64; K9 at dx = 232 | 233 and 161 | 162).
+# ---------------------------------------------------------------------------
+
+UT_VARIANT_UPDATE_SHAPES = [  # (B, rows, ld, dx, dy, add_r)
+    (1, 1024, 512, 512, 256, True), (2, 1024, 512, 512, 256, True),
+    (3, 1024, 512, 512, 256, True), (3, 1536, 768, 512, 256, False),
+    (1, 2048, 1024, 1024, 1024, True), (2, 300, 150, 100, 129, False),
+    (1, 980, 489, 489, 32, True), (1, 980, 490, 490, 32, True),
+    (1, 468, 233, 233, 32, True), (1, 468, 234, 234, 32, True)]
+UT_VARIANT_PREDICT_SHAPES = [  # (B, rows, dx, add_q)
+    (1, 1024, 512, True), (2, 1024, 512, True), (3, 1024, 512, False),
+    (1, 2048, 1024, True), (3, 600, 300, True), (1, 464, 232, True),
+    (1, 466, 233, True), (1, 322, 161, False), (1, 324, 162, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,rows,ld,dx,dy,add_r", UT_VARIANT_UPDATE_SHAPES)
+def test_ut_update_variant_matches_plain(dev, dtype, B, rows, ld, dx, dy,
+                                         add_r):
+    args = _dev(testing.ut_update_inputs(np.random.default_rng(dx + dy), B,
+                                         rows, ld, dx, dy), dtype, dev)
+    want_kernel = fu.update_kernel(dx, dy, args[0].element_size(),
+                                   _build.smem_optin(dev))
+    static = (1 / rows, 2.0, add_r)
+    _build.reset_launch_counts()
+    got = fu.fused_ut_update(*args, *static)
+    torch.cuda.synchronize()
+    _expect_one((fu.K8, fu.K8T), want_kernel)
+    for g, w in zip(got, fu._ut_update_plain(*args, *static)):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,rows,dx,add_q", UT_VARIANT_PREDICT_SHAPES)
+def test_ut_predict_variant_matches_plain(dev, dtype, B, rows, dx, add_q):
+    rng = np.random.default_rng(dx)
+    fpts, center, Q = testing.ut_predict_inputs(rng, B, rows, dx)
+    Q = Q + 0.1 * np.triu(rng.standard_normal((dx, dx)), 1)  # asymmetric
+    args = _dev((fpts, center, Q), dtype, dev)
+    want_kernel = fu.predict_kernel(dx, args[0].element_size(),
+                                    _build.smem_optin(dev))
+    static = (1 / rows, 0.1, 2.0, add_q)
+    _build.reset_launch_counts()
+    got = fu.fused_ut_predict(*args, *static)
+    torch.cuda.synchronize()
+    _expect_one((fu.K9, fu.K9T), want_kernel)
+    for g, w in zip(got, fu._ut_predict_plain(*args, *static)):
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+def test_the_rule_sends_config_5_to_the_tiled_ut_kernels(dev):
+    optin = _build.smem_optin(dev)
+    for itemsize in (4, 8):
+        assert fu.update_kernel(512, 256, itemsize, optin) is fu.K8T
+        assert fu.predict_kernel(512, itemsize, optin) is fu.K9T
+        assert fu.update_kernel(64, 32, itemsize, optin) is fu.K8
+        assert fu.predict_kernel(64, itemsize, optin) is fu.K9
+
+
+@pytest.mark.parametrize("fail_at", [0, 69])
+def test_tiled_ut_update_nan_on_non_pd(dev, fail_at):
+    """A negative pivot in K8t's first panel, or only in its third: every
+    output is NaN on both sides."""
+    raw = testing.ut_update_inputs(np.random.default_rng(3), 2, 400, 200,
+                                   200, 70)
+    raw[6][fail_at, fail_at] = -1e3
+    args = _dev(raw, torch.float64, dev)
+    _build.reset_launch_counts()
+    got = fu.fused_ut_update(*args, 1 / 400, 2.0, True)
+    torch.cuda.synchronize()
+    assert fu.K8T.launches == 1
+    for g, w in zip(got, fu._ut_update_plain(*args, 1 / 400, 2.0, True)):
+        assert torch.isnan(g).all() and torch.isnan(w).all()
+
+
+def test_batched_lorenz96_keeps_the_per_element_ut_kernels(dev):
+    """The batched UKF (B = 512, dx = 64, dy = 32) runs K8 and K9, never the
+    tiled variants."""
+    _, params, _ = zoo.lorenz96(64, 32, dtype=torch.float32, device=dev)
+    model, data_params, _ = zoo.lorenz96(64, 32, integrator="rk4",
+                                         dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    _, emissions = model.sample(data_params, 3, generator=gen,
+                                batch_shape=(512,))
+    _build.reset_launch_counts()
+    post = inference.unscented_kalman_filter(
+        params, ParamsUKF(1.0, 2.0, 0.0, "cholesky"), emissions,
+        additive=True)
+    torch.cuda.synchronize()
+    assert (fu.K8.launches, fu.K9.launches) == (3, 3)
+    assert fu.K8T.launches == fu.K9T.launches == 0
     assert torch.isfinite(post.filtered_means).all()

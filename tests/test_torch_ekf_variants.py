@@ -8,7 +8,8 @@ opt-in (232,448 bytes per block) and with a smaller one.
 K1t (``csrc/ekf_tiled.cu``) factors the augmented matrix
 [S; (H P)ᵀ; innovᵀ; I] right-looking in panels of 32 and forms the gain as
 K = Zᵀ L⁻¹. That schedule is written out below in numpy, step for step as
-the launches compute it, and held to the JAX package's XLA twin
+the launches compute it (the preparation and the factorisation, shared
+with K8t, in ``testing.augmented_prep`` and ``testing.augmented_factor``), and held to the JAX package's XLA twin
 (``fused_ekf._update_xla``) at shapes that are not multiples of the panel
 or of a tile, with a non-positive-definite S failing in the first or in a
 later panel. The port's wrappers on CPU tensors (the plain twins) are held
@@ -130,34 +131,16 @@ def test_the_rule_flips_once_along_each_dimension():
 # K1t's schedule
 # ---------------------------------------------------------------------------
 
-def _chol_nan(a):
-    try:
-        return np.linalg.cholesky(a)
-    except np.linalg.LinAlgError:
-        return np.full_like(a, np.nan)
-
-
 def tiled_update(m, P, H, R, inn, jitter, nb=NB):
-    """One element of K1t, launch by launch."""
+    """One element of K1t, launch by launch, on scratch seeded with NaN."""
     dx, dy = P.shape[-1], inn.shape[-1]
     rows = 2 * dy + dx + 1
-    W, L = np.zeros((rows, dy)), np.zeros((rows, dy))
+    W, L = np.full((rows, dy), np.nan), np.full((rows, dy), np.nan)
     W[dy:dy + dx] = P.T @ H.T                      # (H P)ᵀ
-    G = np.tril((W[dy:dy + dx]).T @ H.T)           # lower(H P Hᵀ)
-    Rs = 0.5 * (R + R.T)
-    floor = jitter + 1e-6 * np.abs(np.diag(G) + np.diag(R)).max()
-    W[:dy] = np.tril(G + Rs, -1) + np.diag(np.diag(G) + np.diag(R) + floor)
-    W[dy + dx] = inn
-    W[dy + dx + 1:] = np.eye(dy)
-    for k in range(0, dy, nb):
-        below = min(k + nb, dy)
-        Lkk = _chol_nan(W[k:below, k:below])
-        inv = np.linalg.inv(Lkk) if np.isfinite(Lkk).all() else Lkk
-        L[k:below, k:below] = Lkk
-        L[below:, k:below] = W[below:, k:below] @ inv.T
-        if below < dy:
-            upd = L[below:, k:below] @ L[below:dy, k:below].T
-            W[below:, below:] -= np.tril(upd)      # lower tiles only
+    lower = np.tri(dy, dtype=bool)
+    L[:dy][lower] = ((W[dy:dy + dx]).T @ H.T)[lower]  # lower(H P Hᵀ)
+    Rs = testing.augmented_prep(W, L, R, inn, jitter)
+    testing.augmented_factor(W, L, dy, nb)
     Zt, z, Linv_t = L[dy:dy + dx], L[dy + dx], L[dy + dx + 1:]
     K = Zt @ Linv_t.T
     ll = -0.5 * (dy * math.log(2 * math.pi)

@@ -1,0 +1,325 @@
+"""The UT kernels' variant rule and the tiled kernels' schedules, on the CPU.
+
+``ops/fused_ut.py`` runs the per-element kernels K8/K9 where their
+workspace fits in a block's shared memory and the tiled variants K8t/K9t
+otherwise. The rule is held at its edges with the H100's shared-memory
+opt-in (232,448 bytes per block) and with smaller ones.
+
+K8t (``csrc/ut_tiled.cu``) centres the sigma points, forms
+S = lower(w_side·Ycᵀ Yc + w0c·d0 d0ᵀ) and Cᵀ = w_side·Xcᵀ Yc as products,
+factors [S; Cᵀ; innovᵀ; I] with K1t's blocked Cholesky and keeps the plain
+version's grouping of the covariance, P − KC − (KC)ᵀ + (KL)(KL)ᵀ. K9t
+centres the points and forms lower(w_side·Xcᵀ Xc + w0c·d0 d0ᵀ) + sym(Q),
+mirrored. Both schedules are written out below in numpy, step for step as
+the launches compute them, on scratch seeded with NaN (K L reads L's top
+square whole, whose strict upper part only the preparation writes), and
+held to the JAX package's XLA twins (``fused_ut._ut_update_xla``,
+``_ut_predict_xla``) at shapes that are not multiples of the panel (32) or
+of a tile, with and without R or Q, with points wider than the state
+(augmented points), and with a non-positive-definite S failing in the
+first or in a later panel. The port's wrappers on CPU tensors (the plain
+versions) are held to JAX at shapes the rule sends to the tiled variants.
+The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
+
+The references run in float64. Tolerances (relative to max(1,
+max|reference|)): float64 1e-9, float32 1e-4, as
+tests/test_torch_ekf_variants.py: the same formulas in another order, and
+float32 rounding through a Cholesky of S.
+"""
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bayesianfiltering_tpu.ops import fused_ut as jfu
+from bayesianfiltering_tpu_torch import testing
+from bayesianfiltering_tpu_torch.ops import fused_ut as fu
+from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF, ut_weights
+
+torch.set_num_threads(1)
+
+H100_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100
+TOL = {"float64": 1e-9, "float32": 1e-4}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def x64():
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", old)
+
+
+def assert_close(got, want, dtype):
+    got = np.asarray(got.detach() if isinstance(got, torch.Tensor) else got,
+                     np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    scale = max(1.0, float(np.nanmax(np.abs(want))))
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL[dtype] * scale)
+
+
+# the JAX references compile at XLA's lowest optimisation level (their
+# blocked factorisations unroll) and once per shape, in float64
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def _jax_run(fn, *args):
+    args = [jnp.asarray(a, jnp.float64) for a in args]
+    compiled = jax.jit(fn).lower(*args).compile(FAST_COMPILE)
+    return [np.asarray(x) for x in compiled(*args)]
+
+
+def weights(rows):
+    """(w_side, w0m, w0c) of a UT over rows/2 dimensions (α = 1, β = 2)."""
+    return ut_weights(rows // 2, ParamsUKF(1.0, 2.0, 0.0))[1]
+
+
+@functools.lru_cache(maxsize=None)
+def update_case(B, rows, ld, dx, dy, add_r):
+    """The update's inputs (pts, hpts, center_y, mu_y, m, P, R, innov) with
+    μy and the innovation of the JAX twin, the weights, and the JAX
+    reference (ll, mean, cov)."""
+    rng = np.random.default_rng(rows + dx + dy)
+    pts, hpts, cy, _, m, P, R, _ = testing.ut_update_inputs(rng, B, rows, ld,
+                                                            dx, dy)
+    y = rng.standard_normal((B, dy))
+    w = weights(rows)
+    mu_y = w[0] * hpts.sum(-2) + w[1] * cy
+    args = (pts, hpts, cy, mu_y, m, P, R, y - mu_y)
+    update = jax.vmap(
+        lambda p, h, c, m_, P_, R_, y_: jfu._ut_update_xla(
+            p, h, c, m_, P_, R_, y_, w, add_r),
+        in_axes=(0, 0, 0, 0, 0, None, 0))
+    want = _jax_run(update, pts[..., :dx], hpts, cy, m, P, R, y)
+    return args, w, want
+
+
+@functools.lru_cache(maxsize=None)
+def predict_case(B, rows, dx, add_q):
+    """The predict's inputs (fpts, center, Q) with an asymmetric Q, the
+    weights, and the JAX reference (μ, Σ)."""
+    rng = np.random.default_rng(rows + dx)
+    fpts, center, Q = testing.ut_predict_inputs(rng, B, rows, dx)
+    Q = Q + 0.1 * np.triu(rng.standard_normal((dx, dx)), 1)
+    w = weights(rows)
+    predict = jax.vmap(lambda f, c, q: jfu._ut_predict_xla(f, c, q, w, add_q),
+                       in_axes=(0, 0, None))
+    return (fpts, center, Q), w, _jax_run(predict, fpts, center, Q)
+
+
+# ---------------------------------------------------------------------------
+# The rule
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dx,dy,itemsize,optin,want", [
+    (64, 32, 4, H100_OPTIN, "K8"),     # the batched Lorenz-96 UKF
+    (64, 32, 8, H100_OPTIN, "K8"),
+    (4, 2, 4, H100_OPTIN, "K8"),       # the UGSF/UAGSF banks
+    (4, 2, 8, H100_OPTIN, "K8"),
+    (489, 32, 4, H100_OPTIN, "K8"),    # 57,945 elements
+    (490, 32, 4, H100_OPTIN, "K8T"),   # 58,058
+    (233, 32, 8, H100_OPTIN, "K8"),    # 29,017
+    (234, 32, 8, H100_OPTIN, "K8T"),   # 29,130
+    (56, 128, 4, H100_OPTIN, "K8"),
+    (57, 128, 4, H100_OPTIN, "K8T"),
+    (512, 256, 4, H100_OPTIN, "K8T"),  # config 5
+    (512, 256, 8, H100_OPTIN, "K8T"),
+    (1, 256, 4, H100_OPTIN, "K8T"),    # S alone fills the block
+    (64, 32, 4, 32 * 1024, "K8T"),     # a card with less shared memory
+])
+def test_update_variant_rule(dx, dy, itemsize, optin, want):
+    assert fu.update_kernel(dx, dy, itemsize, optin) is getattr(fu, want)
+
+
+@pytest.mark.parametrize("dx,itemsize,optin,want", [
+    (64, 4, H100_OPTIN, "K9"),
+    (64, 8, H100_OPTIN, "K9"),
+    (232, 4, H100_OPTIN, "K9"),        # 58,000 elements
+    (233, 4, H100_OPTIN, "K9T"),       # 58,483
+    (161, 8, H100_OPTIN, "K9"),        # 28,819
+    (162, 8, H100_OPTIN, "K9T"),       # 29,160
+    (512, 4, H100_OPTIN, "K9T"),       # config 5
+    (1024, 8, H100_OPTIN, "K9T"),      # the band's edge
+    (64, 4, 16 * 1024, "K9T"),
+])
+def test_predict_variant_rule(dx, itemsize, optin, want):
+    assert fu.predict_kernel(dx, itemsize, optin) is getattr(fu, want)
+
+
+def test_the_rule_flips_once_along_each_dimension():
+    """Growing any dimension moves a shape from the per-element kernel to
+    the tiled one and never back."""
+    for itemsize in (4, 8):
+        for dy in (1, 33, 128):
+            picks = [fu.update_kernel(dx, dy, itemsize, H100_OPTIN).name
+                     for dx in range(1, 1025)] + [fu.K8T.name]
+            flip = picks.index(fu.K8T.name)
+            assert set(picks[:flip]) <= {fu.K8.name}
+            assert set(picks[flip:]) == {fu.K8T.name}
+        for dx in (1, 100, 512):
+            picks = [fu.update_kernel(dx, dy, itemsize, H100_OPTIN).name
+                     for dy in range(1, 300)]
+            flip = picks.index(fu.K8T.name)
+            assert set(picks[:flip]) <= {fu.K8.name}
+            assert set(picks[flip:]) == {fu.K8T.name}
+        picks = [fu.predict_kernel(dx, itemsize, H100_OPTIN).name
+                 for dx in range(1, 1025)]
+        flip = picks.index(fu.K9T.name)
+        assert set(picks[:flip]) == {fu.K9.name}
+        assert set(picks[flip:]) == {fu.K9T.name}
+
+
+# ---------------------------------------------------------------------------
+# K8t's and K9t's schedules
+# ---------------------------------------------------------------------------
+
+def tiled_ut_update(pts, hpts, center_y, mu_y, m, P, R, innov, w, add_r):
+    """One element of K8t, launch by launch, on scratch seeded with NaN."""
+    w_side, _, w0c = w
+    dx, dy = m.shape[-1], hpts.shape[-1]
+    # 1. centre
+    Yc, Xc, d0 = hpts - mu_y, pts[:, :dx] - m, center_y - mu_y
+    W = np.full((2 * dy + dx + 1, dy), np.nan)
+    L = np.full_like(W, np.nan)
+    # 2. G = lower(w_side·Ycᵀ Yc + w0c·d0 d0ᵀ) into L's top square
+    lower = np.tri(dy, dtype=bool)
+    L[:dy][lower] = (w_side * Yc.T @ Yc + w0c * np.outer(d0, d0))[lower]
+    # 3. Cᵀ into its own slot, 4. the prep (which copies it into W)
+    Ct = w_side * Xc.T @ Yc
+    W[dy:dy + dx] = Ct
+    testing.augmented_prep(W, L, R if add_r else None, innov)
+    # 5. the factorisation, 6. K, ll, μ
+    testing.augmented_factor(W, L, dy)
+    Zt, z, Linv_t = L[dy:dy + dx], L[dy + dx], L[dy + dx + 1:]
+    K = Zt @ Linv_t.T
+    ll = -0.5 * (dy * math.log(2 * math.pi)
+                 + 2 * np.log(np.diag(L[:dy])).sum() + (z ** 2).sum())
+    # 7. K C, K L (L's top square read whole), lower((KL)(KL)ᵀ) mirrored,
+    #    then the element-wise rest
+    KC, KL = K @ Ct.T, K @ L[:dy]
+    cov = np.tril(KL @ KL.T)
+    cov = cov + np.tril(cov, -1).T
+    cov = (0.5 * (P + P.T) - (KC + KC.T)) + cov
+    return ll, m + K @ innov, cov
+
+
+def tiled_ut_predict(fpts, center, Q, w, add_q):
+    """One element of K9t, launch by launch."""
+    w_side, w0m, w0c = w
+    mu = w_side * fpts.sum(0) + w0m * center
+    d0, Xc = center - mu, fpts - mu
+    cov = np.tril(w_side * Xc.T @ Xc + w0c * np.outer(d0, d0))
+    if add_q:
+        cov = cov + np.tril(0.5 * (Q + Q.T))
+    return mu, cov + np.tril(cov, -1).T
+
+
+def _update_batch(args, w, add_r):
+    pts, hpts, cy, mu_y, m, P, R, innov = args
+    outs = [tiled_ut_update(pts[b], hpts[b], cy[b], mu_y[b], m[b], P[b], R,
+                            innov[b], w, add_r)
+            for b in range(m.shape[0])]
+    return [np.stack(x) for x in zip(*outs)]
+
+
+def _predict_batch(args, w, add_q):
+    fpts, center, Q = args
+    outs = [tiled_ut_predict(fpts[b], center[b], Q, w, add_q)
+            for b in range(fpts.shape[0])]
+    return [np.stack(x) for x in zip(*outs)]
+
+
+# (B, rows, ld, dx, dy, add_r): one panel of 1 row and of 33 (a panel and
+# one more), 100 columns (no tile's multiple), points wider than the state
+UPDATE_SHAPES = [(3, 18, 9, 9, 1, True), (2, 130, 100, 100, 33, True),
+                 (1, 90, 45, 40, 33, False), (2, 130, 120, 100, 33, False)]
+
+
+@pytest.mark.parametrize("B,rows,ld,dx,dy,add_r", UPDATE_SHAPES)
+def test_tiled_ut_update_schedule_matches_the_reference(B, rows, ld, dx, dy,
+                                                        add_r):
+    args, w, want = update_case(B, rows, ld, dx, dy, add_r)
+    for g, wt in zip(_update_batch(args, w, add_r), want):
+        assert_close(g, wt, "float64")
+
+
+@pytest.mark.parametrize("B,rows,ld,dx,dy,add_r",
+                         [(1, 40, 20, 20, 97, True), (2, 64, 40, 7, 64, False)])
+def test_tiled_ut_update_schedule_over_more_panels_matches_the_plain_version(
+        B, rows, ld, dx, dy, add_r):
+    """Four and two panels (the port's plain version is held to JAX above
+    and in tests/test_torch_ukf.py; JAX's unrolled factorisation compiles
+    slowly at these widths)."""
+    rng = np.random.default_rng(dy)
+    args = testing.ut_update_inputs(rng, B, rows, ld, dx, dy)
+    w = weights(rows)
+    want = fu._ut_update_plain(*(torch.as_tensor(a) for a in args), w[0],
+                               w[2], add_r)
+    for g, wt in zip(_update_batch(args, w, add_r), want):
+        assert_close(g, wt, "float64")
+
+
+@pytest.mark.parametrize("fail_at", [0, 69])
+def test_tiled_ut_update_schedule_gives_nan_on_a_non_pd_s(fail_at):
+    """A negative pivot in the first panel, or only in the third: every
+    output is NaN, as in the plain version."""
+    args = list(testing.ut_update_inputs(np.random.default_rng(3), 2, 24, 12,
+                                         12, 70))
+    args[6] = args[6].copy()
+    args[6][fail_at, fail_at] = -1e3
+    w = weights(24)
+    got = _update_batch(args, w, True)
+    want = fu._ut_update_plain(*(torch.as_tensor(a) for a in args), w[0],
+                               w[2], True)
+    for g, wt in zip(got, want):
+        assert np.isnan(g).all() and torch.isnan(wt).all()
+
+
+PREDICT_SHAPES = [(3, 18, 9, True), (2, 130, 100, True), (1, 70, 33, False)]
+
+
+@pytest.mark.parametrize("B,rows,dx,add_q", PREDICT_SHAPES)
+def test_tiled_ut_predict_schedule_matches_the_reference(B, rows, dx, add_q):
+    args, w, want = predict_case(B, rows, dx, add_q)
+    for g, wt in zip(_predict_batch(args, w, add_q), want):
+        assert_close(g, wt, "float64")
+
+
+# ---------------------------------------------------------------------------
+# The wrappers at K8t's and K9t's shapes (the plain versions on CPU tensors)
+# ---------------------------------------------------------------------------
+
+# tiled on an H100 in float64 only, and in both dtypes
+WRAPPER_UPDATE_SHAPES = [(1, 400, 240, 200, 40, False),
+                         (2, 300, 150, 57, 128, True)]
+WRAPPER_PREDICT_SHAPES = [(2, 324, 162, True), (1, 466, 233, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B,rows,ld,dx,dy,add_r", WRAPPER_UPDATE_SHAPES)
+def test_update_wrapper_at_tiled_shapes_matches_jax(dtype, B, rows, ld, dx,
+                                                    dy, add_r):
+    assert fu.update_kernel(dx, dy, 8, H100_OPTIN) is fu.K8T
+    args, w, want = update_case(B, rows, ld, dx, dy, add_r)
+    got = fu.fused_ut_update(*(torch.as_tensor(np.asarray(a, dtype))
+                               for a in args), w[0], w[2], add_r)
+    for g, wt in zip(got, want):
+        assert_close(g, wt, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B,rows,dx,add_q", WRAPPER_PREDICT_SHAPES)
+def test_predict_wrapper_at_tiled_shapes_matches_jax(dtype, B, rows, dx,
+                                                     add_q):
+    assert fu.predict_kernel(dx, 8, H100_OPTIN) is fu.K9T
+    args, w, want = predict_case(B, rows, dx, add_q)
+    got = fu.fused_ut_predict(*(torch.as_tensor(np.asarray(a, dtype))
+                                for a in args), *w, add_q)
+    for g, wt in zip(got, want):
+        assert_close(g, wt, dtype)
