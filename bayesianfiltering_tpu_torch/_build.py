@@ -75,13 +75,18 @@ _SIGNATURES = {
     "bft_bank_update_f64": ([_P] * 9 + [_I, _I, _I, _D, _P], _I),
     "bft_bank_predict_cov_f32": ([_P] * 5 + [_I, _I, _I, _P], _I),
     "bft_bank_predict_cov_f64": ([_P] * 5 + [_I, _I, _I, _P], _I),
-    "bft_ut_sigma_scratch_elems": ([_I, _I, _I, _I], _LL),
+    "bft_ut_sigma_tiled_scratch_elems": ([_I] * 3, _LL),
+    "bft_ut_sigma_aug_tiled_scratch_elems": ([_I] * 4, _LL),
     "bft_ut_update_tiled_scratch_elems": ([_I, _I, _I], _LL),
     "bft_ut_predict_tiled_scratch_elems": ([_I, _I, _I], _LL),
-    "bft_ut_sigma_f32": ([_P] * 4 + [_I, _I, _D, _I, _P], _I),
-    "bft_ut_sigma_f64": ([_P] * 4 + [_I, _I, _D, _I, _P], _I),
-    "bft_ut_sigma_aug_f32": ([_P] * 7 + [_I, _I, _I, _D, _I, _P], _I),
-    "bft_ut_sigma_aug_f64": ([_P] * 7 + [_I, _I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_f32": ([_P] * 3 + [_I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_f64": ([_P] * 3 + [_I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_aug_f32": ([_P] * 6 + [_I, _I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_aug_f64": ([_P] * 6 + [_I, _I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_tiled_f32": ([_P] * 4 + [_I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_tiled_f64": ([_P] * 4 + [_I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_aug_tiled_f32": ([_P] * 6 + [_I, _I, _I, _D, _I, _P], _I),
+    "bft_ut_sigma_aug_tiled_f64": ([_P] * 6 + [_I, _I, _I, _D, _I, _P], _I),
     "bft_ut_update_f32": ([_P] * 11 + [_I] * 5 + [_D, _D, _P], _I),
     "bft_ut_update_f64": ([_P] * 11 + [_I] * 5 + [_D, _D, _P], _I),
     "bft_ut_predict_f32": ([_P] * 5 + [_I, _I, _I, _D, _D, _D, _P], _I),

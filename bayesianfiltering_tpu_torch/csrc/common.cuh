@@ -1,6 +1,6 @@
 // Shared helpers for the filter kernels: constants, per-block workspaces
-// (dynamic shared memory, or a global scratch above the opt-in limit), and
-// block-wide small matrix products.
+// (dynamic shared memory, or a global scratch above the opt-in limit),
+// block-wide small matrix products and factorisations, and vector stores.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,10 +37,11 @@ __device__ T* workspace(T* scratch, size_t per_block) {
                             : shared_workspace<T>();
 }
 
-// Opt a kernel in to more than 48 KB of dynamic shared memory.
+// Opt a kernel in to more than 48 KB of shared memory (the dynamic smem
+// bytes beside up to kStaticSmemSlack of static).
 template <typename K>
 int set_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
+  if (smem + kStaticSmemSlack <= 48 * 1024) return 0;
   return int(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
 }
@@ -52,6 +53,8 @@ __device__ inline float dsqrt(float x) { return sqrtf(x); }
 __device__ inline double dsqrt(double x) { return sqrt(x); }
 __device__ inline float dlog(float x) { return logf(x); }
 __device__ inline double dlog(double x) { return log(x); }
+__device__ inline float drsqrt(float x) { return rsqrtf(x); }
+__device__ inline double drsqrt(double x) { return rsqrt(x); }
 __device__ inline float dabs(float x) { return fabsf(x); }
 __device__ inline double dabs(double x) { return fabs(x); }
 template <typename T> __device__ T qnan();
@@ -136,6 +139,156 @@ __device__ void block_cholesky_cm(T* Lc, int n, int* s_bad, T fail) {
     else if (i < k) Lc[idx] = T(0);
   }
   __syncthreads();
+}
+
+constexpr int kWarp = 32;
+
+// The Cholesky factor of an n × n block (n ≤ kWarp) held a row a lane:
+// lane i holds row i of the block's lower part in a (zeros elsewhere, and
+// everywhere on lanes ≥ n) on entry and row i of L on exit. At column j
+// lane j's pivot and every lane's l_ij are shuffled to the lanes that
+// update with them, so a column costs shuffles, not a dependent dot
+// product; one reciprocal square root a column (l_jj = d·d^-½, l_ij =
+// a_ij·d^-½) keeps division and the square root off the dependent chain.
+// Every loop has a constant trip count, so that it unrolls and a stays in
+// registers: columns past n are taken as the identity's (pivot 1, nothing
+// to update), which leaves lanes ≥ n with garbage that callers never
+// store. Lane i < n gets 1/l_ii in *rinv. Returns whether some pivot was
+// not positive (a NaN pivot fails too), the same on every lane. The whole
+// warp calls it.
+template <typename T>
+__device__ bool warp_cholesky(T (&a)[kWarp], int n, T* rinv) {
+  const unsigned full = 0xffffffffu;
+  const int i = threadIdx.x % kWarp;
+  bool bad = false;
+#pragma unroll
+  for (int j = 0; j < kWarp; ++j) {
+    const bool live = j < n;
+    T d = __shfl_sync(full, a[j], j);
+    if (!live) d = T(1);
+    bad = bad || !(d > T(0));
+    const T r = drsqrt(d);
+    if (i == j) *rinv = r;
+    const T lij = i == j ? d * r : (i > j ? a[j] * r : T(0));
+    a[j] = lij;
+#pragma unroll
+    for (int c = j + 1; c < kWarp; ++c) {
+      const T lcj = __shfl_sync(full, lij, c);
+      if (c <= i) a[c] -= lij * lcj;
+    }
+  }
+  return bad;
+}
+
+// In-place Cholesky of the n × n symmetric matrix whose lower triangle Lc
+// holds column-major (Lc[j*n + i] = S[i][j] for i ≥ j), right-looking in
+// panels of kWarp columns:
+// 1. warp 0 factors the panel's diagonal block in registers
+//    (warp_cholesky);
+// 2. each thread forward-substitutes whole rows of the panel below it
+//    against that block: a row's kWarp entries stay in registers, the
+//    block and its pivots' reciprocals (parked by warp 0 in the free strict
+//    upper part, column k + kWarp) are read as broadcasts, and no other
+//    thread touches the row;
+// 3. the block applies the lower trailing update.
+// Three barriers a panel (n = 64: five in all) instead of one a column.
+// Writes only the lower triangle: the strict upper part is left as it
+// was, and the caller reads it as zero. Sets *s_bad unless every pivot is
+// positive. The block must have synchronised after Lc was written and
+// *s_bad cleared; ends synchronised.
+template <typename T>
+__device__ void block_cholesky_panels(T* Lc, int n, int* s_bad) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int k = 0; k < n; k += kWarp) {
+    const int nb = min(kWarp, n - k);
+    const T* D = Lc + k * n + k;  // D[c*n + r]: the diagonal block's (r, c)
+    const int below = k + nb;
+    T* inv = Lc + below * n + k;  // rows k.., column below: strict upper
+    if (tid < kWarp) {
+      T a[kWarp], rinv = T(0);
+#pragma unroll
+      for (int c = 0; c < kWarp; ++c)
+        a[c] = tid < nb && c <= tid ? D[c * n + tid] : T(0);
+      if (warp_cholesky(a, nb, &rinv) && tid == 0) *s_bad = 1;
+#pragma unroll
+      for (int c = 0; c < kWarp; ++c)
+        if (tid < nb && c <= tid) Lc[(k + c) * n + k + tid] = a[c];
+      if (below < n) inv[tid] = rinv;
+    }
+    __syncthreads();
+    if (below >= n) break;
+    // rows i ≥ below (only under a full panel, nb = kWarp): L[i][k:k+nb]
+    // solves x · L_kkᵀ = S[i][k:k+nb]
+    for (int i = below + tid; i < n; i += nt) {
+      T x[kWarp];
+#pragma unroll
+      for (int c = 0; c < kWarp; ++c) x[c] = Lc[(k + c) * n + i];
+#pragma unroll
+      for (int c = 0; c < kWarp; ++c) {
+        x[c] *= inv[c];
+#pragma unroll
+        for (int j = c + 1; j < kWarp; ++j) x[j] -= x[c] * D[c * n + j];
+      }
+#pragma unroll
+      for (int c = 0; c < kWarp; ++c) Lc[(k + c) * n + i] = x[c];
+    }
+    __syncthreads();
+    // S[i][j] −= Σ_c L[i][k+c]·L[j][k+c] for below ≤ j ≤ i
+    const int rest = n - below;
+    T* Sb = Lc + below * n + below;
+    const T* Lp = Lc + k * n + below;  // Lp[c*n + r] = L[below + r][k + c]
+    for (int idx = tid; idx < rest * rest; idx += nt) {
+      const int j = idx / rest, i = idx % rest;
+      if (i < j) continue;
+      T s = Sb[j * n + i];
+      for (int c = 0; c < nb; ++c) s -= Lp[c * n + i] * Lp[c * n + j];
+      Sb[j * n + i] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// V consecutive elements in one store: 16 bytes, or one element.
+template <typename T, int V> struct Vec;
+template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<double, 2> { using type = double2; };
+template <> struct Vec<float, 1> { using type = float; };
+template <> struct Vec<double, 1> { using type = double; };
+
+template <typename T, int V>
+__device__ inline void store_vec(T* p, const T (&v)[V]) {
+  typename Vec<T, V>::type w;
+  T* e = reinterpret_cast<T*>(&w);
+#pragma unroll
+  for (int i = 0; i < V; ++i) e[i] = v[i];
+  *reinterpret_cast<typename Vec<T, V>::type*>(p) = w;
+}
+
+// A rows × cols rectangle of both halves of a sigma-point set, V columns
+// a store: f(r, c, p, q) fills p and q with columns c..c+V−1 of row r,
+// stored at plus[r*ld + c] and minus[r*ld + c]. cols, ld and both pointers
+// are multiples of V elements. Each thread's (r, c) advances by the
+// block's stride with no division per store.
+template <typename T, int V, typename F>
+__device__ void store_rect(T* plus, T* minus, int ld, int rows, int cols,
+                           F f) {
+  const int nv = cols / V;
+  if (nv == 0 || rows <= 0) return;
+  const int dr = blockDim.x / nv, dc = blockDim.x % nv;
+  int r = threadIdx.x / nv, c = threadIdx.x % nv;
+  while (r < rows) {
+    T p[V], q[V];
+    f(r, c * V, p, q);
+    const size_t at = size_t(r) * ld + size_t(c) * V;
+    store_vec<T, V>(plus + at, p);
+    store_vec<T, V>(minus + at, q);
+    r += dr;
+    c += dc;
+    if (c >= nv) {
+      c -= nv;
+      ++r;
+    }
+  }
 }
 
 // Li = L⁻¹, row-major with a zero strict upper part, of the lower factor

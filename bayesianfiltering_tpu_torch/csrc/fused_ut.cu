@@ -11,45 +11,52 @@
 // h(pts) stay outside, in PyTorch; the kernels bracket them.
 //
 // What bounds them on an H100. The sigma factor is a dependent chain: the
-// Cholesky closes one column per block barrier (n barriers), and the
-// Newton–Schulz root is 14 rounds of 3 dependent n×n products (42 products,
-// 84 n³ flops: at n=64, B=512 about 11 GFLOP per launch, the heaviest
-// arithmetic of the UKF path). The moments (K8, K9) are 2n-row reductions
-// (rows·d² flops) over sigma-point tensors that do not fit one block's
-// shared memory (2,048 rows × 1,024 columns at the band edge). Every
-// product is
-// far too small per block to feed the tensor cores, and TF32 is off by the
-// precision policy, so all arithmetic runs on the CUDA cores in the working
-// type; each block is bound by shared-memory bandwidth in its products and
-// by barrier latency in its factorisations.
+// Cholesky of P, or the Newton–Schulz root, 14 rounds of 3 dependent n×n
+// products (42 products, 84 n³ flops: at n=64, B=512 about 11 GFLOP per
+// launch, the heaviest arithmetic of the UKF path). K6 and K7 write
+// 2n × n (2na × na) points per element: at the Lorenz-96 batch (B = 512,
+// n = 64, na = 128) K7's 64 MB of points is its bound. The moments (K8,
+// K9) are 2n-row reductions (rows·d² flops) over sigma-point tensors that
+// do not fit one block's shared memory (2,048 rows × 1,024 columns at the
+// band edge). Every product is far too small per block to feed the tensor
+// cores, and TF32 is off by the precision policy, so all arithmetic runs
+// on the CUDA cores in the working type; each block is bound by
+// shared-memory bandwidth in its products and by barrier latency in its
+// factorisations.
 //
-// What the simple design does about it:
-// - One workspace per block in dynamic shared memory (opted in above 48 KB).
-//   K6 and K7 fall back to a global scratch from the caller, B workspaces,
-//   when it exceeds the opt-in limit (the Cholesky above n = 170 in float64
-//   and 240 in float32, Newton–Schulz above 85 and 120); their band reaches
-//   every dimension ≤ 1,024 (the Lorenz-96 dx=512 configuration, additive
-//   and augmented), where one element is one block on one of the card's
-//   132 SMs, so a single sequence (B = 1) leaves the rest of the card idle.
-//   K8 and K9 stop where their workspace stops fitting in shared memory
-//   (K9 above dx = 232 in float32 and 161 in float64; K8 at config 5's
-//   dx = 512, dy = 256): there ops/fused_ut.py runs their tiled variants
-//   K8t and K9t (ut_tiled.cu), products and a blocked Cholesky spread
-//   over the whole card.
+// What the design does about it:
+// - One workspace per block in dynamic shared memory (opted in above
+//   48 KB), addressed as shared memory only. Where it does not fit (the
+//   Cholesky above n = 240 in float32 and 170 in float64, Newton–Schulz
+//   above 120 and 85; config 5's n = 512), ops/fused_ut.py runs the tiled
+//   variants K6t/K7t (sigma_tiled.cu) instead, and K8/K9 hand over to
+//   K8t/K9t (ut_tiled.cu) where theirs does not (K9 above dx = 232 in
+//   float32 and 161 in float64; K8 at config 5's dx = 512, dy = 256).
+// - The Cholesky factors P in place, held column-major, right-looking in
+//   panels of 32 (common.cuh block_cholesky_panels): one warp factors the
+//   diagonal block in registers, each thread substitutes whole rows of the
+//   panel below it, and the block applies the trailing update: three
+//   barriers a panel where a left-looking factor takes one a column.
+//   Unless every pivot is positive the points that the factor enters are
+//   NaN (torch.linalg.cholesky_ex's info, which the plain versions turn
+//   into NaN).
+// - The points are written row-major, 16 bytes a store (float4, double2)
+//   where the widths allow, one rectangle at a time, so that the
+//   broadcast blocks of K7 (the bias columns of the state rows, the mean
+//   columns of the noise rows) cost no division or branch per entry.
 // - Products follow fused_ekf.cu's layout rule: consecutive threads own
 //   consecutive output columns, so one operand is a broadcast and the other
 //   consecutive words.
-// - The Cholesky factors in place in one n×n buffer that holds P
-//   column-major, one barrier per column, and NaNs the whole factor unless
-//   every pivot is positive (torch.linalg.cholesky_ex's info, which the
-//   plain versions turn into NaN).
 // - Sigma-point rows are streamed from global memory in chunks of
 //   kRowChunk rows, centred once as they are staged, and the moment sums
 //   accumulate in shared memory.
-// - K7's noise covariance C is shared by the whole batch: its factor is
+// - K7's noise covariance C is shared by the whole batch: its points are
 //   computed once per launch (one extra one-block launch,
-//   ut_noise_sigma_kernel, into a small buffer), not once per block; the
-//   points kernel then only factors P.
+//   ut_noise_sigma_kernel, into a small buffer). The points kernel is its
+//   programmatic dependent (a Hopper launch attribute), so it starts at
+//   once: each block stores the blocks that need no factor, stages P, and
+//   waits for the noise points only then; it copies them into its shared
+//   memory once and stores them while its factor of P runs.
 //
 // Math and constants follow ops/fused_ut.py's plain versions: the weights
 // (w_side, w0m, w0c) and the scale come from the wrapper; S is symmetrised
@@ -68,7 +75,7 @@ constexpr int kNsIters = 14;   // utils/linalg.py sqrtm_psd_ns
 constexpr int kCholesky = 0;   // ops/fused_ut.py _METHODS
 constexpr int kSqrtm = 1;
 
-size_t factor_ws_elems(int n, int method) {
+__host__ __device__ size_t factor_ws_elems(int n, int method) {
   return size_t(n) * n * (method == kSqrtm ? 4 : 1);
 }
 
@@ -83,36 +90,28 @@ size_t predict_ws_elems(int dx) {
   return size_t(dx) * dx + size_t(kRowChunk) * dx + 2 * size_t(dx);
 }
 
-// Workspace plan of a K6/K7 launch: dynamic shared memory, or the caller's
-// scratch when the workspace exceeds the opt-in limit. False when that
-// scratch is missing or the device query failed.
-template <typename T>
-bool plan(size_t ws, T* scratch, size_t* smem, T** use_scratch) {
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return false;
-  const long long need = scratch_elems(ws, int(sizeof(T)), dev);
-  if (need < 0 || (need > 0 && scratch == nullptr)) return false;
-  *smem = need ? 0 : ws * sizeof(T);
-  *use_scratch = need ? scratch : nullptr;
-  return true;
-}
-
-// The sigma-point factor of the n×n matrix P (global, row-major), stored
-// transposed: F[k*n + i] = L[i][k] for the Cholesky factor, or the
-// symmetric Newton–Schulz root. ws holds factor_ws_elems(n, method)
-// elements; the returned F points into it. Ends synchronised.
-template <typename T>
+// The sigma-point factor of the n×n matrix P (global, row-major) in the
+// block's workspace ws (factor_ws_elems(n, method) elements), stored
+// transposed: F[k*n + i] = L[i][k] for the Cholesky factor (F's entries
+// with i < k are not written: read them as 0; *s_bad says whether a pivot
+// failed), or the symmetric Newton–Schulz root. Right after its first
+// barrier (everything written before the call is then visible to the
+// block) it calls between(), work that the factor does not wait for.
+// Returns F; ends synchronised.
+template <typename T, typename G>
 __device__ T* block_factor(const T* P, int n, int method, T* ws, int* s_bad,
-                           T* s_trace) {
+                           T* s_trace, G between) {
   const int tid = threadIdx.x, nt = blockDim.x;
   if (method == kCholesky) {
     // Lc[j*n + i] = P[i][j]: the lower triangle, column-major
+    if (tid == 0) *s_bad = 0;
     for (int idx = tid; idx < n * n; idx += nt) {
       const int j = idx / n, i = idx % n;
-      ws[idx] = i >= j ? P[i * n + j] : T(0);
+      if (i >= j) ws[idx] = P[i * n + j];
     }
     __syncthreads();
-    block_cholesky_cm(ws, n, s_bad, qnan<T>());
+    between();
+    block_cholesky_panels(ws, n, s_bad);
     return ws;
   }
   // Trace-normalised coupled Newton–Schulz: T = (3I − Z Y)/2, Y ← Y T,
@@ -127,6 +126,7 @@ __device__ T* block_factor(const T* P, int n, int method, T* ws, int* s_bad,
     *s_trace = s + T(1e-30);
   }
   __syncthreads();
+  between();
   const T s = *s_trace;
   for (int idx = tid; idx < n * n; idx += nt) {
     const int i = idx / n, j = idx % n;
@@ -158,33 +158,67 @@ __device__ T* block_factor(const T* P, int n, int method, T* ws, int* s_bad,
   return Tm;
 }
 
+// One element's factor, read as the points need it: entry (r, c) of the
+// scaled offsets scale·Fᵀ is scale·F[r*n + c], zero above a Cholesky
+// factor's diagonal (c < r, never written), NaN throughout where a pivot
+// failed.
+template <typename T>
+struct Offsets {
+  const T* F;
+  int n;
+  T scale;
+  bool lower, bad;
+  __device__ T at(int r, int c) const {
+    if (bad) return qnan<T>();
+    return lower && c < r ? T(0) : scale * F[r * n + c];
+  }
+};
+
+// The state block of the points, rows m ± scale·Fᵀ, V columns a store: all
+// of K6's (2n, n) points (dn = 0), the first dx columns of K7's state rows
+// (row stride na = dx + dn).
+template <typename T, int V>
+__device__ void write_state_points(const T* __restrict__ m, Offsets<T> off,
+                                   int dn, T* pts) {
+  const int dx = off.n, na = dx + dn;
+  store_rect<T, V>(pts, pts + na * na, na, dx, dx,
+                   [&](int r, int c, T (&p)[V], T (&q)[V]) {
+#pragma unroll
+                     for (int v = 0; v < V; ++v) {
+                       const T o = off.at(r, c + v), mi = m[c + v];
+                       p[v] = mi + o;
+                       q[v] = mi - o;
+                     }
+                   });
+}
+
 // pts[b] = [m + scale·Fᵀ; m − scale·Fᵀ], (2n, n) for this block's element.
 template <typename T>
 __device__ void sigma_block(const T* __restrict__ m_all,
-                            const T* __restrict__ P_all, T* pts_all,
-                            T* scratch, size_t ws_elems, int n, T scale,
-                            int method) {
+                            const T* __restrict__ P_all, T* pts_all, int n,
+                            T scale, int method) {
   __shared__ int s_bad;
   __shared__ T s_trace;
+  constexpr int V = 16 / sizeof(T);
   const size_t b = blockIdx.x;
   const T* m = m_all + b * n;
   T* pts = pts_all + b * 2 * n * n;
   const T* F = block_factor(P_all + b * n * n, n, method,
-                            workspace(scratch, ws_elems), &s_bad, &s_trace);
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    const T off = scale * F[idx];
-    const T mi = m[idx % n];
-    pts[idx] = mi + off;
-    pts[n * n + idx] = mi - off;
-  }
+                            shared_workspace<T>(), &s_bad, &s_trace, [] {});
+  const bool chol = method == kCholesky;
+  const Offsets<T> off{F, n, scale, chol, chol && s_bad != 0};
+  if (n % V == 0)
+    write_state_points<T, V>(m, off, 0, pts);
+  else
+    write_state_points<T, 1>(m, off, 0, pts);
 }
 
 // K6: one block per batch element.
 template <typename T>
 __global__ void __launch_bounds__(kUtThreads) ut_sigma_kernel(
     const T* __restrict__ m_all, const T* __restrict__ P_all, T* pts_all,
-    T* scratch, size_t ws_elems, int n, T scale, int method) {
-  sigma_block(m_all, P_all, pts_all, scratch, ws_elems, n, scale, method);
+    int n, T scale, int method) {
+  sigma_block(m_all, P_all, pts_all, n, scale, method);
 }
 
 // K7's first launch: the points of the shared noise block (bias, C), one
@@ -192,44 +226,95 @@ __global__ void __launch_bounds__(kUtThreads) ut_sigma_kernel(
 template <typename T>
 __global__ void __launch_bounds__(kUtThreads) ut_noise_sigma_kernel(
     const T* __restrict__ bias, const T* __restrict__ C, T* noise_pts,
-    T* scratch, size_t ws_elems, int dn, T scale, int method) {
-  sigma_block(bias, C, noise_pts, scratch, ws_elems, dn, scale, method);
+    int dn, T scale, int method) {
+  // let the points kernel start now: it waits for this grid only where it
+  // reads noise_pts
+  asm volatile("griddepcontrol.launch_dependents;");
+  sigma_block(bias, C, noise_pts, dn, scale, method);
+}
+
+// K7's broadcast blocks of one element, V columns a store: the bias
+// columns of the state rows and the mean columns of the noise rows. With
+// the noise block (write_aug_noise) they are three quarters of the bytes
+// at dx = dn, and none of them waits for P's factor.
+template <typename T, int V>
+__device__ void write_aug_broadcasts(const T* __restrict__ m,
+                                     const T* __restrict__ bias, int dx,
+                                     int dn, T* pts) {
+  const int na = dx + dn;
+  T* minus = pts + na * na;
+  store_rect<T, V>(pts + dx, minus + dx, na, dx, dn,
+                   [&](int, int c, T (&p)[V], T (&q)[V]) {
+#pragma unroll
+                     for (int v = 0; v < V; ++v) p[v] = q[v] = bias[c + v];
+                   });
+  store_rect<T, V>(pts + dx * na, minus + dx * na, na, dn, dx,
+                   [&](int, int c, T (&p)[V], T (&q)[V]) {
+#pragma unroll
+                     for (int v = 0; v < V; ++v) p[v] = q[v] = m[c + v];
+                   });
+}
+
+template <typename T, int V>
+__device__ void write_aug_noise(const T* ns, int dx, int dn, T* pts) {
+  const int na = dx + dn;
+  T* minus = pts + na * na;
+  store_rect<T, V>(pts + dx * na + dx, minus + dx * na + dx, na, dn, dn,
+                   [&](int r, int c, T (&p)[V], T (&q)[V]) {
+#pragma unroll
+                     for (int v = 0; v < V; ++v) {
+                       p[v] = ns[r * dn + c + v];
+                       q[v] = ns[(dn + r) * dn + c + v];
+                     }
+                   });
 }
 
 // K7: augmented points of N([m; bias], blkdiag(P, C)), (2na, na) per
 // element, na = dx + dn. noise_pts = [bias + scale·F_Cᵀ; bias − scale·F_Cᵀ]
-// (2dn, dn), made once per launch by ut_noise_sigma_kernel.
+// (2dn, dn), made once per launch by ut_noise_sigma_kernel and staged into
+// shared memory behind P's factor workspace. Launched as a programmatic
+// dependent of the noise launch, so that the two run at once: every block
+// stores the broadcast blocks and stages P first, then waits for the noise
+// points (griddepcontrol.wait), stages them and stores the noise block
+// while P's factor runs, and stores the state block last.
 template <typename T>
 __global__ void __launch_bounds__(kUtThreads) ut_sigma_aug_kernel(
     const T* __restrict__ m_all, const T* __restrict__ P_all,
     const T* __restrict__ bias, const T* __restrict__ noise_pts, T* pts_all,
-    T* scratch, size_t ws_elems, int dx, int dn, T scale, int method) {
+    int dx, int dn, T scale, int method) {
   __shared__ int s_bad;
   __shared__ T s_trace;
+  constexpr int V = 16 / sizeof(T);
   const size_t b = blockIdx.x;
   const int na = dx + dn;
+  T* ws = shared_workspace<T>();
+  T* ns = ws + factor_ws_elems(dx, method);
   const T* m = m_all + b * dx;
   T* pts = pts_all + b * 2 * na * na;
-  const T* F = block_factor(P_all + b * dx * dx, dx, method,
-                            workspace(scratch, ws_elems), &s_bad, &s_trace);
-  for (int idx = threadIdx.x; idx < 2 * na * na; idx += blockDim.x) {
-    const int r = idx / na, c = idx % na;
-    const bool minus = r >= na;
-    const int rr = minus ? r - na : r;
-    T v;
-    if (rr < dx) {  // state row: m ± scale·F row rr, then the bias
-      if (c < dx) {
-        const T off = scale * F[rr * dx + c];
-        v = minus ? m[c] - off : m[c] + off;
-      } else {
-        v = bias[c - dx];
-      }
-    } else {        // noise row: m, then bias ± scale·F_C row rr − dx
-      v = c < dx ? m[c]
-                 : noise_pts[((minus ? dn : 0) + rr - dx) * dn + (c - dx)];
-    }
-    pts[idx] = v;
-  }
+  const bool vec = dx % V == 0 && dn % V == 0;
+  if (vec)
+    write_aug_broadcasts<T, V>(m, bias, dx, dn, pts);
+  else
+    write_aug_broadcasts<T, 1>(m, bias, dx, dn, pts);
+  const T* F = block_factor(P_all + b * dx * dx, dx, method, ws, &s_bad,
+                            &s_trace, [&] {
+                              asm volatile("griddepcontrol.wait;" ::
+                                               : "memory");
+                              for (int idx = threadIdx.x; idx < 2 * dn * dn;
+                                   idx += blockDim.x)
+                                ns[idx] = noise_pts[idx];
+                              __syncthreads();
+                              if (vec)
+                                write_aug_noise<T, V>(ns, dx, dn, pts);
+                              else
+                                write_aug_noise<T, 1>(ns, dx, dn, pts);
+                            });
+  const bool chol = method == kCholesky;
+  const Offsets<T> off{F, dx, scale, chol, chol && s_bad != 0};
+  if (vec)
+    write_state_points<T, V>(m, off, dn, pts);
+  else
+    write_state_points<T, 1>(m, off, dn, pts);
 }
 
 // K8: the UT measurement update of one element from its sigma points pts
@@ -467,41 +552,43 @@ __global__ void __launch_bounds__(kUtThreads) ut_predict_kernel(
 }
 
 template <typename T, typename K>
-int launch_sigma(K kernel, const void* m, const void* P, void* pts,
-                 void* scratch, int B, int n, double scale, int method,
-                 cudaStream_t stream) {
-  const size_t ws = factor_ws_elems(n, method);
-  size_t smem = 0;
-  T* scr = nullptr;
-  if (!plan(ws, static_cast<T*>(scratch), &smem, &scr))
-    return int(cudaErrorInvalidValue);
+int launch_sigma(K kernel, const void* m, const void* P, void* pts, int B,
+                 int n, double scale, int method, cudaStream_t stream) {
+  const size_t smem = factor_ws_elems(n, method) * sizeof(T);
   if (int err = set_smem(kernel, smem)) return err;
   kernel<<<B, kUtThreads, smem, stream>>>(
       static_cast<const T*>(m), static_cast<const T*>(P),
-      static_cast<T*>(pts), scr, ws, n, T(scale), method);
+      static_cast<T*>(pts), n, T(scale), method);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch_sigma_aug(const void* m, const void* P, const void* bias,
-                     const void* C, void* pts, void* noise_pts, void* scratch,
-                     int B, int dx, int dn, double scale, int method,
+                     const void* C, void* pts, void* noise_pts, int B,
+                     int dx, int dn, double scale, int method,
                      cudaStream_t stream) {
   // the shared noise block's points, once per launch
   if (int err = launch_sigma<T>(ut_noise_sigma_kernel<T>, bias, C, noise_pts,
-                                scratch, 1, dn, scale, method, stream))
+                                1, dn, scale, method, stream))
     return err;
-  const size_t ws = factor_ws_elems(dx, method);
-  size_t smem = 0;
-  T* scr = nullptr;
-  if (!plan(ws, static_cast<T*>(scratch), &smem, &scr))
-    return int(cudaErrorInvalidValue);
+  const size_t smem =
+      (factor_ws_elems(dx, method) + 2 * size_t(dn) * dn) * sizeof(T);
   if (int err = set_smem(ut_sigma_aug_kernel<T>, smem)) return err;
-  ut_sigma_aug_kernel<T><<<B, kUtThreads, smem, stream>>>(
-      static_cast<const T*>(m), static_cast<const T*>(P),
-      static_cast<const T*>(bias), static_cast<const T*>(noise_pts),
-      static_cast<T*>(pts), scr, ws, dx, dn, T(scale), method);
-  return int(cudaGetLastError());
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B);
+  cfg.blockDim = dim3(kUtThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return int(cudaLaunchKernelEx(
+      &cfg, ut_sigma_aug_kernel<T>, static_cast<const T*>(m),
+      static_cast<const T*>(P), static_cast<const T*>(bias),
+      static_cast<const T*>(noise_pts), static_cast<T*>(pts), dx, dn,
+      T(scale), method));
 }
 
 template <typename T>
@@ -540,38 +627,32 @@ int launch_predict(const void* fpts, const void* center, const void* Q,
 
 extern "C" {
 
-long long bft_ut_sigma_scratch_elems(int n, int method, int itemsize,
-                                     int device) {
-  return bft::scratch_elems(factor_ws_elems(n, method), itemsize, device);
+int bft_ut_sigma_f32(const void* m, const void* P, void* pts, int B, int n,
+                     double scale, int method, void* stream) {
+  return launch_sigma<float>(ut_sigma_kernel<float>, m, P, pts, B, n, scale,
+                             method, cudaStream_t(stream));
 }
 
-int bft_ut_sigma_f32(const void* m, const void* P, void* pts, void* scratch,
-                     int B, int n, double scale, int method, void* stream) {
-  return launch_sigma<float>(ut_sigma_kernel<float>, m, P, pts, scratch, B,
-                             n, scale, method, cudaStream_t(stream));
-}
-
-int bft_ut_sigma_f64(const void* m, const void* P, void* pts, void* scratch,
-                     int B, int n, double scale, int method, void* stream) {
-  return launch_sigma<double>(ut_sigma_kernel<double>, m, P, pts, scratch, B,
-                              n, scale, method, cudaStream_t(stream));
+int bft_ut_sigma_f64(const void* m, const void* P, void* pts, int B, int n,
+                     double scale, int method, void* stream) {
+  return launch_sigma<double>(ut_sigma_kernel<double>, m, P, pts, B, n,
+                              scale, method, cudaStream_t(stream));
 }
 
 int bft_ut_sigma_aug_f32(const void* m, const void* P, const void* bias,
-                         const void* C, void* pts, void* noise_pts,
-                         void* scratch, int B, int dx, int dn, double scale,
-                         int method, void* stream) {
-  return launch_sigma_aug<float>(m, P, bias, C, pts, noise_pts, scratch, B,
-                                 dx, dn, scale, method, cudaStream_t(stream));
+                         const void* C, void* pts, void* noise_pts, int B,
+                         int dx, int dn, double scale, int method,
+                         void* stream) {
+  return launch_sigma_aug<float>(m, P, bias, C, pts, noise_pts, B, dx, dn,
+                                 scale, method, cudaStream_t(stream));
 }
 
 int bft_ut_sigma_aug_f64(const void* m, const void* P, const void* bias,
-                         const void* C, void* pts, void* noise_pts,
-                         void* scratch, int B, int dx, int dn, double scale,
-                         int method, void* stream) {
-  return launch_sigma_aug<double>(m, P, bias, C, pts, noise_pts, scratch, B,
-                                  dx, dn, scale, method,
-                                  cudaStream_t(stream));
+                         const void* C, void* pts, void* noise_pts, int B,
+                         int dx, int dn, double scale, int method,
+                         void* stream) {
+  return launch_sigma_aug<double>(m, P, bias, C, pts, noise_pts, B, dx, dn,
+                                  scale, method, cudaStream_t(stream));
 }
 
 int bft_ut_update_f32(const void* pts, const void* hpts, const void* center,

@@ -1,5 +1,7 @@
 // The blocked Cholesky of an augmented matrix, shared by the tiled EKF
-// update (K1t, ekf_tiled.cu) and the tiled UT update (K8t, ut_tiled.cu).
+// update (K1t, ekf_tiled.cu) and the tiled UT update (K8t, ut_tiled.cu);
+// its panel loop alone (blocked_cholesky, on a layout of height dy) also
+// factors the tiled sigma points' P (K6t, K7t: sigma_tiled.cu).
 //
 // Both updates factor
 //
@@ -37,12 +39,14 @@ constexpr int kThreads = 256;  // the element-wise kernels' blocks
 
 struct AugLayout {
   int dx, dy;
-  long long height;     // rows of W: 2dy + dx + 1
+  long long height;     // rows of W: 2dy + dx + 1, or dy for S alone
   long long w, l, li;   // W, its factor L, the diagonal blocks' inverses
   long long end;        // the first element after them
   long long total;      // the per-element stride of the scratch (≥ end)
-  AugLayout(int dx_, int dy_) : dx(dx_), dy(dy_) {
-    height = 2LL * dy + dx + 1;
+  AugLayout(int dx_, int dy_) : AugLayout(dx_, dy_, 2LL * dy_ + dx_ + 1) {}
+  // W of `height` rows: dy for the factor of S alone (no X, vᵀ or I)
+  AugLayout(int dx_, int dy_, long long height_)
+      : dx(dx_), dy(dy_), height(height_) {
     w = 0;
     l = w + height * dy;
     li = l + height * dy;
@@ -60,6 +64,14 @@ struct AugLayout {
 };
 
 inline int grid_1d(long long B) { return B < 65535 ? int(B) : 65535; }
+
+// Element-wise grids: enough blocks for `work` elements, at most 256 (a
+// few per SM) per batch row.
+inline dim3 elementwise_grid(long long work, int B) {
+  const long long blocks = (work + kThreads - 1) / kThreads;
+  return dim3(unsigned(blocks < 256 ? (blocks > 0 ? blocks : 1) : 256),
+              unsigned(grid_1d(B)));
+}
 
 template <typename T>
 __device__ T block_sum(T v, T* sh) {
@@ -135,14 +147,18 @@ __global__ void __launch_bounds__(kThreads) chol_prep_kernel(
 // into L's diagonal block (zero strict upper part, NaN throughout unless
 // every pivot is positive) and inverted into Li's rows k..k+n. One warp
 // per element: lane i holds row i; at column j lane j's pivot and every
-// lane's l_ij are shuffled to the lanes that update with them. The
-// inverse is forward substitution, lane j solving column j against the
-// factor in shared memory (broadcast reads).
+// lane's l_ij are shuffled to the lanes that update with them
+// (warp_cholesky). The inverse is forward substitution, lane j solving
+// column j against the factor and its pivots' reciprocals in shared memory
+// (broadcast reads); every loop has a constant trip count (warp_cholesky
+// leaves identity rows on lanes ≥ n), so that the arrays stay in
+// registers.
 template <typename T>
 __global__ void __launch_bounds__(kNb) chol_diag_kernel(
     T* scratch, AugLayout sc, int B, int k, int n) {
+  static_assert(kNb == kWarp, "one lane a row of the diagonal block");
   __shared__ T Ls[kNb][kNb + 1];
-  const unsigned full = 0xffffffffu;
+  __shared__ T Rs[kNb];  // 1/L[r][r]
   const int i = threadIdx.x, dy = sc.dy;
   for (long long b = blockIdx.x; b < B; b += gridDim.x) {
     T* ws = scratch + b * sc.total;
@@ -151,21 +167,9 @@ __global__ void __launch_bounds__(kNb) chol_diag_kernel(
 #pragma unroll
     for (int c = 0; c < kNb; ++c)
       a[c] = i < n && c <= i ? W[c] : T(0);
-    bool bad = false;
-#pragma unroll
-    for (int j = 0; j < kNb; ++j) {
-      if (j >= n) break;
-      const T d = __shfl_sync(full, a[j], j);
-      bad = bad || !(d > T(0));
-      const T ljj = dsqrt(d);
-      const T lij = i == j ? ljj : (i > j ? a[j] / ljj : T(0));
-      a[j] = lij;
-#pragma unroll
-      for (int c = j + 1; c < kNb; ++c) {
-        const T lcj = __shfl_sync(full, lij, c);
-        if (c <= i) a[c] -= lij * lcj;
-      }
-    }
+    T rinv = T(1);
+    const bool bad = warp_cholesky(a, n, &rinv);
+    Rs[i] = bad ? qnan<T>() : rinv;
 #pragma unroll
     for (int c = 0; c < kNb; ++c) {
       if (bad) a[c] = qnan<T>();
@@ -180,11 +184,10 @@ __global__ void __launch_bounds__(kNb) chol_diag_kernel(
     T x[kNb];
 #pragma unroll
     for (int r = 0; r < kNb; ++r) {
-      if (r >= n) break;
       T acc = r == i ? T(1) : T(0);
 #pragma unroll
       for (int c = 0; c < r; ++c) acc -= Ls[r][c] * x[c];
-      x[r] = acc / Ls[r][r];
+      x[r] = acc * Rs[r];
     }
     T* Li = ws + sc.li + (long long)k * kNb;
 #pragma unroll
@@ -231,15 +234,13 @@ int chol_prep(T* ws, const T* R, long long r_batch, const T* inn,
   return int(cudaGetLastError());
 }
 
-// Factor the prepared W of every element and finish the update's common
-// part: the gain K = Zᵀ L⁻¹ (dx × dy, leading dimension dy, batch stride
-// k_batch), ll = log N(v | 0, S) and μ = m + K v. Enqueued on `stream`;
-// returns the first CUDA error.
+// The panel loop: factor the prepared W (its lower top square and the
+// sc.height − dy rows below it) of every element into L, enqueued on
+// `stream`; returns the first CUDA error. Writes only L's lower part.
 template <typename T>
-int factor_and_gain(T* ws, const AugLayout& sc, int B, T* K,
-                    long long k_batch, const T* m, const T* inn, T* ll,
-                    T* mean, cudaStream_t stream) {
-  const int dx = sc.dx, dy = sc.dy;
+int blocked_cholesky(T* ws, const AugLayout& sc, int B,
+                     cudaStream_t stream) {
+  const int dy = sc.dy;
   const long long st = sc.total;
   int err = 0;
   auto keep = [&](int e) {
@@ -268,6 +269,23 @@ int factor_and_gain(T* ws, const AugLayout& sc, int B, T* K,
       keep(gemm(g, stream));
     }
   }
+  return err;
+}
+
+// Factor the prepared W of every element and finish the update's common
+// part: the gain K = Zᵀ L⁻¹ (dx × dy, leading dimension dy, batch stride
+// k_batch), ll = log N(v | 0, S) and μ = m + K v. Enqueued on `stream`;
+// returns the first CUDA error.
+template <typename T>
+int factor_and_gain(T* ws, const AugLayout& sc, int B, T* K,
+                    long long k_batch, const T* m, const T* inn, T* ll,
+                    T* mean, cudaStream_t stream) {
+  const int dx = sc.dx, dy = sc.dy;
+  const long long st = sc.total;
+  int err = blocked_cholesky(ws, sc, B, stream);
+  auto keep = [&](int e) {
+    if (err == 0) err = e;
+  };
   // K = Zᵀ L⁻¹ = Zᵀ (L⁻ᵀ)ᵀ
   keep(gemm(gemm_of<T>(dx, dy, dy, B, {ws + sc.l + sc.xrow(), dy, st, 0},
                        {ws + sc.l + sc.erow(), dy, st, 1}, K, dy, k_batch),

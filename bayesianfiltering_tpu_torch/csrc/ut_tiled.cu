@@ -171,14 +171,6 @@ __global__ void __launch_bounds__(kThreads) ut_tiled_centre_rows_kernel(
   }
 }
 
-// Element-wise grids: enough blocks for `work` elements, at most 256 (a
-// few per SM) per batch row.
-dim3 elementwise_grid(long long work, int B) {
-  const long long blocks = (work + kThreads - 1) / kThreads;
-  return dim3(unsigned(blocks < 256 ? (blocks > 0 ? blocks : 1) : 256),
-              unsigned(grid_1d(B)));
-}
-
 template <typename T>
 int launch_update_tiled(const void* pts_, const void* hpts_,
                         const void* center_, const void* mu_, const void* m_,

@@ -14,14 +14,18 @@
 - K9 ``ut_predict_kernel`` (``_ut_predict_kernel`` ``:319``): μ and
   Σ = sym(Σw ccᵀ (+Q)).
 
-K8 and K9 keep their workspace in one block's shared memory. Where it
-does not fit (config 5's Lorenz-96 dx=512, the band's edges), the tiled
-variants in ``csrc/ut_tiled.cu`` replace the same TPU kernels: K8t
-centres the points, forms S and Cᵀ as products over the whole card and
-factors [S; Cᵀ; innovᵀ; I] with the EKF's blocked Cholesky (K1t's,
-``csrc/tiled_chol.cuh``); K9t centres the points and forms Σ as one
-product. The choice is by shape alone (:func:`update_kernel`,
-:func:`predict_kernel`).
+All four keep their workspace in one block's shared memory. Where it
+does not fit (config 5's Lorenz-96 dx=512, the band's edges), tiled
+variants replace the same TPU kernels: in ``csrc/sigma_tiled.cu`` K6t
+factors P with the EKF's blocked Cholesky (K1t's panel loop,
+``csrc/tiled_chol.cuh``, on P alone) or the Newton–Schulz rounds as
+tiled products and writes the points in one tiled pass, and K7t composes
+K6t's factors of P and of the shared C with one pass that writes the
+augmented points; in ``csrc/ut_tiled.cu`` K8t centres the points, forms S
+and Cᵀ as products over the whole card and factors [S; Cᵀ; innovᵀ; I]
+with K1t's blocked Cholesky, and K9t centres the points and forms Σ as
+one product. The choice is by shape alone (:func:`sigma_kernel`,
+:func:`sigma_aug_kernel`, :func:`update_kernel`, :func:`predict_kernel`).
 
 The model evaluations f(pts), h(pts) run between them in PyTorch. K8 takes
 μy and the innovation from the wrapper, which applies the model's residual
@@ -32,9 +36,9 @@ kernel for them).
 On CUDA tensors the wrappers launch the kernel or raise; on CPU tensors
 they run the plain versions beside them. The band is every factor and
 moment dimension ≤ 1,024 (the TPU package caps its kernels at 128 for TPU
-reasons and runs XLA above; here K6/K7 factor in global scratch and
-K8/K9 hand over to K8t/K9t, so the Lorenz-96 dx=512 configuration runs
-through kernels); a CUDA input outside it raises NotImplementedError.
+reasons and runs XLA above; here K6–K9 hand over to K6t–K9t, so the
+Lorenz-96 dx=512 configuration runs through kernels); a CUDA input
+outside it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -65,6 +69,7 @@ _METHODS = {"cholesky": 0, "sqrtm": 1}  # csrc/fused_ut.cu kCholesky, kSqrtm
 
 _SRC = "bayesianfiltering_tpu_torch/csrc/fused_ut.cu"
 _TILED_SRC = "bayesianfiltering_tpu_torch/csrc/ut_tiled.cu"
+_SIGMA_TILED_SRC = "bayesianfiltering_tpu_torch/csrc/sigma_tiled.cu"
 K6 = _build.register("bft_ut_sigma", _SRC,
                      "bayesianfiltering_tpu/ops/fused_ut.py:100")
 K7 = _build.register("bft_ut_sigma_aug", _SRC,
@@ -77,12 +82,26 @@ K8T = _build.register("bft_ut_update_tiled", _TILED_SRC,
                       "bayesianfiltering_tpu/ops/fused_ut.py:225")
 K9T = _build.register("bft_ut_predict_tiled", _TILED_SRC,
                       "bayesianfiltering_tpu/ops/fused_ut.py:319")
+K6T = _build.register("bft_ut_sigma_tiled", _SIGMA_TILED_SRC,
+                      "bayesianfiltering_tpu/ops/fused_ut.py:100")
+K7T = _build.register("bft_ut_sigma_aug_tiled", _SIGMA_TILED_SRC,
+                      "bayesianfiltering_tpu/ops/fused_ut.py:149")
 
 _ROW_CHUNK = 16  # csrc/fused_ut.cu kRowChunk
 
 
-# K8's and K9's shared-memory workspace, in elements (``update_ws_elems``
-# and ``predict_ws_elems`` of csrc/fused_ut.cu).
+# The per-element kernels' shared-memory workspaces, in elements
+# (``factor_ws_elems``, ``update_ws_elems`` and ``predict_ws_elems`` of
+# csrc/fused_ut.cu). K7's points kernel holds P's factor workspace and the
+# 2dn × dn noise points, its noise launch C's factor workspace.
+def _factor_ws(n: int, method: str) -> int:
+    return n * n * (4 if method == "sqrtm" else 1)
+
+
+def _aug_ws(dx: int, dn: int, method: str) -> int:
+    return max(_factor_ws(dx, method) + 2 * dn * dn, _factor_ws(dn, method))
+
+
 def _update_ws(dx: int, dy: int) -> int:
     return (2 * dy * dy + 3 * dy * dx + _ROW_CHUNK * (dx + dy) + 4 * dy
             + dx)
@@ -90,6 +109,24 @@ def _update_ws(dx: int, dy: int) -> int:
 
 def _predict_ws(dx: int) -> int:
     return dx * dx + _ROW_CHUNK * dx + 2 * dx
+
+
+def sigma_kernel(n: int, method: str, itemsize: int,
+                 smem_optin: int) -> _build.Kernel:
+    """The sigma-point kernel for one shape: K6 (one block per element)
+    where its factor's workspace fits in a block's shared memory,
+    ``smem_optin`` bytes, K6t (tiled over the card) otherwise."""
+    fits = _build.fits_smem(_factor_ws(n, method), itemsize, smem_optin)
+    return K6 if fits else K6T
+
+
+def sigma_aug_kernel(dx: int, dn: int, method: str, itemsize: int,
+                     smem_optin: int) -> _build.Kernel:
+    """The augmented sigma-point kernel for one shape: K7 where both of its
+    launches' workspaces fit in ``smem_optin`` bytes of shared memory, K7t
+    otherwise."""
+    fits = _build.fits_smem(_aug_ws(dx, dn, method), itemsize, smem_optin)
+    return K7 if fits else K7T
 
 
 def update_kernel(dx: int, dy: int, itemsize: int,
@@ -148,20 +185,23 @@ def _ut_predict_plain(fpts, center, Q, w_side, w0m, w0c, add_q):
 
 def _launch_sigma(m, P, scale, method):
     B, n = m.shape
-    _build.check_operands(K6, (m, (B, n)), (P, (B, n, n)))
-    lib = _build.load()
+    code = _METHODS[method]
+    kernel = sigma_kernel(n, method, m.element_size(),
+                          _build.smem_optin(m.device))
+    _build.check_operands(kernel, (m, (B, n)), (P, (B, n, n)))
     pts = m.new_empty(B, 2 * n, n)
     if B:
-        code = _METHODS[method]
         with torch.cuda.device(m.device):
-            scratch = _build.scratch(lib.bft_ut_sigma_scratch_elems(
-                n, code, m.element_size(), m.device.index), K6, B, m)
-            err = _build.symbol(K6, m)(
-                m.data_ptr(), P.data_ptr(), pts.data_ptr(),
-                _build.ptr(scratch), B, n, scale, code,
+            ptrs = [m.data_ptr(), P.data_ptr(), pts.data_ptr()]
+            if kernel is K6T:  # the factor's scratch
+                scratch = m.new_empty(
+                    _build.load().bft_ut_sigma_tiled_scratch_elems(B, n, code))
+                ptrs.append(scratch.data_ptr())
+            err = _build.symbol(kernel, m)(
+                *ptrs, B, n, scale, code,
                 torch.cuda.current_stream().cuda_stream)
-        _build.check(err, K6)
-        K6.launches += 1
+        _build.check(err, kernel)
+        kernel.launches += 1
     return pts
 
 
@@ -169,26 +209,28 @@ def _launch_sigma_aug(m, P, bias, C, scale, method):
     B, dx = m.shape
     dn = bias.shape[-1]
     na = dx + dn
-    _build.check_operands(K7, (m, (B, dx)), (P, (B, dx, dx)), (bias, (dn,)),
-                          (C, (dn, dn)))
-    lib = _build.load()
+    code = _METHODS[method]
+    kernel = sigma_aug_kernel(dx, dn, method, m.element_size(),
+                              _build.smem_optin(m.device))
+    _build.check_operands(kernel, (m, (B, dx)), (P, (B, dx, dx)),
+                          (bias, (dn,)), (C, (dn, dn)))
     pts = m.new_empty(B, 2 * na, na)
     if B:
-        code = _METHODS[method]
-        noise_pts = m.new_empty(2 * dn, dn)
         with torch.cuda.device(m.device):
-            dev, size = m.device.index, m.element_size()
-            per_x = lib.bft_ut_sigma_scratch_elems(dx, code, size, dev)
-            per_n = lib.bft_ut_sigma_scratch_elems(dn, code, size, dev)
-            if per_x < 0 or per_n < 0:
-                raise RuntimeError(f"{K7.name}: device attribute query failed")
-            scratch = _build.scratch(max(B * per_x, per_n), K7, 1, m)
-            err = _build.symbol(K7, m)(
-                m.data_ptr(), P.data_ptr(), bias.data_ptr(), C.data_ptr(),
-                pts.data_ptr(), noise_pts.data_ptr(), _build.ptr(scratch), B,
-                dx, dn, scale, code, torch.cuda.current_stream().cuda_stream)
-        _build.check(err, K7)
-        K7.launches += 1
+            ptrs = [m.data_ptr(), P.data_ptr(), bias.data_ptr(),
+                    C.data_ptr(), pts.data_ptr()]
+            if kernel is K7T:  # the factors' scratch
+                scratch = m.new_empty(
+                    _build.load().bft_ut_sigma_aug_tiled_scratch_elems(
+                        B, dx, dn, code))
+            else:  # the shared noise block's points
+                scratch = m.new_empty(2 * dn, dn)
+            ptrs.append(scratch.data_ptr())
+            err = _build.symbol(kernel, m)(
+                *ptrs, B, dx, dn, scale, code,
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(err, kernel)
+        kernel.launches += 1
     return pts
 
 
@@ -279,14 +321,16 @@ def _method(uparams: ParamsUKF) -> str:
 # ---------------------------------------------------------------------------
 
 def fused_sigma(m, P, scale: float, method: str):
-    """Sigma points (B, 2n, n) of ``m`` (B, n), ``P`` (B, n, n). K6."""
+    """Sigma points (B, 2n, n) of ``m`` (B, n), ``P`` (B, n, n). K6 or K6t
+    on CUDA (:func:`sigma_kernel`), the plain version on CPU."""
     _band(m, K6, n=m.shape[-1])
     return _sigma_op(m.contiguous(), P.contiguous(), float(scale), method)
 
 
 def fused_sigma_aug(m, P, bias, C, scale: float, method: str):
     """Augmented sigma points (B, 2na, na) of ``N([m; bias], blkdiag(P,
-    C))``, ``bias`` (dn,) and ``C`` (dn, dn) shared. K7."""
+    C))``, ``bias`` (dn,) and ``C`` (dn, dn) shared. K7 or K7t on CUDA
+    (:func:`sigma_aug_kernel`), the plain version on CPU."""
     _band(m, K7, na=m.shape[-1] + bias.shape[-1])
     return _sigma_aug_op(m.contiguous(), P.contiguous(), bias.contiguous(),
                          C.contiguous(), float(scale), method)
@@ -319,8 +363,8 @@ def fused_ut_predict(fpts, center, Q, w_side, w0m, w0c, add_q: bool):
 # ---------------------------------------------------------------------------
 
 def fused_ukf_predict_additive(m, P, f, u, Q, uparams: ParamsUKF, q0):
-    """Drop-in for ``ops.ukf.ukf_predict_additive``: K6, then f over the
-    points, then K9 (or K9t)."""
+    """Drop-in for ``ops.ukf.ukf_predict_additive``: K6 (or K6t), then f
+    over the points, then K9 (or K9t)."""
     dx = m.shape[-1]
     scale, (w_side, w0m, w0c) = ut_weights(dx, uparams)
     pts = fused_sigma(m, P, scale, _method(uparams))
@@ -331,8 +375,8 @@ def fused_ukf_predict_additive(m, P, f, u, Q, uparams: ParamsUKF, q0):
 
 
 def fused_ukf_predict_nonadditive(m, P, f, u, Q, uparams: ParamsUKF, q0):
-    """Drop-in for ``ops.ukf.ukf_predict_nonadditive``: K7, then f over the
-    augmented points, then K9 (or K9t)."""
+    """Drop-in for ``ops.ukf.ukf_predict_nonadditive``: K7 (or K7t), then f
+    over the augmented points, then K9 (or K9t)."""
     dx = m.shape[-1]
     scale, (w_side, w0m, w0c) = ut_weights(dx + q0.shape[-1], uparams)
     pts = fused_sigma_aug(m, P, q0, Q, scale, _method(uparams))
@@ -351,8 +395,8 @@ def _update(pts, hpts, center, m, P, R, y, weights, add_r, residual_fn):
 
 def fused_ukf_condition_on_additive(m, P, h, R, u, y, uparams: ParamsUKF,
                                     r0=None, residual_fn=None):
-    """Drop-in for ``ops.ukf.ukf_condition_on_additive``: K6, then h over
-    the points, then K8 (or K8t). Returns ``(ll, mean, cov)``."""
+    """Drop-in for ``ops.ukf.ukf_condition_on_additive``: K6 (or K6t), then
+    h over the points, then K8 (or K8t). Returns ``(ll, mean, cov)``."""
     dx = m.shape[-1]
     y = torch.atleast_1d(y)
     scale, weights = ut_weights(dx, uparams)
@@ -365,8 +409,9 @@ def fused_ukf_condition_on_additive(m, P, h, R, u, y, uparams: ParamsUKF,
 
 def fused_ukf_condition_on_nonadditive(m, P, h, R, u, y, uparams: ParamsUKF,
                                        r0=None, residual_fn=None):
-    """Drop-in for ``ops.ukf.ukf_condition_on_nonadditive``: K7, then h over
-    the augmented points, then K8 (or K8t) on their state part. Returns
+    """Drop-in for ``ops.ukf.ukf_condition_on_nonadditive``: K7 (or K7t),
+    then h over the augmented points, then K8 (or K8t) on their state part.
+    Returns
     ``(ll, mean, cov)``."""
     dx = m.shape[-1]
     y = torch.atleast_1d(y)
@@ -378,6 +423,8 @@ def fused_ukf_condition_on_nonadditive(m, P, h, R, u, y, uparams: ParamsUKF,
 
 
 __all__ = [
+    "sigma_kernel",
+    "sigma_aug_kernel",
     "update_kernel",
     "predict_kernel",
     "fused_sigma",

@@ -4,30 +4,36 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --ab PARENT_ROOT`` instead times the sigma-point
+kernels, K1t and K8t of a parent checkout and of this one in turns on the
+same card; see ``ab``.)
+
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. Environment: torch and CUDA versions, the card's name and power limit.
 2. Build the CUDA kernels (K1–K12, the tiled variants K1t/K2t of the EKF
-   update and predict and K8t/K9t of the UT update and predict, and the
-   block variants K10b–K12b of the combines above dx = 8) from
+   update and predict, K6t/K7t of the sigma points and K8t/K9t of the UT
+   update and predict, and the block variants K10b–K12b of the combines
+   above dx = 8) from
    ``bayesianfiltering_tpu_torch/csrc``, one nvcc per source, in
    parallel.
 3. Each kernel against its plain PyTorch version on the card, float32 and
    float64, at the main paths' shapes and at its size band's edge (K1/K1t
-   to dy = 512, K6–K9/K8t/K9t to 1,024, the block combines at dx = 9, 64
-   and 512; the EKF and UT update and predict kernels also at shapes that
-   are not multiples of a tile and on both sides of the rules that pick
-   K1/K2 or K1t/K2t and K8/K9 or K8t/K9t, each shape expecting the kernel
-   the rule names); a
-   non-positive-definite S or P must give NaN on both sides (K1t and K8t
-   with the failing pivot in their first and in a later panel), and K10's
+   to dy = 512, K6–K9/K6t–K9t to 1,024, the block combines at dx = 9, 64
+   and 512; the EKF, sigma-point and UT update and predict kernels also at
+   shapes that are not multiples of a tile and on both sides of the rules
+   that pick K1/K2 or K1t/K2t, K6/K7 or K6t/K7t and K8/K9 or K8t/K9t, each
+   shape expecting the kernel the rule names); a
+   non-positive-definite S or P must give NaN on both sides (K1t, K6t, K7t
+   and K8t with the failing pivot in their first and in a later panel; K7
+   and K7t NaN only the failing block), and K10's
    guard lanes (a C1 with a −1e-8 eigenvalue, a C1 with an infinite entry)
    the same finite and non-finite entries (dx = 4 to 512). K5 (integer
    parents) must equal its plain version exactly at n = 2²⁰ and 65,536 on
    five weight profiles, and at the Gaussian-sum reductions' m counts → n
    slots. Times each kernel and its plain version with CUDA events at the
-   main-path shape (float32; K1t, K2t, K8t and K9t float64 too) and
+   main-path shape (float32; K1t, K2t, K6t, K8t and K9t float64 too) and
    computes its
    bound (bytes over 3.35 TB/s or flops over the peak rate, whichever is
    larger), and reads the kernel's
@@ -35,7 +41,9 @@ and prints no result):
    wrapper calls is the host's time where the kernel is shorter than its
    wrapper); K5 also gets the time of ``torch.searchsorted``, one PyTorch
    call computing its function, and both are timed by device time alike:
-   the profiler's, and CUDA events around a CUDA graph of 100 calls.
+   the profiler's, and CUDA events around a CUDA graph of 100 calls; K6
+   and K6t get the profiler's device time of ``torch.linalg.cholesky_ex``
+   on the same P, the one PyTorch call for the factor in their body.
 4. Kernel path (card) against plain path (CPU) end to end, with the same
    data and the same draws: the batched EKF and UKF (additive and
    augmented) on Lorenz-96, the GSF and AGSF on bearings-only tracking, the
@@ -60,7 +68,7 @@ and prints no result):
    320 times each, K11 once); BASELINE config 5 (Lorenz-96 dx=512,
    dy=256, one sequence, T=200: the EKF with the joint update, the EKF with
    ``update_chunk=128`` — K1t/K2t, never K1/K2 — and the additive UKF —
-   K8t/K9t, never K8/K9);
+   K6t, K8t and K9t, never K6/K8/K9);
    path C (the parallel smoother
    on ``zoo.linear_gaussian_lgssm(64, 32)`` at T=65,536, chunk 128, both
    solvers: only the block combines launch). The new paths run three
@@ -70,7 +78,7 @@ and prints no result):
    device time, under torch.profiler: the batched UKF step, ten steps of
    the 1M-particle BPF, one run of the T=1M parallel smoother, ten steps
    of each of config 5's filters (the EKF's split between K1t/K2t and the
-   host, the UKF's between K6, K8t and K9t), one run of path C.
+   host, the UKF's between K6t, K8t and K9t), one run of path C.
 
 The last three lines: a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -134,8 +142,12 @@ PC_DX, PC_DY, PC_T, PC_CMP_T = 64, 32, 65_536, 1024
 PC_COMBINES = 128 + 128 + 4 + 1 + 1
 PC_LANES = PC_T // KF_CHUNK                           # 512
 REPS = 3  # calls of each new path in one process: median and range
+SIGMA_TILED_SYMBOLS = ("sigma_tiled_prep_kernel", "sigma_tiled_trace_kernel",
+                       "chol_diag_kernel", "tiled_gemm_kernel",
+                       "sigma_tiled_root_kernel", "sigma_tiled_points_kernel")
 # each kernel's CUDA symbols (K7 is its points kernel and the one-block
-# factor of the shared noise covariance)
+# factor of the shared noise covariance; K6t and K7t share the same
+# launches, K7t running them for P and for C)
 KERNEL_SYMBOLS = {
     "bft_ekf_update": ("ekf_update_kernel",),
     "bft_ekf_predict_cov": ("ekf_predict_cov_kernel",),
@@ -154,6 +166,8 @@ KERNEL_SYMBOLS = {
                             "chol_loglik_kernel", "ut_tiled_cov_kernel"),
     "bft_ut_predict_tiled": ("tiled_gemm_kernel", "ut_tiled_mean_kernel",
                              "ut_tiled_centre_rows_kernel"),
+    "bft_ut_sigma_tiled": SIGMA_TILED_SYMBOLS,
+    "bft_ut_sigma_aug_tiled": SIGMA_TILED_SYMBOLS,
     "bft_bank_combine": ("bank_combine_kernel",),
     "bft_bank_smoother_elements": ("bank_smoother_elements_kernel",),
     "bft_bank_smoother_combine": ("bank_smoother_combine_kernel",),
@@ -161,14 +175,15 @@ KERNEL_SYMBOLS = {
     "bft_block_smoother_elements": ("block_smoother_elements_kernel",),
     "bft_block_smoother_combine": ("block_smoother_combine_kernel",),
 }
-# the kernels' IDs, in the order of the kernel table; K1t/K2t and K8t/K9t
-# are the tiled variants of K1/K2 and K8/K9, K10b–K12b the block variants
+# the kernels' IDs, in the order of the kernel table; K1t/K2t and K6t–K9t
+# are the tiled variants of K1/K2 and K6–K9, K10b–K12b the block variants
 # (8 < dx ≤ 512) of K10–K12
 KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_update_tiled": "K1t",
               "bft_ekf_predict_cov": "K2", "bft_ekf_predict_cov_tiled": "K2t",
               "bft_bank_update": "K3", "bft_bank_predict_cov": "K4",
               "bft_resample_parents": "K5", "bft_ut_sigma": "K6",
-              "bft_ut_sigma_aug": "K7", "bft_ut_update": "K8",
+              "bft_ut_sigma_tiled": "K6t", "bft_ut_sigma_aug": "K7",
+              "bft_ut_sigma_aug_tiled": "K7t", "bft_ut_update": "K8",
               "bft_ut_update_tiled": "K8t", "bft_ut_predict": "K9",
               "bft_ut_predict_tiled": "K9t", "bft_bank_combine": "K10",
               "bft_block_combine": "K10b",
@@ -180,7 +195,8 @@ KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_update_tiled": "K1t",
 # kernels timed in float64 as well at their main-path shapes (config 5's
 # filters run in float64 too; the rest are timed in float32 only)
 TIMED_FLOAT64 = ("bft_ekf_update_tiled", "bft_ekf_predict_cov_tiled",
-                 "bft_ut_update_tiled", "bft_ut_predict_tiled")
+                 "bft_ut_sigma_tiled", "bft_ut_update_tiled",
+                 "bft_ut_predict_tiled")
 
 # Roofline of an H100 SXM at its 700 W limit (NVIDIA's data sheet): memory
 # 3.35 TB/s; CUDA-core (non-tensor) peaks 67 TFLOP/s in float32 and
@@ -353,10 +369,19 @@ def scombine_flops(n):
     return 5 * n ** 3 + 2 * n * n
 
 
-def bound(tensors, outputs, flops, dtype_name):
+def bound(tensors, outputs, flops, dtype_name, lower=()):
     """(bound_ms, bound_by): every input read once and every output written
-    once at the memory rate, or the operations at the CUDA-core peak."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors + outputs)
+    once at the memory rate, or the operations at the CUDA-core peak. The
+    inputs whose indices are in ``lower`` are stacks of n × n matrices of
+    which the function reads only the lower triangle: n(n + 1)/2 entries
+    each."""
+    def entries(i, t):
+        n = t.shape[-1]
+        return t.numel() * (n + 1) / (2 * n) if i in lower else t.numel()
+
+    nbytes = (sum(entries(i, t) * t.element_size()
+                  for i, t in enumerate(tensors))
+              + sum(t.numel() * t.element_size() for t in outputs))
     t_mem = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else
@@ -442,14 +467,18 @@ def kernel_cases():
                       B * predict_flops(dx, dq), timed))
 
     def sigma(B, n, method, timed=None):
-        cases.append((fu.K6, fu.fused_sigma, fu._sigma_plain,
+        rule = lambda a: fu.sigma_kernel(n, method, a.element_size(),
+                                         _build.smem_optin(a.device))
+        cases.append((rule, fu.fused_sigma, fu._sigma_plain,
                       f"B={B},n={n},{method}",
                       lambda r: testing.sigma_inputs(r, B, n),
                       (ut_weights(n, up)[0], method),
                       B * factor_flops(n, method) + 2 * B * n * n, timed))
 
     def sigma_aug(B, dx, dn, method, timed=None):
-        cases.append((fu.K7, fu.fused_sigma_aug, fu._sigma_aug_plain,
+        rule = lambda a: fu.sigma_aug_kernel(dx, dn, method, a.element_size(),
+                                             _build.smem_optin(a.device))
+        cases.append((rule, fu.fused_sigma_aug, fu._sigma_aug_plain,
                       f"B={B},dx={dx},dn={dn},{method}",
                       lambda r: testing.sigma_aug_inputs(r, B, dx, dn),
                       (ut_weights(dx + dn, up)[0], method),
@@ -512,11 +541,21 @@ def kernel_cases():
     pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 200, 4, 2, "main")
     pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 4096, 8, 8)
     # Lorenz-96 UKF (dx=64, dy=32, augmented na = 128 and 96), the
-    # range-bearing banks (na = 6 at M = 32..100) and the band edge n = 128
+    # range-bearing banks (na = 6 at M = 32..100), n = 128 (Newton–Schulz:
+    # K6t) and both sides of K6's and K7's rules (K6's Cholesky at
+    # n = 240 | 241 in float32 and 170 | 171 in float64, Newton–Schulz at
+    # 120 | 121 and 85 | 86; K7's Cholesky at dx = 223 | 224 and 144 | 145
+    # beside dn = 64)
     sigma(512, 64, "cholesky", "main")
     sigma(512, 64, "sqrtm", "also")
     sigma(4, 128, "cholesky")
     sigma(4, 128, "sqrtm")
+    for n, method in ((240, "cholesky"), (241, "cholesky"), (170, "cholesky"),
+                      (171, "cholesky"), (120, "sqrtm"), (121, "sqrtm"),
+                      (85, "sqrtm"), (86, "sqrtm")):
+        sigma(2, n, method)
+    for dx in (223, 224, 144, 145):
+        sigma_aug(2, dx, 64, "cholesky")
     sigma_aug(512, 64, 64, "cholesky", "main")
     sigma_aug(512, 64, 32, "cholesky")
     sigma_aug(512, 64, 64, "sqrtm")
@@ -541,10 +580,12 @@ def kernel_cases():
     # shapes that are not multiples of a tile or a panel (dy = 129) and on
     # both sides of their rules' edges (K8 at dx = 489 | 490, dy = 32 in
     # float32 and 233 | 234 in float64; K9 at dx = 232 | 233 and 161 | 162)
-    sigma(1, C5_DX, "cholesky", "also")
+    sigma(1, C5_DX, "cholesky", "main")
     sigma(1, 1024, "cholesky")
     sigma(1, 256, "sqrtm")
-    sigma_aug(2, C5_DX, C5_DX, "cholesky")
+    sigma_aug(1, C5_DX, C5_DX, "cholesky", "main")
+    sigma_aug(2, C5_DX, C5_DY, "cholesky")
+    sigma_aug(2, 300, 45, "sqrtm")
     ut_update(1, 2 * C5_DX, C5_DX, C5_DX, C5_DY, True, "main")
     ut_update(1, 2 * (C5_DX + C5_DY), C5_DX + C5_DY, C5_DX, C5_DY, False)
     ut_update(1, 2048, 1024, 1024, 1024, True)
@@ -594,10 +635,12 @@ def _as_tuple(x):
 
 
 def nan_checks(dev) -> None:
-    """A non-positive-definite S (K1, K1t, K3, K8, K8t), P (K6, K7) or Pp
-    (K11) gives NaN in the same places on both sides, and never an
-    exception. K1t's and K8t's S fail at their first pivot, or only at a
-    pivot of their third panel."""
+    """A non-positive-definite S (K1, K1t, K3, K8, K8t), P (K6, K6t, K7,
+    K7t), C (K7, K7t) or Pp (K11) gives NaN in the same places on both
+    sides, and never an exception. K1t's and K8t's S fail at their first
+    pivot, or only at a pivot of their third panel; K6t's P (n = 512) at
+    its first or at a pivot of its tenth panel; K7t's P or C at config 5's
+    widths."""
     import numpy as np
     import torch
 
@@ -635,6 +678,23 @@ def nan_checks(dev) -> None:
     a[1] = neg_eye(a[1])
     checks.append((fu.K7, fu.fused_sigma_aug, fu._sigma_aug_plain,
                    a + [2.0, "cholesky"]))
+    a = f64(testing.sigma_aug_inputs(rng, 8, 64, 32))
+    a[3][5, 5] = -1e3
+    checks.append((fu.K7, fu.fused_sigma_aug, fu._sigma_aug_plain,
+                   a + [2.0, "cholesky"]))
+    for fail_at in (0, 300):
+        a = f64(testing.sigma_inputs(rng, 2, C5_DX))
+        a[1][1, fail_at, fail_at] = -1e3
+        checks.append((fu.K6T, fu.fused_sigma, fu._sigma_plain,
+                       a + [2.0, "cholesky"]))
+    for part, fail_at in ((1, 0), (1, 400), (3, 100)):
+        a = f64(testing.sigma_aug_inputs(rng, 2, C5_DX, C5_DX))
+        if part == 1:
+            a[1][0, fail_at, fail_at] = -1e3
+        else:
+            a[3][fail_at, fail_at] = -1e3
+        checks.append((fu.K7T, fu.fused_sigma_aug, fu._sigma_aug_plain,
+                       a + [2.0, "cholesky"]))
     a = f64(testing.ut_update_inputs(rng, 8, 128, 64, 64, 32))
     a[6] = neg_eye(a[6])
     checks.append((fu.K8, fu.fused_ut_update, fu._ut_update_plain,
@@ -791,7 +851,16 @@ def check_parents(dev) -> dict:
                 device_ms=dev_ms,
                 device_bound_share=bound_ms / dev_ms if dev_ms else None,
                 library_device_ms=library_dev_ms, graph_ms=k_graph_ms,
-                library_graph_ms=library_graph_ms)
+                library_graph_ms=library_graph_ms,
+                library_call="torch.searchsorted")
+
+
+# K6's rows get torch.linalg.cholesky_ex's time as their library time
+FACTOR_LIBRARY = ("bft_ut_sigma", "bft_ut_sigma_tiled")
+# the sigma-point kernels' Cholesky reads only lower(P) (and lower(C)):
+# the indices of those operands in (m, P) and (m, P, bias, C)
+LOWER_READ = {"bft_ut_sigma": (1,), "bft_ut_sigma_tiled": (1,),
+              "bft_ut_sigma_aug": (1, 3), "bft_ut_sigma_aug_tiled": (1, 3)}
 
 
 def check_kernels(dev) -> dict:
@@ -831,13 +900,27 @@ def check_kernels(dev) -> dict:
                 plain_ms = cuda_time_ms(lambda: plain(*args, *static))
                 dev_ms = device_ms(lambda: wrapper(*args, *static),
                                    KERNEL_SYMBOLS[kernel.name])
-                bound_ms, bound_by = bound(args, list(got), flops, name)
+                lower = (LOWER_READ[kernel.name] if kernel.name in LOWER_READ
+                         and static[-1] == "cholesky" else ())
+                bound_ms, bound_by = bound(args, list(got), flops, name,
+                                           lower)
                 entry = dict(shape=f"{shape},{name}", max_abs_err=abs_err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bound_share=bound_ms / ms,
                              device_ms=dev_ms,
                              device_bound_share=(bound_ms / dev_ms
                                                  if dev_ms else None))
+                if kernel.name in FACTOR_LIBRARY and static[-1] == "cholesky":
+                    # the one PyTorch call for the factor in K6's body,
+                    # timed by the same profiler device time
+                    P = args[1]
+                    lib = lambda: torch.linalg.cholesky_ex(P)
+                    entry.update(library_ms=device_ms(lib, ("",)),
+                                 library_event_ms=cuda_time_ms(lib),
+                                 library_call="torch.linalg.cholesky_ex")
+                    log(f"  torch.linalg.cholesky_ex on the same P: device "
+                        f"{entry['library_ms']} ms, event "
+                        f"{entry['library_event_ms']:.4f} ms")
                 if timed == "main" and dtype == torch.float32:
                     report.setdefault(kernel.name, {}).update(entry)
                 else:
@@ -1010,8 +1093,8 @@ def config5_data(T, dtype, dev):
 def config5_runs():
     """Config 5's three filters: (label, call on (params, emissions), the
     exact launches per step of each kernel). The EKF's and the UKF's
-    update and predict elements do not fit one SM's shared memory, so they
-    run the tiled K1t/K2t and K8t/K9t."""
+    elements do not fit one SM's shared memory, so they run the tiled
+    K1t/K2t, K6t, K8t and K9t."""
     from bayesianfiltering_tpu_torch import inference as inf
 
     return [
@@ -1024,7 +1107,7 @@ def config5_runs():
         ("ukf512 additive cholesky",
          lambda p, e: inf.unscented_kalman_filter(p, ukf_params(), e,
                                                   additive=True),
-         {"bft_ut_sigma": 2, "bft_ut_update_tiled": 1,
+         {"bft_ut_sigma_tiled": 2, "bft_ut_update_tiled": 1,
           "bft_ut_predict_tiled": 1}),
     ]
 
@@ -1384,7 +1467,8 @@ def main_path(dev, card: str) -> dict:
             lambda: timed(lambda: inf.unscented_kalman_filter(
                 params, up, em, additive=additive)),
             {sigma: 2 * T, "bft_ut_update": T, "bft_ut_predict": T,
-             "bft_ut_update_tiled": 0, "bft_ut_predict_tiled": 0})
+             "bft_ut_update_tiled": 0, "bft_ut_predict_tiled": 0,
+             "bft_ut_sigma_tiled": 0, "bft_ut_sigma_aug_tiled": 0})
         add(counts)
         check_gaussian_posterior("ukf", post, (EKF_B, T, EKF_DX))
         log(f"ukf {kind} {method} lorenz96 dx={EKF_DX} dy={EKF_DY} B={EKF_B} "
@@ -1401,7 +1485,7 @@ def main_path(dev, card: str) -> dict:
             lambda: run_ukf_mixture(label, comps, params_r, inputs, em, d),
             {"bft_ut_sigma_aug": 2 * BOT_EXP_T, "bft_ut_update": BOT_EXP_T,
              "bft_ut_predict": BOT_EXP_T, "bft_ut_update_tiled": 0,
-             "bft_ut_predict_tiled": 0,
+             "bft_ut_predict_tiled": 0, "bft_ut_sigma_aug_tiled": 0,
              "bft_resample_parents": 0 if label.startswith("ugsf")
              else BOT_EXP_T})
         wall = time.perf_counter() - t0
@@ -1505,29 +1589,34 @@ def main_path(dev, card: str) -> dict:
 
 
 def ukf_split(prof) -> dict:
-    """Device ms of K6, K8t and K9t in a trace of config 5's UKF. K8t and
-    K9t share the product kernel, so their launches are told apart in
-    launch order: K8t runs from its centring pass to its covariance pass,
-    K9t from its mean pass to its one product."""
+    """Device ms of K6t, K8t and K9t in a trace of config 5's UKF. They
+    share the product and diagonal-factor kernels, so their launches are
+    told apart in launch order: K6t runs from its preparation pass to its
+    points pass, K8t from its centring pass to its covariance pass, K9t
+    from its mean pass to its one product."""
     from torch.autograd import DeviceType
 
     events = sorted((e for e in prof.events()
                      if e.device_type != DeviceType.CPU),
                     key=lambda e: e.time_range.start)
-    split = {"K6": 0.0, "K8t": 0.0, "K9t": 0.0, "other": 0.0}
+    split = {"K6": 0.0, "K6t": 0.0, "K8t": 0.0, "K9t": 0.0,
+             "other": 0.0}
     owner = None
     for e in events:
         name, us = e.name, e.time_range.elapsed_us()
         if "ut_sigma_kernel" in name:
             split["K6"] += us
             continue
-        if "ut_tiled_centre_kernel" in name:
+        if owner is None and ("sigma_tiled_prep_kernel" in name
+                              or "sigma_tiled_trace_kernel" in name):
+            owner = "K6t"
+        elif "ut_tiled_centre_kernel" in name:
             owner = "K8t"
         elif "ut_tiled_mean_kernel" in name:
             owner = "K9t"
         split[owner or "other"] += us
-        if "ut_tiled_cov_kernel" in name or (
-                owner == "K9t" and "tiled_gemm_kernel" in name):
+        if ("sigma_tiled_points_kernel" in name or "ut_tiled_cov_kernel" in name
+                or (owner == "K9t" and "tiled_gemm_kernel" in name)):
             owner = None
     return {k: v / 1e3 for k, v in split.items()}
 
@@ -1630,6 +1719,89 @@ def profile_ukf(dev, card: str) -> None:
                                                      chunk=KF_CHUNK), card)
 
 
+# ---------------------------------------------------------------------------
+# Parent against change: python3 chip_smoke.py --ab PARENT_ROOT
+# ---------------------------------------------------------------------------
+
+def sigma_times(root: str) -> None:
+    """``--sigma-times ROOT``: with the port of the checkout at ROOT (built
+    into that checkout's build directory), float32 and float64, the
+    profiler's device time per call of K6 (Cholesky; Newton–Schulz in
+    float32 only) and K7 (dn = 64 and 32; also by CUDA events, since its
+    two launches may overlap) at the batched Lorenz-96 UKF's shapes, of the
+    sigma points at config 5 beside ``torch.linalg.cholesky_ex`` of the
+    same P, and of K1t and K8t at config 5 with their max abs error
+    against their plain versions; inputs from ``testing`` with SEED."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from bayesianfiltering_tpu_torch import _build, testing
+    from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
+    from bayesianfiltering_tpu_torch.ops import fused_ut as fu
+    from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF, ut_weights
+
+    _build.load()
+    dev = torch.device("cuda", 0)
+    w_side, _, w0c = ut_weights(C5_DX, ParamsUKF(1.0, 2.0, 0.0))[1]
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        rng = np.random.default_rng(SEED)
+
+        def on_card(xs):
+            return [torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+                    for x in xs]
+
+        def show(label, fn, event=False, plain=None):
+            line = (f"{root} {label} {name}: device "
+                    f"{device_ms(fn, ('',))} ms")
+            if event:
+                line += f", event {cuda_time_ms(fn):.5f} ms"
+            if plain is not None:
+                err = max(float((g - w).abs().max()) for g, w in
+                          zip(_as_tuple(fn()), _as_tuple(plain())))
+                line += f", max abs err {err:.3e} against the plain version"
+            log(line)
+
+        m, P = on_card(testing.sigma_inputs(rng, EKF_B, EKF_DX))
+        show("K6 B=512 n=64 cholesky",
+             lambda: fu.fused_sigma(m, P, 1.0, "cholesky"))
+        if dtype == torch.float32:
+            show("K6 B=512 n=64 sqrtm",
+                 lambda: fu.fused_sigma(m, P, 1.0, "sqrtm"))
+        for dn in (EKF_DX, EKF_DY):
+            m, P, b, C = on_card(testing.sigma_aug_inputs(rng, EKF_B, EKF_DX,
+                                                          dn))
+            show(f"K7 B=512 dx=64 dn={dn} cholesky",
+                 lambda: fu.fused_sigma_aug(m, P, b, C, 1.0, "cholesky"),
+                 event=True)
+        m, P = on_card(testing.sigma_inputs(rng, 1, C5_DX))
+        show("sigma points B=1 n=512 cholesky",
+             lambda: fu.fused_sigma(m, P, 1.0, "cholesky"))
+        show("torch.linalg.cholesky_ex B=1 n=512",
+             lambda: torch.linalg.cholesky_ex(P))
+        a = on_card(testing.update_inputs(rng, 1, C5_DX, C5_DY))
+        show("K1t B=1 dx=512 dy=256", lambda: fe.fused_update(*a, 0.0),
+             plain=lambda: fe._update_plain(*a, 0.0))
+        a = on_card(testing.ut_update_inputs(rng, 1, 2 * C5_DX, C5_DX, C5_DX,
+                                             C5_DY))
+        show("K8t B=1 rows=1024 dx=512 dy=256",
+             lambda: fu.fused_ut_update(*a, w_side, w0c, True),
+             plain=lambda: fu._ut_update_plain(*a, w_side, w0c, True))
+
+
+def ab(parent: str) -> int:
+    """``--ab PARENT_ROOT``: the card's name and power limit, then
+    ``sigma_times`` of the parent checkout and of this one in turns
+    (parent, change, change, parent), each in a process of its own."""
+    log(nvidia_smi())
+    rc = 0
+    for root in (parent, str(ROOT), str(ROOT), parent):
+        rc |= subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--sigma-times", root]).returncode
+    return rc
+
+
 def main() -> int:
     try:
         import torch
@@ -1644,6 +1816,11 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        return ab(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--sigma-times":
+        sigma_times(sys.argv[2])
+        return 0
     sys.path.insert(0, str(ROOT))
 
     card = nvidia_smi()
@@ -1696,6 +1873,7 @@ def main() -> int:
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": lib,
+                        "library_call": t.get("library_call"),
                         "bound_share": t["bound_share"],
                         "device_ms": t["device_ms"],
                         "device_bound_share": t["device_bound_share"],

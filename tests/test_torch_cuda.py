@@ -2,7 +2,7 @@
 twin, and the filters' kernel path against their plain path on the CPU.
 
 Needs a CUDA device; every test skips without one. Covers K1–K12, with
-the tiled variants K1t/K2t and K8t/K9t, the block variants of K10–K12 and
+the tiled variants K1t/K2t and K6t–K9t, the block variants of K10–K12 and
 the wide bands of K1 and K6–K9. This file imports no
 JAX, so it also runs where JAX is not installed (the repository's
 conftest.py imports JAX, hence ``--noconftest``):
@@ -153,7 +153,8 @@ UT_CASES = [
     (fu.K6, lambda r: testing.sigma_inputs(r, 5, 16),
      lambda *a: fu.fused_sigma(*a, 2.0, "cholesky"),
      lambda *a: fu._sigma_plain(*a, 2.0, "cholesky")),
-    (fu.K6, lambda r: testing.sigma_inputs(r, 3, 128),
+    # Newton–Schulz at n = 128 does not fit K6's workspace: K6t
+    (fu.K6T, lambda r: testing.sigma_inputs(r, 3, 128),
      lambda *a: fu.fused_sigma(*a, 2.0, "sqrtm"),
      lambda *a: fu._sigma_plain(*a, 2.0, "sqrtm")),
     (fu.K7, lambda r: testing.sigma_aug_inputs(r, 7, 12, 5),
@@ -245,10 +246,10 @@ def test_uagsf_kernel_path_matches_plain_path(dev):
 def test_ut_outside_the_band_raises(dev):
     m, P = testing.sigma_inputs(np.random.default_rng(3), 1, 1025)
     args = [testing.to_torch(a, torch.float32, dev) for a in (m, P)]
-    before = fu.K6.launches
+    before = fu.K6.launches, fu.K6T.launches
     with pytest.raises(NotImplementedError):
         fu.fused_sigma(*args, 1.0, "cholesky")
-    assert fu.K6.launches == before
+    assert (fu.K6.launches, fu.K6T.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -475,13 +476,14 @@ WIDE_CASES = [
      lambda *a: fe.fused_update(*a, 0.0), lambda *a: fe._update_plain(*a)),
     (fe.K1T, lambda r: testing.update_inputs(r, 1, 64, 512),
      lambda *a: fe.fused_update(*a, 0.0), lambda *a: fe._update_plain(*a)),
-    (fu.K6, lambda r: testing.sigma_inputs(r, 2, 512),
+    # K6 and K7 hand these shapes to their tiled variants
+    (fu.K6T, lambda r: testing.sigma_inputs(r, 2, 512),
      lambda *a: fu.fused_sigma(*a, 1.0, "cholesky"),
      lambda *a: fu._sigma_plain(*a, 1.0, "cholesky")),
-    (fu.K6, lambda r: testing.sigma_inputs(r, 1, 1024),
+    (fu.K6T, lambda r: testing.sigma_inputs(r, 1, 1024),
      lambda *a: fu.fused_sigma(*a, 1.0, "cholesky"),
      lambda *a: fu._sigma_plain(*a, 1.0, "cholesky")),
-    (fu.K7, lambda r: testing.sigma_aug_inputs(r, 2, 512, 512),
+    (fu.K7T, lambda r: testing.sigma_aug_inputs(r, 2, 512, 512),
      lambda *a: fu.fused_sigma_aug(*a, 1.0, "cholesky"),
      lambda *a: fu._sigma_aug_plain(*a, 1.0, "cholesky")),
     # K8 and K9 hand these shapes to their tiled variants
@@ -698,8 +700,8 @@ def test_wide_ekf_kernel_path_matches_plain_path(dev, update_chunk):
 
 
 def test_wide_ukf_kernel_path_matches_plain_path(dev):
-    """The additive UKF at dx = 512, dy = 256: K6 twice, K8t and K9t once
-    per step, and no K8/K9 (their workspace does not fit in shared
+    """The additive UKF at dx = 512, dy = 256: K6t twice, K8t and K9t once
+    per step, and no K6/K8/K9 (their workspace does not fit in shared
     memory)."""
     T = 2
     up = ParamsUKF(1.0, 0.0, 0.0, "cholesky")
@@ -717,9 +719,9 @@ def test_wide_ukf_kernel_path_matches_plain_path(dev):
             params, up, emissions.to(device), additive=True))
         if device == dev:
             torch.cuda.synchronize()
-            assert (fu.K6.launches, fu.K8T.launches, fu.K9T.launches) == (
+            assert (fu.K6T.launches, fu.K8T.launches, fu.K9T.launches) == (
                 2 * T, T, T)
-            assert fu.K8.launches == fu.K9.launches == 0
+            assert fu.K6.launches == fu.K8.launches == fu.K9.launches == 0
     got, want = runs
     assert_close(got.filtered_means, want.filtered_means, 1e-9)
     assert_close(got.marginal_loglik, want.marginal_loglik, 1e-9)
@@ -916,4 +918,130 @@ def test_batched_lorenz96_keeps_the_per_element_ut_kernels(dev):
     torch.cuda.synchronize()
     assert (fu.K8.launches, fu.K9.launches) == (3, 3)
     assert fu.K8T.launches == fu.K9T.launches == 0
+    assert torch.isfinite(post.filtered_means).all()
+
+
+# ---------------------------------------------------------------------------
+# K6t and K7t, the tiled variants of K6 and K7, picked by the same kind of
+# rule: both sides of each edge (K6's Cholesky at n = 240 | 241 in float32
+# and 170 | 171 in float64, Newton–Schulz at 120 | 121 and 85 | 86; K7's
+# Cholesky at dx = 223 | 224 and 144 | 145 with dn = 64), config 5 and the
+# band's edge; a non-PD P failing in the first or a later panel.
+# ---------------------------------------------------------------------------
+
+SIGMA_VARIANT_SHAPES = [  # (B, n, method)
+    (2, 240, "cholesky"), (2, 241, "cholesky"), (2, 170, "cholesky"),
+    (2, 171, "cholesky"), (2, 120, "sqrtm"), (2, 121, "sqrtm"),
+    (2, 85, "sqrtm"), (2, 86, "sqrtm"), (1, 512, "cholesky"),
+    (3, 512, "cholesky"), (1, 1024, "cholesky"), (512, 64, "cholesky")]
+SIGMA_AUG_VARIANT_SHAPES = [  # (B, dx, dn, method)
+    (2, 223, 64, "cholesky"), (2, 224, 64, "cholesky"),
+    (2, 144, 64, "cholesky"), (2, 145, 64, "cholesky"),
+    (1, 512, 512, "cholesky"), (2, 300, 45, "sqrtm"),
+    (512, 64, 64, "cholesky"), (512, 64, 32, "cholesky"), (33, 4, 2, "sqrtm")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,method", SIGMA_VARIANT_SHAPES)
+def test_sigma_variant_matches_plain(dev, dtype, B, n, method):
+    args = _dev(testing.sigma_inputs(np.random.default_rng(n), B, n), dtype,
+                dev)
+    want_kernel = fu.sigma_kernel(n, method, args[0].element_size(),
+                                  _build.smem_optin(dev))
+    _build.reset_launch_counts()
+    got = fu.fused_sigma(*args, 1.3, method)
+    torch.cuda.synchronize()
+    _expect_one((fu.K6, fu.K6T), want_kernel)
+    assert torch.isfinite(got).all()
+    assert_close(got, fu._sigma_plain(*args, 1.3, method), WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,dx,dn,method", SIGMA_AUG_VARIANT_SHAPES)
+def test_sigma_aug_variant_matches_plain(dev, dtype, B, dx, dn, method):
+    args = _dev(testing.sigma_aug_inputs(np.random.default_rng(dx + dn), B,
+                                         dx, dn), dtype, dev)
+    want_kernel = fu.sigma_aug_kernel(dx, dn, method, args[0].element_size(),
+                                      _build.smem_optin(dev))
+    _build.reset_launch_counts()
+    got = fu.fused_sigma_aug(*args, 0.9, method)
+    torch.cuda.synchronize()
+    _expect_one((fu.K7, fu.K7T), want_kernel)
+    assert torch.isfinite(got).all()
+    assert_close(got, fu._sigma_aug_plain(*args, 0.9, method),
+                 WIDE_TOL[dtype])
+
+
+def test_the_rule_sends_config_5_to_the_tiled_sigma_kernels(dev):
+    optin = _build.smem_optin(dev)
+    for itemsize in (4, 8):
+        assert fu.sigma_kernel(512, "cholesky", itemsize, optin) is fu.K6T
+        assert fu.sigma_aug_kernel(512, 512, "cholesky", itemsize,
+                                   optin) is fu.K7T
+        assert fu.sigma_kernel(64, "cholesky", itemsize, optin) is fu.K6
+        assert fu.sigma_aug_kernel(64, 64, "cholesky", itemsize,
+                                   optin) is fu.K7
+
+
+@pytest.mark.parametrize("n,fail_at", [(512, 0), (512, 300), (64, 0),
+                                       (64, 40)])
+def test_sigma_nan_on_non_pd(dev, n, fail_at):
+    """A negative pivot in the first panel or a later one: element 1's
+    points are NaN throughout on both sides, element 0's finite (K6t at
+    n = 512, K6 at 64)."""
+    raw = testing.sigma_inputs(np.random.default_rng(7), 2, n)
+    raw[1][1, fail_at, fail_at] = -1e3
+    args = _dev(raw, torch.float64, dev)
+    _build.reset_launch_counts()
+    got = fu.fused_sigma(*args, 1.0, "cholesky")
+    torch.cuda.synchronize()
+    assert (fu.K6T if n > 170 else fu.K6).launches == 1
+    want = fu._sigma_plain(*args, 1.0, "cholesky")
+    assert torch.isnan(got[1]).all() and torch.isnan(want[1]).all()
+    assert_close(got[0], want[0], WIDE_TOL[torch.float64])
+
+
+@pytest.mark.parametrize("dx,dn,part,fail_at", [
+    (512, 512, "P", 0), (512, 512, "P", 400), (512, 512, "C", 100),
+    (64, 32, "P", 40), (64, 32, "C", 0)])
+def test_sigma_aug_nan_on_non_pd(dev, dx, dn, part, fail_at):
+    """A non-PD P NaNs that element's state block, a non-PD C the noise
+    block of every element, in the same places as the plain version (K7t
+    at dx = dn = 512, K7 at 64 | 32)."""
+    raw = list(testing.sigma_aug_inputs(np.random.default_rng(8), 2, dx, dn))
+    if part == "P":
+        raw[1][0, fail_at, fail_at] = -1e3
+    else:
+        raw[3][fail_at, fail_at] = -1e3
+    args = _dev(raw, torch.float64, dev)
+    _build.reset_launch_counts()
+    got = fu.fused_sigma_aug(*args, 1.0, "cholesky")
+    torch.cuda.synchronize()
+    assert (fu.K7T if dx > 144 else fu.K7).launches == 1
+    want = fu._sigma_aug_plain(*args, 1.0, "cholesky")
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and nan.any()
+    assert_close(torch.where(nan, 0, got), torch.where(nan, 0, want),
+                 WIDE_TOL[torch.float64])
+
+
+@pytest.mark.parametrize("additive", [True, False])
+def test_batched_lorenz96_keeps_the_per_element_sigma_kernels(dev,
+                                                              additive):
+    """The batched UKF (B = 512, dx = 64, dy = 32) runs K6 (additive) or K7
+    (augmented), never K6t/K7t."""
+    _, params, _ = zoo.lorenz96(64, 32, dtype=torch.float32, device=dev)
+    model, data_params, _ = zoo.lorenz96(64, 32, integrator="rk4",
+                                         dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    _, emissions = model.sample(data_params, 3, generator=gen,
+                                batch_shape=(512,))
+    _build.reset_launch_counts()
+    post = inference.unscented_kalman_filter(
+        params, ParamsUKF(1.0, 0.0, 0.0, "cholesky"), emissions,
+        additive=additive)
+    torch.cuda.synchronize()
+    sigma = fu.K6 if additive else fu.K7
+    assert sigma.launches == 6
+    assert fu.K6T.launches == fu.K7T.launches == 0
     assert torch.isfinite(post.filtered_means).all()

@@ -207,7 +207,8 @@ def test_filters_on_cpu_tensors_never_launch_a_kernel():
         "bft_bank_update": 0, "bft_bank_predict_cov": 0,
         "bft_ut_sigma": 0, "bft_ut_sigma_aug": 0, "bft_ut_update": 0,
         "bft_ut_predict": 0, "bft_ut_update_tiled": 0,
-        "bft_ut_predict_tiled": 0, "bft_resample_parents": 0,
+        "bft_ut_predict_tiled": 0, "bft_ut_sigma_tiled": 0,
+        "bft_ut_sigma_aug_tiled": 0, "bft_resample_parents": 0,
         "bft_bank_combine": 0, "bft_bank_smoother_elements": 0,
         "bft_bank_smoother_combine": 0, "bft_block_combine": 0,
         "bft_block_smoother_elements": 0, "bft_block_smoother_combine": 0}

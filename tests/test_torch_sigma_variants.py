@@ -1,0 +1,392 @@
+"""The sigma-point kernels' variant rules and schedules, on the CPU.
+
+``ops/fused_ut.py`` runs K6 and K7 (one block per element, the workspace
+in shared memory) where their workspace fits in a block's shared memory,
+and their tiled variants K6t and K7t otherwise. The rules are held at
+their edges with the H100's shared-memory opt-in (232,448 bytes per
+block) and with a smaller one.
+
+K6t (``csrc/sigma_tiled.cu``) copies lower(P) into a square W and factors
+it with K1t's panel loop (``testing.augmented_factor`` on a W of height n:
+no rows below S), or runs 14 Newton–Schulz rounds of three products; its
+points pass reads only the factor's lower part and writes NaN throughout
+unless every pivot is finite and positive. K7t composes K6t's factor of P
+over the batch, of the shared C, and one pass that writes the four blocks
+of the augmented points. Both schedules are written out below in numpy,
+launch by launch, on scratch seeded with NaN (the panel loop never writes
+the factor's strict upper part, so a read of it would show), and held to
+the JAX package's XLA twins (``fused_ut._sigma_xla``,
+``_sigma_aug_xla``). K6's and K7's own in-block factor (``csrc/common.cuh``
+``block_cholesky_panels``: one warp factors each 32-column diagonal
+block, each thread substitutes whole rows below it, then a lower trailing
+update) is written out too and held to ``torch.linalg.cholesky_ex``. The
+CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
+
+Tolerances (relative to max(1, max|reference|)): float64 1e-10, float32
+1e-3 (the bound chip_smoke.py holds every kernel to): the same factor in
+another order.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bayesianfiltering_tpu.ops import fused_ut as jfu
+from bayesianfiltering_tpu_torch import testing
+from bayesianfiltering_tpu_torch.ops import fused_ut as fu
+
+torch.set_num_threads(1)
+
+H100_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100
+TOL = {"float64": 1e-10, "float32": 1e-3}
+NS_ITERS = 14
+NB = 32
+
+
+@pytest.fixture(scope="module", autouse=True)
+def x64():
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", old)
+
+
+def assert_close(got, want, dtype):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL[dtype] * scale)
+
+
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def _jax_run(fn, *args):
+    args = [jnp.asarray(a, jnp.float64) for a in args]
+    return np.asarray(jax.jit(fn).lower(*args).compile(FAST_COMPILE)(*args))
+
+
+@functools.lru_cache(maxsize=None)
+def sigma_case(B, n, method):
+    """(m, P), the scale, and JAX's points."""
+    m, P = testing.sigma_inputs(np.random.default_rng(n), B, n)
+    scale = 1.3
+    want = _jax_run(jax.vmap(lambda a, b: jfu._sigma_xla(a, b, scale,
+                                                         method)), m, P)
+    return (m, P), scale, want
+
+
+@functools.lru_cache(maxsize=None)
+def aug_case(B, dx, dn, method):
+    """(m, P, bias, C), the scale, and JAX's augmented points."""
+    args = testing.sigma_aug_inputs(np.random.default_rng(dx + dn), B, dx,
+                                    dn)
+    scale = 0.9
+    want = _jax_run(jax.vmap(lambda m, P, b, C: jfu._sigma_aug_xla(
+        m, P, b, C, scale, method), in_axes=(0, 0, None, None)), *args)
+    return args, scale, want
+
+
+# ---------------------------------------------------------------------------
+# The rules
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,method,itemsize,optin,want", [
+    (64, "cholesky", 4, H100_OPTIN, "K6"),     # the batched Lorenz-96 UKF
+    (64, "cholesky", 8, H100_OPTIN, "K6"),
+    (64, "sqrtm", 4, H100_OPTIN, "K6"),
+    (64, "sqrtm", 8, H100_OPTIN, "K6"),
+    (4, "cholesky", 4, H100_OPTIN, "K6"),      # the banks
+    (240, "cholesky", 4, H100_OPTIN, "K6"),    # 57,600 elements
+    (241, "cholesky", 4, H100_OPTIN, "K6T"),   # 58,081
+    (170, "cholesky", 8, H100_OPTIN, "K6"),    # 28,900
+    (171, "cholesky", 8, H100_OPTIN, "K6T"),   # 29,241
+    (120, "sqrtm", 4, H100_OPTIN, "K6"),       # 57,600
+    (121, "sqrtm", 4, H100_OPTIN, "K6T"),      # 58,564
+    (85, "sqrtm", 8, H100_OPTIN, "K6"),        # 28,900
+    (86, "sqrtm", 8, H100_OPTIN, "K6T"),       # 29,584
+    (512, "cholesky", 4, H100_OPTIN, "K6T"),   # config 5
+    (512, "cholesky", 8, H100_OPTIN, "K6T"),
+    (64, "cholesky", 4, 16 * 1024, "K6T"),     # a card with less
+    (63, "cholesky", 4, 16 * 1024, "K6"),
+])
+def test_sigma_variant_rule(n, method, itemsize, optin, want):
+    assert fu.sigma_kernel(n, method, itemsize, optin) is getattr(fu, want)
+
+
+@pytest.mark.parametrize("dx,dn,method,itemsize,optin,want", [
+    (64, 64, "cholesky", 4, H100_OPTIN, "K7"),   # L96 predict
+    (64, 32, "cholesky", 8, H100_OPTIN, "K7"),   # L96 update
+    (64, 64, "sqrtm", 8, H100_OPTIN, "K7"),      # 24,576 elements
+    (4, 2, "cholesky", 4, H100_OPTIN, "K7"),     # the UGSF/UAGSF banks
+    (223, 64, "cholesky", 4, H100_OPTIN, "K7"),  # 57,921
+    (224, 64, "cholesky", 4, H100_OPTIN, "K7T"),  # 58,368
+    (144, 64, "cholesky", 8, H100_OPTIN, "K7"),  # 28,928
+    (145, 64, "cholesky", 8, H100_OPTIN, "K7T"),  # 29,217
+    (1, 120, "sqrtm", 4, H100_OPTIN, "K7"),      # the noise launch: 57,600
+    (1, 121, "sqrtm", 4, H100_OPTIN, "K7T"),     # 58,564
+    (512, 512, "cholesky", 4, H100_OPTIN, "K7T"),  # config 5 augmented
+    (512, 256, "cholesky", 8, H100_OPTIN, "K7T"),
+    (64, 64, "cholesky", 4, 32 * 1024, "K7T"),
+])
+def test_sigma_aug_variant_rule(dx, dn, method, itemsize, optin, want):
+    assert fu.sigma_aug_kernel(dx, dn, method, itemsize,
+                               optin) is getattr(fu, want)
+
+
+def test_the_sigma_rules_flip_once_along_each_dimension():
+    for itemsize in (4, 8):
+        for method in ("cholesky", "sqrtm"):
+            picks = [fu.sigma_kernel(n, method, itemsize, H100_OPTIN).name
+                     for n in range(1, 1025)]
+            flip = picks.index(fu.K6T.name)
+            assert set(picks[:flip]) == {fu.K6.name}
+            assert set(picks[flip:]) == {fu.K6T.name}
+            for dn in (1, 32, 64):
+                picks = [fu.sigma_aug_kernel(dx, dn, method, itemsize,
+                                             H100_OPTIN).name
+                         for dx in range(1, 1025 - dn)]
+                flip = picks.index(fu.K7T.name)
+                assert set(picks[:flip]) == {fu.K7.name}
+                assert set(picks[flip:]) == {fu.K7T.name}
+            for dx in (1, 64):
+                picks = [fu.sigma_aug_kernel(dx, dn, method, itemsize,
+                                             H100_OPTIN).name
+                         for dn in range(1, 1025 - dx)]
+                flip = picks.index(fu.K7T.name)
+                assert set(picks[:flip]) == {fu.K7.name}
+                assert set(picks[flip:]) == {fu.K7T.name}
+
+
+# ---------------------------------------------------------------------------
+# K6t's and K7t's schedules
+# ---------------------------------------------------------------------------
+
+def tiled_factor(P, method):
+    """One element's factor as K6t computes it, launch by launch, on
+    scratch seeded with NaN: the row-major lower L (strict upper part
+    unwritten) or the Newton–Schulz root."""
+    n = P.shape[-1]
+    if method == "cholesky":
+        W = np.full((n, n), np.nan, P.dtype)  # sigma_tiled_prep_kernel
+        lower = np.tri(n, dtype=bool)
+        W[lower] = P[lower]
+        L = np.full_like(W, np.nan)           # tiled_chol.cuh's panel loop
+        testing.augmented_factor(W, L, n)
+        return L
+    # trace pass, 14 rounds of three products, the root pass
+    s = np.trace(P) + P.dtype.type(1e-30)
+    Y = (P.dtype.type(0.5) * (P + P.T)) / s
+    Z = np.eye(n, dtype=P.dtype)
+    for _ in range(NS_ITERS):
+        T = P.dtype.type(-0.5) * (Z @ Y) + P.dtype.type(1.5) * np.eye(n)
+        Y, Z = Y @ T, T @ Z
+    rs = np.sqrt(s)
+    return P.dtype.type(0.5) * (Y * rs + Y.T * rs)
+
+
+def offsets(F, scale, lower):
+    """scale·F read as the points pass reads it: entry (r, c) is
+    scale·F[c][r], zero where c < r for a Cholesky factor (never read),
+    NaN throughout unless every pivot is finite and positive."""
+    n = F.shape[-1]
+    if not lower:
+        return scale * F.T
+    d = np.diag(F)
+    if not (np.isfinite(d) & (d > 0)).all():
+        return np.full_like(F, np.nan)
+    keep = np.tri(n, dtype=bool)  # F[c][r] with c ≥ r
+    return np.where(keep, F, 0).T * scale
+
+
+def tiled_sigma(m, P, scale, method):
+    """K6t over a batch."""
+    out = []
+    for b in range(m.shape[0]):
+        off = offsets(tiled_factor(P[b], method), scale,
+                      method == "cholesky")
+        out.append(np.concatenate([m[b] + off, m[b] - off]))
+    return np.stack(out)
+
+
+def tiled_sigma_aug(m, P, bias, C, scale, method):
+    """K7t: K6t's factors of P (per element) and C (once), then the
+    assembly of [mA + off; mA − off], off = blkdiag(state, noise)."""
+    lower = method == "cholesky"
+    noise = offsets(tiled_factor(C, method), scale, lower)
+    dx, dn = m.shape[-1], bias.shape[-1]
+    out = []
+    for b in range(m.shape[0]):
+        off = np.zeros((dx + dn, dx + dn), m.dtype)
+        off[:dx, :dx] = offsets(tiled_factor(P[b], method), scale, lower)
+        off[dx:, dx:] = noise
+        mA = np.concatenate([m[b], bias])
+        out.append(np.concatenate([mA + off, mA - off]))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B,n", [(2, 33), (2, 64), (1, 512)])
+def test_tiled_sigma_schedule_matches_jax(dtype, B, n):
+    """One panel and one more column, two panels, config 5's sixteen."""
+    (m, P), scale, want = sigma_case(B, n, "cholesky")
+    got = tiled_sigma(m.astype(dtype), P.astype(dtype), scale, "cholesky")
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_tiled_newton_schulz_schedule_matches_jax(dtype):
+    """n = 130: above K6's fit in both dtypes; JAX takes the eigh root
+    there, which 14 rounds reach to rounding."""
+    (m, P), scale, want = sigma_case(2, 130, "sqrtm")
+    got = tiled_sigma(m.astype(dtype), P.astype(dtype), scale, "sqrtm")
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("fail_at", [0, 69])
+def test_tiled_sigma_schedule_gives_nan_everywhere_on_a_non_pd_p(fail_at):
+    """A negative pivot in the first panel, or only in the third: the
+    panel loop NaNs only from the failing block on, the points pass all of
+    them, as the port's plain version does."""
+    m, P = testing.sigma_inputs(np.random.default_rng(3), 2, 70)
+    P[1, fail_at, fail_at] = -1e3
+    L = tiled_factor(P[1], "cholesky")
+    assert np.isnan(np.diag(L)[fail_at:]).all()
+    if fail_at:
+        assert np.isfinite(np.tril(L)[:64, :64]).all()
+    got = tiled_sigma(m, P, 1.0, "cholesky")
+    want = fu._sigma_plain(torch.as_tensor(m), torch.as_tensor(P), 1.0,
+                           "cholesky").numpy()
+    assert np.isnan(got[1]).all() and np.isnan(want[1]).all()
+    assert_close(got[0], want[0], "float64")
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B,dx,dn,method", [(2, 40, 33, "cholesky"),
+                                            (1, 70, 5, "cholesky"),
+                                            (2, 9, 90, "sqrtm")])
+def test_tiled_sigma_aug_assembly_matches_jax(dtype, B, dx, dn, method):
+    args, scale, want = aug_case(B, dx, dn, method)
+    got = tiled_sigma_aug(*(a.astype(dtype) for a in args), scale, method)
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("part", ["P", "C"])
+def test_tiled_sigma_aug_nans_only_the_failing_block(part):
+    """A non-PD P NaNs that element's state block, a non-PD C every noise
+    block; the rest stays finite, as in the plain points_blockdiag."""
+    m, P, bias, C = testing.sigma_aug_inputs(np.random.default_rng(5), 2,
+                                             40, 35)
+    if part == "P":
+        P[0, 36, 36] = -1e3
+    else:
+        C[34, 34] = -1e3
+    got = tiled_sigma_aug(m, P, bias, C, 1.0, "cholesky")
+    want = fu._sigma_aug_plain(*(torch.as_tensor(a) for a in (m, P, bias, C)),
+                               1.0, "cholesky").numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got).any() and np.isfinite(got).any()
+    finite = np.isfinite(want)
+    assert_close(got[finite], want[finite], "float64")
+
+
+# ---------------------------------------------------------------------------
+# K6's and K7's in-block factor
+# ---------------------------------------------------------------------------
+
+def block_cholesky_panels(P):
+    """``block_cholesky_panels`` of csrc/common.cuh on one element, panel by
+    panel, the strict upper part seeded with NaN. Returns (A, bad, parked):
+    A's lower triangle holds L, bad says whether a pivot failed, parked
+    marks the strict-upper slots where each panel's pivot reciprocals wait
+    for the rows below it (column k + 32, rows k..k+31)."""
+    n = P.shape[-1]
+    A = np.full((n, n), np.nan)
+    lower = np.tri(n, dtype=bool)
+    A[lower] = P[lower]
+    parked = np.zeros((n, n), bool)
+    bad = False
+    for k in range(0, n, NB):
+        nb = min(NB, n - k)
+        D = A[k:k + nb, k:k + nb]
+        # warp 0: the diagonal block in registers, a row a lane
+        a = np.tril(np.nan_to_num(D, nan=0.0))
+        for j in range(nb):
+            d = a[j, j]
+            bad = bad or not d > 0
+            ljj = np.sqrt(d) if d > 0 else np.nan
+            col = np.where(np.arange(nb) > j, a[:, j] / ljj, 0.0)
+            col[j] = ljj
+            a[:, j] = col
+            a[j + 1:, j + 1:] -= np.tril(np.outer(col[j + 1:], col[j + 1:]))
+        D[np.tri(nb, dtype=bool)] = a[np.tri(nb, dtype=bool)]
+        below = k + nb
+        if below >= n:
+            break
+        A[k:below, below] = 1.0 / np.diag(D)  # warp 0 parks 1/l_cc
+        parked[k:below, below] = True
+        # rows below: forward substitution, column by column, a row a thread
+        x = A[below:, k:below].copy()
+        for c in range(nb):
+            x[:, c] *= A[k + c, below]
+            x[:, c + 1:] -= np.outer(x[:, c], D[c + 1:, c])
+        A[below:, k:below] = x
+        # lower trailing update
+        upd = x @ x.T
+        sub = A[below:, below:]
+        tri = np.tri(n - below, dtype=bool)
+        sub[tri] -= upd[tri]
+    return A, bad, parked
+
+
+@pytest.mark.parametrize("n", [12, 33, 64])
+def test_in_block_panel_factor_matches_cholesky_ex(n):
+    P = testing.spd(np.random.default_rng(n), 1, n)[0]
+    A, bad, parked = block_cholesky_panels(P)
+    want = torch.linalg.cholesky_ex(torch.as_tensor(P))[0].numpy()
+    lower = np.tri(n, dtype=bool)
+    assert not bad
+    # the rest of the strict upper part is never written; the points read
+    # all of it as zero
+    assert np.isnan(A[~lower & ~parked]).all()
+    assert parked.sum() == NB * ((n - 1) // NB)
+    assert_close(np.where(lower, A, 0.0), want, "float64")
+
+
+@pytest.mark.parametrize("fail_at", [0, 40])
+def test_in_block_panel_factor_flags_a_failing_pivot(fail_at):
+    P = testing.spd(np.random.default_rng(4), 1, 64)[0]
+    P[fail_at, fail_at] = -1e3
+    _, bad, _ = block_cholesky_panels(P)
+    assert bad
+    assert torch.linalg.cholesky_ex(torch.as_tensor(P))[1] != 0
+
+
+# ---------------------------------------------------------------------------
+# The wrappers at K6t's and K7t's shapes (the plain versions on CPU tensors)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B,n,method", [(1, 512, "cholesky"),
+                                        (2, 130, "sqrtm")])
+def test_sigma_wrapper_at_tiled_shapes_matches_jax(dtype, B, n, method):
+    assert fu.sigma_kernel(n, method, 4, H100_OPTIN) is fu.K6T
+    (m, P), scale, want = sigma_case(B, n, method)
+    got = fu.fused_sigma(torch.as_tensor(m.astype(dtype)),
+                         torch.as_tensor(P.astype(dtype)), scale, method)
+    assert_close(got.numpy(), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_sigma_aug_wrapper_at_a_tiled_shape_matches_jax(dtype):
+    assert fu.sigma_aug_kernel(300, 45, "cholesky", 4, H100_OPTIN) is fu.K7T
+    args, scale, want = aug_case(1, 300, 45, "cholesky")
+    got = fu.fused_sigma_aug(*(torch.as_tensor(a.astype(dtype))
+                               for a in args), scale, "cholesky")
+    assert_close(got.numpy(), want, dtype)
