@@ -103,12 +103,12 @@ _SIGNATURES = {
     "bft_bank_smoother_combine_f32": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "bft_bank_smoother_combine_f64": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "bft_block_scratch_elems": ([_I] * 5, _LL),
-    "bft_block_combine_f32": ([_P] * 16 + [_I] * 4 + [_P], _I),
-    "bft_block_combine_f64": ([_P] * 16 + [_I] * 4 + [_P], _I),
+    "bft_block_combine_f32": ([_P] * 16 + [_I] * 6 + [_P], _I),
+    "bft_block_combine_f64": ([_P] * 16 + [_I] * 6 + [_P], _I),
     "bft_block_smoother_elements_f32": ([_P] * 9 + [_I] * 3 + [_P], _I),
     "bft_block_smoother_elements_f64": ([_P] * 9 + [_I] * 3 + [_P], _I),
-    "bft_block_smoother_combine_f32": ([_P] * 10 + [_I] * 4 + [_P], _I),
-    "bft_block_smoother_combine_f64": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    "bft_block_smoother_combine_f32": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    "bft_block_smoother_combine_f64": ([_P] * 10 + [_I] * 6 + [_P], _I),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -226,6 +226,19 @@ def smem_optin(device: torch.device) -> int:
                                "failed")
         _OPTIN[index] = optin
     return _OPTIN[index]
+
+
+_SMS = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The CUDA device's count of streaming multiprocessors (132 on an
+    H100 SXM)."""
+    index = torch.device(device).index or 0
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
 
 
 def ptr(t) -> Optional[int]:

@@ -2,8 +2,9 @@
 // elements (K11) and the smoothing combine (K12), each over a bank of M
 // lanes, in two size bands: one thread per lane for dx ≤ 8 (the lane
 // kernels, `bank_*_kernel`) and one thread block per lane for
-// 8 < dx ≤ 512 (the block kernels, `block_*_kernel`, after the lane
-// kernels below).
+// 8 < dx ≤ 512 (the block kernels after the lane kernels below: K11b
+// `block_smoother_elements_kernel`, and K10b and K12b, `tiled_*_kernel`,
+// built on csrc/block_mm.cuh).
 //
 // Replaces the TPU kernels bayesianfiltering_tpu/ops/bank_combine.py
 // `_combine_kernel` (K10, body `_combine_lattice`) and
@@ -50,7 +51,9 @@
 //        pivots).
 //   K12  E = E1 E2,  g = E1 g2 + g1,  L = sym(E1 L2 E1ᵀ + L1).
 #include <algorithm>
+#include <type_traits>
 
+#include "block_mm.cuh"
 #include "common.cuh"
 
 namespace {
@@ -497,44 +500,72 @@ int launch_scombine(const void* E1, const void* g1, const void* L1,
 // The block kernels, 8 < dx ≤ 512: the same three functions, one thread
 // block per lane.
 //
-// A lane's lattice no longer fits one thread's registers (at dx = 64 one
-// Woodbury combine is ~3.7M multiply-adds over six 64×64 intermediates), so
-// a block of kBlockThreads threads shares it: the products are the
-// block-cooperative dot products of common.cuh under fused_ekf.cu's layout
-// rule (consecutive threads own consecutive output columns; an operand that
-// would be read with a stride is transposed once into the workspace), the
-// factorisations are common.cuh's one-barrier-per-column Cholesky and
-// whole-column substitution. The intermediates live in the block's
-// workspace: dynamic shared memory when it fits (K10 at dx = 64 holds six
-// 64×64 matrices, 98 KB in float32, two blocks per SM), otherwise the
-// caller's global scratch. Inputs are read in place from global memory
-// (L1/L2 serve the repeated reads).
-//
 // The chunked scan launches these over anything from one lane (its top
 // level) to T lanes (its last broadcast, 65,536 at T = 65,536), so the grid
 // is persistent: min(M, what the SMs hold at once) blocks, each looping over
-// lanes m = blockIdx.x, blockIdx.x + gridDim.x, ... The scratch is then
-// bounded by the blocks in flight (kScratchBlocksPerSM per SM), not by M.
+// lanes m = blockIdx.x, blockIdx.x + gridDim.x, ... A workspace in global
+// scratch is then bounded by the blocks in flight (kScratchBlocksPerSM per
+// SM), not by M.
 //
-// What bounds them: the products run on the CUDA cores in the working type
-// (TF32 is off); at dx = 64 in float32 K10 does ~32 flops per byte it must
-// move and K11 ~27, above the card's ratio of 20, so both are
-// operation-bound, and K12 (~14) is bytes-bound. A block is held back by
-// shared-memory bandwidth in its products and by the n barriers of each
-// factorisation; at the scan's narrow levels (a few lanes) by latency.
+// K11b (block_smoother_elements_kernel) keeps the first design: products as
+// one dot product per output thread (common.cuh block_mm_*), the
+// one-barrier-per-column Cholesky and whole-column substitution, its four
+// n × n intermediates in dynamic shared memory when they fit, else in the
+// caller's global scratch, inputs read in place.
+//
+// K10b and K12b (tiled_combine_kernel, tiled_smoother_combine_kernel) are
+// built for the H100 from csrc/block_mm.cuh:
+// - What bounds them: the products run on the CUDA cores in the working
+//   type (TF32 is off). At dx = 64 in float32 K10b does ~32 flops per byte
+//   it must move, above the card's ratio of 20, so it is operation-bound at
+//   full width; K12b (~14) is bytes-bound there. At the scan's narrow levels
+//   (1 or 4 lanes, 132 launches of path C's 262) a lane's serial chain is
+//   the whole cost: the first design spent ~0.6 ms on one lane, with every
+//   product a chain of dependent multiply-adds at two shared loads each and
+//   one barrier per factor column.
+// - Products: one register-tiled product (tile_mm) for all of them. A
+//   thread owns a TM × TN tile of outputs (4 × 4 at dx = 64 over 256
+//   threads), in independent accumulators, and reads a TM-span of A and a
+//   TN-span of B a step, 16 bytes a load: a quarter of the shared loads per
+//   multiply-add and 16 independent chains. Transposed operands are taken
+//   by layout (A in either orientation; an operand needed as a transposed
+//   B is staged or stored transposed once: A2ᵀ and E1ᵀ by element copies
+//   along a conflict-free diagonal walk, (J2 U)ᵀ by the product's own
+//   epilogue). K12b computes only the lower half of E1 L2 E1ᵀ.
+// - Factors: K10b's two Cholesky factors are common.cuh's panel factor
+//   (five barriers at dx = 64). U = chol(C1 + εI) is zeroed unless every
+//   pivot is positive (the guard, M⁻¹ = I); the factor's epilogue zeroes
+//   U's strict upper part (which the panel factor leaves as it was) and
+//   writes U a second time, row-major. The inner factor is never inverted:
+//   M⁻¹ = I − U inner⁻¹ (J2 U)ᵀ = I − Xᵀ Y with X = L⁻¹ Uᵀ and
+//   Y = L⁻¹ (J2 U)ᵀ, two right-hand sides of one panel triangular solve,
+//   whose pivots' reciprocals are NaN unless every pivot of the inner
+//   matrix was positive (cholesky_nan: the lane is NaN throughout).
+// - Matrix-vector products: the whole block, a warp a row (mv_rows) or
+//   split along k into parts summed after a barrier (mv_cols).
+// - Staging: inputs are copied once into the workspace, 16 bytes a copy
+//   where the rows allow it; in shared memory by cp.async, issued early
+//   where a buffer is free so that the copy lands under other work (A2ᵀ
+//   under the inner factor, A1 under A2M C1, the next lane's C1 and J2, or
+//   E1ᵀ, E2, L2, under the current lane's last passes). Outputs are written
+//   16 bytes a store from registers (A, E) or from the workspace (C, J, L).
+// - Symmetric outputs: sym(X + Y) is formed in place, one thread for each
+//   pair (i, j), (j, i) along the diagonal walk, then stored row by row.
+// - Launch shape, chosen by the caller (ops/bank_combine.py block_tile,
+//   block_threads): the workspace in shared memory with a leading
+//   dimension of kTile = 64 where dx ≤ 64 and it fits (K10b: six 64²
+//   matrices, four vectors and the partial sums of mv_cols; K12b five
+//   matrices and the partial sums: both dtypes on an H100), else in global
+//   scratch with ld = dx rounded up to 64 (the same code, plain copies for
+//   cp.async). K10b runs 512 threads (tiles 4 × 2) where the lanes fit one
+//   block an SM (M ≤ the SM count) on the tile in float32, so that one
+//   lane's chain is short, else 256; K12b runs 256.
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockThreads = 256;
 constexpr int kScratchBlocksPerSM = 2;
 
-size_t block_combine_ws(int n) { return 6 * size_t(n) * n + 3 * size_t(n); }
 size_t block_elements_ws(int n) { return 4 * size_t(n) * n; }
-size_t block_scombine_ws(int n) { return 3 * size_t(n) * n; }
-
-size_t block_ws(int kind, int n) {
-  return kind == 0 ? block_combine_ws(n)
-                   : kind == 1 ? block_elements_ws(n) : block_scombine_ws(n);
-}
 
 // The global scratch, in elements, that a block kernel with a per-lane
 // workspace of ws elements needs over M lanes: 0 when the workspace fits in
@@ -578,156 +609,32 @@ bool block_plan(K kernel, size_t ws, int itemsize, int M, int device,
   return true;
 }
 
-// K10, block variant. Woodbury combine of one lane per loop iteration;
-// the comments name each workspace matrix S0..S5 as it is reused.
-template <typename T>
-__global__ void __launch_bounds__(kBlockThreads) block_combine_kernel(
-    const T* __restrict__ A1g, const T* __restrict__ b1g,
-    const T* __restrict__ C1g, const T* __restrict__ J1g,
-    const T* __restrict__ e1g, const T* __restrict__ A2g,
-    const T* __restrict__ b2g, const T* __restrict__ C2g,
-    const T* __restrict__ J2g, const T* __restrict__ e2g, T* __restrict__ Ag,
-    T* __restrict__ bg, T* __restrict__ Cg, T* __restrict__ Jg,
-    T* __restrict__ eg, int M, int Ml, int Mr, int n, T* scratch,
-    size_t ws_elems) {
-  __shared__ int s_bad;
-  __shared__ T s_eps;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t dd = size_t(n) * n;
-  T* S0 = workspace(scratch, ws_elems);
-  T* S1 = S0 + dd;
-  T* S2 = S1 + dd;
-  T* S3 = S2 + dd;
-  T* S4 = S3 + dd;
-  T* S5 = S4 + dd;
-  T* v0 = S5 + dd;  // b1 + C1 η2
-  T* v1 = v0 + n;   // η2 − J2 b1
-  T* v2 = v1 + n;   // M⁻ᵀ (η2 − J2 b1)
-
-  for (int m = blockIdx.x; m < M; m += gridDim.x) {
-    const size_t l = Ml == M ? m : m % Ml;  // lane of the left operand
-    const size_t r = Mr == M ? m : m % Mr;  // lane of the right operand
-    const T* A1 = A1g + l * dd;
-    const T* C1 = C1g + l * dd;
-    const T* J1 = J1g + l * dd;
-    const T* b1 = b1g + l * n;
-    const T* e1 = e1g + l * n;
-    const T* A2 = A2g + r * dd;
-    const T* C2 = C2g + r * dd;
-    const T* J2 = J2g + r * dd;
-    const T* b2 = b2g + r * n;
-    const T* e2 = e2g + r * n;
-
-    // ε = 1e-7·tr(C1)/dx + 1e-30; S0 = the lower triangle of C1 + εI,
-    // column-major, factored in place: U, zeroed unless every pivot is
-    // positive (then M⁻¹ = I)
-    if (tid == 0) {
-      T tr = T(0);
-      for (int i = 0; i < n; ++i) tr += C1[i * n + i];
-      s_eps = T(1e-7) * tr / T(n) + T(1e-30);
-    }
-    __syncthreads();
-    const T eps = s_eps;
-    for (int idx = tid; idx < n * n; idx += nt) {
-      const int j = idx / n, i = idx % n;
-      S0[idx] = i >= j ? C1[i * n + j] + (i == j ? eps : T(0)) : T(0);
-    }
-    __syncthreads();
-    block_cholesky_cm(S0, n, &s_bad, T(0));  // S0 = Uᵀ (row-major)
-    block_transpose(S1, S0, n, n);           // S1 = U
-    __syncthreads();
-    block_mm_nn(S2, J2, S1, n, n, n);        // S2 = J2 U
-    __syncthreads();
-    block_mm_nn(S3, S0, S2, n, n, n);        // S3 = Uᵀ J2 U
-    __syncthreads();
-
-    // inner = I + sym(Uᵀ J2 U), symmetric, so its row-major storage is the
-    // column-major lower triangle; factor in place (NaN on failure, as
-    // cholesky_nan), then S4 = its L⁻¹ and S0 = inner⁻¹ = L⁻ᵀ L⁻¹
-    for (int idx = tid; idx < n * n; idx += nt) {
-      const int i = idx / n, j = idx % n;
-      if (i < j) {
-        const T v = T(0.5) * (S3[i * n + j] + S3[j * n + i]);
-        S3[i * n + j] = v;
-        S3[j * n + i] = v;
-      } else if (i == j) {
-        S3[idx] = T(0.5) * (S3[idx] + S3[idx]) + T(1);
-      }
-    }
-    __syncthreads();
-    block_cholesky_cm(S3, n, &s_bad, qnan<T>());
-    block_tri_inv_cm(S4, S3, n);
-    __syncthreads();
-    block_mm_tn(S0, S4, S4, n, n, n);        // S0 = inner⁻¹
-    block_transpose(S5, S2, n, n);           // S5 = (J2 U)ᵀ
-    __syncthreads();
-
-    // M⁻¹ = I − U inner⁻¹ (J2 U)ᵀ
-    block_mm_nn(S3, S0, S5, n, n, n);        // S3 = V = inner⁻¹ (J2 U)ᵀ
-    __syncthreads();
-    block_mm_nn(S2, S1, S3, n, n, n);        // S2 = U V
-    __syncthreads();
-    for (int idx = tid; idx < n * n; idx += nt)
-      S2[idx] = (idx / n == idx % n ? T(1) : T(0)) - S2[idx];  // S2 = M⁻¹
-    __syncthreads();
-
-    // A = (A2 M⁻¹) A1; the vectors b1 + C1 η2 and η2 − J2 b1
-    block_mm_nn(S0, A2, S2, n, n, n);        // S0 = A2M = A2 M⁻¹
-    for (int i = tid; i < n; i += nt) {
-      T acc = b1[i];
-      for (int k = 0; k < n; ++k) acc += C1[i * n + k] * e2[k];
-      v0[i] = acc;
-      T w = T(0);
-      for (int k = 0; k < n; ++k) w += J2[i * n + k] * b1[k];
-      v1[i] = e2[i] - w;
-    }
-    __syncthreads();
-    block_mm_nn(Ag + size_t(m) * dd, S0, A1, n, n, n);
-
-    // b = A2M (b1 + C1 η2) + b2;  v2 = M⁻ᵀ (η2 − J2 b1)
-    for (int i = tid; i < n; i += nt) {
-      T acc = T(0);
-      for (int k = 0; k < n; ++k) acc += S0[i * n + k] * v0[k];
-      bg[size_t(m) * n + i] = acc + b2[i];
-      T t = T(0);
-      for (int k = 0; k < n; ++k) t += S2[k * n + i] * v1[k];
-      v2[i] = t;
-    }
-    // C = sym(A2M C1 A2ᵀ + C2)
-    block_mm_nn(S3, S0, C1, n, n, n);        // S3 = A2M C1
-    block_transpose(S4, A2, n, n);           // S4 = A2ᵀ
-    __syncthreads();
-    block_mm_nn(S5, S3, S4, n, n, n);        // S5 = A2M C1 A2ᵀ
-    // η = A1ᵀ v2 + η1
-    for (int i = tid; i < n; i += nt) {
-      T acc = T(0);
-      for (int k = 0; k < n; ++k) acc += A1[k * n + i] * v2[k];
-      eg[size_t(m) * n + i] = acc + e1[i];
-    }
-    __syncthreads();
-    T* C = Cg + size_t(m) * dd;
-    for (int idx = tid; idx < n * n; idx += nt) {
-      const int i = idx / n, j = idx % n;
-      C[idx] = T(0.5) * ((S5[i * n + j] + S5[j * n + i])
-                         + (C2[i * n + j] + C2[j * n + i]));
-    }
-
-    // J = sym(A1ᵀ (M⁻ᵀ J2) A1 + J1)
-    block_mm_tn(S3, S2, J2, n, n, n);        // S3 = M⁻ᵀ J2
-    __syncthreads();
-    block_mm_nn(S4, S3, A1, n, n, n);        // S4 = M⁻ᵀ J2 A1
-    __syncthreads();
-    block_mm_tn(S5, A1, S4, n, n, n);        // S5 = A1ᵀ M⁻ᵀ J2 A1
-    __syncthreads();
-    T* J = Jg + size_t(m) * dd;
-    for (int idx = tid; idx < n * n; idx += nt) {
-      const int i = idx / n, j = idx % n;
-      J[idx] = T(0.5) * ((S5[i * n + j] + S5[j * n + i])
-                         + (J1[i * n + j] + J1[j * n + i]));
-    }
-    __syncthreads();
-  }
+// K10b's and K12b's workspaces (kinds 0 and 2 of ops/bank_combine.py
+// tiled_ws) at leading dimension ld: K10b six ld × ld matrices, four
+// vectors and mv_cols' partial sums, K12b five matrices and the partial
+// sums. The partial sums take max(512, ld): enough for either block size.
+__host__ __device__ constexpr size_t tiled_ws(int kind, int ld) {
+  return (kind == 0 ? 6 : 5) * size_t(ld) * ld + (kind == 0 ? 4 * ld : 0) +
+         size_t(ld > 512 ? ld : 512);
 }
+
+// The leading dimension of a tiled workspace: the tile, or on the global
+// route (tile 0) dx rounded up to the 64 × 64 super-tile of 256 threads.
+__host__ __device__ constexpr int tiled_ld(int tile, int n) {
+  return tile ? tile : (n + 63) / 64 * 64;
+}
+
+// The shared-memory route's leading dimension (ops/bank_combine.py TILE).
+constexpr int kTile = 64;
+
+// The register tiles: a 64 × 64 super-tile on either route, over NT threads
+// laid out 16 × NT/16 (4 × 4 a thread at 256 threads, 4 × 2 at 512).
+template <int NT>
+struct Tiling {
+  static constexpr int TM = 4;
+  static constexpr int TN = 64 / (NT / 16);
+  static_assert(TN * (NT / 16) == 64, "tile shape");
+};
 
 // K11, block variant: the RTS elements of one lane per loop iteration.
 template <typename T>
@@ -793,58 +700,411 @@ __global__ void __launch_bounds__(kBlockThreads) block_smoother_elements_kernel(
   }
 }
 
-// K12, block variant: the smoothing combine of one lane per loop iteration.
+// The epilogues of tile_mm that K10b and K12b use: a tile into a workspace
+// matrix (ld), row by row or transposed, into a global output (rows of n,
+// `vec` when they are 16-byte aligned), or as I − tile.
+template <typename T, int TM, int TN>
+struct Put {
+  int n;
+  __device__ auto rows(T* X, int ld) const {
+    const int n_ = n;
+    return [=](int i0, int j0, const T (&acc)[TM][TN]) {
+      put_rows<false>(X, ld, i0, j0, acc, n_, n_, 0, true,
+                      [](T v, int, int) { return v; });
+    };
+  }
+  __device__ auto out(T* X, bool vec) const {
+    const int n_ = n;
+    return [=](int i0, int j0, const T (&acc)[TM][TN]) {
+      put_rows<false>(X, n_, i0, j0, acc, n_, n_, 0, vec,
+                      [](T v, int, int) { return v; });
+    };
+  }
+  __device__ auto cols(T* X, int ld) const {
+    const int n_ = n;
+    return [=](int i0, int j0, const T (&acc)[TM][TN]) {
+      put_cols(X, ld, i0, j0, acc, n_, n_);
+    };
+  }
+  __device__ auto eye_minus(T* X, int ld) const {
+    const int n_ = n;
+    return [=](int i0, int j0, const T (&acc)[TM][TN]) {
+      put_rows<false>(X, ld, i0, j0, acc, n_, n_, 0, true, [](T v, int i, int j) {
+        return (i == j ? T(1) : T(0)) - v;
+      });
+    };
+  }
+};
+
+// X (ld) += G (n × n, row-major, global), rows of X coalesced.
 template <typename T>
-__global__ void __launch_bounds__(kBlockThreads) block_smoother_combine_kernel(
-    const T* __restrict__ E1g, const T* __restrict__ g1g,
-    const T* __restrict__ L1g, const T* __restrict__ E2g,
-    const T* __restrict__ g2g, const T* __restrict__ L2g, T* __restrict__ Eg,
-    T* __restrict__ gg, T* __restrict__ Lg, int M, int Ml, int Mr, int n,
-    T* scratch, size_t ws_elems) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t dd = size_t(n) * n;
-  T* S0 = workspace(scratch, ws_elems);
-  T* S1 = S0 + dd;
-  T* S2 = S1 + dd;
+__device__ void add_in(T* X, int ld, const T* G, int n) {
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+    const int i = idx / n, j = idx - i * n;
+    X[i * ld + j] += G[idx];
+  }
+}
+
+// The symmetric part of X (ld) in place: one thread for each pair.
+template <typename T>
+__device__ void sym_in(T* X, int ld, int n) {
+  diag_walk((n + kWarp - 1) / kWarp * kWarp, [&](int i, int j) {
+    if (i < n && j < i) {
+      const T v = T(0.5) * (X[i * ld + j] + X[j * ld + i]);
+      X[i * ld + j] = v;
+      X[j * ld + i] = v;
+    }
+  });
+}
+
+// out (n × n, global) ← X (ld): 16 bytes a store where the rows allow it.
+template <typename T>
+__device__ void copy_out(T* out, const T* X, int ld, int n, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  using W = typename Vec<T, V>::type;
+  if (vec) {
+    const int nv = n / V;
+    for (int idx = threadIdx.x; idx < n * nv; idx += blockDim.x) {
+      const int i = idx / nv, c = (idx - i * nv) * V;
+      *reinterpret_cast<W*>(out + size_t(i) * n + c) =
+          *reinterpret_cast<const W*>(X + i * ld + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+      const int i = idx / n, j = idx - i * n;
+      out[idx] = X[i * ld + j];
+    }
+  }
+}
+
+// Whether n × n row-major outputs at p keep every row 16-byte aligned.
+template <typename T>
+__device__ bool rows_aligned(const T* p, int n) {
+  return n % (16 / int(sizeof(T))) == 0 &&
+         (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// K10b: the Woodbury combine of one lane per loop iteration. TILE > 0: the
+// workspace in dynamic shared memory with ld = TILE ≥ n; TILE = 0: in the
+// caller's global scratch with ld = n rounded up to 64. The comments name
+// the workspace matrices B0..B5 as they are reused.
+template <typename T, int TILE, int NT>
+__global__ void __launch_bounds__(NT, (NT == 256 && sizeof(T) == 4) ? 2 : 1)
+    tiled_combine_kernel(const T* __restrict__ A1g, const T* __restrict__ b1g,
+                         const T* __restrict__ C1g, const T* __restrict__ J1g,
+                         const T* __restrict__ e1g, const T* __restrict__ A2g,
+                         const T* __restrict__ b2g, const T* __restrict__ C2g,
+                         const T* __restrict__ J2g, const T* __restrict__ e2g,
+                         T* __restrict__ Ag, T* __restrict__ bg,
+                         T* __restrict__ Cg, T* __restrict__ Jg,
+                         T* __restrict__ eg, int M, int Ml, int Mr, int n,
+                         T* scratch) {
+  constexpr bool kSmem = TILE > 0;
+  constexpr int TM = Tiling<NT>::TM, TN = Tiling<NT>::TN;
+  __shared__ int s_bad;
+  __shared__ T s_eps;
+  const int tid = threadIdx.x;
+  const int ld = tiled_ld(TILE, n);
+  const size_t LL = size_t(ld) * ld, dd = size_t(n) * n;
+  T* B0 = kSmem ? shared_workspace<T>()
+                : scratch + size_t(blockIdx.x) * tiled_ws(0, ld);
+  T* B1 = B0 + LL;
+  T* B2 = B1 + LL;
+  T* B3 = B2 + LL;
+  T* B4 = B3 + LL;
+  T* B5 = B4 + LL;
+  T* v0 = B5 + LL;   // b1 + C1 η2
+  T* v1 = v0 + ld;   // η2 − J2 b1
+  T* v2 = v1 + ld;   // M⁻ᵀ (η2 − J2 b1)
+  T* dinv = v2 + ld;  // the inner factor's pivots' reciprocals
+  T* part = dinv + ld;
+  const Put<T, TM, TN> put{n};
+  // C = A B over n × n, A(i, k) = A[k·ld + i] (at) or A[i·ld + k] (rows)
+  const auto mm = [&](auto layout, const T* A, const T* B, auto epi) {
+    tile_mm<T, NT, TM, TN, decltype(layout)::value>(A, ld, B, ld, n, n, n, 0,
+                                                    false, epi);
+  };
+  const std::true_type at{};
+  const std::false_type rows{};
+  const int ext = (n + kWarp - 1) / kWarp * kWarp;
+  bool staged = false;  // this lane's C1 and J2 are in B0 and B1
+
+  for (int m = blockIdx.x; m < M; m += gridDim.x) {
+    const size_t l = Ml == M ? m : m % Ml;  // lane of the left operand
+    const size_t r = Mr == M ? m : m % Mr;  // lane of the right operand
+    const T* A1 = A1g + l * dd;
+    const T* C1 = C1g + l * dd;
+    const T* J1 = J1g + l * dd;
+    const T* b1 = b1g + l * n;
+    const T* e1 = e1g + l * n;
+    const T* A2 = A2g + r * dd;
+    const T* C2 = C2g + r * dd;
+    const T* J2 = J2g + r * dd;
+    const T* b2 = b2g + r * n;
+    const T* e2 = e2g + r * n;
+    T* A = Ag + size_t(m) * dd;
+    T* C = Cg + size_t(m) * dd;
+    T* J = Jg + size_t(m) * dd;
+
+    // B0 = C1, B1 = J2
+    if (!staged) {
+      stage<T, kSmem>(B0, ld, C1, n);
+      stage<T, kSmem>(B1, ld, J2, n);
+    }
+    if (kSmem) {
+      cp_async_commit();
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    // ε = 1e-7·tr(C1)/dx + 1e-30; v0 = b1 + C1 η2, v1 = η2 − J2 b1
+    if (tid < kWarp) {
+      T tr = T(0);
+      for (int i = tid; i < n; i += kWarp) tr += B0[i * ld + i];
+      tr = warp_sum(tr);
+      if (tid == 0) {
+        s_eps = T(1e-7) * tr / T(n) + T(1e-30);
+        s_bad = 0;
+      }
+    }
+    mv_rows(B0, ld, e2, n, [&](int i, T s) { v0[i] = b1[i] + s; });
+    mv_rows(B1, ld, b1, n, [&](int i, T s) { v1[i] = e2[i] - s; });
+    __syncthreads();
+    // B2 = the lower triangle of C1 + εI, column-major, factored in place:
+    // U, zeroed unless every pivot is positive (then M⁻¹ = I)
+    const T eps = s_eps;
+    diag_walk(ext, [&](int i, int j) {
+      if (i < n && j <= i)
+        B2[j * ld + i] = B0[i * ld + j] + (i == j ? eps : T(0));
+    });
+    __syncthreads();
+    block_cholesky_panels(B2, n, &s_bad, ld);
+    const bool bad_u = s_bad != 0;
+    // B2 = Uᵀ row-major (U's strict upper part zeroed), B3 = U
+    diag_walk(ext, [&](int i, int k) {
+      if (i < n && k < n) {
+        const T u = !bad_u && i >= k ? B2[k * ld + i] : T(0);
+        B2[k * ld + i] = u;
+        B3[i * ld + k] = u;
+      }
+    });
+    __syncthreads();
+    mm(rows, B1, B3, put.cols(B4, ld));  // B4 = (J2 U)ᵀ
+    __syncthreads();
+    mm(rows, B4, B3, put.rows(B5, ld));  // B5 = (J2 U)ᵀ U = (Uᵀ J2 U)ᵀ
+    __syncthreads();
+    // B3 = A2ᵀ (U is dead), landing under the inner factor and the solve
+    stage_t<T, kSmem>(B3, ld, A2, n);
+    if (kSmem) cp_async_commit();
+    // inner = I + sym(Uᵀ J2 U): its lower triangle column-major in place
+    diag_walk(ext, [&](int i, int j) {
+      if (i < n && j <= i) {
+        const T g = T(0.5) * (B5[i * ld + j] + B5[j * ld + i]);
+        B5[j * ld + i] = i == j ? g + T(1) : g;
+      }
+    });
+    if (tid == 0) s_bad = 0;
+    __syncthreads();
+    block_cholesky_panels(B5, n, &s_bad, ld);
+    // NaN throughout unless every pivot is positive (cholesky_nan)
+    const bool bad_inner = s_bad != 0;
+    for (int i = tid; i < ld; i += NT)
+      dinv[i] = bad_inner ? qnan<T>() : i < n ? T(1) / B5[i * ld + i] : T(1);
+    __syncthreads();
+    // B2 = X = L⁻¹ Uᵀ, B4 = Y = L⁻¹ (J2 U)ᵀ; M⁻¹ = I − Xᵀ Y into B5
+    block_tri_solve2<T, NT, TM, TN>(B5, dinv, B2, B4, n, ld);
+    mm(at, B2, B4, put.eye_minus(B5, ld));
+    if (kSmem) cp_async_wait_all();
+    __syncthreads();
+    // B2 = M⁻ᵀ J2, B4 = A2M = A2 M⁻¹, v2 = M⁻ᵀ v1
+    mm(at, B5, B1, put.rows(B2, ld));
+    mm(at, B3, B5, put.rows(B4, ld));
+    mv_cols(B5, ld, v1, n, part, [&](int i, T s) { v2[i] = s; });
+    __syncthreads();
+    // B1 = A1 (J2 is dead), landing under A2M C1
+    stage<T, kSmem>(B1, ld, A1, n);
+    if (kSmem) cp_async_commit();
+    // B5 = A2M C1; b = A2M (b1 + C1 η2) + b2
+    mm(rows, B4, B0, put.rows(B5, ld));
+    mv_rows(B4, ld, v0, n,
+            [&](int i, T s) { bg[size_t(m) * n + i] = s + b2[i]; });
+    if (kSmem) cp_async_wait_all();
+    __syncthreads();
+    // B0 = (M⁻ᵀ J2) A1; A = A2M A1; η = A1ᵀ v2 + η1
+    mm(rows, B2, B1, put.rows(B0, ld));
+    mm(rows, B4, B1, put.out(A, rows_aligned(Ag, n)));
+    mv_cols(B1, ld, v2, n, part,
+            [&](int i, T s) { eg[size_t(m) * n + i] = s + e1[i]; });
+    __syncthreads();
+    // B2 = A1ᵀ (M⁻ᵀ J2 A1); B4 = A2M C1 A2ᵀ
+    mm(at, B1, B0, put.rows(B2, ld));
+    mm(rows, B5, B3, put.rows(B4, ld));
+    __syncthreads();
+    // the next lane's C1 and J2 into B0 and B1 (both dead), landing under
+    // the symmetric parts
+    const int next = m + int(gridDim.x);
+    staged = kSmem && next < M;
+    if (staged) {
+      stage<T, kSmem>(B0, ld, C1g + (Ml == M ? next : next % Ml) * dd, n);
+      stage<T, kSmem>(B1, ld, J2g + (Mr == M ? next : next % Mr) * dd, n);
+    }
+    // J = sym(A1ᵀ M⁻ᵀ J2 A1 + J1), C = sym(A2M C1 A2ᵀ + C2)
+    add_in(B2, ld, J1, n);
+    add_in(B4, ld, C2, n);
+    __syncthreads();
+    sym_in(B2, ld, n);
+    sym_in(B4, ld, n);
+    __syncthreads();
+    copy_out(J, B2, ld, n, rows_aligned(Jg, n));
+    copy_out(C, B4, ld, n, rows_aligned(Cg, n));
+  }
+}
+
+// K12b: the smoothing combine of one lane per loop iteration, on the same
+// routes as K10b.
+template <typename T, int TILE, int NT>
+__global__ void __launch_bounds__(NT, (NT == 256 && sizeof(T) == 4) ? 2 : 1)
+    tiled_smoother_combine_kernel(
+        const T* __restrict__ E1g, const T* __restrict__ g1g,
+        const T* __restrict__ L1g, const T* __restrict__ E2g,
+        const T* __restrict__ g2g, const T* __restrict__ L2g,
+        T* __restrict__ Eg, T* __restrict__ gg, T* __restrict__ Lg, int M,
+        int Ml, int Mr, int n, T* scratch) {
+  constexpr bool kSmem = TILE > 0;
+  constexpr int TM = Tiling<NT>::TM, TN = Tiling<NT>::TN;
+  const int ld = tiled_ld(TILE, n);
+  const size_t LL = size_t(ld) * ld, dd = size_t(n) * n;
+  T* B0 = kSmem ? shared_workspace<T>()
+                : scratch + size_t(blockIdx.x) * tiled_ws(2, ld);
+  T* B1 = B0 + LL;  // E2, then W = E1 L2 E1ᵀ
+  T* B2 = B1 + LL;  // L2
+  T* B3 = B2 + LL;  // X = E1 L2
+  T* B4 = B3 + LL;  // L1, then L
+  T* part = B4 + LL;
+  const Put<T, TM, TN> put{n};
+  bool staged = false;  // this lane's E1ᵀ, E2 and L2 are in B0..B2
 
   for (int m = blockIdx.x; m < M; m += gridDim.x) {
     const size_t l = Ml == M ? m : m % Ml;
     const size_t r = Mr == M ? m : m % Mr;
     const T* E1 = E1g + l * dd;
-    const T* L1 = L1g + l * dd;
     const T* g1 = g1g + l * n;
-    const T* E2 = E2g + r * dd;
-    const T* L2 = L2g + r * dd;
     const T* g2 = g2g + r * n;
+    const int next = m + int(gridDim.x);
+    const size_t ln = Ml == M ? next : next % Ml;
+    const size_t rn = Mr == M ? next : next % Mr;
 
-    block_mm_nn(Eg + size_t(m) * dd, E1, E2, n, n, n);  // E = E1 E2
-    for (int i = tid; i < n; i += nt) {                 // g = E1 g2 + g1
-      T acc = T(0);
-      for (int k = 0; k < n; ++k) acc += E1[i * n + k] * g2[k];
-      gg[size_t(m) * n + i] = acc + g1[i];
+    __syncthreads();  // the last lane's L is out of B4
+    stage<T, kSmem>(B4, ld, L1g + l * dd, n);
+    if (!staged) {
+      stage_t<T, kSmem>(B0, ld, E1, n);
+      stage<T, kSmem>(B1, ld, E2g + r * dd, n);
+      stage<T, kSmem>(B2, ld, L2g + r * dd, n);
     }
-    block_mm_nn(S0, E1, L2, n, n, n);        // S0 = E1 L2
-    block_transpose(S1, E1, n, n);           // S1 = E1ᵀ
-    __syncthreads();
-    block_mm_nn(S2, S0, S1, n, n, n);        // S2 = E1 L2 E1ᵀ
-    __syncthreads();
-    T* L = Lg + size_t(m) * dd;              // L = sym(E1 L2 E1ᵀ + L1)
-    for (int idx = tid; idx < n * n; idx += nt) {
-      const int i = idx / n, j = idx % n;
-      L[idx] = T(0.5) * ((S2[i * n + j] + S2[j * n + i])
-                         + (L1[i * n + j] + L1[j * n + i]));
+    if (kSmem) {
+      cp_async_commit();
+      cp_async_wait_all();
     }
     __syncthreads();
+    // E = E1 E2 (out from registers); B3 = E1 L2; g = E1 g2 + g1
+    tile_mm<T, NT, TM, TN, true>(B0, ld, B1, ld, n, n, n, 0, false,
+                                 put.out(Eg + size_t(m) * dd,
+                                         rows_aligned(Eg, n)));
+    tile_mm<T, NT, TM, TN, true>(B0, ld, B2, ld, n, n, n, 0, false,
+                                 put.rows(B3, ld));
+    mv_cols(B0, ld, g2, n, part,
+            [&](int i, T s) { gg[size_t(m) * n + i] = s + g1[i]; });
+    __syncthreads();
+    // B1 = W = (E1 L2) E1ᵀ, its lower half
+    tile_mm<T, NT, TM, TN, false>(B3, ld, B0, ld, n, n, n, 0, true,
+                                  put.rows(B1, ld));
+    __syncthreads();
+    staged = kSmem && next < M;
+    if (staged) {  // the next lane's E1ᵀ and L2 (B0, B2 are dead)
+      stage_t<T, kSmem>(B0, ld, E1g + ln * dd, n);
+      stage<T, kSmem>(B2, ld, L2g + rn * dd, n);
+    }
+    // L = sym(W + L1) in B4, W read from its lower half
+    diag_walk((n + kWarp - 1) / kWarp * kWarp, [&](int i, int j) {
+      if (i < n && j <= i) {
+        const T w = B1[i * ld + j];
+        const T v = T(0.5) * ((w + B4[i * ld + j]) + (w + B4[j * ld + i]));
+        B4[i * ld + j] = v;
+        B4[j * ld + i] = v;
+      }
+    });
+    __syncthreads();
+    if (staged) stage<T, kSmem>(B1, ld, E2g + rn * dd, n);  // W is dead
+    copy_out(Lg + size_t(m) * dd, B4, ld, n, rows_aligned(Lg, n));
   }
 }
 
+// The tiled kernel for (tile, threads), or null where none is built: tiles
+// 0 (global scratch) and kTile at 256 threads; K10b also kTile at 512
+// threads in float32 (ops/bank_combine.py block_threads).
+template <typename T>
+auto combine_kernel_for(int tile, int threads)
+    -> decltype(&tiled_combine_kernel<T, 0, kBlockThreads>) {
+  if (threads == kBlockThreads && tile == 0)
+    return tiled_combine_kernel<T, 0, kBlockThreads>;
+  if (threads == kBlockThreads && tile == kTile)
+    return tiled_combine_kernel<T, kTile, kBlockThreads>;
+  if constexpr (sizeof(T) == 4)
+    if (threads == 512 && tile == kTile)
+      return tiled_combine_kernel<T, kTile, 512>;
+  return nullptr;
+}
+
+template <typename T>
+auto scombine_kernel_for(int tile, int threads)
+    -> decltype(&tiled_smoother_combine_kernel<T, 0, kBlockThreads>) {
+  if (threads == kBlockThreads && tile == 0)
+    return tiled_smoother_combine_kernel<T, 0, kBlockThreads>;
+  if (threads == kBlockThreads && tile == kTile)
+    return tiled_smoother_combine_kernel<T, kTile, kBlockThreads>;
+  return nullptr;
+}
+
+// Launch a tiled kernel of workspace kind 0 (K10b) or 2 (K12b) over M
+// lanes: with tile > 0 a persistent grid of as many blocks as the SMs hold
+// at once, the workspace in dynamic shared memory; with tile 0
+// kScratchBlocksPerSM blocks an SM (at most M), each on its slice of the
+// caller's scratch (bft_block_scratch_elems).
 template <typename T, typename K, typename... Args>
-int launch_block(K kernel, int kind, void* scratch, int M, int dx,
-                 void* stream, Args... args) {
+int launch_tiled(K kernel, int kind, int tile, int threads, void* scratch,
+                 int M, int n, void* stream, Args... args) {
+  int dev = 0, sms = 0, grid = 0;
+  size_t smem = 0;
+  if (kernel == nullptr || n < 1 || (tile != 0 && tile < n) ||
+      (tile == 0) != (scratch != nullptr) ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return int(cudaErrorInvalidValue);
+  if (tile) {
+    int per_sm = 0;
+    smem = tiled_ws(kind, tile) * sizeof(T);
+    const int err = set_smem(kernel, smem);
+    if (err != 0) return err;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, threads, smem) != cudaSuccess ||
+        per_sm < 1)
+      return int(cudaErrorInvalidConfiguration);
+    grid = std::min(M, per_sm * sms);
+  } else {
+    grid = std::min(M, kScratchBlocksPerSM * sms);
+  }
+  kernel<<<grid, threads, smem, cudaStream_t(stream)>>>(
+      args..., static_cast<T*>(scratch));
+  return int(cudaGetLastError());
+}
+
+template <typename T, typename K, typename... Args>
+int launch_block(K kernel, void* scratch, int M, int dx, void* stream,
+                 Args... args) {
   int dev = 0, grid = 0;
   size_t smem = 0;
   long long need = 0;
-  const size_t ws = block_ws(kind, dx);
+  const size_t ws = block_elements_ws(dx);
   if (cudaGetDevice(&dev) != cudaSuccess ||
       !block_plan(kernel, ws, int(sizeof(T)), M, dev, &grid, &smem, &need) ||
       (need > 0 && scratch == nullptr))
@@ -907,9 +1167,20 @@ int bft_bank_smoother_combine_f64(const void* E1, const void* g1,
                                  dx, stream);
 }
 
+// The global scratch, in elements, of a block kernel over M lanes: K11b
+// (kind 1) 0 when its workspace fits in shared memory; K10b and K12b
+// (kinds 0 and 2) that of their global route (tile 0), which the caller
+// takes where the tiles do not fit. -1 on a failed device query.
 long long bft_block_scratch_elems(int kind, int M, int dx, int itemsize,
                                   int device) {
-  return block_scratch_elems(block_ws(kind, dx), itemsize, M, device);
+  if (kind == 1)
+    return block_scratch_elems(block_elements_ws(dx), itemsize, M, device);
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+      cudaSuccess)
+    return -1;
+  return (long long)std::min(M, kScratchBlocksPerSM * sms) *
+         (long long)tiled_ws(kind, tiled_ld(0, dx));
 }
 
 #define BFT_BLOCK_COMBINE_ENTRY(NAME, T)                                     \
@@ -917,12 +1188,13 @@ long long bft_block_scratch_elems(int kind, int M, int dx, int itemsize,
            const void* e1, const void* A2, const void* b2, const void* C2,   \
            const void* J2, const void* e2, void* A, void* b, void* C,        \
            void* J, void* e, void* scratch, int M, int Ml, int Mr, int dx,   \
-           void* stream) {                                                   \
+           int tile, int threads, void* stream) {                            \
     using P = const T*;                                                      \
-    return launch_block<T>(block_combine_kernel<T>, 0, scratch, M, dx,       \
-                           stream, P(A1), P(b1), P(C1), P(J1), P(e1), P(A2), \
-                           P(b2), P(C2), P(J2), P(e2), (T*)A, (T*)b, (T*)C,  \
-                           (T*)J, (T*)e, M, Ml, Mr, dx);                     \
+    return launch_tiled<T>(combine_kernel_for<T>(tile, threads), 0, tile,    \
+                           threads, scratch, M, dx, stream, P(A1), P(b1),    \
+                           P(C1), P(J1), P(e1), P(A2), P(b2), P(C2), P(J2),  \
+                           P(e2), (T*)A, (T*)b, (T*)C, (T*)J, (T*)e, M, Ml,  \
+                           Mr, dx);                                          \
   }
 BFT_BLOCK_COMBINE_ENTRY(bft_block_combine_f32, float)
 BFT_BLOCK_COMBINE_ENTRY(bft_block_combine_f64, double)
@@ -933,7 +1205,7 @@ BFT_BLOCK_COMBINE_ENTRY(bft_block_combine_f64, double)
            const void* F, void* E, void* g, void* L, void* scratch, int M,   \
            int f_banked, int dx, void* stream) {                             \
     using P = const T*;                                                      \
-    return launch_block<T>(block_smoother_elements_kernel<T>, 1, scratch, M, \
+    return launch_block<T>(block_smoother_elements_kernel<T>, scratch, M,    \
                            dx, stream, P(fm), P(fP), P(pm), P(pP), P(F),     \
                            (T*)E, (T*)g, (T*)L, M, f_banked, dx);            \
   }
@@ -944,11 +1216,13 @@ BFT_BLOCK_ELEMENTS_ENTRY(bft_block_smoother_elements_f64, double)
 #define BFT_BLOCK_SCOMBINE_ENTRY(NAME, T)                                    \
   int NAME(const void* E1, const void* g1, const void* L1, const void* E2,   \
            const void* g2, const void* L2, void* E, void* g, void* L,        \
-           void* scratch, int M, int Ml, int Mr, int dx, void* stream) {     \
+           void* scratch, int M, int Ml, int Mr, int dx, int tile,           \
+           int threads, void* stream) {                                      \
     using P = const T*;                                                      \
-    return launch_block<T>(block_smoother_combine_kernel<T>, 2, scratch, M,  \
-                           dx, stream, P(E1), P(g1), P(L1), P(E2), P(g2),    \
-                           P(L2), (T*)E, (T*)g, (T*)L, M, Ml, Mr, dx);       \
+    return launch_tiled<T>(scombine_kernel_for<T>(tile, threads), 2, tile,   \
+                           threads, scratch, M, dx, stream, P(E1), P(g1),    \
+                           P(L1), P(E2), P(g2), P(L2), (T*)E, (T*)g, (T*)L,  \
+                           M, Ml, Mr, dx);                                   \
   }
 BFT_BLOCK_SCOMBINE_ENTRY(bft_block_smoother_combine_f32, float)
 BFT_BLOCK_SCOMBINE_ENTRY(bft_block_smoother_combine_f64, double)

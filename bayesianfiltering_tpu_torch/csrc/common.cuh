@@ -181,8 +181,8 @@ __device__ bool warp_cholesky(T (&a)[kWarp], int n, T* rinv) {
 }
 
 // In-place Cholesky of the n × n symmetric matrix whose lower triangle Lc
-// holds column-major (Lc[j*n + i] = S[i][j] for i ≥ j), right-looking in
-// panels of kWarp columns:
+// holds column-major with leading dimension ld ≥ n (Lc[j*ld + i] = S[i][j]
+// for i ≥ j), right-looking in panels of kWarp columns:
 // 1. warp 0 factors the panel's diagonal block in registers
 //    (warp_cholesky);
 // 2. each thread forward-substitutes whole rows of the panel below it
@@ -192,27 +192,29 @@ __device__ bool warp_cholesky(T (&a)[kWarp], int n, T* rinv) {
 //    thread touches the row;
 // 3. the block applies the lower trailing update.
 // Three barriers a panel (n = 64: five in all) instead of one a column.
-// Writes only the lower triangle: the strict upper part is left as it
-// was, and the caller reads it as zero. Sets *s_bad unless every pivot is
+// Writes the lower triangle, and the parked reciprocals into the strict
+// upper part, which is otherwise left as it was: the caller must not read
+// it (or must zero it) and handles a failed factor itself (K6/K7 NaN their
+// points; K10b zeroes one factor and NaNs the other's solves). Sets *s_bad unless every pivot is
 // positive. The block must have synchronised after Lc was written and
 // *s_bad cleared; ends synchronised.
 template <typename T>
-__device__ void block_cholesky_panels(T* Lc, int n, int* s_bad) {
+__device__ void block_cholesky_panels(T* Lc, int n, int* s_bad, int ld) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int k = 0; k < n; k += kWarp) {
     const int nb = min(kWarp, n - k);
-    const T* D = Lc + k * n + k;  // D[c*n + r]: the diagonal block's (r, c)
+    const T* D = Lc + k * ld + k;  // D[c*ld + r]: the diagonal block's (r, c)
     const int below = k + nb;
-    T* inv = Lc + below * n + k;  // rows k.., column below: strict upper
+    T* inv = Lc + below * ld + k;  // rows k.., column below: strict upper
     if (tid < kWarp) {
       T a[kWarp], rinv = T(0);
 #pragma unroll
       for (int c = 0; c < kWarp; ++c)
-        a[c] = tid < nb && c <= tid ? D[c * n + tid] : T(0);
+        a[c] = tid < nb && c <= tid ? D[c * ld + tid] : T(0);
       if (warp_cholesky(a, nb, &rinv) && tid == 0) *s_bad = 1;
 #pragma unroll
       for (int c = 0; c < kWarp; ++c)
-        if (tid < nb && c <= tid) Lc[(k + c) * n + k + tid] = a[c];
+        if (tid < nb && c <= tid) Lc[(k + c) * ld + k + tid] = a[c];
       if (below < n) inv[tid] = rinv;
     }
     __syncthreads();
@@ -222,27 +224,27 @@ __device__ void block_cholesky_panels(T* Lc, int n, int* s_bad) {
     for (int i = below + tid; i < n; i += nt) {
       T x[kWarp];
 #pragma unroll
-      for (int c = 0; c < kWarp; ++c) x[c] = Lc[(k + c) * n + i];
+      for (int c = 0; c < kWarp; ++c) x[c] = Lc[(k + c) * ld + i];
 #pragma unroll
       for (int c = 0; c < kWarp; ++c) {
         x[c] *= inv[c];
 #pragma unroll
-        for (int j = c + 1; j < kWarp; ++j) x[j] -= x[c] * D[c * n + j];
+        for (int j = c + 1; j < kWarp; ++j) x[j] -= x[c] * D[c * ld + j];
       }
 #pragma unroll
-      for (int c = 0; c < kWarp; ++c) Lc[(k + c) * n + i] = x[c];
+      for (int c = 0; c < kWarp; ++c) Lc[(k + c) * ld + i] = x[c];
     }
     __syncthreads();
     // S[i][j] −= Σ_c L[i][k+c]·L[j][k+c] for below ≤ j ≤ i
     const int rest = n - below;
-    T* Sb = Lc + below * n + below;
-    const T* Lp = Lc + k * n + below;  // Lp[c*n + r] = L[below + r][k + c]
+    T* Sb = Lc + below * ld + below;
+    const T* Lp = Lc + k * ld + below;  // Lp[c*ld + r] = L[below + r][k + c]
     for (int idx = tid; idx < rest * rest; idx += nt) {
       const int j = idx / rest, i = idx % rest;
       if (i < j) continue;
-      T s = Sb[j * n + i];
-      for (int c = 0; c < nb; ++c) s -= Lp[c * n + i] * Lp[c * n + j];
-      Sb[j * n + i] = s;
+      T s = Sb[j * ld + i];
+      for (int c = 0; c < nb; ++c) s -= Lp[c * ld + i] * Lp[c * ld + j];
+      Sb[j * ld + i] = s;
     }
     __syncthreads();
   }
@@ -251,6 +253,7 @@ __device__ void block_cholesky_panels(T* Lc, int n, int* s_bad) {
 // V consecutive elements in one store: 16 bytes, or one element.
 template <typename T, int V> struct Vec;
 template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<float, 2> { using type = float2; };
 template <> struct Vec<double, 2> { using type = double2; };
 template <> struct Vec<float, 1> { using type = float; };
 template <> struct Vec<double, 1> { using type = double; };

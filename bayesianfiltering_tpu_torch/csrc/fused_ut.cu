@@ -111,7 +111,7 @@ __device__ T* block_factor(const T* P, int n, int method, T* ws, int* s_bad,
     }
     __syncthreads();
     between();
-    block_cholesky_panels(ws, n, s_bad);
+    block_cholesky_panels(ws, n, s_bad, n);
     return ws;
   }
   // Trace-normalised coupled Newton–Schulz: T = (3I − Z Y)/2, Y ← Y T,

@@ -7,10 +7,13 @@ K10 (``csrc/bank_combine.cu``) replaces the TPU kernel ``_combine_kernel``
 :func:`~bayesianfiltering_tpu_torch.ops.associative._combine` in one
 launch, in float32 and float64, in two size bands with a symbol and a
 launch counter each: ``bank_combine_kernel`` (:data:`K10`), one thread per
-lane, for dx ≤ 8, and ``block_combine_kernel`` (:data:`K10B`), one thread
+lane, for dx ≤ 8, and ``tiled_combine_kernel`` (:data:`K10B`), one thread
 block per lane on a persistent grid, for 8 < dx ≤ 512. The choice is by
 size alone (:func:`band_kernel`); outside the band a CUDA input raises
-NotImplementedError (the port has no plain path on the card).
+NotImplementedError (the port has no plain path on the card). K10B's
+launch (and K12B's, ``ops/bank_smoother.py``) is planned here from the
+width, the dtype and the lanes: :func:`block_tile` picks its workspace's
+route, :func:`block_threads` its block size.
 
 Cholesky guard: the kernel zeroes a lane's factor of C1 + εI unless every
 pivot is positive, which is what the plain version does (``cholesky_nan``
@@ -44,8 +47,44 @@ K10B = _build.register("bft_block_combine", _SRC,
                        "bayesianfiltering_tpu/ops/bank_combine.py:268")
 
 _CORES = (2, 1, 2, 2, 1)  # trailing core axes of A, b, C, J, η
-# workspace kinds of csrc/bank_combine.cu ``block_ws``
+# workspace kinds of csrc/bank_combine.cu: K10b, K11b, K12b
 BLOCK_COMBINE, BLOCK_ELEMENTS, BLOCK_SCOMBINE = 0, 1, 2
+# K10b's and K12b's shared-memory tile (the leading dimension of their
+# workspace, csrc/bank_combine.cu ``*_kernel_for``) and block sizes
+TILE = 64
+WIDE_THREADS, NARROW_THREADS = 256, 512
+
+
+def tiled_ws(kind: int, ld: int) -> int:
+    """Elements of one lane's workspace in K10b (``BLOCK_COMBINE``) or K12b
+    (``BLOCK_SCOMBINE``) at leading dimension ``ld`` (csrc/bank_combine.cu
+    ``tiled_ws``): six ld × ld matrices, four vectors and the partial sums
+    of a matrix-vector product, or five matrices and the partial sums."""
+    mats, vecs = (6, 4) if kind == BLOCK_COMBINE else (5, 0)
+    return mats * ld * ld + vecs * ld + max(512, ld)
+
+
+def block_tile(kind: int, dx: int, itemsize: int, smem_optin: int) -> int:
+    """The route of K10b or K12b at width ``dx``: :data:`TILE`, the leading
+    dimension of a shared-memory workspace, where dx ≤ TILE and the
+    workspace fits beside the static slack under an opt-in of
+    ``smem_optin`` bytes (``_build.smem_optin``), else 0 (the workspace in
+    global scratch). On an H100 dx ≤ 64 takes the tile in either dtype."""
+    fits = _build.fits_smem(tiled_ws(kind, TILE), itemsize, smem_optin)
+    return TILE if dx <= TILE and fits else 0
+
+
+def block_threads(kind: int, M: int, tile: int, itemsize: int,
+                  sms: int) -> int:
+    """Threads per block of K10b or K12b over M lanes: 512 for K10b where
+    every lane gets a block of its own on an SM of its own (M ≤ ``sms``,
+    the scan's narrow levels), in float32 on the tile, so that one lane's
+    serial chain is short; else 256 (float64 keeps 256: its panel factor
+    needs more than the 128 registers a thread that 512 allow; K12b's
+    chain is three products, and it keeps 256 throughout)."""
+    narrow = (kind == BLOCK_COMBINE and M <= sms and itemsize == 4
+              and tile == TILE)
+    return NARROW_THREADS if narrow else WIDE_THREADS
 
 
 def band_kernel(lane: _build.Kernel, block: _build.Kernel, dx: int,
@@ -67,12 +106,24 @@ def band_kernel(lane: _build.Kernel, block: _build.Kernel, dx: int,
 
 
 def block_scratch(kind: int, kernel: _build.Kernel, M: int, like):
-    """The global scratch a block kernel asks for over M lanes (None when
-    its workspace fits in shared memory), bounded by the blocks in
-    flight."""
+    """The global scratch a block kernel asks for over M lanes, bounded by
+    the blocks in flight: K11b's (None when its workspace fits in shared
+    memory), or the global route's of K10b or K12b."""
     elems = _build.load().bft_block_scratch_elems(
         kind, M, like.shape[-1], like.element_size(), like.device.index)
     return _build.scratch(elems, kernel, 1, like)
+
+
+def tiled_plan(kind: int, kernel: _build.Kernel, M: int, like):
+    """K10b's or K12b's launch over M lanes like ``like``: its global
+    scratch (None on a shared-memory tile; the caller keeps it until the
+    launch is queued) and (tile, threads)."""
+    tile = block_tile(kind, like.shape[-1], like.element_size(),
+                      _build.smem_optin(like.device))
+    threads = block_threads(kind, M, tile, like.element_size(),
+                            _build.sm_count(like.device))
+    scratch = None if tile else block_scratch(kind, kernel, M, like)
+    return scratch, (tile, threads)
 
 
 def as_lanes(x: torch.Tensor, batch, core: int):
@@ -123,11 +174,13 @@ def _launch(kernel, *xs):
     if M:
         with torch.cuda.device(A1.device):
             ptrs = [x.data_ptr() for x in (*xs, *outs)]
+            plan = ()
             if kernel is K10B:
-                ptrs.append(_build.ptr(
-                    block_scratch(BLOCK_COMBINE, kernel, M, A1)))
+                scratch, plan = tiled_plan(BLOCK_COMBINE, kernel, M, A1)
+                ptrs.append(_build.ptr(scratch))
             err = _build.symbol(kernel, A1)(
-                *ptrs, M, Ml, Mr, dx, torch.cuda.current_stream().cuda_stream)
+                *ptrs, M, Ml, Mr, dx, *plan,
+                torch.cuda.current_stream().cuda_stream)
         _build.check(err, kernel)
         kernel.launches += 1
     return outs
@@ -160,4 +213,5 @@ def bank_filter_combine(left, right):
     return tuple(o.reshape(tuple(batch) + o.shape[1:]) for o in out)
 
 
-__all__ = ["bank_filter_combine", "band_kernel", "K10", "K10B"]
+__all__ = ["bank_filter_combine", "band_kernel", "block_threads", "block_tile",
+           "K10", "K10B"]

@@ -6,7 +6,9 @@ Both live in ``csrc/bank_combine.cu``, float32 and float64, each in two
 size bands with a symbol and a launch counter each: one thread per lane at
 dx ≤ 8 (``bank_smoother_*_kernel``, :data:`K11`, :data:`K12`) and one
 thread block per lane on a persistent grid at 8 < dx ≤ 512
-(``block_smoother_*_kernel``, :data:`K11B`, :data:`K12B`):
+(``block_smoother_elements_kernel``, :data:`K11B`, and
+``tiled_smoother_combine_kernel``, :data:`K12B`, whose launch
+``ops.bank_combine.tiled_plan`` plans as K10B's):
 
 - K11 ``bank_smoother_elements_kernel`` replaces ``_elements_kernel``
   (``bayesianfiltering_tpu/ops/bank_smoother.py:53``): the smoothing gain
@@ -38,6 +40,7 @@ from bayesianfiltering_tpu_torch.ops.bank_combine import (
     band_kernel,
     block_scratch,
     periodic_views,
+    tiled_plan,
 )
 from bayesianfiltering_tpu_torch.utils.linalg import psd_solve, symmetrize
 
@@ -132,11 +135,13 @@ def _launch_combine(kernel, *xs):
     if M:
         with torch.cuda.device(E1.device):
             ptrs = [x.data_ptr() for x in (*xs, *outs)]
+            plan = ()
             if kernel is K12B:
-                ptrs.append(_build.ptr(
-                    block_scratch(BLOCK_SCOMBINE, kernel, M, E1)))
+                scratch, plan = tiled_plan(BLOCK_SCOMBINE, kernel, M, E1)
+                ptrs.append(_build.ptr(scratch))
             err = _build.symbol(kernel, E1)(
-                *ptrs, M, Ml, Mr, dx, torch.cuda.current_stream().cuda_stream)
+                *ptrs, M, Ml, Mr, dx, *plan,
+                torch.cuda.current_stream().cuda_stream)
         _build.check(err, kernel)
         kernel.launches += 1
     return outs

@@ -5,8 +5,10 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --ab PARENT_ROOT`` instead times the sigma-point
-kernels, K1t and K8t of a parent checkout and of this one in turns on the
-same card; see ``ab``.)
+kernels, K1t and K8t, K10b and K12b at path C's three shapes, K10 and
+K12 at path B's two, K10b's block sizes, and the walls of path B and of
+path C's two solvers, of a parent checkout and of this one in turns on
+the same card; see ``ab``.)
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -36,14 +38,17 @@ and prints no result):
    main-path shape (float32; K1t, K2t, K6t, K8t and K9t float64 too) and
    computes its
    bound (bytes over 3.35 TB/s or flops over the peak rate, whichever is
-   larger), and reads the kernel's
-   own device time from torch.profiler (the CUDA-event time of a loop of
-   wrapper calls is the host's time where the kernel is shorter than its
-   wrapper); K5 also gets the time of ``torch.searchsorted``, one PyTorch
-   call computing its function, and both are timed by device time alike:
-   the profiler's, and CUDA events around a CUDA graph of 100 calls; K6
-   and K6t get the profiler's device time of ``torch.linalg.cholesky_ex``
-   on the same P, the one PyTorch call for the factor in their body.
+   larger), and its device time: CUDA events around calls queued behind a
+   device-side sleep, so that the wrapper's host time is hidden (the
+   CUDA-event time of a plain loop of wrapper calls is the host's time
+   where the kernel is shorter than its wrapper); torch.profiler's time
+   per recorded launch is logged beside it with its count, since the
+   profiler drops some launches' records; K5 also gets the time of
+   ``torch.searchsorted``, one PyTorch call computing its function, and
+   both are timed by device time alike, and by CUDA events around a CUDA
+   graph of 100 calls; K6 and K6t get the device time of
+   ``torch.linalg.cholesky_ex`` on the same P, the one PyTorch call for
+   the factor in their body.
 4. Kernel path (card) against plain path (CPU) end to end, with the same
    data and the same draws: the batched EKF and UKF (additive and
    augmented) on Lorenz-96, the GSF and AGSF on bearings-only tracking, the
@@ -78,7 +83,8 @@ and prints no result):
    device time, under torch.profiler: the batched UKF step, ten steps of
    the 1M-particle BPF, one run of the T=1M parallel smoother, ten steps
    of each of config 5's filters (the EKF's split between K1t/K2t and the
-   host, the UKF's between K6t, K8t and K9t), one run of path C.
+   host, the UKF's between K6t, K8t and K9t), one run of path C with each
+   solver (the native one with its host operations).
 
 The last three lines: a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -141,6 +147,7 @@ PC_DX, PC_DY, PC_T, PC_CMP_T = 64, 32, 65_536, 1024
 # over (128, 4) and (128, 512)
 PC_COMBINES = 128 + 128 + 4 + 1 + 1
 PC_LANES = PC_T // KF_CHUNK                           # 512
+PC_NARROW = PC_LANES // KF_CHUNK                      # 4: the next level
 REPS = 3  # calls of each new path in one process: median and range
 SIGMA_TILED_SYMBOLS = ("sigma_tiled_prep_kernel", "sigma_tiled_trace_kernel",
                        "chol_diag_kernel", "tiled_gemm_kernel",
@@ -171,9 +178,9 @@ KERNEL_SYMBOLS = {
     "bft_bank_combine": ("bank_combine_kernel",),
     "bft_bank_smoother_elements": ("bank_smoother_elements_kernel",),
     "bft_bank_smoother_combine": ("bank_smoother_combine_kernel",),
-    "bft_block_combine": ("block_combine_kernel",),
+    "bft_block_combine": ("tiled_combine_kernel",),
     "bft_block_smoother_elements": ("block_smoother_elements_kernel",),
-    "bft_block_smoother_combine": ("block_smoother_combine_kernel",),
+    "bft_block_smoother_combine": ("tiled_smoother_combine_kernel",),
 }
 # the kernels' IDs, in the order of the kernel table; K1t/K2t and K6t–K9t
 # are the tiled variants of K1/K2 and K6–K9, K10b–K12b the block variants
@@ -252,12 +259,50 @@ def cuda_time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, symbols, reps: int = 20):
-    """The kernel's own device time per call of ``fn``, from torch.profiler:
-    the device time of the events named by ``symbols`` over ``reps`` calls.
-    CUDA events around a loop of calls (``cuda_time_ms``) measure the
-    wrapper's host time instead whenever the kernel is shorter than it.
-    None when the profiler sees no device time."""
+def queued_ms(fn, reps: int = 20):
+    """Milliseconds of device work per call of ``fn``: CUDA events around
+    ``reps`` calls queued behind a device-side sleep (``torch.cuda._sleep``)
+    that outlasts their host time, so that their kernels run back to back
+    and the wrapper's host time is hidden. The start event must still be
+    pending when the last call has been queued; if it is not, the host
+    waited for the device: the launch queue filled (K7t's 95 launches a
+    call, 20 calls) or the sleep was short, so the calls are cut to a
+    quarter, down to one, and then the sleep is lengthened. None if five
+    tries did not cover the host time."""
+    import torch
+
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    reps = _reps(1e3 * first, reps)
+    sleep_s = 2 * reps * first + 0.01
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(int(sleep_s * 2e9))  # cycles, ~2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / reps
+        if reps > 1:
+            reps = max(1, reps // 4)
+        else:
+            sleep_s *= 4
+    return None
+
+
+def profiler_ms(fn, symbols, reps: int = 20):
+    """(ms per launch, launches recorded, calls) of the kernels named by
+    ``symbols`` under torch.profiler over ``reps`` calls of ``fn``. The
+    profiler does not record every launch on the card's machine: over 4
+    calls of K11b (65,535 lanes) it recorded none, over 5 of K10b's step-4
+    broadcast 3, over 20 of K12b at M = 512 18; holding its window open
+    0.3 s after the calls, or opening it 0.3 s before them, changed
+    nothing. Hence the time per recorded launch, beside the count."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -270,10 +315,24 @@ def device_ms(fn, symbols, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type != DeviceType.CPU
-                and any(s in e.key for s in symbols))
-    return total / 1e3 / reps if total else None
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU
+              and any(s in e.key for s in symbols)]
+    total = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    return (total / 1e3 / launches if launches else None), launches, reps
+
+
+def device_ms(fn, symbols, reps: int = 20):
+    """Device time per call of ``fn`` (``queued_ms``), and a line of the
+    log with the profiler's time per launch of the kernels named by
+    ``symbols`` and how many of the launches it recorded."""
+    ms = queued_ms(fn, reps)
+    per_launch, launches, calls = profiler_ms(fn, symbols, reps)
+    log(f"  device time {ms} ms a call (queued events); profiler "
+        f"{per_launch} ms a launch, {launches} launches recorded over "
+        f"{calls} calls")
+    return ms
 
 
 def graph_ms(fn, calls: int = 100, replays: int = 5) -> float:
@@ -613,20 +672,30 @@ def kernel_cases():
     scombine(4096, 8)
     scombine(62, 3, chunk=5)
     # the block variants: path C (dx = 64, T = 65,536, chunk 128) combines
-    # over G = 512 lanes in step 2 and broadcasts (1, 512) × (128, 512) in
-    # step 4; its elements over 65,535 steps; the lower band edge dx = 9
-    # and the upper one, a few lanes at dx = 512
+    # over G = 512 lanes in step 2, over 4 at the next level (512 threads
+    # a block for K10b) and broadcasts (1, 512) × (128, 512) in step 4;
+    # its elements over 65,535 steps; the lower band edge dx = 9 and the
+    # upper one, a few lanes at dx = 512; K10b's and K12b's routes on both
+    # sides of their edge (the shared-memory tile 64 | global scratch at
+    # dx = 64 | 65, in both dtypes) and at widths that are not multiples of
+    # a panel (32) or of the register tiles
     fcombine(PC_LANES, PC_DX, timed="main")
+    fcombine(PC_NARROW, PC_DX, timed="also")
     fcombine(PC_LANES, PC_DX, chunk=KF_CHUNK, timed="also")
     fcombine(130, 9)
     fcombine(3, 512)
+    for M, dx in ((130, 32), (3, 33), (3, 65), (3, 96), (2, 97)):
+        fcombine(M, dx)
     elements(PC_T - 1, PC_DX, timed="main")
     elements(130, 9)
     elements(2, 512)
     scombine(PC_LANES, PC_DX, timed="main")
+    scombine(PC_NARROW, PC_DX, timed="also")
     scombine(PC_LANES, PC_DX, chunk=KF_CHUNK, timed="also")
     scombine(300, 9)
     scombine(2, 512)
+    for M, dx in ((130, 32), (3, 33), (3, 65), (3, 96), (2, 97)):
+        scombine(M, dx)
     return cases
 
 
@@ -636,15 +705,17 @@ def _as_tuple(x):
 
 def nan_checks(dev) -> None:
     """A non-positive-definite S (K1, K1t, K3, K8, K8t), P (K6, K6t, K7,
-    K7t), C (K7, K7t) or Pp (K11) gives NaN in the same places on both
-    sides, and never an exception. K1t's and K8t's S fail at their first
-    pivot, or only at a pivot of their third panel; K6t's P (n = 512) at
-    its first or at a pivot of its tenth panel; K7t's P or C at config 5's
-    widths."""
+    K7t), C (K7, K7t), Pp (K11) or inner matrix (K10b) gives NaN in the
+    same places on both sides, and never an exception. K1t's and K8t's S
+    fail at their first pivot, or only at a pivot of their third panel;
+    K6t's P (n = 512) at its first or at a pivot of its tenth panel; K7t's
+    P or C at config 5's widths."""
     import numpy as np
     import torch
 
     from bayesianfiltering_tpu_torch import testing
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+    from bayesianfiltering_tpu_torch.ops import bank_combine as bc
     from bayesianfiltering_tpu_torch.ops import bank_smoother as bs
     from bayesianfiltering_tpu_torch.ops import bank_update as bu
     from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
@@ -712,6 +783,17 @@ def nan_checks(dev) -> None:
     a[3] = neg_eye(a[3])
     checks.append((bs.K11B, bs.bank_smoother_elements, bs._elements_plain,
                    a))
+    # K10b's inner matrix I + sym(Uᵀ J2 U) with J2 = −1e3·I: its factor
+    # fails, the lane is NaN throughout on both sides (cholesky_nan), on
+    # a shared-memory tile (dx = 64) and on the global route (dx = 100)
+    for M, dx in ((8, PC_DX), (2, 100)):
+        a = f64(testing.filter_elements(rng, M, dx, dx // 2, normalized=True)
+                + testing.filter_elements(rng, M, dx, dx // 2,
+                                          normalized=True))
+        a[8] = neg_eye(a[8])
+        checks.append((bc.K10B,
+                       lambda *x: bc.bank_filter_combine(x[:5], x[5:]),
+                       lambda *x: tas._combine(x[:5], x[5:]), a))
     for kernel, wrap, plain, args in checks:
         before = kernel.launches
         got, want = _as_tuple(wrap(*args)), _as_tuple(plain(*args))
@@ -783,8 +865,8 @@ def check_parents(dev) -> dict:
     65,536 on the five weight profiles and at the Gaussian-sum reductions'
     m counts → n slots; then K5, the scatter and
     ``torch.searchsorted`` timed at the path's n = 1M: by events around a
-    loop of calls, and K5 and ``torch.searchsorted`` alike by the
-    profiler's device time and by events around a CUDA graph of 100 calls.
+    loop of calls, and K5 and ``torch.searchsorted`` alike by their device
+    time (``device_ms``) and by events around a CUDA graph of 100 calls.
     Bound: 4 bytes read and 4 written per slot (the n·log₂ n comparisons
     take less at any CUDA-core rate)."""
     import numpy as np
@@ -912,7 +994,7 @@ def check_kernels(dev) -> dict:
                                                  if dev_ms else None))
                 if kernel.name in FACTOR_LIBRARY and static[-1] == "cholesky":
                     # the one PyTorch call for the factor in K6's body,
-                    # timed by the same profiler device time
+                    # timed by the same device time
                     P = args[1]
                     lib = lambda: torch.linalg.cholesky_ex(P)
                     entry.update(library_ms=device_ms(lib, ("",)),
@@ -1677,7 +1759,8 @@ def profile_ukf(dev, card: str) -> None:
     """Phase 6: device busy and idle share of the batched UKF step
     (B=512, dx=64) over PROFILE_T steps, of PROFILE_T steps of path A, of
     one run of path B, of C5_PROFILE_T steps of each config-5 filter and of
-    one run of path C, under torch.profiler."""
+    one run of path C with each solver (the native one with its host
+    operations), under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1713,26 +1796,110 @@ def profile_ukf(dev, card: str) -> None:
                     host=label.startswith("ekf"),
                     split=ukf_split if label.startswith("ukf") else None)
     cparams, cys = path_c_problem(PC_T, torch.float32, dev)
-    profile_run(f"path C parallel kalman smoother woodbury T={PC_T} "
-                f"dx={PC_DX} chunk={KF_CHUNK} float32",
-                lambda: tas.parallel_kalman_smoother(cparams, cys,
-                                                     chunk=KF_CHUNK), card)
+    for solver in ("woodbury", "native"):
+        profile_run(f"path C parallel kalman smoother {solver} T={PC_T} "
+                    f"dx={PC_DX} chunk={KF_CHUNK} float32",
+                    lambda: tas.parallel_kalman_smoother(
+                        cparams, cys, solver=solver, chunk=KF_CHUNK), card,
+                    host=solver == "native")
 
 
 # ---------------------------------------------------------------------------
 # Parent against change: python3 chip_smoke.py --ab PARENT_ROOT
 # ---------------------------------------------------------------------------
 
-def sigma_times(root: str) -> None:
-    """``--sigma-times ROOT``: with the port of the checkout at ROOT (built
-    into that checkout's build directory), float32 and float64, the
-    profiler's device time per call of K6 (Cholesky; Newton–Schulz in
-    float32 only) and K7 (dn = 64 and 32; also by CUDA events, since its
-    two launches may overlap) at the batched Lorenz-96 UKF's shapes, of the
-    sigma points at config 5 beside ``torch.linalg.cholesky_ex`` of the
-    same P, and of K1t and K8t at config 5 with their max abs error
-    against their plain versions; inputs from ``testing`` with SEED."""
+def ab_times(root: str) -> None:
+    """``--ab-times ROOT``: ``sigma_times`` and ``combine_times`` with the
+    port of the checkout at ROOT (built into that checkout's build
+    directory)."""
     sys.path.insert(0, root)
+    sigma_times(root)
+    combine_times(root)
+
+
+def combine_times(root: str) -> None:
+    """The combines of the parallel smoother, float32, inputs from
+    ``testing`` with SEED: K10b and K12b at path C's three shapes (dx = 64:
+    M = 512, the 4-lane level, the (1, 512) × (128, 512) broadcast of step
+    4) and the lane kernels K10 and K12 at path B's two (dx = 4: M = 7,813
+    and the (1, 7,813) × (128, 7,813) broadcast), the device time per call
+    (``device_ms``) and the CUDA-event time of a loop of calls; where the
+    checkout picks K10b's block size (``bank_combine.block_threads``),
+    K10b at 4 and 512 lanes with 256 and with 512 threads a block, each
+    forced; then the walls of path B (T = 1M) and of path C's two solvers
+    (T = 65,536), chunk 128: the median and range of REPS calls after a
+    warm-up."""
+    import numpy as np
+    import torch
+
+    from bayesianfiltering_tpu_torch import testing
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+    from bayesianfiltering_tpu_torch.ops import bank_combine as bc
+    from bayesianfiltering_tpu_torch.ops import bank_smoother as bs
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    on_card = lambda xs: [torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                          device=dev) for x in xs]
+    fwrap = lambda a: bc.bank_filter_combine(a[:5], a[5:])
+    swrap = lambda a: bs.bank_smoother_combine(a[:3], a[3:])
+    wide = ((PC_LANES, None), (PC_NARROW, None), (PC_LANES, KF_CHUNK))
+    lane = ((KF_LANES, None), (KF_LANES, KF_CHUNK))
+    kinds = (
+        ("K10b", PC_DX, wide, fwrap,
+         lambda r, M: testing.filter_elements(r, M, PC_DX, PC_DX // 2,
+                                              normalized=True)),
+        ("K12b", PC_DX, wide, swrap,
+         lambda r, M: testing.smoother_elements(r, M, PC_DX)),
+        ("K10", KF_DX, lane, fwrap,
+         lambda r, M: testing.filter_elements(r, M, KF_DX)),
+        ("K12", KF_DX, lane, swrap,
+         lambda r, M: testing.smoother_elements(r, M, KF_DX)))
+    for name, dx, shapes, wrap, make in kinds:
+        for M, chunk in shapes:
+            if chunk is None:
+                a = on_card(make(rng, M) + make(rng, M))
+                shape = f"M={M}"
+            else:
+                a = on_card([x[None] for x in make(rng, M)]
+                            + [x.reshape((chunk, M) + x.shape[1:])
+                               for x in make(rng, chunk * M)])
+                shape = f"(1,{M}) x ({chunk},{M})"
+            fn = lambda: wrap(a)
+            log(f"{root} {name} {shape} dx={dx} float32: device "
+                f"{device_ms(fn, ('',))} ms, event {cuda_time_ms(fn):.5f} ms")
+    rule = getattr(bc, "block_threads", None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for M in ((PC_NARROW, PC_LANES) if rule is not None else ()):
+        a = on_card(kinds[0][4](rng, M) + kinds[0][4](rng, M))
+        fn = lambda: fwrap(a)
+        picked = rule(bc.BLOCK_COMBINE, M, bc.TILE, 4, sms)
+        for threads in (256, 512):
+            bc.block_threads = lambda *_, t=threads: t
+            log(f"{root} K10b M={M} dx={PC_DX} float32 at {threads} threads "
+                f"a block (the rule picks {picked}): device "
+                f"{device_ms(fn, ('',))} ms, event {cuda_time_ms(fn):.5f} ms")
+        bc.block_threads = rule
+    walls = [("path B woodbury", KF_T, KF_DX, kf_problem, "woodbury")]
+    walls += [(f"path C {solver}", PC_T, PC_DX, path_c_problem, solver)
+              for solver in ("woodbury", "native")]
+    for label, T, dx, problem, solver in walls:
+        params, ys = problem(T, torch.float32, dev)
+        run = lambda: tas.parallel_kalman_smoother(params, ys, solver=solver,
+                                                   chunk=KF_CHUNK)
+        run()
+        secs = [timed(run)[1] for _ in range(REPS)]
+        log(f"{root} {label} T={T} dx={dx} float32: {spread(secs)}")
+
+
+def sigma_times(root: str) -> None:
+    """Float32 and float64, the device time per call of K6
+    (Cholesky; Newton–Schulz in float32 only) and K7 (dn = 64 and 32; also
+    by CUDA events, since its two launches may overlap) at the batched
+    Lorenz-96 UKF's shapes, of the sigma points at config 5 beside
+    ``torch.linalg.cholesky_ex`` of the same P, and of K1t and K8t at
+    config 5 with their max abs error against their plain versions; inputs
+    from ``testing`` with SEED."""
     import numpy as np
     import torch
 
@@ -1792,13 +1959,13 @@ def sigma_times(root: str) -> None:
 
 def ab(parent: str) -> int:
     """``--ab PARENT_ROOT``: the card's name and power limit, then
-    ``sigma_times`` of the parent checkout and of this one in turns
-    (parent, change, change, parent), each in a process of its own."""
+    ``ab_times`` of the parent checkout and of this one in turns (parent,
+    change, change, parent), each in a process of its own."""
     log(nvidia_smi())
     rc = 0
     for root in (parent, str(ROOT), str(ROOT), parent):
         rc |= subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--sigma-times", root]).returncode
+                              "--ab-times", root]).returncode
     return rc
 
 
@@ -1818,8 +1985,8 @@ def main() -> int:
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         return ab(sys.argv[2])
-    if len(sys.argv) == 3 and sys.argv[1] == "--sigma-times":
-        sigma_times(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-times":
+        ab_times(sys.argv[2])
         return 0
     sys.path.insert(0, str(ROOT))
 

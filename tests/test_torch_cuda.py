@@ -628,6 +628,137 @@ def test_block_smoother_combine_matches_plain(dev, dtype, dx, M):
         assert_close(g, w, WIDE_TOL[dtype])
 
 
+# K10b and K12b (csrc/bank_combine.cu tiled_*_kernel): every route and
+# block size (the shared-memory tile 64 and global scratch; K10b's 512
+# threads a block at M ≤ the SM count in float32) at the band's edges and
+# at widths that are not a multiple of the 32-wide panels or the register
+# tiles
+TILED_DXS = (9, 31, 33, 63, 64, 65, 96, 128, 512)
+TILED_CASES = [(dx, M) for dx in TILED_DXS for M in (1, 4, 130, 512)
+               if not (dx >= 128 and M == 512)]
+
+
+def _tiled_pair(kind, rng, M, dx, dtype, dev, chunk=None):
+    """Left and right operands of K10b ("combine") or K12b, over M lanes,
+    or the chunked scan's (1, M) against (chunk, M)."""
+    if kind == "combine":
+        make = lambda k: testing.filter_elements(rng, k, dx, max(1, dx // 2),
+                                                 normalized=True)
+    else:
+        make = lambda k: testing.smoother_elements(rng, k, dx)
+    if chunk is None:
+        return _dev(make(M), dtype, dev), _dev(make(M), dtype, dev)
+    left = [x[None] for x in _dev(make(M), dtype, dev)]
+    right = [x.reshape((chunk, M) + x.shape[1:])
+             for x in _dev(make(chunk * M), dtype, dev)]
+    return left, right
+
+
+TILED_OPS = {"combine": (bc.bank_filter_combine, tas._combine, bc.K10B),
+             "smoother": (bs.bank_smoother_combine, tas._smoother_combine,
+                          bs.K12B)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,M", TILED_CASES)
+@pytest.mark.parametrize("kind", ["combine", "smoother"])
+def test_tiled_combines_match_plain(dev, kind, dx, M, dtype):
+    wrap, plain, kernel = TILED_OPS[kind]
+    left, right = _tiled_pair(kind, np.random.default_rng(dx * M), M, dx,
+                              dtype, dev)
+    _build.reset_launch_counts()
+    got = wrap(left, right)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    assert sum(k.launches for k in _build.KERNELS) == 1
+    for g, w in zip(got, plain(left, right)):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,G", [(9, 7), (64, 512), (65, 5), (96, 3)])
+@pytest.mark.parametrize("kind", ["combine", "smoother"])
+def test_tiled_combines_broadcast_the_left_operand(dev, kind, dx, G, dtype):
+    """The chunked scan's step 4: (1, G) against (chunk, G), path C's own
+    (1, 512) × (4, 512) among them."""
+    wrap, plain, kernel = TILED_OPS[kind]
+    left, right = _tiled_pair(kind, np.random.default_rng(dx + G), G, dx,
+                              dtype, dev, chunk=4)
+    before = kernel.launches
+    got = wrap(left, right)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for g, w in zip(got, plain(left, right)):
+        assert g.shape[:2] == (4, G)
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,M", [(33, 4), (64, 40), (100, 3)])
+def test_tiled_combine_nan_on_a_failed_inner_factor(dev, dx, M, dtype):
+    """J2 = −1e3·I: the inner matrix I + sym(Uᵀ J2 U) is not positive
+    definite, and every output is NaN on both sides (cholesky_nan)."""
+    left, right = _tiled_pair("combine", np.random.default_rng(dx), M, dx,
+                              dtype, dev)
+    right[3] = -1e3 * torch.eye(dx, dtype=dtype, device=dev).expand(
+        M, dx, dx).contiguous()
+    before = bc.K10B.launches
+    got = bc.bank_filter_combine(left, right)
+    want = tas._combine(left, right)
+    torch.cuda.synchronize()
+    assert bc.K10B.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.isnan(g).all() and torch.isnan(w).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx", [9, 33, 96, 200])
+def test_tiled_combine_guard_lanes(dev, dx, dtype):
+    """K10's guard on every route: lane 0's C1 with a negative eigenvalue
+    (−1e-8 in float64, −1e-4 in float32) and lane 1's with an infinite
+    pair fail their factor on both sides (U = 0, M⁻¹ = I): the same
+    non-finite entries, lane 0 finite throughout."""
+    rng = np.random.default_rng(dx + 6)
+    neg = -1e-8 if dtype == torch.float64 else -1e-4
+    make = lambda: testing.filter_elements(rng, 6, dx, max(1, dx // 2),
+                                           normalized=True)
+    left = _dev(testing.guard_lanes(rng, make(), neg=neg), dtype, dev)
+    right = _dev(make(), dtype, dev)
+    got = bc.bank_filter_combine(left, right)
+    want = tas._combine(left, right)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        bad = ~torch.isfinite(w)
+        assert torch.equal(bad, ~torch.isfinite(g))
+        assert torch.isfinite(g[0]).all()
+        assert_close(torch.where(bad, 0, g), torch.where(bad, 0, w),
+                     WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("solver,combines", [("woodbury", 262),
+                                             ("native", 0)])
+def test_path_c_launches(dev, solver, combines):
+    """Path C (the smoother on zoo.linear_gaussian_lgssm(64, 32) at
+    T = 65,536, chunk 128, float32): exactly 262 K10b launches with the
+    Woodbury solver (none with the native one), one K11b and 262 K12b,
+    nothing else; finite outputs."""
+    params = zoo.linear_gaussian_lgssm(64, 32, dtype=torch.float32,
+                                       device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ys = torch.randn(65_536, 32, generator=gen, device=dev)
+    _build.reset_launch_counts()
+    post = tas.parallel_kalman_smoother(params, ys, solver=solver, chunk=128)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _build.KERNELS if k.launches}
+    assert counts == {**({"bft_block_combine": combines} if combines
+                         else {}),
+                      "bft_block_smoother_elements": 1,
+                      "bft_block_smoother_combine": 262}
+    assert torch.isfinite(post.smoothed_means).all()
+    assert torch.isfinite(post.smoothed_covariances).all()
+
+
 def _smoother_run(dx, dy, T, solver, device, chunk=16):
     rng = np.random.default_rng(dx)
     fields = testing.lgssm_fields(rng, dx, dy)
