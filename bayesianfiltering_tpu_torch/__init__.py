@@ -10,9 +10,17 @@ PyTorch twins on CPU tensors. Importing the package applies the precision
 policy of :mod:`bayesianfiltering_tpu_torch.config`.
 """
 from bayesianfiltering_tpu_torch import config  # noqa: F401  (precision policy)
-from bayesianfiltering_tpu_torch import containers, distributions, inference
+from bayesianfiltering_tpu_torch import (
+    containers,
+    distributions,
+    inference,
+    models,
+    ops,
+    utils,
+)
 from bayesianfiltering_tpu_torch.containers import GaussianSum
 from bayesianfiltering_tpu_torch.inference import (
+    PosteriorGaussianSumFiltered,
     augmented_gaussian_sum_filter,
     bootstrap_particle_filter,
     extended_kalman_filter,
@@ -26,16 +34,22 @@ from bayesianfiltering_tpu_torch.inference import (
 from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
 from bayesianfiltering_tpu_torch.models import (
     NonlinearSSM,
+    ParamsBPF,
     ParamsNLSSM,
     params_from_jax,
     zoo,
 )
 
 __all__ = [
+    "config",
     "containers",
     "distributions",
     "inference",
+    "models",
+    "ops",
+    "utils",
     "GaussianSum",
+    "PosteriorGaussianSumFiltered",
     "augmented_gaussian_sum_filter",
     "bootstrap_particle_filter",
     "extended_kalman_filter",
@@ -47,6 +61,7 @@ __all__ = [
     "speedy_unscented_agsf",
     "ParamsUKF",
     "NonlinearSSM",
+    "ParamsBPF",
     "ParamsNLSSM",
     "params_from_jax",
     "zoo",

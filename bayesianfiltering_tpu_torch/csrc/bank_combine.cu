@@ -777,13 +777,6 @@ __device__ void copy_out(T* out, const T* X, int ld, int n, bool vec) {
   }
 }
 
-// Whether n × n row-major outputs at p keep every row 16-byte aligned.
-template <typename T>
-__device__ bool rows_aligned(const T* p, int n) {
-  return n % (16 / int(sizeof(T))) == 0 &&
-         (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // K10b: the Woodbury combine of one lane per loop iteration. TILE > 0: the
 // workspace in dynamic shared memory with ld = TILE ≥ n; TILE = 0: in the
 // caller's global scratch with ld = n rounded up to 64. The comments name
@@ -911,7 +904,7 @@ __global__ void __launch_bounds__(NT, (NT == 256 && sizeof(T) == 4) ? 2 : 1)
       dinv[i] = bad_inner ? qnan<T>() : i < n ? T(1) / B5[i * ld + i] : T(1);
     __syncthreads();
     // B2 = X = L⁻¹ Uᵀ, B4 = Y = L⁻¹ (J2 U)ᵀ; M⁻¹ = I − Xᵀ Y into B5
-    block_tri_solve2<T, NT, TM, TN>(B5, dinv, B2, B4, n, ld);
+    block_tri_solve<T, NT, TM, TN>(B5, dinv, B2, n, B4, n, n, ld);
     mm(at, B2, B4, put.eye_minus(B5, ld));
     if (kSmem) cp_async_wait_all();
     __syncthreads();

@@ -1,15 +1,17 @@
 // Block-wide building blocks of the block-per-lane combines K10b and K12b
-// (csrc/bank_combine.cu): a register-tiled product on operands held in a
+// (csrc/bank_combine.cu) and of the UT update and predict K8 and K9
+// (csrc/fused_ut.cu): a register-tiled product on operands held in a
 // per-block workspace, staging from global memory (cp.async into shared
 // memory), a bank-conflict-free diagonal walk for transposes and
 // symmetric passes, matrix-vector products over the whole block and a
 // panel triangular solve.
 //
 // Workspace matrices are row-major with a leading dimension ld that is a
-// multiple of 32 and at least the super-tile extent of the product, so
-// that every row a product touches, including its ragged edge, lies inside
-// the matrix: entries past n hold whatever was there before and only ever
-// reach outputs past n, which no epilogue stores.
+// multiple of 32 and at least the product's extent rounded up to its
+// thread tile (TM rows, TN columns), so that every span a product reads,
+// including its ragged edge, lies inside the matrix: entries past n hold
+// whatever was there before and only ever reach outputs past n, which no
+// epilogue stores.
 #pragma once
 
 #include <cstdint>
@@ -54,6 +56,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Wait until at most N of this thread's most recently committed cp.async
+// groups are still in flight (the older ones are complete).
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // f(i, j) for every (i, j) in [0, ext)², ext a multiple of 32, walked in
 // 32 × 32 tiles along their diagonals: lane l of a warp takes row
 // i = 32·ti + l and column j = 32·tj + (l + s) mod 32, so that both
@@ -69,24 +78,34 @@ __device__ __forceinline__ void diag_walk(int ext, F f) {
   }
 }
 
-// dst (ld) ← the n × n row-major matrix at src: 16 bytes a copy where the
-// rows allow it. The caller commits and waits (kAsync) and synchronises.
+// dst (ld) ← the rows × cols matrix at src (row stride src_ld): 16 bytes a
+// copy where the rows allow it (dst and ld aligned to 16 bytes, as the
+// workspace's are). The caller commits and waits (kAsync) and
+// synchronises.
 template <typename T, bool kAsync>
-__device__ void stage(T* dst, int ld, const T* src, int n) {
+__device__ void stage(T* dst, int ld, const T* src, size_t src_ld, int rows,
+                      int cols) {
   constexpr int V = 16 / sizeof(T);
   const int tid = threadIdx.x, nt = blockDim.x;
-  if (n % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int nv = n / V;
-    for (int idx = tid; idx < n * nv; idx += nt) {
+  if (cols % V == 0 && src_ld % V == 0 &&
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int nv = cols / V;
+    for (int idx = tid; idx < rows * nv; idx += nt) {
       const int i = idx / nv, c = (idx - i * nv) * V;
-      copy_bytes<kAsync, 16>(dst + i * ld + c, src + size_t(i) * n + c);
+      copy_bytes<kAsync, 16>(dst + i * ld + c, src + i * src_ld + c);
     }
   } else {
-    for (int idx = tid; idx < n * n; idx += nt) {
-      const int i = idx / n, j = idx - i * n;
-      copy_bytes<kAsync, sizeof(T)>(dst + i * ld + j, src + idx);
+    for (int idx = tid; idx < rows * cols; idx += nt) {
+      const int i = idx / cols, j = idx - i * cols;
+      copy_bytes<kAsync, sizeof(T)>(dst + i * ld + j, src + i * src_ld + j);
     }
   }
+}
+
+// dst (ld) ← the n × n row-major matrix at src.
+template <typename T, bool kAsync>
+__device__ void stage(T* dst, int ld, const T* src, int n) {
+  stage<T, kAsync>(dst, ld, src, size_t(n), n, n);
 }
 
 // dst (ld) ← the transpose of the n × n row-major matrix at src, one
@@ -97,6 +116,14 @@ __device__ void stage_t(T* dst, int ld, const T* src, int n) {
     if (i < n && j < n)
       copy_bytes<kAsync, sizeof(T)>(dst + j * ld + i, src + size_t(i) * n + j);
   });
+}
+
+// Whether rows of n elements at p (a global output) keep every row aligned
+// to 16 bytes: the condition for vector stores.
+template <typename T>
+__device__ bool rows_aligned(const T* p, int n) {
+  return n % (16 / int(sizeof(T))) == 0 &&
+         (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -248,9 +275,12 @@ __device__ __forceinline__ void put_rows(T* X, size_t ld, int i0, int j0,
 }
 
 // Epilogue: a tile stored transposed, Xᵀ(j, i) = C(i, j), a TM-span a column.
+// Vectors when the whole column segment is valid and `vec` says X's rows
+// are aligned to them (always in a workspace).
 template <typename T, int TM, int TN>
 __device__ __forceinline__ void put_cols(T* X, int ld, int i0, int j0,
-                                         const T (&acc)[TM][TN], int M, int N) {
+                                         const T (&acc)[TM][TN], int M, int N,
+                                         bool vec = true) {
   const int valid = min(TM, M - i0);
 #pragma unroll
   for (int c = 0; c < TN; ++c) {
@@ -258,7 +288,7 @@ __device__ __forceinline__ void put_cols(T* X, int ld, int i0, int j0,
     T v[TM];
 #pragma unroll
     for (int r = 0; r < TM; ++r) v[r] = acc[r][c];
-    store_span<T, TM>(X + (j0 + c) * ld + i0, v, valid, true);
+    store_span<T, TM>(X + size_t(j0 + c) * ld + i0, v, valid, vec);
   }
 }
 
@@ -315,50 +345,54 @@ __device__ void mv_cols(const T* X, int ld, const T* v, int n, T* part, F f) {
 // The panel triangular solve
 // ---------------------------------------------------------------------------
 
-// R1 ← L⁻¹ R1 and R2 ← L⁻¹ R2 in place (n × n, row-major, ld), L lower
-// triangular, held column-major in Lc (Lc[k·ld + i] = L[i][k], only its
-// lower part read), dinv[i] = 1/L[i][i] for i < ld (any finite value past
-// n). In panels of kWarp rows: (1) each thread takes one column of R1 or
-// R2 and substitutes the panel's rows in registers against the panel's
+// R ← L⁻¹ R in place for two right-hand sides, R1 (n × c1) and R2
+// (n × c2, none when c2 = 0), row-major (ld), L lower triangular, held
+// column-major in Lc (Lc[k·ld + i] = L[i][k], only its lower part read),
+// dinv[i] = 1/L[i][i] for i < the next multiple of W (any finite value
+// past n). In panels of W ≤ kWarp rows (kWarp unless the caller knows n is
+// small; the factor's panel width): (1) each thread takes one column of R1
+// or R2 and substitutes the panel's rows in registers against the panel's
 // diagonal block, read as broadcasts, with constant trip counts (rows past
-// n take garbage that is never stored); (2) the rows below take the
-// panel's update as two tiled products. Two barriers a panel (n = 64: 3).
-// The block must have synchronised after R1, R2, Lc and dinv were written;
-// ends synchronised.
-template <typename T, int NT, int TM, int TN>
-__device__ void block_tri_solve2(const T* Lc, const T* dinv, T* R1, T* R2,
-                                 int n, int ld) {
-  for (int k = 0; k < n; k += kWarp) {
-    const int nb = min(kWarp, n - k);
-    for (int c = threadIdx.x; c < 2 * n; c += NT) {
-      T* col = c < n ? R1 + c : R2 + (c - n);
-      T x[kWarp];
+// n take garbage that is never stored: R's rows must exist to the next
+// multiple of W); (2) the rows below take the panel's update as one
+// tiled product a right-hand side (R's rows aligned to 16 bytes, and
+// columns readable to the next multiple of TN). Two barriers a panel
+// (n = 64, W = kWarp: 3). The block must have synchronised after R1, R2,
+// Lc and dinv were written; ends synchronised.
+template <typename T, int NT, int TM, int TN, int W = kWarp>
+__device__ void block_tri_solve(const T* Lc, const T* dinv, T* R1, int c1,
+                                T* R2, int c2, int n, int ld) {
+  for (int k = 0; k < n; k += W) {
+    const int nb = min(W, n - k);
+    for (int c = threadIdx.x; c < c1 + c2; c += NT) {
+      T* col = c < c1 ? R1 + c : R2 + (c - c1);
+      T x[W];
 #pragma unroll
-      for (int r = 0; r < kWarp; ++r) x[r] = col[(k + r) * ld];
+      for (int r = 0; r < W; ++r) x[r] = col[(k + r) * ld];
 #pragma unroll
-      for (int r = 0; r < kWarp; ++r) {
+      for (int r = 0; r < W; ++r) {
         x[r] *= dinv[k + r];
         const T* Lr = Lc + (k + r) * ld + k;  // column k + r from row k
 #pragma unroll
-        for (int j = r + 1; j < kWarp; ++j) x[j] -= Lr[j] * x[r];
+        for (int j = r + 1; j < W; ++j) x[j] -= Lr[j] * x[r];
       }
 #pragma unroll
-      for (int r = 0; r < kWarp; ++r)
+      for (int r = 0; r < W; ++r)
         if (r < nb) col[(k + r) * ld] = x[r];
     }
     __syncthreads();
-    if (k + kWarp >= n) break;
-    // rows i ≥ k + kWarp: R[i][:] −= L[i][k:k+kWarp] R[k:k+kWarp][:]
-    const auto below = [&](T* R) {
+    if (k + W >= n) break;
+    // rows i ≥ k + W: R[i][:] −= L[i][k:k+W] R[k:k+W][:]
+    const auto below = [&](T* R, int cols) {
       tile_mm<T, NT, TM, TN, true>(
-          Lc + k * ld, ld, R + k * ld, ld, n, n, kWarp, k + kWarp, false,
+          Lc + k * ld, ld, R + k * ld, ld, n, cols, W, k + W, false,
           [&](int i0, int j0, const T (&acc)[TM][TN]) {
-            put_rows<true>(R, ld, i0, j0, acc, n, n, k + kWarp, true,
+            put_rows<true>(R, ld, i0, j0, acc, n, cols, k + W, true,
                            [](T v, int, int) { return v; });
           });
     };
-    below(R1);
-    below(R2);
+    below(R1, c1);
+    if (c2 > 0) below(R2, c2);
     __syncthreads();
   }
 }

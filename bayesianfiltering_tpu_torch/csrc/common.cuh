@@ -143,9 +143,9 @@ __device__ void block_cholesky_cm(T* Lc, int n, int* s_bad, T fail) {
 
 constexpr int kWarp = 32;
 
-// The Cholesky factor of an n × n block (n ≤ kWarp) held a row a lane:
-// lane i holds row i of the block's lower part in a (zeros elsewhere, and
-// everywhere on lanes ≥ n) on entry and row i of L on exit. At column j
+// The Cholesky factor of an n × n block (n ≤ W ≤ kWarp) held a row a
+// lane: lane i holds row i of the block's lower part in a (zeros
+// elsewhere, and everywhere on lanes ≥ n) on entry and row i of L on exit. At column j
 // lane j's pivot and every lane's l_ij are shuffled to the lanes that
 // update with them, so a column costs shuffles, not a dependent dot
 // product; one reciprocal square root a column (l_jj = d·d^-½, l_ij =
@@ -155,14 +155,16 @@ constexpr int kWarp = 32;
 // to update), which leaves lanes ≥ n with garbage that callers never
 // store. Lane i < n gets 1/l_ii in *rinv. Returns whether some pivot was
 // not positive (a NaN pivot fails too), the same on every lane. The whole
-// warp calls it.
-template <typename T>
-__device__ bool warp_cholesky(T (&a)[kWarp], int n, T* rinv) {
+// warp calls it; the width W sets the trip counts (W columns, W(W − 1)/2
+// shuffles), so a small block takes a narrow W.
+template <typename T, int W>
+__device__ bool warp_cholesky(T (&a)[W], int n, T* rinv) {
+  static_assert(W <= kWarp, "one lane a row");
   const unsigned full = 0xffffffffu;
   const int i = threadIdx.x % kWarp;
   bool bad = false;
 #pragma unroll
-  for (int j = 0; j < kWarp; ++j) {
+  for (int j = 0; j < W; ++j) {
     const bool live = j < n;
     T d = __shfl_sync(full, a[j], j);
     if (!live) d = T(1);
@@ -172,7 +174,7 @@ __device__ bool warp_cholesky(T (&a)[kWarp], int n, T* rinv) {
     const T lij = i == j ? d * r : (i > j ? a[j] * r : T(0));
     a[j] = lij;
 #pragma unroll
-    for (int c = j + 1; c < kWarp; ++c) {
+    for (int c = j + 1; c < W; ++c) {
       const T lcj = __shfl_sync(full, lij, c);
       if (c <= i) a[c] -= lij * lcj;
     }
@@ -182,57 +184,59 @@ __device__ bool warp_cholesky(T (&a)[kWarp], int n, T* rinv) {
 
 // In-place Cholesky of the n × n symmetric matrix whose lower triangle Lc
 // holds column-major with leading dimension ld ≥ n (Lc[j*ld + i] = S[i][j]
-// for i ≥ j), right-looking in panels of kWarp columns:
+// for i ≥ j), right-looking in panels of W ≤ kWarp columns (kWarp unless a
+// caller knows n is small: K8 takes 8 at dy ≤ 8):
 // 1. warp 0 factors the panel's diagonal block in registers
 //    (warp_cholesky);
 // 2. each thread forward-substitutes whole rows of the panel below it
 //    against that block: a row's kWarp entries stay in registers, the
 //    block and its pivots' reciprocals (parked by warp 0 in the free strict
-//    upper part, column k + kWarp) are read as broadcasts, and no other
+//    upper part, column k + W) are read as broadcasts, and no other
 //    thread touches the row;
 // 3. the block applies the lower trailing update.
-// Three barriers a panel (n = 64: five in all) instead of one a column.
+// Three barriers a panel (n = 64, W = kWarp: five in all) instead of one a
+// column.
 // Writes the lower triangle, and the parked reciprocals into the strict
 // upper part, which is otherwise left as it was: the caller must not read
 // it (or must zero it) and handles a failed factor itself (K6/K7 NaN their
 // points; K10b zeroes one factor and NaNs the other's solves). Sets *s_bad unless every pivot is
 // positive. The block must have synchronised after Lc was written and
 // *s_bad cleared; ends synchronised.
-template <typename T>
+template <typename T, int W = kWarp>
 __device__ void block_cholesky_panels(T* Lc, int n, int* s_bad, int ld) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  for (int k = 0; k < n; k += kWarp) {
-    const int nb = min(kWarp, n - k);
+  for (int k = 0; k < n; k += W) {
+    const int nb = min(W, n - k);
     const T* D = Lc + k * ld + k;  // D[c*ld + r]: the diagonal block's (r, c)
     const int below = k + nb;
     T* inv = Lc + below * ld + k;  // rows k.., column below: strict upper
     if (tid < kWarp) {
-      T a[kWarp], rinv = T(0);
+      T a[W], rinv = T(0);
 #pragma unroll
-      for (int c = 0; c < kWarp; ++c)
+      for (int c = 0; c < W; ++c)
         a[c] = tid < nb && c <= tid ? D[c * ld + tid] : T(0);
       if (warp_cholesky(a, nb, &rinv) && tid == 0) *s_bad = 1;
 #pragma unroll
-      for (int c = 0; c < kWarp; ++c)
+      for (int c = 0; c < W; ++c)
         if (tid < nb && c <= tid) Lc[(k + c) * ld + k + tid] = a[c];
-      if (below < n) inv[tid] = rinv;
+      if (below < n && tid < W) inv[tid] = rinv;
     }
     __syncthreads();
     if (below >= n) break;
-    // rows i ≥ below (only under a full panel, nb = kWarp): L[i][k:k+nb]
+    // rows i ≥ below (only under a full panel, nb = W): L[i][k:k+nb]
     // solves x · L_kkᵀ = S[i][k:k+nb]
     for (int i = below + tid; i < n; i += nt) {
-      T x[kWarp];
+      T x[W];
 #pragma unroll
-      for (int c = 0; c < kWarp; ++c) x[c] = Lc[(k + c) * ld + i];
+      for (int c = 0; c < W; ++c) x[c] = Lc[(k + c) * ld + i];
 #pragma unroll
-      for (int c = 0; c < kWarp; ++c) {
+      for (int c = 0; c < W; ++c) {
         x[c] *= inv[c];
 #pragma unroll
-        for (int j = c + 1; j < kWarp; ++j) x[j] -= x[c] * D[c * ld + j];
+        for (int j = c + 1; j < W; ++j) x[j] -= x[c] * D[c * ld + j];
       }
 #pragma unroll
-      for (int c = 0; c < kWarp; ++c) Lc[(k + c) * ld + i] = x[c];
+      for (int c = 0; c < W; ++c) Lc[(k + c) * ld + i] = x[c];
     }
     __syncthreads();
     // S[i][j] −= Σ_c L[i][k+c]·L[j][k+c] for below ≤ j ≤ i

@@ -18,11 +18,15 @@
 // n = 64, na = 128) K7's 64 MB of points is its bound. The moments (K8,
 // K9) are 2n-row reductions (rows·d² flops) over sigma-point tensors that
 // do not fit one block's shared memory (2,048 rows × 1,024 columns at the
-// band edge). Every product is far too small per block to feed the tensor
-// cores, and TF32 is off by the precision policy, so all arithmetic runs
-// on the CUDA cores in the working type; each block is bound by
-// shared-memory bandwidth in its products and by barrier latency in its
-// factorisations.
+// band edge): at the Lorenz-96 batch (128 rows, dx = 64, dy = 32) the
+// schedules below do ~0.5 M multiply-adds an element in K8 (~1 MFLOP
+// against ~80 KB moved) and ~0.28 M in K9 (against 48 KB), both below the
+// card's ratio of 20 flops a byte in float32: bytes-bound at full width.
+// Every product is far too small per block to feed the tensor cores, and
+// TF32 is off by the precision policy, so all arithmetic runs on the CUDA
+// cores in the working type; each block is bound by shared-memory
+// bandwidth in its products and by latency in its factorisations (K8's
+// one-warp factor of S is a serial chain of 32 columns whatever dy is).
 //
 // What the design does about it:
 // - One workspace per block in dynamic shared memory (opted in above
@@ -30,8 +34,9 @@
 //   Cholesky above n = 240 in float32 and 170 in float64, Newton–Schulz
 //   above 120 and 85; config 5's n = 512), ops/fused_ut.py runs the tiled
 //   variants K6t/K7t (sigma_tiled.cu) instead, and K8/K9 hand over to
-//   K8t/K9t (ut_tiled.cu) where theirs does not (K9 above dx = 232 in
-//   float32 and 161 in float64; K8 at config 5's dx = 512, dy = 256).
+//   K8t/K9t (ut_tiled.cu) where theirs does not (K9 above dx = 192 in
+//   float32 and 128 in float64; K8 above dx = 188 and 105 at dy = 32, and
+//   at config 5's dx = 512, dy = 256).
 // - The Cholesky factors P in place, held column-major, right-looking in
 //   panels of 32 (common.cuh block_cholesky_panels): one warp factors the
 //   diagonal block in registers, each thread substitutes whole rows of the
@@ -44,12 +49,39 @@
 //   where the widths allow, one rectangle at a time, so that the
 //   broadcast blocks of K7 (the bias columns of the state rows, the mean
 //   columns of the noise rows) cost no division or branch per entry.
-// - Products follow fused_ekf.cu's layout rule: consecutive threads own
-//   consecutive output columns, so one operand is a broadcast and the other
-//   consecutive words.
-// - Sigma-point rows are streamed from global memory in chunks of
-//   kRowChunk rows, centred once as they are staged, and the moment sums
-//   accumulate in shared memory.
+// - K6/K7's products (Newton–Schulz) follow fused_ekf.cu's layout rule:
+//   consecutive threads own consecutive output columns, so one operand is
+//   a broadcast and the other consecutive words.
+// - K8 and K9 are built from block_mm.cuh, as K10b/K12b are. Sigma-point
+//   rows are staged by cp.async in chunks of kRowChunk = 64 into a
+//   workspace whose rows are aligned to 16 bytes, centred in place, and
+//   reduced by one register-tiled product a chunk (tile_mm, 4 × 4 outputs
+//   a thread, the rows as the product's inner dimension read in the
+//   A-transposed layout), whose epilogue adds the tile into the shared
+//   accumulator: K8's [S | C] += Hcᵀ [Hc | Xc] (Hc and Xc side by side in
+//   one staged row), K9's lower tiles of Σ ccᵀ. P's copy (K8) lands under
+//   the first chunk. K9 first sums the staged chunks for μ (each row read
+//   once from global memory), then stages them again (from L2; the last
+//   chunk, still staged, first) and centres them, so the second moment is
+//   never formed uncentred. Centring walks columns, not elements: one
+//   division a thread (for_rows).
+// - K8 factors S with the panel factor (one warp at dy ≤ 32; panels of 8,
+//   whose warp factor takes 8 serial columns, not 32, at dy ≤ 8) and never
+//   inverts it:
+//   one panel triangular solve (block_mm.cuh block_tri_solve, the same
+//   panel width) gives [Z | z] = L⁻¹ [C | innov] in place. With
+//   K = Cᵀ S⁻¹ = Zᵀ L⁻¹, KC = (KL)(KL)ᵀ = ZᵀZ, so the grouped form
+//   P − KC − (KC)ᵀ + (KL)(KL)ᵀ is sym(P) − ZᵀZ: one lower-half product
+//   with K = dy, μ = m + Zᵀz, ll from Σ log Lᵢᵢ and zᵀz by warp
+//   reductions. At a condition number of ~6e5 this form keeps the
+//   covariance and the mean within the float32 tolerance of the float64
+//   reference (tests/test_torch_ut_block.py). A failed pivot NaNs the
+//   pivots' reciprocals, so every output is NaN, as cholesky_nan makes
+//   it.
+// - Symmetric outputs are exact: only lower tiles are computed, and the
+//   epilogue stores each tile and its mirror from registers (K8's cov, and
+//   K9's Σ in the final product's epilogue), 16 bytes a store where the
+//   rows allow it.
 // - K7's noise covariance C is shared by the whole batch: its points are
 //   computed once per launch (one extra one-block launch,
 //   ut_noise_sigma_kernel, into a small buffer). The points kernel is its
@@ -61,8 +93,10 @@
 // Math and constants follow ops/fused_ut.py's plain versions: the weights
 // (w_side, w0m, w0c) and the scale come from the wrapper; S is symmetrised
 // before the relative floor 1e-6·max|diag S|; the covariance downdate is
-// the grouped Joseph form P − KC − (KC)ᵀ + (KL)(KL)ᵀ; K8 takes μy and the
-// innovation from the wrapper, which applies a model's residual function.
+// the grouped Joseph form P − KC − (KC)ᵀ + (KL)(KL)ᵀ, evaluated as
+// sym(P) − ZᵀZ; K8 takes μy and the innovation from the wrapper, which
+// applies a model's residual function.
+#include "block_mm.cuh"
 #include "common.cuh"
 
 namespace {
@@ -70,7 +104,8 @@ namespace {
 using namespace bft;
 
 constexpr int kUtThreads = 256;
-constexpr int kRowChunk = 16;  // sigma-point rows staged per pass
+constexpr int kRowChunk = 64;  // sigma-point rows staged per pass (K8, K9)
+constexpr int kNarrowPanel = 8;  // K8's factor and solve panel at dy ≤ 8
 constexpr int kNsIters = 14;   // utils/linalg.py sqrtm_psd_ns
 constexpr int kCholesky = 0;   // ops/fused_ut.py _METHODS
 constexpr int kSqrtm = 1;
@@ -79,16 +114,45 @@ __host__ __device__ size_t factor_ws_elems(int n, int method) {
   return size_t(n) * n * (method == kSqrtm ? 4 : 1);
 }
 
-size_t update_ws_elems(int dx, int dy) {
-  return size_t(dy) * dy * 2          // S (factored in place), L⁻¹
-         + size_t(dy) * dx * 3        // C, Z (later KLᵀ), W = Kᵀ
-         + size_t(kRowChunk) * (dx + dy)  // staged centred rows
-         + size_t(dy) * 4 + dx;       // μy, d0, innovation, z; m
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
 }
 
-size_t predict_ws_elems(int dx) {
-  return size_t(dx) * dx + size_t(kRowChunk) * dx + 2 * size_t(dx);
-}
+// K8's workspace (ops/fused_ut.py _update_ws): leading dimensions are
+// multiples of 32 and C starts at a multiple of 4 columns, so that every
+// row of every matrix is aligned to 16 bytes. The staged rows hold Hc in
+// columns [0, dy) and Xc from column oc; the accumulator holds S in
+// columns [0, dy), C from column oc, the innovation in column oc + dx,
+// and is readable to the next multiple of 4 columns after it (the panel
+// solve's right-hand side of dx + 1 columns) and of 32 rows.
+struct UpdateWs {
+  int oc, lstg, lsc, ldx, ry;
+  __host__ __device__ UpdateWs(int dx, int dy)
+      : oc(round_up(dy, 4)),
+        lstg(round_up(oc + dx, 32)),
+        lsc(round_up(oc + round_up(dx + 1, 4), 32)),
+        ldx(round_up(dx, 32)),
+        ry(round_up(dy, 32)) {}
+  __host__ __device__ size_t elems(int dx) const {
+    return size_t(kRowChunk) * lstg + size_t(ry) * lsc + size_t(dx) * ldx +
+           lstg + 2 * size_t(ry);
+  }
+};
+
+// K9's workspace (ops/fused_ut.py _predict_ws): staged rows, the lower
+// tiles of Σ ccᵀ, μ, d0 and the partial sums of μ.
+struct PredictWs {
+  int ldx;
+  __host__ __device__ explicit PredictWs(int dx) : ldx(round_up(dx, 32)) {}
+  __host__ __device__ size_t elems(int dx) const {
+    return size_t(kRowChunk + dx) * ldx + 2 * size_t(ldx) +
+           size_t(ldx > kUtThreads ? ldx : kUtThreads);
+  }
+};
+
+size_t update_ws_elems(int dx, int dy) { return UpdateWs(dx, dy).elems(dx); }
+
+size_t predict_ws_elems(int dx) { return PredictWs(dx).elems(dx); }
 
 // The sigma-point factor of the n×n matrix P (global, row-major) in the
 // block's workspace ws (factor_ws_elems(n, method) elements), stored
@@ -317,9 +381,30 @@ __global__ void __launch_bounds__(kUtThreads) ut_sigma_aug_kernel(
     write_state_points<T, 1>(m, off, dn, pts);
 }
 
+// K8 and K9 run one register-tiled product shape (block_mm.cuh tile_mm):
+// 4 × 4 outputs a thread over kUtThreads = 256 threads, a 64 × 64
+// super-tile.
+constexpr int kTM = 4, kTN = 4;
+
+// f(X[r·ld + c], c) for r < nr, c < w: the block split into max(1,
+// blockDim/w) parts along the rows, consecutive threads on consecutive
+// columns (conflict-free), one division a thread rather than one an
+// element. The caller synchronises.
+template <typename T, typename F>
+__device__ void for_rows(T* X, int ld, int nr, int w, F f) {
+  const int parts = max(1, int(blockDim.x) / w);
+  for (int idx = threadIdx.x; idx < parts * w; idx += blockDim.x) {
+    const int p = idx / w, c = idx - p * w;
+    for (int r = p; r < nr; r += parts) f(X[r * ld + c], c);
+  }
+}
+
 // K8: the UT measurement update of one element from its sigma points pts
 // (rows × ld, state in the first dx columns), their images hpts (rows ×
-// dy), the image of the mean (center), μy and the innovation.
+// dy), the image of the mean (center), μy and the innovation. Workspace
+// (UpdateWs): kRowChunk staged rows [Hc | pad | Xc], the accumulator
+// [S | pad | C | innov] (dy rows, to the next multiple of 32), P, and the
+// vectors.
 template <typename T>
 __global__ void __launch_bounds__(kUtThreads) ut_update_kernel(
     const T* __restrict__ pts_all, const T* __restrict__ hpts_all,
@@ -328,226 +413,265 @@ __global__ void __launch_bounds__(kUtThreads) ut_update_kernel(
     const T* __restrict__ R, const T* __restrict__ inn_all, T* ll_all,
     T* mean_all, T* cov_all, int rows, int ld, int dx, int dy, T w_side,
     T w0c) {
+  constexpr int NT = kUtThreads;
   __shared__ int s_bad;
-  __shared__ T s_floor;
   const size_t b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const UpdateWs L(dx, dy);
+  const int oc = L.oc, lstg = L.lstg, lsc = L.lsc, ldx = L.ldx;
   const T* pts = pts_all + b * rows * ld;
   const T* hp = hpts_all + b * rows * dy;
-  const T* P = P_all + b * dx * dx;
   T* cov = cov_all + b * dx * dx;
 
-  T* ws = shared_workspace<T>();
-  T* S = ws;                    // dy × dy; factored in place (column-major L)
-  T* Li = S + dy * dy;          // dy × dy, lower, row-major
-  T* C = Li + dy * dy;          // dy × dx cross-covariance
-  T* Z = C + dy * dx;           // dy × dx: L⁻¹ C, then KLᵀ
-  T* W = Z + dy * dx;           // dy × dx: Kᵀ = S⁻¹ C
-  T* Hc = W + dy * dx;          // kRowChunk × dy staged hpts − μy
-  T* Xc = Hc + kRowChunk * dy;  // kRowChunk × dx staged pts − m
-  T* mu = Xc + kRowChunk * dx;  // dy
-  T* d0 = mu + dy;              // dy, center − μy
-  T* inn = d0 + dy;             // dy
-  T* zv = inn + dy;             // dy, L⁻¹ innovation
-  T* mx = zv + dy;              // dx
+  T* stg = shared_workspace<T>();   // kRowChunk × lstg: [Hc | pad | Xc]
+  T* sc = stg + kRowChunk * lstg;   // ry × lsc: [S | pad | C | innov]
+  T* ps = sc + L.ry * lsc;          // dx × ldx: P
+  T* cv = ps + dx * ldx;            // lstg: [μy | 0 | m], the centres
+  T* d0 = cv + lstg;                // ry: center − μy
+  T* dinv = d0 + L.ry;              // ry: the pivots' reciprocals
 
-  // 1. vectors; clear the accumulators
-  for (int i = tid; i < dy; i += nt) {
-    const T u = mu_all[b * dy + i];
-    mu[i] = u;
-    d0[i] = center_all[b * dy + i] - u;
-    inn[i] = inn_all[b * dy + i];
+  // 1. the centres and d0; the accumulator cleared
+  for (int c = tid; c < oc + dx; c += NT) {
+    T v = T(0);
+    if (c < dy) {
+      v = mu_all[b * dy + c];
+      d0[c] = center_all[b * dy + c] - v;
+    } else if (c >= oc) {
+      v = m_all[b * dx + c - oc];
+    }
+    cv[c] = v;
   }
-  for (int i = tid; i < dx; i += nt) mx[i] = m_all[b * dx + i];
-  for (int idx = tid; idx < dy * dy; idx += nt) S[idx] = T(0);
-  for (int idx = tid; idx < dy * dx; idx += nt) C[idx] = T(0);
-  __syncthreads();
+  for (int idx = tid; idx < dy * lsc; idx += NT) sc[idx] = T(0);
+  if (tid == 0) s_bad = 0;
 
-  // 2. S += Σ cen cenᵀ and C += Σ cen (x − m)ᵀ over staged row chunks
+  // 2. [S | C] += Hcᵀ [Hc | Xc] over staged chunks of rows; P's copy is
+  //    issued behind the first chunk's and waited for only after the last
   for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
     const int nr = min(kRowChunk, rows - r0);
-    for (int idx = tid; idx < nr * dy; idx += nt) {
-      const int r = idx / dy, a = idx % dy;
-      Hc[idx] = hp[(r0 + r) * dy + a] - mu[a];
-    }
-    for (int idx = tid; idx < nr * dx; idx += nt) {
-      const int r = idx / dx, j = idx % dx;
-      Xc[idx] = pts[size_t(r0 + r) * ld + j] - mx[j];
-    }
-    __syncthreads();
-    for (int idx = tid; idx < dy * dy; idx += nt) {
-      const int a = idx / dy, c = idx % dy;
-      T acc = T(0);
-      for (int r = 0; r < nr; ++r) acc += Hc[r * dy + a] * Hc[r * dy + c];
-      S[idx] += acc;
-    }
-    for (int idx = tid; idx < dy * dx; idx += nt) {
-      const int a = idx / dx, j = idx % dx;
-      T acc = T(0);
-      for (int r = 0; r < nr; ++r) acc += Hc[r * dy + a] * Xc[r * dx + j];
-      C[idx] += acc;
+    stage<T, true>(stg, lstg, hp + size_t(r0) * dy, size_t(dy), nr, dy);
+    stage<T, true>(stg + oc, lstg, pts + size_t(r0) * ld, size_t(ld), nr,
+                   dx);
+    cp_async_commit();
+    if (r0 == 0) {
+      stage<T, true>(ps, ldx, P_all + b * dx * dx, dx);
+      cp_async_commit();
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_all();
     }
     __syncthreads();
+    for_rows(stg, lstg, nr, oc + dx, [&](T& x, int c) { x -= cv[c]; });
+    __syncthreads();
+    tile_mm<T, NT, kTM, kTN, true>(
+        stg, lstg, stg, lstg, dy, oc + dx, nr, 0, false,
+        [&](int i0, int j0, const T (&acc)[kTM][kTN]) {
+          put_rows<true>(sc, lsc, i0, j0, acc, dy, oc + dx, 0, true,
+                         [](T v, int, int) { return -v; });
+        });
+    __syncthreads();
   }
+  cp_async_wait_all();
 
-  // 3. weights and R; then S = sym(S) in place by pairs
-  for (int idx = tid; idx < dy * dy; idx += nt) {
-    const int a = idx / dy, c = idx % dy;
-    T v = w_side * S[idx] + w0c * (d0[a] * d0[c]);
-    if (R != nullptr) v += R[idx];
-    S[idx] = v;
-  }
-  for (int idx = tid; idx < dy * dx; idx += nt) C[idx] = w_side * C[idx];
-  __syncthreads();
-  for (int idx = tid; idx < dy * dy; idx += nt) {
-    const int i = idx / dy, j = idx % dy;
-    if (i < j) {
-      const T v = T(0.5) * (S[i * dy + j] + S[j * dy + i]);
-      S[i * dy + j] = v;
-      S[j * dy + i] = v;
+  // 3. S = sym(w_side·S + w0c·d0 d0ᵀ + R) in place by pairs, and its
+  //    diagonal with the relative floor 1e-6·max|diag S| (warp 0 alone);
+  //    C ← w_side·C; the innovation into the column after C
+  const int ext = (dy + kWarp - 1) / kWarp * kWarp;
+  diag_walk(ext, [&](int i, int j) {
+    if (i < dy && j < i) {
+      T v = w_side * sc[i * lsc + j] + w0c * (d0[i] * d0[j]);
+      if (R != nullptr) v += T(0.5) * (R[i * dy + j] + R[j * dy + i]);
+      sc[i * lsc + j] = v;
+      sc[j * lsc + i] = v;
     }
-  }
-  __syncthreads();
-
-  // 4. relative diagonal floor
-  if (tid == 0) {
+  });
+  if (tid < kWarp) {
     T mxd = T(0);
-    for (int i = 0; i < dy; ++i) {
-      const T a = dabs(S[i * dy + i]);
+    for (int i = tid; i < dy; i += kWarp) {
+      T v = w_side * sc[i * lsc + i] + w0c * (d0[i] * d0[i]);
+      if (R != nullptr) v += R[i * dy + i];
+      sc[i * lsc + i] = v;
+      const T a = dabs(v);
       mxd = a > mxd ? a : mxd;
     }
-    s_floor = T(kRelJitter) * mxd;
-  }
-  __syncthreads();
-  for (int i = tid; i < dy; i += nt) S[i * dy + i] += s_floor;
-  __syncthreads();
-
-  // 5. Cholesky in place (S is symmetric, so its row-major storage is the
-  //    column-major lower triangle), then L⁻¹ by whole-column substitution
-  block_cholesky_cm(S, dy, &s_bad, qnan<T>());
-  const T* Lc = S;
-  block_tri_inv_cm(Li, Lc, dy);
-  __syncthreads();
-
-  // 6. Z = L⁻¹ C, then Kᵀ = W = L⁻ᵀ Z = S⁻¹ C
-  for (int idx = tid; idx < dy * dx; idx += nt) {
-    const int i = idx / dx, c = idx % dx;
-    T acc = T(0);
-    for (int j = 0; j <= i; ++j) acc += Li[i * dy + j] * C[j * dx + c];
-    Z[idx] = acc;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < dy * dx; idx += nt) {
-    const int i = idx / dx, c = idx % dx;
-    T acc = T(0);
-    for (int j = i; j < dy; ++j) acc += Li[j * dy + i] * Z[j * dx + c];
-    W[idx] = acc;
-  }
-  __syncthreads();
-
-  // 7. (K L)ᵀ into Z: KLᵀ[c][i] = Σ_{l ≥ c} K[i][l] L[l][c]
-  for (int idx = tid; idx < dy * dx; idx += nt) {
-    const int c = idx / dx, i = idx % dx;
-    T acc = T(0);
-    for (int l = c; l < dy; ++l) acc += W[l * dx + i] * Lc[c * dy + l];
-    Z[idx] = acc;
-  }
-  __syncthreads();
-
-  // 8. Σ = P − KC − (KC)ᵀ + (KL)(KL)ᵀ, then symmetrised in place
-  for (int idx = tid; idx < dx * dx; idx += nt) {
-    const int i = idx / dx, j = idx % dx;
-    T kc = T(0), kct = T(0), klk = T(0);
-    for (int l = 0; l < dy; ++l) {
-      kc += W[l * dx + i] * C[l * dx + j];
-      kct += W[l * dx + j] * C[l * dx + i];
-      klk += Z[l * dx + i] * Z[l * dx + j];
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o /= 2) {
+      const T other = __shfl_xor_sync(0xffffffffu, mxd, o);
+      mxd = other > mxd ? other : mxd;
     }
-    cov[idx] = P[idx] - kc - kct + klk;
+    for (int i = tid; i < dy; i += kWarp)
+      sc[i * lsc + i] += T(kRelJitter) * mxd;
   }
-  __syncthreads();
-  block_symmetrize(cov, dx);
-
-  // 9. μ = m + K innov and z = L⁻¹ innov
-  for (int i = tid; i < dx; i += nt) {
-    T acc = T(0);
-    for (int l = 0; l < dy; ++l) acc += W[l * dx + i] * inn[l];
-    mean_all[b * dx + i] = mx[i] + acc;
-  }
-  for (int i = tid; i < dy; i += nt) {
-    T acc = T(0);
-    for (int j = 0; j <= i; ++j) acc += Li[i * dy + j] * inn[j];
-    zv[i] = acc;
-  }
+  for_rows(sc + oc, lsc, dy, dx, [&](T& x, int) { x *= w_side; });
+  for (int a = tid; a < dy; a += NT)
+    sc[a * lsc + oc + dx] = inn_all[b * dy + a];
   __syncthreads();
 
-  // 10. log N(innov | 0, S) on the same factor
-  if (tid == 0) {
+  // 4. S = L Lᵀ in place (S is symmetric, so its rows are the columns of
+  //    its lower triangle); NaN throughout unless every pivot is positive:
+  //    the pivots' reciprocals are NaN and carry it into every output.
+  //    Panels of 8 at dy ≤ 8 (the range-bearing banks' dy = 2), else of 32
+  const bool narrow = dy <= kNarrowPanel;
+  if (narrow)
+    block_cholesky_panels<T, kNarrowPanel>(sc, dy, &s_bad, lsc);
+  else
+    block_cholesky_panels<T>(sc, dy, &s_bad, lsc);
+  const bool bad = s_bad != 0;
+  for (int i = tid; i < L.ry; i += NT)
+    dinv[i] = bad ? qnan<T>() : i < dy ? T(1) / sc[i * lsc + i] : T(1);
+  __syncthreads();
+
+  // 5. [Z | z] = L⁻¹ [C | innov] in place: no inverse of L
+  if (narrow)
+    block_tri_solve<T, NT, kTM, kTN, kNarrowPanel>(sc, dinv, sc + oc, dx + 1,
+                                                   nullptr, 0, dy, lsc);
+  else
+    block_tri_solve<T, NT, kTM, kTN>(sc, dinv, sc + oc, dx + 1, nullptr, 0,
+                                     dy, lsc);
+
+  // 6. K = Cᵀ S⁻¹ = Zᵀ L⁻¹, so KC = (KL)(KL)ᵀ = ZᵀZ and the grouped form
+  //    P − KC − (KC)ᵀ + (KL)(KL)ᵀ is sym(P) − ZᵀZ: its lower tiles, each
+  //    stored and mirrored from registers; μ = m + Zᵀz;
+  //    ll = −½(dy·log 2π + 2·Σ log Lᵢᵢ + zᵀz)
+  const T* Z = sc + oc;
+  const bool vec = rows_aligned(cov_all, dx);
+  tile_mm<T, NT, kTM, kTN, true>(
+      Z, lsc, Z, lsc, dx, dx, dy, 0, true,
+      [&](int i0, int j0, const T (&acc)[kTM][kTN]) {
+        T out[kTM][kTN];
+#pragma unroll
+        for (int r = 0; r < kTM; ++r)
+#pragma unroll
+          for (int c = 0; c < kTN; ++c) {
+            const int i = i0 + r, j = j0 + c;
+            out[r][c] = i < dx && j < dx
+                            ? T(0.5) * (ps[i * ldx + j] + ps[j * ldx + i]) -
+                                  acc[r][c]
+                            : T(0);
+          }
+        put_rows<false>(cov, dx, i0, j0, out, dx, dx, 0, vec,
+                        [](T v, int, int) { return v; });
+        put_cols(cov, dx, i0, j0, out, dx, dx, vec);
+      });
+  for (int i = tid; i < dx; i += NT) {
+    T s = T(0);
+    for (int k = 0; k < dy; ++k) s += Z[k * lsc + i] * Z[k * lsc + dx];
+    mean_all[b * dx + i] = cv[oc + i] + s;
+  }
+  if (tid < kWarp) {
     T logdet = T(0), zsq = T(0);
-    for (int i = 0; i < dy; ++i) {
-      logdet += dlog(Lc[i * dy + i]);
-      zsq += zv[i] * zv[i];
+    for (int i = tid; i < dy; i += kWarp) {
+      const T z = Z[i * lsc + dx];
+      logdet += dlog(sc[i * lsc + i]);
+      zsq += z * z;
     }
-    ll_all[b] = T(-0.5) * (T(dy * kLog2Pi) + T(2) * logdet + zsq);
+    logdet = warp_sum(logdet);
+    zsq = warp_sum(zsq);
+    if (tid == 0)
+      ll_all[b] = T(-0.5) * (T(dy * kLog2Pi) + T(2) * logdet + zsq);
   }
 }
 
 // K9: μ = w_side·Σ fpts + w0m·center, Σ = sym(w_side·Σ ccᵀ + w0c·d0 d0ᵀ
-// (+ Q)) for one element's propagated points fpts (rows × dx).
+// (+ Q)) for one element's propagated points fpts (rows × dx). Workspace
+// (PredictWs): kRowChunk staged rows, the lower tiles of Σ ccᵀ, μ, d0 and
+// the partial sums of μ. Two passes over the chunks: sums for μ, then the
+// centred products.
 template <typename T>
 __global__ void __launch_bounds__(kUtThreads) ut_predict_kernel(
     const T* __restrict__ fpts_all, const T* __restrict__ center_all,
     const T* __restrict__ Q, T* mu_all, T* cov_all, int rows, int dx,
     T w_side, T w0m, T w0c) {
+  constexpr int NT = kUtThreads;
   const size_t b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const PredictWs L(dx);
+  const int ldx = L.ldx;
   const T* fp = fpts_all + b * rows * dx;
   T* cov = cov_all + b * dx * dx;
 
-  T* ws = shared_workspace<T>();
-  T* acc = ws;                  // dx × dx
-  T* Xc = acc + dx * dx;        // kRowChunk × dx staged fpts − μ
-  T* mu = Xc + kRowChunk * dx;  // dx
-  T* d0 = mu + dx;              // dx, center − μ
+  T* stg = shared_workspace<T>();   // kRowChunk × ldx: staged fpts − μ
+  T* acc = stg + kRowChunk * ldx;   // dx × ldx: lower tiles of Σ ccᵀ
+  T* mu = acc + dx * ldx;           // ldx
+  T* d0 = mu + ldx;                 // ldx: center − μ
+  T* part = d0 + ldx;               // max(NT, ldx): partial sums of μ
 
-  for (int j = tid; j < dx; j += nt) {
+  // μ: every chunk staged in turn (cp.async) and summed by columns, max(1,
+  // 256/dx) parts of rows a column; each row is read once from global
+  // memory here and once more, from L2, below
+  const int parts = max(1, NT / dx);
+  const int chunks = (rows + kRowChunk - 1) / kRowChunk;
+  const auto stage_chunk = [&](int c) {
+    const int r0 = c * kRowChunk;
+    stage<T, true>(stg, ldx, fp + size_t(r0) * dx, size_t(dx),
+                   min(kRowChunk, rows - r0), dx);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+  };
+  for (int idx = tid; idx < parts * dx; idx += NT) part[idx] = T(0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c > 0) __syncthreads();  // the previous chunk is summed
+    stage_chunk(c);
+    const int nr = min(kRowChunk, rows - c * kRowChunk);
+    for (int idx = tid; idx < parts * dx; idx += NT) {
+      const int p = idx / dx, j = idx - p * dx;
+      T s = part[idx];
+      for (int r = p; r < nr; r += parts) s += stg[r * ldx + j];
+      part[idx] = s;
+    }
+  }
+  for (int idx = tid; idx < dx * ldx; idx += NT) acc[idx] = T(0);
+  __syncthreads();
+  for (int j = tid; j < dx; j += NT) {
     T s = T(0);
-    for (int r = 0; r < rows; ++r) s += fp[r * dx + j];
+    for (int p = 0; p < parts; ++p) s += part[p * dx + j];
     const T c = center_all[b * dx + j];
     const T u = w_side * s + w0m * c;
     mu[j] = u;
     d0[j] = c - u;
     mu_all[b * dx + j] = u;
   }
-  for (int idx = tid; idx < dx * dx; idx += nt) acc[idx] = T(0);
   __syncthreads();
 
-  for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
-    const int nr = min(kRowChunk, rows - r0);
-    for (int idx = tid; idx < nr * dx; idx += nt) {
-      const int r = idx / dx, j = idx % dx;
-      Xc[idx] = fp[(r0 + r) * dx + j] - mu[j];
-    }
+  // Σ ccᵀ over the chunks of centred rows, the last one (still staged)
+  // first, lower tiles only; the epilogue of the final product (chunk 0)
+  // adds the accumulated tiles, weights them, adds w0c·d0 d0ᵀ and sym(Q)
+  // and stores each tile and its mirror
+  const bool vec = rows_aligned(cov_all, dx);
+  for (int c = chunks - 1; c >= 0; --c) {
+    if (c < chunks - 1) stage_chunk(c);
+    const int nr = min(kRowChunk, rows - c * kRowChunk);
+    for_rows(stg, ldx, nr, dx, [&](T& x, int j) { x -= mu[j]; });
     __syncthreads();
-    for (int idx = tid; idx < dx * dx; idx += nt) {
-      const int i = idx / dx, j = idx % dx;
-      T a = T(0);
-      for (int r = 0; r < nr; ++r) a += Xc[r * dx + i] * Xc[r * dx + j];
-      acc[idx] += a;
-    }
+    const bool last = c == 0;
+    tile_mm<T, NT, kTM, kTN, true>(
+        stg, ldx, stg, ldx, dx, dx, nr, 0, true,
+        [&](int i0, int j0, const T (&a)[kTM][kTN]) {
+          if (!last) {
+            put_rows<true>(acc, ldx, i0, j0, a, dx, dx, 0, true,
+                           [](T v, int, int) { return -v; });
+            return;
+          }
+          T out[kTM][kTN];
+#pragma unroll
+          for (int r = 0; r < kTM; ++r)
+#pragma unroll
+            for (int c = 0; c < kTN; ++c) {
+              const int i = i0 + r, j = j0 + c;
+              if (i >= dx || j >= dx) {
+                out[r][c] = T(0);
+                continue;
+              }
+              T v = w_side * (acc[i * ldx + j] + a[r][c]) +
+                    w0c * (d0[i] * d0[j]);
+              if (Q != nullptr) v += T(0.5) * (Q[i * dx + j] + Q[j * dx + i]);
+              out[r][c] = v;
+            }
+          put_rows<false>(cov, dx, i0, j0, out, dx, dx, 0, vec,
+                          [](T v, int, int) { return v; });
+          put_cols(cov, dx, i0, j0, out, dx, dx, vec);
+        });
     __syncthreads();
-  }
-
-  for (int idx = tid; idx < dx * dx; idx += nt) {
-    const int i = idx / dx, j = idx % dx;
-    T v = w_side * acc[idx] + w0c * (d0[i] * d0[j]);
-    if (Q != nullptr) v += Q[idx];
-    acc[idx] = v;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < dx * dx; idx += nt) {
-    const int i = idx / dx, j = idx % dx;
-    cov[idx] = T(0.5) * (acc[i * dx + j] + acc[j * dx + i]);
   }
 }
 

@@ -9,10 +9,11 @@
 - K7 ``ut_sigma_aug_kernel`` (``_sigma_aug_kernel`` ``:149``): the points of
   N([m; bias], blkdiag(P, C)) without forming the block-diagonal; C and the
   bias are shared by the batch and C is factored once per launch;
-- K8 ``ut_update_kernel`` (``_ut_update_kernel`` ``:225``): S, chol(S),
-  L⁻¹, C, Kᵀ = S⁻¹C, the grouped Joseph covariance, μ and log N;
+- K8 ``ut_update_kernel`` (``_ut_update_kernel`` ``:225``): [S | C] in
+  one product a chunk of rows, chol(S), [Z | z] = L⁻¹ [C | innov] and the
+  grouped Joseph covariance as sym(P) − ZᵀZ, μ and log N;
 - K9 ``ut_predict_kernel`` (``_ut_predict_kernel`` ``:319``): μ and
-  Σ = sym(Σw ccᵀ (+Q)).
+  Σ = sym(Σw ccᵀ (+Q)), the lower half mirrored.
 
 All four keep their workspace in one block's shared memory. Where it
 does not fit (config 5's Lorenz-96 dx=512, the band's edges), tiled
@@ -87,11 +88,16 @@ K6T = _build.register("bft_ut_sigma_tiled", _SIGMA_TILED_SRC,
 K7T = _build.register("bft_ut_sigma_aug_tiled", _SIGMA_TILED_SRC,
                       "bayesianfiltering_tpu/ops/fused_ut.py:149")
 
-_ROW_CHUNK = 16  # csrc/fused_ut.cu kRowChunk
+_ROW_CHUNK = 64  # csrc/fused_ut.cu kRowChunk
+_THREADS = 256  # csrc/fused_ut.cu kUtThreads
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 # The per-element kernels' shared-memory workspaces, in elements
-# (``factor_ws_elems``, ``update_ws_elems`` and ``predict_ws_elems`` of
+# (``factor_ws_elems``, ``UpdateWs`` and ``PredictWs`` of
 # csrc/fused_ut.cu). K7's points kernel holds P's factor workspace and the
 # 2dn × dn noise points, its noise launch C's factor workspace.
 def _factor_ws(n: int, method: str) -> int:
@@ -103,12 +109,22 @@ def _aug_ws(dx: int, dn: int, method: str) -> int:
 
 
 def _update_ws(dx: int, dy: int) -> int:
-    return (2 * dy * dy + 3 * dy * dx + _ROW_CHUNK * (dx + dy) + 4 * dy
-            + dx)
+    """K8: _ROW_CHUNK staged rows [Hc | pad | Xc], the accumulator
+    [S | pad | C | innov] (dy rows to the next multiple of 32), P, the
+    centres [μy | 0 | m], d0 and the pivots' reciprocals; C starts at
+    column oc = dy rounded up to 4, leading dimensions are multiples of
+    32."""
+    oc, ry, ldx = _round_up(dy, 4), _round_up(dy, 32), _round_up(dx, 32)
+    lstg = _round_up(oc + dx, 32)
+    lsc = _round_up(oc + _round_up(dx + 1, 4), 32)
+    return _ROW_CHUNK * lstg + ry * lsc + dx * ldx + lstg + 2 * ry
 
 
 def _predict_ws(dx: int) -> int:
-    return dx * dx + _ROW_CHUNK * dx + 2 * dx
+    """K9: _ROW_CHUNK staged rows, the lower tiles of Σ ccᵀ, μ, d0 and the
+    partial sums of μ."""
+    ldx = _round_up(dx, 32)
+    return (_ROW_CHUNK + dx) * ldx + 2 * ldx + max(ldx, _THREADS)
 
 
 def sigma_kernel(n: int, method: str, itemsize: int,

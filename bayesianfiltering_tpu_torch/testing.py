@@ -4,9 +4,15 @@ Inputs are made with a numpy ``Generator`` so that the JAX package and the
 port can be fed the very same arrays; :func:`to_torch` moves them over.
 :func:`augmented_prep` and :func:`augmented_factor` write out, in numpy,
 the preparation and the blocked Cholesky that the tiled update kernels
-K1t and K8t share, for tests that follow their schedules step by step.
+K1t and K8t share, and :func:`tile_mm`, :func:`panel_cholesky` and
+:func:`tri_solve` the in-block product, panel factor and panel triangular
+solve of ``csrc/block_mm.cuh`` and ``csrc/common.cuh`` that K8, K9, K10b
+and K12b are built on, for tests that follow their schedules step by
+step on workspaces seeded with NaN.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -123,6 +129,132 @@ def augmented_factor(W, L, dy: int, nb: int = 32) -> None:
                                            W[below:, below:dy])
 
 
+# ---------------------------------------------------------------------------
+# csrc/block_mm.cuh and common.cuh's panel factor, step by step
+# ---------------------------------------------------------------------------
+
+PANEL = 32  # the panel width of the factor and the solve (kWarp)
+
+
+def tiling(nt: int):
+    """(TM, TN) of a 64 × 64 super-tile over ``nt`` threads laid out
+    16 × nt/16 (``Tiling<nt>`` of csrc/bank_combine.cu; K8 and K9 run
+    nt = 256: 4 × 4)."""
+    return 4, 64 // (nt // 16)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_stored(M: int, N: int, a_ext: int, b_ext: int, shape, nt: int = 256,
+                row_lo: int = 0, lower: bool = False):
+    """The outputs of ``tile_mm`` that reach a store, as a mask of
+    ``shape``: every thread (ty, tx) of every super-tile meeting [0, M) ×
+    [0, N) that its skip rules keep, masked to i < M, j < N, i ≥ row_lo.
+    Checks that each thread's operand spans (TM entries of A's extent
+    ``a_ext``, TN of B's row ``b_ext``) lie inside the operands. Cached:
+    the mask is shared, read it only."""
+    TM, TN = tiling(nt)
+    CX = nt // 16
+    mask = np.zeros(shape, bool)
+    for ib in range(0, M, 16 * TM):
+        for jb in range(0, N, CX * TN):
+            for ty in range(16):
+                for tx in range(CX):
+                    i0, j0 = ib + ty * TM, jb + tx * TN
+                    if (i0 >= M or j0 >= N or i0 + TM <= row_lo
+                            or (lower and i0 + TM <= j0)):
+                        continue
+                    assert i0 + TM <= a_ext and j0 + TN <= b_ext
+                    mask[max(i0, row_lo):min(i0 + TM, M),
+                         j0:min(j0 + TN, N)] = True
+    mask.flags.writeable = False
+    return mask
+
+
+def tile_mm(A, B, M: int, N: int, K: int, at: bool, nt: int = 256,
+            a_row: int = 0, b_row: int = 0, row_lo: int = 0,
+            lower: bool = False):
+    """(C, stored mask) of ``tile_mm`` over M × N outputs: A(i, k) =
+    A[a_row + k][i] (``at``, the A-transposed layout) or A[i][k], B(k, j)
+    = B[b_row + k][j], summed over k < K. C spans A's whole extent by B's
+    whole row (entries past M or N read whatever the workspace holds);
+    only the masked entries are stored."""
+    if at:
+        assert a_row + K <= A.shape[0]
+        a = A[a_row:a_row + K, :].T
+    else:
+        assert K <= A.shape[1]
+        a = A[:, :K]
+    assert b_row + K <= B.shape[0]
+    C = a @ B[b_row:b_row + K, :]
+    return C, tile_stored(M, N, a.shape[0], B.shape[1], C.shape, nt, row_lo,
+                          lower)
+
+
+def put(X, C, mask, f=lambda c: c):
+    """An epilogue: X ← f(C) at the stored entries."""
+    at = np.nonzero(mask)
+    X[at] = f(C)[at]
+
+
+def panel_cholesky(W, n: int, width: int = PANEL) -> bool:
+    """``block_cholesky_panels`` in place on W, whose row c holds column c
+    of the lower factor (W[j][i] = S[i][j] for i ≥ j: the column-major
+    layout with leading dimension ld), in panels of ``width`` columns.
+    Returns whether some pivot was not positive (the panel's diagonal
+    block then factors to NaN, as a failed warp factor leaves garbage)."""
+    bad = False
+    for k in range(0, n, width):
+        nb = min(width, n - k)
+        below = k + nb
+        D = np.tril(W[k:below, k:below].T)
+        Lkk = _chol_lower_nan(D)
+        bad |= not np.isfinite(Lkk).all()
+        low = np.tril(np.ones((nb, nb), bool))
+        blk = W[k:below, k:below].T.copy()
+        blk[low] = Lkk[low]
+        W[k:below, k:below] = blk.T
+        if below >= n:
+            break
+        W[below, k:below] = 1 / np.diag(Lkk)  # parked in the strict upper part
+        inv = np.linalg.inv(Lkk) if np.isfinite(Lkk).all() else Lkk
+        rows = W[k:below, below:n].T @ inv.T  # L[i][k:below], i ≥ below
+        W[k:below, below:n] = rows.T
+        upd = rows @ rows.T
+        rest = n - below
+        tri = np.tril(np.ones((rest, rest), bool))  # j ≤ i
+        sub = W[below:n, below:n].T.copy()  # sub[i][j] = S[i][j]
+        sub[tri] -= upd[tri]
+        W[below:n, below:n] = sub.T
+    return bad
+
+
+def tri_solve(Lc, dinv, R1, c1: int, R2, c2: int, n: int, nt: int = 256,
+              width: int = PANEL):
+    """``block_tri_solve``: R ← L⁻¹ R in place for both right-hand sides
+    (R1 with c1 columns, R2 with c2, none when c2 = 0; numpy views of the
+    workspace), L held with Lc[c][i] = L[i][c], in panels of ``width``
+    rows: a column's panel rows in registers (``width`` of them whatever n
+    is: rows past n take garbage that is never stored), then the rows
+    below by :func:`tile_mm`."""
+    sides = [(R1, c1)] + ([(R2, c2)] if c2 else [])
+    for k in range(0, n, width):
+        nb = min(width, n - k)
+        for R, cols in sides:
+            x = R[k:k + width, :cols].copy()
+            assert x.shape[0] == width
+            for r in range(width):
+                x[r] *= dinv[k + r]
+                x[r + 1:] -= np.outer(Lc[k + r, k + r + 1:k + width], x[r])
+            R[k:k + nb, :cols] = x[:nb]
+        if k + width >= n:
+            break
+        for R, cols in sides:
+            C, mask = tile_mm(Lc, R, n, cols, width, True, nt, a_row=k,
+                              b_row=k, row_lo=k + width)
+            at = np.nonzero(mask)
+            R[at] -= C[at]
+
+
 def filter_elements(rng: np.random.Generator, M: int, dx: int, dy: int = 2,
                     singular_head: int = 0, normalized: bool = False):
     """``(A, b, C, J, η)`` filtering elements over a bank of M: C PSD (its
@@ -217,7 +349,8 @@ PARENT_PROFILES = ("dirichlet", "last", "first", "spread", "tail")
 
 
 __all__ = ["to_torch", "spd", "update_inputs", "predict_inputs",
-           "augmented_prep", "augmented_factor",
+           "augmented_prep", "augmented_factor", "PANEL", "tiling",
+           "tile_stored", "tile_mm", "put", "panel_cholesky", "tri_solve",
            "sigma_inputs", "sigma_aug_inputs", "ut_update_inputs",
            "ut_predict_inputs", "filter_elements", "guard_lanes",
            "lgssm_fields",

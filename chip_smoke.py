@@ -5,10 +5,12 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --ab PARENT_ROOT`` instead times the sigma-point
-kernels, K1t and K8t, K10b and K12b at path C's three shapes, K10 and
-K12 at path B's two, K10b's block sizes, and the walls of path B and of
-path C's two solvers, of a parent checkout and of this one in turns on
-the same card; see ``ab``.)
+kernels, K1t and K8t, K8 and K9 at the Lorenz-96 UKF's and the
+range-bearing banks' shapes in both dtypes, the Lorenz-96 UKF's walls,
+K10b and K12b at path C's three shapes, K10 and K12 at path B's two,
+K10b's block sizes, and the walls of path B and of path C's two solvers,
+of a parent checkout and of this one in turns on the same card; see
+``ab``.)
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -628,17 +630,28 @@ def kernel_cases():
     ut_update(100, 12, 6, 4, 2, False)
     ut_update(64, 12, 6, 4, 2, False)
     ut_update(2, 256, 128, 128, 128, True)
+    # K8 and K9 at ragged edges: dy = 33 (S a panel and one row, C from
+    # column 36) at the augmented L96 shape, dx = 65 with rows that are
+    # not a multiple of the 64-row chunk, S in two panels, and both sides
+    # of K8's narrow panel (dy = 8 | 9)
+    ut_update(512, 192, 96, 64, 33, False)
+    ut_update(3, 130, 70, 65, 33, True)
+    ut_update(2, 130, 50, 40, 64, True)
+    ut_update(5, 40, 20, 12, 8, True)
+    ut_update(5, 40, 20, 12, 9, True)
     ut_predict(512, 128, 64, True, "main")
     ut_predict(512, 256, 64, False, "also")
     ut_predict(100, 12, 4, False)
     ut_predict(32, 12, 4, False)
     ut_predict(2, 256, 128, True)
+    ut_predict(3, 130, 65, True)
+    ut_predict(2, 70, 33, False)
     # config 5's additive UKF (n = 512, 1,024 points, dy = 256: K8t and
     # K9t), the augmented widths at config 5 (na = 1,024 in the predict,
     # 768 in the update) and the band edge 1,024; K8t and K9t also at
     # shapes that are not multiples of a tile or a panel (dy = 129) and on
-    # both sides of their rules' edges (K8 at dx = 489 | 490, dy = 32 in
-    # float32 and 233 | 234 in float64; K9 at dx = 232 | 233 and 161 | 162)
+    # both sides of their rules' edges (K8 at dx = 188 | 189, dy = 32 in
+    # float32 and 105 | 106 in float64; K9 at dx = 192 | 193 and 128 | 129)
     sigma(1, C5_DX, "cholesky", "main")
     sigma(1, 1024, "cholesky")
     sigma(1, 256, "sqrtm")
@@ -649,13 +662,13 @@ def kernel_cases():
     ut_update(1, 2 * (C5_DX + C5_DY), C5_DX + C5_DY, C5_DX, C5_DY, False)
     ut_update(1, 2048, 1024, 1024, 1024, True)
     ut_update(2, 300, 150, 100, 129, False)
-    for dx in (489, 490, 233, 234):
+    for dx in (188, 189, 105, 106):
         ut_update(1, 2 * dx, dx, dx, 32, True)
     ut_predict(1, 2 * C5_DX, C5_DX, True, "main")
     ut_predict(1, 4 * C5_DX, C5_DX, False)
     ut_predict(1, 2048, 1024, True)
     ut_predict(3, 600, 300, False)
-    for dx in (232, 233, 161, 162):
+    for dx in (192, 193, 128, 129):
         ut_predict(1, 2 * dx, dx, True)
     # the parallel Kalman smoother at T = 1M, chunk 128, dx = 4: in-chunk
     # combines over 7,813 lanes (128 of the 320) and the broadcast of step
@@ -706,8 +719,9 @@ def _as_tuple(x):
 def nan_checks(dev) -> None:
     """A non-positive-definite S (K1, K1t, K3, K8, K8t), P (K6, K6t, K7,
     K7t), C (K7, K7t), Pp (K11) or inner matrix (K10b) gives NaN in the
-    same places on both sides, and never an exception. K1t's and K8t's S
-    fail at their first pivot, or only at a pivot of their third panel;
+    same places on both sides, and never an exception. K1t's, K8's and
+    K8t's S fail at their first pivot, or only at a pivot of their third
+    panel;
     K6t's P (n = 512) at its first or at a pivot of its tenth panel; K7t's
     P or C at config 5's widths."""
     import numpy as np
@@ -770,6 +784,13 @@ def nan_checks(dev) -> None:
     a[6] = neg_eye(a[6])
     checks.append((fu.K8, fu.fused_ut_update, fu._ut_update_plain,
                    a + [1 / 128, 0.0, True]))
+    # K8 at dx = 40, dy = 70 in float64 (three panels of 32, 32, 6), and at
+    # the banks' dy = 2 (one panel of 8)
+    for dy, fail_at in ((70, 0), (70, 69), (2, 1)):
+        a = f64(testing.ut_update_inputs(rng, 2, 100, 50, 40, dy))
+        a[6][fail_at, fail_at] = -1e3
+        checks.append((fu.K8, fu.fused_ut_update, fu._ut_update_plain,
+                       a + [1 / 100, 2.0, True]))
     # K8t at dx = 200, dy = 70 in float64 (three panels of 32, 32, 6)
     for fail_at in (0, 69):
         a = f64(testing.ut_update_inputs(rng, 2, 400, 200, 200, 70))
@@ -945,6 +966,28 @@ LOWER_READ = {"bft_ut_sigma": (1,), "bft_ut_sigma_tiled": (1,),
               "bft_ut_sigma_aug": (1, 3), "bft_ut_sigma_aug_tiled": (1, 3)}
 
 
+def ut_update_reads(args, static):
+    """What the UT update reads of (pts, hpts, center, μy, m, P, R,
+    innov): the state's dx columns of the points (of ld), and R only where
+    it is added."""
+    pts, hpts, cy, mu, m, P, R, inn = args
+    return ([pts[..., :m.shape[-1]], hpts, cy, mu, m, P]
+            + ([R] if static[-1] else []) + [inn])
+
+
+def ut_predict_reads(args, static):
+    """What the UT predict reads of (fpts, center, Q): Q only where it is
+    added."""
+    return list(args) if static[-1] else list(args[:2])
+
+
+# the operands a kernel reads, where that is not every input whole
+READS = {"bft_ut_update": ut_update_reads,
+         "bft_ut_update_tiled": ut_update_reads,
+         "bft_ut_predict": ut_predict_reads,
+         "bft_ut_predict_tiled": ut_predict_reads}
+
+
 def check_kernels(dev) -> dict:
     """Phase 3. Returns, per kernel name, the timing of its main-path shape
     (float32) and of any second main-path shape."""
@@ -984,7 +1027,8 @@ def check_kernels(dev) -> dict:
                                    KERNEL_SYMBOLS[kernel.name])
                 lower = (LOWER_READ[kernel.name] if kernel.name in LOWER_READ
                          and static[-1] == "cholesky" else ())
-                bound_ms, bound_by = bound(args, list(got), flops, name,
+                reads = READS.get(kernel.name, lambda a, _: a)(args, static)
+                bound_ms, bound_by = bound(reads, list(got), flops, name,
                                            lower)
                 entry = dict(shape=f"{shape},{name}", max_abs_err=abs_err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1809,11 +1853,12 @@ def profile_ukf(dev, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 def ab_times(root: str) -> None:
-    """``--ab-times ROOT``: ``sigma_times`` and ``combine_times`` with the
-    port of the checkout at ROOT (built into that checkout's build
-    directory)."""
+    """``--ab-times ROOT``: ``sigma_times``, ``ut_times`` and
+    ``combine_times`` with the port of the checkout at ROOT (built into
+    that checkout's build directory)."""
     sys.path.insert(0, root)
     sigma_times(root)
+    ut_times(root)
     combine_times(root)
 
 
@@ -1890,6 +1935,72 @@ def combine_times(root: str) -> None:
         run()
         secs = [timed(run)[1] for _ in range(REPS)]
         log(f"{root} {label} T={T} dx={dx} float32: {spread(secs)}")
+
+
+def ut_times(root: str) -> None:
+    """K8 and K9 in float32 and float64 at the batched Lorenz-96 UKF's
+    shapes (B = 512: the additive update's 128 rows with R and the
+    augmented one's 192 rows of width 96, dx = 64, dy = 32; the predict's
+    128 rows with Q and 256 without) and the range-bearing banks' (B = 100,
+    12 rows, dx = 4, dy = 2): the device time per call (``device_ms``) and
+    the max abs error against the plain version on the same inputs; then
+    the walls of the UKF on the Lorenz-96 data (B = 512, T = 1000,
+    float32), additive and augmented: the median and range of REPS calls
+    after a warm-up. Inputs from ``testing`` with SEED."""
+    import numpy as np
+    import torch
+
+    from bayesianfiltering_tpu_torch import _build, testing
+    from bayesianfiltering_tpu_torch import inference as inf
+    from bayesianfiltering_tpu_torch.ops import fused_ut as fu
+    from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF, ut_weights
+
+    _build.load()
+    dev = torch.device("cuda", 0)
+    up = ParamsUKF(1.0, 2.0, 0.0)
+    updates = ((EKF_B, 2 * EKF_DX, EKF_DX, EKF_DX, EKF_DY, True),
+               (EKF_B, 2 * (EKF_DX + EKF_DY), EKF_DX + EKF_DY, EKF_DX,
+                EKF_DY, False),
+               (UGSF_M, 12, 6, 4, 2, False))
+    predicts = ((EKF_B, 2 * EKF_DX, EKF_DX, True),
+                (EKF_B, 4 * EKF_DX, EKF_DX, False), (UGSF_M, 12, 4, False))
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        rng = np.random.default_rng(SEED)
+
+        def on_card(xs):
+            return [torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+                    for x in xs]
+
+        def show(label, fn, plain):
+            err = max(float((g - w).abs().max()) for g, w in
+                      zip(_as_tuple(fn()), _as_tuple(plain())))
+            log(f"{root} {label} {name}: device {device_ms(fn, ('ut_',))} "
+                f"ms, max abs err {err:.3e} against the plain version")
+
+        for B, rows, ld, dx, dy, add_r in updates:
+            w_side, _, w0c = ut_weights(rows // 2, up)[1]
+            a = on_card(testing.ut_update_inputs(rng, B, rows, ld, dx, dy))
+            show(f"K8 B={B} rows={rows} ld={ld} dx={dx} dy={dy}"
+                 f"{' +R' if add_r else ''}",
+                 lambda: fu.fused_ut_update(*a, w_side, w0c, add_r),
+                 lambda: fu._ut_update_plain(*a, w_side, w0c, add_r))
+        for B, rows, dx, add_q in predicts:
+            w = ut_weights(rows // 2, up)[1]
+            a = on_card(testing.ut_predict_inputs(rng, B, rows, dx))
+            show(f"K9 B={B} rows={rows} dx={dx}{' +Q' if add_q else ''}",
+                 lambda: fu.fused_ut_predict(*a, *w, add_q),
+                 lambda: fu._ut_predict_plain(*a, *w, add_q))
+    params, _, emissions = lorenz96_data(dev, torch.float32)
+    for additive in (True, False):
+        run = lambda: inf.unscented_kalman_filter(params, ukf_params(),
+                                                  emissions,
+                                                  additive=additive)
+        inf.unscented_kalman_filter(params, ukf_params(), emissions[:, :20],
+                                    additive=additive)
+        secs = [timed(run)[1] for _ in range(REPS)]
+        log(f"{root} ukf {'additive' if additive else 'augmented'} "
+            f"lorenz96 B={EKF_B} T={EKF_T} float32: {spread(secs)}")
 
 
 def sigma_times(root: str) -> None:

@@ -11,7 +11,9 @@ a smaller one.
 
 The kernels' schedules are written out below in numpy, step by step, on
 workspace matrices seeded with NaN, so that any read of an entry the
-kernel never wrote shows:
+kernel never wrote shows, from the numpy models of
+``bayesianfiltering_tpu_torch/testing.py`` (shared with
+tests/test_torch_ut_block.py, which holds K8 and K9 the same way):
 
 - ``tile_mm``: the register-tiled product of ``csrc/block_mm.cuh``, thread
   tile by thread tile over its super-tiles, with its skip rules and the
@@ -21,8 +23,8 @@ kernel never wrote shows:
   trailing update, the pivots' reciprocals parked in the strict upper
   part), and K10b's handling of its two fail values: U zeroed unless every
   pivot is positive, the inner factor's pivots' reciprocals NaN;
-- ``tri_solve2``: the panel triangular solve with two right-hand sides
-  that replaces the inner factor's explicit inverse;
+- ``tri_solve``: the panel triangular solve, here with two right-hand
+  sides, that replaces the inner factor's explicit inverse;
 - the whole lane loops of K10b and K12b.
 
 Each schedule is held, in float64 and float32, to the JAX package's XLA
@@ -48,13 +50,14 @@ from bayesianfiltering_tpu.ops import bank_combine as jbc
 from bayesianfiltering_tpu.ops import bank_smoother as jbs
 from bayesianfiltering_tpu_torch import testing
 from bayesianfiltering_tpu_torch.ops import bank_combine as bc
+from bayesianfiltering_tpu_torch.testing import panel_cholesky, put
 
 torch.set_num_threads(1)
 
 H100_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100
 H100_SMS = 132
 TOL = {"float64": 1e-10, "float32": 1e-3}
-NB = 32  # the panel width (kWarp)
+NB = testing.PANEL  # the panel width (kWarp)
 DXS = (9, 33, 63, 64, 65, 96)
 
 
@@ -154,103 +157,12 @@ def test_block_threads_rule(kind, M, tile, itemsize, want):
 # csrc/block_mm.cuh and common.cuh, step by step
 # ---------------------------------------------------------------------------
 
-def tiling(nt):
-    """(TM, TN) of ``Tiling<nt>``: a 64 × 64 super-tile on either route."""
-    return 4, 64 // (nt // 16)
-
-
-@functools.lru_cache(maxsize=None)
-def stored(M, N, K, ld, nt, row_lo=0, lower=False):
-    """The outputs of ``tile_mm`` that reach a store: every thread (ty, tx)
-    of every super-tile meeting [0, M) × [0, N) that its skip rules keep,
-    masked to i < M, j < N, i ≥ row_lo. Checks that each thread's operand
-    spans lie inside the ld × ld workspace matrices."""
-    TM, TN = tiling(nt)
-    CX = nt // 16
-    mask = np.zeros((ld, ld), bool)
-    for ib in range(0, M, 16 * TM):
-        for jb in range(0, N, CX * TN):
-            for ty in range(16):
-                for tx in range(CX):
-                    i0, j0 = ib + ty * TM, jb + tx * TN
-                    if (i0 >= M or j0 >= N or i0 + TM <= row_lo
-                            or (lower and i0 + TM <= j0)):
-                        continue
-                    assert i0 + TM <= ld and j0 + TN <= ld
-                    mask[max(i0, row_lo):min(i0 + TM, M),
-                         j0:min(j0 + TN, N)] = True
-    return mask
-
-
 def tile_mm(A, B, n, at, plan, K=None, a_row=0, b_row=0, row_lo=0,
             lower=False):
-    """(C, stored mask) of ``tile_mm`` over n × n outputs: A(i, k) =
-    A[a_row + k][i] (``at``) or A[i][k], B(k, j) = B[b_row + k][j], summed
-    over k < K (n), every output computed, only the masked ones stored."""
-    ld, _, nt = plan
-    K = n if K is None else K
-    a = A[a_row:a_row + K, :].T if at else A[:, :K]
-    C = a @ B[b_row:b_row + K, :]
-    return C, stored(n, n, K, ld, nt, row_lo, lower)
-
-
-def put(X, C, mask, f=lambda c: c):
-    X[mask] = f(C)[mask]
-
-
-def panel_cholesky(W, n):
-    """``block_cholesky_panels`` in place on W, whose row c holds column c
-    of the lower factor (W[j][i] = S[i][j] for i ≥ j: the column-major
-    layout with leading dimension ld). Returns whether some pivot was not
-    positive (the panel's diagonal block then factors to NaN, as a failed
-    warp factor leaves garbage)."""
-    bad = False
-    for k in range(0, n, NB):
-        nb = min(NB, n - k)
-        below = k + nb
-        D = np.tril(W[k:below, k:below].T)
-        Lkk = testing._chol_lower_nan(D)
-        bad |= not np.isfinite(Lkk).all()
-        low = np.tril(np.ones((nb, nb), bool))
-        blk = W[k:below, k:below].T.copy()
-        blk[low] = Lkk[low]
-        W[k:below, k:below] = blk.T
-        if below >= n:
-            break
-        W[below, k:below] = 1 / np.diag(Lkk)  # parked in the strict upper part
-        inv = np.linalg.inv(Lkk) if np.isfinite(Lkk).all() else Lkk
-        rows = W[k:below, below:n].T @ inv.T  # L[i][k:below], i ≥ below
-        W[k:below, below:n] = rows.T
-        upd = rows @ rows.T
-        rest = n - below
-        tri = np.tril(np.ones((rest, rest), bool))  # j ≤ i
-        sub = W[below:n, below:n].T.copy()  # sub[i][j] = S[i][j]
-        sub[tri] -= upd[tri]
-        W[below:n, below:n] = sub.T
-    return bad
-
-
-def tri_solve2(Lc, dinv, R1, R2, n, plan):
-    """``block_tri_solve2``: R ← L⁻¹ R for both right-hand sides, L held
-    with Lc[c][i] = L[i][c], in panels of 32 rows: a column's panel rows in
-    registers (32 of them whatever n is: rows past n take garbage that is
-    never stored), then the rows below by ``tile_mm``."""
-    ld = plan[0]
-    for k in range(0, n, NB):
-        nb = min(NB, n - k)
-        assert k + NB <= ld
-        for R in (R1, R2):
-            x = R[k:k + NB, :n].copy()
-            for r in range(NB):
-                x[r] *= dinv[k + r]
-                x[r + 1:] -= np.outer(Lc[k + r, k + r + 1:k + NB], x[r])
-            R[k:k + nb, :n] = x[:nb]
-        if k + NB >= n:
-            break
-        for R in (R1, R2):
-            C, mask = tile_mm(Lc, R, n, True, plan, K=NB, a_row=k, b_row=k,
-                              row_lo=k + NB)
-            R[mask] -= C[mask]
+    """``testing.tile_mm`` over n × n outputs with the launch's threads."""
+    return testing.tile_mm(A, B, n, n, n if K is None else K, at, plan[2],
+                           a_row=a_row, b_row=b_row, row_lo=row_lo,
+                           lower=lower)
 
 
 def workspace(ld, count, dtype):
@@ -310,7 +222,7 @@ def k10b_model(left, right, dtype, nt=256):
         dinv[:] = np.nan if bad_inner else 1
         if not bad_inner:
             dinv[:n] = 1 / np.diag(B5[:n, :n])
-        tri_solve2(B5, dinv, B2, B4, n, plan)       # X, Y
+        testing.tri_solve(B5, dinv, B2, n, B4, n, n, plan[2])  # X, Y
         put(B5, *tile_mm(B2, B4, n, True, plan), f=lambda c: eye - c)
         put(B2, *tile_mm(B5, B1, n, True, plan))    # M⁻ᵀ J2
         put(B4, *tile_mm(B3, B5, n, True, plan))    # A2M
@@ -431,7 +343,7 @@ def test_panel_solve_matches_a_triangular_solve(dx):
     dinv[:dx] = 1 / np.diag(L)
     r1, r2 = rng.standard_normal((2, dx, dx))
     R1[:dx, :dx], R2[:dx, :dx] = r1, r2
-    tri_solve2(Lc, dinv, R1, R2, dx, plan)
+    testing.tri_solve(Lc, dinv, R1, dx, R2, dx, dx, plan[2])
     np.testing.assert_allclose(R1[:dx, :dx], np.linalg.solve(L, r1),
                                rtol=0, atol=1e-10)
     np.testing.assert_allclose(R2[:dx, :dx], np.linalg.solve(L, r2),

@@ -956,20 +956,20 @@ def test_batched_lorenz96_keeps_the_per_element_kernels(dev):
 # K8t and K9t, the tiled variants of K8 and K9, picked by the same kind of
 # shape rule: config 5 at B = 1, 2, 3, the band's edges, sizes that are not
 # multiples of a tile or a panel, no R or Q, an asymmetric Q, and both
-# sides of the rule's edge (K8 at dx = 489 | 490, dy = 32 in float32 and
-# 233 | 234 in float64; K9 at dx = 232 | 233 and 161 | 162).
+# sides of the rule's edge (K8 at dx = 188 | 189, dy = 32 in float32 and
+# 105 | 106 in float64; K9 at dx = 192 | 193 and 128 | 129).
 # ---------------------------------------------------------------------------
 
 UT_VARIANT_UPDATE_SHAPES = [  # (B, rows, ld, dx, dy, add_r)
     (1, 1024, 512, 512, 256, True), (2, 1024, 512, 512, 256, True),
     (3, 1024, 512, 512, 256, True), (3, 1536, 768, 512, 256, False),
     (1, 2048, 1024, 1024, 1024, True), (2, 300, 150, 100, 129, False),
-    (1, 980, 489, 489, 32, True), (1, 980, 490, 490, 32, True),
-    (1, 468, 233, 233, 32, True), (1, 468, 234, 234, 32, True)]
+    (1, 376, 188, 188, 32, True), (1, 378, 189, 189, 32, True),
+    (1, 210, 105, 105, 32, True), (1, 212, 106, 106, 32, True)]
 UT_VARIANT_PREDICT_SHAPES = [  # (B, rows, dx, add_q)
     (1, 1024, 512, True), (2, 1024, 512, True), (3, 1024, 512, False),
-    (1, 2048, 1024, True), (3, 600, 300, True), (1, 464, 232, True),
-    (1, 466, 233, True), (1, 322, 161, False), (1, 324, 162, False)]
+    (1, 2048, 1024, True), (3, 600, 300, True), (1, 384, 192, True),
+    (1, 386, 193, True), (1, 256, 128, False), (1, 258, 129, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1030,6 +1030,72 @@ def test_tiled_ut_update_nan_on_non_pd(dev, fail_at):
     torch.cuda.synchronize()
     assert fu.K8T.launches == 1
     for g, w in zip(got, fu._ut_update_plain(*args, 1 / 400, 2.0, True)):
+        assert torch.isnan(g).all() and torch.isnan(w).all()
+
+
+# K8 and K9 at the batched Lorenz-96 UKF's augmented shapes (192 rows,
+# ld = 96; 256 rows), with a ragged S (dy = 33: C starts at column 36), at
+# dy = 33, dx = 65 with rows that are not a multiple of the 64-row chunk,
+# and on both sides of K8's narrow panel (dy = 8 | 9)
+UT_BLOCK_UPDATE_SHAPES = [(512, 192, 96, 64, 32, False),
+                          (512, 192, 96, 64, 33, False),
+                          (3, 130, 70, 65, 33, True),
+                          (5, 40, 20, 12, 8, True), (5, 40, 20, 12, 9, True)]
+UT_BLOCK_PREDICT_SHAPES = [(512, 256, 64, False), (3, 130, 65, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,rows,ld,dx,dy,add_r", UT_BLOCK_UPDATE_SHAPES)
+def test_ut_update_kernel_at_lorenz96_shapes_matches_plain(
+        dev, dtype, B, rows, ld, dx, dy, add_r):
+    args = _dev(testing.ut_update_inputs(np.random.default_rng(dx + dy), B,
+                                         rows, ld, dx, dy), dtype, dev)
+    assert fu.update_kernel(dx, dy, args[0].element_size(),
+                            _build.smem_optin(dev)) is fu.K8
+    static = (1 / rows, 2.0, add_r)
+    _build.reset_launch_counts()
+    got = fu.fused_ut_update(*args, *static)
+    torch.cuda.synchronize()
+    _expect_one((fu.K8, fu.K8T), fu.K8)
+    for g, w in zip(got, fu._ut_update_plain(*args, *static)):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,rows,dx,add_q", UT_BLOCK_PREDICT_SHAPES)
+def test_ut_predict_kernel_at_lorenz96_shapes_matches_plain(
+        dev, dtype, B, rows, dx, add_q):
+    rng = np.random.default_rng(dx)
+    fpts, center, Q = testing.ut_predict_inputs(rng, B, rows, dx)
+    Q = Q + 0.1 * np.triu(rng.standard_normal((dx, dx)), 1)  # asymmetric
+    args = _dev((fpts, center, Q), dtype, dev)
+    static = (1 / rows, 0.1, 2.0, add_q)
+    _build.reset_launch_counts()
+    got = fu.fused_ut_predict(*args, *static)
+    torch.cuda.synchronize()
+    _expect_one((fu.K9, fu.K9T), fu.K9)
+    assert torch.equal(got[1], got[1].mT)  # mirrored tiles: exactly symmetric
+    for g, w in zip(got, fu._ut_predict_plain(*args, *static)):
+        assert_close(g, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dy,fail_at", [(32, 31), (70, 0), (70, 69),
+                                        (2, 1), (8, 7)])
+def test_ut_update_kernel_nan_on_non_pd(dev, dtype, dy, fail_at):
+    """A negative pivot in K8's only panel (of 32, or of 8 at dy ≤ 8), or
+    in the first or the third of three: the pivots' reciprocals are NaN,
+    so every output is NaN on both sides."""
+    raw = testing.ut_update_inputs(np.random.default_rng(4), 4, 100, 50, 40,
+                                   dy)
+    raw[6][fail_at, fail_at] = -1e3
+    args = _dev(raw, dtype, dev)
+    _build.reset_launch_counts()
+    got = fu.fused_ut_update(*args, 1 / 100, 2.0, True)
+    torch.cuda.synchronize()
+    _expect_one((fu.K8, fu.K8T), fu.K8)
+    for g, w in zip(got, fu._ut_update_plain(*args, 1 / 100, 2.0, True)):
         assert torch.isnan(g).all() and torch.isnan(w).all()
 
 

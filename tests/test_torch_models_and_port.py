@@ -238,3 +238,35 @@ def test_importing_the_port_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+# Names of the JAX package's __all__ that the port does not implement yet
+# (ROADMAP.md queue 1: the state-space-model layer's Gaussian SSM and the
+# parallel, streaming, diagnostics and legacy subpackages).
+NOT_PORTED = {"NonlinearGaussianSSM", "parallel", "streaming", "diagnostics",
+              "legacy"}
+
+
+def test_the_port_exports_every_ported_name_of_the_jax_package():
+    import bayesianfiltering_tpu as jpkg
+    import bayesianfiltering_tpu_torch as port
+
+    ported = [n for n in jpkg.__all__ if n not in NOT_PORTED]
+    assert set(NOT_PORTED) <= set(jpkg.__all__)
+    assert not [n for n in ported if n not in port.__all__]
+    assert not [n for n in port.__all__ if not hasattr(port, n)]
+    for name in NOT_PORTED:
+        assert not hasattr(port, name)
+
+
+def test_params_bpf_and_the_mixture_posterior_import_from_the_top_level():
+    from bayesianfiltering_tpu_torch import (
+        ParamsBPF,
+        PosteriorGaussianSumFiltered,
+    )
+    from bayesianfiltering_tpu_torch.inference import (
+        PosteriorGaussianSumFiltered as posterior,
+    )
+    from bayesianfiltering_tpu_torch.models.params import ParamsBPF as params
+
+    assert ParamsBPF is params and PosteriorGaussianSumFiltered is posterior

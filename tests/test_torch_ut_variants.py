@@ -122,12 +122,12 @@ def predict_case(B, rows, dx, add_q):
     (64, 32, 8, H100_OPTIN, "K8"),
     (4, 2, 4, H100_OPTIN, "K8"),       # the UGSF/UAGSF banks
     (4, 2, 8, H100_OPTIN, "K8"),
-    (489, 32, 4, H100_OPTIN, "K8"),    # 57,945 elements
-    (490, 32, 4, H100_OPTIN, "K8T"),   # 58,058
-    (233, 32, 8, H100_OPTIN, "K8"),    # 29,017
-    (234, 32, 8, H100_OPTIN, "K8T"),   # 29,130
-    (56, 128, 4, H100_OPTIN, "K8"),
-    (57, 128, 4, H100_OPTIN, "K8T"),
+    (188, 32, 4, H100_OPTIN, "K8"),    # 57,888 elements
+    (189, 32, 4, H100_OPTIN, "K8T"),   # 58,080
+    (105, 32, 8, H100_OPTIN, "K8"),    # 29,024
+    (106, 32, 8, H100_OPTIN, "K8T"),   # 29,152
+    (96, 128, 4, H100_OPTIN, "K8"),    # 56,800
+    (97, 128, 4, H100_OPTIN, "K8T"),   # 62,080
     (512, 256, 4, H100_OPTIN, "K8T"),  # config 5
     (512, 256, 8, H100_OPTIN, "K8T"),
     (1, 256, 4, H100_OPTIN, "K8T"),    # S alone fills the block
@@ -140,10 +140,10 @@ def test_update_variant_rule(dx, dy, itemsize, optin, want):
 @pytest.mark.parametrize("dx,itemsize,optin,want", [
     (64, 4, H100_OPTIN, "K9"),
     (64, 8, H100_OPTIN, "K9"),
-    (232, 4, H100_OPTIN, "K9"),        # 58,000 elements
-    (233, 4, H100_OPTIN, "K9T"),       # 58,483
-    (161, 8, H100_OPTIN, "K9"),        # 28,819
-    (162, 8, H100_OPTIN, "K9T"),       # 29,160
+    (192, 4, H100_OPTIN, "K9"),        # 49,792 elements
+    (193, 4, H100_OPTIN, "K9T"),       # 58,272
+    (128, 8, H100_OPTIN, "K9"),        # 25,088
+    (129, 8, H100_OPTIN, "K9T"),       # 31,456
     (512, 4, H100_OPTIN, "K9T"),       # config 5
     (1024, 8, H100_OPTIN, "K9T"),      # the band's edge
     (64, 4, 16 * 1024, "K9T"),
@@ -295,7 +295,8 @@ def test_tiled_ut_predict_schedule_matches_the_reference(B, rows, dx, add_q):
 # The wrappers at K8t's and K9t's shapes (the plain versions on CPU tensors)
 # ---------------------------------------------------------------------------
 
-# tiled on an H100 in float64 only, and in both dtypes
+# tiled on an H100: the update at dx = 200 in both dtypes and at dy = 128
+# in float64 only; the predict at dx = 162 in float64 only, at 233 in both
 WRAPPER_UPDATE_SHAPES = [(1, 400, 240, 200, 40, False),
                          (2, 300, 150, 57, 128, True)]
 WRAPPER_PREDICT_SHAPES = [(2, 324, 162, True), (1, 466, 233, False)]
