@@ -1,10 +1,12 @@
 // Block-wide building blocks of the block-per-lane combines K10b and K12b
-// (csrc/bank_combine.cu) and of the UT update and predict K8 and K9
-// (csrc/fused_ut.cu): a register-tiled product on operands held in a
-// per-block workspace, staging from global memory (cp.async into shared
-// memory), a bank-conflict-free diagonal walk for transposes and
-// symmetric passes, matrix-vector products over the whole block and a
-// panel triangular solve.
+// (csrc/bank_combine.cu), of the UT update and predict K8 and K9
+// (csrc/fused_ut.cu) and of the EKF update and predict K1 and K2
+// (csrc/fused_ekf.cu): a register-tiled product on operands held in a
+// per-block workspace (and its packed lower-triangle form), staging from
+// global memory (cp.async into shared memory), a bank-conflict-free
+// diagonal walk for transposes and symmetric passes (an in-place
+// symmetrisation), matrix-vector products over the whole block and a panel
+// triangular solve.
 //
 // Workspace matrices are row-major with a leading dimension ld that is a
 // multiple of 32 and at least the product's extent rounded up to its
@@ -19,6 +21,10 @@
 #include "common.cuh"
 
 namespace bft {
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
 
 // ---------------------------------------------------------------------------
 // Staging
@@ -76,6 +82,19 @@ __device__ __forceinline__ void diag_walk(int ext, F f) {
     const int t = w / kWarp, s = w % kWarp;
     f((t / tiles) * kWarp + lane, (t % tiles) * kWarp + ((lane + s) & 31));
   }
+}
+
+// X ← (X + Xᵀ)/2 in place for the n × n matrix X (ld a multiple of 32),
+// each pair along diag_walk. The caller synchronises before and after.
+template <typename T>
+__device__ void symmetrize(T* X, int ld, int n) {
+  diag_walk(round_up(n, kWarp), [&](int i, int j) {
+    if (i < n && j < i) {
+      const T v = T(0.5) * (X[i * ld + j] + X[j * ld + i]);
+      X[i * ld + j] = v;
+      X[j * ld + i] = v;
+    }
+  });
 }
 
 // dst (ld) ← the rows × cols matrix at src (row stride src_ld): 16 bytes a
@@ -175,23 +194,77 @@ __device__ __forceinline__ void store_span(T* p, const T (&v)[N], int valid,
 // The register-tiled product
 // ---------------------------------------------------------------------------
 
+// acc = the TM × TN tile at (i0, j0) of Σ_{k<K} A(i, k) B(k, j): A(i, k)
+// is A[k·lda + i] with kAt (read as a TM-span: the "A transposed" layout)
+// or A[i·lda + k] (TM rows, 16 bytes of k a load); B(k, j) is B[k·ldb +
+// j], a TN-span a k. One thread's work in tile_mm and tile_mm_lower.
+template <typename T, int TM, int TN, bool kAt>
+__device__ __forceinline__ void tile_acc(const T* A, int lda, const T* B,
+                                         int ldb, int i0, int j0, int K,
+                                         T (&acc)[TM][TN]) {
+  constexpr int KV = 16 / int(sizeof(T));
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[r][c] = T(0);
+  const T* pb = B + j0;
+  if constexpr (kAt) {
+    const T* pa = A + i0;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      T a[TM], b[TN];
+      load_span<T, TM>(a, pa + size_t(k) * lda);
+      load_span<T, TN>(b, pb + size_t(k) * ldb);
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[r][c] += a[r] * b[c];
+    }
+  } else {
+    const T* pa = A + size_t(i0) * lda;
+    int k = 0;
+    for (; k + KV <= K; k += KV) {
+      T a[TM][KV];
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+        load_span<T, KV>(a[r], pa + size_t(r) * lda + k);
+#pragma unroll
+      for (int kk = 0; kk < KV; ++kk) {
+        T b[TN];
+        load_span<T, TN>(b, pb + size_t(k + kk) * ldb);
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+#pragma unroll
+          for (int c = 0; c < TN; ++c) acc[r][c] += a[r][kk] * b[c];
+      }
+    }
+    for (; k < K; ++k) {
+      T b[TN];
+      load_span<T, TN>(b, pb + size_t(k) * ldb);
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        const T a = pa[size_t(r) * lda + k];
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[r][c] += a * b[c];
+      }
+    }
+  }
+}
+
 // C(i, j) = Σ_{k<K} A(i, k) B(k, j) for i < M, j < N over a block of NT
 // threads laid out 16 × NT/16: thread (ty, tx) owns the TM × TN tile at
 // (16·TM·a + TM·ty, (NT/16)·TN·b + TN·tx) of every super-tile (a, b) that
-// meets [0, M) × [0, N), in independent accumulators. A(i, k) is
-// A[k·lda + i] with kAt (read as a TM-span: the "A transposed" layout) or
-// A[i·lda + k] (TM rows, 16 bytes of k a load); B(k, j) is B[k·ldb + j], a
-// TN-span a k. Both operands lie in the block's workspace (lda, ldb
-// multiples of 32). Tiles wholly above row_lo's boundary (rows < row_lo),
-// or, with `lower`, wholly above the diagonal, are skipped; epi(i0, j0,
-// acc) gets every other tile and masks what it stores to i < M, j < N
-// (and i ≥ row_lo). The caller synchronises.
+// meets [0, M) × [0, N), in independent accumulators (tile_acc: A in
+// either layout, B row-major). Both operands lie in the block's workspace
+// (lda, ldb multiples of 32). Tiles wholly above row_lo's boundary (rows
+// < row_lo), or, with `lower`, wholly above the diagonal, are skipped;
+// epi(i0, j0, acc) gets every other tile and masks what it stores to
+// i < M, j < N (and i ≥ row_lo). The caller synchronises.
 template <typename T, int NT, int TM, int TN, bool kAt, typename Epi>
 __device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
                                         int ldb, int M, int N, int K,
                                         int row_lo, bool lower, Epi epi) {
   constexpr int CX = NT / 16;
-  constexpr int KV = 16 / int(sizeof(T));
   const int tx = threadIdx.x % CX, ty = threadIdx.x / CX;
   for (int ib = 0; ib < M; ib += 16 * TM)
     for (int jb = 0; jb < N; jb += CX * TN) {
@@ -200,54 +273,32 @@ __device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
           (lower && i0 + TM <= j0))
         continue;
       T acc[TM][TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = T(0);
-      const T* pb = B + j0;
-      if constexpr (kAt) {
-        const T* pa = A + i0;
-#pragma unroll 4
-        for (int k = 0; k < K; ++k) {
-          T a[TM], b[TN];
-          load_span<T, TM>(a, pa + size_t(k) * lda);
-          load_span<T, TN>(b, pb + size_t(k) * ldb);
-#pragma unroll
-          for (int r = 0; r < TM; ++r)
-#pragma unroll
-            for (int c = 0; c < TN; ++c) acc[r][c] += a[r] * b[c];
-        }
-      } else {
-        const T* pa = A + size_t(i0) * lda;
-        int k = 0;
-        for (; k + KV <= K; k += KV) {
-          T a[TM][KV];
-#pragma unroll
-          for (int r = 0; r < TM; ++r)
-            load_span<T, KV>(a[r], pa + size_t(r) * lda + k);
-#pragma unroll
-          for (int kk = 0; kk < KV; ++kk) {
-            T b[TN];
-            load_span<T, TN>(b, pb + size_t(k + kk) * ldb);
-#pragma unroll
-            for (int r = 0; r < TM; ++r)
-#pragma unroll
-              for (int c = 0; c < TN; ++c) acc[r][c] += a[r][kk] * b[c];
-          }
-        }
-        for (; k < K; ++k) {
-          T b[TN];
-          load_span<T, TN>(b, pb + size_t(k) * ldb);
-#pragma unroll
-          for (int r = 0; r < TM; ++r) {
-            const T a = pa[size_t(r) * lda + k];
-#pragma unroll
-            for (int c = 0; c < TN; ++c) acc[r][c] += a * b[c];
-          }
-        }
-      }
+      tile_acc<T, TM, TN, kAt>(A, lda, B, ldb, i0, j0, K, acc);
       epi(i0, j0, acc);
     }
+}
+
+// The lower tiles of an n × n product (TM × TM tiles (ti, tj), tj ≤ ti),
+// numbered row by row and taken by consecutive threads: a warp holds only
+// tiles below the diagonal and threads past the last tile skip the
+// product, where tile_mm's lower mode keeps the 16 × NT/16 grid and idles
+// the lanes above the diagonal in every warp (at n = 64: 5 warps' work in
+// 8). Operands as tile_mm's; A with kAt, so that a warp's distinct tile
+// rows read distinct banks. The caller synchronises.
+template <typename T, int NT, int TM, typename Epi>
+__device__ __forceinline__ void tile_mm_lower(const T* A, int lda, const T* B,
+                                              int ldb, int n, int K,
+                                              Epi epi) {
+  const int nt = (n + TM - 1) / TM, tiles = nt * (nt + 1) / 2;
+  for (int t = threadIdx.x; t < tiles; t += NT) {
+    int ti = int((sqrtf(8.f * float(t) + 1.f) - 1.f) * 0.5f);
+    while (ti * (ti + 1) / 2 > t) --ti;
+    while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+    const int i0 = ti * TM, j0 = (t - ti * (ti + 1) / 2) * TM;
+    T acc[TM][TM];
+    tile_acc<T, TM, TM, true>(A, lda, B, ldb, i0, j0, K, acc);
+    epi(i0, j0, acc);
+  }
 }
 
 // Epilogue: rows i ∈ [row_lo, M) of a tile into X (ld), columns < N: x ←

@@ -67,6 +67,9 @@ template <> __device__ inline double qnan<double>() {
 
 // Row-major products over a whole thread block. Each output element is one
 // dot product owned by one thread; the caller synchronises afterwards.
+// Their callers: K11b (bank_combine.cu block_smoother_elements_kernel) and
+// K6's Newton–Schulz rounds (fused_ut.cu block_factor); the other block
+// kernels use block_mm.cuh's register-tiled tile_mm.
 // C[M,N] = A[M,K] B[K,N]
 template <typename T>
 __device__ void block_mm_nn(T* C, const T* A, const T* B, int M, int N, int K) {
@@ -89,14 +92,6 @@ __device__ void block_mm_tn(T* C, const T* A, const T* B, int M, int N,
     for (int k = 0; k < K; ++k) acc += A[k * M + i] * B[k * N + j];
     C[idx] = acc;
   }
-}
-
-// Xᵀ (cols × rows) from X (rows × cols): reads coalesced, once per call.
-// The caller synchronises.
-template <typename T>
-__device__ void block_transpose(T* XT, const T* X, int rows, int cols) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x)
-    XT[(idx % cols) * rows + idx / cols] = X[idx];
 }
 
 // In-place Cholesky of the n×n symmetric matrix held column-major in Lc
@@ -300,7 +295,8 @@ __device__ void store_rect(T* plus, T* minus, int ld, int rows, int cols,
 
 // Li = L⁻¹, row-major with a zero strict upper part, of the lower factor
 // held column-major in Lc (Lc[k*n + i] = L[i][k]): each thread
-// forward-substitutes whole columns. The caller synchronises.
+// forward-substitutes whole columns. The caller synchronises. Its caller:
+// K11b (bank_combine.cu block_smoother_elements_kernel).
 template <typename T>
 __device__ void block_tri_inv_cm(T* Li, const T* Lc, int n) {
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
@@ -310,20 +306,6 @@ __device__ void block_tri_inv_cm(T* Li, const T* Lc, int n) {
       T acc = T(0);
       for (int k = j; k < i; ++k) acc += Lc[k * n + i] * Li[k * n + j];
       Li[i * n + j] = -acc / Lc[i * n + i];
-    }
-  }
-}
-
-// Symmetrise a dx×dx matrix in place: X ← (X + Xᵀ)/2. The block must have
-// synchronised after X was written; the caller synchronises afterwards.
-template <typename T>
-__device__ void block_symmetrize(T* X, int n) {
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    const int i = idx / n, j = idx % n;
-    if (i < j) {
-      const T v = T(0.5) * (X[i * n + j] + X[j * n + i]);
-      X[i * n + j] = v;
-      X[j * n + i] = v;
     }
   }
 }

@@ -114,10 +114,6 @@ __host__ __device__ size_t factor_ws_elems(int n, int method) {
   return size_t(n) * n * (method == kSqrtm ? 4 : 1);
 }
 
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
 // K8's workspace (ops/fused_ut.py _update_ws): leading dimensions are
 // multiples of 32 and C starts at a multiple of 4 columns, so that every
 // row of every matrix is aligned to 16 bytes. The staged rows hold Hc in

@@ -61,14 +61,27 @@ _update_plain = chol_update_precomputed
 _predict_plain = predict_cov_precomputed
 
 
+def _ru(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 # The per-element kernels' shared-memory workspace, in elements
-# (``update_ws_elems`` and ``predict_ws_elems`` of csrc/fused_ekf.cu).
+# (``UpdateWs`` and ``PredictWs`` of csrc/fused_ekf.cu, which lay them out).
 def _update_ws(dx: int, dy: int) -> int:
-    return 4 * dy * dx + 3 * dy * dy + 2 * dx * dx
+    ldx, ldy = _ru(dx, 32), _ru(dy, 32)
+    ldr = _ru(_ru(dx + 1, 4) + dy, 32)
+    h = dx * ldx + dy * ldy                          # P, Rt
+    q = h + max(_ru(dy, 4) * ldx + ldy * ldr,        # H, [H P | innov | I]
+                (dx + dy) * ldx)                     # or [(A P)ᵀ ; (K Rt)ᵀ]
+    dinv = q + max(dx * ldy + ldy * ldr,             # (H P)ᵀ, S
+                   (dx + dy) * ldx)                  # or [Aᵀ ; W]
+    return dinv + 2 * ldy
 
 
 def _predict_ws(dx: int, dq: int) -> int:
-    return 2 * dx * dx + 2 * dx * dq
+    oq, ldx = _ru(dx, 4), _ru(dx, 32)
+    return (oq * _ru(oq + dq, 32) + dx * ldx + dq * _ru(dq, 32)  # F, P, Q
+            + (oq + dq) * ldx)                                 # G
 
 
 def update_kernel(dx: int, dy: int, itemsize: int,

@@ -4,11 +4,13 @@ Inputs are made with a numpy ``Generator`` so that the JAX package and the
 port can be fed the very same arrays; :func:`to_torch` moves them over.
 :func:`augmented_prep` and :func:`augmented_factor` write out, in numpy,
 the preparation and the blocked Cholesky that the tiled update kernels
-K1t and K8t share, and :func:`tile_mm`, :func:`panel_cholesky` and
+K1t and K8t share, and :func:`tile_mm` and :func:`tile_mm_lower` (with
+their epilogues :func:`put`, :func:`put_t` and :func:`put_mirrored`),
+:func:`panel_cholesky` and
 :func:`tri_solve` the in-block product, panel factor and panel triangular
-solve of ``csrc/block_mm.cuh`` and ``csrc/common.cuh`` that K8, K9, K10b
-and K12b are built on, for tests that follow their schedules step by
-step on workspaces seeded with NaN.
+solve of ``csrc/block_mm.cuh`` and ``csrc/common.cuh`` that K1, K2, K8,
+K9, K10b and K12b are built on, for tests that follow their schedules
+step by step on workspaces seeded with NaN.
 """
 from __future__ import annotations
 
@@ -190,10 +192,64 @@ def tile_mm(A, B, M: int, N: int, K: int, at: bool, nt: int = 256,
                           lower)
 
 
+@functools.lru_cache(maxsize=None)
+def lower_stored(n: int, a_ext: int, b_ext: int, shape, tm: int = 4):
+    """The outputs of ``tile_mm_lower`` that reach a store, as a mask of
+    ``shape``: the tm × tm tiles (ti, tj), tj ≤ ti, of [0, n)², numbered
+    row by row (one a thread), masked to i, j < n. Checks that each
+    tile's operand spans lie inside the operands. Cached: read it only."""
+    mask = np.zeros(shape, bool)
+    nt = -(-n // tm)
+    for t in range(nt * (nt + 1) // 2):
+        ti = int((np.sqrt(8 * t + 1) - 1) / 2)
+        ti -= ti * (ti + 1) // 2 > t
+        ti += (ti + 1) * (ti + 2) // 2 <= t
+        i0, j0 = ti * tm, (t - ti * (ti + 1) // 2) * tm
+        assert j0 <= i0 and i0 + tm <= a_ext and j0 + tm <= b_ext
+        mask[i0:min(i0 + tm, n), j0:min(j0 + tm, n)] = True
+    mask.flags.writeable = False
+    return mask
+
+
+def tile_mm_lower(A, B, n: int, K: int):
+    """(C, stored mask) of ``tile_mm_lower`` over the lower tiles of an
+    n × n product, A read transposed: A(i, k) = A[k][i], B(k, j) =
+    B[k][j], summed over k < K."""
+    assert K <= A.shape[0] and K <= B.shape[0]
+    C = A[:K].T @ B[:K]
+    return C, lower_stored(n, A.shape[1], B.shape[1], C.shape)
+
+
 def put(X, C, mask, f=lambda c: c):
     """An epilogue: X ← f(C) at the stored entries."""
     at = np.nonzero(mask)
     X[at] = f(C)[at]
+
+
+def put_t(X, C, mask):
+    """``put_cols``: the stored entries transposed, X[j][i] ← C[i][j]."""
+    at = np.nonzero(mask)
+    X[at[1], at[0]] = C[at]
+
+
+def put_mirrored(X, C, mask, tm: int = 4):
+    """The epilogue of a symmetric product's lower tiles (K1's and K2's
+    ``put_mirrored``): C on a tm × tm tile of the diagonal averaged with
+    its transpose first, then each stored entry and its mirror
+    (``put_rows`` then ``put_cols``). Checks that every entry of X's
+    n × n top square is stored, and returns nothing."""
+    n = X.shape[0]
+    blk = np.arange(C.shape[0])[:, None] // tm == np.arange(
+        C.shape[1])[None, :] // tm
+    sq = min(C.shape)
+    v = C.copy()
+    v[:sq, :sq] = np.where(blk[:sq, :sq], 0.5 * (C[:sq, :sq] + C[:sq, :sq].T),
+                           C[:sq, :sq])
+    at = np.nonzero(mask)
+    X[at] = v[at]
+    X[at[1], at[0]] = v[at]
+    sq_mask = mask[:n, :n]
+    assert (sq_mask | sq_mask.T).all()
 
 
 def panel_cholesky(W, n: int, width: int = PANEL) -> bool:
@@ -215,9 +271,14 @@ def panel_cholesky(W, n: int, width: int = PANEL) -> bool:
         W[k:below, k:below] = blk.T
         if below >= n:
             break
-        W[below, k:below] = 1 / np.diag(Lkk)  # parked in the strict upper part
-        inv = np.linalg.inv(Lkk) if np.isfinite(Lkk).all() else Lkk
-        rows = W[k:below, below:n].T @ inv.T  # L[i][k:below], i ≥ below
+        rinv = 1 / np.diag(Lkk)
+        W[below, k:below] = rinv  # parked in the strict upper part
+        # L[i][k:below] for i ≥ below: x · Lkkᵀ = S[i][k:below] by forward
+        # substitution with the pivots' reciprocals, as the kernel's rows
+        rows = W[k:below, below:n].T.copy()
+        for c in range(nb):
+            rows[:, c] *= rinv[c]
+            rows[:, c + 1:] -= np.outer(rows[:, c], Lkk[c + 1:, c])
         W[k:below, below:n] = rows.T
         upd = rows @ rows.T
         rest = n - below
@@ -350,7 +411,9 @@ PARENT_PROFILES = ("dirichlet", "last", "first", "spread", "tail")
 
 __all__ = ["to_torch", "spd", "update_inputs", "predict_inputs",
            "augmented_prep", "augmented_factor", "PANEL", "tiling",
-           "tile_stored", "tile_mm", "put", "panel_cholesky", "tri_solve",
+           "tile_stored", "tile_mm", "lower_stored", "tile_mm_lower", "put",
+           "put_t", "put_mirrored",
+           "panel_cholesky", "tri_solve",
            "sigma_inputs", "sigma_aug_inputs", "ut_update_inputs",
            "ut_predict_inputs", "filter_elements", "guard_lanes",
            "lgssm_fields",

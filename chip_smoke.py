@@ -7,10 +7,11 @@ Run from the repository root, with no arguments:
 (``python3 chip_smoke.py --ab PARENT_ROOT`` instead times the sigma-point
 kernels, K1t and K8t, K8 and K9 at the Lorenz-96 UKF's and the
 range-bearing banks' shapes in both dtypes, the Lorenz-96 UKF's walls,
-K10b and K12b at path C's three shapes, K10 and K12 at path B's two,
-K10b's block sizes, and the walls of path B and of path C's two solvers,
-of a parent checkout and of this one in turns on the same card; see
-``ab``.)
+K1 and K2 at the batched Lorenz-96 EKF's and the bearings-only shapes in
+both dtypes, the Lorenz-96 EKF's wall, K10b and K12b at path C's three
+shapes, K10 and K12 at path B's two, K10b's block sizes, and the walls of
+path B and of path C's two solvers, of a parent checkout and of this one
+in turns on the same card; see ``ab``.)
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -202,8 +203,10 @@ KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_update_tiled": "K1t",
               "bft_block_smoother_combine": "K12b"}
 
 # kernels timed in float64 as well at their main-path shapes (config 5's
-# filters run in float64 too; the rest are timed in float32 only)
-TIMED_FLOAT64 = ("bft_ekf_update_tiled", "bft_ekf_predict_cov_tiled",
+# filters run in float64 too, and K1/K2's float64 workspace holds one
+# block an SM at L96; the rest are timed in float32 only)
+TIMED_FLOAT64 = ("bft_ekf_update", "bft_ekf_predict_cov",
+                 "bft_ekf_update_tiled", "bft_ekf_predict_cov_tiled",
                  "bft_ut_sigma_tiled", "bft_ut_update_tiled",
                  "bft_ut_predict_tiled")
 
@@ -581,21 +584,24 @@ def kernel_cases():
     # K1/K2 on the batched Lorenz-96 filter; K1t/K2t at config 5 (the joint
     # update, dy = 256, and the chunked one, 2 × 128), at the band edge
     # dy = 512, at sizes that are not multiples of a tile (64 or 32) or a
-    # panel (32), and on both sides of the rule's edge (dx = 128 | 129,
-    # dy = 40 and dx = dq = 120 | 121 in float32)
+    # panel (32), K1 at the bearings-only widths (dx = 4, dy = 1 and 2: the
+    # narrow panel), and on both sides of the rule's edges (K1 at
+    # dx = 117 | 118, dy = 40 in float32 and 75 | 76, dy = 32 in float64;
+    # K2 at dx = dq = 96 | 97 in float32 and 64 | 65 in float64)
     ekf_upd(512, 64, 32, "main")
     ekf_upd(2, 512, 128)
     ekf_upd(1, C5_DX, C5_DY, "main")
     ekf_upd(1, C5_DX, C5_CHUNK, "also")
     ekf_upd(2, 512, 512)
     for B, dx, dy in ((1, 511, 33), (3, 511, 1), (3, 100, 33), (3, 65, 300),
-                      (1, 65, 1), (1, 128, 40), (1, 129, 40)):
+                      (1, 65, 1), (100, 4, 1), (100, 4, 2), (1, 117, 40),
+                      (1, 118, 40), (1, 75, 32), (1, 76, 32)):
         ekf_upd(B, dx, dy)
     ekf_pred(512, 64, 64, "main")
     ekf_pred(2, 512, 512)
     ekf_pred(1, C5_DX, C5_DX, "main")
-    for B, dx, dq in ((2, 511, 1), (3, 65, 200), (1, 120, 120),
-                      (1, 121, 121), (3, 100, 33)):
+    for B, dx, dq in ((2, 511, 1), (3, 65, 200), (1, 96, 96), (1, 97, 97),
+                      (1, 65, 65), (3, 100, 33), (100, 4, 2)):
         ekf_pred(B, dx, dq)
     upd(bu.K3, bu.bank_chol_update, bu._update_plain, 200, 4, 1, "main")
     upd(bu.K3, bu.bank_chol_update, bu._update_plain, 4096, 8, 8)
@@ -721,7 +727,8 @@ def nan_checks(dev) -> None:
     K7t), C (K7, K7t), Pp (K11) or inner matrix (K10b) gives NaN in the
     same places on both sides, and never an exception. K1t's, K8's and
     K8t's S fail at their first pivot, or only at a pivot of their third
-    panel;
+    panel; K1's at its first, at a pivot of its second panel, or in its
+    one narrow panel at dy = 2;
     K6t's P (n = 512) at its first or at a pivot of its tenth panel; K7t's
     P or C at config 5's widths."""
     import numpy as np
@@ -750,6 +757,12 @@ def nan_checks(dev) -> None:
         a = f64(testing.update_inputs(rng, *dims))
         a[3] = neg_eye(a[3])
         checks.append((kernel, wrap, plain, a + [0.0]))
+    # K1 at dx = 12, dy = 64 in float64 (two panels of 32), failing only
+    # in its second, and at dy = 2 (one narrow panel of 8)
+    for dy, fail_at in ((64, 63), (2, 1)):
+        a = f64(testing.update_inputs(rng, 2, 12, dy))
+        a[3][:, fail_at, fail_at] = -1e3
+        checks.append((fe.K1, fe.fused_update, fe._update_plain, a + [0.0]))
     # K1t at dx = 200, dy = 70 in float64 (three panels of 32, 32, 6)
     for fail_at in (0, 69):
         a = f64(testing.update_inputs(rng, 2, 200, 70))
@@ -1853,13 +1866,67 @@ def profile_ukf(dev, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 def ab_times(root: str) -> None:
-    """``--ab-times ROOT``: ``sigma_times``, ``ut_times`` and
-    ``combine_times`` with the port of the checkout at ROOT (built into
+    """``--ab-times ROOT``: ``sigma_times``, ``ut_times``, ``ekf_times``
+    and ``combine_times`` with the port of the checkout at ROOT (built into
     that checkout's build directory)."""
     sys.path.insert(0, root)
     sigma_times(root)
     ut_times(root)
+    ekf_times(root)
     combine_times(root)
+
+
+def ekf_times(root: str) -> None:
+    """K1 and K2 in float32 and float64 at the batched Lorenz-96 EKF's
+    shapes (B = 512: the update at dx = 64, dy = 32, the predict at
+    dx = dq = 64) and at the bearings-only widths over the same batch and
+    over a bank of 100, as ``ut_times`` times the banks (the update at
+    dx = 4, dy = 1 and 2, the predict at dx = 4, dq = 2): the
+    device time per call (``device_ms``) and the max abs error against the
+    plain version on the same inputs; then the wall of the EKF on the
+    Lorenz-96 data (B = 512, T = 1000, float32): the median and range of
+    REPS calls after a warm-up. Inputs from ``testing`` with SEED."""
+    import numpy as np
+    import torch
+
+    from bayesianfiltering_tpu_torch import _build, testing
+    from bayesianfiltering_tpu_torch import inference as inf
+    from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
+
+    _build.load()
+    dev = torch.device("cuda", 0)
+    updates = ((EKF_B, EKF_DX, EKF_DY), (EKF_B, 4, 1), (EKF_B, 4, 2),
+               (UGSF_M, 4, 1), (UGSF_M, 4, 2))
+    predicts = ((EKF_B, EKF_DX, EKF_DX), (EKF_B, 4, 2), (UGSF_M, 4, 2))
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        rng = np.random.default_rng(SEED)
+
+        def on_card(xs):
+            return [torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+                    for x in xs]
+
+        def show(label, fn, plain):
+            err = max(float((g - w).abs().max()) for g, w in
+                      zip(_as_tuple(fn()), _as_tuple(plain())))
+            log(f"{root} {label} {name}: device {device_ms(fn, ('ekf_',))} "
+                f"ms, max abs err {err:.3e} against the plain version")
+
+        for B, dx, dy in updates:
+            a = on_card(testing.update_inputs(rng, B, dx, dy))
+            show(f"K1 B={B} dx={dx} dy={dy}",
+                 lambda: fe.fused_update(*a, 0.0),
+                 lambda: fe._update_plain(*a, 0.0))
+        for B, dx, dq in predicts:
+            a = on_card(testing.predict_inputs(rng, B, dx, dq))
+            show(f"K2 B={B} dx={dx} dq={dq}",
+                 lambda: fe.fused_predict_cov(*a),
+                 lambda: fe._predict_plain(*a))
+    params, _, emissions = lorenz96_data(dev, torch.float32)
+    run = lambda: inf.extended_kalman_filter(params, emissions)
+    inf.extended_kalman_filter(params, emissions[:, :20])
+    secs = [timed(run)[1] for _ in range(REPS)]
+    log(f"{root} ekf lorenz96 B={EKF_B} T={EKF_T} float32: {spread(secs)}")
 
 
 def combine_times(root: str) -> None:

@@ -864,14 +864,17 @@ def test_wide_ukf_kernel_path_matches_plain_path(dev):
 # otherwise); every case asserts that the kernel the rule names launched
 # and the other did not. Shapes: config 5, the bands' edges, sizes that
 # are not multiples of a tile or a panel, and both sides of the rule's
-# edge (at dx = 128/129, dy = 40 in float32; float64 is tiled at both).
+# edge (at dx = 117/118, dy = 40 in float32, 75/76 at dy = 32 in float64;
+# K2 at dx = dq = 96/97 in float32, 64/65 in float64).
 # ---------------------------------------------------------------------------
 
 VARIANT_UPDATE_SHAPES = [(1, 512, 256), (1, 512, 128), (2, 512, 512),
                          (1, 511, 33), (3, 511, 1), (3, 100, 33),
-                         (3, 65, 300), (1, 128, 40), (1, 129, 40)]
+                         (3, 65, 300), (1, 117, 40), (1, 118, 40),
+                         (1, 75, 32), (1, 76, 32)]
 VARIANT_PREDICT_SHAPES = [(1, 512, 512), (2, 511, 1), (3, 65, 200),
-                          (1, 120, 120), (1, 121, 121), (3, 100, 33)]
+                          (1, 96, 96), (1, 97, 97), (1, 64, 64), (1, 65, 65),
+                          (3, 100, 33)]
 
 
 def _expect_one(pair, want):

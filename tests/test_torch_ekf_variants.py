@@ -86,8 +86,14 @@ def update_case(B, dx, dy):
 @pytest.mark.parametrize("dx,dy,itemsize,optin,want", [
     (64, 32, 4, H100_OPTIN, "K1"),     # the batched Lorenz-96 filter
     (64, 32, 8, H100_OPTIN, "K1"),
-    (128, 40, 4, H100_OPTIN, "K1"),    # 58,048 elements: fits to the byte
-    (129, 40, 4, H100_OPTIN, "K1T"),
+    (127, 32, 4, H100_OPTIN, "K1"),    # 58,048 elements: fits to the byte
+    (128, 32, 4, H100_OPTIN, "K1T"),
+    (117, 40, 4, H100_OPTIN, "K1"),    # the edge at dy = 40 in float32
+    (118, 40, 4, H100_OPTIN, "K1T"),
+    (75, 32, 8, H100_OPTIN, "K1"),     # and at dy = 32 in float64
+    (76, 32, 8, H100_OPTIN, "K1T"),
+    (14, 67, 8, H100_OPTIN, "K1"),     # 29,024 elements: fits to the byte
+    (14, 68, 8, H100_OPTIN, "K1T"),
     (100, 50, 4, H100_OPTIN, "K1"),
     (100, 50, 8, H100_OPTIN, "K1T"),
     (512, 256, 4, H100_OPTIN, "K1T"),  # config 5, joint update
@@ -100,9 +106,11 @@ def test_update_variant_rule(dx, dy, itemsize, optin, want):
 
 @pytest.mark.parametrize("dx,dq,itemsize,optin,want", [
     (64, 64, 4, H100_OPTIN, "K2"),
-    (64, 64, 8, H100_OPTIN, "K2"),
-    (120, 120, 4, H100_OPTIN, "K2"),   # 57,600 elements
-    (121, 121, 4, H100_OPTIN, "K2T"),
+    (64, 64, 8, H100_OPTIN, "K2"),     # 24,576 elements
+    (65, 65, 8, H100_OPTIN, "K2T"),
+    (96, 96, 4, H100_OPTIN, "K2"),     # 55,296 elements
+    (97, 97, 4, H100_OPTIN, "K2T"),
+    (76, 118, 4, H100_OPTIN, "K2"),    # 58,048 elements: fits to the byte
     (512, 512, 4, H100_OPTIN, "K2T"),  # config 5
     (64, 64, 8, 64 * 1024, "K2T"),
 ])
