@@ -102,11 +102,11 @@ _SIGNATURES = {
     "bft_bank_smoother_elements_f64": ([_P] * 8 + [_I] * 3 + [_P], _I),
     "bft_bank_smoother_combine_f32": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "bft_bank_smoother_combine_f64": ([_P] * 9 + [_I] * 4 + [_P], _I),
-    "bft_block_scratch_elems": ([_I] * 5, _LL),
+    "bft_block_scratch_elems": ([_I] * 4, _LL),
     "bft_block_combine_f32": ([_P] * 16 + [_I] * 6 + [_P], _I),
     "bft_block_combine_f64": ([_P] * 16 + [_I] * 6 + [_P], _I),
-    "bft_block_smoother_elements_f32": ([_P] * 9 + [_I] * 3 + [_P], _I),
-    "bft_block_smoother_elements_f64": ([_P] * 9 + [_I] * 3 + [_P], _I),
+    "bft_block_smoother_elements_f32": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "bft_block_smoother_elements_f64": ([_P] * 9 + [_I] * 5 + [_P], _I),
     "bft_block_smoother_combine_f32": ([_P] * 10 + [_I] * 6 + [_P], _I),
     "bft_block_smoother_combine_f64": ([_P] * 10 + [_I] * 6 + [_P], _I),
 }

@@ -2,9 +2,9 @@
 // elements (K11) and the smoothing combine (K12), each over a bank of M
 // lanes, in two size bands: one thread per lane for dx ≤ 8 (the lane
 // kernels, `bank_*_kernel`) and one thread block per lane for
-// 8 < dx ≤ 512 (the block kernels after the lane kernels below: K11b
-// `block_smoother_elements_kernel`, and K10b and K12b, `tiled_*_kernel`,
-// built on csrc/block_mm.cuh).
+// 8 < dx ≤ 512 (the block kernels after the lane kernels below: K10b
+// `tiled_combine_kernel`, K11b `block_smoother_elements_kernel` and K12b
+// `tiled_smoother_combine_kernel`, built on csrc/block_mm.cuh).
 //
 // Replaces the TPU kernels bayesianfiltering_tpu/ops/bank_combine.py
 // `_combine_kernel` (K10, body `_combine_lattice`) and
@@ -507,12 +507,6 @@ int launch_scombine(const void* E1, const void* g1, const void* L1,
 // scratch is then bounded by the blocks in flight (kScratchBlocksPerSM per
 // SM), not by M.
 //
-// K11b (block_smoother_elements_kernel) keeps the first design: products as
-// one dot product per output thread (common.cuh block_mm_*), the
-// one-barrier-per-column Cholesky and whole-column substitution, its four
-// n × n intermediates in dynamic shared memory when they fit, else in the
-// caller's global scratch, inputs read in place.
-//
 // K10b and K12b (tiled_combine_kernel, tiled_smoother_combine_kernel) are
 // built for the H100 from csrc/block_mm.cuh:
 // - What bounds them: the products run on the CUDA cores in the working
@@ -560,62 +554,59 @@ int launch_scombine(const void* E1, const void* g1, const void* L1,
 //   cp.async). K10b runs 512 threads (tiles 4 × 2) where the lanes fit one
 //   block an SM (M ≤ the SM count) on the tile in float32, so that one
 //   lane's chain is short, else 256; K12b runs 256.
+//
+// K11b (block_smoother_elements_kernel) is built the same way:
+// - What bounds it: at path C's shape (65,535 lanes, dx = 64, F shared) a
+//   lane needs ~16n³/3 flops (chip_smoke.py elements_flops: the factor,
+//   F Pf, a forward and a back solve, the symmetric YᵀY) against
+//   4n² + 3n values moved (F once): 1.38 ms of operations in float32
+//   against 1.30 ms of bytes, so it is operation-bound at full width; a
+//   block waits on the serial chains of its factor and solve and on its
+//   barriers (12 a lane at dx = 64 in float32, 22 in float64), which two
+//   blocks an SM (float32) overlap.
+// - One factor and one solve: with Y = Lp⁻¹ F Pf, G = Yᵀ Lp⁻¹,
+//   G mp = Yᵀ (Lp⁻¹ mp) and (G Lp)(G Lp)ᵀ = YᵀY. The lane's block X holds
+//   [Pp | F Pf | mp | I] in ld rows; the panel factor turns lower(Pp) into
+//   Lp in place, and one panel triangular solve gives
+//   [Y | z | Lp⁻¹] = Lp⁻¹ [F Pf | mp | I]. Where Pp is not positive
+//   definite the pivots' reciprocals are NaN, so that every output of the
+//   lane is NaN, as the plain version's psd_solve gives.
+// - Products: F Pf, E = Yᵀ Lp⁻¹ (stored from registers, 16 bytes a store
+//   where the rows allow it) and the packed lower tiles of YᵀY
+//   (tile_mm_lower), whose epilogue forms L = sym(Pf) − YᵀY in place in
+//   Pf, each tile with its mirror; g = mf − Yᵀ z is one block
+//   matrix-vector product.
+// - Staging: a shared F is staged once for the block's whole loop; Pp, Pf,
+//   mp and a banked F by cp.async, the next lane's under the current
+//   lane's store of L (Pf in two buffers: one buffer, its copy after the
+//   store, ran 1.1% slower in float32 and 1.4% in float64 on an H100).
+// - Launch shape: as K12b's (256 threads; the tile 64 where dx ≤ 64 and
+//   the workspace fits, 27,200 elements: 109 KB in float32, two blocks an
+//   SM, 218 KB in float64, one; else global scratch), the factor and the
+//   solve in panels of kElementsPanel (32 in float32, 16 in float64).
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockThreads = 256;
 constexpr int kScratchBlocksPerSM = 2;
 
-size_t block_elements_ws(int n) { return 4 * size_t(n) * n; }
+// The width of K11b's block X at leading dimension ld: [Pp | F Pf | mp |
+// pad | I] with F Pf from column ld and I from the first 16-byte boundary
+// after mp, both within ld + n + 4 + ld ≤ 3ld + 4, rounded up to 32.
+__host__ __device__ constexpr int elements_ldx(int ld) { return 3 * ld + 32; }
 
-// The global scratch, in elements, that a block kernel with a per-lane
-// workspace of ws elements needs over M lanes: 0 when the workspace fits in
-// shared memory, else kScratchBlocksPerSM workspaces per SM (at most M);
-// -1 on a failed device query.
-long long block_scratch_elems(size_t ws, int itemsize, int M, int device) {
-  int sms = 0;
-  const long long need = scratch_elems(ws, itemsize, device);
-  if (need <= 0) return need;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                             device) != cudaSuccess)
-    return -1;
-  return (long long)std::min(M, kScratchBlocksPerSM * sms) * need;
-}
-
-// The launch shape of a block kernel over M lanes: a persistent grid of as
-// many blocks as the SMs hold at once with the workspace in dynamic shared
-// memory, or, when one lane's workspace exceeds the opt-in limit, one
-// block per scratch workspace. False on a failed device query.
-template <typename K>
-bool block_plan(K kernel, size_t ws, int itemsize, int M, int device,
-                int* grid, size_t* smem, long long* scratch) {
-  int sms = 0;
-  *scratch = block_scratch_elems(ws, itemsize, M, device);
-  if (*scratch < 0 ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                             device) != cudaSuccess)
-    return false;
-  if (*scratch > 0) {
-    *grid = int(*scratch / (long long)ws);
-    *smem = 0;
-    return true;
-  }
-  int per_sm = 0;
-  *smem = ws * size_t(itemsize);
-  if (set_smem(kernel, *smem) != 0 ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kBlockThreads, *smem) != cudaSuccess)
-    return false;
-  *grid = std::min(M, std::max(per_sm, 1) * sms);
-  return true;
-}
-
-// K10b's and K12b's workspaces (kinds 0 and 2 of ops/bank_combine.py
-// tiled_ws) at leading dimension ld: K10b six ld × ld matrices, four
-// vectors and mv_cols' partial sums, K12b five matrices and the partial
-// sums. The partial sums take max(512, ld): enough for either block size.
+// The workspaces of K10b, K11b and K12b (kinds 0, 1 and 2 of
+// ops/bank_combine.py tiled_ws) at leading dimension ld: K10b six ld × ld
+// matrices, four vectors and mv_cols' partial sums; K11b F and two Pf
+// buffers (ld × ld), its block X (ld rows of elements_ldx(ld)), the
+// pivots' reciprocals and the partial sums; K12b five matrices and the
+// partial sums. The partial sums take max(512, ld): enough for either
+// block size.
 __host__ __device__ constexpr size_t tiled_ws(int kind, int ld) {
-  return (kind == 0 ? 6 : 5) * size_t(ld) * ld + (kind == 0 ? 4 * ld : 0) +
-         size_t(ld > 512 ? ld : 512);
+  return kind == 1 ? 3 * size_t(ld) * ld + size_t(ld) * elements_ldx(ld) +
+                         ld + size_t(ld > 512 ? ld : 512)
+                   : (kind == 0 ? 6 : 5) * size_t(ld) * ld +
+                         (kind == 0 ? 4 * ld : 0) +
+                         size_t(ld > 512 ? ld : 512);
 }
 
 // The leading dimension of a tiled workspace: the tile, or on the global
@@ -635,70 +626,6 @@ struct Tiling {
   static constexpr int TN = 64 / (NT / 16);
   static_assert(TN * (NT / 16) == 64, "tile shape");
 };
-
-// K11, block variant: the RTS elements of one lane per loop iteration.
-template <typename T>
-__global__ void __launch_bounds__(kBlockThreads) block_smoother_elements_kernel(
-    const T* __restrict__ fmg, const T* __restrict__ fPg,
-    const T* __restrict__ pmg, const T* __restrict__ pPg,
-    const T* __restrict__ Fg, T* __restrict__ Eg, T* __restrict__ gg,
-    T* __restrict__ Lg, int M, int f_banked, int n, T* scratch,
-    size_t ws_elems) {
-  __shared__ int s_bad;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t dd = size_t(n) * n;
-  T* S0 = workspace(scratch, ws_elems);
-  T* S1 = S0 + dd;
-  T* S2 = S1 + dd;
-  T* S3 = S2 + dd;
-
-  for (int m = blockIdx.x; m < M; m += gridDim.x) {
-    const T* Pp = pPg + size_t(m) * dd;
-    const T* Pf = fPg + size_t(m) * dd;
-    const T* F = Fg + (f_banked ? size_t(m) * dd : 0);
-    const T* mf = fmg + size_t(m) * n;
-    const T* mp = pmg + size_t(m) * n;
-
-    // Lp = chol(Pp) in S0 (column-major, so S0 = Lpᵀ row-major), NaN unless
-    // every pivot is positive; S1 = Lp⁻¹
-    for (int idx = tid; idx < n * n; idx += nt) {
-      const int j = idx / n, i = idx % n;
-      S0[idx] = i >= j ? Pp[i * n + j] : T(0);
-    }
-    __syncthreads();
-    block_cholesky_cm(S0, n, &s_bad, qnan<T>());
-    block_tri_inv_cm(S1, S0, n);
-    block_mm_nn(S2, F, Pf, n, n, n);         // S2 = F Pf
-    __syncthreads();
-    block_mm_nn(S3, S1, S2, n, n, n);        // S3 = Lp⁻¹ F Pf
-    __syncthreads();
-    block_mm_tn(S2, S1, S3, n, n, n);        // S2 = Gᵀ = Pp⁻¹ F Pf
-    __syncthreads();
-
-    // G = S2ᵀ; g = mf − G mp
-    T* E = Eg + size_t(m) * dd;
-    for (int idx = tid; idx < n * n; idx += nt)
-      E[idx] = S2[(idx % n) * n + idx / n];
-    for (int i = tid; i < n; i += nt) {
-      T acc = T(0);
-      for (int k = 0; k < n; ++k) acc += S2[k * n + i] * mp[k];
-      gg[size_t(m) * n + i] = mf[i] - acc;
-    }
-
-    // L = sym(Pf) − sym((G Lp)(G Lp)ᵀ), with (G Lp)ᵀ = Lpᵀ Gᵀ
-    block_mm_nn(S3, S0, S2, n, n, n);        // S3 = (G Lp)ᵀ
-    __syncthreads();
-    block_mm_tn(S1, S3, S3, n, n, n);        // S1 = (G Lp)(G Lp)ᵀ
-    __syncthreads();
-    T* L = Lg + size_t(m) * dd;
-    for (int idx = tid; idx < n * n; idx += nt) {
-      const int i = idx / n, j = idx % n;
-      L[idx] = T(0.5) * (Pf[i * n + j] + Pf[j * n + i])
-               - T(0.5) * (S1[i * n + j] + S1[j * n + i]);
-    }
-    __syncthreads();
-  }
-}
 
 // The epilogues of tile_mm that K10b and K12b use: a tile into a workspace
 // matrix (ld), row by row or transposed, into a global output (rows of n,
@@ -1031,9 +958,131 @@ __global__ void __launch_bounds__(NT, (NT == 256 && sizeof(T) == 4) ? 2 : 1)
   }
 }
 
+// K11b's panel width, the factor of Pp's and the solve's against it: 32
+// in float32, 16 in float64 (the faster of 8, 16 and 32 in each at path C
+// on an H100; PERF.md §6).
+template <typename T>
+constexpr int kElementsPanel = sizeof(T) == 4 ? 32 : 16;
+
+// K11b: the RTS elements of one lane per loop iteration, on the same routes
+// as K10b. X, the lane's block (ld rows, leading dimension ldx), holds
+// [Pp, then Lp | F Pf, then Y | mp, then z | pad | I, then Lp⁻¹]; Lp is
+// held column-major in X's first columns (X[k·ldx + i] = Lp[i][k]).
+template <typename T, int TILE, int NT>
+__global__ void __launch_bounds__(NT, (NT == 256 && sizeof(T) == 4) ? 2 : 1)
+    block_smoother_elements_kernel(
+        const T* __restrict__ fmg, const T* __restrict__ fPg,
+        const T* __restrict__ pmg, const T* __restrict__ pPg,
+        const T* __restrict__ Fg, T* __restrict__ Eg, T* __restrict__ gg,
+        T* __restrict__ Lg, int M, int f_banked, int n, T* scratch) {
+  constexpr bool kSmem = TILE > 0;
+  constexpr int TM = Tiling<NT>::TM, TN = Tiling<NT>::TN;
+  constexpr int W = kElementsPanel<T>;
+  __shared__ int s_bad;
+  const int tid = threadIdx.x;
+  const int ld = tiled_ld(TILE, n), ldx = elements_ldx(ld);
+  const size_t LL = size_t(ld) * ld, dd = size_t(n) * n;
+  T* Fs = kSmem ? shared_workspace<T>()
+                : scratch + size_t(blockIdx.x) * tiled_ws(1, ld);
+  T* Pbuf = Fs + LL;  // Pf: the current lane's and the next one's
+  T* X = Pbuf + 2 * LL;
+  T* dinv = X + size_t(ld) * ldx;  // the pivots' reciprocals
+  T* part = dinv + ld;
+  T* Y = X + ld;                         // F Pf, then Y = Lp⁻¹ F Pf
+  T* z = Y + n;                          // mp, then z = Lp⁻¹ mp: a column
+  T* Li = X + round_up(ld + n + 1, 4);   // I, then Lp⁻¹
+  const Put<T, TM, TN> put{n};
+  const bool vec_e = rows_aligned(Eg, n), vec_l = rows_aligned(Lg, n);
+
+  // lane m's Pp, mp and Pf (into P), and F where it is banked, as one
+  // cp.async group on the tile; the identity
+  const auto stage_lane = [&](int m, T* P) {
+    stage<T, kSmem>(X, ldx, pPg + size_t(m) * dd, n);
+    stage<T, kSmem>(P, ld, fPg + size_t(m) * dd, n);
+    for (int i = tid; i < n; i += NT)
+      copy_bytes<kSmem, sizeof(T)>(z + i * ldx, pmg + size_t(m) * n + i);
+    if (f_banked) stage<T, kSmem>(Fs, ld, Fg + size_t(m) * dd, n);
+    if (kSmem) cp_async_commit();
+    for (int idx = tid; idx < n * n; idx += NT) {
+      const int i = idx / n, j = idx - i * n;
+      Li[i * ldx + j] = i == j ? T(1) : T(0);
+    }
+  };
+  if (!f_banked) stage<T, kSmem>(Fs, ld, Fg, n);  // once for the block
+  if (int(blockIdx.x) < M) stage_lane(blockIdx.x, Pbuf);
+
+  int buf = 0;
+  for (int m = blockIdx.x; m < M; m += gridDim.x, buf ^= 1) {
+    T* Pf = Pbuf + buf * LL;
+    if (kSmem) cp_async_wait_all();
+    if (tid == 0) s_bad = 0;
+    __syncthreads();
+    // lower(Pp) into the factor's layout (X holds Pp row-major: X[j·ldx +
+    // i] ← Pp[i][j] for i > j), and F Pf into Y
+    diag_walk(round_up(n, kWarp), [&](int i, int j) {
+      if (i < n && j < i) X[j * ldx + i] = X[i * ldx + j];
+    });
+    tile_mm<T, NT, TM, TN, false>(Fs, ld, Pf, ld, n, n, n, 0, false,
+                                  put.rows(Y, ldx));
+    __syncthreads();
+    // Lp = chol(Pp) in place; the pivots' reciprocals, NaN throughout
+    // unless every pivot is positive
+    block_cholesky_panels<T, W>(X, n, &s_bad, ldx);
+    const bool bad = s_bad != 0;
+    for (int i = tid; i < ld; i += NT)
+      dinv[i] = bad ? qnan<T>() : i < n ? T(1) / X[i * ldx + i] : T(1);
+    __syncthreads();
+    // [Y | z | Lp⁻¹] = Lp⁻¹ [F Pf | mp | I] in place
+    block_tri_solve<T, NT, TM, TN, W>(X, dinv, Y, n + 1, Li, n, n, ldx);
+    // E = G = Yᵀ Lp⁻¹ (out from registers); L = sym(Pf) − YᵀY in place in
+    // Pf: the lower tiles of YᵀY, each thread's tile and its mirror (a
+    // diagonal tile averaged with its own transpose), so that L is exactly
+    // symmetric; g = mf − Yᵀ z
+    tile_mm<T, NT, TM, TN, true>(Y, ldx, Li, ldx, n, n, n, 0, false,
+                                 put.out(Eg + size_t(m) * dd, vec_e));
+    tile_mm_lower<T, NT, TM>(
+        Y, ldx, Y, ldx, n, n, [&](int i0, int j0, const T (&acc)[TM][TM]) {
+          T v[TM][TM];
+#pragma unroll
+          for (int r = 0; r < TM; ++r)
+#pragma unroll
+            for (int c = 0; c < TM; ++c) {
+              const int i = i0 + r, j = j0 + c;
+              const T w = i0 == j0 ? T(0.5) * (acc[r][c] + acc[c][r])
+                                   : acc[r][c];
+              v[r][c] = i < n && j < n
+                            ? T(0.5) * (Pf[i * ld + j] + Pf[j * ld + i]) - w
+                            : T(0);
+            }
+#pragma unroll
+          for (int r = 0; r < TM; ++r)
+#pragma unroll
+            for (int c = 0; c < TM; ++c) {
+              const int i = i0 + r, j = j0 + c;
+              if (i < n && j < n) {
+                Pf[i * ld + j] = v[r][c];
+                Pf[j * ld + i] = v[r][c];
+              }
+            }
+        });
+    mv_cols(Y, ldx, z, n, part,
+            [&](int i, T s) {
+              gg[size_t(m) * n + i] = fmg[size_t(m) * n + i] - s;
+            },
+            ldx);
+    __syncthreads();
+    // the next lane's inputs into the dead regions and the other Pf
+    // buffer, landing under the store of L
+    const int next = m + int(gridDim.x);
+    if (next < M) stage_lane(next, Pbuf + (buf ^ 1) * LL);
+    copy_out(Lg + size_t(m) * dd, Pf, ld, n, vec_l);
+  }
+}
+
 // The tiled kernel for (tile, threads), or null where none is built: tiles
 // 0 (global scratch) and kTile at 256 threads; K10b also kTile at 512
-// threads in float32 (ops/bank_combine.py block_threads).
+// threads in float32 (ops/bank_combine.py block_threads). K11b's
+// block_smoother_elements_kernel takes the same two routes.
 template <typename T>
 auto combine_kernel_for(int tile, int threads)
     -> decltype(&tiled_combine_kernel<T, 0, kBlockThreads>) {
@@ -1057,8 +1106,18 @@ auto scombine_kernel_for(int tile, int threads)
   return nullptr;
 }
 
-// Launch a tiled kernel of workspace kind 0 (K10b) or 2 (K12b) over M
-// lanes: with tile > 0 a persistent grid of as many blocks as the SMs hold
+template <typename T>
+auto elements_kernel_for(int tile, int threads)
+    -> decltype(&block_smoother_elements_kernel<T, 0, kBlockThreads>) {
+  if (threads == kBlockThreads && tile == 0)
+    return block_smoother_elements_kernel<T, 0, kBlockThreads>;
+  if (threads == kBlockThreads && tile == kTile)
+    return block_smoother_elements_kernel<T, kTile, kBlockThreads>;
+  return nullptr;
+}
+
+// Launch a tiled kernel of workspace kind 0 (K10b), 1 (K11b) or 2 (K12b)
+// over M lanes: with tile > 0 a persistent grid of as many blocks as the SMs hold
 // at once, the workspace in dynamic shared memory; with tile 0
 // kScratchBlocksPerSM blocks an SM (at most M), each on its slice of the
 // caller's scratch (bft_block_scratch_elems).
@@ -1088,22 +1147,6 @@ int launch_tiled(K kernel, int kind, int tile, int threads, void* scratch,
   }
   kernel<<<grid, threads, smem, cudaStream_t(stream)>>>(
       args..., static_cast<T*>(scratch));
-  return int(cudaGetLastError());
-}
-
-template <typename T, typename K, typename... Args>
-int launch_block(K kernel, void* scratch, int M, int dx, void* stream,
-                 Args... args) {
-  int dev = 0, grid = 0;
-  size_t smem = 0;
-  long long need = 0;
-  const size_t ws = block_elements_ws(dx);
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      !block_plan(kernel, ws, int(sizeof(T)), M, dev, &grid, &smem, &need) ||
-      (need > 0 && scratch == nullptr))
-    return int(cudaErrorInvalidValue);
-  kernel<<<grid, kBlockThreads, smem, cudaStream_t(stream)>>>(
-      args..., need > 0 ? static_cast<T*>(scratch) : nullptr, ws);
   return int(cudaGetLastError());
 }
 
@@ -1160,14 +1203,11 @@ int bft_bank_smoother_combine_f64(const void* E1, const void* g1,
                                  dx, stream);
 }
 
-// The global scratch, in elements, of a block kernel over M lanes: K11b
-// (kind 1) 0 when its workspace fits in shared memory; K10b and K12b
-// (kinds 0 and 2) that of their global route (tile 0), which the caller
-// takes where the tiles do not fit. -1 on a failed device query.
-long long bft_block_scratch_elems(int kind, int M, int dx, int itemsize,
-                                  int device) {
-  if (kind == 1)
-    return block_scratch_elems(block_elements_ws(dx), itemsize, M, device);
+// The global scratch, in elements, of a block kernel of workspace kind 0
+// (K10b), 1 (K11b) or 2 (K12b) over M lanes on its global route (tile 0),
+// which the caller takes where the tiles do not fit. -1 on a failed device
+// query.
+long long bft_block_scratch_elems(int kind, int M, int dx, int device) {
   int sms = 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
       cudaSuccess)
@@ -1196,11 +1236,12 @@ BFT_BLOCK_COMBINE_ENTRY(bft_block_combine_f64, double)
 #define BFT_BLOCK_ELEMENTS_ENTRY(NAME, T)                                    \
   int NAME(const void* fm, const void* fP, const void* pm, const void* pP,   \
            const void* F, void* E, void* g, void* L, void* scratch, int M,   \
-           int f_banked, int dx, void* stream) {                             \
+           int f_banked, int dx, int tile, int threads, void* stream) {      \
     using P = const T*;                                                      \
-    return launch_block<T>(block_smoother_elements_kernel<T>, scratch, M,    \
-                           dx, stream, P(fm), P(fP), P(pm), P(pP), P(F),     \
-                           (T*)E, (T*)g, (T*)L, M, f_banked, dx);            \
+    return launch_tiled<T>(elements_kernel_for<T>(tile, threads), 1, tile,   \
+                           threads, scratch, M, dx, stream, P(fm), P(fP),    \
+                           P(pm), P(pP), P(F), (T*)E, (T*)g, (T*)L, M,       \
+                           f_banked, dx);                                    \
   }
 BFT_BLOCK_ELEMENTS_ENTRY(bft_block_smoother_elements_f32, float)
 BFT_BLOCK_ELEMENTS_ENTRY(bft_block_smoother_elements_f64, double)

@@ -1,7 +1,7 @@
 // Block-wide building blocks of the block-per-lane combines K10b and K12b
-// (csrc/bank_combine.cu), of the UT update and predict K8 and K9
-// (csrc/fused_ut.cu) and of the EKF update and predict K1 and K2
-// (csrc/fused_ekf.cu): a register-tiled product on operands held in a
+// and the RTS elements K11b (csrc/bank_combine.cu), of the UT update and
+// predict K8 and K9 (csrc/fused_ut.cu) and of the EKF update and predict K1
+// and K2 (csrc/fused_ekf.cu): a register-tiled product on operands held in a
 // per-block workspace (and its packed lower-triangle form), staging from
 // global memory (cp.async into shared memory), a bank-conflict-free
 // diagonal walk for transposes and symmetric passes (an in-place
@@ -369,19 +369,21 @@ __device__ void mv_rows(const T* X, int ld, const T* v, int n, F f) {
   }
 }
 
-// f(i, Σ_k X[k·ld + i] v[k]) for i < n (the product with Xᵀ): the block
-// split into P = max(1, blockDim/n) parts along k, each thread one
+// f(i, Σ_k X[k·ld + i] v[k·vs]) for i < n (the product with Xᵀ; v a
+// column of a workspace matrix where vs is its leading dimension): the
+// block split into P = max(1, blockDim/n) parts along k, each thread one
 // (part, i) partial sum (consecutive threads on consecutive i), summed
 // after a barrier from part[] (max(blockDim, n) elements). Every thread
 // calls it; the caller synchronises before part[] is reused.
 template <typename T, typename F>
-__device__ void mv_cols(const T* X, int ld, const T* v, int n, T* part, F f) {
+__device__ void mv_cols(const T* X, int ld, const T* v, int n, T* part, F f,
+                        int vs = 1) {
   const int P = max(1, int(blockDim.x) / n), chunk = (n + P - 1) / P;
   for (int idx = threadIdx.x; idx < P * n; idx += blockDim.x) {
     const int p = idx / n, i = idx - p * n;
     const int k1 = min(n, (p + 1) * chunk);
     T s = T(0);
-    for (int k = p * chunk; k < k1; ++k) s += X[k * ld + i] * v[k];
+    for (int k = p * chunk; k < k1; ++k) s += X[k * ld + i] * v[k * vs];
     part[idx] = s;
   }
   __syncthreads();

@@ -11,9 +11,9 @@ lane, for dx ≤ 8, and ``tiled_combine_kernel`` (:data:`K10B`), one thread
 block per lane on a persistent grid, for 8 < dx ≤ 512. The choice is by
 size alone (:func:`band_kernel`); outside the band a CUDA input raises
 NotImplementedError (the port has no plain path on the card). K10B's
-launch (and K12B's, ``ops/bank_smoother.py``) is planned here from the
-width, the dtype and the lanes: :func:`block_tile` picks its workspace's
-route, :func:`block_threads` its block size.
+launch (and K11B's and K12B's, ``ops/bank_smoother.py``) is planned here
+from the width, the dtype and the lanes: :func:`block_tile` picks its
+workspace's route, :func:`block_threads` its block size.
 
 Cholesky guard: the kernel zeroes a lane's factor of C1 + εI unless every
 pivot is positive, which is what the plain version does (``cholesky_nan``
@@ -49,25 +49,37 @@ K10B = _build.register("bft_block_combine", _SRC,
 _CORES = (2, 1, 2, 2, 1)  # trailing core axes of A, b, C, J, η
 # workspace kinds of csrc/bank_combine.cu: K10b, K11b, K12b
 BLOCK_COMBINE, BLOCK_ELEMENTS, BLOCK_SCOMBINE = 0, 1, 2
-# K10b's and K12b's shared-memory tile (the leading dimension of their
+# the block kernels' shared-memory tile (the leading dimension of their
 # workspace, csrc/bank_combine.cu ``*_kernel_for``) and block sizes
 TILE = 64
 WIDE_THREADS, NARROW_THREADS = 256, 512
 
 
+def elements_ldx(ld: int) -> int:
+    """The width of K11b's block [Pp | F Pf | mp | pad | I] at leading
+    dimension ``ld`` (csrc/bank_combine.cu ``elements_ldx``)."""
+    return 3 * ld + 32
+
+
 def tiled_ws(kind: int, ld: int) -> int:
-    """Elements of one lane's workspace in K10b (``BLOCK_COMBINE``) or K12b
-    (``BLOCK_SCOMBINE``) at leading dimension ``ld`` (csrc/bank_combine.cu
-    ``tiled_ws``): six ld × ld matrices, four vectors and the partial sums
-    of a matrix-vector product, or five matrices and the partial sums."""
+    """Elements of one lane's workspace in K10b (``BLOCK_COMBINE``), K11b
+    (``BLOCK_ELEMENTS``) or K12b (``BLOCK_SCOMBINE``) at leading dimension
+    ``ld`` (csrc/bank_combine.cu ``tiled_ws``): six ld × ld matrices, four
+    vectors and the partial sums of a matrix-vector product; F, two Pf
+    buffers, the block of ld rows of :func:`elements_ldx`, the pivots'
+    reciprocals and the partial sums; or five matrices and the partial
+    sums."""
+    part = max(512, ld)
+    if kind == BLOCK_ELEMENTS:
+        return 3 * ld * ld + ld * elements_ldx(ld) + ld + part
     mats, vecs = (6, 4) if kind == BLOCK_COMBINE else (5, 0)
-    return mats * ld * ld + vecs * ld + max(512, ld)
+    return mats * ld * ld + vecs * ld + part
 
 
 def block_tile(kind: int, dx: int, itemsize: int, smem_optin: int) -> int:
-    """The route of K10b or K12b at width ``dx``: :data:`TILE`, the leading
-    dimension of a shared-memory workspace, where dx ≤ TILE and the
-    workspace fits beside the static slack under an opt-in of
+    """The route of K10b, K11b or K12b at width ``dx``: :data:`TILE`, the
+    leading dimension of a shared-memory workspace, where dx ≤ TILE and
+    the workspace fits beside the static slack under an opt-in of
     ``smem_optin`` bytes (``_build.smem_optin``), else 0 (the workspace in
     global scratch). On an H100 dx ≤ 64 takes the tile in either dtype."""
     fits = _build.fits_smem(tiled_ws(kind, TILE), itemsize, smem_optin)
@@ -76,12 +88,13 @@ def block_tile(kind: int, dx: int, itemsize: int, smem_optin: int) -> int:
 
 def block_threads(kind: int, M: int, tile: int, itemsize: int,
                   sms: int) -> int:
-    """Threads per block of K10b or K12b over M lanes: 512 for K10b where
-    every lane gets a block of its own on an SM of its own (M ≤ ``sms``,
-    the scan's narrow levels), in float32 on the tile, so that one lane's
-    serial chain is short; else 256 (float64 keeps 256: its panel factor
-    needs more than the 128 registers a thread that 512 allow; K12b's
-    chain is three products, and it keeps 256 throughout)."""
+    """Threads per block of K10b, K11b or K12b over M lanes: 512 for K10b
+    where every lane gets a block of its own on an SM of its own
+    (M ≤ ``sms``, the scan's narrow levels), in float32 on the tile, so
+    that one lane's serial chain is short; else 256 (float64 keeps 256:
+    its panel factor needs more than the 128 registers a thread that 512
+    allow; K12b's chain is three products and K11b runs once over every
+    step, and both keep 256 throughout)."""
     narrow = (kind == BLOCK_COMBINE and M <= sms and itemsize == 4
               and tile == TILE)
     return NARROW_THREADS if narrow else WIDE_THREADS
@@ -106,18 +119,17 @@ def band_kernel(lane: _build.Kernel, block: _build.Kernel, dx: int,
 
 
 def block_scratch(kind: int, kernel: _build.Kernel, M: int, like):
-    """The global scratch a block kernel asks for over M lanes, bounded by
-    the blocks in flight: K11b's (None when its workspace fits in shared
-    memory), or the global route's of K10b or K12b."""
+    """The global scratch of a block kernel's global route over M lanes,
+    bounded by the blocks in flight."""
     elems = _build.load().bft_block_scratch_elems(
-        kind, M, like.shape[-1], like.element_size(), like.device.index)
+        kind, M, like.shape[-1], like.device.index)
     return _build.scratch(elems, kernel, 1, like)
 
 
 def tiled_plan(kind: int, kernel: _build.Kernel, M: int, like):
-    """K10b's or K12b's launch over M lanes like ``like``: its global
-    scratch (None on a shared-memory tile; the caller keeps it until the
-    launch is queued) and (tile, threads)."""
+    """The launch of K10b, K11b or K12b over M lanes like ``like``: its
+    global scratch (None on a shared-memory tile; the caller keeps it until
+    the launch is queued) and (tile, threads)."""
     tile = block_tile(kind, like.shape[-1], like.element_size(),
                       _build.smem_optin(like.device))
     threads = block_threads(kind, M, tile, like.element_size(),

@@ -7,7 +7,7 @@ size bands with a symbol and a launch counter each: one thread per lane at
 dx ≤ 8 (``bank_smoother_*_kernel``, :data:`K11`, :data:`K12`) and one
 thread block per lane on a persistent grid at 8 < dx ≤ 512
 (``block_smoother_elements_kernel``, :data:`K11B`, and
-``tiled_smoother_combine_kernel``, :data:`K12B`, whose launch
+``tiled_smoother_combine_kernel``, :data:`K12B`, whose launches
 ``ops.bank_combine.tiled_plan`` plans as K10B's):
 
 - K11 ``bank_smoother_elements_kernel`` replaces ``_elements_kernel``
@@ -17,6 +17,9 @@ thread block per lane on a persistent grid at 8 < dx ≤ 512
   TPU kernel's 1e-30 diagonal floor is dropped (it kept zero-padded lanes
   factorable; the padding here has unit pivots), so a Pp that is not
   positive definite gives NaN, as the plain version's ``psd_solve`` does.
+  K11b computes the same outputs from one factor and one triangular solve:
+  with ``Y = Lp⁻¹ F Pf``, ``G = Yᵀ Lp⁻¹``, ``G mp = Yᵀ (Lp⁻¹ mp)`` and
+  ``L = sym(Pf) − YᵀY``.
 - K12 ``bank_smoother_combine_kernel`` replaces
   ``_smoother_combine_kernel`` (``:169``): ``E = E1 E2``,
   ``g = E1 g2 + g1``, ``L = sym(E1 L2 E1ᵀ + L1)``.
@@ -38,7 +41,6 @@ from bayesianfiltering_tpu_torch.ops.bank_combine import (
     BLOCK_SCOMBINE,
     as_lanes,
     band_kernel,
-    block_scratch,
     periodic_views,
     tiled_plan,
 )
@@ -77,11 +79,12 @@ def _launch_elements(kernel, fm, fP, pm, pP, F):
     if M:
         with torch.cuda.device(fm.device):
             ptrs = [x.data_ptr() for x in (fm, fP, pm, pP, F, E, g, L)]
+            plan = ()
             if kernel is K11B:
-                ptrs.append(_build.ptr(
-                    block_scratch(BLOCK_ELEMENTS, kernel, M, fm)))
+                scratch, plan = tiled_plan(BLOCK_ELEMENTS, kernel, M, fm)
+                ptrs.append(_build.ptr(scratch))
             err = _build.symbol(kernel, fm)(
-                *ptrs, M, int(banked), dx,
+                *ptrs, M, int(banked), dx, *plan,
                 torch.cuda.current_stream().cuda_stream)
         _build.check(err, kernel)
         kernel.launches += 1

@@ -4,14 +4,16 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --ab PARENT_ROOT`` instead times the sigma-point
-kernels, K1t and K8t, K8 and K9 at the Lorenz-96 UKF's and the
+(``python3 chip_smoke.py --ab PARENT_ROOT [PART ...]`` instead times the
+sigma-point kernels, K1t and K8t, K8 and K9 at the Lorenz-96 UKF's and the
 range-bearing banks' shapes in both dtypes, the Lorenz-96 UKF's walls,
 K1 and K2 at the batched Lorenz-96 EKF's and the bearings-only shapes in
 both dtypes, the Lorenz-96 EKF's wall, K10b and K12b at path C's three
-shapes, K10 and K12 at path B's two, K10b's block sizes, and the walls of
-path B and of path C's two solvers, of a parent checkout and of this one
-in turns on the same card; see ``ab``.)
+shapes, K10 and K12 at path B's two, K10b's block sizes, the walls of
+path B and of path C's two solvers, and K11b at path C's shape and with F
+banked in both dtypes, of a parent checkout and of this one in turns on
+the same card, or only the parts named: ``sigma``, ``ut``, ``ekf``,
+``combine``; see ``ab``.)
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -203,12 +205,12 @@ KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_update_tiled": "K1t",
               "bft_block_smoother_combine": "K12b"}
 
 # kernels timed in float64 as well at their main-path shapes (config 5's
-# filters run in float64 too, and K1/K2's float64 workspace holds one
-# block an SM at L96; the rest are timed in float32 only)
+# filters run in float64 too, and K1/K2's and K11b's float64 workspaces
+# hold one block an SM; the rest are timed in float32 only)
 TIMED_FLOAT64 = ("bft_ekf_update", "bft_ekf_predict_cov",
                  "bft_ekf_update_tiled", "bft_ekf_predict_cov_tiled",
                  "bft_ut_sigma_tiled", "bft_ut_update_tiled",
-                 "bft_ut_predict_tiled")
+                 "bft_ut_predict_tiled", "bft_block_smoother_elements")
 
 # Roofline of an H100 SXM at its 700 W limit (NVIDIA's data sheet): memory
 # 3.35 TB/s; CUDA-core (non-tensor) peaks 67 TFLOP/s in float32 and
@@ -423,9 +425,10 @@ def combine_flops(n):
 
 
 def elements_flops(n):
-    """K11: chol(Pp) and L⁻¹ n³/3 each, F Pf 2n³, the two triangular solves
-    n³ each, G Lp n³, the symmetric (G Lp)(G Lp)ᵀ n³, G mp 2n²."""
-    return 20 * n ** 3 / 3 + 2 * n * n
+    """K11: with Y = Lp⁻¹ F Pf, G = Yᵀ Lp⁻¹ and L = sym(Pf) − YᵀY:
+    chol(Pp) n³/3, F Pf 2n³, the forward solve for Y n³, the back solve
+    Lpᵀ Gᵀ = Y n³, the symmetric YᵀY n³, G mp 2n²."""
+    return 16 * n ** 3 / 3 + 2 * n * n
 
 
 def scombine_flops(n):
@@ -694,10 +697,10 @@ def kernel_cases():
     # over G = 512 lanes in step 2, over 4 at the next level (512 threads
     # a block for K10b) and broadcasts (1, 512) × (128, 512) in step 4;
     # its elements over 65,535 steps; the lower band edge dx = 9 and the
-    # upper one, a few lanes at dx = 512; K10b's and K12b's routes on both
+    # upper one, a few lanes at dx = 512; the block kernels' routes on both
     # sides of their edge (the shared-memory tile 64 | global scratch at
     # dx = 64 | 65, in both dtypes) and at widths that are not multiples of
-    # a panel (32) or of the register tiles
+    # a panel (32, or 16: K11b's in float64) or of the register tiles
     fcombine(PC_LANES, PC_DX, timed="main")
     fcombine(PC_NARROW, PC_DX, timed="also")
     fcombine(PC_LANES, PC_DX, chunk=KF_CHUNK, timed="also")
@@ -707,6 +710,8 @@ def kernel_cases():
         fcombine(M, dx)
     elements(PC_T - 1, PC_DX, timed="main")
     elements(130, 9)
+    elements(3, 65)
+    elements(3, 100)
     elements(2, 512)
     scombine(PC_LANES, PC_DX, timed="main")
     scombine(PC_NARROW, PC_DX, timed="also")
@@ -1865,15 +1870,18 @@ def profile_ukf(dev, card: str) -> None:
 # Parent against change: python3 chip_smoke.py --ab PARENT_ROOT
 # ---------------------------------------------------------------------------
 
-def ab_times(root: str) -> None:
-    """``--ab-times ROOT``: ``sigma_times``, ``ut_times``, ``ekf_times``
-    and ``combine_times`` with the port of the checkout at ROOT (built into
-    that checkout's build directory)."""
+# What --ab times, in this order (``<part>_times``).
+AB_PARTS = ("sigma", "ut", "ekf", "combine")
+
+
+def ab_times(root: str, parts=AB_PARTS) -> None:
+    """``--ab-times ROOT [PART ...]``: ``sigma_times``, ``ut_times``,
+    ``ekf_times`` and ``combine_times``, or those of them named in PARTS
+    (``sigma``, ``ut``, ``ekf``, ``combine``), with the port of the
+    checkout at ROOT (built into that checkout's build directory)."""
     sys.path.insert(0, root)
-    sigma_times(root)
-    ut_times(root)
-    ekf_times(root)
-    combine_times(root)
+    for part in parts:
+        globals()[f"{part}_times"](root)
 
 
 def ekf_times(root: str) -> None:
@@ -1930,17 +1938,21 @@ def ekf_times(root: str) -> None:
 
 
 def combine_times(root: str) -> None:
-    """The combines of the parallel smoother, float32, inputs from
+    """The combines and elements of the parallel smoother, inputs from
     ``testing`` with SEED: K10b and K12b at path C's three shapes (dx = 64:
     M = 512, the 4-lane level, the (1, 512) × (128, 512) broadcast of step
     4) and the lane kernels K10 and K12 at path B's two (dx = 4: M = 7,813
-    and the (1, 7,813) × (128, 7,813) broadcast), the device time per call
-    (``device_ms``) and the CUDA-event time of a loop of calls; where the
-    checkout picks K10b's block size (``bank_combine.block_threads``),
-    K10b at 4 and 512 lanes with 256 and with 512 threads a block, each
-    forced; then the walls of path B (T = 1M) and of path C's two solvers
-    (T = 65,536), chunk 128: the median and range of REPS calls after a
-    warm-up."""
+    and the (1, 7,813) × (128, 7,813) broadcast) in float32: the device
+    time per call (``device_ms``) and the CUDA-event time of a loop of
+    calls; where the checkout picks K10b's block size
+    (``bank_combine.block_threads``), K10b at 4 and 512 lanes with 256 and
+    with 512 threads a block, each forced; then the walls of path B
+    (T = 1M) and of path C's two solvers (T = 65,536), chunk 128: the
+    median and range of REPS calls after a warm-up; last, so that the
+    plain versions' allocations come after the walls, K11b at path C's
+    shape (M = 65,535, dx = 64, F shared) and at M = 4,096 with F banked in
+    float32 and float64, device and event ms, with its max abs error
+    against the plain version."""
     import numpy as np
     import torch
 
@@ -2002,6 +2014,20 @@ def combine_times(root: str) -> None:
         run()
         secs = [timed(run)[1] for _ in range(REPS)]
         log(f"{root} {label} T={T} dx={dx} float32: {spread(secs)}")
+    for M, banked in ((PC_T - 1, False), (4096, True)):
+        raw = testing.smoother_element_inputs(rng, M, PC_DX)
+        for dtype in (torch.float32, torch.float64):
+            fm, fP, pm, pP, F = (torch.as_tensor(np.asarray(x), dtype=dtype,
+                                                 device=dev) for x in raw)
+            F = F if banked else F[0].expand(M, PC_DX, PC_DX)
+            fn = lambda: bs.bank_smoother_elements(fm, fP, pm, pP, F)
+            err = max(float((g - w).abs().max()) for g, w in
+                      zip(fn(), bs._elements_plain(fm, fP, pm, pP, F)))
+            name = str(dtype).split(".")[-1]
+            log(f"{root} K11b M={M} dx={PC_DX} F "
+                f"{'banked' if banked else 'shared'} {name}: device "
+                f"{device_ms(fn, ('',))} ms, event {cuda_time_ms(fn):.5f} "
+                f"ms, max abs err {err:.3e} against the plain version")
 
 
 def ut_times(root: str) -> None:
@@ -2135,15 +2161,15 @@ def sigma_times(root: str) -> None:
              plain=lambda: fu._ut_update_plain(*a, w_side, w0c, True))
 
 
-def ab(parent: str) -> int:
-    """``--ab PARENT_ROOT``: the card's name and power limit, then
-    ``ab_times`` of the parent checkout and of this one in turns (parent,
-    change, change, parent), each in a process of its own."""
+def ab(parent: str, parts=AB_PARTS) -> int:
+    """``--ab PARENT_ROOT [PART ...]``: the card's name and power limit,
+    then ``ab_times`` of the parent checkout and of this one in turns
+    (parent, change, change, parent), each in a process of its own."""
     log(nvidia_smi())
     rc = 0
     for root in (parent, str(ROOT), str(ROOT), parent):
         rc |= subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--ab-times", root]).returncode
+                              "--ab-times", root, *parts]).returncode
     return rc
 
 
@@ -2161,10 +2187,15 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
-    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
-        return ab(sys.argv[2])
-    if len(sys.argv) == 3 and sys.argv[1] == "--ab-times":
-        ab_times(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] in ("--ab", "--ab-times"):
+        parts = tuple(sys.argv[3:]) or AB_PARTS
+        if any(part not in AB_PARTS for part in parts):
+            print(f"chip_smoke: the parts of --ab are {', '.join(AB_PARTS)}",
+                  file=sys.stderr)
+            return 2
+        if sys.argv[1] == "--ab":
+            return ab(sys.argv[2], parts)
+        ab_times(sys.argv[2], parts)
         return 0
     sys.path.insert(0, str(ROOT))
 

@@ -585,9 +585,15 @@ def test_block_combines_broadcast_the_left_operand(dev, dtype):
             assert_close(g, w, WIDE_TOL[dtype])
 
 
+# K11b (csrc/bank_combine.cu block_smoother_elements_kernel): the band's
+# edges, F shared and banked, the shared-memory tile (dx ≤ 64) and the
+# global route (dx = 65, 100, 512), widths that are not a multiple of the
+# panels (32 in float32, 16 in float64) or the register tiles
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dx,M,shared", [(9, 130, True), (64, 40, False),
-                                         (64, 300, True), (512, 2, True)])
+@pytest.mark.parametrize("dx,M,shared", [(9, 130, True), (33, 70, False),
+                                         (64, 40, False), (64, 300, True),
+                                         (65, 20, True), (100, 9, True),
+                                         (512, 2, True)])
 def test_block_elements_kernel_matches_plain(dev, dtype, dx, M, shared):
     fm, fP, pm, pP, F = _dev(
         testing.smoother_element_inputs(np.random.default_rng(dx + M), M,
@@ -602,10 +608,11 @@ def test_block_elements_kernel_matches_plain(dev, dtype, dx, M, shared):
         assert_close(g, w, WIDE_TOL[dtype])
 
 
-def test_block_elements_kernel_nan_on_non_pd(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_elements_kernel_nan_on_non_pd(dev, dtype):
     fm, fP, pm, pP, F = _dev(
         testing.smoother_element_inputs(np.random.default_rng(8), 5, 64),
-        torch.float64, dev)
+        dtype, dev)
     pP = -pP
     got = bs.bank_smoother_elements(fm, fP, pm, pP, F)
     torch.cuda.synchronize()
