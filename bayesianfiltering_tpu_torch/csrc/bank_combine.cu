@@ -1,21 +1,20 @@
 // The associative Kalman filtering combine (K10), the RTS smoothing
 // elements (K11) and the smoothing combine (K12), each over a bank of M
-// lanes, in two size bands: one thread per lane for dx ≤ 8 (the lane
-// kernels, `bank_*_kernel`) and one thread block per lane for
-// 8 < dx ≤ 512 (the block kernels after the lane kernels below: K10b
-// `tiled_combine_kernel`, K11b `block_smoother_elements_kernel` and K12b
-// `tiled_smoother_combine_kernel`, built on csrc/block_mm.cuh).
+// lanes, in two size bands: dx ≤ 8 (the lane kernels, `bank_*_kernel`)
+// and 8 < dx ≤ 512, one thread block per lane (the block kernels after the
+// lane kernels below: K10b `tiled_combine_kernel`, K11b
+// `block_smoother_elements_kernel` and K12b `tiled_smoother_combine_kernel`,
+// built on csrc/block_mm.cuh).
 //
 // Replaces the TPU kernels bayesianfiltering_tpu/ops/bank_combine.py
 // `_combine_kernel` (K10, body `_combine_lattice`) and
 // bayesianfiltering_tpu/ops/bank_smoother.py `_elements_kernel` (K11) and
 // `_smoother_combine_kernel` (K12). On the TPU the bank index lies along the
 // 128 vector lanes and each scalar of the dx×dx lattice is one M-wide
-// statement; the bank-major layout and its padding exist for that. Here one
-// thread owns one lane and keeps its lattice in registers, the pattern of
-// csrc/bank_update.cu (K3/K4): tensors stay (M, dx, dx) row-major, the
-// lattice is padded to a static bound (4 or 8) so every loop unrolls,
-// padded entries are zero and the padded diagonal of every matrix that is
+// statement; the bank-major layout and its padding exist for that. Here
+// tensors stay (M, dx, dx) row-major, and the lattice is padded to a
+// static bound MX (4 for dx ≤ 4, else 8) so every loop unrolls: padded
+// entries are zero and the padded diagonal of every matrix that is
 // factored is one, so the padding changes nothing in the real block.
 //
 // Broadcast operands: the chunked scan combines (1, G, ...) with
@@ -23,15 +22,44 @@
 // broadcast is never materialised. K11's transition F is shared by every
 // lane (f_banked = 0) or given per lane.
 //
-// What bounds them on an H100: K11 and K12 are bytes-bound (K11 at the 1M
-// main path moves 92 values per lane against ~300 flops); K10 does ~1,400
-// flops per lane at dx=4 against 112 values moved, still below the card's
-// ratio of flops to bytes in float32, so all three are bytes-bound at full
-// width and latency-bound at the narrow widths of the scan's upper levels.
-// What the simple design does about it: adjacent threads take adjacent
-// lanes, so a warp reads one contiguous stretch of each operand and every
-// 128-byte line it brings in is used by the warp's next loads from L1; no
-// shared memory, no barriers.
+// K10 and K12 (the group kernels): a lane over a group of MX threads.
+// - What bounds them on an H100: at path B's step-4 broadcast (1,000,064
+//   lanes, dx = 4, float32) they must move 112 and 72 values a lane and do
+//   ~1,300 and ~350 flops (chip_smoke.py combine_flops, scombine_flops):
+//   bytes-bound, 0.134 and 0.086 ms. At the scan's narrower levels (7,813,
+//   62 and 1 lanes: 318 of path B's 320 launches of each) one lane's
+//   serial chain and the launch are the whole cost.
+// - Thread i of a lane's group holds row i of each of the lane's matrices
+//   (MX registers a matrix, where one thread a lane held ten MX × MX
+//   matrices) and loads and stores it 16 bytes at a time where rows of dx
+//   elements stay on 16-byte boundaries (every dx · sizeof(T) a multiple of
+//   16 and every pointer aligned; a broadcast operand's lane m % Ml starts
+//   on one as any lane does), else element by element; consecutive groups
+//   take consecutive lanes, so a warp reads 8 lanes × 4 rows of a matrix
+//   as one 512-byte stretch at dx = 4 in float32.
+// - Exchanges inside the group: a product's right operand goes to the
+//   group's board in shared memory (kBoardSlots slots of an MX × MX matrix
+//   and a vector), and each thread reads it back row by row, 16 bytes a
+//   read that every thread of the group makes at one address; a
+//   transposed left operand is read back as a column. A product hands each
+//   thread MX² values, four a 16-byte read where a shuffle gives one, and a
+//   column is an address where a transpose by shuffles would index
+//   registers by the thread's row. One __syncwarp ends each exchange; a
+//   slot is rewritten only after a __syncwarp has followed its last read.
+// - The two Cholesky factors of K10 are column sweeps over the group
+//   (group_chol): the pivot and the column come from their owners by
+//   __shfl_sync, one reciprocal square root a column. The inner factor is
+//   never inverted: [X | Y] = Lin⁻¹ [Uᵀ | (J2 U)ᵀ] by forward substitution
+//   over the group, M⁻¹ = I − Xᵀ Y (as K10b). A lane's chain is then MX
+//   pivots twice, MX substitution steps and ~12 products of one row each.
+// - Launch shape: kGroupThreads = 64 threads a block, 16 lanes at MX = 4
+//   (489 blocks at M = 7,813, spread over all 132 SMs); groups past M
+//   compute on lane M − 1 and store nothing, warps wholly past M return.
+//
+// K11 keeps the first design: one thread a lane holding the lattice in
+// registers (load_mat, reg_chol, reg_tri_inv, mm/mmt/mtm, store_mat),
+// 128 threads a block. At path B's 999,999 lanes it runs once a smoother
+// run, at 0.23 of its bytes bound.
 //
 // Math follows the port's plain versions (ops/associative.py `_combine`
 // with `_minv_woodbury`, ops/bank_smoother.py `_elements_plain`,
@@ -51,6 +79,8 @@
 //        pivots).
 //   K12  E = E1 E2,  g = E1 g2 + g1,  L = sym(E1 L2 E1ᵀ + L1).
 #include <algorithm>
+#include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 
 #include "block_mm.cuh"
@@ -197,157 +227,6 @@ __device__ __forceinline__ void unit_pad(T (&X)[MX][MX], int d) {
 }
 
 template <typename T, int MX>
-__global__ void __launch_bounds__(kLaneThreads) bank_combine_kernel(
-    const T* __restrict__ A1g, const T* __restrict__ b1g,
-    const T* __restrict__ C1g, const T* __restrict__ J1g,
-    const T* __restrict__ e1g, const T* __restrict__ A2g,
-    const T* __restrict__ b2g, const T* __restrict__ C2g,
-    const T* __restrict__ J2g, const T* __restrict__ e2g, T* __restrict__ Ag,
-    T* __restrict__ bg, T* __restrict__ Cg, T* __restrict__ Jg,
-    T* __restrict__ eg, int M, int Ml, int Mr, int dx) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const size_t l = Ml == M ? m : m % Ml;  // lane of the left operand
-  const size_t r = Mr == M ? m : m % Mr;  // lane of the right operand
-  const size_t dd = size_t(dx) * dx;
-
-  // U = chol(C1 + εI), zeroed unless every pivot is positive
-  T C1[MX][MX], S[MX][MX], U[MX][MX];
-  load_mat(C1, C1g + l * dd, dx);
-  T tr = T(0);
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-    if (i < dx) tr += C1[i][i];
-  const T eps = T(1e-7) * tr / T(dx) + T(1e-30);
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j)
-      S[i][j] = C1[i][j] + (i == j && i < dx ? eps : T(0));
-  unit_pad(S, dx);
-  if (!reg_chol(U, S)) {
-#pragma unroll
-    for (int i = 0; i < MX; ++i)
-#pragma unroll
-      for (int j = 0; j < MX; ++j) U[i][j] = T(0);
-  }
-
-  // inner = I + sym(Uᵀ J2 U); its inverse Li⁻ᵀ Li⁻¹ from chol and L⁻¹
-  T J2[MX][MX], J2U[MX][MX], W[MX][MX], Lin[MX][MX], Li[MX][MX];
-  load_mat(J2, J2g + r * dd, dx);
-  mm(J2U, J2, U);
-  mtm(W, U, J2U);
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j)
-      S[i][j] = T(0.5) * (W[i][j] + W[j][i]) + (i == j ? T(1) : T(0));
-  reg_chol(Lin, S);
-  reg_tri_inv(Li, Lin);
-  T inv[MX][MX];
-  mtm(inv, Li, Li);
-
-  // M⁻¹ = I − U inner⁻¹ (J2 U)ᵀ
-  T V[MX][MX], Minv[MX][MX];
-  mmt(V, inv, J2U);
-  mm(W, U, V);
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j)
-      Minv[i][j] = (i == j ? T(1) : T(0)) - W[i][j];
-
-  // A = (A2 M⁻¹) A1
-  T A1[MX][MX], A2[MX][MX], A2M[MX][MX], X[MX][MX];
-  load_mat(A1, A1g + l * dd, dx);
-  load_mat(A2, A2g + r * dd, dx);
-  mm(A2M, A2, Minv);
-  mm(X, A2M, A1);
-  store_mat(Ag + size_t(m) * dd, X, dx);
-
-  // b = A2M (b1 + C1 η2) + b2
-  T b1[MX], e2[MX], v[MX];
-  load_vec(b1, b1g + l * dx, dx);
-  load_vec(e2, e2g + r * dx, dx);
-#pragma unroll
-  for (int i = 0; i < MX; ++i) {
-    T acc = b1[i];
-#pragma unroll
-    for (int k = 0; k < MX; ++k) acc += C1[i][k] * e2[k];
-    v[i] = acc;
-  }
-  {
-    T b2[MX], bo[MX];
-    load_vec(b2, b2g + r * dx, dx);
-#pragma unroll
-    for (int i = 0; i < MX; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = 0; k < MX; ++k) acc += A2M[i][k] * v[k];
-      bo[i] = acc + b2[i];
-    }
-    store_vec(bg + size_t(m) * dx, bo, dx);
-  }
-
-  // C = sym(A2M C1 A2ᵀ + C2)
-  {
-    T C2[MX][MX];
-    mm(X, A2M, C1);
-    mmt(W, X, A2);
-    load_mat(C2, C2g + r * dd, dx);
-#pragma unroll
-    for (int i = 0; i < MX; ++i)
-#pragma unroll
-      for (int j = 0; j < MX; ++j)
-        X[i][j] = T(0.5) * ((W[i][j] + W[j][i]) + (C2[i][j] + C2[j][i]));
-    store_mat(Cg + size_t(m) * dd, X, dx);
-  }
-
-  // η = A1ᵀ M⁻ᵀ (η2 − J2 b1) + η1
-  {
-    T w[MX], t[MX], e1[MX], eo[MX];
-#pragma unroll
-    for (int i = 0; i < MX; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = 0; k < MX; ++k) acc += J2[i][k] * b1[k];
-      w[i] = e2[i] - acc;
-    }
-#pragma unroll
-    for (int i = 0; i < MX; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = 0; k < MX; ++k) acc += Minv[k][i] * w[k];
-      t[i] = acc;
-    }
-    load_vec(e1, e1g + l * dx, dx);
-#pragma unroll
-    for (int i = 0; i < MX; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = 0; k < MX; ++k) acc += A1[k][i] * t[k];
-      eo[i] = acc + e1[i];
-    }
-    store_vec(eg + size_t(m) * dx, eo, dx);
-  }
-
-  // J = sym(A1ᵀ (M⁻ᵀ J2) A1 + J1)
-  {
-    T J1[MX][MX];
-    mtm(X, Minv, J2);
-    mm(W, X, A1);
-    mtm(X, A1, W);
-    load_mat(J1, J1g + l * dd, dx);
-#pragma unroll
-    for (int i = 0; i < MX; ++i)
-#pragma unroll
-      for (int j = 0; j < MX; ++j)
-        W[i][j] = T(0.5) * ((X[i][j] + X[j][i]) + (J1[i][j] + J1[j][i]));
-    store_mat(Jg + size_t(m) * dd, W, dx);
-  }
-}
-
-template <typename T, int MX>
 __global__ void __launch_bounds__(kLaneThreads) bank_smoother_elements_kernel(
     const T* __restrict__ fmg, const T* __restrict__ fPg,
     const T* __restrict__ pmg, const T* __restrict__ pPg,
@@ -408,51 +287,504 @@ __global__ void __launch_bounds__(kLaneThreads) bank_smoother_elements_kernel(
   store_mat(Lg + size_t(m) * dd, X, dx);
 }
 
+// ---------------------------------------------------------------------------
+// The group kernels K10 and K12 (dx ≤ 8): a lane over a group of MX
+// threads, thread i holding row i of every matrix of its lane in registers
+// (MX entries), rows past dx zero.
+// ---------------------------------------------------------------------------
+
+constexpr int kGroupThreads = 64;  // threads a block of K10 and K12
+constexpr int kBoardSlots = 5;     // slots of a group's board
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// A slot of the board: an MX × MX matrix (row k at k·MX) and an MX-vector
+// after it. Consecutive groups' boards start MX·(MX + 1)·kBoardSlots
+// elements apart, so that a warp's reads of one row of each group's matrix
+// (16 bytes a group, the group's threads reading the same address) and of
+// one column (thread i reading entry i of each row) fall in distinct banks
+// in float32.
+template <int MX>
+__host__ __device__ constexpr int slot_len() {
+  return MX * (MX + 1);
+}
+
+// Row i of a lane's dx × dx matrix at g into x, zero past dx: 16 bytes a
+// load where `vec` (rows of 16-byte multiples on 16-byte boundaries), else
+// element by element. Both read the same elements.
 template <typename T, int MX>
-__global__ void __launch_bounds__(kLaneThreads) bank_smoother_combine_kernel(
+__device__ __forceinline__ void load_row(T (&x)[MX], const T* __restrict__ g,
+                                         int i, int dx, bool vec) {
+  constexpr int NV = 16 / int(sizeof(T));
+  using V = typename Vec<T, NV>::type;
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < MX / NV; ++c) {
+      V w{};
+      if (i < dx && c * NV < dx) w = reinterpret_cast<const V*>(g + i * dx)[c];
+      const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+      for (int q = 0; q < NV; ++q) x[c * NV + q] = e[q];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < MX; ++j) x[j] = (i < dx && j < dx) ? g[i * dx + j] : T(0);
+  }
+}
+
+// Row i (i < dx) of x to a lane's dx × dx matrix at g, as load_row reads.
+template <typename T, int MX>
+__device__ __forceinline__ void store_row(T* __restrict__ g, const T (&x)[MX],
+                                          int i, int dx, bool vec) {
+  constexpr int NV = 16 / int(sizeof(T));
+  using V = typename Vec<T, NV>::type;
+  if (i >= dx) return;
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < MX / NV; ++c) {
+      if (c * NV < dx) {
+        V w;
+        T* e = reinterpret_cast<T*>(&w);
+#pragma unroll
+        for (int q = 0; q < NV; ++q) e[q] = x[c * NV + q];
+        reinterpret_cast<V*>(g + i * dx)[c] = w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < MX; ++j)
+      if (j < dx) g[i * dx + j] = x[j];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T load_entry(const T* __restrict__ g, int i,
+                                        int dx) {
+  return i < dx ? g[i] : T(0);
+}
+
+// The board: thread i writes its row i, or its entry i of the vector
+template <typename T, int MX>
+__device__ __forceinline__ void put_row(T* s, const T (&x)[MX], int i) {
+  store_span<T, MX>(s + i * MX, x, MX, true);
+}
+
+template <typename T, int MX>
+__device__ __forceinline__ void put_entry(T* s, T v, int i) {
+  s[MX * MX + i] = v;
+}
+
+template <typename T, int MX>
+__device__ __forceinline__ void get_row(T (&x)[MX], const T* s, int k) {
+  load_span<T, MX>(x, s + k * MX);
+}
+
+// Column i of the slot's matrix: the row of its transpose
+template <typename T, int MX>
+__device__ __forceinline__ void get_col(T (&x)[MX], const T* s, int i) {
+#pragma unroll
+  for (int k = 0; k < MX; ++k) x[k] = s[k * MX + i];
+}
+
+template <typename T, int MX>
+__device__ __forceinline__ void get_vec(T (&x)[MX], const T* s) {
+  load_span<T, MX>(x, s + MX * MX);
+}
+
+// y = x B with B's rows from the slot: y_j = Σ_k x_k B_kj
+template <typename T, int MX>
+__device__ __forceinline__ void row_mul(T (&y)[MX], const T (&x)[MX],
+                                        const T* s) {
+#pragma unroll
+  for (int j = 0; j < MX; ++j) y[j] = T(0);
+#pragma unroll
+  for (int k = 0; k < MX; ++k) {
+    T b[MX];
+    get_row(b, s, k);
+#pragma unroll
+    for (int j = 0; j < MX; ++j) y[j] += x[k] * b[j];
+  }
+}
+
+// y = x Bᵀ with B's rows from the slot: y_j = Σ_k x_k B_jk
+template <typename T, int MX>
+__device__ __forceinline__ void row_mul_t(T (&y)[MX], const T (&x)[MX],
+                                          const T* s) {
+#pragma unroll
+  for (int j = 0; j < MX; ++j) {
+    T b[MX];
+    get_row(b, s, j);
+    T acc = T(0);
+#pragma unroll
+    for (int k = 0; k < MX; ++k) acc += x[k] * b[k];
+    y[j] = acc;
+  }
+}
+
+template <typename T, int MX>
+__device__ __forceinline__ T dot(const T (&x)[MX], const T (&v)[MX]) {
+  T acc = T(0);
+#pragma unroll
+  for (int k = 0; k < MX; ++k) acc += x[k] * v[k];
+  return acc;
+}
+
+// Entry i of the row: a select over constant indices (a register array
+// indexed by the thread's i would go to local memory).
+template <typename T, int MX>
+__device__ __forceinline__ T entry(const T (&x)[MX], int i) {
+  T v = x[0];
+#pragma unroll
+  for (int k = 1; k < MX; ++k)
+    if (k == i) v = x[k];
+  return v;
+}
+
+// The sum over the group by a butterfly of xor shuffles: the same value on
+// every thread of the group (each step adds the same two numbers).
+template <typename T, int MX>
+__device__ __forceinline__ T group_sum(T v) {
+#pragma unroll
+  for (int o = MX / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o, MX);
+  return v;
+}
+
+// Lower Cholesky factor of the group's symmetric matrix, thread i holding
+// row i of it in a (the lower part is read) and getting row i of L (zeros
+// above the diagonal): a column sweep, right-looking. At column j the
+// pivot a_jj comes from thread j by one shuffle; every thread forms
+// l_ij = a_ij·d^-½ (l_jj = d·d^-½: one reciprocal square root a column),
+// takes l_kj from each later thread k by a shuffle and updates a_ik. Every
+// loop has a constant trip count. Thread i gets 1/l_ii in rinv. Returns
+// whether every pivot was positive (a NaN pivot fails), the same on every
+// thread of the group; a failed pivot leaves NaN (or ±∞) in the factor.
+template <typename T, int MX>
+__device__ __forceinline__ bool group_chol(T (&a)[MX], int i, T& rinv) {
+  bool ok = true;
+#pragma unroll
+  for (int j = 0; j < MX; ++j) {
+    const T d = __shfl_sync(kFullMask, a[j], j, MX);
+    ok = ok && d > T(0);
+    const T rs = drsqrt(d);
+    if (i == j) rinv = rs;
+    const T l = i == j ? d * rs : (i > j ? a[j] * rs : T(0));
+    a[j] = l;
+#pragma unroll
+    for (int k = j + 1; k < MX; ++k) {
+      const T lk = __shfl_sync(kFullMask, l, k, MX);
+      if (i > j) a[k] -= l * lk;
+    }
+  }
+  return ok;
+}
+
+// The lane of a group and its board. Groups past M compute on lane M − 1
+// (every thread of a warp takes part in its shuffles and __syncwarp) and
+// store nothing; a warp whose groups are all past M has returned.
+template <typename T, int MX>
+struct GroupLane {
+  static constexpr int kLanes = kGroupThreads / MX;  // groups a block
+  int i;     // the thread's row
+  int m;     // its lane, M − 1 for a group past M
+  bool live; // whether the group stores
+  T* board;  // the group's kBoardSlots slots
+
+  __device__ GroupLane(T* boards, int M) {
+    const int g = threadIdx.x / MX;
+    i = threadIdx.x % MX;
+    const int m0 = blockIdx.x * kLanes + g;
+    live = m0 < M;
+    m = live ? m0 : M - 1;
+    board = boards + g * kBoardSlots * slot_len<MX>();
+  }
+  __device__ T* slot(int s) const { return board + s * slot_len<MX>(); }
+};
+
+// Whether every thread of the warp belongs to a group past M.
+template <int MX>
+__device__ __forceinline__ bool warp_idle(int M) {
+  constexpr int lanes = kGroupThreads / MX;
+  return blockIdx.x * lanes + (threadIdx.x / kWarp) * (kWarp / MX) >= M;
+}
+
+// K10. With thread i holding row i: U = chol(C1 + εI) (ε from the trace, a
+// butterfly of shuffles; U zeroed unless every pivot is positive), then
+// four products and the inner factor: J2 U, G = Uᵀ (J2 U), inner =
+// I + sym(G), Lin = chol(inner); [X | Y] = Lin⁻¹ [Uᵀ | (J2 U)ᵀ] by forward
+// substitution over the group (row k final at step k, read from the
+// board), M⁻¹ = I − Xᵀ Y; then A = (A2 M⁻¹) A1, b = A2 M⁻¹ (b1 + C1 η2)
+// + b2, C = sym(A2 M⁻¹ C1 A2ᵀ + C2), η = A1ᵀ (M⁻ᵀ (η2 − J2 b1)) + η1,
+// J = sym(A1ᵀ (M⁻ᵀ J2 A1) + J1). A product's right operand is read from
+// the board row by row (16 bytes a read, the group's threads on one
+// address), a transposed left operand as a column; each exchange is one
+// __syncwarp after the writes, and a slot is rewritten only after a
+// __syncwarp has followed its last read.
+template <typename T, int MX>
+__global__ void __launch_bounds__(kGroupThreads) bank_combine_kernel(
+    const T* __restrict__ A1g, const T* __restrict__ b1g,
+    const T* __restrict__ C1g, const T* __restrict__ J1g,
+    const T* __restrict__ e1g, const T* __restrict__ A2g,
+    const T* __restrict__ b2g, const T* __restrict__ C2g,
+    const T* __restrict__ J2g, const T* __restrict__ e2g, T* __restrict__ Ag,
+    T* __restrict__ bg, T* __restrict__ Cg, T* __restrict__ Jg,
+    T* __restrict__ eg, int M, int Ml, int Mr, int dx, int vec) {
+  __shared__ __align__(16) T boards[kGroupThreads / MX * kBoardSlots *
+                                    slot_len<MX>()];
+  if (warp_idle<MX>(M)) return;
+  const GroupLane<T, MX> g(boards, M);
+  const int i = g.i;
+  const size_t l = Ml == M ? g.m : g.m % Ml;  // lane of the left operand
+  const size_t r = Mr == M ? g.m : g.m % Mr;  // lane of the right operand
+  const size_t o = g.m;
+  const size_t dd = size_t(dx) * dx;
+  T* S0 = g.slot(0);
+  T* S1 = g.slot(1);
+  T* S2 = g.slot(2);
+  T* S3 = g.slot(3);
+  T* S4 = g.slot(4);
+
+  T a1[MX], c1[MX], j1[MX], a2[MX], c2[MX], j2[MX];
+  load_row(a1, A1g + l * dd, i, dx, vec);
+  load_row(c1, C1g + l * dd, i, dx, vec);
+  load_row(j1, J1g + l * dd, i, dx, vec);
+  load_row(a2, A2g + r * dd, i, dx, vec);
+  load_row(c2, C2g + r * dd, i, dx, vec);
+  load_row(j2, J2g + r * dd, i, dx, vec);
+  const T b1 = load_entry(b1g + l * dx, i, dx);
+  const T e1 = load_entry(e1g + l * dx, i, dx);
+  const T b2 = load_entry(b2g + r * dx, i, dx);
+  const T e2 = load_entry(e2g + r * dx, i, dx);
+
+  // U = chol(C1 + εI), the padded diagonal one; zero unless every pivot
+  // is positive
+  const T tr = group_sum<T, MX>(i < dx ? entry(c1, i) : T(0));
+  const T eps = T(1e-7) * tr / T(dx) + T(1e-30);
+  T u[MX];
+#pragma unroll
+  for (int k = 0; k < MX; ++k)
+    u[k] = c1[k] + (k == i ? (i < dx ? eps : T(1)) : T(0));
+  T rinv;
+  if (!group_chol(u, i, rinv)) {
+#pragma unroll
+    for (int k = 0; k < MX; ++k) u[k] = T(0);
+  }
+
+  // inner = I + sym(Uᵀ J2 U) and its factor
+  put_row(S0, u, i);
+  put_row(S1, j2, i);
+  put_entry<T, MX>(S0, b1, i);
+  put_entry<T, MX>(S1, e2, i);
+  __syncwarp();
+  T j2u[MX], ucol[MX], b1v[MX], e2v[MX];
+  row_mul(j2u, j2, S0);  // J2 U
+  get_col(ucol, S0, i);
+  get_vec(b1v, S0);
+  get_vec(e2v, S1);
+  put_row(S2, j2u, i);
+  __syncwarp();
+  T gr[MX], jucol[MX];
+  row_mul(gr, ucol, S2);  // G = Uᵀ (J2 U)
+  get_col(jucol, S2, i);
+  put_row(S3, gr, i);
+  __syncwarp();
+  T lin[MX];
+  {
+    T gc[MX];
+    get_col(gc, S3, i);
+#pragma unroll
+    for (int k = 0; k < MX; ++k)
+      lin[k] = T(0.5) * (gr[k] + gc[k]) + (k == i ? T(1) : T(0));
+  }
+  group_chol(lin, i, rinv);  // a failed pivot: NaN, which reaches every output
+
+  // [X | Y] = Lin⁻¹ [Uᵀ | (J2 U)ᵀ] into S0 | S2, M⁻¹ = I − Xᵀ Y
+#pragma unroll
+  for (int k = 0; k < MX; ++k) {
+    if (i == k) {
+#pragma unroll
+      for (int j = 0; j < MX; ++j) {
+        ucol[j] *= rinv;
+        jucol[j] *= rinv;
+      }
+      put_row(S0, ucol, k);
+      put_row(S2, jucol, k);
+    }
+    __syncwarp();
+    if (k + 1 < MX) {
+      T xk[MX], yk[MX];
+      get_row(xk, S0, k);
+      get_row(yk, S2, k);
+      if (i > k) {
+#pragma unroll
+        for (int j = 0; j < MX; ++j) {
+          ucol[j] -= lin[k] * xk[j];
+          jucol[j] -= lin[k] * yk[j];
+        }
+      }
+    }
+  }
+  T minv[MX];
+  {
+    T xcol[MX];
+    get_col(xcol, S0, i);
+    row_mul(minv, xcol, S2);
+#pragma unroll
+    for (int k = 0; k < MX; ++k) minv[k] = (k == i ? T(1) : T(0)) - minv[k];
+  }
+  put_row(S3, minv, i);
+  put_row(S4, a1, i);
+  __syncwarp();
+
+  // A = (A2 M⁻¹) A1; M⁻ᵀ J2 A1; the vectors b1 + C1 η2 and η2 − J2 b1
+  T a2m[MX], mcol[MX], a1col[MX], p[MX];
+  row_mul(a2m, a2, S3);  // A2 M⁻¹
+  get_col(mcol, S3, i);
+  get_col(a1col, S4, i);
+  {
+    T x[MX];
+    row_mul(x, a2m, S4);
+    if (g.live) store_row(Ag + o * dd, x, i, dx, vec);
+    row_mul(x, mcol, S1);  // M⁻ᵀ J2
+    row_mul(p, x, S4);     // M⁻ᵀ J2 A1
+  }
+  const T v = b1 + dot(c1, e2v);
+  const T w = e2 - dot(j2, b1v);
+  put_row(S0, c1, i);
+  put_row(S2, p, i);
+  put_entry<T, MX>(S0, v, i);
+  put_entry<T, MX>(S2, w, i);
+  __syncwarp();
+
+  // b; A2 M⁻¹ C1; M⁻ᵀ w; Q = A1ᵀ (M⁻ᵀ J2 A1)
+  T xc[MX], q[MX];
+  row_mul(xc, a2m, S0);
+  T t;
+  {
+    T vv[MX], ww[MX];
+    get_vec(vv, S0);
+    get_vec(ww, S2);
+    if (g.live && i < dx) bg[o * dx + i] = dot(a2m, vv) + b2;
+    t = dot(mcol, ww);
+  }
+  row_mul(q, a1col, S2);
+  put_row(S1, a2, i);
+  put_row(S3, q, i);
+  put_row(S4, j1, i);
+  put_entry<T, MX>(S1, t, i);
+  __syncwarp();
+
+  // W = (A2 M⁻¹ C1) A2ᵀ; J = sym(Q + J1); η = A1ᵀ t + η1
+  T wr[MX];
+  row_mul_t(wr, xc, S1);
+  {
+    T tv[MX], qc[MX], jc[MX], x[MX];
+    get_vec(tv, S1);
+    get_col(qc, S3, i);
+    get_col(jc, S4, i);
+#pragma unroll
+    for (int k = 0; k < MX; ++k)
+      x[k] = T(0.5) * ((q[k] + qc[k]) + (j1[k] + jc[k]));
+    if (g.live) {
+      store_row(Jg + o * dd, x, i, dx, vec);
+      if (i < dx) eg[o * dx + i] = dot(a1col, tv) + e1;
+    }
+  }
+  put_row(S0, wr, i);
+  put_row(S2, c2, i);
+  __syncwarp();
+
+  // C = sym(W + C2)
+  {
+    T wc[MX], cc[MX], x[MX];
+    get_col(wc, S0, i);
+    get_col(cc, S2, i);
+#pragma unroll
+    for (int k = 0; k < MX; ++k)
+      x[k] = T(0.5) * ((wr[k] + wc[k]) + (c2[k] + cc[k]));
+    if (g.live) store_row(Cg + o * dd, x, i, dx, vec);
+  }
+}
+
+// K12 on the groups of K10: E = E1 E2, g = E1 g2 + g1 and
+// L = sym((E1 L2) E1ᵀ + L1), with E2, L2, E1 and L1 on the board for
+// their rows and columns.
+template <typename T, int MX>
+__global__ void __launch_bounds__(kGroupThreads) bank_smoother_combine_kernel(
     const T* __restrict__ E1g, const T* __restrict__ g1g,
     const T* __restrict__ L1g, const T* __restrict__ E2g,
     const T* __restrict__ g2g, const T* __restrict__ L2g, T* __restrict__ Eg,
-    T* __restrict__ gg, T* __restrict__ Lg, int M, int Ml, int Mr, int dx) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const size_t l = Ml == M ? m : m % Ml;
-  const size_t r = Mr == M ? m : m % Mr;
+    T* __restrict__ gg, T* __restrict__ Lg, int M, int Ml, int Mr, int dx,
+    int vec) {
+  __shared__ __align__(16) T boards[kGroupThreads / MX * kBoardSlots *
+                                    slot_len<MX>()];
+  if (warp_idle<MX>(M)) return;
+  const GroupLane<T, MX> g(boards, M);
+  const int i = g.i;
+  const size_t l = Ml == M ? g.m : g.m % Ml;
+  const size_t r = Mr == M ? g.m : g.m % Mr;
+  const size_t o = g.m;
   const size_t dd = size_t(dx) * dx;
+  T* S0 = g.slot(0);
+  T* S1 = g.slot(1);
+  T* S2 = g.slot(2);
+  T* S3 = g.slot(3);
+  T* S4 = g.slot(4);
 
-  T E1[MX][MX], E2[MX][MX], X[MX][MX], Y[MX][MX];
-  load_mat(E1, E1g + l * dd, dx);
-  load_mat(E2, E2g + r * dd, dx);
-  mm(X, E1, E2);
-  store_mat(Eg + size_t(m) * dd, X, dx);
+  T e1[MX], l1[MX], e2[MX], l2[MX];
+  load_row(e1, E1g + l * dd, i, dx, vec);
+  load_row(l1, L1g + l * dd, i, dx, vec);
+  load_row(e2, E2g + r * dd, i, dx, vec);
+  load_row(l2, L2g + r * dd, i, dx, vec);
+  const T g1 = load_entry(g1g + l * dx, i, dx);
+  const T g2 = load_entry(g2g + r * dx, i, dx);
+  put_row(S0, e2, i);
+  put_row(S1, l2, i);
+  put_row(S2, e1, i);
+  put_row(S3, l1, i);
+  put_entry<T, MX>(S0, g2, i);
+  __syncwarp();
 
+  T x[MX], y[MX];
+  row_mul(x, e1, S0);  // E1 E2
+  if (g.live) store_row(Eg + o * dd, x, i, dx, vec);
   {
-    T g1[MX], g2[MX], go[MX];
-    load_vec(g1, g1g + l * dx, dx);
-    load_vec(g2, g2g + r * dx, dx);
-#pragma unroll
-    for (int i = 0; i < MX; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = 0; k < MX; ++k) acc += E1[i][k] * g2[k];
-      go[i] = acc + g1[i];
-    }
-    store_vec(gg + size_t(m) * dx, go, dx);
+    T g2v[MX];
+    get_vec(g2v, S0);
+    if (g.live && i < dx) gg[o * dx + i] = dot(e1, g2v) + g1;
   }
-
-  load_mat(E2, L2g + r * dd, dx);  // E2 now holds L2
-  mm(X, E1, E2);
-  mmt(Y, X, E1);
-  load_mat(E2, L1g + l * dd, dx);  // E2 now holds L1
+  row_mul(x, e1, S1);    // E1 L2
+  row_mul_t(y, x, S2);   // (E1 L2) E1ᵀ
+  put_row(S4, y, i);
+  __syncwarp();
+  {
+    T yc[MX], lc[MX];
+    get_col(yc, S4, i);
+    get_col(lc, S3, i);
 #pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j)
-      X[i][j] = T(0.5) * ((Y[i][j] + Y[j][i]) + (E2[i][j] + E2[j][i]));
-  store_mat(Lg + size_t(m) * dd, X, dx);
+    for (int k = 0; k < MX; ++k)
+      x[k] = T(0.5) * ((y[k] + yc[k]) + (l1[k] + lc[k]));
+    if (g.live) store_row(Lg + o * dd, x, i, dx, vec);
+  }
 }
 
 int lane_blocks(int M) { return (M + kLaneThreads - 1) / kLaneThreads; }
+
+// Blocks of the group kernels over M lanes, groups of MX threads.
+int group_blocks(int M, int mx) {
+  const int lanes = kGroupThreads / mx;
+  return (M + lanes - 1) / lanes;
+}
+
+// Whether rows of dx elements at every pointer start on 16-byte boundaries:
+// the group kernels' 16-byte loads and stores (lane m of an operand starts
+// m·dx²·sizeof(T) bytes in, a multiple of 16 when a row is, so broadcast
+// lanes qualify as any lane does).
+template <typename T>
+int rows_vec(int dx, std::initializer_list<const void*> ptrs) {
+  if ((dx * int(sizeof(T))) % 16 != 0) return 0;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return 0;
+  return 1;
+}
 
 template <typename T>
 int launch_combine(const void* const* in, void* const* out, int M, int Ml,
@@ -460,9 +792,12 @@ int launch_combine(const void* const* in, void* const* out, int M, int Ml,
   auto kernel = dx <= 4 ? bank_combine_kernel<T, 4> : bank_combine_kernel<T, 8>;
   const T* const* x = reinterpret_cast<const T* const*>(in);
   T* const* y = reinterpret_cast<T* const*>(out);
-  kernel<<<lane_blocks(M), kLaneThreads, 0, cudaStream_t(stream)>>>(
-      x[0], x[1], x[2], x[3], x[4], x[5], x[6], x[7], x[8], x[9], y[0], y[1],
-      y[2], y[3], y[4], M, Ml, Mr, dx);
+  const int vec = rows_vec<T>(dx, {in[0], in[2], in[3], in[5], in[7], in[8],
+                                   out[0], out[2], out[3]});
+  kernel<<<group_blocks(M, dx <= 4 ? 4 : 8), kGroupThreads, 0,
+           cudaStream_t(stream)>>>(x[0], x[1], x[2], x[3], x[4], x[5], x[6],
+                                   x[7], x[8], x[9], y[0], y[1], y[2], y[3],
+                                   y[4], M, Ml, Mr, dx, vec);
   return int(cudaGetLastError());
 }
 
@@ -487,12 +822,14 @@ int launch_scombine(const void* E1, const void* g1, const void* L1,
                     void* stream) {
   auto kernel = dx <= 4 ? bank_smoother_combine_kernel<T, 4>
                         : bank_smoother_combine_kernel<T, 8>;
-  kernel<<<lane_blocks(M), kLaneThreads, 0, cudaStream_t(stream)>>>(
+  const int vec = rows_vec<T>(dx, {E1, L1, E2, L2, E, L});
+  kernel<<<group_blocks(M, dx <= 4 ? 4 : 8), kGroupThreads, 0,
+           cudaStream_t(stream)>>>(
       static_cast<const T*>(E1), static_cast<const T*>(g1),
       static_cast<const T*>(L1), static_cast<const T*>(E2),
       static_cast<const T*>(g2), static_cast<const T*>(L2),
       static_cast<T*>(E), static_cast<T*>(g), static_cast<T*>(L), M, Ml, Mr,
-      dx);
+      dx, vec);
   return int(cudaGetLastError());
 }
 

@@ -9,11 +9,11 @@ sigma-point kernels, K1t and K8t, K8 and K9 at the Lorenz-96 UKF's and the
 range-bearing banks' shapes in both dtypes, the Lorenz-96 UKF's walls,
 K1 and K2 at the batched Lorenz-96 EKF's and the bearings-only shapes in
 both dtypes, the Lorenz-96 EKF's wall, K10b and K12b at path C's three
-shapes, K10 and K12 at path B's two, K10b's block sizes, the walls of
-path B and of path C's two solvers, and K11b at path C's shape and with F
-banked in both dtypes, of a parent checkout and of this one in turns on
-the same card, or only the parts named: ``sigma``, ``ut``, ``ekf``,
-``combine``; see ``ab``.)
+shapes, K10b's block sizes, the walls of path B and of path C's two
+solvers, K10 and K12 at path B's five shapes and K11 at its one in both
+dtypes, and K11b at path C's shape and with F banked in both dtypes, of
+a parent checkout and of this one in turns on the same card, or only the
+parts named: ``sigma``, ``ut``, ``ekf``, ``combine``; see ``ab``.)
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -40,7 +40,8 @@ and prints no result):
    parents) must equal its plain version exactly at n = 2²⁰ and 65,536 on
    five weight profiles, and at the Gaussian-sum reductions' m counts → n
    slots. Times each kernel and its plain version with CUDA events at the
-   main-path shape (float32; K1t, K2t, K6t, K8t and K9t float64 too) and
+   main-path shapes (float32; K1/K2, K1t, K2t, K6t, K8t, K9t, K10, K11b
+   and K12 float64 too; K10 and K12 at path B's five shapes) and
    computes its
    bound (bytes over 3.35 TB/s or flops over the peak rate, whichever is
    larger), and its device time: CUDA events around calls queued behind a
@@ -139,6 +140,7 @@ KF_DX, KF_DY, KF_T, KF_CHUNK, KF_CMP_T = 4, 2, 1_000_000, 128, 4096
 # then the two broadcast combines over (128, 62) and (128, 7,813)
 KF_COMBINES = 128 + 128 + 62 + 1 + 1
 KF_LANES = -(-KF_T // KF_CHUNK)                       # 7,813
+KF_NARROW = -(-KF_LANES // KF_CHUNK)                  # 62: the next level
 # BASELINE config 5 (experiments/headline_bench.py:90-98): Lorenz-96
 # dx=512, dy=256, one sequence, T=200, RK4 data, Euler filter
 C5_DX, C5_DY, C5_T, C5_CMP_T, C5_CHUNK = 512, 256, 200, 20, 128
@@ -205,12 +207,14 @@ KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_update_tiled": "K1t",
               "bft_block_smoother_combine": "K12b"}
 
 # kernels timed in float64 as well at their main-path shapes (config 5's
-# filters run in float64 too, and K1/K2's and K11b's float64 workspaces
-# hold one block an SM; the rest are timed in float32 only)
+# filters run in float64 too, K1/K2's and K11b's float64 workspaces hold
+# one block an SM, and K10/K12's groups read twice the bytes; the rest are
+# timed in float32 only)
 TIMED_FLOAT64 = ("bft_ekf_update", "bft_ekf_predict_cov",
                  "bft_ekf_update_tiled", "bft_ekf_predict_cov_tiled",
                  "bft_ut_sigma_tiled", "bft_ut_update_tiled",
-                 "bft_ut_predict_tiled", "bft_block_smoother_elements")
+                 "bft_ut_predict_tiled", "bft_bank_combine",
+                 "bft_block_smoother_elements", "bft_bank_smoother_combine")
 
 # Roofline of an H100 SXM at its 700 W limit (NVIDIA's data sheet): memory
 # 3.35 TB/s; CUDA-core (non-tensor) peaks 67 TFLOP/s in float32 and
@@ -680,19 +684,24 @@ def kernel_cases():
     for dx in (192, 193, 128, 129):
         ut_predict(1, 2 * dx, dx, True)
     # the parallel Kalman smoother at T = 1M, chunk 128, dx = 4: in-chunk
-    # combines over 7,813 lanes (128 of the 320) and the broadcast of step
-    # 4 over 1,000,064; the elements over 999,999 steps; the band edge
-    fcombine(KF_LANES, KF_DX, timed="main")
-    fcombine(KF_LANES, KF_DX, chunk=KF_CHUNK, timed="also")
+    # combines over 7,813 lanes (128 of the 320), over the next level's 62
+    # (128) and over one lane (62), the broadcasts of step 4 over (128, 62)
+    # and over 1,000,064; the elements over 999,999 steps; the band edge,
+    # and widths that pad a group of 4 or 8 threads
+    for M, chunk in ((KF_LANES, None), (KF_LANES, KF_CHUNK),
+                     (KF_NARROW, None), (1, None), (KF_NARROW, KF_CHUNK)):
+        timed = "main" if (M, chunk) == (KF_LANES, None) else "also"
+        fcombine(M, KF_DX, chunk=chunk, timed=timed)
+        scombine(M, KF_DX, chunk=chunk, timed=timed)
     fcombine(62, 2)
     fcombine(4096, 8)
+    fcombine(130, 5)
     elements(KF_T - 1, KF_DX, timed="main")
     elements(4096, 8)
     elements(100, 3)
-    scombine(KF_LANES, KF_DX, timed="main")
-    scombine(KF_LANES, KF_DX, chunk=KF_CHUNK, timed="also")
     scombine(4096, 8)
     scombine(62, 3, chunk=5)
+    scombine(130, 6)
     # the block variants: path C (dx = 64, T = 65,536, chunk 128) combines
     # over G = 512 lanes in step 2, over 4 at the next level (512 threads
     # a block for K10b) and broadcasts (1, 512) × (128, 512) in step 4;
@@ -853,8 +862,9 @@ def guard_checks(dev) -> None:
     combine's jitter ε), lane 1's an infinite off-diagonal pair. Both
     factors fail and are zeroed (M⁻¹ = I) on both sides: the outputs must
     be non-finite in the same places, the finite ones within KERNEL_TOL,
-    and lane 0 finite throughout. Lane kernel at dx = 4 and 8, block
-    kernel at 9, 64 and 512 (there in float32 with a −1e-4 eigenvalue: a
+    and lane 0 finite throughout. Lane kernel at dx = 3, 4, 5 and 8
+    (groups of 4 and 8 threads, padded and full), block kernel at 9, 64
+    and 512 (there in float32 with a −1e-4 eigenvalue: a
     wide float32 factor's rounding alone reaches 1e-8, so −1e-8 could
     factor on one side and fail on the other)."""
     import numpy as np
@@ -864,7 +874,7 @@ def guard_checks(dev) -> None:
     from bayesianfiltering_tpu_torch.ops import associative as tas
     from bayesianfiltering_tpu_torch.ops import bank_combine as bc
 
-    for dx in (KF_DX, 8, 9, PC_DX, 512):
+    for dx in (3, KF_DX, 5, 8, 9, PC_DX, 512):
         M = 96 if dx <= PC_DX else 4
         kernel = bc.K10 if dx <= 8 else bc.K10B
         for dtype in (torch.float32, torch.float64):
@@ -1941,18 +1951,19 @@ def combine_times(root: str) -> None:
     """The combines and elements of the parallel smoother, inputs from
     ``testing`` with SEED: K10b and K12b at path C's three shapes (dx = 64:
     M = 512, the 4-lane level, the (1, 512) × (128, 512) broadcast of step
-    4) and the lane kernels K10 and K12 at path B's two (dx = 4: M = 7,813
-    and the (1, 7,813) × (128, 7,813) broadcast) in float32: the device
-    time per call (``device_ms``) and the CUDA-event time of a loop of
-    calls; where the checkout picks K10b's block size
-    (``bank_combine.block_threads``), K10b at 4 and 512 lanes with 256 and
-    with 512 threads a block, each forced; then the walls of path B
-    (T = 1M) and of path C's two solvers (T = 65,536), chunk 128: the
-    median and range of REPS calls after a warm-up; last, so that the
-    plain versions' allocations come after the walls, K11b at path C's
-    shape (M = 65,535, dx = 64, F shared) and at M = 4,096 with F banked in
-    float32 and float64, device and event ms, with its max abs error
-    against the plain version."""
+    4) in float32: the device time per call (``device_ms``) and the
+    CUDA-event time of a loop of calls; where the checkout picks K10b's
+    block size (``bank_combine.block_threads``), K10b at 4 and 512 lanes
+    with 256 and with 512 threads a block, each forced; then the walls of
+    path B (T = 1M) and of path C's two solvers (T = 65,536), chunk 128:
+    the median and range of REPS calls after a warm-up; last, so that the
+    plain versions' allocations come after the walls, each with its max
+    abs error against the plain version, the lane kernels K10 and K12 at
+    path B's five shapes (dx = 4: M = 7,813, 62 and 1, the (1, 62) ×
+    (128, 62) and (1, 7,813) × (128, 7,813) broadcasts) and K11 at its
+    one (M = 999,999, F shared) in float32 and float64, and K11b at path
+    C's shape (M = 65,535, dx = 64, F shared) and at M = 4,096 with F
+    banked in float32 and float64: device and event ms."""
     import numpy as np
     import torch
 
@@ -1963,39 +1974,37 @@ def combine_times(root: str) -> None:
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
-    on_card = lambda xs: [torch.as_tensor(np.asarray(x), dtype=torch.float32,
-                                          device=dev) for x in xs]
+
+    def on_card(xs, dtype=torch.float32):
+        return [torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+                for x in xs]
+
+    def operands(make, M, chunk, dtype=torch.float32):
+        if chunk is None:
+            return on_card(make(rng, M) + make(rng, M), dtype), f"M={M}"
+        return (on_card([x[None] for x in make(rng, M)]
+                        + [x.reshape((chunk, M) + x.shape[1:])
+                           for x in make(rng, chunk * M)], dtype),
+                f"(1,{M}) x ({chunk},{M})")
+
     fwrap = lambda a: bc.bank_filter_combine(a[:5], a[5:])
     swrap = lambda a: bs.bank_smoother_combine(a[:3], a[3:])
     wide = ((PC_LANES, None), (PC_NARROW, None), (PC_LANES, KF_CHUNK))
-    lane = ((KF_LANES, None), (KF_LANES, KF_CHUNK))
     kinds = (
-        ("K10b", PC_DX, wide, fwrap,
+        ("K10b", fwrap,
          lambda r, M: testing.filter_elements(r, M, PC_DX, PC_DX // 2,
                                               normalized=True)),
-        ("K12b", PC_DX, wide, swrap,
-         lambda r, M: testing.smoother_elements(r, M, PC_DX)),
-        ("K10", KF_DX, lane, fwrap,
-         lambda r, M: testing.filter_elements(r, M, KF_DX)),
-        ("K12", KF_DX, lane, swrap,
-         lambda r, M: testing.smoother_elements(r, M, KF_DX)))
-    for name, dx, shapes, wrap, make in kinds:
-        for M, chunk in shapes:
-            if chunk is None:
-                a = on_card(make(rng, M) + make(rng, M))
-                shape = f"M={M}"
-            else:
-                a = on_card([x[None] for x in make(rng, M)]
-                            + [x.reshape((chunk, M) + x.shape[1:])
-                               for x in make(rng, chunk * M)])
-                shape = f"(1,{M}) x ({chunk},{M})"
+        ("K12b", swrap, lambda r, M: testing.smoother_elements(r, M, PC_DX)))
+    for name, wrap, make in kinds:
+        for M, chunk in wide:
+            a, shape = operands(make, M, chunk)
             fn = lambda: wrap(a)
-            log(f"{root} {name} {shape} dx={dx} float32: device "
+            log(f"{root} {name} {shape} dx={PC_DX} float32: device "
                 f"{device_ms(fn, ('',))} ms, event {cuda_time_ms(fn):.5f} ms")
     rule = getattr(bc, "block_threads", None)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for M in ((PC_NARROW, PC_LANES) if rule is not None else ()):
-        a = on_card(kinds[0][4](rng, M) + kinds[0][4](rng, M))
+        a = on_card(kinds[0][2](rng, M) + kinds[0][2](rng, M))
         fn = lambda: fwrap(a)
         picked = rule(bc.BLOCK_COMBINE, M, bc.TILE, 4, sms)
         for threads in (256, 512):
@@ -2014,17 +2023,36 @@ def combine_times(root: str) -> None:
         run()
         secs = [timed(run)[1] for _ in range(REPS)]
         log(f"{root} {label} T={T} dx={dx} float32: {spread(secs)}")
-    for M, banked in ((PC_T - 1, False), (4096, True)):
-        raw = testing.smoother_element_inputs(rng, M, PC_DX)
+    lane = ((KF_LANES, None), (KF_LANES, KF_CHUNK), (KF_NARROW, None),
+            (1, None), (KF_NARROW, KF_CHUNK))
+    lanes = (
+        ("K10", fwrap, lambda a: tas._combine(a[:5], a[5:]),
+         lambda r, M: testing.filter_elements(r, M, KF_DX)),
+        ("K12", swrap, lambda a: tas._smoother_combine(a[:3], a[3:]),
+         lambda r, M: testing.smoother_elements(r, M, KF_DX)))
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        for kernel, wrap, plain, make in lanes:
+            for M, chunk in lane:
+                a, shape = operands(make, M, chunk, dtype)
+                fn = lambda: wrap(a)
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(fn(), plain(a)))
+                log(f"{root} {kernel} {shape} dx={KF_DX} {name}: device "
+                    f"{device_ms(fn, ('',))} ms, event "
+                    f"{cuda_time_ms(fn):.5f} ms, max abs err {err:.3e} "
+                    "against the plain version")
+    for M, dx, banked in ((KF_T - 1, KF_DX, False), (PC_T - 1, PC_DX, False),
+                          (4096, PC_DX, True)):
+        raw = testing.smoother_element_inputs(rng, M, dx)
         for dtype in (torch.float32, torch.float64):
-            fm, fP, pm, pP, F = (torch.as_tensor(np.asarray(x), dtype=dtype,
-                                                 device=dev) for x in raw)
-            F = F if banked else F[0].expand(M, PC_DX, PC_DX)
+            fm, fP, pm, pP, F = on_card(raw, dtype)
+            F = F if banked else F[0].expand(M, dx, dx)
             fn = lambda: bs.bank_smoother_elements(fm, fP, pm, pP, F)
             err = max(float((g - w).abs().max()) for g, w in
                       zip(fn(), bs._elements_plain(fm, fP, pm, pP, F)))
             name = str(dtype).split(".")[-1]
-            log(f"{root} K11b M={M} dx={PC_DX} F "
+            log(f"{root} {'K11' if dx <= 8 else 'K11b'} M={M} dx={dx} F "
                 f"{'banked' if banked else 'shared'} {name}: device "
                 f"{device_ms(fn, ('',))} ms, event {cuda_time_ms(fn):.5f} "
                 f"ms, max abs err {err:.3e} against the plain version")

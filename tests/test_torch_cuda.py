@@ -415,6 +415,73 @@ def test_smoother_combine_kernel_matches_plain(dev, dtype, dx, M):
         assert_close(g, w, TOL[dtype])
 
 
+# K10 and K12 run a lane over a group of 4 (dx ≤ 4) or 8 threads: every
+# width of the band, at one lane, path B's 62 and 7,813, and with each side
+# broadcast ((1, 62) against (3, 62), read in place at lane m mod 62)
+LANE_SHAPES = [(1, None), (62, None), (7_813, None), (62, "left"),
+               (62, "right")]
+
+
+def _lane_operands(make, rng, G, dx, side, dtype, dev):
+    """(left, right) over G lanes, or (1, G) against (3, G) with ``side``
+    the one of a single row."""
+    if side is None:
+        return (_dev(make(rng, G, dx), dtype, dev),
+                _dev(make(rng, G, dx), dtype, dev))
+    one = [x[None] for x in _dev(make(rng, G, dx), dtype, dev)]
+    many = [x.reshape((3, G) + x.shape[1:])
+            for x in _dev(make(rng, 3 * G, dx), dtype, dev)]
+    return (one, many) if side == "left" else (many, one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx", range(1, 9))
+@pytest.mark.parametrize("G,side", LANE_SHAPES)
+@pytest.mark.parametrize("kind", ["combine", "smoother"])
+def test_lane_combines_match_plain(dev, kind, G, side, dx, dtype):
+    make, wrap, plain, kernel = (
+        (testing.filter_elements, bc.bank_filter_combine, tas._combine,
+         bc.K10) if kind == "combine" else
+        (testing.smoother_elements, bs.bank_smoother_combine,
+         tas._smoother_combine, bs.K12))
+    rng = np.random.default_rng(G * 10 + dx)
+    left, right = _lane_operands(make, rng, G, dx, side, dtype, dev)
+    _build.reset_launch_counts()
+    got = wrap(left, right)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    assert all(k.launches == 0 for k in COMBINE_KERNELS if k is not kernel)
+    for g, w in zip(got, plain(left, right)):
+        assert g.shape == w.shape
+        assert torch.isfinite(g).all()
+        assert_close(g, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx", range(1, 9))
+def test_lane_combine_guard_lanes_at_every_width(dev, dtype, dx):
+    """K10's guard on the groups: lane 0's C1 with a −1e-8 eigenvalue and
+    lane 1's with an infinite entry fail their factor on both sides (U
+    zeroed), a NaN in b1 of lane 2 and in J2 of lane 3 reach the same
+    entries; the rest agree."""
+    rng = np.random.default_rng(20 + dx)
+    left = testing.guard_lanes(rng, testing.filter_elements(rng, 62, dx))
+    right = [np.array(x, copy=True)
+             for x in testing.filter_elements(rng, 62, dx)]
+    left[1][2, 0] = np.nan
+    right[3][3, 0, 0] = np.nan
+    left, right = _dev(left, dtype, dev), _dev(right, dtype, dev)
+    got = bc.bank_filter_combine(left, right)
+    want = tas._combine(left, right)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        bad = ~torch.isfinite(w)
+        assert torch.equal(bad, ~torch.isfinite(g))
+        assert torch.isfinite(g[0]).all() and torch.isnan(g[3]).all()
+        assert_close(torch.where(bad, 0, g), torch.where(bad, 0, w),
+                     TOL[dtype])
+
+
 def test_parallel_smoother_kernel_path_matches_plain_path(dev):
     """T=1000, chunk 16: 16 + 16 + 4 + 1 + 1 = 38 combines of each kind."""
     rng = np.random.default_rng(4)
