@@ -22,39 +22,25 @@
 // broadcast is never materialised. K11's transition F is shared by every
 // lane (f_banked = 0) or given per lane.
 //
-// K10 and K12 (the group kernels): a lane over a group of MX threads.
+// K10 and K12 (the group kernels): a lane over a group of MX threads, on
+// csrc/lane_group.cuh (layout, 16-byte row loads, the board, group_chol,
+// launch shape: see there).
 // - What bounds them on an H100: at path B's step-4 broadcast (1,000,064
 //   lanes, dx = 4, float32) they must move 112 and 72 values a lane and do
 //   ~1,300 and ~350 flops (chip_smoke.py combine_flops, scombine_flops):
 //   bytes-bound, 0.134 and 0.086 ms. At the scan's narrower levels (7,813,
 //   62 and 1 lanes: 318 of path B's 320 launches of each) one lane's
 //   serial chain and the launch are the whole cost.
-// - Thread i of a lane's group holds row i of each of the lane's matrices
-//   (MX registers a matrix, where one thread a lane held ten MX × MX
-//   matrices) and loads and stores it 16 bytes at a time where rows of dx
-//   elements stay on 16-byte boundaries (every dx · sizeof(T) a multiple of
-//   16 and every pointer aligned; a broadcast operand's lane m % Ml starts
-//   on one as any lane does), else element by element; consecutive groups
-//   take consecutive lanes, so a warp reads 8 lanes × 4 rows of a matrix
-//   as one 512-byte stretch at dx = 4 in float32.
-// - Exchanges inside the group: a product's right operand goes to the
-//   group's board in shared memory (kBoardSlots slots of an MX × MX matrix
-//   and a vector), and each thread reads it back row by row, 16 bytes a
-//   read that every thread of the group makes at one address; a
-//   transposed left operand is read back as a column. A product hands each
-//   thread MX² values, four a 16-byte read where a shuffle gives one, and a
-//   column is an address where a transpose by shuffles would index
-//   registers by the thread's row. One __syncwarp ends each exchange; a
-//   slot is rewritten only after a __syncwarp has followed its last read.
+// - Thread i holds row i of each of the lane's matrices (MX registers a
+//   matrix, where one thread a lane held ten MX × MX matrices); a broadcast
+//   operand's lane m % Ml is read with the same 16-byte loads as any lane.
+//   The board has kBoardSlots = 5 slots.
 // - The two Cholesky factors of K10 are column sweeps over the group
-//   (group_chol): the pivot and the column come from their owners by
-//   __shfl_sync, one reciprocal square root a column. The inner factor is
-//   never inverted: [X | Y] = Lin⁻¹ [Uᵀ | (J2 U)ᵀ] by forward substitution
-//   over the group, M⁻¹ = I − Xᵀ Y (as K10b). A lane's chain is then MX
-//   pivots twice, MX substitution steps and ~12 products of one row each.
-// - Launch shape: kGroupThreads = 64 threads a block, 16 lanes at MX = 4
-//   (489 blocks at M = 7,813, spread over all 132 SMs); groups past M
-//   compute on lane M − 1 and store nothing, warps wholly past M return.
+//   (group_chol). The inner factor is never inverted: [X | Y] =
+//   Lin⁻¹ [Uᵀ | (J2 U)ᵀ] by forward substitution over the group,
+//   M⁻¹ = I − Xᵀ Y (as K10b). A lane's chain is then MX pivots twice, MX
+//   substitution steps and ~12 products of one row each.
+// - 489 blocks at M = 7,813, spread over all 132 SMs.
 //
 // K11 keeps the first design: one thread a lane holding the lattice in
 // registers (load_mat, reg_chol, reg_tri_inv, mm/mmt/mtm, store_mat),
@@ -79,12 +65,11 @@
 //        pivots).
 //   K12  E = E1 E2,  g = E1 g2 + g1,  L = sym(E1 L2 E1ᵀ + L1).
 #include <algorithm>
-#include <cstdint>
-#include <initializer_list>
 #include <type_traits>
 
 #include "block_mm.cuh"
 #include "common.cuh"
+#include "lane_group.cuh"
 
 namespace {
 
@@ -293,218 +278,7 @@ __global__ void __launch_bounds__(kLaneThreads) bank_smoother_elements_kernel(
 // (MX entries), rows past dx zero.
 // ---------------------------------------------------------------------------
 
-constexpr int kGroupThreads = 64;  // threads a block of K10 and K12
-constexpr int kBoardSlots = 5;     // slots of a group's board
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// A slot of the board: an MX × MX matrix (row k at k·MX) and an MX-vector
-// after it. Consecutive groups' boards start MX·(MX + 1)·kBoardSlots
-// elements apart, so that a warp's reads of one row of each group's matrix
-// (16 bytes a group, the group's threads reading the same address) and of
-// one column (thread i reading entry i of each row) fall in distinct banks
-// in float32.
-template <int MX>
-__host__ __device__ constexpr int slot_len() {
-  return MX * (MX + 1);
-}
-
-// Row i of a lane's dx × dx matrix at g into x, zero past dx: 16 bytes a
-// load where `vec` (rows of 16-byte multiples on 16-byte boundaries), else
-// element by element. Both read the same elements.
-template <typename T, int MX>
-__device__ __forceinline__ void load_row(T (&x)[MX], const T* __restrict__ g,
-                                         int i, int dx, bool vec) {
-  constexpr int NV = 16 / int(sizeof(T));
-  using V = typename Vec<T, NV>::type;
-  if (vec) {
-#pragma unroll
-    for (int c = 0; c < MX / NV; ++c) {
-      V w{};
-      if (i < dx && c * NV < dx) w = reinterpret_cast<const V*>(g + i * dx)[c];
-      const T* e = reinterpret_cast<const T*>(&w);
-#pragma unroll
-      for (int q = 0; q < NV; ++q) x[c * NV + q] = e[q];
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < MX; ++j) x[j] = (i < dx && j < dx) ? g[i * dx + j] : T(0);
-  }
-}
-
-// Row i (i < dx) of x to a lane's dx × dx matrix at g, as load_row reads.
-template <typename T, int MX>
-__device__ __forceinline__ void store_row(T* __restrict__ g, const T (&x)[MX],
-                                          int i, int dx, bool vec) {
-  constexpr int NV = 16 / int(sizeof(T));
-  using V = typename Vec<T, NV>::type;
-  if (i >= dx) return;
-  if (vec) {
-#pragma unroll
-    for (int c = 0; c < MX / NV; ++c) {
-      if (c * NV < dx) {
-        V w;
-        T* e = reinterpret_cast<T*>(&w);
-#pragma unroll
-        for (int q = 0; q < NV; ++q) e[q] = x[c * NV + q];
-        reinterpret_cast<V*>(g + i * dx)[c] = w;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < MX; ++j)
-      if (j < dx) g[i * dx + j] = x[j];
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T load_entry(const T* __restrict__ g, int i,
-                                        int dx) {
-  return i < dx ? g[i] : T(0);
-}
-
-// The board: thread i writes its row i, or its entry i of the vector
-template <typename T, int MX>
-__device__ __forceinline__ void put_row(T* s, const T (&x)[MX], int i) {
-  store_span<T, MX>(s + i * MX, x, MX, true);
-}
-
-template <typename T, int MX>
-__device__ __forceinline__ void put_entry(T* s, T v, int i) {
-  s[MX * MX + i] = v;
-}
-
-template <typename T, int MX>
-__device__ __forceinline__ void get_row(T (&x)[MX], const T* s, int k) {
-  load_span<T, MX>(x, s + k * MX);
-}
-
-// Column i of the slot's matrix: the row of its transpose
-template <typename T, int MX>
-__device__ __forceinline__ void get_col(T (&x)[MX], const T* s, int i) {
-#pragma unroll
-  for (int k = 0; k < MX; ++k) x[k] = s[k * MX + i];
-}
-
-template <typename T, int MX>
-__device__ __forceinline__ void get_vec(T (&x)[MX], const T* s) {
-  load_span<T, MX>(x, s + MX * MX);
-}
-
-// y = x B with B's rows from the slot: y_j = Σ_k x_k B_kj
-template <typename T, int MX>
-__device__ __forceinline__ void row_mul(T (&y)[MX], const T (&x)[MX],
-                                        const T* s) {
-#pragma unroll
-  for (int j = 0; j < MX; ++j) y[j] = T(0);
-#pragma unroll
-  for (int k = 0; k < MX; ++k) {
-    T b[MX];
-    get_row(b, s, k);
-#pragma unroll
-    for (int j = 0; j < MX; ++j) y[j] += x[k] * b[j];
-  }
-}
-
-// y = x Bᵀ with B's rows from the slot: y_j = Σ_k x_k B_jk
-template <typename T, int MX>
-__device__ __forceinline__ void row_mul_t(T (&y)[MX], const T (&x)[MX],
-                                          const T* s) {
-#pragma unroll
-  for (int j = 0; j < MX; ++j) {
-    T b[MX];
-    get_row(b, s, j);
-    T acc = T(0);
-#pragma unroll
-    for (int k = 0; k < MX; ++k) acc += x[k] * b[k];
-    y[j] = acc;
-  }
-}
-
-template <typename T, int MX>
-__device__ __forceinline__ T dot(const T (&x)[MX], const T (&v)[MX]) {
-  T acc = T(0);
-#pragma unroll
-  for (int k = 0; k < MX; ++k) acc += x[k] * v[k];
-  return acc;
-}
-
-// Entry i of the row: a select over constant indices (a register array
-// indexed by the thread's i would go to local memory).
-template <typename T, int MX>
-__device__ __forceinline__ T entry(const T (&x)[MX], int i) {
-  T v = x[0];
-#pragma unroll
-  for (int k = 1; k < MX; ++k)
-    if (k == i) v = x[k];
-  return v;
-}
-
-// The sum over the group by a butterfly of xor shuffles: the same value on
-// every thread of the group (each step adds the same two numbers).
-template <typename T, int MX>
-__device__ __forceinline__ T group_sum(T v) {
-#pragma unroll
-  for (int o = MX / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o, MX);
-  return v;
-}
-
-// Lower Cholesky factor of the group's symmetric matrix, thread i holding
-// row i of it in a (the lower part is read) and getting row i of L (zeros
-// above the diagonal): a column sweep, right-looking. At column j the
-// pivot a_jj comes from thread j by one shuffle; every thread forms
-// l_ij = a_ij·d^-½ (l_jj = d·d^-½: one reciprocal square root a column),
-// takes l_kj from each later thread k by a shuffle and updates a_ik. Every
-// loop has a constant trip count. Thread i gets 1/l_ii in rinv. Returns
-// whether every pivot was positive (a NaN pivot fails), the same on every
-// thread of the group; a failed pivot leaves NaN (or ±∞) in the factor.
-template <typename T, int MX>
-__device__ __forceinline__ bool group_chol(T (&a)[MX], int i, T& rinv) {
-  bool ok = true;
-#pragma unroll
-  for (int j = 0; j < MX; ++j) {
-    const T d = __shfl_sync(kFullMask, a[j], j, MX);
-    ok = ok && d > T(0);
-    const T rs = drsqrt(d);
-    if (i == j) rinv = rs;
-    const T l = i == j ? d * rs : (i > j ? a[j] * rs : T(0));
-    a[j] = l;
-#pragma unroll
-    for (int k = j + 1; k < MX; ++k) {
-      const T lk = __shfl_sync(kFullMask, l, k, MX);
-      if (i > j) a[k] -= l * lk;
-    }
-  }
-  return ok;
-}
-
-// The lane of a group and its board. Groups past M compute on lane M − 1
-// (every thread of a warp takes part in its shuffles and __syncwarp) and
-// store nothing; a warp whose groups are all past M has returned.
-template <typename T, int MX>
-struct GroupLane {
-  static constexpr int kLanes = kGroupThreads / MX;  // groups a block
-  int i;     // the thread's row
-  int m;     // its lane, M − 1 for a group past M
-  bool live; // whether the group stores
-  T* board;  // the group's kBoardSlots slots
-
-  __device__ GroupLane(T* boards, int M) {
-    const int g = threadIdx.x / MX;
-    i = threadIdx.x % MX;
-    const int m0 = blockIdx.x * kLanes + g;
-    live = m0 < M;
-    m = live ? m0 : M - 1;
-    board = boards + g * kBoardSlots * slot_len<MX>();
-  }
-  __device__ T* slot(int s) const { return board + s * slot_len<MX>(); }
-};
-
-// Whether every thread of the warp belongs to a group past M.
-template <int MX>
-__device__ __forceinline__ bool warp_idle(int M) {
-  constexpr int lanes = kGroupThreads / MX;
-  return blockIdx.x * lanes + (threadIdx.x / kWarp) * (kWarp / MX) >= M;
-}
+constexpr int kBoardSlots = 5;  // slots of a group's board in K10 and K12
 
 // K10. With thread i holding row i: U = chol(C1 + εI) (ε from the trace, a
 // butterfly of shuffles; U zeroed unless every pivot is positive), then
@@ -527,10 +301,10 @@ __global__ void __launch_bounds__(kGroupThreads) bank_combine_kernel(
     const T* __restrict__ J2g, const T* __restrict__ e2g, T* __restrict__ Ag,
     T* __restrict__ bg, T* __restrict__ Cg, T* __restrict__ Jg,
     T* __restrict__ eg, int M, int Ml, int Mr, int dx, int vec) {
-  __shared__ __align__(16) T boards[kGroupThreads / MX * kBoardSlots *
-                                    slot_len<MX>()];
+  using Lane = GroupLane<T, MX, kBoardSlots>;
+  __shared__ __align__(16) T boards[Lane::kBoards];
   if (warp_idle<MX>(M)) return;
-  const GroupLane<T, MX> g(boards, M);
+  const Lane g(boards, M);
   const int i = g.i;
   const size_t l = Ml == M ? g.m : g.m % Ml;  // lane of the left operand
   const size_t r = Mr == M ? g.m : g.m % Mr;  // lane of the right operand
@@ -714,10 +488,10 @@ __global__ void __launch_bounds__(kGroupThreads) bank_smoother_combine_kernel(
     const T* __restrict__ g2g, const T* __restrict__ L2g, T* __restrict__ Eg,
     T* __restrict__ gg, T* __restrict__ Lg, int M, int Ml, int Mr, int dx,
     int vec) {
-  __shared__ __align__(16) T boards[kGroupThreads / MX * kBoardSlots *
-                                    slot_len<MX>()];
+  using Lane = GroupLane<T, MX, kBoardSlots>;
+  __shared__ __align__(16) T boards[Lane::kBoards];
   if (warp_idle<MX>(M)) return;
-  const GroupLane<T, MX> g(boards, M);
+  const Lane g(boards, M);
   const int i = g.i;
   const size_t l = Ml == M ? g.m : g.m % Ml;
   const size_t r = Mr == M ? g.m : g.m % Mr;
@@ -767,24 +541,6 @@ __global__ void __launch_bounds__(kGroupThreads) bank_smoother_combine_kernel(
 }
 
 int lane_blocks(int M) { return (M + kLaneThreads - 1) / kLaneThreads; }
-
-// Blocks of the group kernels over M lanes, groups of MX threads.
-int group_blocks(int M, int mx) {
-  const int lanes = kGroupThreads / mx;
-  return (M + lanes - 1) / lanes;
-}
-
-// Whether rows of dx elements at every pointer start on 16-byte boundaries:
-// the group kernels' 16-byte loads and stores (lane m of an operand starts
-// m·dx²·sizeof(T) bytes in, a multiple of 16 when a row is, so broadcast
-// lanes qualify as any lane does).
-template <typename T>
-int rows_vec(int dx, std::initializer_list<const void*> ptrs) {
-  if ((dx * int(sizeof(T))) % 16 != 0) return 0;
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) & 15) return 0;
-  return 1;
-}
 
 template <typename T>
 int launch_combine(const void* const* in, void* const* out, int M, int Ml,

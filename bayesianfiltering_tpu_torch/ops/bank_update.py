@@ -4,9 +4,9 @@ kernels K3 and K4 (counterpart of ``bayesianfiltering_tpu/ops/bank_update.py``).
 K3 (``csrc/bank_update.cu``, ``bank_update_kernel``) replaces the TPU
 kernel ``_bank_update_kernel`` (``bayesianfiltering_tpu/ops/bank_update.py:60``),
 K4 (``bank_predict_cov_kernel``) replaces ``_bank_predict_kernel``
-(``:329``): the same math as K1/K2, one thread per component, for
-dx, dy, dq ≤ 8. A bank with a larger dimension goes to K1/K2 with the
-batch axis = M. Tensors stay (M, d, d) row-major; the TPU's bank-major lane
+(``:329``): the same math as K1/K2, each component a lane over a group
+of 4 or 8 threads (``csrc/lane_group.cuh``), for dx, dy, dq ≤ 8. A bank
+with a larger dimension goes to K1/K2 with the batch axis = M. Tensors stay (M, d, d) row-major; the TPU's bank-major lane
 layout is not carried over. On CPU tensors the plain twins run.
 """
 from __future__ import annotations

@@ -10,7 +10,9 @@ their epilogues :func:`put`, :func:`put_t` and :func:`put_mirrored`),
 :func:`tri_solve` the in-block product, panel factor and panel triangular
 solve of ``csrc/block_mm.cuh`` and ``csrc/common.cuh`` that K1, K2, K8,
 K9, K10b and K12b are built on, for tests that follow their schedules
-step by step on workspaces seeded with NaN.
+step by step on workspaces seeded with NaN. :class:`Group` writes out the
+lane groups of ``csrc/lane_group.cuh`` that K3, K4, K10 and K12 are built
+on, with their board seeded with NaN.
 """
 from __future__ import annotations
 
@@ -406,10 +408,147 @@ def resampling_counts(profile: str, n: int, rng: np.random.Generator):
     return np.maximum.accumulate(counts)
 
 
+class Group:
+    """The lane groups of ``csrc/lane_group.cuh`` written out in numpy:
+    every group of a launch at once, thread i of lane m being row [m, i].
+    Registers are (lanes, MX, MX) or (lanes, MX) arrays, a shuffle is an
+    index exchange inside the group, and the group's board (``slots`` slots
+    of an MX × MX matrix and an MX-vector) is a (lanes, slots, MX(MX + 1))
+    array seeded with NaN, so that a read of an entry no thread wrote
+    shows. The bounds ``n`` of the products and the factor are the
+    kernels' uniform row and pivot bounds."""
+
+    def __init__(self, lanes, mx, dx, dtype, slots=5):
+        self.mx, self.dx, self.dt = mx, dx, dtype
+        self.i = np.arange(mx)
+        self.board = np.full((lanes, slots, mx * (mx + 1)), np.nan, dtype)
+
+    def load(self, x, rows):
+        """Rows (matrices) or entries (vectors) of lanes ``rows``, zero past
+        the matrix's or the vector's extent."""
+        x = np.asarray(x, self.dt)[rows]
+        if x.ndim == 2:
+            out = np.zeros((len(rows), self.mx), self.dt)
+            out[:, :x.shape[1]] = x
+        else:
+            out = np.zeros((len(rows), self.mx, self.mx), self.dt)
+            out[:, :x.shape[1], :x.shape[2]] = x
+        return out
+
+    def put_row(self, s, R, only=None):
+        mx = self.mx
+        for i in self.i if only is None else (only,):
+            self.board[:, s, i * mx:(i + 1) * mx] = R[:, i]
+
+    def put_el(self, s, v):
+        self.board[:, s, self.mx * self.mx:] = v
+
+    def rows(self, s):
+        mx = self.mx
+        return self.board[:, s, :mx * mx].reshape(-1, mx, mx)
+
+    def get_row(self, s, k):
+        """Row k of slot s, read by every thread: (lanes, MX, MX)."""
+        return np.repeat(self.rows(s)[:, None, k], self.mx, axis=1)
+
+    def get_col(self, s):
+        """Thread i reads column i of slot s."""
+        return np.swapaxes(self.rows(s), 1, 2).copy()
+
+    def get_vec(self, s):
+        v = self.board[:, s, self.mx * self.mx:]
+        return np.repeat(v[:, None], self.mx, axis=1)
+
+    def rowmul(self, x, s, n=None):
+        """y = x B, the first n rows of B from slot s:
+        y[j] = Σ_k x[k] B[k][j]."""
+        B = self.rows(s)
+        y = np.zeros_like(x)
+        for k in range(self.mx if n is None else n):
+            y = y + x[..., k:k + 1] * B[:, None, k, :]
+        return y
+
+    def rowmul_t(self, x, s, n=None):
+        """y = x Bᵀ, the first n rows of B from slot s:
+        y[j] = Σ_k x[k] B[j][k] (zero past n)."""
+        B = self.rows(s)
+        y = np.zeros_like(x)
+        for j in range(self.mx if n is None else n):
+            acc = np.zeros(x.shape[:-1], self.dt)
+            for k in range(self.mx):
+                acc = acc + x[..., k] * B[:, None, j, k]
+            y[..., j] = acc
+        return y
+
+    def dot(self, x, v):
+        acc = np.zeros(x.shape[:-1], self.dt)
+        for k in range(self.mx):
+            acc = acc + x[..., k] * v[..., k]
+        return acc
+
+    def shfl(self, v, src):
+        """Every thread reads thread ``src``'s value: (lanes, MX)."""
+        return np.repeat(v[:, src:src + 1], self.mx, axis=1)
+
+    def group_sum(self, v):
+        """The butterfly of xor shuffles: the same sum on every thread."""
+        o = self.mx // 2
+        while o:
+            v = v + v[:, self.i ^ o]
+            o //= 2
+        return v
+
+    def group_max(self, v):
+        """The same butterfly with the maximum."""
+        o = self.mx // 2
+        while o:
+            w = v[:, self.i ^ o]
+            v = np.where(w > v, w, v)
+            o //= 2
+        return v
+
+    def diag(self, R):
+        """Thread i's entry i of its row (a select, not an indexed
+        register)."""
+        return R[:, self.i, self.i]
+
+    def eye(self):
+        return np.broadcast_to(np.eye(self.mx, dtype=self.dt),
+                               (1, self.mx, self.mx))
+
+    def chol(self, a, n=None):
+        """The column sweep of ``group_chol`` over its first n columns: at
+        column j the pivot comes from thread j, l_ij = a_ij · d^-½
+        (l_jj = d · d^-½), and each row below takes l_kj of every later row
+        k < n from its owner. Returns the rows of L (zeros above the
+        diagonal in the swept columns), whether every pivot was positive,
+        and each thread's own pivot reciprocal (one past n)."""
+        n = self.mx if n is None else n
+        a = a.copy()
+        ok = np.ones(a.shape[0], bool)
+        rinv = np.ones(a.shape[:2], self.dt)
+        i = self.i[None, :]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            for j in range(n):
+                d = self.shfl(a[..., j], j)
+                ok &= d[:, 0] > 0
+                rs = (self.dt(1) / np.sqrt(d)).astype(self.dt)
+                rinv = np.where(i == j, rs, rinv)
+                l = np.where(i == j, d * rs,
+                             np.where(i > j, a[..., j] * rs, 0)).astype(
+                                 self.dt)
+                a[..., j] = l
+                for k in range(j + 1, n):
+                    lk = self.shfl(l, k)
+                    a[..., k] = np.where(i > j, a[..., k] - l * lk,
+                                         a[..., k])
+        return a, ok, rinv
+
+
 PARENT_PROFILES = ("dirichlet", "last", "first", "spread", "tail")
 
 
-__all__ = ["to_torch", "spd", "update_inputs", "predict_inputs",
+__all__ = ["to_torch", "Group", "spd", "update_inputs", "predict_inputs",
            "augmented_prep", "augmented_factor", "PANEL", "tiling",
            "tile_stored", "tile_mm", "lower_stored", "tile_mm_lower", "put",
            "put_t", "put_mirrored",

@@ -11,9 +11,11 @@ K1 and K2 at the batched Lorenz-96 EKF's and the bearings-only shapes in
 both dtypes, the Lorenz-96 EKF's wall, K10b and K12b at path C's three
 shapes, K10b's block sizes, the walls of path B and of path C's two
 solvers, K10 and K12 at path B's five shapes and K11 at its one in both
-dtypes, and K11b at path C's shape and with F banked in both dtypes, of
-a parent checkout and of this one in turns on the same card, or only the
-parts named: ``sigma``, ``ut``, ``ekf``, ``combine``; see ``ab``.)
+dtypes, and K11b at path C's shape and with F banked in both dtypes, K3
+and K4 at the mixture paths' banks and at their band edge in both dtypes
+and the GSF M=50 and AGSF [50,2,2] walls, of a parent checkout and of this
+one in turns on the same card, or only the parts named: ``sigma``, ``ut``,
+``ekf``, ``combine``, ``bank``; see ``ab``.)
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -41,8 +43,8 @@ and prints no result):
    five weight profiles, and at the Gaussian-sum reductions' m counts → n
    slots. Times each kernel and its plain version with CUDA events at the
    main-path shapes (float32; K1/K2, K1t, K2t, K6t, K8t, K9t, K10, K11b
-   and K12 float64 too; K10 and K12 at path B's five shapes) and
-   computes its
+   and K12 float64 too; K10 and K12 at path B's five shapes, K3 and K4
+   at the mixture paths' three banks each) and computes its
    bound (bytes over 3.35 TB/s or flops over the peak rate, whichever is
    larger), and its device time: CUDA events around calls queued behind a
    device-side sleep, so that the wrapper's host time is hidden (the
@@ -97,6 +99,7 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import statistics
@@ -156,6 +159,12 @@ PC_COMBINES = 128 + 128 + 4 + 1 + 1
 PC_LANES = PC_T // KF_CHUNK                           # 512
 PC_NARROW = PC_LANES // KF_CHUNK                      # 4: the next level
 REPS = 3  # calls of each new path in one process: median and range
+# (M, dx, dy) of K3 and (M, dx, dq) of K4 on the mixture paths (MIXTURE_RUNS,
+# bearings-only widths): the GSF M = 50 updates and predicts 50 components;
+# the AGSF [50,2,2] predicts M·N = 100 and updates M·N·L = 200; the AGSF
+# [8,2,2] 16 and 32
+BANK_UPDATES = ((50, 4, 1), (200, 4, 1), (32, 4, 1))
+BANK_PREDICTS = ((50, 4, 2), (100, 4, 2), (16, 4, 2))
 SIGMA_TILED_SYMBOLS = ("sigma_tiled_prep_kernel", "sigma_tiled_trace_kernel",
                        "chol_diag_kernel", "tiled_gemm_kernel",
                        "sigma_tiled_root_kernel", "sigma_tiled_points_kernel")
@@ -234,6 +243,15 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def digest(tensors) -> str:
+    """The first 12 hex digits of the SHA-1 of the tensors' bytes: two
+    builds that compute the same bits print the same digest."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:12]
 
 
 def rel_err(a, b) -> float:
@@ -610,9 +628,18 @@ def kernel_cases():
     for B, dx, dq in ((2, 511, 1), (3, 65, 200), (1, 96, 96), (1, 97, 97),
                       (1, 65, 65), (3, 100, 33), (100, 4, 2)):
         ekf_pred(B, dx, dq)
-    upd(bu.K3, bu.bank_chol_update, bu._update_plain, 200, 4, 1, "main")
+    # K3 and K4 at the mixture paths' banks (BANK_UPDATES, BANK_PREDICTS:
+    # the GSF M = 50 first), at widths that take a group of 8 threads
+    # (dx = 5 beside 7) and at the band edge
+    for i, (M, dx, dy) in enumerate(BANK_UPDATES):
+        upd(bu.K3, bu.bank_chol_update, bu._update_plain, M, dx, dy,
+            "main" if i == 0 else "also")
+    upd(bu.K3, bu.bank_chol_update, bu._update_plain, 130, 5, 7)
     upd(bu.K3, bu.bank_chol_update, bu._update_plain, 4096, 8, 8)
-    pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 200, 4, 2, "main")
+    for i, (M, dx, dq) in enumerate(BANK_PREDICTS):
+        pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, M, dx, dq,
+             "main" if i == 0 else "also")
+    pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 130, 5, 7)
     pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 4096, 8, 8)
     # Lorenz-96 UKF (dx=64, dy=32, augmented na = 128 and 96), the
     # range-bearing banks (na = 6 at M = 32..100), n = 128 (Newton–Schulz:
@@ -1881,14 +1908,15 @@ def profile_ukf(dev, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 # What --ab times, in this order (``<part>_times``).
-AB_PARTS = ("sigma", "ut", "ekf", "combine")
+AB_PARTS = ("sigma", "ut", "ekf", "combine", "bank")
 
 
 def ab_times(root: str, parts=AB_PARTS) -> None:
     """``--ab-times ROOT [PART ...]``: ``sigma_times``, ``ut_times``,
-    ``ekf_times`` and ``combine_times``, or those of them named in PARTS
-    (``sigma``, ``ut``, ``ekf``, ``combine``), with the port of the
-    checkout at ROOT (built into that checkout's build directory)."""
+    ``ekf_times``, ``combine_times`` and ``bank_times``, or those of them
+    named in PARTS (``sigma``, ``ut``, ``ekf``, ``combine``, ``bank``), with
+    the port of the checkout at ROOT (built into that checkout's build
+    directory)."""
     sys.path.insert(0, root)
     for part in parts:
         globals()[f"{part}_times"](root)
@@ -2036,12 +2064,13 @@ def combine_times(root: str) -> None:
             for M, chunk in lane:
                 a, shape = operands(make, M, chunk, dtype)
                 fn = lambda: wrap(a)
+                got = fn()
                 err = max(float((g - w).abs().max())
-                          for g, w in zip(fn(), plain(a)))
+                          for g, w in zip(got, plain(a)))
                 log(f"{root} {kernel} {shape} dx={KF_DX} {name}: device "
                     f"{device_ms(fn, ('',))} ms, event "
                     f"{cuda_time_ms(fn):.5f} ms, max abs err {err:.3e} "
-                    "against the plain version")
+                    f"against the plain version, outputs {digest(got)}")
     for M, dx, banked in ((KF_T - 1, KF_DX, False), (PC_T - 1, PC_DX, False),
                           (4096, PC_DX, True)):
         raw = testing.smoother_element_inputs(rng, M, dx)
@@ -2056,6 +2085,58 @@ def combine_times(root: str) -> None:
                 f"{'banked' if banked else 'shared'} {name}: device "
                 f"{device_ms(fn, ('',))} ms, event {cuda_time_ms(fn):.5f} "
                 f"ms, max abs err {err:.3e} against the plain version")
+
+
+def bank_times(root: str) -> None:
+    """K3 and K4 in float32 and float64 at the mixture paths' banks
+    (``BANK_UPDATES``, ``BANK_PREDICTS``) and at the band edge (M = 4,096,
+    dx = dy = dq = 8): the device time per call (``device_ms``), the
+    CUDA-event time of a loop of calls and the max abs error against the
+    plain version on the same inputs; then the walls of the GSF M = 50 and
+    the AGSF [50,2,2] on bearings-only tracking (T = 100, float32): the
+    median and range of REPS calls after a warm-up. Inputs from ``testing``
+    with SEED."""
+    import numpy as np
+    import torch
+
+    from bayesianfiltering_tpu_torch import _build, testing
+    from bayesianfiltering_tpu_torch.ops import bank_update as bu
+
+    _build.load()
+    dev = torch.device("cuda", 0)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        rng = np.random.default_rng(SEED)
+
+        def on_card(xs):
+            return [torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+                    for x in xs]
+
+        def show(label, fn, plain):
+            err = max(float((g - w).abs().max()) for g, w in
+                      zip(_as_tuple(fn()), _as_tuple(plain())))
+            log(f"{root} {label} {name}: device "
+                f"{device_ms(fn, ('bank_',))} ms, event "
+                f"{cuda_time_ms(fn):.5f} ms, max abs err {err:.3e} against "
+                "the plain version")
+
+        for M, dx, dy in BANK_UPDATES + ((4096, 8, 8),):
+            a = on_card(testing.update_inputs(rng, M, dx, dy))
+            show(f"K3 M={M} dx={dx} dy={dy}",
+                 lambda: bu.bank_chol_update(*a, 0.0),
+                 lambda: bu._update_plain(*a, 0.0))
+        for M, dx, dq in BANK_PREDICTS + ((4096, 8, 8),):
+            a = on_card(testing.predict_inputs(rng, M, dx, dq))
+            show(f"K4 M={M} dx={dx} dq={dq}",
+                 lambda: bu.bank_predict_cov(*a),
+                 lambda: bu._predict_cov_plain(*a))
+    for label, comps, T in MIXTURE_RUNS[:2]:
+        params, inputs, _, em = bot_problem(T, torch.float32, dev)
+        draws = mixture_draws(comps, T, 4, em)
+        run = lambda: run_mixture(label, comps, params, inputs, em, draws)
+        run()
+        secs = [timed(run)[1] for _ in range(REPS)]
+        log(f"{root} {label} bot T={T} float32: {spread(secs)}")
 
 
 def ut_times(root: str) -> None:

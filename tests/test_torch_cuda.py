@@ -47,12 +47,20 @@ def assert_close(got, want, tol):
     assert float((got - want).abs().max()) <= tol * scale
 
 
+# K3 and K4 also at the mixture paths' banks (M = 1, 17, 50, 200 at the
+# bearings-only widths), and at dx = 5 beside 7 and dx = 8 beside 8 (groups
+# of 8 threads)
+BANK_SHAPES = [(1, 4), (17, 4), (50, 4), (200, 4), (50, 5), (50, 8)]
 UPDATE_CASES = [(fe.K1, fe.fused_update, 5, 16, 8), (fe.K1T, fe.fused_update, 2, 130, 70),
                 (bu.K3, bu.bank_chol_update, 300, 4, 1),
-                (bu.K3, bu.bank_chol_update, 129, 8, 7)]
+                (bu.K3, bu.bank_chol_update, 129, 8, 7)] + [
+    (bu.K3, bu.bank_chol_update, M, dx, {4: 1, 5: 7, 8: 8}[dx])
+    for M, dx in BANK_SHAPES]
 PREDICT_CASES = [(fe.K2, fe.fused_predict_cov, 5, 16, 9),
                  (bu.K4, bu.bank_predict_cov, 300, 4, 2),
-                 (bu.K4, bu.bank_predict_cov, 129, 7, 8)]
+                 (bu.K4, bu.bank_predict_cov, 129, 7, 8)] + [
+    (bu.K4, bu.bank_predict_cov, M, dx, {4: 2, 5: 7, 8: 8}[dx])
+    for M, dx in BANK_SHAPES]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -79,6 +87,28 @@ def test_predict_kernel_matches_twin(dev, dtype, kernel, wrapper, B, dx, dq):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert_close(got, fe._predict_plain(*args), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,dy,fail_at", [(4, 1, 0), (4, 2, 1), (5, 7, 6),
+                                           (8, 8, 0)])
+def test_bank_update_non_pd_lane_is_nan(dev, dtype, dx, dy, fail_at):
+    """S failing at pivot ``fail_at`` of lane 2 (its last real pivot where
+    fail_at = dy − 1): every output of that lane is NaN, the other lanes
+    match the plain version."""
+    m, P, Hx, Rt, innov = testing.update_inputs(np.random.default_rng(dy),
+                                                 6, dx, dy)
+    Rt[2, fail_at, fail_at] = -1e3
+    args = [testing.to_torch(a, dtype, dev) for a in (m, P, Hx, Rt, innov)]
+    before = bu.K3.launches
+    got = bu.bank_chol_update(*args, 1e-4)
+    torch.cuda.synchronize()
+    assert bu.K3.launches == before + 1
+    keep = torch.arange(6, device=dev) != 2
+    for g, w in zip(got, fe._update_plain(*args, 1e-4)):
+        assert torch.isnan(g[2]).all()
+        assert torch.isfinite(g[keep]).all()
+        assert_close(g[keep], w[keep], TOL[dtype])
 
 
 def test_backward_through_a_kernel_matches_cpu(dev):

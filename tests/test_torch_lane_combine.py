@@ -43,11 +43,11 @@ import pytest
 from bayesianfiltering_tpu.ops import bank_combine as jbc
 from bayesianfiltering_tpu.ops import bank_smoother as jbs
 from bayesianfiltering_tpu_torch import testing
+from bayesianfiltering_tpu_torch.testing import Group
 
 TOL = {"float64": 1e-10, "float32": 1e-3}
 DXS = (1, 2, 3, 4, 5, 8)
 GROUP_THREADS = 64  # csrc/bank_combine.cu kGroupThreads
-SLOTS = 5           # kBoardSlots
 H100_SMS = 132
 M, P = 8, 4         # lanes, and the lanes of a broadcast operand
 
@@ -205,123 +205,6 @@ def test_the_vector_flag(dx, itemsize, offsets, want):
 # ---------------------------------------------------------------------------
 # The group's operations
 # ---------------------------------------------------------------------------
-
-class Group:
-    """Every group of a launch at once: thread i of lane m is row [m, i]."""
-
-    def __init__(self, lanes, mx, dx, dtype):
-        self.mx, self.dx, self.dt = mx, dx, dtype
-        self.i = np.arange(mx)
-        self.board = np.full((lanes, SLOTS, mx * (mx + 1)), np.nan, dtype)
-
-    def load(self, x, rows):
-        """Rows (matrices) or entries (vectors) of lanes ``rows``, zero past
-        dx."""
-        x = np.asarray(x, self.dt)[rows]
-        if x.ndim == 2:
-            out = np.zeros((len(rows), self.mx), self.dt)
-            out[:, :self.dx] = x
-        else:
-            out = np.zeros((len(rows), self.mx, self.mx), self.dt)
-            out[:, :self.dx, :self.dx] = x
-        return out
-
-    def put_row(self, s, R, only=None):
-        mx = self.mx
-        for i in self.i if only is None else (only,):
-            self.board[:, s, i * mx:(i + 1) * mx] = R[:, i]
-
-    def put_el(self, s, v):
-        self.board[:, s, self.mx * self.mx:] = v
-
-    def rows(self, s):
-        mx = self.mx
-        return self.board[:, s, :mx * mx].reshape(-1, mx, mx)
-
-    def get_row(self, s, k):
-        """Row k of slot s, read by every thread: (lanes, MX, MX)."""
-        return np.repeat(self.rows(s)[:, None, k], self.mx, axis=1)
-
-    def get_col(self, s):
-        """Thread i reads column i of slot s."""
-        return np.swapaxes(self.rows(s), 1, 2).copy()
-
-    def get_vec(self, s):
-        v = self.board[:, s, self.mx * self.mx:]
-        return np.repeat(v[:, None], self.mx, axis=1)
-
-    def rowmul(self, x, s):
-        """y = x B, B's rows from slot s: y[j] = Σ_k x[k] B[k][j]."""
-        B = self.rows(s)
-        y = np.zeros_like(x)
-        for k in range(self.mx):
-            y = y + x[..., k:k + 1] * B[:, None, k, :]
-        return y
-
-    def rowmul_t(self, x, s):
-        """y = x Bᵀ, B's rows from slot s: y[j] = Σ_k x[k] B[j][k]."""
-        B = self.rows(s)
-        y = np.zeros_like(x)
-        for j in range(self.mx):
-            acc = np.zeros(x.shape[:-1], self.dt)
-            for k in range(self.mx):
-                acc = acc + x[..., k] * B[:, None, j, k]
-            y[..., j] = acc
-        return y
-
-    def dot(self, x, v):
-        acc = np.zeros(x.shape[:-1], self.dt)
-        for k in range(self.mx):
-            acc = acc + x[..., k] * v[..., k]
-        return acc
-
-    def shfl(self, v, src):
-        """Every thread reads thread ``src``'s value: (lanes, MX)."""
-        return np.repeat(v[:, src:src + 1], self.mx, axis=1)
-
-    def group_sum(self, v):
-        """The butterfly of xor shuffles: the same sum on every thread."""
-        o = self.mx // 2
-        while o:
-            v = v + v[:, self.i ^ o]
-            o //= 2
-        return v
-
-    def diag(self, R):
-        """Thread i's entry i of its row (a select, not an indexed
-        register)."""
-        return R[:, self.i, self.i]
-
-    def eye(self):
-        return np.broadcast_to(np.eye(self.mx, dtype=self.dt),
-                               (1, self.mx, self.mx))
-
-    def chol(self, a):
-        """The column sweep of ``group_chol``: at column j the pivot comes
-        from thread j, l_ij = a_ij · d^-½ (l_jj = d · d^-½), and each row
-        below takes l_kj of every later row k from its owner. Returns the
-        rows of L (zeros above the diagonal), whether every pivot was
-        positive, and each thread's own pivot reciprocal."""
-        a = a.copy()
-        ok = np.ones(a.shape[0], bool)
-        rinv = np.zeros(a.shape[:2], self.dt)
-        i = self.i[None, :]
-        with np.errstate(invalid="ignore", divide="ignore"):
-            for j in range(self.mx):
-                d = self.shfl(a[..., j], j)
-                ok &= d[:, 0] > 0
-                rs = (self.dt(1) / np.sqrt(d)).astype(self.dt)
-                rinv = np.where(i == j, rs, rinv)
-                l = np.where(i == j, d * rs,
-                             np.where(i > j, a[..., j] * rs, 0)).astype(
-                                 self.dt)
-                a[..., j] = l
-                for k in range(j + 1, self.mx):
-                    lk = self.shfl(l, k)
-                    a[..., k] = np.where(i > j, a[..., k] - l * lk,
-                                         a[..., k])
-        return a, ok, rinv
-
 
 def store(out, R, dx):
     """The real dx × dx block (or dx entries) of the threads' rows."""
