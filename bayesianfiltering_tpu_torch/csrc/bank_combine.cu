@@ -1,8 +1,8 @@
 // The associative Kalman filtering combine (K10), the RTS smoothing
 // elements (K11) and the smoothing combine (K12), each over a bank of M
-// lanes, in two size bands: dx ≤ 8 (the lane kernels, `bank_*_kernel`)
+// lanes, in two size bands: dx ≤ 8 (the group kernels, `bank_*_kernel`)
 // and 8 < dx ≤ 512, one thread block per lane (the block kernels after the
-// lane kernels below: K10b `tiled_combine_kernel`, K11b
+// group kernels below: K10b `tiled_combine_kernel`, K11b
 // `block_smoother_elements_kernel` and K12b `tiled_smoother_combine_kernel`,
 // built on csrc/block_mm.cuh).
 //
@@ -22,30 +22,34 @@
 // broadcast is never materialised. K11's transition F is shared by every
 // lane (f_banked = 0) or given per lane.
 //
-// K10 and K12 (the group kernels): a lane over a group of MX threads, on
-// csrc/lane_group.cuh (layout, 16-byte row loads, the board, group_chol,
+// K10, K11 and K12 (the group kernels): a lane over a group of MX threads,
+// on csrc/lane_group.cuh (layout, 16-byte row loads, the board, group_chol,
 // launch shape: see there).
 // - What bounds them on an H100: at path B's step-4 broadcast (1,000,064
-//   lanes, dx = 4, float32) they must move 112 and 72 values a lane and do
-//   ~1,300 and ~350 flops (chip_smoke.py combine_flops, scombine_flops):
-//   bytes-bound, 0.134 and 0.086 ms. At the scan's narrower levels (7,813,
-//   62 and 1 lanes: 318 of path B's 320 launches of each) one lane's
-//   serial chain and the launch are the whole cost.
+//   lanes, dx = 4, float32) K10 and K12 must move 112 and 72 values a lane
+//   and do ~1,300 and ~350 flops (chip_smoke.py combine_flops,
+//   scombine_flops): bytes-bound, 0.134 and 0.086 ms. K11 runs once a
+//   smoother run over 999,999 lanes and must move 76 values a lane (F
+//   shared) for ~370 flops (elements_flops): bytes-bound, 0.091 ms. At the
+//   scan's narrower levels (7,813, 62 and 1 lanes: 318 of path B's 320
+//   launches of K10 and of K12) one lane's serial chain and the launch are
+//   the whole cost.
 // - Thread i holds row i of each of the lane's matrices (MX registers a
-//   matrix, where one thread a lane held ten MX × MX matrices); a broadcast
-//   operand's lane m % Ml is read with the same 16-byte loads as any lane.
-//   The board has kBoardSlots = 5 slots.
-// - The two Cholesky factors of K10 are column sweeps over the group
-//   (group_chol). The inner factor is never inverted: [X | Y] =
-//   Lin⁻¹ [Uᵀ | (J2 U)ᵀ] by forward substitution over the group,
-//   M⁻¹ = I − Xᵀ Y (as K10b). A lane's chain is then MX pivots twice, MX
-//   substitution steps and ~12 products of one row each.
+//   matrix, where one thread a lane had held ten MX × MX matrices); a
+//   broadcast operand's lane m % Ml is read with the same 16-byte loads as
+//   any lane. The board has kBoardSlots = 5 slots in K10 and K12,
+//   kElementsSlots = 4 in K11 (padded by board_len, so that a warp's
+//   column reads stay conflict-free).
+// - The factors are column sweeps over the group (group_chol), and no
+//   factor is inverted. K10's inner factor: [X | Y] = Lin⁻¹ [Uᵀ | (J2 U)ᵀ]
+//   by forward substitution over the group, M⁻¹ = I − Xᵀ Y (as K10b). A
+//   K10 lane's chain is then MX pivots twice, MX substitution steps and
+//   ~12 products of one row each. K11's gain: each thread solves on its
+//   own column of F Pf (a forward and a back substitution with Lp's rows
+//   from the board, as K3 solves for its gain), which gives it row i of G
+//   with no exchange a step; L = sym(Pf) − YᵀY with Y = Lp⁻¹ F Pf, the
+//   one-factor identity of K11b.
 // - 489 blocks at M = 7,813, spread over all 132 SMs.
-//
-// K11 keeps the first design: one thread a lane holding the lattice in
-// registers (load_mat, reg_chol, reg_tri_inv, mm/mmt/mtm, store_mat),
-// 128 threads a block. At path B's 999,999 lanes it runs once a smoother
-// run, at 0.23 of its bytes bound.
 //
 // Math follows the port's plain versions (ops/associative.py `_combine`
 // with `_minv_woodbury`, ops/bank_smoother.py `_elements_plain`,
@@ -58,11 +62,11 @@
 //        Guard: U is zeroed unless every pivot of chol(C1 + εI) is positive
 //        (then M⁻¹ = I), as utils/linalg.py `cholesky_guarded` zeroes the
 //        factor that `cholesky_nan` NaNs when cholesky_ex reports failure.
-//   K11  G = (Pp⁻¹ F Pf)ᵀ by chol(Pp) and L⁻¹, g = mf − G mp,
-//        L = sym(Pf) − sym((G Lp)(G Lp)ᵀ); a non-positive-definite Pp NaNs
-//        the lane, as psd_solve does. No diagonal floor (the TPU kernel's
-//        1e-30 kept its zero-padded lanes factorable; padding here has unit
-//        pivots).
+//   K11  G = (Pp⁻¹ F Pf)ᵀ by chol(Pp) = Lp Lpᵀ and two triangular solves,
+//        g = mf − G mp, L = sym(Pf) − YᵀY with Y = Lp⁻¹ F Pf (= sym(Pf −
+//        G Pp Gᵀ)); a non-positive-definite Pp NaNs the lane, as psd_solve
+//        does. No diagonal floor (the TPU kernel's 1e-30 kept its
+//        zero-padded lanes factorable; padding here has unit pivots).
 //   K12  E = E1 E2,  g = E1 g2 + g1,  L = sym(E1 L2 E1ᵀ + L1).
 #include <algorithm>
 #include <type_traits>
@@ -75,210 +79,14 @@ namespace {
 
 using namespace bft;
 
-constexpr int kLaneThreads = 128;
-
-template <typename T, int MX>
-__device__ __forceinline__ void load_mat(T (&X)[MX][MX], const T* g, int d) {
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j)
-      X[i][j] = (i < d && j < d) ? g[i * d + j] : T(0);
-}
-
-template <typename T, int MX>
-__device__ __forceinline__ void load_vec(T (&v)[MX], const T* g, int d) {
-#pragma unroll
-  for (int i = 0; i < MX; ++i) v[i] = i < d ? g[i] : T(0);
-}
-
-template <typename T, int MX>
-__device__ __forceinline__ void store_mat(T* g, const T (&X)[MX][MX], int d) {
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j)
-      if (i < d && j < d) g[i * d + j] = X[i][j];
-}
-
-template <typename T, int MX>
-__device__ __forceinline__ void store_vec(T* g, const T (&v)[MX], int d) {
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-    if (i < d) g[i] = v[i];
-}
-
-// C = A B
-template <typename T, int MX>
-__device__ __forceinline__ void mm(T (&C)[MX][MX], const T (&A)[MX][MX],
-                                   const T (&B)[MX][MX]) {
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = 0; k < MX; ++k) acc += A[i][k] * B[k][j];
-      C[i][j] = acc;
-    }
-}
-
-// C = A Bᵀ
-template <typename T, int MX>
-__device__ __forceinline__ void mmt(T (&C)[MX][MX], const T (&A)[MX][MX],
-                                    const T (&B)[MX][MX]) {
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = 0; k < MX; ++k) acc += A[i][k] * B[j][k];
-      C[i][j] = acc;
-    }
-}
-
-// C = Aᵀ B
-template <typename T, int MX>
-__device__ __forceinline__ void mtm(T (&C)[MX][MX], const T (&A)[MX][MX],
-                                    const T (&B)[MX][MX]) {
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = 0; k < MX; ++k) acc += A[k][i] * B[k][j];
-      C[i][j] = acc;
-    }
-}
-
-// Lower Cholesky–Crout of S (lower triangle read) into L, strict upper part
-// zero. Returns whether every pivot was positive (NaN and ≤ 0 fail), the
-// info contract of torch.linalg.cholesky_ex.
-template <typename T, int MX>
-__device__ __forceinline__ bool reg_chol(T (&L)[MX][MX],
-                                         const T (&S)[MX][MX]) {
-  bool ok = true;
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j) L[i][j] = T(0);
-#pragma unroll
-  for (int j = 0; j < MX; ++j) {
-    T d = S[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) d -= L[j][k] * L[j][k];
-    ok = ok && (d > T(0));
-    L[j][j] = dsqrt(d);
-#pragma unroll
-    for (int i = j + 1; i < MX; ++i) {
-      T s = S[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) s -= L[i][k] * L[j][k];
-      L[i][j] = s / L[j][j];
-    }
-  }
-  return ok;
-}
-
-// L⁻¹ of a lower-triangular L by forward substitution (strict upper zero).
-template <typename T, int MX>
-__device__ __forceinline__ void reg_tri_inv(T (&Li)[MX][MX],
-                                            const T (&L)[MX][MX]) {
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j) Li[i][j] = T(0);
-#pragma unroll
-  for (int j = 0; j < MX; ++j) {
-    Li[j][j] = T(1) / L[j][j];
-#pragma unroll
-    for (int i = j + 1; i < MX; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = j; k < i; ++k) acc += L[i][k] * Li[k][j];
-      Li[i][j] = -acc / L[i][i];
-    }
-  }
-}
-
-// X ← the dx×dx block of X plus one on the padded diagonal.
-template <typename T, int MX>
-__device__ __forceinline__ void unit_pad(T (&X)[MX][MX], int d) {
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-    if (i >= d) X[i][i] = T(1);
-}
-
-template <typename T, int MX>
-__global__ void __launch_bounds__(kLaneThreads) bank_smoother_elements_kernel(
-    const T* __restrict__ fmg, const T* __restrict__ fPg,
-    const T* __restrict__ pmg, const T* __restrict__ pPg,
-    const T* __restrict__ Fg, T* __restrict__ Eg, T* __restrict__ gg,
-    T* __restrict__ Lg, int M, int f_banked, int dx) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const size_t dd = size_t(dx) * dx;
-
-  // Lp = chol(Pp), NaN unless every pivot is positive; Li = Lp⁻¹
-  T Pp[MX][MX], Lp[MX][MX], Li[MX][MX];
-  load_mat(Pp, pPg + size_t(m) * dd, dx);
-  unit_pad(Pp, dx);
-  if (!reg_chol(Lp, Pp)) {
-#pragma unroll
-    for (int i = 0; i < MX; ++i)
-#pragma unroll
-      for (int j = 0; j < MX; ++j) Lp[i][j] = qnan<T>();
-  }
-  reg_tri_inv(Li, Lp);
-
-  // G = (Li⁻ᵀ Li⁻¹ F Pf)ᵀ
-  T F[MX][MX], Pf[MX][MX], X[MX][MX], Y[MX][MX];
-  load_mat(F, Fg + (f_banked ? size_t(m) * dd : 0), dx);
-  load_mat(Pf, fPg + size_t(m) * dd, dx);
-  mm(X, F, Pf);
-  mm(Y, Li, X);
-  mtm(X, Li, Y);
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j) Y[i][j] = X[j][i];  // Y = G
-  store_mat(Eg + size_t(m) * dd, Y, dx);
-
-  // g = mf − G mp
-  {
-    T mf[MX], mp[MX], go[MX];
-    load_vec(mf, fmg + size_t(m) * dx, dx);
-    load_vec(mp, pmg + size_t(m) * dx, dx);
-#pragma unroll
-    for (int i = 0; i < MX; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int k = 0; k < MX; ++k) acc += Y[i][k] * mp[k];
-      go[i] = mf[i] - acc;
-    }
-    store_vec(gg + size_t(m) * dx, go, dx);
-  }
-
-  // L = sym(Pf) − sym((G Lp)(G Lp)ᵀ)
-  mm(X, Y, Lp);
-  mmt(Y, X, X);
-#pragma unroll
-  for (int i = 0; i < MX; ++i)
-#pragma unroll
-    for (int j = 0; j < MX; ++j)
-      X[i][j] = T(0.5) * (Pf[i][j] + Pf[j][i]) - T(0.5) * (Y[i][j] + Y[j][i]);
-  store_mat(Lg + size_t(m) * dd, X, dx);
-}
-
 // ---------------------------------------------------------------------------
-// The group kernels K10 and K12 (dx ≤ 8): a lane over a group of MX
+// The group kernels K10, K11 and K12 (dx ≤ 8): a lane over a group of MX
 // threads, thread i holding row i of every matrix of its lane in registers
 // (MX entries), rows past dx zero.
 // ---------------------------------------------------------------------------
 
-constexpr int kBoardSlots = 5;  // slots of a group's board in K10 and K12
+constexpr int kBoardSlots = 5;     // slots of a group's board in K10 and K12
+constexpr int kElementsSlots = 4;  // in K11
 
 // K10. With thread i holding row i: U = chol(C1 + εI) (ε from the trace, a
 // butterfly of shuffles; U zeroed unless every pivot is positive), then
@@ -540,7 +348,116 @@ __global__ void __launch_bounds__(kGroupThreads) bank_smoother_combine_kernel(
   }
 }
 
-int lane_blocks(int M) { return (M + kLaneThreads - 1) / kLaneThreads; }
+// K11 on the groups of K10, thread i holding row i of Pf, Pp and F (a
+// shared F read by every group, as K4 reads its shared Q), four slots:
+//   1. Pf | mp and F to the board; Lp = chol(Pp) by group_chol (over dx
+//      pivots in the groups of 4 threads, every pivot in those of 8, the
+//      padded rows the identity's); a failed pivot sets Lp and its
+//      pivots' reciprocals to NaN, which reaches G, g and L; Lp | 1/diag
+//      to the board;
+//   2. thread i forms column i of X = F Pf (Pf's column i read from the
+//      board, F's rows from the board: no exchange of X), solves Lp y =
+//      X[:, i] forward (y = column i of Y = Lp⁻¹ F Pf) and Lpᵀ e = y back
+//      with Lp's rows from the board: e is row i of G = (Pp⁻¹ F Pf)ᵀ (Lp⁻¹
+//      never formed); y to the board as row i of Yᵀ;
+//   3. L = sym(Pf) − YᵀY, row i: entry j is y_i · y_j over the board's
+//      rows (exactly symmetric), sym(Pf) from Pf's column i;
+//      g_i = mf_i − e · mp with mp read from the board 16 bytes at a time.
+template <typename T, int MX>
+__global__ void __launch_bounds__(kGroupThreads) bank_smoother_elements_kernel(
+    const T* __restrict__ fmg, const T* __restrict__ fPg,
+    const T* __restrict__ pmg, const T* __restrict__ pPg,
+    const T* __restrict__ Fg, T* __restrict__ Eg, T* __restrict__ gg,
+    T* __restrict__ Lg, int M, int f_banked, int dx, int vec) {
+  using Lane = GroupLane<T, MX, kElementsSlots>;
+  __shared__ __align__(16) T boards[Lane::kBoards];
+  if (warp_idle<MX>(M)) return;
+  const Lane g(boards, M);
+  const int i = g.i;
+  const size_t o = g.m;
+  const size_t dd = size_t(dx) * dx;
+  T* SP = g.slot(0);  // Pf | mp
+  T* SF = g.slot(1);  // F
+  T* SL = g.slot(2);  // Lp | 1/diag(Lp)
+  T* SY = g.slot(3);  // Yᵀ
+  // the bound of the factor and the solves: dx in the groups of 4 threads,
+  // MX (every pivot, the padded ones unit) in those of 8
+  const int nx = MX == 4 ? dx : MX;
+
+  T pf[MX], lp[MX];
+  {
+    T f[MX];
+    load_row(pf, fPg + o * dd, i, dx, vec);
+    load_row(lp, pPg + o * dd, i, dx, vec);
+    load_row(f, Fg + (f_banked ? o * dd : 0), i, dx, vec);
+    put_row(SP, pf, i);
+    put_row(SF, f, i);
+    put_entry<T, MX>(SP, load_entry(pmg + o * dx, i, dx), i);
+  }
+  const T mf = load_entry(fmg + o * dx, i, dx);
+
+  // Lp = chol(Pp), the padded diagonal one; NaN unless every pivot is
+  // positive
+#pragma unroll
+  for (int k = 0; k < MX; ++k)
+    if (k == i && i >= dx) lp[k] = T(1);
+  T rinv = T(1);
+  if (!group_chol(lp, i, rinv, nx)) {
+#pragma unroll
+    for (int k = 0; k < MX; ++k) lp[k] = qnan<T>();
+    rinv = qnan<T>();
+  }
+  put_row(SL, lp, i);
+  put_entry<T, MX>(SL, rinv, i);
+  __syncwarp();
+
+  // X[:, i] = F Pf[:, i]; Lp y = X[:, i]; Lpᵀ e = y
+  T y[MX], e[MX];
+  {
+    T pfc[MX], rl[MX];
+    get_col(pfc, SP, i);
+    row_mul_t(y, pfc, SF);
+    get_vec(rl, SL);
+#pragma unroll
+    for (int j = 0; j < MX; ++j) {
+      if (j < nx) {
+        T lj[MX];
+        get_row(lj, SL, j);
+        T a = y[j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) a -= lj[k] * y[k];
+        y[j] = a * rl[j];
+      }
+    }
+    put_row(SY, y, i);
+#pragma unroll
+    for (int k = 0; k < MX; ++k) e[k] = y[k];
+#pragma unroll
+    for (int j = MX - 1; j >= 0; --j) {
+      if (j < nx) {
+        T lj[MX];
+        get_row(lj, SL, j);
+        e[j] *= rl[j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) e[k] -= lj[k] * e[j];
+      }
+    }
+  }
+  __syncwarp();
+
+  // L = sym(Pf) − YᵀY and g = mf − G mp, row i
+  if (g.live) {
+    T w[MX], pfc[MX], mp[MX];
+    row_mul_t(w, y, SY);
+    get_col(pfc, SP, i);
+    get_vec(mp, SP);
+#pragma unroll
+    for (int k = 0; k < MX; ++k) w[k] = T(0.5) * (pf[k] + pfc[k]) - w[k];
+    store_row(Eg + o * dd, e, i, dx, vec);
+    store_row(Lg + o * dd, w, i, dx, vec);
+    if (i < dx) gg[o * dx + i] = mf - dot(e, mp);
+  }
+}
 
 template <typename T>
 int launch_combine(const void* const* in, void* const* out, int M, int Ml,
@@ -563,11 +480,13 @@ int launch_elements(const void* fm, const void* fP, const void* pm,
                     int M, int f_banked, int dx, void* stream) {
   auto kernel = dx <= 4 ? bank_smoother_elements_kernel<T, 4>
                         : bank_smoother_elements_kernel<T, 8>;
-  kernel<<<lane_blocks(M), kLaneThreads, 0, cudaStream_t(stream)>>>(
+  const int vec = rows_vec<T>(dx, {fP, pP, F, E, L});
+  kernel<<<group_blocks(M, dx <= 4 ? 4 : 8), kGroupThreads, 0,
+           cudaStream_t(stream)>>>(
       static_cast<const T*>(fm), static_cast<const T*>(fP),
       static_cast<const T*>(pm), static_cast<const T*>(pP),
       static_cast<const T*>(F), static_cast<T*>(E), static_cast<T*>(g),
-      static_cast<T*>(L), M, f_banked, dx);
+      static_cast<T*>(L), M, f_banked, dx, vec);
   return int(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
 // A lane over a group of MX threads: the machinery of the small-matrix
-// bank kernels K3, K4 (csrc/bank_update.cu), K10 and K12
+// bank kernels K3, K4 (csrc/bank_update.cu), K10, K11 and K12
 // (csrc/bank_combine.cu), whose lanes hold d × d matrices with d ≤ 8.
 //
 // - Layout: each lane of the bank takes a group of MX threads (MX = 4 where

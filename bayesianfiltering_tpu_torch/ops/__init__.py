@@ -15,17 +15,31 @@ from bayesianfiltering_tpu_torch.ops.associative import (
     parallel_kalman_filter,
     parallel_kalman_smoother,
 )
-from bayesianfiltering_tpu_torch.ops.ekf import EKFUpdate
+from bayesianfiltering_tpu_torch.ops.ekf import (
+    EKFUpdate,
+    ekf_condition_on,
+    ekf_condition_on_iterated,
+    ekf_predict,
+)
 from bayesianfiltering_tpu_torch.ops.linear import (
     ParamsLGSSM,
     PosteriorKalman,
     kalman_filter,
     kalman_smoother,
 )
-from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
+from bayesianfiltering_tpu_torch.ops.ukf import (
+    ParamsUKF,
+    ukf_condition_on_additive,
+    ukf_condition_on_nonadditive,
+    ukf_predict_additive,
+    ukf_predict_nonadditive,
+)
 
 __all__ = ["associative", "bank_combine", "bank_smoother", "bank_update",
            "ekf", "fused_ekf", "fused_ut", "linear", "resample_gather", "ukf",
-           "EKFUpdate", "ParamsLGSSM", "PosteriorKalman", "ParamsUKF",
+           "EKFUpdate", "ekf_predict", "ekf_condition_on",
+           "ekf_condition_on_iterated", "ParamsUKF", "ukf_predict_additive",
+           "ukf_predict_nonadditive", "ukf_condition_on_additive",
+           "ukf_condition_on_nonadditive", "ParamsLGSSM", "PosteriorKalman",
            "kalman_filter", "kalman_smoother", "parallel_kalman_filter",
            "parallel_kalman_smoother"]

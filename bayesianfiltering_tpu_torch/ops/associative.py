@@ -10,8 +10,9 @@ combines batched over thousands of lanes.
 
 On CUDA tensors every Woodbury filtering combine runs the CUDA kernel K10
 (``ops.bank_combine``), the smoothing elements K11 and every smoothing
-combine K12 (``ops.bank_smoother``), each as one thread per lane at
-dx ≤ 8 and one thread block per lane at 8 < dx ≤ 512, in float32 or
+combine K12 (``ops.bank_smoother``), each as a lane over a group of 4 or
+8 threads at dx ≤ 8 and one thread block per lane at 8 < dx ≤ 512, in
+float32 or
 float64; a CUDA input outside that band raises NotImplementedError. On CPU
 tensors the plain PyTorch combines below run. The ``"native"`` solver has
 no kernel in the JAX package either and runs ``torch.linalg.solve``.

@@ -6,9 +6,10 @@ K10 (``csrc/bank_combine.cu``) replaces the TPU kernel ``_combine_kernel``
 ``_combine_lattice :147``): the whole Woodbury combine of
 :func:`~bayesianfiltering_tpu_torch.ops.associative._combine` in one
 launch, in float32 and float64, in two size bands with a symbol and a
-launch counter each: ``bank_combine_kernel`` (:data:`K10`), one thread per
-lane, for dx ≤ 8, and ``tiled_combine_kernel`` (:data:`K10B`), one thread
-block per lane on a persistent grid, for 8 < dx ≤ 512. The choice is by
+launch counter each: ``bank_combine_kernel`` (:data:`K10`), a lane over a
+group of 4 or 8 threads, for dx ≤ 8, and ``tiled_combine_kernel``
+(:data:`K10B`), one thread block per lane on a persistent grid, for
+8 < dx ≤ 512. The choice is by
 size alone (:func:`band_kernel`); outside the band a CUDA input raises
 NotImplementedError (the port has no plain path on the card). K10B's
 launch (and K11B's and K12B's, ``ops/bank_smoother.py``) is planned here
@@ -37,7 +38,7 @@ import torch
 from bayesianfiltering_tpu_torch import _build
 from bayesianfiltering_tpu_torch.ops.associative import _combine
 
-_LANE_MAX = 8     # lane kernels: one thread per lane
+_LANE_MAX = 8     # group kernels: a lane over a group of 4 or 8 threads
 _BLOCK_MAX = 512  # block kernels: one thread block per lane
 
 _SRC = "bayesianfiltering_tpu_torch/csrc/bank_combine.cu"
@@ -113,7 +114,8 @@ def band_kernel(lane: _build.Kernel, block: _build.Kernel, dx: int,
     if dx > _BLOCK_MAX or not dtypes <= {torch.float32, torch.float64}:
         raise NotImplementedError(
             f"{lane.name}/{block.name} kernel band is dx <= {_BLOCK_MAX} "
-            f"(one thread per lane to dx = {_LANE_MAX}, one block above), "
+            f"(a lane over a group of threads to dx = {_LANE_MAX}, one "
+            f"block a lane above), "
             f"float32/float64; got dx={dx}, {sorted(map(str, dtypes))}")
     return lane if dx <= _LANE_MAX else block
 

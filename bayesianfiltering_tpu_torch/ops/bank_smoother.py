@@ -3,23 +3,25 @@ CUDA kernels K11 and K12
 (counterpart of ``bayesianfiltering_tpu/ops/bank_smoother.py``).
 
 Both live in ``csrc/bank_combine.cu``, float32 and float64, each in two
-size bands with a symbol and a launch counter each: one thread per lane at
-dx ≤ 8 (``bank_smoother_*_kernel``, :data:`K11`, :data:`K12`) and one
-thread block per lane on a persistent grid at 8 < dx ≤ 512
-(``block_smoother_elements_kernel``, :data:`K11B`, and
-``tiled_smoother_combine_kernel``, :data:`K12B`, whose launches
-``ops.bank_combine.tiled_plan`` plans as K10B's):
+size bands with a symbol and a launch counter each: a lane over a group of
+4 or 8 threads at dx ≤ 8 (``bank_smoother_*_kernel``, :data:`K11`,
+:data:`K12`, on ``csrc/lane_group.cuh``) and one thread block per lane on
+a persistent grid at 8 < dx ≤ 512 (``block_smoother_elements_kernel``,
+:data:`K11B`, and ``tiled_smoother_combine_kernel``, :data:`K12B`, whose
+launches ``ops.bank_combine.tiled_plan`` plans as K10B's):
 
 - K11 ``bank_smoother_elements_kernel`` replaces ``_elements_kernel``
   (``bayesianfiltering_tpu/ops/bank_smoother.py:53``): the smoothing gain
-  ``G = (Pp⁻¹ F Pf)ᵀ`` by an in-kernel Cholesky of Pp and forward
-  substitution, ``g = mf − G mp``, ``L = sym(Pf − (G Lp)(G Lp)ᵀ)``. The
-  TPU kernel's 1e-30 diagonal floor is dropped (it kept zero-padded lanes
-  factorable; the padding here has unit pivots), so a Pp that is not
-  positive definite gives NaN, as the plain version's ``psd_solve`` does.
-  K11b computes the same outputs from one factor and one triangular solve:
-  with ``Y = Lp⁻¹ F Pf``, ``G = Yᵀ Lp⁻¹``, ``G mp = Yᵀ (Lp⁻¹ mp)`` and
-  ``L = sym(Pf) − YᵀY``.
+  ``G = (Pp⁻¹ F Pf)ᵀ`` by an in-kernel Cholesky ``Pp = Lp Lpᵀ`` and, on
+  each thread of the lane's group, a forward and a back substitution on
+  its column of ``F Pf`` (row i of G, no inverse formed),
+  ``g = mf − G mp`` and, with ``Y = Lp⁻¹ F Pf``, ``L = sym(Pf) − YᵀY``
+  (= ``sym(Pf − G Pp Gᵀ)``). The TPU kernel's 1e-30 diagonal floor is
+  dropped (it kept zero-padded lanes factorable; the padding here has
+  unit pivots), so a Pp that is not positive definite gives NaN
+  throughout the lane, as the plain version's ``psd_solve`` does. K11b
+  computes the same outputs from one factor and one triangular solve:
+  ``G = Yᵀ Lp⁻¹``, ``G mp = Yᵀ (Lp⁻¹ mp)``.
 - K12 ``bank_smoother_combine_kernel`` replaces
   ``_smoother_combine_kernel`` (``:169``): ``E = E1 E2``,
   ``g = E1 g2 + g1``, ``L = sym(E1 L2 E1ᵀ + L1)``.

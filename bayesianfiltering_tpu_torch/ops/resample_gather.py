@@ -8,11 +8,18 @@ m−1 (``utils.resampling._counts_to_parents``, which calls
 :func:`windowed_parents` at every size). K5 (``csrc/resample_gather.cu``,
 ``resample_parents_kernel``) replaces the TPU kernel ``_parents_kernel``
 (``bayesianfiltering_tpu/ops/resample_gather.py:66``):
-one thread per output slot, a binary search over the sorted counts. It is
-exact for every weight profile. The TPU kernel's aligned 4096-wide
-window, its span check and the BPF's deferral when the span overflows
-(``windowed_parents_or_defer``, ``_dense_window_bounds``) exist for
-Mosaic's DMA layout and are not ported: the port never defers.
+a merge-path search. In the merge of the sorted counts with the slots
+0..n−1 (ties count-first), slot j's parent is the number of counts merged
+before it; each thread block owns an equal stretch of the merged sequence,
+finds its ends by one search, marks its counts' positions in shared
+memory, and a block scan of the marks gives each thread the counts merged
+before its positions, which it walks serially. It is exact for every
+weight profile, and a skewed profile costs what a flat one does. The TPU
+kernel's
+aligned 4096-wide window, its span check and the BPF's deferral when the
+span overflows (``windowed_parents_or_defer``, ``_dense_window_bounds``)
+exist for Mosaic's DMA layout and are not ported: the port never defers.
+Positions are int32: m + n must stay below :data:`MAX_POSITIONS`.
 
 On CUDA tensors :func:`windowed_parents` launches K5 or raises; on CPU
 tensors it runs the plain version, the scatter form of
@@ -31,6 +38,11 @@ from bayesianfiltering_tpu_torch.utils.resampling import (
 K5 = _build.register("bft_resample_parents",
                      "bayesianfiltering_tpu_torch/csrc/resample_gather.cu",
                      "bayesianfiltering_tpu/ops/resample_gather.py:66")
+# K5's merge path indexes its m + n positions in int32, with one block's
+# stretch (256 threads × 11 positions) to spare (csrc/resample_gather.cu
+# kMaxPositions)
+STRETCH = 256 * 11
+MAX_POSITIONS = 2 ** 31 - 1 - STRETCH
 
 
 def _parents_plain(counts_i32: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -47,6 +59,9 @@ def _parents_launch(counts_i32: torch.Tensor, num_samples: int) -> torch.Tensor:
                          f"got {counts_i32.dtype} {tuple(counts_i32.shape)}")
     counts_i32 = counts_i32.contiguous()
     m = counts_i32.shape[0]
+    if m + n > MAX_POSITIONS:
+        raise ValueError(f"{K5.name}: m + n = {m + n} exceeds the int32 "
+                         f"merge path's {MAX_POSITIONS} positions")
     out = counts_i32.new_empty(n)
     if n:
         with torch.cuda.device(counts_i32.device):

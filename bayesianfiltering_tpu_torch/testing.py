@@ -11,8 +11,8 @@ their epilogues :func:`put`, :func:`put_t` and :func:`put_mirrored`),
 solve of ``csrc/block_mm.cuh`` and ``csrc/common.cuh`` that K1, K2, K8,
 K9, K10b and K12b are built on, for tests that follow their schedules
 step by step on workspaces seeded with NaN. :class:`Group` writes out the
-lane groups of ``csrc/lane_group.cuh`` that K3, K4, K10 and K12 are built
-on, with their board seeded with NaN.
+lane groups of ``csrc/lane_group.cuh`` that K3, K4, K10, K11 and K12 are
+built on, with their board seeded with NaN.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Numerical utilities: linear algebra, angles, resampling, sigma points
-(``utils.sigma_points``) and metrics (``utils.metrics``)."""
+and metrics, re-exported as one flat namespace as the reference's
+``utils`` is (``utils.rmse``, ``utils.systematic_resample``, ...)."""
 from bayesianfiltering_tpu_torch.utils.angles import angular_residual, wrap_angle
 from bayesianfiltering_tpu_torch.utils.linalg import (
     cholesky_guarded,
@@ -8,10 +9,50 @@ from bayesianfiltering_tpu_torch.utils.linalg import (
     project_to_psd_ns,
     psd_solve,
     sqrtm_psd,
+    sqrtm_psd_eigh,
     sqrtm_psd_ns,
     symmetrize,
 )
+from bayesianfiltering_tpu_torch.utils.metrics import (
+    W_distance,
+    collapse,
+    dec_to_base,
+    gaussian_logpdf,
+    gm,
+    loss,
+    mse,
+    normal_KL_div,
+    normal_kl,
+    rmse,
+)
+from bayesianfiltering_tpu_torch.utils.resampling import (
+    effective_sample_size,
+    get_resampler,
+    multinomial_resample,
+    stratified_resample,
+    systematic_resample,
+)
+from bayesianfiltering_tpu_torch.utils.sigma_points import (
+    _get_sigma_points,
+    sigma_points,
+    split_to_sigma_points,
+    unscented_weights,
+)
 
-__all__ = ["angular_residual", "wrap_angle", "cholesky_guarded",
-           "cholesky_nan", "project_to_psd", "project_to_psd_ns", "psd_solve",
-           "sqrtm_psd", "sqrtm_psd_ns", "symmetrize"]
+__all__ = [
+    # linalg
+    "symmetrize", "psd_solve", "project_to_psd", "project_to_psd_ns",
+    "sqrtm_psd", "sqrtm_psd_eigh", "sqrtm_psd_ns", "cholesky_guarded",
+    "cholesky_nan",
+    # metrics
+    "mse", "rmse", "collapse", "normal_KL_div", "normal_kl", "W_distance",
+    "gaussian_logpdf", "gm", "loss", "dec_to_base",
+    # sigma points
+    "sigma_points", "_get_sigma_points", "split_to_sigma_points",
+    "unscented_weights",
+    # resampling
+    "effective_sample_size", "multinomial_resample", "systematic_resample",
+    "stratified_resample", "get_resampler",
+    # angles
+    "wrap_angle", "angular_residual",
+]

@@ -11,7 +11,6 @@ import math
 
 import torch
 
-from bayesianfiltering_tpu_torch.distributions import mvn_logpdf
 from bayesianfiltering_tpu_torch.utils.linalg import cholesky_nan
 
 
@@ -77,6 +76,10 @@ def W_distance(means, covs, particles, weights) -> torch.Tensor:
 
 def gaussian_logpdf(y, m, S) -> torch.Tensor:
     """log N(y | m, S) for vectors given in any of the reference's shapes."""
+    # imported here: distributions imports utils.linalg, and utils
+    # re-exports this module
+    from bayesianfiltering_tpu_torch.distributions import mvn_logpdf
+
     return mvn_logpdf(torch.atleast_1d(y).squeeze(), torch.atleast_1d(m).squeeze(),
                       torch.atleast_2d(S))
 

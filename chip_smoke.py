@@ -10,12 +10,15 @@ range-bearing banks' shapes in both dtypes, the Lorenz-96 UKF's walls,
 K1 and K2 at the batched Lorenz-96 EKF's and the bearings-only shapes in
 both dtypes, the Lorenz-96 EKF's wall, K10b and K12b at path C's three
 shapes, K10b's block sizes, the walls of path B and of path C's two
-solvers, K10 and K12 at path B's five shapes and K11 at its one in both
-dtypes, and K11b at path C's shape and with F banked in both dtypes, K3
+solvers, K10 and K12 at path B's five shapes and K11 at its one and at
+dx = 8 with F banked in both dtypes, and K11b at path C's shape and with F banked in both dtypes, K3
 and K4 at the mixture paths' banks and at their band edge in both dtypes
-and the GSF M=50 and AGSF [50,2,2] walls, of a parent checkout and of this
-one in turns on the same card, or only the parts named: ``sigma``, ``ut``,
-``ekf``, ``combine``, ``bank``; see ``ab``.)
+and the GSF M=50 and AGSF [50,2,2] walls, K5 at path A's n = 1M on five
+weight profiles and at the reductions' (m, n) beside torch.searchsorted,
+the device time of each part of a resampling step and path A's wall, of a
+parent checkout and of this one in turns on the same card, or only the
+parts named: ``sigma``, ``ut``, ``ekf``, ``combine``, ``bank``,
+``resample``; see ``ab``.)
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
@@ -39,8 +42,9 @@ and prints no result):
    and K7t NaN only the failing block), and K10's
    guard lanes (a C1 with a −1e-8 eigenvalue, a C1 with an infinite entry)
    the same finite and non-finite entries (dx = 4 to 512). K5 (integer
-   parents) must equal its plain version exactly at n = 2²⁰ and 65,536 on
-   five weight profiles, and at the Gaussian-sum reductions' m counts → n
+   parents) must equal its plain version exactly at n = 2²⁰, 65,536 and
+   1,408 (m + n one stretch of its merge path) on five weight profiles,
+   and at the Gaussian-sum reductions' m counts → n
    slots. Times each kernel and its plain version with CUDA events at the
    main-path shapes (float32; K1/K2, K1t, K2t, K6t, K8t, K9t, K10, K11b
    and K12 float64 too; K10 and K12 at path B's five shapes, K3 and K4
@@ -89,7 +93,9 @@ and prints no result):
    finiteness, shapes and the launch counts of every kernel.
 6. The device's busy and idle share, and the kernels with the most
    device time, under torch.profiler: the batched UKF step, ten steps of
-   the 1M-particle BPF, one run of the T=1M parallel smoother, ten steps
+   the 1M-particle BPF (with the split of its resampling steps between
+   the counts' cummax, K5, the ``.long()`` and the gather), one run of the
+   T=1M parallel smoother, ten steps
    of each of config 5's filters (the EKF's split between K1t/K2t and the
    host, the UKF's between K6t, K8t and K9t), one run of path C with each
    solver (the native one with its host operations).
@@ -217,13 +223,14 @@ KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_update_tiled": "K1t",
 
 # kernels timed in float64 as well at their main-path shapes (config 5's
 # filters run in float64 too, K1/K2's and K11b's float64 workspaces hold
-# one block an SM, and K10/K12's groups read twice the bytes; the rest are
+# one block an SM, and K10–K12's groups read twice the bytes; the rest are
 # timed in float32 only)
 TIMED_FLOAT64 = ("bft_ekf_update", "bft_ekf_predict_cov",
                  "bft_ekf_update_tiled", "bft_ekf_predict_cov_tiled",
                  "bft_ut_sigma_tiled", "bft_ut_update_tiled",
                  "bft_ut_predict_tiled", "bft_bank_combine",
-                 "bft_block_smoother_elements", "bft_bank_smoother_combine")
+                 "bft_bank_smoother_elements", "bft_block_smoother_elements",
+                 "bft_bank_smoother_combine")
 
 # Roofline of an H100 SXM at its 700 W limit (NVIDIA's data sheet): memory
 # 3.35 TB/s; CUDA-core (non-tensor) peaks 67 TFLOP/s in float32 and
@@ -937,14 +944,15 @@ def guard_checks(dev) -> None:
 
 
 def check_parents(dev) -> dict:
-    """K5 against its plain version (the scatter), exactly, at n = 2²⁰ and
-    65,536 on the five weight profiles and at the Gaussian-sum reductions'
-    m counts → n slots; then K5, the scatter and
+    """K5 against its plain version (the scatter), exactly, at n = 2²⁰,
+    65,536 and 1,408 on the five weight profiles and at the Gaussian-sum
+    reductions' m counts → n slots (and m = 1, n = 1); then K5, the scatter
+    and
     ``torch.searchsorted`` timed at the path's n = 1M: by events around a
     loop of calls, and K5 and ``torch.searchsorted`` alike by their device
     time (``device_ms``) and by events around a CUDA graph of 100 calls.
-    Bound: 4 bytes read and 4 written per slot (the n·log₂ n comparisons
-    take less at any CUDA-core rate)."""
+    Bound: 4 bytes read and 4 written per slot (the merge's m + n
+    comparisons take less at any CUDA-core rate)."""
     import numpy as np
     import torch
 
@@ -953,7 +961,8 @@ def check_parents(dev) -> dict:
     from bayesianfiltering_tpu_torch.utils import resampling as rs
 
     rng = np.random.default_rng(SEED)
-    for n in (1 << 20, 1 << 16):
+    # n = 1,408: m + n is one stretch of K5's merge path exactly
+    for n in (1 << 20, 1 << 16, 1408):
         for profile in testing.PARENT_PROFILES:
             counts = torch.as_tensor(testing.resampling_counts(profile, n, rng),
                                      device=dev)
@@ -967,8 +976,8 @@ def check_parents(dev) -> dict:
             log(f"kernel {rg.K5.name} n={n} {profile}: equal to the plain "
                 "version ok")
     # the Gaussian-sum reductions keep n of m components (AGSF [50,2,2],
-    # [8,2,2], UAGSF [16,2,2])
-    for m, n in ((200, 50), (32, 8), (64, 16)):
+    # [8,2,2], UAGSF [16,2,2]), and the edges m = 1 and n = 1
+    for m, n in RESAMPLE_REDUCTIONS + ((1, 1), (1, 5), (3, 1)):
         w = torch.as_tensor(rng.dirichlet(np.full(m, 0.5)), device=dev)
         counts = rs.systematic_counts(w, n, u=torch.tensor(0.37))
         before = rg.K5.launches
@@ -996,7 +1005,7 @@ def check_parents(dev) -> dict:
     library_dev_ms = device_ms(library, ("",))  # every kernel of the call
     k_graph_ms = graph_ms(lambda: rg._parents_launch(counts, n))
     library_graph_ms = graph_ms(library)
-    bound_ms, bound_by = bound([counts], [got], n * np.log2(n), "float32")
+    bound_ms, bound_by = bound([counts], [got], 2 * n, "float32")
     log(f"  time at n={n} int32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.searchsorted {library_ms:.4f} ms, bound {bound_ms:.3g} ms "
         f"({bound_by}), bound share {bound_ms / ms:.3g}; device time "
@@ -1802,6 +1811,38 @@ def ukf_split(prof) -> dict:
     return {k: v / 1e3 for k, v in split.items()}
 
 
+def bpf_split(prof) -> dict:
+    """Device ms of the parts of path A's resampling steps in a trace of
+    the BPF: the counts' cummax (PyTorch's scan with indices), K5, the
+    int32 → int64 ``.long()`` and the particles' gather, told apart by
+    name and launch order (the copy and the gather are the two launches
+    after K5), the cumsum of the weights (CUB's scan), and the rest."""
+    from torch.autograd import DeviceType
+
+    events = sorted((e for e in prof.events()
+                     if e.device_type != DeviceType.CPU),
+                    key=lambda e: e.time_range.start)
+    split = {"cummax": 0.0, "K5": 0.0, ".long()": 0.0, "gather": 0.0,
+             "cumsum": 0.0, "other": 0.0}
+    after_k5 = 0
+    for e in events:
+        name, us = e.name, e.time_range.elapsed_us()
+        if "resample_parents_kernel" in name:
+            part, after_k5 = "K5", 1
+        elif after_k5 == 1 and "copy" in name:
+            part, after_k5 = ".long()", 2
+        elif after_k5 == 2 and ("index" in name or "gather" in name):
+            part, after_k5 = "gather", 0
+        elif "scan_innermost_dim_with_indices" in name:
+            part = "cummax"
+        elif "DeviceScan" in name:
+            part = "cumsum"
+        else:
+            part, after_k5 = "other", 0
+        split[part] += us
+    return {k: v / 1e3 for k, v in split.items()}
+
+
 def profile_run(label: str, run, card: str, host: bool = False,
                 split=None) -> None:
     """The device's busy share of ``run()`` under torch.profiler, against
@@ -1883,7 +1924,8 @@ def profile_ukf(dev, card: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     profile_run(f"bpf P={BPF_P} dx={BPF_DX} {PROFILE_T} steps float32",
                 lambda: inf.bootstrap_particle_filter(bpf, bem, BPF_P, gen,
-                                                      store="summary"), card)
+                                                      store="summary"), card,
+                split=bpf_split)
     kparams, ys = kf_problem(KF_T, torch.float32, dev)
     profile_run(f"parallel kalman smoother T={KF_T} chunk={KF_CHUNK} float32",
                 lambda: tas.parallel_kalman_smoother(kparams, ys,
@@ -1908,15 +1950,17 @@ def profile_ukf(dev, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 # What --ab times, in this order (``<part>_times``).
-AB_PARTS = ("sigma", "ut", "ekf", "combine", "bank")
+AB_PARTS = ("sigma", "ut", "ekf", "combine", "bank", "resample")
+# K5 at path A's n = 1M and at the Gaussian-sum reductions' (m, n)
+RESAMPLE_REDUCTIONS = ((200, 50), (32, 8), (64, 16))
 
 
 def ab_times(root: str, parts=AB_PARTS) -> None:
     """``--ab-times ROOT [PART ...]``: ``sigma_times``, ``ut_times``,
-    ``ekf_times``, ``combine_times`` and ``bank_times``, or those of them
-    named in PARTS (``sigma``, ``ut``, ``ekf``, ``combine``, ``bank``), with
-    the port of the checkout at ROOT (built into that checkout's build
-    directory)."""
+    ``ekf_times``, ``combine_times``, ``bank_times`` and
+    ``resample_times``, or those of them named in PARTS (``sigma``, ``ut``,
+    ``ekf``, ``combine``, ``bank``, ``resample``), with the port of the
+    checkout at ROOT (built into that checkout's build directory)."""
     sys.path.insert(0, root)
     for part in parts:
         globals()[f"{part}_times"](root)
@@ -1989,9 +2033,10 @@ def combine_times(root: str) -> None:
     abs error against the plain version, the lane kernels K10 and K12 at
     path B's five shapes (dx = 4: M = 7,813, 62 and 1, the (1, 62) ×
     (128, 62) and (1, 7,813) × (128, 7,813) broadcasts) and K11 at its
-    one (M = 999,999, F shared) in float32 and float64, and K11b at path
-    C's shape (M = 65,535, dx = 64, F shared) and at M = 4,096 with F
-    banked in float32 and float64: device and event ms."""
+    one (M = 999,999, F shared) and at its band's edge (M = 65,536, dx = 8,
+    F banked) in float32 and float64, and K11b at path C's shape
+    (M = 65,535, dx = 64, F shared) and at M = 4,096 with F banked in
+    float32 and float64: device and event ms."""
     import numpy as np
     import torch
 
@@ -2071,8 +2116,8 @@ def combine_times(root: str) -> None:
                     f"{device_ms(fn, ('',))} ms, event "
                     f"{cuda_time_ms(fn):.5f} ms, max abs err {err:.3e} "
                     f"against the plain version, outputs {digest(got)}")
-    for M, dx, banked in ((KF_T - 1, KF_DX, False), (PC_T - 1, PC_DX, False),
-                          (4096, PC_DX, True)):
+    for M, dx, banked in ((KF_T - 1, KF_DX, False), (65_536, 8, True),
+                          (PC_T - 1, PC_DX, False), (4096, PC_DX, True)):
         raw = testing.smoother_element_inputs(rng, M, dx)
         for dtype in (torch.float32, torch.float64):
             fm, fP, pm, pP, F = on_card(raw, dtype)
@@ -2137,6 +2182,82 @@ def bank_times(root: str) -> None:
         run()
         secs = [timed(run)[1] for _ in range(REPS)]
         log(f"{root} {label} bot T={T} float32: {spread(secs)}")
+
+
+def resample_times(root: str) -> None:
+    """K5 at path A's n = 1M (int32) at the five weight profiles and at the
+    Gaussian-sum reductions' (m, n) (``RESAMPLE_REDUCTIONS``), each checked
+    equal to its plain version: the device time per call (``device_ms``)
+    and the time per call of a CUDA graph of 100 calls (``graph_ms``),
+    beside ``torch.searchsorted`` + clamp on the same counts, the one
+    PyTorch call that computes the same function; then, at n = 1M with
+    Dirichlet(0.5) weights (float32), the device time of each part of one
+    resampling step of path A: the systematic counts (``utils.resampling.
+    systematic_counts``: cumsum, ceil, clamp, cummax), the cummax alone,
+    ``windowed_parents`` (clamp, int32, K5), the int32 → int64 ``.long()``
+    and the particles' gather ``particles[idx]`` (dx = 8); last, path A's
+    wall (the BPF at 1M particles, T = 100, float32, the same draws each
+    call): the median and range of REPS calls after a warm-up."""
+    import numpy as np
+    import torch
+
+    from bayesianfiltering_tpu_torch import _build, testing
+    from bayesianfiltering_tpu_torch import inference as inf
+    from bayesianfiltering_tpu_torch.ops import resample_gather as rg
+    from bayesianfiltering_tpu_torch.utils import resampling as rs
+
+    _build.load()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    cases = []
+    n = BPF_P
+    for profile in testing.PARENT_PROFILES:
+        counts = torch.as_tensor(testing.resampling_counts(profile, n, rng),
+                                 device=dev)
+        cases.append((f"n={n} {profile}", counts, n))
+    for m, k in RESAMPLE_REDUCTIONS:
+        w = torch.as_tensor(rng.dirichlet(np.full(m, 0.5)), device=dev)
+        cases.append((f"m={m} n={k}",
+                      rs.systematic_counts(w, k, u=torch.tensor(0.37)), k))
+    for label, counts, k in cases:
+        c = counts.clamp(0, k).to(torch.int32)
+        slots = torch.arange(k, dtype=torch.int32, device=dev)
+        fn = lambda: rg._parents_launch(c, k)
+        library = lambda: torch.searchsorted(c, slots,
+                                             right=True).clamp_max_(
+                                                 c.shape[0] - 1)
+        got = fn()
+        if not (torch.equal(got, rg._parents_plain(c, k))
+                and torch.equal(got.long(), library())):
+            raise RuntimeError(f"{root} K5 {label}: differs from its plain "
+                               "version")
+        log(f"{root} K5 {label} int32: device "
+            f"{device_ms(fn, KERNEL_SYMBOLS[rg.K5.name])} ms, graph "
+            f"{graph_ms(fn):.5f} ms; torch.searchsorted device "
+            f"{device_ms(library, ('',))} ms, graph "
+            f"{graph_ms(library):.5f} ms; equal to the plain version")
+    w = torch.as_tensor(rng.dirichlet(np.full(n, 0.5)), dtype=torch.float32,
+                        device=dev)
+    u = torch.tensor(0.37, device=dev)
+    counts = rs.systematic_counts(w, n, u=u)
+    parents = rg.windowed_parents(counts, n)
+    idx = parents.long()
+    particles = torch.randn(n, BPF_DX, device=dev)
+    parts = (("systematic counts", lambda: rs.systematic_counts(w, n, u=u)),
+             ("cummax alone", lambda: torch.cummax(counts, 0)),
+             ("windowed_parents", lambda: rg.windowed_parents(counts, n)),
+             (".long()", lambda: parents.long()),
+             ("gather particles[idx]", lambda: particles[idx]))
+    for label, fn in parts:
+        log(f"{root} resampling step n={n} float32, {label}: device "
+            f"{device_ms(fn, ('',))} ms")
+    bpf, _, em = bpf_problem(BPF_T, torch.float32, dev)
+    gen = torch.Generator(device=dev)
+    run = lambda: inf.bootstrap_particle_filter(
+        bpf, em, BPF_P, gen.manual_seed(SEED + 7), store="summary")
+    run()
+    secs = [timed(run)[1] for _ in range(REPS)]
+    log(f"{root} bpf lorenz96 P={BPF_P} T={BPF_T} float32: {spread(secs)}")
 
 
 def ut_times(root: str) -> None:

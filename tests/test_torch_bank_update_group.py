@@ -48,6 +48,7 @@ WIDTHS = ((4, 1), (4, 2), (1, 1), (3, 3), (5, 7), (8, 8))
 GROUP_THREADS = 64   # csrc/lane_group.cuh kGroupThreads
 UPDATE_SLOTS = 6     # csrc/bank_update.cu kUpdateSlots
 PREDICT_SLOTS = 5    # kPredictSlots
+ELEMENTS_SLOTS = 4   # csrc/bank_combine.cu kElementsSlots (K11)
 LOG_2PI = math.log(2.0 * math.pi)
 REL_JITTER = 1e-6    # csrc/common.cuh kRelJitter
 LANES = 6
@@ -380,7 +381,8 @@ def board_len(mx, slots):
     return slots * mx * (mx + 1) + (mx if slots % 2 == 0 else 0)
 
 
-@pytest.mark.parametrize("slots", [UPDATE_SLOTS, PREDICT_SLOTS])
+@pytest.mark.parametrize("slots", [UPDATE_SLOTS, PREDICT_SLOTS,
+                                   ELEMENTS_SLOTS])
 @pytest.mark.parametrize("mx", [4, 8])
 def test_a_warps_board_reads_fall_in_distinct_banks(mx, slots):
     """Float32 words: a warp's column read (thread i of group g at

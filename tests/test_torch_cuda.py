@@ -287,7 +287,9 @@ def test_ut_outside_the_band_raises(dev):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n", [65536, 70001])
+# K5's merge path: m + n at and off a multiple of its stretch (rg.STRETCH
+# merged positions a block: 2 · 1,408 = one stretch exactly)
+@pytest.mark.parametrize("n", [1408, 4097, 65536, 70001])
 @pytest.mark.parametrize("profile", testing.PARENT_PROFILES)
 def test_parents_kernel_equals_plain(dev, n, profile):
     counts = testing.to_torch(
@@ -301,7 +303,8 @@ def test_parents_kernel_equals_plain(dev, n, profile):
     assert torch.equal(got.cpu(), rg.windowed_parents(counts.cpu(), n))
 
 
-@pytest.mark.parametrize("m,n", [(200, 200), (200, 50), (24, 6)])
+@pytest.mark.parametrize("m,n", [(200, 200), (200, 50), (24, 6), (32, 8),
+                                 (64, 16), (1, 1), (1, 5), (9000, 1000)])
 def test_small_resampling_runs_the_kernel(dev, m, n):
     """The Gaussian-sum reductions keep n of m components: K5 runs there
     too (it has no size gate), with the CPU's int64 indices."""
@@ -419,6 +422,40 @@ def test_elements_kernel_matches_plain(dev, dtype, dx, M, shared):
     assert bs.K11.launches == before + 1
     for g, w in zip(got, bs._elements_plain(fm, fP, pm, pP, F)):
         assert_close(g, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx", range(1, 9))
+def test_elements_kernel_every_width_with_f_banked(dev, dtype, dx):
+    """K11's groups of 4 (dx ≤ 4) and 8 threads, the padded and the full
+    widths, F per lane; one launch a call."""
+    M = 257
+    fm, fP, pm, pP, F = _dev(
+        testing.smoother_element_inputs(np.random.default_rng(40 + dx), M,
+                                        dx), dtype, dev)
+    before = bs.K11.launches
+    got = bs.bank_smoother_elements(fm, fP, pm, pP, F)
+    torch.cuda.synchronize()
+    assert bs.K11.launches == before + 1
+    for g, w in zip(got, bs._elements_plain(fm, fP, pm, pP, F)):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, TOL[dtype])
+    assert torch.equal(got[2], got[2].mT)  # L exactly symmetric
+
+
+@pytest.mark.parametrize("dx", [1, 3, 4, 5, 8])
+def test_elements_kernel_nan_on_one_non_pd_lane(dev, dx):
+    """A Pp failing at its last pivot NaNs its own lane only."""
+    fm, fP, pm, pP, F = _dev(
+        testing.smoother_element_inputs(np.random.default_rng(dx), 70, dx),
+        torch.float64, dev)
+    pP[33, dx - 1, dx - 1] = -1e3
+    keep = torch.arange(70, device=dev) != 33
+    for g, w in zip(bs.bank_smoother_elements(fm, fP, pm, pP, F),
+                    bs._elements_plain(fm, fP, pm, pP, F)):
+        assert torch.isnan(g[33]).all() and torch.isnan(w[33]).all()
+        assert torch.isfinite(g[keep]).all()
+        assert_close(g[keep], w[keep], TOL[torch.float64])
 
 
 def test_elements_kernel_nan_on_non_pd(dev):

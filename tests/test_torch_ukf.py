@@ -42,9 +42,9 @@ from bayesianfiltering_tpu_torch.models.params import ARRAY_FIELDS
 from bayesianfiltering_tpu_torch.ops import fused_ut as fu
 from bayesianfiltering_tpu_torch.ops import ukf
 from bayesianfiltering_tpu_torch.utils import angles, linalg, metrics
-from bayesianfiltering_tpu_torch.utils import sigma_points as sp
 
-# the JAX package's utils namespace exports a function of the same name
+# both packages' utils namespaces export a function of the same name
+sp = importlib.import_module("bayesianfiltering_tpu_torch.utils.sigma_points")
 jsp = importlib.import_module("bayesianfiltering_tpu.utils.sigma_points")
 
 pl = pytest.importorskip("jax.experimental.pallas")
