@@ -12,6 +12,12 @@ versions on CPU tensors. The EKF and UKF take a written-out leading batch
 of sequences; the mixture filters use the component axis as the kernels'
 batch.
 
+The extended and unscented RTS smoothers run the EKF or the UKF forward,
+form the backward gains of every step at once (plain PyTorch, as the JAX
+package's XLA) and keep only the affine recursion of the smoothed moments
+as a loop. The parallel iterated smoothers
+(``ops.parallel_iterated``) are re-exported here.
+
 Randomness: every stochastic entry point takes a ``torch.Generator`` or its
 standard-normal / uniform draws made beforehand (:class:`AGSFDraws`,
 :class:`BPFDraws`).
@@ -33,6 +39,12 @@ from bayesianfiltering_tpu_torch.ops import fused_ut as _fut
 from bayesianfiltering_tpu_torch.ops import ukf as _ukf
 from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
 from bayesianfiltering_tpu_torch.utils import resampling as _rs
+from bayesianfiltering_tpu_torch.utils.linalg import psd_solve, symmetrize
+from bayesianfiltering_tpu_torch.utils.sigma_points import (
+    factor,
+    points_blockdiag,
+    points_from_factor,
+)
 
 # ---------------------------------------------------------------------------
 # Helpers
@@ -80,6 +92,24 @@ def _slice_noise(params: ParamsNLSSM, t):
     return Q, q0, R, r0
 
 
+def _noise_steps(params: ParamsNLSSM, ts: torch.Tensor):
+    """:func:`_slice_noise` of the steps ``ts`` (a 1-D index tensor), each
+    stacked along a leading step axis (a shared noise is expanded)."""
+    def pick(x, dim):
+        return x[ts] if x.ndim == dim + 1 else x.expand((len(ts),) + x.shape)
+
+    return (pick(params.dynamics_noise_covariance, 2),
+            pick(params.dynamics_noise_bias, 1),
+            pick(params.emission_noise_covariance, 2),
+            pick(params.emission_noise_bias, 1))
+
+
+def _steps(fn):
+    """A state-level model callable ``fn(x, noise, u)`` over a leading step
+    axis of all three arguments."""
+    return torch.func.vmap(fn, in_dims=(0, 0, 0))
+
+
 # ---------------------------------------------------------------------------
 # Posterior containers
 # ---------------------------------------------------------------------------
@@ -107,6 +137,18 @@ class PosteriorGaussianFiltered(NamedTuple):
     filtered_covariances: torch.Tensor
     predicted_means: torch.Tensor
     predicted_covariances: torch.Tensor
+
+
+class PosteriorGaussianSmoothed(NamedTuple):
+    """Single-Gaussian filtering posterior and its RTS-smoothed marginals."""
+
+    marginal_loglik: torch.Tensor
+    filtered_means: torch.Tensor
+    filtered_covariances: torch.Tensor
+    predicted_means: torch.Tensor
+    predicted_covariances: torch.Tensor
+    smoothed_means: torch.Tensor
+    smoothed_covariances: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +283,119 @@ def unscented_kalman_filter(
         fm[:, t], fP[:, t], pm[:, t], pP[:, t] = m_f, P_f, m, P
     post = PosteriorGaussianFiltered(ll, fm, fP, pm, pP)
     return post if batched else PosteriorGaussianFiltered(*(x[0] for x in post))
+
+
+# ---------------------------------------------------------------------------
+# RTS smoothers
+# ---------------------------------------------------------------------------
+
+
+def _rts_smoothed(post: PosteriorGaussianFiltered,
+                  G: torch.Tensor) -> PosteriorGaussianSmoothed:
+    """The RTS recursion backwards from the last filtered marginal, with
+    the gains ``G`` (T−1, dx, dx) of every step formed beforehand:
+    ``m_s = m_f + G (m_s' − m_p)``, ``P_s = sym(P_f + G (P_s' − P_p) Gᵀ)``.
+    Only this affine recursion is a loop."""
+    _, fm, fP, pm, pP = post
+    sm, sP = [fm[-1]], [fP[-1]]
+    for t in range(len(fm) - 2, -1, -1):
+        sm.append(fm[t] + G[t] @ (sm[-1] - pm[t]))
+        sP.append(symmetrize(fP[t] + G[t] @ (sP[-1] - pP[t]) @ G[t].mT))
+    return PosteriorGaussianSmoothed(*post, torch.stack(sm[::-1]),
+                                     torch.stack(sP[::-1]))
+
+
+def extended_rts_smoother(
+    params: ParamsNLSSM,
+    emissions: torch.Tensor,
+    num_iter: int = 1,
+    inputs: Optional[torch.Tensor] = None,
+    jitter: float = 0.0,
+) -> PosteriorGaussianSmoothed:
+    """Extended Rauch–Tung–Striebel smoother (ERTS) of one sequence
+    ``emissions`` (T, dy).
+
+    The forward pass is :func:`extended_kalman_filter` (K1 and K2 on CUDA
+    tensors). The backward pass relinearises the dynamics at each filtered
+    mean with the filter's ``u_{t+1}`` input, ``G_t = P_f F_x(m_f)ᵀ
+    P_p⁻¹``, all T−1 gains in one batched solve, then runs the affine
+    recursion of the smoothed moments. The predicted covariance already
+    carries ``F_q Q F_qᵀ``."""
+    post = extended_kalman_filter(params, emissions, num_iter, inputs,
+                                  jitter)
+    T, dx = post.filtered_means.shape
+    if T < 2:
+        return PosteriorGaussianSmoothed(*post, *post[1:3])
+    F_x = _jacobians(params)[2]
+    inputs = _process_input(inputs, T, emissions)
+    fm, fP, pm, pP = post[1:]
+    _, q0, _, _ = _noise_steps(params, torch.arange(T - 1, device=fm.device))
+    Fx = _steps(F_x)(fm[:-1], q0, inputs[1:]).reshape(T - 1, dx, dx)
+    G = psd_solve(pP[:-1], Fx @ fP[:-1]).mT
+    return _rts_smoothed(post, G)
+
+
+def _ut_dynamics_moments(f, m, P, Q, q0, u, uparams: ParamsUKF,
+                         additive: bool):
+    """The UKF predict's quadrature of the dynamics at N(m, P), over a
+    leading step axis of every argument: ``(μ⁺, Φ, C)`` with Φ the
+    points' covariance (the additive Q not added) and ``C = Dᵀ`` the
+    (dx, dx) transpose of the cross-covariance ``D = Cov(x_t, x_{t+1})``.
+    Non-additive: the augmented points of blkdiag(P, Q); additive: the
+    state's points at zero noise."""
+    dx = m.shape[-1]
+    if additive:
+        scale, weights = _ukf.ut_weights(dx, uparams)
+        pts = points_from_factor(m, factor(P, uparams.sqrt_method), scale)
+        zq = torch.zeros_like(q0)
+        new_pts = _ukf.eval_step_rows(f, pts, zq, u)
+        center = _steps(f)(m, zq, u)
+    else:
+        scale, weights = _ukf.ut_weights(dx + q0.shape[-1], uparams)
+        pts = points_blockdiag(m, P, q0, Q, scale, uparams.sqrt_method)
+        new_pts = _ukf.eval_step_aug_rows(f, pts, dx, u)
+        center = _steps(f)(m, q0, u)
+    mu, Phi, centered = _ukf._ut_moments(center, new_pts, weights)
+    return mu, Phi, _ukf.ut_cross(centered, pts, m, weights[0])
+
+
+def _ut_dynamics_cross_cov(f, m, P, Q, q0, u, uparams: ParamsUKF,
+                           additive: bool) -> torch.Tensor:
+    """``D = Cov(x_t, x_{t+1} | y_{1:t}) = Σ wᶜ (χ − m)(f(χ) − m⁺)ᵀ`` by the
+    UKF predict's quadrature, over a leading step axis (plain PyTorch: the
+    JAX package runs it in XLA, with no kernel)."""
+    return _ut_dynamics_moments(f, m, P, Q, q0, u, uparams,
+                                additive)[2].mT
+
+
+def unscented_rts_smoother(
+    params: ParamsNLSSM,
+    uparams: ParamsUKF,
+    emissions: torch.Tensor,
+    inputs: Optional[torch.Tensor] = None,
+    additive: bool = False,
+) -> PosteriorGaussianSmoothed:
+    """Unscented Rauch–Tung–Striebel smoother (URTS) of one sequence
+    ``emissions`` (T, dy).
+
+    The forward pass is :func:`unscented_kalman_filter` (K6 or K7, K8 and
+    K9 on CUDA tensors). The backward gains ``G_t = D_t P_p⁻¹`` take the
+    unscented cross-covariance ``D_t`` recomputed from sigma points at the
+    filtered moments with the filter's ``u_{t+1}`` input (Särkkä 2008),
+    all T−1 at once; then the affine recursion of the smoothed
+    moments."""
+    post = unscented_kalman_filter(params, uparams, emissions, inputs,
+                                   additive)
+    T = post.filtered_means.shape[0]
+    if T < 2:
+        return PosteriorGaussianSmoothed(*post, *post[1:3])
+    inputs = _process_input(inputs, T, emissions)
+    fm, fP, pm, pP = post[1:]
+    Q, q0, _, _ = _noise_steps(params, torch.arange(T - 1, device=fm.device))
+    D = _ut_dynamics_cross_cov(params.dynamics_function, fm[:-1], fP[:-1],
+                               Q, q0, inputs[1:], uparams, additive)
+    G = psd_solve(pP[:-1], D.mT).mT
+    return _rts_smoothed(post, G)
 
 
 # ---------------------------------------------------------------------------
@@ -684,8 +839,17 @@ def bootstrap_particle_filter(
             for k, v in out.items()}
 
 
+# The parallel iterated smoothers live in ops/parallel_iterated.py (they
+# import this module's helpers at call time); re-exported here so that the
+# smoother family is one namespace, as in the JAX package.
+from bayesianfiltering_tpu_torch.ops.parallel_iterated import (  # noqa: E402
+    parallel_iterated_extended_smoother,
+    parallel_iterated_sigma_point_smoother,
+)
+
 __all__ = [
     "PosteriorGaussianFiltered",
+    "PosteriorGaussianSmoothed",
     "PosteriorGaussianSumFiltered",
     "AGSFDraws",
     "agsf_draws",
@@ -694,6 +858,10 @@ __all__ = [
     "bootstrap_particle_filter",
     "ParamsUKF",
     "extended_kalman_filter",
+    "extended_rts_smoother",
+    "unscented_rts_smoother",
+    "parallel_iterated_extended_smoother",
+    "parallel_iterated_sigma_point_smoother",
     "unscented_kalman_filter",
     "gaussian_sum_filter",
     "unscented_gaussian_sum_filter",

@@ -88,6 +88,25 @@ def linear_gaussian_lgssm(state_dim: int = 3, emission_dim: int = 3,
     )
 
 
+def scalar_growth(q: float = 10.0, r: float = 1.0,
+                  dtype: torch.dtype = torch.float32, device=None):
+    """Univariate nonlinear growth model (UNGM), the classic EKF stress
+    test: x' = x/2 + 25x/(1 + x²) + 8cos(1.2u) + q, y = x²/20 + r. The
+    input u is read as its first component, a width-1 slice."""
+    kw = dict(dtype=dtype, device=resolve_device(device))
+
+    def f(x, qn, u):
+        u = torch.as_tensor(u).to(x).reshape(-1)[0:1]
+        return (0.5 * x + 25.0 * x / (1.0 + x ** 2)
+                + 8.0 * torch.cos(1.2 * u) + qn)
+
+    def h(x, rn, u):
+        return x ** 2 / 20.0 + rn
+
+    return _bundle(1, 1, 1, 1, torch.zeros(1, **kw), 5.0 * torch.eye(1, **kw),
+                   f, q * torch.eye(1, **kw), h, r * torch.eye(1, **kw))
+
+
 def _parts(x):
     return x[..., 0:1], x[..., 1:2], x[..., 2:3], x[..., 3:4]
 
@@ -264,6 +283,7 @@ def lorenz96(state_dim: int = 40, emission_dim: Optional[int] = None,
                    h, R)
 
 
-__all__ = ["linear_gaussian", "linear_gaussian_lgssm", "bearings_only_tracking",
+__all__ = ["linear_gaussian", "linear_gaussian_lgssm", "scalar_growth",
+           "bearings_only_tracking",
            "bot_maneuver_inputs", "lorenz96", "range_bearing_tracking",
            "bot_experiment_inputs"]

@@ -8,12 +8,15 @@ from bayesianfiltering_tpu_torch.ops import (
     fused_ekf,
     fused_ut,
     linear,
+    parallel_iterated,
     resample_gather,
     ukf,
 )
 from bayesianfiltering_tpu_torch.ops.associative import (
     parallel_kalman_filter,
+    parallel_kalman_filter_tv,
     parallel_kalman_smoother,
+    parallel_kalman_smoother_tv,
 )
 from bayesianfiltering_tpu_torch.ops.ekf import (
     EKFUpdate,
@@ -27,6 +30,10 @@ from bayesianfiltering_tpu_torch.ops.linear import (
     kalman_filter,
     kalman_smoother,
 )
+from bayesianfiltering_tpu_torch.ops.parallel_iterated import (
+    parallel_iterated_extended_smoother,
+    parallel_iterated_sigma_point_smoother,
+)
 from bayesianfiltering_tpu_torch.ops.ukf import (
     ParamsUKF,
     ukf_condition_on_additive,
@@ -36,10 +43,13 @@ from bayesianfiltering_tpu_torch.ops.ukf import (
 )
 
 __all__ = ["associative", "bank_combine", "bank_smoother", "bank_update",
-           "ekf", "fused_ekf", "fused_ut", "linear", "resample_gather", "ukf",
+           "ekf", "fused_ekf", "fused_ut", "linear", "parallel_iterated",
+           "resample_gather", "ukf",
            "EKFUpdate", "ekf_predict", "ekf_condition_on",
            "ekf_condition_on_iterated", "ParamsUKF", "ukf_predict_additive",
            "ukf_predict_nonadditive", "ukf_condition_on_additive",
            "ukf_condition_on_nonadditive", "ParamsLGSSM", "PosteriorKalman",
            "kalman_filter", "kalman_smoother", "parallel_kalman_filter",
-           "parallel_kalman_smoother"]
+           "parallel_kalman_smoother", "parallel_kalman_filter_tv",
+           "parallel_kalman_smoother_tv", "parallel_iterated_extended_smoother",
+           "parallel_iterated_sigma_point_smoother"]

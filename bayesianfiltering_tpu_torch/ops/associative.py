@@ -17,8 +17,11 @@ float64; a CUDA input outside that band raises NotImplementedError. On CPU
 tensors the plain PyTorch combines below run. The ``"native"`` solver has
 no kernel in the JAX package either and runs ``torch.linalg.solve``.
 
-The time-varying variants (``parallel_kalman_filter_tv`` and
-``parallel_kalman_smoother_tv``) are not ported yet.
+The time-varying variants (:func:`parallel_kalman_filter_tv`,
+:func:`parallel_kalman_smoother_tv`) build their per-step elements batched
+over time and run the same scans and kernels; the smoothing elements take a
+per-step (banked) transition. They are the linear solver of the parallel
+iterated smoothers (``ops.parallel_iterated``).
 """
 from __future__ import annotations
 
@@ -44,39 +47,51 @@ def _mv(A, x):
     return (A @ x[..., None])[..., 0]
 
 
-def _first_element(params: ParamsLGSSM, y0):
-    """Element for t=0: condition the prior on y_0 (no propagation first,
-    the update-then-predict convention of the sequential filter)."""
-    H, R = params.emission_matrix, params.emission_covariance
-    _, d = _biases(params)
-    m0, P0 = params.initial_mean, params.initial_covariance
+def _first_element_tv(m0, P0, H0, d0, R0, y0):
+    """Element for t=0: condition the prior on y_0 with the emission model
+    of step 0 (no propagation first, the update-then-predict convention of
+    the sequential filter)."""
     z = torch.zeros_like(P0)
-
-    S = symmetrize(H @ P0 @ H.T + R)
-    K = psd_solve(S, H @ P0).T
-    b = m0 + K @ (y0 - H @ m0 - d)
-    C = symmetrize(P0 - K @ S @ K.T)
+    S = symmetrize(H0 @ P0 @ H0.mT + R0)
+    K = psd_solve(S, H0 @ P0).mT
+    b = m0 + _mv(K, y0 - _mv(H0, m0) - d0)
+    C = symmetrize(P0 - K @ S @ K.mT)
     return z, b, C, z, torch.zeros_like(m0)
 
 
-def _generic_element(params: ParamsLGSSM, y):
-    """Element for t ≥ 1 (predict through F, Q then update with y), one step
-    at a time: the oracle of :func:`_elements_time_invariant`."""
-    F, Q = params.dynamics_matrix, params.dynamics_covariance
-    H, R = params.emission_matrix, params.emission_covariance
-    c, d = _biases(params)
-    I = torch.eye(F.shape[0], dtype=F.dtype, device=F.device)
-
-    S = symmetrize(H @ Q @ H.T + R)
-    K = psd_solve(S, H @ Q).T
-    resid = y - d - H @ c
-    A = (I - K @ H) @ F
-    b = c + K @ resid
-    C = symmetrize((I - K @ H) @ Q)
-    HF = H @ F
-    J = symmetrize(HF.T @ psd_solve(S, HF))
-    eta = HF.T @ psd_solve(S, resid)
+def _generic_elements_tv(Fs, cs, Qs, Hs, ds, Rs, ys):
+    """Elements for t ≥ 1 over any leading (time) axes: predict through
+    (F, c, Q), then update with (H, d, R) and y."""
+    I = torch.eye(Fs.shape[-1], dtype=Fs.dtype, device=Fs.device)
+    S = symmetrize(Hs @ Qs @ Hs.mT + Rs)
+    K = psd_solve(S, Hs @ Qs).mT
+    resid = ys - ds - _mv(Hs, cs)
+    IKH = I - K @ Hs
+    A = IKH @ Fs
+    b = cs + _mv(K, resid)
+    C = symmetrize(IKH @ Qs)
+    HF = Hs @ Fs
+    J = symmetrize(HF.mT @ psd_solve(S, HF))
+    eta = _mv(HF.mT, psd_solve(S, resid))
     return A, b, C, J, eta
+
+
+def _first_element(params: ParamsLGSSM, y0):
+    """:func:`_first_element_tv` of a time-invariant model."""
+    _, d = _biases(params)
+    return _first_element_tv(params.initial_mean, params.initial_covariance,
+                             params.emission_matrix, d,
+                             params.emission_covariance, y0)
+
+
+def _generic_element(params: ParamsLGSSM, y):
+    """The element of one step t ≥ 1 of a time-invariant model (predict
+    through F, Q then update with y): the oracle of
+    :func:`_elements_time_invariant`."""
+    c, d = _biases(params)
+    return _generic_elements_tv(
+        params.dynamics_matrix, c, params.dynamics_covariance,
+        params.emission_matrix, d, params.emission_covariance, y)
 
 
 def _elements_time_invariant(params: ParamsLGSSM, emissions):
@@ -425,8 +440,85 @@ def _marginal_loglik(params, emissions, predicted_means, predicted_covs):
     return mvn_logpdf(emissions, yhat, S).sum()
 
 
+# ---------------------------------------------------------------------------
+# Time-varying (per-step affine) variants: each iteration of the parallel
+# iterated smoothers linearises the model into x_t = F_t x_{t-1} + c_t + q_t,
+# y_t = H_t x_t + d_t + r_t and runs these.
+# ---------------------------------------------------------------------------
+
+
+def parallel_kalman_filter_tv(m0, P0, Fs, cs, Qs, Hs, ds, Rs, emissions,
+                              solver: str = "woodbury",
+                              chunk="auto") -> PosteriorKalman:
+    """Temporally parallel Kalman filter for a time-varying affine LGSSM.
+
+    The stacks run along axis 0 over T steps. ``Fs[t]``, ``cs[t]``,
+    ``Qs[t]`` is the transition into step t (``Fs[0]`` is unused: step 0
+    conditions the prior); ``Hs[t]``, ``ds[t]``, ``Rs[t]`` the emission
+    model at t. ``predicted_*[t]`` predicts step t+1 from 0..t, the last
+    step reusing ``Fs[T-1]``. ``solver`` and ``chunk`` as in
+    :func:`parallel_kalman_filter`.
+    """
+    first = _first_element_tv(m0, P0, Hs[0], ds[0], Rs[0], emissions[0])
+    rest = _generic_elements_tv(Fs[1:], cs[1:], Qs[1:], Hs[1:], ds[1:],
+                                Rs[1:], emissions[1:])
+    elems = tuple(torch.cat([f[None], r]) for f, r in zip(first, rest))
+    _, fm, fP, _, _ = _run_filter_scan(
+        elems, solver, _resolve_chunk(chunk, len(emissions)))
+
+    # the transition out of each step, F_{t+1}; the last reuses F_{T-1}
+    Fn, cn, Qn = (torch.cat([x[1:], x[-1:]]) for x in (Fs, cs, Qs))
+    pm = _mv(Fn, fm) + cn
+    pP = symmetrize(Fn @ fP @ Fn.mT + Qn)
+    ll = _marginal_loglik_tv(m0, P0, Fs, cs, Qs, Hs, ds, Rs, emissions,
+                             fm, fP)
+    return PosteriorKalman(ll, fm, fP, pm, pP)
+
+
+def parallel_kalman_smoother_tv(m0, P0, Fs, cs, Qs, Hs, ds, Rs, emissions,
+                                solver: str = "woodbury",
+                                chunk="auto") -> PosteriorKalman:
+    """Temporally parallel RTS smoother for a time-varying affine LGSSM
+    (the stack conventions of :func:`parallel_kalman_filter_tv`). The
+    smoothing elements take the per-step transitions ``Fs[1:]`` as a bank:
+    one K11 launch on CUDA tensors."""
+    post = parallel_kalman_filter_tv(m0, P0, Fs, cs, Qs, Hs, ds, Rs,
+                                     emissions, solver, chunk)
+    fm, fP = post.filtered_means, post.filtered_covariances
+    pm, pP = post.predicted_means, post.predicted_covariances
+
+    # G_t = P^f_t F_{t+1}ᵀ (P^p_{t+1|t})⁻¹ with the transition out of t
+    G, g, L = _smoother_elements(fm[:-1], fP[:-1], pm[:-1], pP[:-1],
+                                 Fs[1:])
+    elems = (torch.cat([G, torch.zeros_like(fP[:1])]),
+             torch.cat([g, fm[-1:]]),
+             torch.cat([L, fP[-1:]]))
+    _, sm, sP = _run_smoother_scan(elems,
+                                   _resolve_chunk(chunk, len(emissions)))
+    return post._replace(smoothed_means=sm, smoothed_covariances=sP)
+
+
+def _marginal_loglik_tv(m0, P0, Fs, cs, Qs, Hs, ds, Rs, emissions,
+                        filtered_means, filtered_covs):
+    """Innovation-form marginal log-likelihood of the time-varying model:
+    the prior of step t is the prediction through ``Fs[t]`` from the
+    filtered moments of t−1 (the initial moments at t=0)."""
+    from bayesianfiltering_tpu_torch.distributions import mvn_logpdf
+
+    pm_prev = torch.cat([m0[None],
+                         _mv(Fs[1:], filtered_means[:-1]) + cs[1:]])
+    pP_prev = torch.cat([
+        P0[None],
+        symmetrize(Fs[1:] @ filtered_covs[:-1] @ Fs[1:].mT + Qs[1:])])
+    yhat = _mv(Hs, pm_prev) + ds
+    S = symmetrize(Hs @ pP_prev @ Hs.mT + Rs)
+    return mvn_logpdf(emissions, yhat, S).sum()
+
+
 __all__ = [
     "chunked_associative_scan",
     "parallel_kalman_filter",
     "parallel_kalman_smoother",
+    "parallel_kalman_filter_tv",
+    "parallel_kalman_smoother_tv",
 ]

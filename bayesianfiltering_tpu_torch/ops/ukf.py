@@ -79,6 +79,25 @@ def eval_aug_rows(fn: Callable, xa: torch.Tensor, dx: int, u) -> torch.Tensor:
     return out.reshape(lead + (-1,))
 
 
+def eval_step_rows(fn: Callable, x: torch.Tensor, noise, u) -> torch.Tensor:
+    """``fn(x_ij, noise_i, u_i)`` for every row j of step i: ``x``
+    (n, k, dx), ``noise`` and ``u`` with the same leading step axis;
+    returns (n, k, d_out). The smoothers' quadratures take a model input
+    per step."""
+    rows = torch.func.vmap(fn, in_dims=(0, None, None))
+    return torch.func.vmap(rows, in_dims=(0, 0, 0))(x, noise, u)
+
+
+def eval_step_aug_rows(fn: Callable, xa: torch.Tensor, dx: int,
+                       u) -> torch.Tensor:
+    """``fn(x, noise, u_i)`` for every augmented row ``[x; noise]`` of step
+    i of ``xa`` (n, k, dx + dn), the two parts made contiguous first (see
+    :func:`eval_aug_rows`); returns (n, k, d_out)."""
+    rows = torch.func.vmap(fn, in_dims=(0, 0, None))
+    return torch.func.vmap(rows, in_dims=(0, 0, 0))(
+        xa[..., :dx].contiguous(), xa[..., dx:].contiguous(), u)
+
+
 def _outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., :, None] * b[..., None, :]
 
@@ -268,6 +287,8 @@ __all__ = [
     "ParamsUKF",
     "eval_rows",
     "eval_aug_rows",
+    "eval_step_rows",
+    "eval_step_aug_rows",
     "ut_weights",
     "ut_mean",
     "ut_cov",

@@ -6,6 +6,7 @@ from bayesianfiltering_tpu_torch.utils.linalg import (
     cholesky_guarded,
     cholesky_nan,
     project_to_psd,
+    project_to_psd_fast,
     project_to_psd_ns,
     psd_solve,
     sqrtm_psd,
@@ -42,6 +43,7 @@ from bayesianfiltering_tpu_torch.utils.sigma_points import (
 __all__ = [
     # linalg
     "symmetrize", "psd_solve", "project_to_psd", "project_to_psd_ns",
+    "project_to_psd_fast",
     "sqrtm_psd", "sqrtm_psd_eigh", "sqrtm_psd_ns", "cholesky_guarded",
     "cholesky_nan",
     # metrics

@@ -61,8 +61,9 @@ def cholesky_guarded(p: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, torch.zeros_like(chol), chol)
 
 
-# Newton–Schulz up to this size, eigh above (the JAX package's dispatch
-# constant, kept here as the port's own copy).
+# Newton–Schulz up to this size, eigh above, for the square root and the
+# PSD projection (the JAX package's dispatch constant, kept here as the
+# port's own copy).
 _BLOCK_MAX = 128
 _NS_ITERS = 14
 
@@ -82,6 +83,14 @@ def project_to_psd_ns(delta: torch.Tensor, num_iters: int = 16) -> torch.Tensor:
     a = symmetrize(delta)
     root = sqrtm_psd_ns(a @ a, num_iters, floor=1e-5)
     return symmetrize(0.5 * (a + root))
+
+
+def project_to_psd_fast(delta: torch.Tensor) -> torch.Tensor:
+    """PSD projection: the Newton–Schulz polar form up to ``_BLOCK_MAX``
+    (the small matrices filters live on), the eigenvalue clamp above."""
+    if delta.shape[-1] <= _BLOCK_MAX:
+        return project_to_psd_ns(delta)
+    return project_to_psd(delta)
 
 
 def sqrtm_psd_eigh(p: torch.Tensor) -> torch.Tensor:
@@ -118,5 +127,6 @@ def sqrtm_psd(p: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["symmetrize", "cholesky_nan", "psd_solve", "cholesky_guarded",
-           "project_to_psd", "project_to_psd_ns", "sqrtm_psd_eigh",
+           "project_to_psd", "project_to_psd_ns", "project_to_psd_fast",
+           "sqrtm_psd_eigh",
            "sqrtm_psd_ns", "sqrtm_psd"]

@@ -41,7 +41,10 @@ and prints no result):
    and K8t with the failing pivot in their first and in a later panel; K7
    and K7t NaN only the failing block), and K10's
    guard lanes (a C1 with a −1e-8 eigenvalue, a C1 with an infinite entry)
-   the same finite and non-finite entries (dx = 4 to 512). K5 (integer
+   the same finite and non-finite entries (dx = 4 to 512). K11 also with
+   one F a lane (banked), at path D's (M = 499, dx = 4) and path E's
+   (M = T − 1, dx = 1) elements, and K10 and K12 at dx = 1 over path E's
+   lanes. K5 (integer
    parents) must equal its plain version exactly at n = 2²⁰, 65,536 and
    1,408 (m + n one stretch of its merge path) on five weight profiles,
    and at the Gaussian-sum reductions' m counts → n
@@ -68,8 +71,12 @@ and prints no result):
    65,536 particles, so K5 runs) on Lorenz-96 dx=8, the parallel
    Kalman smoother at T=4,096, chunk 128, BASELINE config 5 (Lorenz-96
    dx=512, dy=256, float64, T=20: the EKF's joint and chunked updates and
-   the additive UKF) and path C (the parallel smoother at dx=64, dy=32,
-   T=1,024, both solvers, float32 and float64).
+   the additive UKF), path C (the parallel smoother at dx=64, dy=32,
+   T=1,024, both solvers, float32 and float64), the time-varying parallel
+   filter and smoother at the BOT widths (dx=4, T=500) and at path C's
+   (T=1,024, per-step F: K10b, K11b with F banked, K12b), float32 and
+   float64, and path D's five smoothers at T=100 with 3 iterations in
+   float64, each with its exact launches.
 5. The main paths, each with every launch counter reset just before it and
    read just after: the batched EKF on Lorenz-96 (dx=64, dy=32, B=512
    sequences, T=1000; data from the RK4 model, filter on the Euler model);
@@ -88,7 +95,13 @@ and prints no result):
    K6t, K8t and K9t, never K6/K8/K9);
    path C (the parallel smoother
    on ``zoo.linear_gaussian_lgssm(64, 32)`` at T=65,536, chunk 128, both
-   solvers: only the block combines launch). The new paths run three
+   solvers: only the block combines launch); path D, the BOT smoothing
+   comparison of experiments/smoother_experiment.py (range-bearing
+   tracking, T=500, 8 iterations: the ERTS, the URTS, the IEKS, the
+   LM-IEKS and the IPLS, with their RMSE against the sampled states);
+   path E, the IEKS row of experiments/parallel_kf_bench.py (the UNGM,
+   3 iterations, chunk 128, the rollout nominal, T=2^18; the rollout
+   alone timed at 65,536 steps). Config 5, path C and path D run three
    times each in one process and report the median and the range. Checks
    finiteness, shapes and the launch counts of every kernel.
 6. The device's busy and idle share, and the kernels with the most
@@ -98,7 +111,9 @@ and prints no result):
    T=1M parallel smoother, ten steps
    of each of config 5's filters (the EKF's split between K1t/K2t and the
    host, the UKF's between K6t, K8t and K9t), one run of path C with each
-   solver (the native one with its host operations).
+   solver (the native one with its host operations), one run of each of
+   path D's smoothers at T=20 and of path E at T=2,048 (the device's
+   activity alone).
 
 The last three lines: a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -164,6 +179,25 @@ PC_DX, PC_DY, PC_T, PC_CMP_T = 64, 32, 65_536, 1024
 PC_COMBINES = 128 + 128 + 4 + 1 + 1
 PC_LANES = PC_T // KF_CHUNK                           # 512
 PC_NARROW = PC_LANES // KF_CHUNK                      # 4: the next level
+# path D: experiments/smoother_experiment.py:36-75, the BOT smoothing
+# comparison (range-bearing tracking, T=500, 8 iterations, ParamsUKF(1, 0,
+# 0, "cholesky")); ERTS, URTS, the IEKS (EKF seed, damping 0.7), the
+# LM-IEKS (EKF seed, lambda 100) and the IPLS (EKF seed)
+PD_T, PD_ITER, PD_DAMPING, PD_LM_LAMBDA = 500, 8, 0.7, 100.0
+PD_CMP_T, PD_CMP_ITER, PD_PROFILE_T = 100, 3, 20
+# path E: experiments/parallel_kf_bench.py:141-152, the IEKS row (the UNGM,
+# N(0, 1) emissions, 3 iterations, chunk 128, the rollout nominal); T cut
+# from the source's 1M (:70) to 2^18, the largest power of two whose run
+# stays under 60 s: the rollout is a loop of T model calls of ~11 launches
+# each, ~140 us a step on the H100 machine's host, so that 1M steps would
+# take ~140 s (PERF.md section 4). The rollout alone is timed at 65,536
+# steps, and phase 6 traces the path at 2,048.
+PE_T, PE_ITER, PE_ROLLOUT_T, PE_PROFILE_T = 2 ** 18, 3, 65_536, 2_048
+PE_LANES = PE_T // KF_CHUNK                           # 2,048
+# the time-varying filter and smoother on the card against the CPU: the
+# BOT widths (dx=4, dy=2, T=500, the flat scan) and path C's (dx=64,
+# dy=32, T=1,024, chunk 128: K10b, K11b with F banked, K12b)
+TV_CMP = ((4, 2, PD_T, "auto"), (PC_DX, PC_DY, PC_CMP_T, KF_CHUNK))
 REPS = 3  # calls of each new path in one process: median and range
 # (M, dx, dy) of K3 and (M, dx, dq) of K4 on the mixture paths (MIXTURE_RUNS,
 # bearings-only widths): the GSF M = 50 updates and predicts 50 components;
@@ -542,15 +576,18 @@ def kernel_cases():
                       pairs(testing.smoother_elements, M, dx, chunk), (),
                       M * (chunk or 1) * scombine_flops(dx), timed))
 
-    def elements(M, dx, timed=None):
-        def make(r):  # F shared by every lane, as on the smoother's path
+    def elements(M, dx, timed=None, banked=False):
+        """F shared by every lane, as on the time-invariant smoother's
+        path, or ``banked``, one F a lane, as on the time-varying one's."""
+        def make(r):
             fm, fP, pm, pP, F = testing.smoother_element_inputs(r, M, dx)
-            return fm, fP, pm, pP, F[0]
+            return fm, fP, pm, pP, F if banked else F[0]
         cases.append((bs.K11 if dx <= 8 else bs.K11B,
                       lambda fm, fP, pm, pP, F: bs.bank_smoother_elements(
                           fm, fP, pm, pP, F.expand(M, dx, dx)),
-                      bs._elements_plain, f"M={M},dx={dx},F shared", make, (),
-                      M * elements_flops(dx), timed))
+                      bs._elements_plain,
+                      f"M={M},dx={dx},F {'banked' if banked else 'shared'}",
+                      make, (), M * elements_flops(dx), timed))
 
     def upd(kernel, wrap, plain, B, dx, dy, timed=None):
         cases.append((kernel, wrap, plain, f"B={B},dx={dx},dy={dy}",
@@ -733,6 +770,15 @@ def kernel_cases():
     elements(KF_T - 1, KF_DX, timed="main")
     elements(4096, 8)
     elements(100, 3)
+    # the time-varying smoother's elements, F banked: path D's passes
+    # (M = 499, dx = 4) and path E's (M = T − 1, dx = 1), whose scans also
+    # run K10 and K12 at dx = 1 over path E's lanes and its step 4
+    elements(PD_T - 1, 4, timed="also", banked=True)
+    elements(PE_T - 1, 1, timed="also", banked=True)
+    elements(130, 8, banked=True)
+    for chunk in (None, KF_CHUNK):
+        fcombine(PE_LANES, 1, chunk=chunk)
+        scombine(PE_LANES, 1, chunk=chunk)
     scombine(4096, 8)
     scombine(62, 3, chunk=5)
     scombine(130, 6)
@@ -1324,6 +1370,152 @@ def path_c_expect(solver):
             "bft_block_smoother_combine": PC_COMBINES}
 
 
+def flat_combines(T: int) -> int:
+    """Combines of ``ops.associative._log_depth_scan`` over T elements that
+    have lanes (a launch each on the card): a pairing level, the scan of
+    the T/2 pairs, and a level of even prefixes unless it is empty."""
+    if T < 2:
+        return 0
+    return 1 + flat_combines(T // 2) + (1 if T % 2 or T // 2 > 1 else 0)
+
+
+def chunked_combines(T: int, chunk: int = KF_CHUNK) -> int:
+    """Combines of ``chunked_associative_scan`` over T elements: ``chunk``
+    in-chunk steps, the scan of the chunk aggregates, one broadcast; T
+    sequential ones at T ≤ chunk (320 at 1M, 262 at 65,536)."""
+    if T <= chunk:
+        return T
+    return chunk + chunked_combines(-(-T // chunk), chunk) + 1
+
+
+def scan_expect(T: int, chunk, passes: int, wide: bool = False) -> dict:
+    """Exact launches of ``passes`` time-varying smoother passes over T
+    steps (chunk "auto" is the flat scan up to 4,096 steps): K10, K12 a
+    combine each and K11 once a pass, or their block variants."""
+    combines = passes * (flat_combines(T)
+                         if chunk is None or (chunk == "auto" and T <= 4096)
+                         else chunked_combines(T, KF_CHUNK if chunk == "auto"
+                                               else chunk))
+    if wide:
+        return {"bft_block_combine": combines,
+                "bft_block_smoother_elements": passes,
+                "bft_block_smoother_combine": combines}
+    return {"bft_bank_combine": combines,
+            "bft_bank_smoother_elements": passes,
+            "bft_bank_smoother_combine": combines}
+
+
+def tv_problem(T, dx, dy, dtype, dev):
+    """(m0, P0, Fs, cs, Qs, Hs, ds, Rs, ys) of a random time-varying model
+    from the seed (``tests/test_parallel_iterated.py``'s, its random
+    factors scaled by 1/√dx so that the spectra stay O(1) at dx = 64)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + dx)
+    f = 1.0 / np.sqrt(dx)
+    eye = np.eye(dx)
+    mats = f * rng.standard_normal((T, dx, dx))
+    em = rng.standard_normal((T, dy, dy)) / np.sqrt(dy)
+    arrays = (rng.standard_normal(dx), eye,
+              0.7 * eye + 0.1 * f * rng.standard_normal((T, dx, dx)),
+              0.1 * rng.standard_normal((T, dx)),
+              0.5 * mats @ np.swapaxes(mats, -1, -2) + eye,
+              f * rng.standard_normal((T, dy, dx)),
+              0.1 * rng.standard_normal((T, dy)),
+              0.5 * em @ np.swapaxes(em, -1, -2) + np.eye(dy),
+              rng.standard_normal((T, dy)))
+    return [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays]
+
+
+def smoother_runs(T: int, num_iter: int):
+    """Path D's five smoothers (experiments/smoother_experiment.py:54-74):
+    (label, call on (params, inputs, emissions) returning the smoothed
+    posterior, exact launches). Each EKF pass is T K1 and T K2 launches;
+    the URTS's forward UKF 2T K7, T K8 and T K9; every iterated smoother
+    seeds with one EKF pass and runs num_iter + 1 smoother passes (the LM
+    variant's num_iter candidate passes, then the final one), each a flat
+    scan at these T."""
+    from bayesianfiltering_tpu_torch import inference as inf
+
+    up = ukf_params()
+    ekf = {"bft_ekf_update": T, "bft_ekf_predict_cov": T}
+    iterated = {**ekf, **scan_expect(T, "auto", num_iter + 1)}
+    return [
+        ("erts", lambda p, u, e: inf.extended_rts_smoother(p, e, inputs=u),
+         ekf),
+        ("urts", lambda p, u, e: inf.unscented_rts_smoother(p, up, e,
+                                                            inputs=u),
+         {"bft_ut_sigma_aug": 2 * T, "bft_ut_update": T,
+          "bft_ut_predict": T}),
+        ("ieks", lambda p, u, e: inf.parallel_iterated_extended_smoother(
+            p, e, num_iter=num_iter, inputs=u, nominal="filter",
+            damping=PD_DAMPING)[0], iterated),
+        ("lm-ieks", lambda p, u, e: inf.parallel_iterated_extended_smoother(
+            p, e, num_iter=num_iter, inputs=u, nominal="filter",
+            lm_lambda=PD_LM_LAMBDA)[0], iterated),
+        ("ipls", lambda p, u, e: inf.parallel_iterated_sigma_point_smoother(
+            p, up, e, num_iter=num_iter, inputs=u, nominal="filter")[0],
+         iterated),
+    ]
+
+
+SMOOTHED = ("filtered_means", "filtered_covariances", "smoothed_means",
+            "smoothed_covariances", "marginal_loglik")
+
+
+def compare_smoothed(label, got, want, tol) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    errs = {n: rel_err(getattr(got, n), getattr(want, n)) for n in SMOOTHED}
+    finite = all(torch.isfinite(getattr(got, n)).all() for n in SMOOTHED)
+    ok = max(errs.values()) <= tol and finite
+    log(f"{label} card vs cpu: " + ", ".join(f"{n} {e:.3e}"
+                                             for n, e in errs.items())
+        + f" (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{label}: the kernel path disagrees with the "
+                           "plain path")
+
+
+def compare_smoothers(dev) -> None:
+    """Phase 4's smoothing side: the time-varying parallel filter and
+    smoother at the BOT widths and at path C's, float32 and float64, and
+    path D's five smoothers at T=100 with 3 iterations in float64, each
+    with its exact launches on the card."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models import zoo
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+
+    for dx, dy, T, chunk in TV_CMP:
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[-1]
+            args = tv_problem(T, dx, dy, dtype, dev)
+            got, _ = run_path(
+                f"tv smoother dx={dx} T={T} chunk={chunk} {name}",
+                lambda: tas.parallel_kalman_smoother_tv(*args, chunk=chunk),
+                scan_expect(T, chunk, 1, wide=dx > 8), others_zero=True)
+            want = tas.parallel_kalman_smoother_tv(*(a.cpu() for a in args),
+                                                   chunk=chunk)
+            compare_smoothed(f"tv smoother dx={dx} dy={dy} T={T} "
+                             f"chunk={chunk} {name}", got, want,
+                             EKF_TOL[name])
+
+    params, inputs, _, em = rb_problem(PD_CMP_T, torch.float64, dev)
+    cpu_params = zoo.range_bearing_tracking(dtype=torch.float64,
+                                            device="cpu")[1]
+    for label, run, expect in smoother_runs(PD_CMP_T, PD_CMP_ITER):
+        got, _ = run_path(f"{label} range-bearing T={PD_CMP_T} float64",
+                          lambda: run(params, inputs, em), expect,
+                          others_zero=True)
+        want = run(cpu_params, inputs.cpu(), em.cpu())
+        compare_smoothed(f"{label} range-bearing T={PD_CMP_T} "
+                         f"{PD_CMP_ITER} iterations float64", got, want,
+                         EKF_TOL["float64"])
+
+
 def compare_paths(dev) -> None:
     """Phase 4: kernel path on the card vs plain path on the CPU."""
     import torch
@@ -1505,6 +1697,8 @@ def compare_paths(dev) -> None:
             if not ok:
                 raise RuntimeError(f"path C ({solver}, {name}) kernel path "
                                    "disagrees with the plain path")
+
+    compare_smoothers(dev)
 
 
 def run_path(label, fn, expect, others_zero=False):
@@ -1774,8 +1968,89 @@ def main_path(dev, card: str) -> dict:
             f"dy={PC_DY} T={PC_T} chunk={KF_CHUNK} float32: {spread(secs)}, "
             f"{PC_T / med:.1f} steps/s at the median, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    # path D: the BOT smoothing comparison at T=500, 8 iterations
+    params_d, inputs_d, states_d, em_d = rb_problem(PD_T, torch.float32,
+                                                    dev)
+    runs = smoother_runs(PD_T, PD_ITER)
+    for _, run, _ in runs:  # warm-up
+        run(params_d, inputs_d[:20], em_d[:20])
+    torch.cuda.synchronize()
+    for label, run, expect in runs:
+        post, secs = repeated(
+            f"path D {label} range-bearing",
+            lambda: run(params_d, inputs_d, em_d), expect, add)
+        for name in ("smoothed_means", "smoothed_covariances"):
+            x = getattr(post, name)
+            if x.shape[0] != PD_T or not torch.isfinite(x).all():
+                raise RuntimeError(f"path D ({label}): {name} not finite "
+                                   "or misshapen")
+        log(f"path D {label} range-bearing T={PD_T} float32 (max |state| "
+            f"{float(states_d.abs().max()):.1f}): {spread(secs)}, rmse "
+            f"{float(metrics.rmse(post.smoothed_means, states_d)):.4f} "
+            f"(filtered {float(metrics.rmse(post.filtered_means, states_d)):.4f}"
+            f"; utils.metrics.rmse) ({card})")
+
+    # path E: the IEKS row of the parallel benchmark on the UNGM
+    post, secs = path_e(dev, PE_T, add)
+    log(f"path E ieks scalar growth T={PE_T} {PE_ITER} iterations "
+        f"chunk={KF_CHUNK} float32: {secs:.4f} s, {PE_T / secs:.1f} "
+        f"steps/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
     log(f"launches over the main paths: {total}")
     return total
+
+
+def path_e_problem(T, dev):
+    """Path E: ``zoo.scalar_growth()`` (float32) and N(0, 1) emissions of
+    shape (T, 1), made on the device."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models import zoo
+
+    params = zoo.scalar_growth(device=dev)[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    return params, torch.randn(T, 1, generator=gen, device=dev)
+
+
+def path_e_run(params, ys):
+    from bayesianfiltering_tpu_torch import inference as inf
+
+    return inf.parallel_iterated_extended_smoother(
+        params, ys, num_iter=PE_ITER, chunk=KF_CHUNK)
+
+
+def path_e(dev, T, add):
+    """Path E at T steps after a warm-up: the rollout alone timed at
+    ``PE_ROLLOUT_T`` steps, then one call with exact launches (the
+    rollout nominal, then PE_ITER + 1 chunked passes of K10, K11 and K12
+    at dx = 1). Returns (posterior, seconds)."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.ops import parallel_iterated as pi
+
+    params, ys = path_e_problem(T, dev)
+    path_e_run(params, ys[:4096])
+    zeros = ys.new_zeros(PE_ROLLOUT_T, 1)
+    _, secs = timed(lambda: pi._rollout(params, PE_ROLLOUT_T, zeros))
+    log(f"path E rollout alone T={PE_ROLLOUT_T} float32: {secs:.4f} s, "
+        f"{1e6 * secs / PE_ROLLOUT_T:.2f} us a step (at this rate 1M steps "
+        f"would take {secs * KF_T / PE_ROLLOUT_T:.1f} s)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ((post, aux), secs), counts = run_path(
+        "path E ieks scalar growth",
+        lambda: timed(lambda: path_e_run(params, ys)),
+        scan_expect(T, KF_CHUNK, PE_ITER + 1), others_zero=True)
+    add(counts)
+    norms = aux.step_norms
+    for name in ("filtered_means", "smoothed_means", "smoothed_covariances"):
+        x = getattr(post, name)
+        if x.shape[0] != T or not torch.isfinite(x).all():
+            raise RuntimeError(f"path E: {name} not finite or misshapen")
+    if norms.shape != (PE_ITER,) or not torch.isfinite(norms).all():
+        raise RuntimeError(f"path E: step norms {norms}")
+    log(f"path E step norms {[round(float(n), 4) for n in norms]}")
+    return post, secs
 
 
 def ukf_split(prof) -> dict:
@@ -1844,12 +2119,15 @@ def bpf_split(prof) -> dict:
 
 
 def profile_run(label: str, run, card: str, host: bool = False,
-                split=None) -> None:
+                split=None, cpu: bool = True) -> None:
     """The device's busy share of ``run()`` under torch.profiler, against
     the traced and the untraced wall, and the kernels with the most device
     time; with ``host``, also the host operations (and CUDA runtime calls)
     with the most self CPU time; with ``split``, the device time that it
-    attributes to each kernel of the path."""
+    attributes to each kernel of the path. ``cpu=False`` records the
+    device's activity alone: on a path that launches ~400 kernels a step
+    through ``torch.func``, the host operations made the trace's summary
+    the longest part of the run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1857,8 +2135,8 @@ def profile_run(label: str, run, card: str, host: bool = False,
     run()
     _, untraced = timed(run)
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + ([ProfilerActivity.CPU] if cpu else [])) as prof:
         run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1898,9 +2176,11 @@ def profile_run(label: str, run, card: str, host: bool = False,
 def profile_ukf(dev, card: str) -> None:
     """Phase 6: device busy and idle share of the batched UKF step
     (B=512, dx=64) over PROFILE_T steps, of PROFILE_T steps of path A, of
-    one run of path B, of C5_PROFILE_T steps of each config-5 filter and of
+    one run of path B, of C5_PROFILE_T steps of each config-5 filter, of
     one run of path C with each solver (the native one with its host
-    operations), under torch.profiler."""
+    operations), of one run of each of path D's smoothers at PD_PROFILE_T
+    steps and of path E at PE_PROFILE_T steps (the device's activity
+    alone), under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1943,6 +2223,17 @@ def profile_ukf(dev, card: str) -> None:
                     lambda: tas.parallel_kalman_smoother(
                         cparams, cys, solver=solver, chunk=KF_CHUNK), card,
                     host=solver == "native")
+    # path D's smoothers and path E at short T, the device's activity alone
+    # (their host time is ~20 ms and ~140 us a step, so that the full
+    # paths' traces would take minutes)
+    dparams, dinputs, _, dem = rb_problem(PD_PROFILE_T, torch.float32, dev)
+    for label, run, _ in smoother_runs(PD_PROFILE_T, PD_ITER):
+        profile_run(f"path D {label} range-bearing T={PD_PROFILE_T} "
+                    f"{PD_ITER} iterations float32",
+                    lambda: run(dparams, dinputs, dem), card, cpu=False)
+    eparams, eys = path_e_problem(PE_PROFILE_T, dev)
+    profile_run(f"path E ieks scalar growth T={PE_PROFILE_T} float32",
+                lambda: path_e_run(eparams, eys), card, cpu=False)
 
 
 # ---------------------------------------------------------------------------

@@ -264,8 +264,6 @@ SUBPACKAGE_NOT_PORTED = {
     "ops": {
         "ekf_step": "item 4",
         "mc_moments": "item 4", "mcla_moments": "item 4",
-        "parallel_iterated_extended_smoother": "item 2",
-        "parallel_iterated_sigma_point_smoother": "item 2",
     },
     "models": {
         "FnStateToState": "item 5", "FnStateAndInputToState": "item 5",
