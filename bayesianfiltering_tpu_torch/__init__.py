@@ -22,6 +22,7 @@ from bayesianfiltering_tpu_torch.containers import GaussianSum
 from bayesianfiltering_tpu_torch.inference import (
     PosteriorGaussianSumFiltered,
     augmented_gaussian_sum_filter,
+    augmented_gaussian_sum_filter_optimal,
     bootstrap_particle_filter,
     extended_kalman_filter,
     gaussian_sum_filter,
@@ -51,6 +52,7 @@ __all__ = [
     "GaussianSum",
     "PosteriorGaussianSumFiltered",
     "augmented_gaussian_sum_filter",
+    "augmented_gaussian_sum_filter_optimal",
     "bootstrap_particle_filter",
     "extended_kalman_filter",
     "gaussian_sum_filter",

@@ -18,6 +18,12 @@ package's XLA) and keep only the affine recursion of the smoothed moments
 as a loop. The parallel iterated smoothers
 (``ops.parallel_iterated``) are re-exported here.
 
+The AGSF's adaptive splitting rules ("sdp", "trace") evaluate the model's
+Hessians (``torch.func.jacrev`` of its Jacobians) over the components and,
+for "sdp", run the batched fixed point of :mod:`~bayesianfiltering_tpu_torch.utils.sdp`:
+plain PyTorch, as the JAX package's XLA; the banks' moments stay in the
+kernels.
+
 Randomness: every stochastic entry point takes a ``torch.Generator`` or its
 standard-normal / uniform draws made beforehand (:class:`AGSFDraws`,
 :class:`BPFDraws`).
@@ -34,12 +40,14 @@ from bayesianfiltering_tpu_torch.containers import GaussianSum, split_gaussian_s
 from bayesianfiltering_tpu_torch.distributions import mvn_sample, standard_normal
 from bayesianfiltering_tpu_torch.models.params import ParamsBPF, ParamsNLSSM
 from bayesianfiltering_tpu_torch.ops import bank_update as _bank
+from bayesianfiltering_tpu_torch.ops import ekf as _ekf
 from bayesianfiltering_tpu_torch.ops import fused_ekf as _fused
 from bayesianfiltering_tpu_torch.ops import fused_ut as _fut
 from bayesianfiltering_tpu_torch.ops import ukf as _ukf
 from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
 from bayesianfiltering_tpu_torch.utils import resampling as _rs
 from bayesianfiltering_tpu_torch.utils.linalg import psd_solve, symmetrize
+from bayesianfiltering_tpu_torch.utils.sdp import sdp_opt
 from bayesianfiltering_tpu_torch.utils.sigma_points import (
     factor,
     points_blockdiag,
@@ -60,6 +68,12 @@ def _process_input(inputs, num_timesteps, like):
     if inputs is None:
         return like.new_zeros(num_timesteps, 1)
     return inputs
+
+
+def swap_axes_on_values(outputs: Dict, axis1: int = 0,
+                        axis2: int = 1) -> Dict:
+    """Every tensor of ``outputs`` with two of its axes swapped."""
+    return {k: v.swapaxes(axis1, axis2) for k, v in outputs.items()}
 
 
 def _predict_input(inputs, t, num_timesteps: int):
@@ -178,10 +192,15 @@ def extended_kalman_filter(
     ⌈dy/update_chunk⌉ K1 launches per iteration, exact when the effective
     emission noise is block-diagonal with respect to the chunks (e.g.
     diagonal R, the Lorenz-96 dx=512 configuration), an approximation
-    otherwise. ``compat_scalar`` is not ported yet.
+    otherwise.
+
+    ``compat_scalar`` runs the reference's update with its quirks
+    (:func:`~bayesianfiltering_tpu_torch.ops.ekf.ekf_condition_on_ref`,
+    plain linear algebra, no residual function) for golden parity, and
+    keeps the reference's predict with ``u_t`` in place of ``u_{t+1}``; it
+    ignores ``num_iter``, ``jitter`` and ``update_chunk``. The predict
+    still runs K2.
     """
-    if compat_scalar:
-        raise NotImplementedError("compat_scalar is not ported yet")
     batched = emissions.ndim == 3
     E = emissions if batched else emissions[None]
     B, T = E.shape[:2]
@@ -197,7 +216,10 @@ def extended_kalman_filter(
     fP, pP = E.new_empty(B, T, dx, dx), E.new_empty(B, T, dx, dx)
     for t in range(T):
         Q, q0, R, r0 = _slice_noise(params, t)
-        if update_chunk is None:
+        if compat_scalar:
+            upd = _ekf.ekf_condition_on_ref(m, P, h, H_x, H_r, R, r0,
+                                            inputs[t], E[:, t])
+        elif update_chunk is None:
             upd = _fused.fused_ekf_condition_on_iterated(
                 m, P, h, H_x, H_r, R, r0, inputs[t], E[:, t], num_iter,
                 jitter, residual_fn)
@@ -205,9 +227,10 @@ def extended_kalman_filter(
             upd = _fused.fused_ekf_condition_on_chunked(
                 m, P, h, H_x, H_r, R, r0, inputs[t], E[:, t], update_chunk,
                 num_iter, jitter, residual_fn)
+        # the reference-exact mode keeps the reference's u_t predict
+        u_next = inputs[t] if compat_scalar else _predict_input(inputs, t, T)
         m, P, _ = _fused.fused_ekf_predict(
-            upd.mean, upd.cov, f, F_x, F_q, Q, q0,
-            _predict_input(inputs, t, T))
+            upd.mean, upd.cov, f, F_x, F_q, Q, q0, u_next)
         ll = ll + upd.log_likelihood
         fm[:, t], fP[:, t], pm[:, t], pP[:, t] = upd.mean, upd.cov, m, P
     post = PosteriorGaussianFiltered(ll, fm, fP, pm, pP)
@@ -521,8 +544,10 @@ class AGSFDraws(NamedTuple):
     """The randomness of one AGSF run: ``init`` (M, dx) standard normals of
     the initial means; ``split1`` (T, M, N, dx) and ``split2``
     (T, M·N, L, dx) standard normals of the two splits; ``reduce`` the
-    reduction's uniforms per step — (T,) for "systematic", (T, M) for
-    "multinomial" and "stratified", None for "topk"."""
+    reduction's uniforms per step, ``(T,) + UNIFORM_SHAPES[reduction](M,
+    M·N·L)`` — (T,) for "systematic", (T, M) for "multinomial" and
+    "stratified", (T, M·N·L) for "optimal", None for "topk". With
+    ``compat_fixed_keys`` every step reuses one step's draws: T is 1."""
 
     init: torch.Tensor
     split1: torch.Tensor
@@ -540,17 +565,41 @@ def agsf_draws(generator: torch.Generator, num_timesteps: int,
     normal = lambda *shape: standard_normal(shape, like, generator)
     reduce = None
     if reduction in _rs.UNIFORM_SHAPES:
-        reduce = torch.rand((T,) + _rs.UNIFORM_SHAPES[reduction](M),
+        reduce = torch.rand((T,) + _rs.UNIFORM_SHAPES[reduction](M, M * N * L),
                             generator=generator, dtype=like.dtype,
                             device=like.device)
     return AGSFDraws(normal(M, state_dim), normal(T, M, N, state_dim),
                      normal(T, M * N, L, state_dim), reduce)
 
 
-def _select_split_cov(strategy: str, alpha, covs):
-    """Splitting covariances ("autocov"), batched over components: "prop"
-    Δ = α·P (the reference's active branch), "eye" Δ = α·I. "sdp" and
-    "trace" are not ported yet."""
+def _fixed_key_draws(generator: torch.Generator, num_components,
+                     state_dim: int, reduction: str,
+                     like: torch.Tensor) -> AGSFDraws:
+    """The draws of ``compat_fixed_keys``: the initial normals from a
+    generator seeded 0 (the reference's ``PRNGKey(0)``), and one step's
+    split normals and reduction uniforms from ``generator``, which every
+    step reuses (the reference reuses its key at every step)."""
+    step = agsf_draws(generator, 1, num_components, state_dim, reduction,
+                      like)
+    seed0 = torch.Generator(device=like.device).manual_seed(0)
+    init = standard_normal((int(num_components[0]), state_dim), like, seed0)
+    return step._replace(init=init)
+
+
+def _select_split_cov(strategy: str, alpha, means, covs, jacobian, hessian,
+                      num_splits: int, bias, u):
+    """Splitting covariances ("autocov"), batched over components:
+
+    * "prop": Δ = α·P (the reference's active branch);
+    * "eye": Δ = α·I;
+    * "sdp": the fixed-point solver :func:`~bayesianfiltering_tpu_torch.utils.sdp.sdp_opt`
+      on the Jacobian and Hessian at each mean;
+    * "trace": Δ = clamp(α·tr(P) / Σ_i |tr(H_i P)|, 0, 1)·P, the
+      Hessian-trace-scaled proportional rule with magnitudes (signed traces
+      can make Δ indefinite for sign-indefinite Hessians).
+
+    The Jacobians and Hessians are evaluated over the components with
+    ``torch.func.vmap`` (plain PyTorch, as the JAX package's XLA)."""
     if strategy == "prop":
         return alpha * covs
     if strategy == "eye":
@@ -558,24 +607,35 @@ def _select_split_cov(strategy: str, alpha, covs):
         eye = torch.eye(dx, dtype=covs.dtype, device=covs.device)
         return (alpha * eye).expand(covs.shape)
     if strategy in ("sdp", "trace"):
-        raise NotImplementedError(f"autocov={strategy!r} is not ported yet")
+        M, n = covs.shape[:2]
+        H = _ekf.batched(hessian)(means, bias, u).reshape(M, -1, n, n)
+        if strategy == "sdp":
+            J = _ekf.batched(jacobian)(means, bias, u).reshape(M, -1, n)
+            return sdp_opt(n, num_splits, covs, J, H, alpha)
+        traces = torch.diagonal(H @ covs[:, None], dim1=-2, dim2=-1).sum(-1)
+        denom = traces.abs().sum(-1)
+        tr_p = torch.diagonal(covs, dim1=-2, dim2=-1).sum(-1)
+        scale = (alpha * tr_p / (denom + 1e-30)).clamp(0.0, 1.0)
+        return scale[:, None, None] * covs
     raise ValueError(f"unknown autocov strategy {strategy!r}")
 
 
 def _agsf_engine(params: ParamsNLSSM, emissions, num_components, draws,
                  opt_args, inputs, reduction, autocov, num_iter, jitter,
-                 moments="ekf", uparams: Optional[ParamsUKF] = None):
+                 moments="ekf", uparams: Optional[ParamsUKF] = None,
+                 fixed_keys: bool = False):
     """AGSF loop: split → predict → split → update → reweight → reduce.
     Per step on CUDA tensors: with EKF moments one K4 (predict of M·N) and
     one K3 (update of M·N·L) launch per iteration; with UKF moments K7+K9
-    and K7+K8."""
+    and K7+K8. ``fixed_keys`` reuses the draws of step 0 at every step."""
     M, N, L = (int(c) for c in num_components)
     T = emissions.shape[0]
     use_ekf = moments == "ekf"
-    f, h = params.dynamics_function, params.emission_function
-    if use_ekf:
-        f, h, F_x, H_x, F_q, H_r = _jacobians(params)
-    else:
+    f, h, F_x, H_x, F_q, H_r = _jacobians(params)
+    # the Hessians (out, in, in) of the adaptive splitting rules, as the
+    # JAX package's jacrev of the Jacobians
+    F_xx, H_xx = torch.func.jacrev(F_x), torch.func.jacrev(H_x)
+    if not use_ekf:
         ukf_condition = _ukf_condition(num_iter, params.emission_residual)
     inputs = _process_input(inputs, T, emissions)
     residual_fn = params.emission_residual
@@ -591,11 +651,13 @@ def _agsf_engine(params: ParamsNLSSM, emissions, num_components, draws,
     for t in range(T):
         Q, q0, R, r0 = _slice_noise(params, t)
         u, y = inputs[t], emissions[t]
+        s = 0 if fixed_keys else t
 
         # autocov 1 + branch 1: M -> M·N, then predict
-        deltas = _select_split_cov(autocov, alpha0, covs)
+        deltas = _select_split_cov(autocov, alpha0, means, covs, F_x, F_xx,
+                                   N, q0, u)
         to_predict = split_gaussian_sum(GaussianSum(means, covs, weights),
-                                        deltas, N, eps=draws.split1[t])
+                                        deltas, N, eps=draws.split1[s])
         if use_ekf:
             pred_means, pred_covs, grads_dyn = _bank.bank_ekf_predict(
                 to_predict.means, to_predict.covariances, f, F_x, F_q, Q, q0,
@@ -606,10 +668,11 @@ def _agsf_engine(params: ParamsNLSSM, emissions, num_components, draws,
                 q0)
 
         # autocov 2 + branch 2: M·N -> M·N·L, then update
-        lambdas = _select_split_cov(autocov, alpha1, pred_covs)
+        lambdas = _select_split_cov(autocov, alpha1, pred_means, pred_covs,
+                                    H_x, H_xx, L, r0, u)
         to_update = split_gaussian_sum(
             GaussianSum(pred_means, pred_covs, to_predict.weights), lambdas, L,
-            eps=draws.split2[t])
+            eps=draws.split2[s])
         if use_ekf:
             upd = _bank.bank_ekf_condition_on_iterated(
                 to_update.means, to_update.covariances, h, H_x, H_r, R, r0, u,
@@ -624,7 +687,7 @@ def _agsf_engine(params: ParamsNLSSM, emissions, num_components, draws,
         # reduce M·N·L -> M
         reduced = containers.reduce_gaussian_sum(
             GaussianSum(upd_means, upd_covs, new_weights), M, reduction,
-            u=None if draws.reduce is None else draws.reduce[t])
+            u=None if draws.reduce is None else draws.reduce[s])
         means, covs, weights = reduced
 
         outputs["weights"].append(weights)
@@ -666,16 +729,21 @@ def augmented_gaussian_sum_filter(
     """Augmented Gaussian-sum filter (AGSF) with EKF moments on
     ``emissions`` (T, dy), ``num_components`` = [M, N, L].
 
-    Per step: select the splitting covariances Δ (``autocov``), branch each
-    of the M components into N, EKF-predict, select Λ, branch into L,
-    EKF-update, reweight, and reduce back to M components (``reduction`` ∈
-    {"multinomial", "systematic", "stratified", "topk"}). The randomness
-    comes from ``generator`` or from ``draws`` (:class:`AGSFDraws`).
+    Per step: select the splitting covariances Δ (``autocov`` ∈ {"prop",
+    "eye", "sdp", "trace"}), branch each of the M components into N,
+    EKF-predict, select Λ, branch into L, EKF-update, reweight, and reduce
+    back to M components (``reduction`` ∈ {"multinomial", "systematic",
+    "stratified", "topk", "optimal"}). The randomness comes from
+    ``generator`` or from ``draws`` (:class:`AGSFDraws`).
+
+    ``compat_fixed_keys`` reproduces the reference's key pattern in torch
+    form: the initial normals from a generator seeded 0, and one step's
+    split normals and reduction uniforms reused at every step (drawn once
+    from ``generator``, or ``draws`` with T = 1).
 
     Returns ``(posterior, aux)``; ``aux`` holds the per-step Deltas,
     Lambdas, updated means, pre-reduction weights, Jacobians and gains,
-    stacked along a leading time axis. ``compat_fixed_keys`` (the
-    reference's fixed keys) is not ported.
+    stacked along a leading time axis.
     """
     return _agsf(params, emissions, num_components, generator, num_iter,
                  opt_args, inputs, autocov, reduction, compat_fixed_keys,
@@ -685,18 +753,22 @@ def augmented_gaussian_sum_filter(
 def _agsf(params, emissions, num_components, generator, num_iter, opt_args,
           inputs, autocov, reduction, compat_fixed_keys, jitter, draws,
           moments, uparams):
-    if compat_fixed_keys:
-        raise NotImplementedError("compat_fixed_keys is not ported")
-    if reduction == "optimal":
-        raise NotImplementedError("optimal reduction is not ported yet")
     if draws is None:
         if generator is None:
             raise ValueError("pass a torch.Generator or the draws")
-        draws = agsf_draws(generator, emissions.shape[0], num_components,
-                           params.initial_mean.shape[-1], reduction, emissions)
+        dx = params.initial_mean.shape[-1]
+        if compat_fixed_keys:
+            draws = _fixed_key_draws(generator, num_components, dx,
+                                     reduction, emissions)
+        else:
+            draws = agsf_draws(generator, emissions.shape[0], num_components,
+                               dx, reduction, emissions)
+    elif compat_fixed_keys and draws.split1.shape[0] != 1:
+        raise ValueError("compat_fixed_keys reuses one step's draws: pass "
+                         "draws with T = 1")
     return _agsf_engine(params, emissions, num_components, draws, opt_args,
                         inputs, reduction, autocov, num_iter, jitter, moments,
-                        uparams)
+                        uparams, compat_fixed_keys)
 
 
 # The reference's vectorized rewrite is this package's only implementation.
@@ -729,6 +801,27 @@ def unscented_agsf(
 
 
 speedy_unscented_agsf = unscented_agsf
+
+
+def augmented_gaussian_sum_filter_optimal(
+    params: ParamsNLSSM,
+    emissions: torch.Tensor,
+    num_components: Sequence[int],
+    generator: Optional[torch.Generator] = None,
+    num_iter: int = 1,
+    opt_args: Tuple[float, float] = (0.1, 0.1),
+    inputs: Optional[torch.Tensor] = None,
+    autocov: str = "prop",
+    compat_fixed_keys: bool = False,
+    jitter: float = 0.0,
+    draws: Optional[AGSFDraws] = None,
+):
+    """:func:`augmented_gaussian_sum_filter` with the Fearnhead–Clifford
+    optimal reduction: heavy components survive deterministically, light
+    ones are resampled, and the weights are not uniform."""
+    return _agsf(params, emissions, num_components, generator, num_iter,
+                 opt_args, inputs, autocov, "optimal", compat_fixed_keys,
+                 jitter, draws, "ekf", None)
 
 
 # ---------------------------------------------------------------------------
@@ -869,4 +962,6 @@ __all__ = [
     "speedy_augmented_gaussian_sum_filter",
     "unscented_agsf",
     "speedy_unscented_agsf",
+    "augmented_gaussian_sum_filter_optimal",
+    "swap_axes_on_values",
 ]

@@ -32,7 +32,7 @@ def _like(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _bundle(state_dim, state_noise_dim, emission_dim, emission_noise_dim,
-            mu0, Sigma0, f, Q, h, R, **extras):
+            mu0, Sigma0, f, Q, h, R, log_prob=None, **extras):
     model = NonlinearSSM(state_dim, state_noise_dim, emission_dim,
                          emission_noise_dim)
     params = ParamsNLSSM(
@@ -46,8 +46,9 @@ def _bundle(state_dim, state_noise_dim, emission_dim, emission_noise_dim,
         emission_noise_covariance=R,
         **extras,
     )
-    r0 = params.emission_noise_bias
-    log_prob = lambda x, y, u: mvn_logpdf(y, h(x, r0, u), R)
+    if log_prob is None:
+        r0 = params.emission_noise_bias
+        log_prob = lambda x, y, u: mvn_logpdf(y, h(x, r0, u), R)
     bpf_params = ParamsBPF(*params[:8], emission_distribution_log_prob=log_prob)
     return model, params, bpf_params
 
@@ -88,6 +89,40 @@ def linear_gaussian_lgssm(state_dim: int = 3, emission_dim: int = 3,
     )
 
 
+def _input(u, x):
+    """The input's first component as a width-1 slice in ``x``'s dtype."""
+    return torch.as_tensor(u).to(x).reshape(-1)[0:1]
+
+
+def _sq_norm(x):
+    """xᵀx over the trailing axis, kept as a width-1 axis."""
+    return (x * x).sum(-1, keepdim=True)
+
+
+def quadratic_measurement(a: float = 0.8, b: float = 0.1, q: float = 1.0,
+                          r: float = 1.0, dtype: torch.dtype = torch.float32,
+                          device=None):
+    """The 1-D model f = a·x + q, g = b·x² + r of the ICASSP-2023
+    experiment."""
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    f = lambda x, qn, u: a * x + qn
+    h = lambda x, rn, u: b * x ** 2 + rn
+    return _bundle(1, 1, 1, 1, torch.zeros(1, **kw), torch.eye(1, **kw), f,
+                   q * torch.eye(1, **kw), h, r * torch.eye(1, **kw))
+
+
+def sine_quadratic(a: float = 10.0, q: float = 1.0, r: float = 1.0,
+                   dtype: torch.dtype = torch.float32, device=None):
+    """The 1-D "Experiment A" model f = sin(a·x) + q, g = x·x + r: the
+    dynamics fold the state into [−1, 1] and the quadratic emission hides
+    its sign, a multimodal posterior."""
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    f = lambda x, qn, u: torch.sin(a * x) + qn
+    h = lambda x, rn, u: _sq_norm(x) + rn
+    return _bundle(1, 1, 1, 1, torch.zeros(1, **kw), torch.eye(1, **kw), f,
+                   q * torch.eye(1, **kw), h, r * torch.eye(1, **kw))
+
+
 def scalar_growth(q: float = 10.0, r: float = 1.0,
                   dtype: torch.dtype = torch.float32, device=None):
     """Univariate nonlinear growth model (UNGM), the classic EKF stress
@@ -96,7 +131,7 @@ def scalar_growth(q: float = 10.0, r: float = 1.0,
     kw = dict(dtype=dtype, device=resolve_device(device))
 
     def f(x, qn, u):
-        u = torch.as_tensor(u).to(x).reshape(-1)[0:1]
+        u = _input(u, x)
         return (0.5 * x + 25.0 * x / (1.0 + x ** 2)
                 + 8.0 * torch.cos(1.2 * u) + qn)
 
@@ -238,6 +273,78 @@ def bot_experiment_inputs(seq_length: int, device=None) -> torch.Tensor:
                         device=resolve_device(device))
 
 
+def _lorenz63_step(sigma: float, rho: float, beta: float, dt: float):
+    """One Euler step of the Lorenz-63 vector field."""
+    def step(x):
+        x0, x1, x2 = x[..., 0:1], x[..., 1:2], x[..., 2:3]
+        return torch.cat([x0 + dt * sigma * (x1 - x0),
+                          x1 + dt * (x0 * rho - x1 - x0 * x2),
+                          x2 + dt * (x0 * x1 - beta * x2)], dim=-1)
+    return step
+
+
+def tsp_lorenz63(q: float = 20.0, r: float = 0.1, obs_scale: float = 0.001,
+                 dt: float = 0.01, dtype: torch.dtype = torch.float32,
+                 device=None):
+    """The TSP-2023 experiment's model: Lorenz-63 Euler dynamics
+    (σ, ρ, β = 10, 28, 2.667) with Q = q·I₃ and the weak quadratic
+    observation y = obs_scale·xᵀx + r, R = r, μ₀ = 0, Σ₀ = I₃."""
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    step = _lorenz63_step(10.0, 28.0, 2.667, dt)
+    f = lambda x, qn, u: step(x) + qn
+    h = lambda x, rn, u: obs_scale * _sq_norm(x) + rn
+    return _bundle(3, 3, 1, 1, torch.zeros(3, **kw), torch.eye(3, **kw), f,
+                   q * torch.eye(3, **kw), h, r * torch.eye(1, **kw))
+
+
+def stochastic_volatility(state_dim: int = 3, sigma: float = 5.0,
+                          beta: float = 0.5, phi: float = 0.8,
+                          q: float = 20.0, r: float = 1e-3,
+                          dtype: torch.dtype = torch.float32, device=None):
+    """Markov-switching stochastic volatility: x' = φ x + q, and the
+    emission ``u·β·exp(x/σ)·r + (1 − u)(H0 x + r)`` (H0 = 0.1·I) switched by
+    the regime input u ∈ {0, 1}, multiplicative noise for u = 1. The BPF's
+    log-density uses the covariance M R Mᵀ, M = u·β·diag(exp(x/σ)) +
+    (1 − u)·I, over a batch of particles."""
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    Phi = phi * torch.eye(state_dim, **kw)
+    H0 = 0.1 * torch.eye(state_dim, **kw)
+    R = r * torch.eye(state_dim, **kw)
+    eye = torch.eye(state_dim, **kw)
+
+    f = lambda x, qn, u: x @ _like(Phi, x).mT + qn
+
+    def h(x, rn, u):
+        u = _input(u, x)
+        return (u * beta * torch.exp(x / sigma) * rn
+                + (1 - u) * (x @ _like(H0, x).mT + rn))
+
+    def log_prob(x, y, u):
+        u = _input(u, x)
+        M = (u[..., None] * beta * torch.diag_embed(torch.exp(x / sigma))
+             + (1 - u)[..., None] * _like(eye, x))
+        r0 = torch.zeros_like(x)
+        return mvn_logpdf(y, h(x, r0, u), M @ _like(R, x) @ M.mT)
+
+    return _bundle(state_dim, state_dim, state_dim, state_dim,
+                   torch.zeros(state_dim, **kw), torch.eye(state_dim, **kw),
+                   f, q * torch.eye(state_dim, **kw), h, R,
+                   log_prob=log_prob)
+
+
+def lorenz63(sigma: float = 10.0, rho: float = 28.0, beta: float = 2.667,
+             dt: float = 0.01, q: float = 0.1, r: float = 1.0,
+             dtype: torch.dtype = torch.float32, device=None):
+    """Lorenz-63 (Euler step) with the quadratic-norm observation
+    y = xᵀx + r, μ₀ = 1."""
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    step = _lorenz63_step(sigma, rho, beta, dt)
+    f = lambda x, qn, u: step(x) + qn
+    h = lambda x, rn, u: _sq_norm(x) + rn
+    return _bundle(3, 3, 1, 1, torch.ones(3, **kw), torch.eye(3, **kw), f,
+                   q * torch.eye(3, **kw), h, r * torch.eye(1, **kw))
+
+
 def lorenz96(state_dim: int = 40, emission_dim: Optional[int] = None,
              alpha: float = 1.0, beta: float = 1.0, gamma: float = 8.0,
              dt: float = 0.01, q: float = 0.1, r: float = 1.0,
@@ -283,7 +390,86 @@ def lorenz96(state_dim: int = 40, emission_dim: Optional[int] = None,
                    h, R)
 
 
-__all__ = ["linear_gaussian", "linear_gaussian_lgssm", "scalar_growth",
-           "bearings_only_tracking",
-           "bot_maneuver_inputs", "lorenz96", "range_bearing_tracking",
-           "bot_experiment_inputs"]
+# ---------------------------------------------------------------------------
+# Nonlinearity test functions, each with its Jacobian and Hessian where the
+# reference gives them; they act on the trailing axis of x
+# ---------------------------------------------------------------------------
+
+def power_nonlinearity(p: float):
+    """f(x) = (1 + ‖x‖²)^(p/2) with J and H."""
+    def f(x):
+        return (1 + (x * x).sum(-1)) ** (p / 2)
+
+    def J(x):
+        return (p * (1 + (x * x).sum(-1)) ** (p / 2 - 1))[..., None] * x
+
+    def H(x):
+        s = 1 + (x * x).sum(-1)
+        eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+        return ((2 * p * (p / 2 - 1) * s ** (p / 2 - 2))[..., None, None]
+                * x[..., :, None] * x[..., None, :]
+                + eye * (p * s ** (p / 2 - 1))[..., None, None])
+    return f, J, H
+
+
+def sinc_nonlinearity():
+    """f(x) = sin(‖x‖²)/‖x‖²."""
+    def f(x):
+        s = (x * x).sum(-1)
+        return torch.sin(s) / s
+    return f
+
+
+def linear_nonlinear_product():
+    """f(x) = x₀ sin(x₁) with J and H."""
+    f = lambda x: x[..., 0] * torch.sin(x[..., 1])
+
+    def J(x):
+        return torch.stack([torch.sin(x[..., 1]),
+                            x[..., 0] * torch.cos(x[..., 1])], dim=-1)
+
+    def H(x):
+        c = torch.cos(x[..., 1])
+        return torch.stack([
+            torch.stack([torch.zeros_like(c), c], dim=-1),
+            torch.stack([c, -x[..., 0] * torch.sin(x[..., 1])], dim=-1)],
+            dim=-2)
+    return f, J, H
+
+
+def linear_nonlinear_sum():
+    """f(x) = x₀ + sin(x₁) with J and H."""
+    f = lambda x: x[..., 0] + torch.sin(x[..., 1])
+
+    def J(x):
+        return torch.stack([torch.ones_like(x[..., 0]),
+                            torch.cos(x[..., 1])], dim=-1)
+
+    def H(x):
+        zero = torch.zeros_like(x[..., 0])
+        return torch.stack([torch.stack([zero, zero], dim=-1),
+                            torch.stack([zero, -torch.sin(x[..., 1])],
+                                        dim=-1)], dim=-2)
+    return f, J, H
+
+
+def quadratic_form(a: float = 1.0, b: float = 1.0):
+    """f(x) = xᵀAx/2 with A = diag(a, b), J = A x, H = A."""
+    def A(x):
+        return torch.tensor([[a, 0.0], [0.0, b]], dtype=x.dtype,
+                            device=x.device)
+
+    f = lambda x: (x * (x @ A(x).mT)).sum(-1) / 2
+    J = lambda x: x @ A(x).mT
+    H = lambda x: A(x).expand(x.shape[:-1] + (2, 2))
+    return f, J, H
+
+
+__all__ = ["quadratic_measurement", "sine_quadratic", "scalar_growth",
+           "linear_gaussian", "linear_gaussian_lgssm",
+           "bearings_only_tracking", "bot_maneuver_inputs",
+           "range_bearing_tracking", "bot_experiment_inputs", "tsp_lorenz63",
+           "stochastic_volatility", "lorenz63", "lorenz96",
+           "power_nonlinearity", "sinc_nonlinearity",
+           "linear_nonlinear_product", "linear_nonlinear_sum",
+           "quadratic_form"]

@@ -10,6 +10,8 @@ from bayesianfiltering_tpu_torch.ops import (
     linear,
     parallel_iterated,
     resample_gather,
+    slr,
+    steady_state,
     ukf,
 )
 from bayesianfiltering_tpu_torch.ops.associative import (
@@ -22,7 +24,9 @@ from bayesianfiltering_tpu_torch.ops.ekf import (
     EKFUpdate,
     ekf_condition_on,
     ekf_condition_on_iterated,
+    ekf_condition_on_ref,
     ekf_predict,
+    ekf_step,
 )
 from bayesianfiltering_tpu_torch.ops.linear import (
     ParamsLGSSM,
@@ -34,6 +38,13 @@ from bayesianfiltering_tpu_torch.ops.parallel_iterated import (
     parallel_iterated_extended_smoother,
     parallel_iterated_sigma_point_smoother,
 )
+from bayesianfiltering_tpu_torch.ops.slr import mc_moments, mcla_moments
+from bayesianfiltering_tpu_torch.ops.steady_state import (
+    SteadyStateGains,
+    steady_state_gains,
+    steady_state_kalman_filter,
+    steady_state_kalman_smoother,
+)
 from bayesianfiltering_tpu_torch.ops.ukf import (
     ParamsUKF,
     ukf_condition_on_additive,
@@ -44,12 +55,14 @@ from bayesianfiltering_tpu_torch.ops.ukf import (
 
 __all__ = ["associative", "bank_combine", "bank_smoother", "bank_update",
            "ekf", "fused_ekf", "fused_ut", "linear", "parallel_iterated",
-           "resample_gather", "ukf",
+           "resample_gather", "slr", "steady_state", "ukf",
            "EKFUpdate", "ekf_predict", "ekf_condition_on",
-           "ekf_condition_on_iterated", "ParamsUKF", "ukf_predict_additive",
+           "ekf_condition_on_iterated", "ekf_condition_on_ref", "ekf_step", "ParamsUKF", "ukf_predict_additive",
            "ukf_predict_nonadditive", "ukf_condition_on_additive",
            "ukf_condition_on_nonadditive", "ParamsLGSSM", "PosteriorKalman",
            "kalman_filter", "kalman_smoother", "parallel_kalman_filter",
            "parallel_kalman_smoother", "parallel_kalman_filter_tv",
            "parallel_kalman_smoother_tv", "parallel_iterated_extended_smoother",
-           "parallel_iterated_sigma_point_smoother"]
+           "parallel_iterated_sigma_point_smoother", "mc_moments",
+           "mcla_moments", "SteadyStateGains", "steady_state_gains",
+           "steady_state_kalman_filter", "steady_state_kalman_smoother"]

@@ -126,6 +126,31 @@ def ekf_condition_on(m, P, h, H_x, H_r, R, r0, u, y, jitter=0.0,
                                      jitter, residual_fn)
 
 
+def ekf_condition_on_ref(m, P, h, H_x, H_r, R, r0, u, y) -> EKFUpdate:
+    """The reference's EKF update with its quirks, for golden parity: the
+    gain from an LU solve of ``S + 1e-6`` with the scalar added to EVERY
+    entry, the covariance in the difference form ``P − K S Kᵀ`` and the
+    log-likelihood on the unperturbed ``S``; the innovation is plain
+    subtraction. Batched as :func:`ekf_condition_on_iterated`, plain
+    linear algebra (the JAX package runs it in XLA, with no kernel)."""
+    y = torch.atleast_1d(y)
+    B, dx = m.shape
+    Hx = batched(H_x)(m, r0, u).reshape(B, -1, dx)
+    Hr = batched(H_r)(m, r0, u).reshape(B, Hx.shape[1], -1)
+    S = Hr @ R @ Hr.mT + Hx @ P @ Hx.mT
+    # solve_ex: no synchronisation for an error check
+    K = torch.linalg.solve_ex(S + 1e-6, Hx @ P)[0].mT
+    cov = P - K @ S @ K.mT
+    innov = y - batched(h)(m, r0, u).reshape(B, -1)
+    mean = m + (K @ innov[..., None])[..., 0]
+    chol = cholesky_nan(S)
+    z = torch.linalg.solve_triangular(chol, innov[..., None], upper=False)
+    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+    ll = -0.5 * (innov.shape[-1] * _LOG_2PI + logdet
+                 + (z[..., 0] ** 2).sum(-1))
+    return EKFUpdate(ll, mean, cov, Hx, K)
+
+
 def ekf_predict(m, P, f, F_x, F_q, Q, q0, u,
                 predict_cov: Callable = predict_cov_precomputed
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -139,6 +164,19 @@ def ekf_predict(m, P, f, F_x, F_q, Q, q0, u,
     return mu, predict_cov(Fx, P, Fq, Q), Fx
 
 
+def ekf_step(m, P, f, F_x, F_q, Q, q0, u, h, H_x, H_r, R, r0, y,
+             jitter=0.0):
+    """Predict, then update on ``y``, over a batch: the covariance
+    propagation and the update run in K2 and K1 on CUDA tensors
+    (``ops.fused_ekf``). Returns ``(ll, mean, cov)``."""
+    from bayesianfiltering_tpu_torch.ops import fused_ekf
+
+    mu, Sigma, _ = fused_ekf.fused_ekf_predict(m, P, f, F_x, F_q, Q, q0, u)
+    out = fused_ekf.fused_ekf_condition_on_iterated(
+        mu, Sigma, h, H_x, H_r, R, r0, u, y, 1, jitter)
+    return out.log_likelihood, out.mean, out.cov
+
+
 __all__ = [
     "EKFUpdate",
     "batched",
@@ -147,4 +185,6 @@ __all__ = [
     "ekf_predict",
     "ekf_condition_on",
     "ekf_condition_on_iterated",
+    "ekf_condition_on_ref",
+    "ekf_step",
 ]

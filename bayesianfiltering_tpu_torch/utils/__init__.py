@@ -1,6 +1,7 @@
-"""Numerical utilities: linear algebra, angles, resampling, sigma points
-and metrics, re-exported as one flat namespace as the reference's
-``utils`` is (``utils.rmse``, ``utils.systematic_resample``, ...)."""
+"""Numerical utilities: linear algebra, angles, resampling, the
+splitting-covariance solvers, sigma points and metrics, re-exported as one
+flat namespace as the reference's ``utils`` is (``utils.rmse``,
+``utils.systematic_resample``, ...)."""
 from bayesianfiltering_tpu_torch.utils.angles import angular_residual, wrap_angle
 from bayesianfiltering_tpu_torch.utils.linalg import (
     cholesky_guarded,
@@ -11,8 +12,11 @@ from bayesianfiltering_tpu_torch.utils.linalg import (
     psd_solve,
     sqrtm_psd,
     sqrtm_psd_eigh,
+    matrix_projection,
+    sandwich,
     sqrtm_psd_ns,
     symmetrize,
+    tri_solve_lower,
 )
 from bayesianfiltering_tpu_torch.utils.metrics import (
     W_distance,
@@ -27,11 +31,21 @@ from bayesianfiltering_tpu_torch.utils.metrics import (
     rmse,
 )
 from bayesianfiltering_tpu_torch.utils.resampling import (
+    _resample,
     effective_sample_size,
     get_resampler,
     multinomial_resample,
+    optimal_resampling,
+    resample,
+    retain,
+    split_by_sampling,
     stratified_resample,
     systematic_resample,
+)
+from bayesianfiltering_tpu_torch.utils.sdp import (
+    gradient_descent,
+    sdp_opt,
+    sdp_opt2,
 )
 from bayesianfiltering_tpu_torch.utils.sigma_points import (
     _get_sigma_points,
@@ -45,7 +59,7 @@ __all__ = [
     "symmetrize", "psd_solve", "project_to_psd", "project_to_psd_ns",
     "project_to_psd_fast",
     "sqrtm_psd", "sqrtm_psd_eigh", "sqrtm_psd_ns", "cholesky_guarded",
-    "cholesky_nan",
+    "cholesky_nan", "tri_solve_lower", "sandwich", "matrix_projection",
     # metrics
     "mse", "rmse", "collapse", "normal_KL_div", "normal_kl", "W_distance",
     "gaussian_logpdf", "gm", "loss", "dec_to_base",
@@ -54,7 +68,10 @@ __all__ = [
     "unscented_weights",
     # resampling
     "effective_sample_size", "multinomial_resample", "systematic_resample",
-    "stratified_resample", "get_resampler",
+    "stratified_resample", "get_resampler", "_resample", "optimal_resampling",
+    "resample", "retain", "split_by_sampling",
+    # sdp
+    "sdp_opt", "sdp_opt2", "gradient_descent",
     # angles
     "wrap_angle", "angular_residual",
 ]

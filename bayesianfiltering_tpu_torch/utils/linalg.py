@@ -126,7 +126,28 @@ def sqrtm_psd(p: torch.Tensor) -> torch.Tensor:
     return sqrtm_psd_eigh(p)
 
 
+def tri_solve_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``L x = b`` for lower-triangular ``L`` (batched); ``b`` is
+    (..., n) or (..., n, k). The JAX package multiplies by the inverse, a
+    TPU workaround; here it is the triangular solve."""
+    vector_rhs = b.ndim == L.ndim - 1
+    x = torch.linalg.solve_triangular(L, b[..., None] if vector_rhs else b,
+                                      upper=False)
+    return x[..., 0] if vector_rhs else x
+
+
+def sandwich(f: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Congruence ``F P Fᵀ`` (batched)."""
+    return f @ p @ f.mT
+
+
+def matrix_projection(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Frobenius projection of ``A`` on span(B): ``(tr(AᵀB) / tr(BᵀB)) B``."""
+    return ((a * b).sum((-2, -1)) / (b * b).sum((-2, -1)))[..., None, None] * b
+
+
 __all__ = ["symmetrize", "cholesky_nan", "psd_solve", "cholesky_guarded",
            "project_to_psd", "project_to_psd_ns", "project_to_psd_fast",
            "sqrtm_psd_eigh",
-           "sqrtm_psd_ns", "sqrtm_psd"]
+           "sqrtm_psd_ns", "sqrtm_psd", "tri_solve_lower", "sandwich",
+           "matrix_projection"]

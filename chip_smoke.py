@@ -44,9 +44,11 @@ and prints no result):
    the same finite and non-finite entries (dx = 4 to 512). K11 also with
    one F a lane (banked), at path D's (M = 499, dx = 4) and path E's
    (M = T − 1, dx = 1) elements, and K10 and K12 at dx = 1 over path E's
-   lanes. K5 (integer
-   parents) must equal its plain version exactly at n = 2²⁰, 65,536 and
-   1,408 (m + n one stretch of its merge path) on five weight profiles,
+   lanes. K3 and K4 also at paths F's and G's banks (dx = 1 and 3), K7–K9
+   at path F's UKF banks (na = 2). K5 (integer
+   parents) must equal its plain version exactly at n = 2²⁰, 65,536,
+   1,408 (m + n one stretch of its merge path), and the bootstrap PFs'
+   100 and 20,000 (paths F, G; timed too) on five weight profiles,
    and at the Gaussian-sum reductions' m counts → n
    slots. Times each kernel and its plain version with CUDA events at the
    main-path shapes (float32; K1/K2, K1t, K2t, K6t, K8t, K9t, K10, K11b
@@ -75,8 +77,15 @@ and prints no result):
    T=1,024, both solvers, float32 and float64), the time-varying parallel
    filter and smoother at the BOT widths (dx=4, T=500) and at path C's
    (T=1,024, per-step F: K10b, K11b with F banked, K12b), float32 and
-   float64, and path D's five smoothers at T=100 with 3 iterations in
-   float64, each with its exact launches.
+   float64, path D's five smoothers at T=100 with 3 iterations in
+   float64, and, in float64 at T=20: the AGSF [3,2,2] on Experiment A's
+   model with autocov "sdp" and "trace", the AGSF and the UAGSF with the
+   optimal reduction and the AGSF with ``compat_fixed_keys`` on the
+   stochastic-volatility model (regime switch at T/2), the reference-exact
+   EKF (``compat_scalar``) on the quadratic-measurement model,
+   ``ekf_step`` over 16 Lorenz-63 states, and the steady-state filter and
+   smoother on path B's model at T=4,096 (no launches); each with its
+   exact launches.
 5. The main paths, each with every launch counter reset just before it and
    read just after: the batched EKF on Lorenz-96 (dx=64, dy=32, B=512
    sequences, T=1000; data from the RK4 model, filter on the Euler model);
@@ -101,9 +110,20 @@ and prints no result):
    LM-IEKS and the IPLS, with their RMSE against the sampled states);
    path E, the IEKS row of experiments/parallel_kf_bench.py (the UNGM,
    3 iterations, chunk 128, the rollout nominal, T=2^18; the rollout
-   alone timed at 65,536 steps). Config 5, path C and path D run three
-   times each in one process and report the median and the range. Checks
-   finiteness, shapes and the launch counts of every kernel.
+   alone timed at 65,536 steps); path F, Experiment A of
+   experiments/expa_experiment.py (``zoo.sine_quadratic()``, T=100: the
+   GSF M=5, the UGSF M=3, the AGSF [3,2,2] with autocov "prop", "trace"
+   and "sdp", the UAGSF [3,2,2] with "trace", a BPF of 100 particles) and
+   path G, the regime switch of experiments/adaptive_experiment.py
+   (``zoo.stochastic_volatility()``, T=100, inputs 1 from T/2: the GSF
+   M=20, the AGSF [20,2,2], the AGSF-optimal [20,2,2], a BPF of 20,000
+   particles), each filter on 3 sequences with its wall's median and range
+   and its mean RMSE; path H, the steady-state filter and smoother on path
+   B's model and data (T=1M, head 64, 128 Riccati iterations: no kernel),
+   with the largest gap to path B's parallel smoother. Config 5, paths
+   C, D and H run three times each in one process and report the median
+   and the range. Checks finiteness, shapes and the launch counts of
+   every kernel.
 6. The device's busy and idle share, and the kernels with the most
    device time, under torch.profiler: the batched UKF step, ten steps of
    the 1M-particle BPF (with the split of its resampling steps between
@@ -113,7 +133,8 @@ and prints no result):
    host, the UKF's between K6t, K8t and K9t), one run of path C with each
    solver (the native one with its host operations), one run of each of
    path D's smoothers at T=20 and of path E at T=2,048 (the device's
-   activity alone).
+   activity alone), one run of path F's AGSF with autocov "sdp" at T=20
+   (the device's activity alone) and of path H's smoother at T=1M.
 
 The last three lines: a JSON object describing each kernel, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -205,6 +226,28 @@ REPS = 3  # calls of each new path in one process: median and range
 # [8,2,2] 16 and 32
 BANK_UPDATES = ((50, 4, 1), (200, 4, 1), (32, 4, 1))
 BANK_PREDICTS = ((50, 4, 2), (100, 4, 2), (16, 4, 2))
+# paths F and G: experiments/expa_experiment.py:51-79 (Experiment A:
+# sine_quadratic, T = 100, ParamsUKF(1, 0, 0), opt_args (0.8, 1.0), a BPF of
+# 100 particles) and experiments/adaptive_experiment.py:26-70 (the
+# stochastic-volatility regime switch at T/2: M = 20, a BPF of 20,000
+# particles); SLICE_SEEDS sequences each (the sources run 100 and 10)
+SLICE_T, SLICE_SEEDS, SLICE_CMP_T, SLICE_PROFILE_T = 100, 3, 20, 20
+EXPA_OPT_ARGS, EXPA_PARTICLES = (0.8, 1.0), 100
+MSV_M, MSV_PARTICLES = 20, 20_000
+# path H: experiments/profile_chunked.py:13-20,49-56, the steady-state filter
+# and smoother on path B's model and data (T = 1M, head 64, 128 Riccati
+# iterations)
+SS_HEAD, SS_ITERS = 64, 128
+# path F (Experiment A, dx = 1): the GSF M = 5 and the AGSF [3,2,2]
+# (predict over 6, update over 12); path G (stochastic volatility,
+# dx = dy = dq = 3): the GSF M = 20 and the AGSF [20,2,2] (40, 80)
+SLICE_BANK_UPDATES = ((5, 1, 1), (12, 1, 1), (20, 3, 3), (80, 3, 3))
+SLICE_BANK_PREDICTS = ((5, 1, 1), (6, 1, 1), (20, 3, 3), (40, 3, 3))
+# path F's UKF banks: the UGSF M = 3 and the UAGSF [3,2,2]
+SLICE_UT_BANKS = ((3, "update"), (3, "predict"), (6, "predict"),
+                  (12, "update"))
+# path F's and G's bootstrap PFs: K5 at n = 100 and 20,000
+SLICE_PARENTS = (100, 20_000)
 SIGMA_TILED_SYMBOLS = ("sigma_tiled_prep_kernel", "sigma_tiled_trace_kernel",
                        "chol_diag_kernel", "tiled_gemm_kernel",
                        "sigma_tiled_root_kernel", "sigma_tiled_points_kernel")
@@ -685,6 +728,14 @@ def kernel_cases():
              "main" if i == 0 else "also")
     pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 130, 5, 7)
     pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, 4096, 8, 8)
+    # paths F and G: K3 and K4 at Experiment A's banks (dx = dy = dq = 1)
+    # and at the stochastic-volatility model's (dx = dy = dq = 3), widths
+    # below the 16-byte row loads (SLICE_BANK_UPDATES, SLICE_BANK_PREDICTS)
+    for M, dx, dy in SLICE_BANK_UPDATES:
+        upd(bu.K3, bu.bank_chol_update, bu._update_plain, M, dx, dy, "also")
+    for M, dx, dq in SLICE_BANK_PREDICTS:
+        pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, M, dx, dq,
+             "also")
     # Lorenz-96 UKF (dx=64, dy=32, augmented na = 128 and 96), the
     # range-bearing banks (na = 6 at M = 32..100), n = 128 (Newton–Schulz:
     # K6t) and both sides of K6's and K7's rules (K6's Cholesky at
@@ -709,6 +760,15 @@ def kernel_cases():
     sigma_aug(32, 4, 2, "sqrtm")
     sigma_aug(2, 100, 28, "cholesky")
     sigma_aug(2, 100, 28, "sqrtm")
+    # path F: the UGSF M = 3 and the UAGSF [3,2,2] (predict over M·N = 6,
+    # update over M·N·L = 12) at Experiment A's widths, dx = dq = dr = 1
+    for M in sorted({m for m, _ in SLICE_UT_BANKS}):
+        sigma_aug(M, 1, 1, "cholesky", "also")
+    for M, step in SLICE_UT_BANKS:
+        if step == "update":
+            ut_update(M, 4, 2, 1, 1, False, "also")
+        else:
+            ut_predict(M, 4, 1, False, "also")
     ut_update(512, 128, 64, 64, 32, True, "main")
     ut_update(512, 192, 96, 64, 32, False, "also")
     ut_update(100, 12, 6, 4, 2, False)
@@ -1007,8 +1067,9 @@ def check_parents(dev) -> dict:
     from bayesianfiltering_tpu_torch.utils import resampling as rs
 
     rng = np.random.default_rng(SEED)
-    # n = 1,408: m + n is one stretch of K5's merge path exactly
-    for n in (1 << 20, 1 << 16, 1408):
+    # n = 1,408: m + n is one stretch of K5's merge path exactly; 100 and
+    # 20,000: the bootstrap PFs of paths F and G
+    for n in (1 << 20, 1 << 16, 1408) + SLICE_PARENTS:
         for profile in testing.PARENT_PROFILES:
             counts = torch.as_tensor(testing.resampling_counts(profile, n, rng),
                                      device=dev)
@@ -1058,6 +1119,32 @@ def check_parents(dev) -> dict:
         f"{dev_ms} ms, torch.searchsorted {library_dev_ms} ms; CUDA graph of "
         f"100 calls: kernel {k_graph_ms:.4f} ms, torch.searchsorted "
         f"{library_graph_ms:.4f} ms per call")
+    also = []
+    for m in SLICE_PARENTS:
+        c = torch.as_tensor(testing.resampling_counts("dirichlet", m, rng),
+                            device=dev).to(torch.int32)
+        got_m = rg._parents_launch(c, m)
+        lib_m = lambda: torch.searchsorted(
+            c, torch.arange(m, dtype=torch.int32, device=dev),
+            right=True).clamp_max_(m - 1)
+        if not torch.equal(got_m.long(), lib_m()):
+            raise RuntimeError(f"K5 differs from torch.searchsorted at n={m}")
+        b_ms, b_by = bound([c], [got_m], 2 * m, "float32")
+        entry = dict(shape=f"n={m},int32,Dirichlet(0.5)", max_abs_err=0.0,
+                     ms=cuda_time_ms(lambda: rg._parents_launch(c, m)),
+                     plain_ms=cuda_time_ms(lambda: rg._parents_plain(c, m)),
+                     library_ms=cuda_time_ms(lib_m), bound_ms=b_ms,
+                     bound_by=b_by,
+                     device_ms=device_ms(lambda: rg._parents_launch(c, m),
+                                         KERNEL_SYMBOLS[rg.K5.name]),
+                     library_device_ms=device_ms(lib_m, ("",)))
+        entry["bound_share"] = b_ms / entry["ms"]
+        log(f"  time at n={m} int32: kernel {entry['ms']:.4f} ms, plain "
+            f"{entry['plain_ms']:.4f} ms, torch.searchsorted "
+            f"{entry['library_ms']:.4f} ms, bound {b_ms:.3g} ms ({b_by}); "
+            f"device time {entry['device_ms']} ms, torch.searchsorted "
+            f"{entry['library_device_ms']} ms")
+        also.append(entry)
     return dict(shape=f"n={n},int32,Dirichlet(0.5)", max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bound_share=bound_ms / ms,
@@ -1065,7 +1152,7 @@ def check_parents(dev) -> dict:
                 device_bound_share=bound_ms / dev_ms if dev_ms else None,
                 library_device_ms=library_dev_ms, graph_ms=k_graph_ms,
                 library_graph_ms=library_graph_ms,
-                library_call="torch.searchsorted")
+                library_call="torch.searchsorted", also=also)
 
 
 # K6's rows get torch.linalg.cholesky_ex's time as their library time
@@ -1699,6 +1786,7 @@ def compare_paths(dev) -> None:
                                    "disagrees with the plain path")
 
     compare_smoothers(dev)
+    compare_slice(dev)
 
 
 def run_path(label, fn, expect, others_zero=False):
@@ -1996,6 +2084,15 @@ def main_path(dev, card: str) -> dict:
         f"chunk={KF_CHUNK} float32: {secs:.4f} s, {PE_T / secs:.1f} "
         f"steps/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+
+    # paths F and G: Experiment A and the stochastic-volatility regime
+    # switch; path H: the steady-state filter and smoother at T = 1M
+    for name, run in (("F", lambda: slice_path("F", dev, card, add)),
+                      ("G", lambda: slice_path("G", dev, card, add)),
+                      ("H", lambda: path_h(dev, card, add))):
+        t0 = time.perf_counter()
+        run()
+        log(f"path {name} took {time.perf_counter() - t0:.1f} s")
     log(f"launches over the main paths: {total}")
     return total
 
@@ -2051,6 +2148,351 @@ def path_e(dev, T, add):
         raise RuntimeError(f"path E: step norms {norms}")
     log(f"path E step norms {[round(float(n), 4) for n in norms]}")
     return post, secs
+
+
+# ---------------------------------------------------------------------------
+# Paths F, G and H: Experiment A, the stochastic-volatility regime switch
+# and the steady-state smoother
+# ---------------------------------------------------------------------------
+
+def expa_problem(T, seed, dtype, dev):
+    """Path F's model, ``zoo.sine_quadratic()`` (Experiment A: f = sin(10x)
+    + q, g = x·x + r, zero inputs), and one sequence sampled from
+    ``seed``."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models import zoo
+
+    model, params, bpf = zoo.sine_quadratic(dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100 + seed)
+    states, emissions = model.sample(params, T, generator=gen)
+    return params, bpf, None, states, emissions
+
+
+def msv_problem(T, seed, dtype, dev):
+    """Path G's model, ``zoo.stochastic_volatility()`` (dx = 3), its regime
+    input 0 before T/2 and 1 after, and one sequence sampled from
+    ``seed``."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models import zoo
+
+    model, params, bpf = zoo.stochastic_volatility(dtype=dtype, device=dev)
+    inputs = torch.cat([torch.zeros(T // 2, device=dev),
+                        torch.ones(T - T // 2, device=dev)])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 200 + seed)
+    states, emissions = model.sample(params, T, inputs=inputs, generator=gen)
+    return params, bpf, inputs, states, emissions
+
+
+def slice_filters(path: str, T: int):
+    """A path's filters as in its source: (label, call on (params, BPF
+    params, inputs, emissions, generator) returning (the point estimate
+    (T, dx), the posterior) or the BPF's summary, exact launches, and the
+    BPF's particle count (None for the mixtures; the BPF's K5 launches are
+    its resampling steps)."""
+    from bayesianfiltering_tpu_torch import inference as inf
+
+    up = ukf_params()
+    bank = {"bft_bank_update": T, "bft_bank_predict_cov": T}
+    ut = {"bft_ut_sigma_aug": 2 * T, "bft_ut_update": T, "bft_ut_predict": T}
+
+    def point(post):
+        """The weighted mean (T, dx) of a mixture posterior (the AGSFs
+        return it with their aux)."""
+        if not isinstance(post, inf.PosteriorGaussianSumFiltered):
+            post = post[0]
+        return (post.weights[..., None] * post.means).sum(0), post
+
+    if path == "F":
+        a0, a1 = EXPA_OPT_ARGS
+        runs = [
+            ("gsf M=5", lambda p, b, u, e, g: point(inf.gaussian_sum_filter(
+                p, e, 5, 1, u, g)), bank, None),
+            ("ugsf M=3", lambda p, b, u, e, g: point(
+                inf.unscented_gaussian_sum_filter(p, up, e, 3, 1, u, g)), ut,
+             None),
+        ]
+        for autocov in ("prop", "trace", "sdp"):
+            runs.append((f"agsf [3,2,2] {autocov}",
+                         lambda p, b, u, e, g, a=autocov: point(
+                             inf.augmented_gaussian_sum_filter(
+                                 p, e, [3, 2, 2], g, 1, (a0, a1), u,
+                                 autocov=a)), bank, None))
+        runs.append(("uagsf [3,2,2] trace", lambda p, b, u, e, g: point(
+            inf.unscented_agsf(p, up, e, [3, 2, 2], g, 1, (a0, a1), u,
+                               autocov="trace")), ut, None))
+        particles = EXPA_PARTICLES
+    else:
+        M = MSV_M
+        runs = [
+            (f"gsf M={M}", lambda p, b, u, e, g: point(
+                inf.gaussian_sum_filter(p, e, M, 1, u, g)), bank, None),
+            (f"agsf [{M},2,2]", lambda p, b, u, e, g: point(
+                inf.augmented_gaussian_sum_filter(
+                    p, e, [M, 2, 2], g, 1, (0.1, 0.1), u)), bank, None),
+            (f"agsf-optimal [{M},2,2]", lambda p, b, u, e, g: point(
+                inf.augmented_gaussian_sum_filter_optimal(
+                    p, e, [M, 2, 2], g, 1, (0.1, 0.1), u)), bank, None),
+        ]
+        particles = MSV_PARTICLES
+    runs.append((f"bpf P={particles}", lambda p, b, u, e, g: (
+        inf.bootstrap_particle_filter(b, e, particles, g, u,
+                                      store="summary")), {}, particles))
+    return runs
+
+
+def run_slice_filter(label, run, expect, particles, problem, gen):
+    """One filter of a path with exact launches, every other kernel 0 (the
+    BPF: K5 once per resampling step). Returns (estimate, seconds,
+    counts)."""
+    import torch
+
+    params, bpf, inputs, states, em = problem
+    (out, secs), counts = run_path(
+        label, lambda: timed(lambda: run(params, bpf, inputs, em, gen)),
+        expect, others_zero=particles is None)
+    if particles is not None:
+        resampled = int((out["ess"] < 0.5 * particles).sum())
+        if counts["bft_resample_parents"] != resampled or any(
+                n for name, n in counts.items()
+                if name != "bft_resample_parents"):
+            raise RuntimeError(f"{label}: launches {counts} for {resampled} "
+                               "resampling steps")
+        est = out["means"]
+    else:
+        est, post = out
+        if not (torch.isfinite(post.means).all()
+                and torch.isfinite(post.weights).all()):
+            raise RuntimeError(f"{label}: outputs are not finite")
+    if tuple(est.shape) != tuple(states.shape) or not torch.isfinite(
+            est).all():
+        raise RuntimeError(f"{label}: estimate not finite or misshapen")
+    return est, secs, counts
+
+
+def slice_path(path: str, dev, card: str, add) -> None:
+    """Path F (Experiment A, experiments/expa_experiment.py:51-79) or G
+    (the stochastic-volatility regime switch,
+    experiments/adaptive_experiment.py:26-70): every filter of the source
+    on SLICE_SEEDS sequences, each call with exact launches; logs each
+    filter's wall (median and range over the seeds) and its RMSE against
+    the sampled states, averaged over the seeds."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.utils import metrics
+
+    make = expa_problem if path == "F" else msv_problem
+    T = SLICE_T
+    runs = slice_filters(path, T)
+    warm = make(5, 0, torch.float32, dev)
+    for _, run, _, _ in slice_filters(path, 5):
+        run(*warm[:3], warm[4], torch.Generator(device=dev))
+    torch.cuda.synchronize()
+    problems = [make(T, s, torch.float32, dev) for s in range(SLICE_SEEDS)]
+    for label, run, expect, particles in runs:
+        secs, rmses = [], []
+        for s, problem in enumerate(problems):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 300 + s)
+            est, sec, counts = run_slice_filter(
+                f"path {path} {label} (seed {s})", run, expect, particles,
+                problem, gen)
+            if s == 0:
+                add(counts)
+            secs.append(sec)
+            rmses.append(float(metrics.rmse(est, problem[3])))
+        log(f"path {path} {label} T={T} float32: wall {spread(secs)}, rmse "
+            f"mean {statistics.mean(rmses):.4f} over {len(rmses)} seeds "
+            f"({', '.join(f'{r:.4f}' for r in rmses)}; utils.metrics.rmse) "
+            f"({card})")
+
+
+def path_h(dev, card: str, add) -> None:
+    """Path H: the steady-state filter and smoother
+    (experiments/profile_chunked.py:13-20,49-56) on path B's model and
+    data at T = 1M, head 64, 128 Riccati iterations; no kernel launches.
+    Logs each one's wall (median and range of 3), steps/s, peak memory and
+    the gains' ``rel_delta``, then the largest gap to path B's parallel
+    smoother on the same emissions (information, not a gate)."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+    from bayesianfiltering_tpu_torch.ops import steady_state as ss
+
+    params, ys = kf_problem(KF_T, torch.float32, dev)
+    rel = float(ss.steady_state_gains(params, SS_ITERS).rel_delta)
+    runs = (("filter", ss.steady_state_kalman_filter,
+             ("filtered_means", "filtered_covariances")),
+            ("smoother", ss.steady_state_kalman_smoother,
+             ("filtered_means", "smoothed_means", "smoothed_covariances")))
+    out = {}
+    for kind, fn, names in runs:
+        fn(params, ys[:KF_CMP_T], head=SS_HEAD, num_iters=SS_ITERS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        post, secs = repeated(
+            f"path H steady-state {kind}",
+            lambda: fn(params, ys, head=SS_HEAD, num_iters=SS_ITERS), {}, add)
+        for name in names:
+            x = getattr(post, name)
+            if x.shape[0] != KF_T or not torch.isfinite(x).all():
+                raise RuntimeError(f"path H ({kind}): {name} not finite or "
+                                   "misshapen")
+        out[kind] = post
+        log(f"path H steady-state {kind} dx={KF_DX} dy={KF_DY} T={KF_T} "
+            f"head={SS_HEAD} num_iters={SS_ITERS} float32: {spread(secs)}, "
+            f"{KF_T / statistics.median(secs):.1f} steps/s at the median, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+            f", rel_delta {rel:.3e} ({card})")
+    exact = tas.parallel_kalman_smoother(params, ys, chunk=KF_CHUNK)
+    gaps = {n: float((getattr(out["smoother"], n)
+                      - getattr(exact, n)).abs().max())
+            for n in ("filtered_means", "smoothed_means",
+                      "smoothed_covariances")}
+    log("path H largest gap to path B's parallel smoother (information): "
+        + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items()))
+
+
+def compare_slice(dev) -> None:
+    """Phase 4 for paths F–H: card against CPU in float64 with the same
+    draws and exact launches — the AGSF [3,2,2] on Experiment A's model
+    with autocov "sdp" and "trace", the AGSF and the UAGSF with the
+    optimal reduction and the AGSF with the reference's fixed keys on the
+    stochastic-volatility model (regime switch at T/2), the reference-
+    exact EKF on the quadratic-measurement model, ``ekf_step``, and the
+    steady-state filter and smoother on path B's model at T = 4,096 (no
+    launches)."""
+    import torch
+
+    from bayesianfiltering_tpu_torch import inference as inf
+    from bayesianfiltering_tpu_torch.models import zoo
+    from bayesianfiltering_tpu_torch.ops import ekf as tekf
+    from bayesianfiltering_tpu_torch.ops import steady_state as ss
+
+    f64 = torch.float64
+    T = SLICE_CMP_T
+    bank = {"bft_bank_update": T, "bft_bank_predict_cov": T}
+    ut = {"bft_ut_sigma_aug": 2 * T, "bft_ut_update": T, "bft_ut_predict": T}
+
+    def field(x, name):
+        return x[name] if isinstance(x, dict) else getattr(x, name)
+
+    def compare(label, run, expect, names, tol=MIXTURE_TOL):
+        got, _ = run_path(label, lambda: run(dev), expect, others_zero=True)
+        want = run("cpu")
+        errs = {n: rel_err(field(got, n), field(want, n)) for n in names}
+        ok = max(errs.values()) <= tol and all(
+            torch.isfinite(field(got, n)).all() for n in names)
+        log(f"{label} float64 card vs cpu: " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: the kernel path disagrees with the "
+                               "plain path")
+
+    mixture = ("means", "covariances", "weights", "marginal_loglik")
+    expa = expa_problem(T, 0, f64, dev)
+    msv = msv_problem(T, 0, f64, dev)
+    cpu = {"sine_quadratic": zoo.sine_quadratic(dtype=f64, device="cpu")[1],
+           "stochastic_volatility": zoo.stochastic_volatility(
+               dtype=f64, device="cpu")[1]}
+
+    def on(device, problem, model):
+        params, _, inputs, _, em = problem
+        if device == "cpu":
+            params = cpu[model]
+            inputs = None if inputs is None else inputs.cpu()
+            em = em.cpu()
+        return params, inputs, em
+
+    def moved(draws, device):
+        return type(draws)(*(None if x is None else x.to(device)
+                             for x in draws))
+
+    # Experiment A's AGSF is chaotic (sin(10x) stretches a difference up to
+    # tenfold a step; on the CPU a 1e-13 nudge of the emissions moves the
+    # "sdp" run's means by ~4e-2): it is held here with the adaptive rules
+    # only, the fixed keys on the stochastic-volatility model
+    gen = torch.Generator(device=dev).manual_seed(SEED + 400)
+    for autocov in ("sdp", "trace"):
+        draws = inf.agsf_draws(gen, T, [3, 2, 2], 1, "multinomial", expa[4])
+
+        def run(device, autocov=autocov, draws=draws):
+            p, u, e = on(device, expa, "sine_quadratic")
+            return inf.augmented_gaussian_sum_filter(
+                p, e, [3, 2, 2], opt_args=EXPA_OPT_ARGS, inputs=u,
+                autocov=autocov, draws=moved(draws, device))[0]
+        compare(f"agsf [3,2,2] {autocov} sine_quadratic T={T}", run, bank,
+                mixture)
+
+    M = 4
+    optimal = inf.agsf_draws(gen, T, [M, 2, 2], 3, "optimal", msv[4])
+    fixed = inf._fixed_key_draws(gen, [M, 2, 2], 3, "multinomial", msv[4])
+    for label, kind, draws in (("agsf-optimal", "optimal", optimal),
+                               ("uagsf optimal", "ukf", optimal),
+                               ("agsf compat_fixed_keys", "fixed", fixed)):
+        def run(device, kind=kind, draws=draws):
+            p, u, e = on(device, msv, "stochastic_volatility")
+            d = moved(draws, device)
+            if kind == "ukf":
+                return inf.unscented_agsf(p, ukf_params(), e, [M, 2, 2],
+                                          opt_args=(0.1, 0.1), inputs=u,
+                                          reduction="optimal", draws=d)[0]
+            if kind == "fixed":
+                return inf.augmented_gaussian_sum_filter(
+                    p, e, [M, 2, 2], opt_args=(0.1, 0.1), inputs=u,
+                    compat_fixed_keys=True, draws=d)[0]
+            return inf.augmented_gaussian_sum_filter_optimal(
+                p, e, [M, 2, 2], opt_args=(0.1, 0.1), inputs=u, draws=d)[0]
+        compare(f"{label} [{M},2,2] stochastic volatility T={T}", run,
+                ut if kind == "ukf" else bank, mixture)
+
+    qm = zoo.quadratic_measurement(dtype=f64, device=dev)
+    qm_ys = qm[0].sample(qm[1], T, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 401))[1]
+    qm_cpu = zoo.quadratic_measurement(dtype=f64, device="cpu")[1]
+    compare(f"ekf compat_scalar quadratic_measurement T={T}",
+            lambda device: inf.extended_kalman_filter(
+                qm[1] if device != "cpu" else qm_cpu, qm_ys.to(device),
+                compat_scalar=True),
+            {"bft_ekf_predict_cov": T}, ("filtered_means",
+                                         "filtered_covariances",
+                                         "marginal_loglik"))
+
+    # ekf_step over a batch of 16 Lorenz-63 states: one K2 and one K1
+    l63 = {d: zoo.lorenz63(dtype=f64, device=d)[1] for d in (dev, "cpu")}
+    rng = torch.Generator(device="cpu").manual_seed(SEED + 402)
+    m0 = torch.randn(16, 3, generator=rng, dtype=f64)
+    A = torch.randn(16, 3, 3, generator=rng, dtype=f64)
+    P0 = A @ A.mT + torch.eye(3, dtype=f64)
+    y0 = torch.randn(1, generator=rng, dtype=f64)
+
+    def step(device):
+        p = l63[dev if device != "cpu" else "cpu"]
+        f, h = p.dynamics_function, p.emission_function
+        jac = torch.func.jacfwd
+        return dict(zip(("log_likelihood", "mean", "cov"), tekf.ekf_step(
+            m0.to(device), P0.to(device), f, jac(f, 0), jac(f, 1),
+            p.dynamics_noise_covariance, p.dynamics_noise_bias,
+            torch.zeros((), device=device), h, jac(h, 0), jac(h, 1),
+            p.emission_noise_covariance, p.emission_noise_bias,
+            y0.to(device))))
+    compare("ekf_step lorenz63 B=16", step,
+            {"bft_ekf_update": 1, "bft_ekf_predict_cov": 1},
+            ("log_likelihood", "mean", "cov"))
+
+    params, ys = kf_problem(KF_CMP_T, f64, dev)
+    cpu_params = type(params)(*(x.cpu() for x in params[:6]))
+    for kind in ("filter", "smoother"):
+        fn = getattr(ss, f"steady_state_kalman_{kind}")
+        names = ("filtered_means", "filtered_covariances", "marginal_loglik")
+        if kind == "smoother":
+            names += ("smoothed_means", "smoothed_covariances")
+        compare(f"steady-state {kind} dx={KF_DX} dy={KF_DY} T={KF_CMP_T}",
+                lambda device, fn=fn: fn(
+                    params if device != "cpu" else cpu_params,
+                    ys.to(device), head=SS_HEAD, num_iters=SS_ITERS),
+                {}, names)
 
 
 def ukf_split(prof) -> dict:
@@ -2234,6 +2676,23 @@ def profile_ukf(dev, card: str) -> None:
     eparams, eys = path_e_problem(PE_PROFILE_T, dev)
     profile_run(f"path E ieks scalar growth T={PE_PROFILE_T} float32",
                 lambda: path_e_run(eparams, eys), card, cpu=False)
+    # path F's AGSF with autocov "sdp" at SLICE_PROFILE_T steps (the
+    # device's activity alone: its step is ~55 ms of host work, and a
+    # trace at T = 100 took ~45 s to summarise on the H100 machine's host)
+    # and path H's steady-state smoother at T = 1M
+    from bayesianfiltering_tpu_torch.ops import steady_state as ss
+
+    fparams, _, _, _, fem = expa_problem(SLICE_PROFILE_T, 0, torch.float32,
+                                         dev)
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 300)
+    profile_run(f"path F agsf [3,2,2] sdp T={SLICE_PROFILE_T} float32",
+                lambda: inf.augmented_gaussian_sum_filter(
+                    fparams, fem, [3, 2, 2], fgen, 1, EXPA_OPT_ARGS,
+                    autocov="sdp"), card, cpu=False)
+    profile_run(f"path H steady-state smoother T={KF_T} float32",
+                lambda: ss.steady_state_kalman_smoother(
+                    kparams, ys, head=SS_HEAD, num_iters=SS_ITERS), card,
+                host=True)
 
 
 # ---------------------------------------------------------------------------

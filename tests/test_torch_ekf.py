@@ -150,7 +150,14 @@ def test_single_sequence_matches_batch_row(lorenz96_case):
 
 
 def test_unported_options_raise(lorenz96_case):
+    """``compat_scalar``, which the port once raised NotImplementedError
+    for, runs the reference-exact update over the batch and matches the
+    JAX package's on each sequence (float64)."""
     _, tp, _ = zoo.lorenz96(8, 4, dtype=torch.float64, device="cpu")
+    jp = jzoo.lorenz96(8, 4)[1]
     e = torch.as_tensor(lorenz96_case)
-    with pytest.raises(NotImplementedError):
-        inf.extended_kalman_filter(tp, e, compat_scalar=True)
+    got = inf.extended_kalman_filter(tp, e, compat_scalar=True)
+    want = jax.vmap(lambda y: jgf.extended_kalman_filter(
+        jp, y, compat_scalar=True))(jnp.asarray(lorenz96_case))
+    for g, w in zip(got, want):
+        assert_close(g.numpy(), w, "float64")

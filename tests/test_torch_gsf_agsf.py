@@ -154,11 +154,37 @@ def test_split_collapses_non_psd_onto_the_mean():
 
 
 def test_unported_options_raise(bot):
-    e = t(bot["emissions"])
-    with pytest.raises(NotImplementedError):
-        inf.augmented_gaussian_sum_filter(bot["tparams"], e, [2, 2, 2],
-                                          torch.Generator(), autocov="sdp")
-    with pytest.raises(NotImplementedError):
-        inf.augmented_gaussian_sum_filter(bot["tparams"], e, [2, 2, 2],
-                                          torch.Generator(),
-                                          reduction="optimal")
+    """The options the port once raised NotImplementedError for,
+    ``autocov="sdp"`` and ``reduction="optimal"``, run on the graft
+    entry's BOT problem and match the JAX package with its draws (AGSF
+    [2,2,2], three steps)."""
+    for option in (dict(autocov="sdp", reduction="topk"),
+                   dict(reduction="optimal")):
+        agsf_option_matches_jax(bot, option)
+
+
+def agsf_option_matches_jax(bot, option):
+    T, rng_key = 3, jr.PRNGKey(2)
+    emissions, inputs = bot["emissions"][:T], bot["inputs"][:T]
+    want_post, want_aux = jgf.augmented_gaussian_sum_filter(
+        bot["jparams"], jnp.asarray(emissions), [2, 2, 2], rng_key, 1,
+        (0.1, 0.1), jnp.asarray(inputs), **option)
+    reduction = option["reduction"]
+    init_key, scan_key = jr.split(rng_key)
+    split1, split2, reduce = [], [], []
+    for step in range(T):
+        k1, k2, kr = jr.split(jr.fold_in(scan_key, step), 3)
+        split1.append(jr.normal(k1, (2, 2, 4), jnp.float64))
+        split2.append(jr.normal(k2, (4, 2, 4), jnp.float64))
+        if reduction == "optimal":
+            reduce.append(jr.uniform(kr, (8,), jnp.float64))
+    draws = inf.AGSFDraws(t(jr.normal(init_key, (2, 4), jnp.float64)),
+                          t(jnp.stack(split1)), t(jnp.stack(split2)),
+                          t(jnp.stack(reduce)) if reduce else None)
+    got_post, got_aux = inf.augmented_gaussian_sum_filter(
+        bot["tparams"], t(emissions), [2, 2, 2], opt_args=(0.1, 0.1),
+        inputs=t(inputs), draws=draws, **option)
+    for name in ("means", "covariances", "weights", "marginal_loglik"):
+        assert_close(getattr(got_post, name), getattr(want_post, name))
+    for name in ("Deltas", "Lambdas", "pre_weights"):
+        assert_close(got_aux[name], want_aux[name])

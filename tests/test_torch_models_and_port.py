@@ -248,23 +248,14 @@ NOT_PORTED = {"NonlinearGaussianSSM", "parallel", "streaming", "diagnostics",
 
 # The same for the subpackages' __all__, each name against its ROADMAP.md
 # queue 1 item ("not ported": the TPU-only factorisations that queue 1
-# leaves out of the port).
+# leaves out of the port). ``ops`` and ``containers`` export every name.
 SUBPACKAGE_NOT_PORTED = {
     "utils": {
         "fast_cholesky": "not ported", "cholesky_blocked": "not ported",
         "tri_inv_lower": "not ported",
-        "tri_solve_lower": "item 4", "sandwich": "item 4",
-        "matrix_projection": "item 4", "_resample": "item 4",
-        "optimal_resampling": "item 4", "resample": "item 4",
-        "retain": "item 4", "split_by_sampling": "item 4",
-        "sdp_opt": "item 4", "sdp_opt2": "item 4",
-        "gradient_descent": "item 4",
         "sdp_opt_legacy": "item 8", "sdp_opt_test": "item 8",
     },
-    "ops": {
-        "ekf_step": "item 4",
-        "mc_moments": "item 4", "mcla_moments": "item 4",
-    },
+    "ops": {},
     "models": {
         "FnStateToState": "item 5", "FnStateAndInputToState": "item 5",
         "FnStateToEmission": "item 5", "FnStateAndInputToEmission": "item 5",
@@ -276,14 +267,7 @@ SUBPACKAGE_NOT_PORTED = {
         "bijectors": "item 5", "ensure_array_has_batch_dim": "item 5",
         "run_sgd": "item 5",
     },
-    "containers": {
-        "GaussianComponent": "item 4", "gaussian_sum": "item 4",
-        "num_prt1": "item 4", "num_prt2": "item 4",
-        "_gaussian_sum_to_components": "item 4",
-        "_components_to_gaussian_sum": "item 4",
-        "_branches_from_node1": "item 4", "_branches_from_node2": "item 4",
-        "_branches_from_tree1": "item 4", "_branches_from_tree2": "item 4",
-    },
+    "containers": {},
 }
 
 
