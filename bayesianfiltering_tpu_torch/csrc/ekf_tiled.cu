@@ -13,27 +13,32 @@
 // GFLOP of dense products (A P alone is 2dx³) and a dy = 256 Cholesky; the
 // per-element kernels ran it on one SM with the workspace in global
 // scratch, one dependent load-and-FMA chain per output, at ~10 GFLOP/s.
-// Here every product is a tiled product over the whole card (tiled.cuh),
-// and the factorisation is blocked so that only an nb × nb diagonal factor
-// per panel stays serial:
+// Here every product is a tiled product over the whole card (tiled.cuh:
+// 4 × 4 register tiles, the inner dimension split over a cluster where the
+// output tiles alone leave SMs idle), and the factorisation is one
+// launch (tiled_chol.cuh):
 //
 // - Each entry point enqueues its launches on the caller's stream and
 //   returns the first CUDA error. The per-element scratch comes from the
 //   wrapper (a few MB at dx = 512, resident in L2).
-// - The Cholesky is blocked (tiled_chol.cuh, shared with K8t): it factors
-//   the augmented matrix W = [S; (H P)ᵀ; innovᵀ; I] ((2dy + dx + 1) × dy)
-//   right-looking in panels of 32, so that the rows below S come out as
-//   (L⁻¹ H P)ᵀ = Zᵀ, (L⁻¹ innov)ᵀ = zᵀ and L⁻ᵀ, and the gain is one more
-//   product, K = Zᵀ L⁻¹ = (S⁻¹ H P)ᵀ.
+// - The Cholesky (tiled_chol.cuh, shared with K8t) factors the augmented
+//   matrix W = [S; (H P)ᵀ; innovᵀ; I] ((2dy + dx + 1) × dy) in one
+//   cooperative launch, panels of 32 with a grid barrier between them, so
+//   that the rows below S come out as (L⁻¹ H P)ᵀ = Zᵀ, (L⁻¹ innov)ᵀ = zᵀ
+//   and L⁻ᵀ; S's preparation (sym(R), the floor), log N and μ = m + Zᵀ z
+//   are folded into that launch, and the gain is one more product,
+//   K = Zᵀ L⁻¹ = (S⁻¹ H P)ᵀ.
 // - The Joseph covariance is A P, then lower(A P Aᵀ + (K Rs) Kᵀ) mirrored,
 //   two products of one pass; K2t is F_x P and F_q Q, then lower(F_x P F_xᵀ
 //   + F_q Q F_qᵀ) mirrored.
+// - K1t is eight launches at any dy: (H P)ᵀ, G, the factor, K, A, K Rs,
+//   A P and Σ.
 //
 // Math and constants follow ops/ekf.py chol_update_precomputed and
 // predict_cov_precomputed: S is symmetrised before the relative floor
 // (jitter + 1e-6·max|diag S|) is added, the covariance is the symmetrised
 // Joseph form, the log-det comes from diag L, and a non-PD S gives NaN: a
-// diagonal block with a non-positive (or NaN) pivot is set to NaN, which
+// diagonal tile with a non-positive (or NaN) pivot is set to NaN, which
 // every later step carries into all outputs. Nothing here raises.
 #include "tiled_chol.cuh"
 
@@ -41,8 +46,8 @@ namespace {
 
 using namespace bft;
 
-// Per-element scratch of K1t: W, L and the diagonal blocks' inverses
-// (AugLayout), then sym(Rt), A = I − K H, K Rs, A P.
+// Per-element scratch of K1t: W, L, the diagonal tiles' inverses, the
+// floor and flag (AugLayout), then sym(Rt), A = I − K H, K Rs, A P.
 struct UpdateScratch {
   AugLayout f;
   long long rs, a, kr, ap;
@@ -74,22 +79,22 @@ int launch_update_tiled(const void* m_, const void* P_, const void* H_,
   };
   auto run = [&](const Gemm<T>& g) { keep(gemm(g, stream)); };
 
-  // (H P)ᵀ = Pᵀ Hᵀ into W's rows dy..dy+dx; G = lower((H P) Hᵀ) into L's
+  // (H P)ᵀ = Pᵀ Hᵀ into W's rows dy..dy+dx; G = lower((H P) Hᵀ) into W's
   // top square
   T* HPt = ws + sc.f.w + sc.f.xrow();
   run(gemm_of<T>(dx, dy, dx, B, {P, dx, xx, 1}, {H, dx, yx, 1}, HPt, dy,
                  st));
   {
     Gemm<T> g = gemm_of<T>(dy, dy, dx, B, {HPt, dy, st, 1}, {H, dx, yx, 1},
-                           ws + sc.f.l, dy, st);
+                           ws + sc.f.w, dy, st);
     g.tri = kLower;
     run(g);
   }
-  // S with sym(Rt) into Rs, then the factorisation, K, ll and μ
-  keep(chol_prep<T>(ws, static_cast<const T*>(R_), 1LL * dy * dy, inn, sc.f,
-                    -1, sc.rs, B, T(jitter), stream));
-  keep(factor_and_gain<T>(ws, sc.f, B, K, 1LL * dx * dy,
-                          static_cast<const T*>(m_), inn,
+  // S = G + sym(Rt) + floor as the factor reads it (sym(Rt) into Rs), the
+  // factorisation, ll and μ; then K
+  keep(factor_and_gain<T>(ws, sc.f, B, static_cast<const T*>(R_),
+                          1LL * dy * dy, T(jitter), HPt, st, inn, sc.rs, 0,
+                          K, 1LL * dx * dy, static_cast<const T*>(m_),
                           static_cast<T*>(ll_), static_cast<T*>(mean_),
                           stream));
   // A = I − K H, K Rs, A P

@@ -12,28 +12,28 @@
 //
 // What bounds them on an H100. At config 5 (B = 1, n = 512) the Cholesky
 // is 45 MFLOP and the points 2 MB in float32: ~1 µs at the card's rates.
-// K6 ran the factor in one block, one barrier per column, its workspace in
-// global memory: 5.08 ms on one of 132 SMs. Here:
-// - Cholesky: sigma_tiled_prep_kernel copies lower(P) into W of a square
-//   layout (height n: no rows below S), and tiled_chol.cuh's panel loop
-//   factors it over the card in panels of 32; only each panel's 32 × 32
-//   diagonal factor stays serial, in one warp's registers. No jitter: P is
-//   factored as torch.linalg.cholesky_ex factors it.
+// The time goes to the factor's serial panels. Here:
+// - Cholesky: one cooperative launch (tiled_chol.cuh's tiled_factor_kernel
+//   on a W of height n: no rows below S): its first touch of each tile
+//   reads lower(P) straight from P (no copy), its steps factor the panels
+//   with a grid barrier between them, and its epilogue writes the points
+//   from the factor, still in L2. No jitter: P is factored as
+//   torch.linalg.cholesky_ex factors it.
 // - Newton–Schulz: a trace pass (Y = sym(P)/s, Z = I, s = tr P + 1e-30),
 //   14 rounds of three tiled products (T = 1.5·I − 0.5·Z Y is one product
-//   with 1.5 on the diagonal; Y ← Y T; Z ← T Z), and a pass for
-//   sym(Y·√s), with fused_ut.cu's constants.
-// - Points: one pass of 32 × 32 tiles staged through padded shared memory,
-//   so that the factor's columns are read and the points' rows written
-//   coalesced; both halves at once. A Cholesky factor's entries above the
-//   diagonal are never written by the panel loop, so they are taken as 0
-//   and never read. The panel loop NaNs only a failing diagonal block and
-//   what later panels compute from it, so every tile that touches a
-//   Cholesky block reads all of that block's pivots and writes NaN
-//   throughout it unless every pivot is finite and positive (the plain
-//   versions' cholesky_ex info).
-// - K7t is a composition: K6t's factor of P over the batch, K6t's factor
-//   of the shared C (B = 1), and one points pass that writes the four
+//   with 1.5 on the diagonal; Y ← Y T; Z ← T Z), a pass for sym(Y·√s),
+//   with fused_ut.cu's constants, and the points pass.
+// - Points: 32 × 32 tiles staged through padded shared memory, so that the
+//   factor's columns are read and the points' rows written coalesced; both
+//   halves at once. A Cholesky factor's entries above the diagonal are
+//   never written by the factor, so they are taken as 0 and never read.
+//   The factor NaNs only a failing diagonal tile and what later steps
+//   compute from it, so every tile that touches a Cholesky block writes
+//   NaN throughout it unless every pivot is finite and positive (the plain
+//   versions' cholesky_ex info): in K6t's epilogue from the factor's flag,
+//   in the points kernel from the block's pivots.
+// - K7t is a composition: the factor of P over the batch and of the shared
+//   C (B = 1), one launch each, and one points pass that writes the four
 //   blocks of the (2na, na) augmented points; a non-PD P NaNs that
 //   element's state block, a non-PD C the noise block, as in the plain
 //   points_blockdiag.
@@ -49,12 +49,13 @@ using namespace bft;
 
 constexpr int kNsIters = 14;  // utils/linalg.py sqrtm_psd_ns
 constexpr int kSqrtm = 1;     // ops/fused_ut.py _METHODS
-constexpr int kTile = 32;     // the points pass's tiles
+constexpr int kTile = kNb;    // the points' tiles
 constexpr int kTileRows = kThreads / kTile;
 
-// Per-element scratch of one factor: a square AugLayout (W, L and the
-// diagonal blocks' inverses) for the Cholesky, Y, Z, T and a spare n × n
-// for Newton–Schulz, whose traces (one per element) follow the batch.
+// Per-element scratch of one factor: a square AugLayout (W, L, the
+// diagonal tiles' inverses, the flag) for the Cholesky; Y, Z, T and a
+// spare n × n for Newton–Schulz, whose traces (one per element) follow
+// the batch.
 long long factor_stride(int n, int method) {
   return method == kSqrtm ? 4LL * n * n : AugLayout(0, n, n).total;
 }
@@ -63,20 +64,19 @@ long long factor_elems(int B, int n, int method) {
   return B * factor_stride(n, method) + (method == kSqrtm ? B : 0);
 }
 
-// W = lower(P) for the Cholesky; the strict upper part is not written.
-// Grid (blocks, batch).
+// The Cholesky of P (B × n × n, row-major) into ws: S is lower(P) as read.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) sigma_tiled_prep_kernel(
-    const T* __restrict__ P_all, T* scratch, AugLayout sc, int B) {
-  const int n = sc.dy;
-  const int stride = gridDim.x * blockDim.x;
-  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
-    const T* P = P_all + b * n * n;
-    T* W = scratch + b * sc.total + sc.w;
-    for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n * n;
-         idx += stride)
-      if (idx % n <= idx / n) W[idx] = P[idx];
-  }
+FactorArgs<T> square_factor(const T* P, T* ws, int B, int n) {
+  FactorArgs<T> a{};
+  a.sc = AugLayout(0, n, n);
+  a.ws = ws;
+  a.st = a.sc.total;
+  a.B = B;
+  a.s_src = P;
+  a.s_ld = n;
+  a.s_batch = 1LL * n * n;
+  a.rs = -1;
+  return a;
 }
 
 // Newton–Schulz's start: s = tr P + 1e-30 (into s_all from the first block
@@ -131,27 +131,18 @@ __global__ void __launch_bounds__(kThreads) sigma_tiled_root_kernel(
   }
 }
 
-// Factor P (B × n × n, row-major) into ws (factor_elems(B, n, method)
-// elements). *F is element 0's row-major factor, element b's at
-// *F + b·factor_stride: the Cholesky's lower L (its strict upper part never
-// written) or the symmetric root. Returns the first CUDA error.
+// Newton–Schulz's root of P (B × n × n, row-major) in ws
+// (factor_elems(B, n, kSqrtm) elements): *F is element 0's root, element
+// b's at *F + b·factor_stride. Returns the first CUDA error.
 template <typename T>
-int tiled_factor(const T* P, T* ws, int B, int n, int method, const T** F,
-                 cudaStream_t stream) {
+int ns_factor(const T* P, T* ws, int B, int n, const T** F,
+              cudaStream_t stream) {
   int err = 0;
   auto keep = [&](int e) {
     if (err == 0) err = e;
   };
-  const long long st = factor_stride(n, method);
+  const long long st = factor_stride(n, kSqrtm);
   const dim3 grid = elementwise_grid(1LL * n * n, B);
-  if (method != kSqrtm) {
-    const AugLayout sc(0, n, n);
-    sigma_tiled_prep_kernel<T><<<grid, kThreads, 0, stream>>>(P, ws, sc, B);
-    keep(int(cudaGetLastError()));
-    keep(blocked_cholesky(ws, sc, B, stream));
-    *F = ws + sc.l;
-    return err;
-  }
   const long long n2 = 1LL * n * n;
   long long y = 0, z = n2, t = 2 * n2, w = 3 * n2;
   T* s_all = ws + B * st;
@@ -179,6 +170,17 @@ int tiled_factor(const T* P, T* ws, int B, int n, int method, const T** F,
   keep(int(cudaGetLastError()));
   *F = ws + t;
   return err;
+}
+
+// The Cholesky of P (B × n × n) into ws (factor_elems(B, n, 0) elements),
+// one launch; *F as ns_factor's (the lower L, its strict upper part never
+// written).
+template <typename T>
+int chol_factor(const T* P, T* ws, int B, int n, const T** F,
+                cudaStream_t stream) {
+  const FactorArgs<T> a = square_factor(P, ws, B, n);
+  *F = ws + a.sc.l;
+  return launch_factor(a, NoEpilogue{}, factor_tasks(a.sc, B), stream);
 }
 
 // The points pass's operands: the state factor per element (dx × dx,
@@ -209,53 +211,65 @@ __device__ bool pivots_bad(const T* L, int n) {
   return __syncthreads_or(bad) != 0;
 }
 
-// Both halves of the (2na, na) points of each element, na = dx + dn:
-// row r, column c of the first half is mA[c] + scale·F[c][r], of the
-// second mA[c] − scale·F[c][r], with mA = [m; bias] and F = blkdiag(F_x,
-// F_c). Block (kTile, kTileRows) threads over a kTile × kTile tile of
-// (r, c); grid (column tiles, row tiles, batch).
+// One kTile × kTile tile (output rows r0.., columns c0..) of both halves
+// of element b's (2na, na) points, na = dx + dn: row r, column c of the
+// first half is mA[c] + scale·F[c][r], of the second mA[c] − scale·F[c][r],
+// with mA = [m; bias] and F = blkdiag(F_x, F_c); NaN on the state block
+// where bad_x, on the noise block where bad_c. The whole block calls it,
+// kTile × kTileRows threads; ends synchronised.
+template <typename T>
+__device__ void points_tile(const PointsArgs<T>& a, long long b, int r0,
+                            int c0, bool bad_x, bool bad_c, T* pts_all,
+                            T (*tile)[kTile + 1]) {
+  const int dx = a.dx, dn = a.dn, na = dx + dn;
+  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
+  const T* Fx = a.Fx + b * a.fx_batch;
+  // F[i][k] for output row k = r0 + tx, column i: read along k;
+  // tile[r][c] = scale·F[c][r]
+  const int k = r0 + tx;
+  for (int s = ty; s < kTile; s += kTileRows) {
+    const int i = c0 + s;
+    T v = T(0);
+    if (k < dx && i < dx) {
+      if (!(a.lower && i < k)) v = a.scale * Fx[(long long)i * dx + k];
+    } else if (k >= dx && i >= dx && k < na && i < na) {
+      if (!(a.lower && i < k))
+        v = a.scale * a.Fc[(long long)(i - dx) * dn + (k - dx)];
+    }
+    tile[tx][s] = v;
+  }
+  __syncthreads();
+  T* pts = pts_all + b * 2LL * na * na;
+  const int c = c0 + tx;
+  if (c < na) {
+    const T mc = c < dx ? a.m[b * dx + c] : a.bias[c - dx];
+    for (int s = ty; s < kTile; s += kTileRows) {
+      const int r = r0 + s;
+      if (r >= na) break;
+      const bool nan = (r < dx && c < dx && bad_x) ||
+                       (r >= dx && c >= dx && bad_c);
+      const T o = nan ? qnan<T>() : tile[s][tx];
+      pts[(long long)r * na + c] = mc + o;
+      pts[(long long)(na + r) * na + c] = mc - o;
+    }
+  }
+  __syncthreads();
+}
+
+// The points of every element from their factors: grid (column tiles, row
+// tiles, batch), kThreads threads.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sigma_tiled_points_kernel(
     PointsArgs<T> a, T* pts_all, int B) {
-  __shared__ T tile[kTile][kTile + 1];  // tile[r][c]: scale·F[c][r]
-  const int dx = a.dx, dn = a.dn, na = dx + dn;
+  __shared__ T tile[kTile][kTile + 1];
+  const int dx = a.dx, dn = a.dn;
   const int c0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
   const bool on_x = a.lower && r0 < dx && c0 < dx;
   const bool on_c = a.lower && dn > 0 && r0 + kTile > dx && c0 + kTile > dx;
   for (long long b = blockIdx.z; b < B; b += gridDim.z) {
-    const T* Fx = a.Fx + b * a.fx_batch;
-    const bool bad_x = on_x && pivots_bad(Fx, dx);
+    const bool bad_x = on_x && pivots_bad(a.Fx + b * a.fx_batch, dx);
     const bool bad_c = on_c && pivots_bad(a.Fc, dn);
-    // F[i][k] for output row k = r0 + tx, column i: read along k
-    const int k = r0 + tx;
-    for (int s = ty; s < kTile; s += kTileRows) {
-      const int i = c0 + s;
-      T v = T(0);
-      if (k < dx && i < dx) {
-        if (!(a.lower && i < k)) v = a.scale * Fx[(long long)i * dx + k];
-      } else if (k >= dx && i >= dx && k < na && i < na) {
-        if (!(a.lower && i < k))
-          v = a.scale * a.Fc[(long long)(i - dx) * dn + (k - dx)];
-      }
-      tile[tx][s] = v;
-    }
-    __syncthreads();
-    T* pts = pts_all + b * 2LL * na * na;
-    const int c = c0 + tx;
-    if (c < na) {
-      const T mc = c < dx ? a.m[b * dx + c] : a.bias[c - dx];
-      for (int s = ty; s < kTile; s += kTileRows) {
-        const int r = r0 + s;
-        if (r >= na) break;
-        const bool nan = (r < dx && c < dx && bad_x) ||
-                         (r >= dx && c >= dx && bad_c);
-        const T o = nan ? qnan<T>() : tile[s][tx];
-        pts[(long long)r * na + c] = mc + o;
-        pts[(long long)(na + r) * na + c] = mc - o;
-      }
-    }
-    __syncthreads();
+    points_tile(a, b, r0, c0, bad_x, bad_c, pts_all, tile);
   }
 }
 
@@ -268,16 +282,53 @@ int launch_points(const PointsArgs<T>& a, T* pts, int B,
   return int(cudaGetLastError());
 }
 
+// K6t's Cholesky epilogue: the points from the factor, the tiles of every
+// element in turns over the factor's blocks; the factor's flag says
+// whether a pivot failed.
+static_assert(kNb * kTilePad >= kTile * (kTile + 1),
+              "the factor's tile buffer holds a points tile");
+
+template <typename T>
+struct PointsEpilogue {
+  PointsArgs<T> p;
+  T* pts;
+  static constexpr bool kAny = true;
+  __device__ void operator()(const FactorArgs<T>& a,
+                             FactorSmem<T>& sm) const {
+    const int tiles = tiles_of(a.sc.dy);
+    const long long per = 1LL * tiles * tiles;
+    for_tasks(a.B * per, [&](long long q) {
+      const long long b = q / per;
+      const int t = int(q % per);
+      const bool bad = a.ws[b * a.st + a.sc.misc + 1] != T(0);
+      // the factor's first tile buffer, read with points_tile's stride
+      points_tile(p, b, (t / tiles) * kTile, (t % tiles) * kTile, bad, false,
+                  pts, reinterpret_cast<T(*)[kTile + 1]>(&sm.a[0][0]));
+    });
+  }
+};
+
 template <typename T>
 int launch_sigma_tiled(const void* m, const void* P, void* pts,
                        void* scratch, int B, int n, double scale, int method,
                        cudaStream_t stream) {
+  T* ws = static_cast<T*>(scratch);
+  if (method != kSqrtm) {  // one launch
+    const FactorArgs<T> a = square_factor(static_cast<const T*>(P), ws, B, n);
+    const PointsEpilogue<T> epi{
+        {static_cast<const T*>(m), ws + a.sc.l, a.st, n, nullptr, nullptr, 0,
+         T(scale), 1},
+        static_cast<T*>(pts)};
+    const int tiles = tiles_of(n);
+    long long tasks = factor_tasks(a.sc, B);
+    if (1LL * B * tiles * tiles > tasks) tasks = 1LL * B * tiles * tiles;
+    return launch_factor(a, epi, tasks, stream);
+  }
   const T* F = nullptr;
-  int err = tiled_factor<T>(static_cast<const T*>(P), static_cast<T*>(scratch),
-                            B, n, method, &F, stream);
+  int err = ns_factor<T>(static_cast<const T*>(P), ws, B, n, &F, stream);
   const PointsArgs<T> a{static_cast<const T*>(m), F,
                         factor_stride(n, method), n, nullptr, nullptr, 0,
-                        T(scale), method != kSqrtm};
+                        T(scale), 0};
   const int e = launch_points<T>(a, static_cast<T*>(pts), B, stream);
   return err ? err : e;
 }
@@ -288,18 +339,23 @@ int launch_sigma_aug_tiled(const void* m, const void* P, const void* bias,
                            int dx, int dn, double scale, int method,
                            cudaStream_t stream) {
   T* ws = static_cast<T*>(scratch);
+  T* wc = ws + factor_elems(B, dx, method);
   const T* Fx = nullptr;
   const T* Fc = nullptr;
-  int err = tiled_factor<T>(static_cast<const T*>(P), ws, B, dx, method, &Fx,
-                            stream);
-  const int e = tiled_factor<T>(static_cast<const T*>(C),
-                                ws + factor_elems(B, dx, method), 1, dn,
-                                method, &Fc, stream);
+  const bool chol = method != kSqrtm;
+  int err = chol ? chol_factor<T>(static_cast<const T*>(P), ws, B, dx, &Fx,
+                                  stream)
+                 : ns_factor<T>(static_cast<const T*>(P), ws, B, dx, &Fx,
+                                stream);
+  const int e = chol ? chol_factor<T>(static_cast<const T*>(C), wc, 1, dn,
+                                      &Fc, stream)
+                     : ns_factor<T>(static_cast<const T*>(C), wc, 1, dn, &Fc,
+                                    stream);
   if (err == 0) err = e;
   const PointsArgs<T> a{static_cast<const T*>(m), Fx,
                         factor_stride(dx, method), dx,
                         static_cast<const T*>(bias), Fc, dn, T(scale),
-                        method != kSqrtm};
+                        int(chol)};
   const int e2 = launch_points<T>(a, static_cast<T*>(pts), B, stream);
   return err ? err : e2;
 }

@@ -1,9 +1,9 @@
-// The blocked Cholesky of an augmented matrix, shared by the tiled EKF
-// update (K1t, ekf_tiled.cu) and the tiled UT update (K8t, ut_tiled.cu);
-// its panel loop alone (blocked_cholesky, on a layout of height dy) also
-// factors the tiled sigma points' P (K6t, K7t: sigma_tiled.cu).
+// The blocked Cholesky of an augmented matrix in one launch, shared by the
+// tiled EKF update (K1t, ekf_tiled.cu), the tiled UT update (K8t,
+// ut_tiled.cu) and, on a W of height n, the tiled sigma points (K6t, K7t:
+// sigma_tiled.cu).
 //
-// Both updates factor
+// The updates factor
 //
 //   W = [S; X; vᵀ; I]   ((2dy + dx + 1) × dy, row-major)
 //
@@ -12,37 +12,83 @@
 // innovation. Below L (S = L Lᵀ) the same panel steps carry the rows of X,
 // vᵀ and I, so they come out as (L⁻¹ Xᵀ)ᵀ = Zᵀ, (L⁻¹ v)ᵀ = zᵀ and L⁻ᵀ: the
 // forward substitutions are tiled products inside the factorisation, and
-// the gain is one more product, K = Zᵀ L⁻¹. No thread walks a dy-long
-// dependent chain.
+// the gain is one more product, K = Zᵀ L⁻¹.
 //
-// - Right-looking, in panels of kNb = 32 columns: the diagonal block is
-//   factored and inverted by one warp per element, a row in each lane's
-//   registers (each column costs a shuffle per row, not a dependent dot
-//   product); the column panel below it is the product of that panel and
-//   the block's inverse transposed; the trailing matrix takes a lower
-//   product update (tiled.cuh).
-// - A diagonal block with a non-positive (or NaN) pivot is set to NaN,
-//   which every later step carries into all outputs: a non-PD S gives NaN,
-//   as the plain versions' cholesky does. Nothing here raises.
-// - The per-element scratch holds W, its factor and the diagonal blocks'
-//   inverses at the offsets of an AugLayout; the caller's own slots follow
-//   them (AugLayout::end), and AugLayout::total is the element stride.
+// What bounds it on an H100. At config 5 the factor is 45 MFLOP (K6t, n =
+// 512) or ~60 MFLOP (K1t, a 1,025 × 256 W): microseconds at the card's
+// rate. The time goes to the panels' serial dependence: a launch a step
+// costs ~5 µs of latency, and the 32 × 32 diagonal factor is a chain of 32
+// dependent columns. So the whole factor is one cooperative launch, a
+// persistent grid of one block an SM (fewer where no phase has that many
+// tasks), with a grid barrier between the steps (~1.1 µs on an H100,
+// whatever the grid's size); the working W stays in L2 (a few MB at
+// config 5), and each step's tiles are handed to the blocks in turn. (A
+// single thread-block cluster of 8 or 16 blocks, with its hardware
+// barrier, measured 1.5–1.7× slower at n = 512: the early steps' ~100
+// trailing tiles need the whole card.)
+//
+// - Tiles of kNb × kNb, in panels of kNb columns; the tile (I, J) holds
+//   rows kNb·I.., columns kNb·J.. of W, and only tiles with I ≥ J are
+//   touched.
+// - The first phase factors the first diagonal tile (one block an
+//   element); step k (k = 0 … panels − 2) then runs every trailing tile
+//   (I, J), k < J ≤ I, as one task: its block forms the two panel tiles
+//   L(I, k) = W(I, k)·L_kk⁻ᵀ and L(J, k) itself (a product with the
+//   panel's stored inverse; two blocks may form the same one, so that no
+//   step waits for another), and takes W(I, J) −= L(I, k)·L(J, k)ᵀ. The
+//   task with J = k + 1 also stores L(I, k). Look-ahead: the task on the
+//   next diagonal tile (k + 1, k + 1), handed out first, goes on to factor
+//   it in one warp's registers (warp_cholesky_inverse: the Cholesky of the
+//   tile with an identity below it, so that its inverse comes out of the
+//   same 32 column steps) while the other blocks finish step k; one
+//   barrier a step. A last phase forms the rows under the last panel.
+//   Per step on the critical path (n = 512, float32): the barrier, the
+//   diagonal task's loads (~0.45 µs), its two 32³ products (~1.5 µs; on
+//   the float64 tensor cores in float64) and the factor (~3.7 µs).
+// - The preparation is folded into the first touch of each tile: S =
+//   lower(s_src) (+ sym(R)) (+ jitter + 1e-6·max|diag|, the relative
+//   floor) as step 0 reads it, X from x_src, vᵀ from the innovation, I
+//   generated; sym(R) goes to the caller's slot in the first phase.
+// - An epilogue after the last barrier: the gain's log N(v | 0, S) and
+//   μ = m + Zᵀ z (= m + K v), or K6t's points (sigma_tiled.cu), or none.
+// - A diagonal tile with a non-positive, infinite or NaN pivot is set to
+//   NaN throughout, with its inverse, which every later step carries into
+//   all outputs: a non-PD S gives NaN, as the plain versions' cholesky
+//   does. The element's flag records it for the points. Nothing raises.
+// - The per-element scratch holds W, its factor L (separate: a task still
+//   reads W(I, k) while another stores L(I, k)), the diagonal tiles'
+//   inverses transposed, the floor and the flag, at the offsets of an
+//   AugLayout; the caller's own slots follow them (AugLayout::end), and
+//   AugLayout::total is the element stride. L's strict upper top square is
+//   zeroed where the caller reads it whole (K8t).
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 #include "tiled.cuh"
 
 namespace bft {
 
-constexpr int kNb = 32;        // Cholesky panel width: one warp's lanes
-constexpr int kThreads = 256;  // the element-wise kernels' blocks
+constexpr int kNb = 32;        // tile and panel width: one warp's lanes
+constexpr int kThreads = 256;  // the element-wise kernels' and the factor's
+// a tile's row stride in shared memory: 16-byte rows, so that a thread
+// reads its four consecutive entries as one vector (conflict-free: a
+// warp's reads are 4 rows × 32 consecutive entries)
+constexpr int kTilePad = kNb + 4;
+
+__host__ __device__ inline int tiles_of(long long n) {
+  return int((n + kNb - 1) / kNb);
+}
 
 struct AugLayout {
   int dx, dy;
   long long height;     // rows of W: 2dy + dx + 1, or dy for S alone
-  long long w, l, li;   // W, its factor L, the diagonal blocks' inverses
+  long long w, l, li;   // W, its factor L, the diagonal tiles' L⁻ᵀ
+  long long misc;       // the floor, then the failed-pivot flag
   long long end;        // the first element after them
   long long total;      // the per-element stride of the scratch (≥ end)
+  AugLayout() : AugLayout(0, 0, 0) {}
   AugLayout(int dx_, int dy_) : AugLayout(dx_, dy_, 2LL * dy_ + dx_ + 1) {}
   // W of `height` rows: dy for the factor of S alone (no X, vᵀ or I)
   AugLayout(int dx_, int dy_, long long height_)
@@ -50,7 +96,8 @@ struct AugLayout {
     w = 0;
     l = w + height * dy;
     li = l + height * dy;
-    end = li + 1LL * dy * kNb;
+    misc = li + 1LL * tiles_of(dy) * kNb * kNb;
+    end = misc + 4;
     total = end;
   }
   // offsets of the rows of X (then Zᵀ), vᵀ (then zᵀ) and I (then L⁻ᵀ)
@@ -60,6 +107,11 @@ struct AugLayout {
   }
   __host__ __device__ long long erow() const {
     return (long long)(dy + dx + 1) * dy;
+  }
+  // the last phase's first tile row: the last diagonal tile's where rows
+  // of X lie in it (dy not a multiple of kNb), else the one below it
+  __host__ __device__ int last_from() const {
+    return tiles_of(dy) - (dy % kNb != 0 && height > dy ? 1 : 0);
   }
 };
 
@@ -73,231 +125,581 @@ inline dim3 elementwise_grid(long long work, int B) {
               unsigned(grid_1d(B)));
 }
 
+// The Cholesky factor and its inverse of an n × n block (n ≤ kWarp) held
+// a row a lane: lane i holds row i of the block's lower part in a (zeros
+// elsewhere, and everywhere on lanes ≥ n) and row i of the identity in e
+// on entry, row i of L in a and row i of L⁻ᵀ in e on exit. It is the
+// right-looking factor of [A; I]: the identity's rows are eliminated with
+// the same l_cj as the block's own, so the inverse adds FMAs but no step
+// to the chain of 32 columns. Each column is broadcast through shared
+// memory (col: 2·kWarp entries, 16-byte aligned, the columns in turns):
+// one store a lane, a __syncwarp and 16-byte reads of the same words by
+// every lane; a shuffle a column entry had cost ~23 cycles each, in
+// series (5.6–6.9 µs for the block on an H100). Each lane keeps its
+// diagonal entry apart, updated with its own l_ij, so that the chain from
+// pivot to pivot is one shuffle and a reciprocal square root. Constant
+// trip counts, as warp_cholesky; columns past n act as the identity's.
+// Returns whether some pivot was not positive or not finite (a NaN pivot
+// fails too), the same on every lane. The whole warp calls it.
 template <typename T>
-__device__ T block_sum(T v, T* sh) {
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  const T total = sh[0];
-  __syncthreads();
-  return total;
-}
-
-// Fill W around X. S = sym(R) + G + (jitter + 1e-6·max|diag(G + R)|)·I
-// into W's top square (lower part), from G = lower(...) in L's top square,
-// whose strict upper part is then zeroed (K8t reads L's top square as a
-// full square; the factorisation writes only its lower part); vᵀ and the
-// identity into W's last dy + 1 rows. R (dy × dy, batch stride r_batch: 0
-// when the batch shares it) may be null, for S = G + floor. Where x_src ≥
-// 0, X is copied into W from that offset of the scratch; where rs ≥ 0,
-// sym(R) goes to that offset. Grid (blocks, batch); every block finds the
-// floor itself (dy reads).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) chol_prep_kernel(
-    T* scratch, const T* __restrict__ R_all, long long r_batch,
-    const T* __restrict__ inn_all, AugLayout sc, long long x_src,
-    long long rs, int B, T jitter) {
-  __shared__ T s_floor;
-  const int dx = sc.dx, dy = sc.dy;
-  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
-    T* ws = scratch + b * sc.total;
-    T* W = ws + sc.w;
-    T* L = ws + sc.l;  // G in its lower part
-    const T* R = R_all != nullptr ? R_all + b * r_batch : nullptr;
-    const T* inn = inn_all + b * dy;
-    if (threadIdx.x < 32) {
-      T mx = T(0);
-      for (int i = threadIdx.x; i < dy; i += 32) {
-        const T a = dabs(L[i * dy + i] + (R ? R[i * dy + i] : T(0)));
-        mx = a > mx ? a : mx;
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        const T other = __shfl_xor_sync(0xffffffffu, mx, o);
-        mx = other > mx ? other : mx;
-      }
-      if (threadIdx.x == 0) s_floor = jitter + T(kRelJitter) * mx;
-    }
-    __syncthreads();
-    const long long eye = sc.erow();
-    const int stride = gridDim.x * blockDim.x;
-    for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < dy * dy;
-         idx += stride) {
-      const int i = idx / dy, j = idx % dy;
-      const T r = R ? T(0.5) * (R[i * dy + j] + R[j * dy + i]) : T(0);
-      if (rs >= 0) ws[rs + idx] = r;
-      if (j < i) W[idx] = L[idx] + r;
-      else if (j == i) W[idx] = (L[idx] + (R ? R[idx] : T(0))) + s_floor;
-      else L[idx] = T(0);
-      W[eye + idx] = i == j ? T(1) : T(0);
-    }
-    if (x_src >= 0)
-      for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < dx * dy;
-           idx += stride)
-        W[sc.xrow() + idx] = ws[x_src + idx];
-    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < dy; j += stride)
-      W[sc.vrow() + j] = inn[j];
-    __syncthreads();
-  }
-}
-
-// Panel k: the n × n diagonal block of W at (k, k) (n ≤ kNb) factored
-// into L's diagonal block (zero strict upper part, NaN throughout unless
-// every pivot is positive) and inverted into Li's rows k..k+n. One warp
-// per element: lane i holds row i; at column j lane j's pivot and every
-// lane's l_ij are shuffled to the lanes that update with them
-// (warp_cholesky). The inverse is forward substitution, lane j solving
-// column j against the factor and its pivots' reciprocals in shared memory
-// (broadcast reads); every loop has a constant trip count (warp_cholesky
-// leaves identity rows on lanes ≥ n), so that the arrays stay in
-// registers.
-template <typename T>
-__global__ void __launch_bounds__(kNb) chol_diag_kernel(
-    T* scratch, AugLayout sc, int B, int k, int n) {
-  static_assert(kNb == kWarp, "one lane a row of the diagonal block");
-  __shared__ T Ls[kNb][kNb + 1];
-  __shared__ T Rs[kNb];  // 1/L[r][r]
-  const int i = threadIdx.x, dy = sc.dy;
-  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
-    T* ws = scratch + b * sc.total;
-    const T* W = ws + sc.w + (long long)(k + i) * dy + k;
-    T a[kNb];
+__device__ bool warp_cholesky_inverse(T (&a)[kWarp], T (&e)[kWarp], int n,
+                                      T* col) {
+  const unsigned full = 0xffffffffu;
+  const int i = threadIdx.x % kWarp;
+  bool bad = false;
+  T dg = T(0);
 #pragma unroll
-    for (int c = 0; c < kNb; ++c)
-      a[c] = i < n && c <= i ? W[c] : T(0);
-    T rinv = T(1);
-    const bool bad = warp_cholesky(a, n, &rinv);
-    Rs[i] = bad ? qnan<T>() : rinv;
+  for (int c = 0; c < kWarp; ++c)
+    if (c == i) dg = a[c];
 #pragma unroll
-    for (int c = 0; c < kNb; ++c) {
-      if (bad) a[c] = qnan<T>();
-      Ls[i][c] = a[c];
-    }
+  for (int j = 0; j < kWarp; ++j) {
+    T d = __shfl_sync(full, dg, j);
+    if (j >= n) d = T(1);
+    bad = bad || !(d > T(0)) || isinf(d);
+    const T r = drsqrt(d);
+    const T lij = i == j ? d * r : (i > j ? a[j] * r : T(0));
+    a[j] = lij;
+    dg -= i > j ? lij * lij : T(0);
+    const T eij = e[j] * r;
+    e[j] = eij;
+    T* cb = col + (j & 1) * kWarp;
+    cb[i] = lij;
     __syncwarp();
-    T* L = ws + sc.l + (long long)(k + i) * dy + k;
 #pragma unroll
-    for (int c = 0; c < kNb; ++c)
-      if (i < n && c < n) L[c] = a[c];
-    // column j = i of L_kk⁻¹: x[r] = (δ_rj − Σ_{c<r} L[r][c] x[c]) / L[r][r]
-    T x[kNb];
+    for (int v = (j + 1) / 4; v < kWarp / 4; ++v) {
+      T w[4];
+      lds4(w, cb + 4 * v);
 #pragma unroll
-    for (int r = 0; r < kNb; ++r) {
-      T acc = r == i ? T(1) : T(0);
-#pragma unroll
-      for (int c = 0; c < r; ++c) acc -= Ls[r][c] * x[c];
-      x[r] = acc * Rs[r];
+      for (int q = 0; q < 4; ++q) {
+        const int c = 4 * v + q;
+        if (c > j) {
+          if (c < i) a[c] -= lij * w[q];
+          e[c] -= eij * w[q];
+        }
+      }
     }
-    T* Li = ws + sc.li + (long long)k * kNb;
+  }
+  return bad;
+}
+
+template <typename T>
+struct FactorArgs {
+  T* ws;             // the scratch; element b's at ws + b·st
+  long long st;
+  AugLayout sc;
+  int B;
+  // the first touch of W: S = lower(s_src) (+ sym(R)) (+ the floor)
+  const T* s_src;
+  long long s_ld, s_batch;
+  const T* R;        // dy × dy, batch stride r_batch; nullptr for none
+  long long r_batch;
+  int add_floor;
+  T jitter;
+  const T* x_src;    // X (dx × dy, leading dimension dy), batch x_batch
+  long long x_batch;
+  const T* inn;      // v (B × dy)
+  long long rs;      // sym(R) to this offset of the element's scratch; < 0
+  int zero_upper;    // zero L's strict upper top square
+  const T* m;        // the gain epilogue: ll, mean = m + Zᵀ z (B × dx)
+  T* ll;
+  T* mean;
+};
+
+// The block's shared tiles.
+template <typename T>
+struct FactorSmem {
+  __align__(16) T a[kNb][kTilePad];   // W(I, k), then L(I, k)
+  __align__(16) T b[kNb][kTilePad];   // W(J, k), then L(J, k)ᵀ; the
+                                      // diagonal tile to factor
+  __align__(16) T li[kNb][kTilePad];  // L_kk⁻ᵀ
+  __align__(16) T d[kNb][kTilePad];   // a float64 product's result
+  __align__(16) T col[2][kWarp];      // the diagonal factor's columns
+  T red[kThreads / kWarp];
+};
+
+// Entry (i, j) of element b's W at its first touch (i < height, j < dy;
+// S's entry only for j ≤ i), assembled from the sources.
+template <typename T>
+__device__ T first_touch(const FactorArgs<T>& a, long long b, int i, int j) {
+  const int dy = a.sc.dy, dx = a.sc.dx;
+  if (i < dy) {
+    T v = a.s_src[b * a.s_batch + (long long)i * a.s_ld + j];
+    if (a.R != nullptr) {
+      const T* R = a.R + b * a.r_batch;
+      v += T(0.5) * (R[i * dy + j] + R[j * dy + i]);
+    }
+    if (a.add_floor && i == j) v += a.ws[b * a.st + a.sc.misc];
+    return v;
+  }
+  if (i < dy + dx)
+    return a.x_src[b * a.x_batch + (long long)(i - dy) * dy + j];
+  if (i == dy + dx) return a.inn[b * dy + j];
+  return i - dy - dx - 1 == j ? T(1) : T(0);
+}
+
+// Thread t's four entries of a tile: row t / 8, columns 4(t % 8)…
+__device__ inline int tile_row() { return threadIdx.x / 8; }
+__device__ inline int tile_col() { return (threadIdx.x % 8) * 4; }
+
+// The thread's four entries of W's tile (I, J) (zeros outside W and, where
+// lower, above the diagonal).
+template <typename T>
+__device__ void fetch_tile(const FactorArgs<T>& a, long long b, int I, int J,
+                           bool first, bool lower, T (&v)[4]) {
+  const int i = I * kNb + tile_row(), c0 = J * kNb + tile_col();
+  if (!first) {  // W itself: four plain loads, issued together
+    const T* W = a.ws + b * a.st + a.sc.w + (long long)i * a.sc.dy + c0;
 #pragma unroll
-    for (int r = 0; r < kNb; ++r)
-      if (i < n && r < n) Li[r * kNb + i] = x[r];
-    __syncwarp();
+    for (int q = 0; q < 4; ++q) {
+      const int j = c0 + q;
+      const bool in = i < a.sc.height && j < a.sc.dy && (!lower || j <= i);
+      v[q] = in ? W[q] : T(0);
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = c0 + q;
+    const bool in = i < a.sc.height && j < a.sc.dy && (!lower || j <= i);
+    v[q] = in ? first_touch(a, b, i, j) : T(0);
   }
 }
 
-// ll = log N(v | 0, S) from diag L and z = L⁻¹ v (the factor's zᵀ row).
-// One block per element.
+// The thread's four entries of L_kk⁻ᵀ.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) chol_loglik_kernel(
-    const T* scratch, T* ll_all, AugLayout sc, int B) {
-  __shared__ T sh[kThreads];
-  const int dy = sc.dy;
-  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
-    const T* L = scratch + b * sc.total + sc.l;
-    const T* z = L + sc.vrow();
-    T logdet = T(0), zsq = T(0);
+__device__ void fetch_inverse(const FactorArgs<T>& a, long long b, int k,
+                              T (&v)[4]) {
+  const T* li = a.ws + b * a.st + a.sc.li + (long long)k * kNb * kNb +
+                tile_row() * kNb + tile_col();
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = li[q];
+}
+
+template <typename T>
+__device__ void put(T (*s)[kTilePad], const T (&v)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) s[tile_row()][tile_col() + q] = v[q];
+}
+
+// out ∓= Σ_m x[r][m]·y[m][c0..c0+3] over the thread's four entries (row r,
+// columns c0…). Float32 on the CUDA cores: eight m at a time, their shared
+// loads issued together (16-byte vectors), into two sets of accumulators.
+// The whole block calls it; d is unused.
+template <bool kSub>
+__device__ void tile_product(float (*x)[kTilePad], float (*y)[kTilePad],
+                             float (&out)[4], float (*)[kTilePad]) {
+  const int r = tile_row(), c0 = tile_col();
+  float acc[2][4] = {};
+#pragma unroll
+  for (int m0 = 0; m0 < kNb; m0 += 8) {
+    float v[8], w[8][4];
+    lds4(*reinterpret_cast<float(*)[4]>(&v[0]), &x[r][m0]);
+    lds4(*reinterpret_cast<float(*)[4]>(&v[4]), &x[r][m0 + 4]);
+#pragma unroll
+    for (int mm = 0; mm < 8; ++mm) lds4(w[mm], &y[m0 + mm][c0]);
+#pragma unroll
+    for (int mm = 0; mm < 8; ++mm)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mm & 1][q] += v[mm] * w[mm][q];
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float sum = acc[0][q] + acc[1][q];
+    out[q] = kSub ? out[q] - sum : sum;
+  }
+}
+
+// The same in float64 on the tensor cores (tiled.cuh's dmma, full
+// float64): warp w forms the 8 × 8 output tiles (w/2, 2(w%2)) and
+// (w/2, 2(w%2) + 1) in 8 steps of k = 4 (the A fragment shared), stages
+// them in d, and each thread reads its four entries back. On the CUDA
+// cores a 32³ product took ~1.4 µs of a block in float64 on an H100
+// (~0.4 µs here), on the critical path of every step.
+template <bool kSub>
+__device__ void tile_product(double (*x)[kTilePad], double (*y)[kTilePad],
+                             double (&out)[4], double (*d)[kTilePad]) {
+  static_assert(kThreads / kWarp * 2 == (kNb / 8) * (kNb / 8),
+                "two 8 x 8 output tiles a warp");
+  const int lane = threadIdx.x % kWarp, w = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4, ti = w / 2, tj = (w % 2) * 2;
+  double acc[2][2] = {};
+#pragma unroll
+  for (int ks = 0; ks < kNb / 4; ++ks) {
+    const double a = x[8 * ti + g][4 * ks + t];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      dmma(acc[u], a, y[4 * ks + t][8 * (tj + u) + g]);
+  }
+  __syncthreads();  // earlier readers of d are done
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      d[8 * ti + g][8 * (tj + u) + 2 * t + i] = acc[u][i];
+  __syncthreads();
+  const int r = tile_row(), c0 = tile_col();
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    out[q] = kSub ? out[q] - d[r][c0 + q] : d[r][c0 + q];
+}
+
+// The thread's four entries of L's tile (I, J) from v, in rows ≥ row_lo.
+template <typename T>
+__device__ void store_l(const FactorArgs<T>& a, long long b, int I, int J,
+                        const T (&v)[4], int row_lo = 0) {
+  const int r = tile_row(), c0 = tile_col();
+  const int i = I * kNb + r;
+  if (i >= a.sc.height || i < row_lo) return;
+  T* L = a.ws + b * a.st + a.sc.l + (long long)i * a.sc.dy;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = J * kNb + c0 + q;
+    if (j < a.sc.dy) L[j] = v[q];
+  }
+}
+
+// Factor the lower diagonal tile (K, K) staged in s (row stride kNb + 1:
+// lane i reads and writes its row free of bank conflicts) into L's tile
+// (zeros above the diagonal), its L⁻ᵀ and the element's flag. Warp 0 works
+// in registers and leaves L's tile in s and L⁻ᵀ in t (the same stride);
+// then the whole block stores both, a row of 4 consecutive entries a
+// thread (a lane a row had stored 64 rows' worth of scattered sectors).
+// The whole block calls it.
+template <typename T>
+__device__ void factor_diag(const FactorArgs<T>& a, long long b, int K,
+                            T (*s)[kNb + 1], T (*t)[kNb + 1], T* col,
+                            bool first) {
+  const int dy = a.sc.dy;
+  const int n = dy - K * kNb < kNb ? dy - K * kNb : kNb;
+  T* ws = a.ws + b * a.st;
+  if (threadIdx.x < kWarp) {
+    const int i = threadIdx.x;
+    T x[kWarp], e[kWarp];
+#pragma unroll
+    for (int c = 0; c < kWarp; ++c) {
+      x[c] = i < n && c <= i ? s[i][c] : T(0);
+      e[c] = c == i ? T(1) : T(0);
+    }
+    const bool bad = warp_cholesky_inverse(x, e, n, col);
+#pragma unroll
+    for (int c = 0; c < kWarp; ++c) {
+      s[i][c] = bad ? qnan<T>() : (c <= i ? x[c] : T(0));
+      t[i][c] = bad ? qnan<T>() : e[c];
+    }
+    if (i == 0) {
+      T* flag = ws + a.sc.misc + 1;
+      *flag = (bad || (!first && *flag != T(0))) ? T(1) : T(0);
+    }
+  }
+  __syncthreads();
+  const int r = tile_row(), c0 = tile_col();
+  T* li = ws + a.sc.li + (long long)K * kNb * kNb + r * kNb + c0;
+  T* L = ws + a.sc.l + (long long)(K * kNb + r) * dy + K * kNb + c0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    li[q] = t[r][c0 + q];
+    if (r < n && c0 + q < n) L[q] = s[r][c0 + q];
+  }
+}
+
+// The diagonal tile's staging buffers (stride kNb + 1) in the block's
+// tiles: the tile in b's storage, L⁻ᵀ in li's (free once a task's products
+// are done).
+template <typename T>
+__device__ T (*stage_a(FactorSmem<T>& sm))[kNb + 1] {
+  return reinterpret_cast<T(*)[kNb + 1]>(&sm.b[0][0]);
+}
+template <typename T>
+__device__ T (*stage_b(FactorSmem<T>& sm))[kNb + 1] {
+  return reinterpret_cast<T(*)[kNb + 1]>(&sm.li[0][0]);
+}
+static_assert(kTilePad >= kNb + 1, "a tile buffer holds a staging tile");
+
+// The first phase for element b: the floor, then the first diagonal tile.
+template <typename T>
+__device__ void first_diag(const FactorArgs<T>& a, long long b,
+                           FactorSmem<T>& sm) {
+  const int dy = a.sc.dy;
+  if (a.add_floor) {
+    T mx = T(0);
     for (int i = threadIdx.x; i < dy; i += blockDim.x) {
-      logdet += dlog(L[(long long)i * dy + i]);
-      zsq += z[i] * z[i];
+      T d = a.s_src[b * a.s_batch + (long long)i * a.s_ld + i];
+      if (a.R != nullptr) d += a.R[b * a.r_batch + i * dy + i];
+      mx = dabs(d) > mx ? dabs(d) : mx;
     }
-    logdet = block_sum(logdet, sh);
-    zsq = block_sum(zsq, sh);
-    if (threadIdx.x == 0)
-      ll_all[b] = T(-0.5) * (T(dy * kLog2Pi) + T(2) * logdet + zsq);
+    for (int o = kWarp / 2; o > 0; o >>= 1) {
+      const T other = __shfl_xor_sync(0xffffffffu, mx, o);
+      mx = other > mx ? other : mx;
+    }
+    if (threadIdx.x % kWarp == 0) sm.red[threadIdx.x / kWarp] = mx;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < kThreads / kWarp; ++w)
+        mx = sm.red[w] > mx ? sm.red[w] : mx;
+      a.ws[b * a.st + a.sc.misc] = a.jitter + T(kRelJitter) * mx;
+    }
+    __syncthreads();
+  }
+  T v[4];
+  fetch_tile(a, b, 0, 0, true, true, v);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) stage_a(sm)[tile_row()][tile_col() + q] = v[q];
+  __syncthreads();
+  factor_diag(a, b, 0, stage_a(sm), stage_b(sm), &sm.col[0][0], true);
+  __syncthreads();
+}
+
+// Step k's task on the trailing tile (I, J) of element b (see the header).
+// Every global load is issued before the first shared store.
+template <typename T>
+__device__ void trailing_task(const FactorArgs<T>& a, long long b, int I,
+                              int J, int k, FactorSmem<T>& sm) {
+  const bool first = k == 0, same = I == J;
+  const int r = tile_row(), c0 = tile_col();
+  T ta[4], tb[4], tl[4], c[4];
+  fetch_tile(a, b, I, k, first, false, ta);
+  if (!same) fetch_tile(a, b, J, k, first, false, tb);
+  fetch_inverse(a, b, k, tl);
+  fetch_tile(a, b, I, J, first, same, c);  // W(I, J)
+  put(sm.a, ta);
+  if (!same) put(sm.b, tb);
+  put(sm.li, tl);
+  __syncthreads();
+  T pi[4], pj[4];
+  tile_product<false>(sm.a, sm.li, pi, sm.d);
+  if (!same) tile_product<false>(sm.b, sm.li, pj, sm.d);
+  __syncthreads();
+  // L(I, k) by rows into a, L(J, k)ᵀ into b
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    sm.a[r][c0 + q] = pi[q];
+    sm.b[c0 + q][r] = same ? pi[q] : pj[q];
+  }
+  __syncthreads();
+  tile_product<true>(sm.a, sm.b, c, sm.d);
+  if (J == k + 1) store_l(a, b, I, k, pi);
+  T* W = a.ws + b * a.st + a.sc.w;
+  const int i = I * kNb + r;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = J * kNb + c0 + q;
+    if (i < a.sc.height && j < a.sc.dy && (!same || j <= i))
+      W[(long long)i * a.sc.dy + j] = c[q];
+  }
+  if (same && I == k + 1) {  // look-ahead: factor the next diagonal tile
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      stage_a(sm)[r][c0 + q] = c0 + q <= r ? c[q] : T(0);
+    __syncthreads();
+    factor_diag(a, b, k + 1, stage_a(sm), stage_b(sm), &sm.col[0][0], false);
+  }
+  __syncthreads();
+}
+
+// The last phase's task: L(I, last) = W(I, last)·L_last⁻ᵀ in the rows
+// under S (on the last diagonal tile, only those: its rows of S are the
+// diagonal factor's).
+template <typename T>
+__device__ void last_panel_task(const FactorArgs<T>& a, long long b, int I,
+                                int last, FactorSmem<T>& sm) {
+  T ta[4], tl[4];
+  fetch_tile(a, b, I, last, last == 0, false, ta);
+  fetch_inverse(a, b, last, tl);
+  put(sm.a, ta);
+  put(sm.li, tl);
+  __syncthreads();
+  T p[4];
+  tile_product<false>(sm.a, sm.li, p, sm.d);
+  store_l(a, b, I, last, p, a.sc.dy);
+  __syncthreads();
+}
+
+// Block g's share of `total` tasks in turns over the G blocks, the order
+// reversed every other round (so that the first tasks, the look-ahead's
+// diagonal tiles, are not the ones whose blocks take a second task).
+template <typename F>
+__device__ void for_tasks(long long total, F f) {
+  const int G = gridDim.x, g = blockIdx.x;
+  for (long long round = 0; round * G < total; ++round) {
+    const long long p = round * G + ((round & 1) ? G - 1 - g : g);
+    if (p < total) f(p);
   }
 }
 
-// Enqueue chol_prep_kernel on `stream` (grid: up to 64 blocks an
-// element); returns cudaGetLastError().
-template <typename T>
-int chol_prep(T* ws, const T* R, long long r_batch, const T* inn,
-              const AugLayout& sc, long long x_src, long long rs, int B,
-              T jitter, cudaStream_t stream) {
-  int work = sc.dy * sc.dy;
-  if (x_src >= 0 && sc.dx * sc.dy > work) work = sc.dx * sc.dy;
-  const int blocks = (work + kThreads - 1) / kThreads;
-  chol_prep_kernel<T><<<dim3(blocks < 64 ? blocks : 64, grid_1d(B)),
-                        kThreads, 0, stream>>>(ws, R, r_batch, inn, sc, x_src,
-                                               rs, B, jitter);
-  return int(cudaGetLastError());
-}
+// No epilogue (K7t's factors: its points pass follows as a launch).
+struct NoEpilogue {
+  template <typename T>
+  __device__ void operator()(const FactorArgs<T>&, FactorSmem<T>&) const {}
+  static constexpr bool kAny = false;
+};
 
-// The panel loop: factor the prepared W (its lower top square and the
-// sc.height − dy rows below it) of every element into L, enqueued on
-// `stream`; returns the first CUDA error. Writes only L's lower part.
-template <typename T>
-int blocked_cholesky(T* ws, const AugLayout& sc, int B,
-                     cudaStream_t stream) {
-  const int dy = sc.dy;
-  const long long st = sc.total;
-  int err = 0;
-  auto keep = [&](int e) {
-    if (err == 0) err = e;
-  };
-  for (int k = 0; k < dy; k += kNb) {
-    const int n = dy - k < kNb ? dy - k : kNb;
-    const long long below = k + n;              // first row under the panel
-    const int rest = int(sc.height - below);    // rows under the panel
-    chol_diag_kernel<T><<<grid_1d(B), kNb, 0, stream>>>(ws, sc, B, k, n);
-    keep(int(cudaGetLastError()));
-    // L[below:, k:k+n] = W[below:, k:k+n] · (L_kk⁻¹)ᵀ
-    keep(gemm(gemm_of<T>(rest, n, n, B,
-                         {ws + sc.w + below * dy + k, dy, st, 0},
-                         {ws + sc.li + 1LL * k * kNb, kNb, st, 1},
-                         ws + sc.l + below * dy + k, dy, st),
-              stream));
-    if (below < dy) {
-      // W[below:, below:dy] −= L[below:, k:k+n] · L[below:dy, k:k+n]ᵀ
-      const T* panel = ws + sc.l + below * dy + k;
-      Gemm<T> g = gemm_of<T>(rest, int(dy - below), n, B, {panel, dy, st, 0},
-                             {panel, dy, st, 1},
-                             ws + sc.w + below * dy + below, dy, st, T(-1));
-      g.Cin = g.C; g.ldcin = dy; g.bcin = st; g.beta = T(1);
-      g.tri = kLower;
-      keep(gemm(g, stream));
+// The gain's epilogue: ll = log N(v | 0, S) from diag L and z, and
+// μ = m + Zᵀ z, a warp a row (row dx of an element: ll).
+struct GainEpilogue {
+  template <typename T>
+  __device__ void operator()(const FactorArgs<T>& a, FactorSmem<T>&) const {
+    const int dx = a.sc.dx, dy = a.sc.dy, lane = threadIdx.x % kWarp;
+    const long long warps = (long long)gridDim.x * (kThreads / kWarp);
+    const long long rows = (long long)a.B * (dx + 1);
+    for (long long w = blockIdx.x * (kThreads / kWarp) + threadIdx.x / kWarp;
+         w < rows; w += warps) {
+      const long long b = w / (dx + 1);
+      const int i = int(w % (dx + 1));
+      const T* L = a.ws + b * a.st + a.sc.l;
+      const T* z = L + a.sc.vrow();
+      T s = T(0), t = T(0);
+      if (i < dx) {
+        const T* zt = L + a.sc.xrow() + (long long)i * dy;
+        for (int c = lane; c < dy; c += kWarp) s += zt[c] * z[c];
+      } else {
+        for (int c = lane; c < dy; c += kWarp) {
+          s += dlog(L[(long long)c * dy + c]);
+          t += z[c] * z[c];
+        }
+      }
+      for (int o = kWarp / 2; o > 0; o >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        t += __shfl_xor_sync(0xffffffffu, t, o);
+      }
+      if (lane == 0) {
+        if (i < dx)
+          a.mean[b * dx + i] = a.m[b * dx + i] + s;
+        else
+          a.ll[b] = T(-0.5) * (T(dy * kLog2Pi) + T(2) * s + t);
+      }
     }
   }
-  return err;
+  static constexpr bool kAny = true;
+};
+
+// The one-launch factor (see the header). Launched cooperatively: every
+// block is resident, and grid.sync() separates the phases.
+template <typename T, typename Epi>
+__global__ void __launch_bounds__(kThreads) tiled_factor_kernel(
+    const FactorArgs<T> a, const Epi epi) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  __shared__ FactorSmem<T> sm;
+  const AugLayout& sc = a.sc;
+  const int dy = sc.dy, ntc = tiles_of(dy), ntr = tiles_of(sc.height);
+  const long long B = a.B;
+
+  // the first phase: the first diagonal tiles, sym(R), L's zero upper part
+  for_tasks(B, [&](long long b) { first_diag(a, b, sm); });
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (a.rs >= 0)
+    for (long long idx = first; idx < B * dy * dy; idx += stride) {
+      const long long b = idx / (1LL * dy * dy);
+      const int e = int(idx % (1LL * dy * dy)), i = e / dy, j = e % dy;
+      const T* R = a.R + b * a.r_batch;
+      a.ws[b * a.st + a.rs + e] = T(0.5) * (R[i * dy + j] + R[j * dy + i]);
+    }
+  if (a.zero_upper)
+    for (long long idx = first; idx < B * dy * dy; idx += stride) {
+      const long long b = idx / (1LL * dy * dy);
+      const int e = int(idx % (1LL * dy * dy)), i = e / dy, j = e % dy;
+      if (j / kNb > i / kNb) a.ws[b * a.st + sc.l + e] = T(0);
+    }
+  grid.sync();
+
+  // the steps
+  for (int k = 0; k + 1 < ntc; ++k) {
+    long long per = 0;  // trailing tiles of an element
+    for (int J = k + 1; J < ntc; ++J) per += ntr - J;
+    for_tasks(B * per, [&](long long p) {
+      long long b;
+      int I, J = k + 1;
+      if (p < B) {  // the look-ahead's diagonal tiles first
+        b = p;
+        I = J;
+      } else {
+        const long long q = p - B;
+        b = q / (per - 1);
+        long long o = q % (per - 1) + 1;  // past (k + 1, k + 1)
+        while (o >= ntr - J) {
+          o -= ntr - J;
+          ++J;
+        }
+        I = J + int(o);
+      }
+      trailing_task(a, b, I, J, k, sm);
+    });
+    grid.sync();
+  }
+
+  // the rows under the last panel
+  const int from = sc.last_from();
+  if (ntr > from) {
+    const long long per = ntr - from;
+    for_tasks(B * per, [&](long long p) {
+      last_panel_task(a, p / per, from + int(p % per), ntc - 1, sm);
+    });
+    if (Epi::kAny) grid.sync();
+  }
+  epi(a, sm);
 }
 
-// Factor the prepared W of every element and finish the update's common
-// part: the gain K = Zᵀ L⁻¹ (dx × dy, leading dimension dy, batch stride
-// k_batch), ll = log N(v | 0, S) and μ = m + K v. Enqueued on `stream`;
-// returns the first CUDA error.
+// The most tasks of any phase of the factor.
+inline long long factor_tasks(const AugLayout& sc, int B) {
+  const int ntc = tiles_of(sc.dy), ntr = tiles_of(sc.height);
+  long long most = ntr - sc.last_from();
+  long long step0 = 0;
+  for (int J = 1; J < ntc; ++J) step0 += ntr - J;
+  if (step0 > most) most = step0;
+  return (most > 1 ? most : 1) * B;
+}
+
+// Launch the factor over `tasks` (the most that any phase has) on at most
+// one block an SM (fewer blocks, a shorter barrier); returns the launch's
+// error.
+template <typename T, typename Epi>
+int launch_factor(const FactorArgs<T>& a, const Epi& epi, long long tasks,
+                  cudaStream_t stream) {
+  auto kernel = tiled_factor_kernel<T, Epi>;
+  long long blocks = sm_count();
+  if (tasks < blocks) blocks = tasks;
+  if (blocks < 1) blocks = 1;
+  void* args[] = {const_cast<FactorArgs<T>*>(&a), const_cast<Epi*>(&epi)};
+  return int(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                         dim3(unsigned(blocks)),
+                                         dim3(kThreads), args, 0, stream));
+}
+
+// Factor the augmented W of every element (its G, the lower part of S
+// before sym(R) and the floor, in W's top square; X at x_src) and finish
+// the update's common part: sym(R) into the slot at rs (≥ 0), ll, μ and
+// the gain K = Zᵀ L⁻¹ (dx × dy, leading dimension dy, batch stride
+// k_batch). Two launches. Returns the first error.
 template <typename T>
-int factor_and_gain(T* ws, const AugLayout& sc, int B, T* K,
-                    long long k_batch, const T* m, const T* inn, T* ll,
-                    T* mean, cudaStream_t stream) {
+int factor_and_gain(T* ws, const AugLayout& sc, int B, const T* R,
+                    long long r_batch, T jitter, const T* x_src,
+                    long long x_batch, const T* inn, long long rs,
+                    int zero_upper, T* K, long long k_batch, const T* m,
+                    T* ll, T* mean, cudaStream_t stream) {
   const int dx = sc.dx, dy = sc.dy;
   const long long st = sc.total;
-  int err = blocked_cholesky(ws, sc, B, stream);
-  auto keep = [&](int e) {
-    if (err == 0) err = e;
-  };
+  FactorArgs<T> a{};
+  a.ws = ws; a.st = st; a.sc = sc; a.B = B;
+  a.s_src = ws + sc.w; a.s_ld = dy; a.s_batch = st;
+  a.R = R; a.r_batch = r_batch; a.add_floor = 1; a.jitter = jitter;
+  a.x_src = x_src; a.x_batch = x_batch; a.inn = inn;
+  a.rs = rs; a.zero_upper = zero_upper;
+  a.m = m; a.ll = ll; a.mean = mean;
+  const long long rows = 1LL * B * (dx + 1);  // the epilogue's warps
+  long long tasks = factor_tasks(sc, B);
+  const long long epi_blocks =
+      (rows + kThreads / kWarp - 1) / (kThreads / kWarp);
+  if (epi_blocks > tasks) tasks = epi_blocks;
+  int err = launch_factor(a, GainEpilogue{}, tasks, stream);
   // K = Zᵀ L⁻¹ = Zᵀ (L⁻ᵀ)ᵀ
-  keep(gemm(gemm_of<T>(dx, dy, dy, B, {ws + sc.l + sc.xrow(), dy, st, 0},
-                       {ws + sc.l + sc.erow(), dy, st, 1}, K, dy, k_batch),
-            stream));
-  // ll; μ = m + K v, a product with one column
-  chol_loglik_kernel<T><<<grid_1d(B), kThreads, 0, stream>>>(ws, ll, sc, B);
-  keep(int(cudaGetLastError()));
-  Gemm<T> g = gemm_of<T>(dx, 1, dy, B, {K, dy, k_batch, 0}, {inn, 1, dy, 0},
-                         mean, 1, dx);
-  g.Cin = m; g.ldcin = 1; g.bcin = dx; g.beta = T(1);
-  keep(gemm(g, stream));
-  return err;
+  const int e = gemm(gemm_of<T>(dx, dy, dy, B,
+                                {ws + sc.l + sc.xrow(), dy, st, 0},
+                                {ws + sc.l + sc.erow(), dy, st, 1}, K, dy,
+                                k_batch),
+                     stream);
+  return err ? err : e;
 }
 
 }  // namespace bft

@@ -16,8 +16,7 @@
 // per-element kernels ran each on one SM with the workspace in global
 // scratch, one dependent load-and-FMA chain per output. Here every product
 // is a tiled product over the whole card (tiled.cuh), and the update's
-// Cholesky is K1t's blocked one (tiled_chol.cuh), so only a 32 × 32
-// diagonal factor per panel stays serial:
+// Cholesky is K1t's one-launch blocked factor (tiled_chol.cuh):
 //
 // - Each entry point enqueues its launches on the caller's stream and
 //   returns the first CUDA error. The scratch comes from the wrapper (a
@@ -28,14 +27,14 @@
 //   product of inner dimension 1), Cᵀ = w_side·Xcᵀ Yc another.
 // - K8t factors W = [S; Cᵀ; innovᵀ; I] as K1t factors [S; (H P)ᵀ; innovᵀ;
 //   I]: the rows below S become Zᵀ = (L⁻¹ C)ᵀ, zᵀ and L⁻ᵀ, the gain is
-//   K = Zᵀ L⁻¹, and log N and μ are K1t's steps. The factorisation
-//   overwrites W's Cᵀ rows, so Cᵀ is kept in a slot of its own and copied
-//   into W by the prep.
+//   K = Zᵀ L⁻¹, and log N and μ are K1t's, in the factor's launch. The
+//   factorisation overwrites W's Cᵀ rows, so Cᵀ is kept in a slot of its
+//   own, from which the factor's first touch reads it.
 // - The covariance keeps the plain version's grouping, P − KC − (KC)ᵀ +
 //   (KL)(KL)ᵀ: K C and K L are products, lower((KL)(KL)ᵀ) mirrored a third,
-//   and one element-wise pass adds the symmetrised rest. The prep zeroes
-//   L's strict upper part, which the factorisation never writes, so that
-//   K L can read L as a full square.
+//   and one element-wise pass adds the symmetrised rest. The factor zeroes
+//   L's strict upper part, which it otherwise never writes, so that K L
+//   can read L as a full square.
 //
 // Math and constants follow ops/fused_ut.py's plain versions: S is
 // symmetrised before the relative floor 1e-6·max|diag S| (no jitter); the
@@ -47,9 +46,9 @@ namespace {
 
 using namespace bft;
 
-// Per-element scratch of K8t: W, L and the diagonal blocks' inverses
-// (AugLayout), then Cᵀ, K, K C, K L, the centred images Yc and points Xc,
-// and d0 = center − μy.
+// Per-element scratch of K8t: W, L, the diagonal tiles' inverses, the
+// floor and flag (AugLayout), then Cᵀ, K, K C, K L, the centred images Yc
+// and points Xc, and d0 = center − μy.
 struct UtUpdateScratch {
   AugLayout f;
   long long ct, k, kc, kl, yc, xc, d0;
@@ -196,10 +195,10 @@ int launch_update_tiled(const void* pts_, const void* hpts_,
       static_cast<const T*>(center_), static_cast<const T*>(mu_),
       static_cast<const T*>(m_), ws, sc, B, rows, ld);
   keep(int(cudaGetLastError()));
-  // 2. G = lower(w_side·Ycᵀ Yc + w0c·d0 d0ᵀ) into L's top square
+  // 2. G = lower(w_side·Ycᵀ Yc + w0c·d0 d0ᵀ) into W's top square
   {
     Gemm<T> g = gemm_of<T>(dy, dy, rows, B, {ws + sc.yc, dy, st, 1},
-                           {ws + sc.yc, dy, st, 0}, ws + sc.f.l, dy, st,
+                           {ws + sc.yc, dy, st, 0}, ws + sc.f.w, dy, st,
                            T(w_side));
     g.K[1] = 1;
     g.A[1] = {ws + sc.d0, 1, st, 0};
@@ -213,14 +212,14 @@ int launch_update_tiled(const void* pts_, const void* hpts_,
                        {ws + sc.yc, dy, st, 0}, ws + sc.ct, dy, st,
                        T(w_side)),
             stream));
-  // 4. S = G (+ sym(R), shared) + floor, Cᵀ, innovᵀ and I into W
-  keep(chol_prep<T>(ws, static_cast<const T*>(R_), 0, inn, sc.f, sc.ct, -1,
-                    B, T(0), stream));
-  // 5, 6. the factorisation, K = Zᵀ L⁻¹, ll and μ
-  keep(factor_and_gain<T>(ws, sc.f, B, ws + sc.k, st,
-                          static_cast<const T*>(m_), inn,
-                          static_cast<T*>(ll_), static_cast<T*>(mean_),
-                          stream));
+  // 4–6. the factorisation of W = [S; Cᵀ; innovᵀ; I], S = G (+ sym(R),
+  //      shared) + floor and Cᵀ read at its first touch, with ll and μ;
+  //      then K = Zᵀ L⁻¹. L's top square is read whole below: its strict
+  //      upper part is zeroed.
+  keep(factor_and_gain<T>(ws, sc.f, B, static_cast<const T*>(R_), 0, T(0),
+                          ws + sc.ct, st, inn, -1, 1, ws + sc.k, st,
+                          static_cast<const T*>(m_), static_cast<T*>(ll_),
+                          static_cast<T*>(mean_), stream));
   // 7. K C (C = (Cᵀ)ᵀ), K L, then lower((KL)(KL)ᵀ) mirrored into Σ and the
   //    element-wise rest
   keep(gemm(gemm_of<T>(dx, dx, dy, B, {ws + sc.k, dy, st, 0},

@@ -13,8 +13,9 @@ in the block's shared memory.
 
 K1t and K2t (``csrc/ekf_tiled.cu``) replace the same TPU kernels for
 elements whose workspace does not fit there: every product is tiled over
-the whole card and the Cholesky is blocked (``csrc/tiled.cuh``), so one
-sequence at dx = 512 uses every SM. The choice is by shape alone
+the whole card (``csrc/tiled.cuh``) and the Cholesky is blocked, in one
+cooperative launch (``csrc/tiled_chol.cuh``), so one sequence at
+dx = 512 uses every SM. The choice is by shape alone
 (:func:`update_kernel`, :func:`predict_kernel`).
 
 On CUDA tensors the wrappers launch a kernel or raise; on CPU tensors

@@ -18,14 +18,15 @@
 All four keep their workspace in one block's shared memory. Where it
 does not fit (config 5's Lorenz-96 dx=512, the band's edges), tiled
 variants replace the same TPU kernels: in ``csrc/sigma_tiled.cu`` K6t
-factors P with the EKF's blocked Cholesky (K1t's panel loop,
-``csrc/tiled_chol.cuh``, on P alone) or the Newton–Schulz rounds as
-tiled products and writes the points in one tiled pass, and K7t composes
-K6t's factors of P and of the shared C with one pass that writes the
-augmented points; in ``csrc/ut_tiled.cu`` K8t centres the points, forms S
-and Cᵀ as products over the whole card and factors [S; Cᵀ; innovᵀ; I]
-with K1t's blocked Cholesky, and K9t centres the points and forms Σ as
-one product. The choice is by shape alone (:func:`sigma_kernel`,
+factors P with the EKF's blocked Cholesky in one launch
+(``csrc/tiled_chol.cuh``, on P alone; the points are that launch's
+epilogue) or runs the Newton–Schulz rounds as tiled products and a points
+pass, and K7t composes the factors of P and of the shared C with one pass
+that writes the augmented points; in ``csrc/ut_tiled.cu`` K8t centres the
+points, forms S and Cᵀ as products over the whole card and factors
+[S; Cᵀ; innovᵀ; I] with K1t's blocked Cholesky, and K9t centres the points
+and forms Σ as one product. The factor's route and scratch are decided in
+C; the wrappers ask only for the scratch size. The choice is by shape alone (:func:`sigma_kernel`,
 :func:`sigma_aug_kernel`, :func:`update_kernel`, :func:`predict_kernel`).
 
 The model evaluations f(pts), h(pts) run between them in PyTorch. K8 takes

@@ -2,9 +2,10 @@
 
 Inputs are made with a numpy ``Generator`` so that the JAX package and the
 port can be fed the very same arrays; :func:`to_torch` moves them over.
-:func:`augmented_prep` and :func:`augmented_factor` write out, in numpy,
-the preparation and the blocked Cholesky that the tiled update kernels
-K1t and K8t share, and :func:`tile_mm` and :func:`tile_mm_lower` (with
+:class:`TiledFactor` writes out, in numpy, the one-launch blocked
+Cholesky of ``csrc/tiled_chol.cuh`` that K1t, K8t (:func:`augmented_factor`),
+K6t and K7t (:func:`square_factor`) share, phase by phase on scratch seeded
+with NaN, and :func:`tile_mm` and :func:`tile_mm_lower` (with
 their epilogues :func:`put`, :func:`put_t` and :func:`put_mirrored`),
 :func:`panel_cholesky` and
 :func:`tri_solve` the in-block product, panel factor and panel triangular
@@ -78,59 +79,379 @@ def ut_predict_inputs(rng: np.random.Generator, B: int, rows: int, dx: int):
             spd(rng, 1, dx)[0])
 
 
-def _chol_lower_nan(a):
-    """Cholesky factor of the symmetric matrix whose lower triangle ``a``
-    holds (its strict upper part is never read), NaN throughout where it
-    is not positive definite."""
-    lo = np.tril(a)
-    try:
-        return np.linalg.cholesky(lo + np.tril(lo, -1).T)
-    except np.linalg.LinAlgError:
-        return np.full_like(a, np.nan)
+# ---------------------------------------------------------------------------
+# csrc/tiled_chol.cuh's one-launch factor, phase by phase
+# ---------------------------------------------------------------------------
+
+NB = 32  # tiled_chol.cuh kNb: the tile and panel width
+FACTOR_THREADS = 256  # tiled_chol.cuh kThreads
 
 
-def augmented_prep(W, L, R, inn, jitter: float = 0.0):
-    """``chol_prep_kernel`` of ``csrc/tiled_chol.cuh`` on one element, in
-    place: S = G + sym(R) + (jitter + 1e-6·max|diag(G + R)|)·I into W's top
-    square (its lower part) from G in L's (its lower part), L's strict
-    upper top square zeroed, the innovation and the identity into W's last
-    dy + 1 rows. ``R`` may be None (S = G + floor). Returns sym(R)."""
-    dy = inn.shape[-1]
-    G = L[:dy]
-    Rm = np.zeros((dy, dy)) if R is None else R
-    Rs = 0.5 * (Rm + Rm.T)
-    diag = np.diag(G) + np.diag(Rm)
-    strict = np.tri(dy, k=-1, dtype=bool)
-    W[:dy][strict] = (G + Rs)[strict]
-    W[:dy][np.diag_indices(dy)] = diag + (jitter + 1e-6 * np.abs(diag).max())
-    G[strict.T] = 0.0
-    W[-dy - 1] = inn
-    W[-dy:] = np.eye(dy)
-    return Rs
+def tiles_of(n: int) -> int:
+    return -(-n // NB)
 
 
-def augmented_factor(W, L, dy: int, nb: int = 32) -> None:
-    """The blocked right-looking Cholesky of ``csrc/tiled_chol.cuh`` on the
-    augmented matrix ``W`` ((2dy + dx + 1) × dy: S in its lower top square,
-    then X, vᵀ and I), in place and launch by launch: each panel's n × n
-    diagonal block is factored into ``L`` (NaN throughout unless every pivot
-    is positive) and inverted, the rows below it become W's panel times the
-    inverse transposed, and the trailing matrix below takes a lower update.
-    Entries that the kernels never write (W's and L's strict upper part in
-    the top square outside the diagonal blocks) are left as they were, so
-    that scratch seeded with NaN shows any read of them."""
-    for k in range(0, dy, nb):
-        below = min(k + nb, dy)
-        Lkk = _chol_lower_nan(W[k:below, k:below])
-        inv = np.linalg.inv(Lkk) if np.isfinite(Lkk).all() else Lkk
-        L[k:below, k:below] = Lkk
-        L[below:, k:below] = W[below:, k:below] @ inv.T
-        if below < dy:
-            upd = L[below:, k:below] @ L[below:dy, k:below].T
-            rows, cols = upd.shape
-            lower = np.arange(cols)[None, :] <= np.arange(rows)[:, None]
-            W[below:, below:dy] = np.where(lower, W[below:, below:dy] - upd,
-                                           W[below:, below:dy])
+def aug_layout(dx: int, dy: int, height=None) -> dict:
+    """``AugLayout`` of csrc/tiled_chol.cuh: the element's W (height × dy,
+    height 2dy + dx + 1 unless given), its factor L, the diagonal tiles'
+    L⁻ᵀ, the floor and the flag, as offsets in elements."""
+    height = 2 * dy + dx + 1 if height is None else height
+    w = 0
+    l_ = w + height * dy
+    li = l_ + height * dy
+    misc = li + tiles_of(dy) * NB * NB
+    return {"height": height, "w": w, "l": l_, "li": li, "misc": misc,
+            "end": misc + 4}
+
+
+def last_from(dy: int, height: int) -> int:
+    """The last phase's first tile row (``AugLayout::last_from``)."""
+    return tiles_of(dy) - (1 if dy % NB and height > dy else 0)
+
+
+def step_tasks(k: int, dy: int, height: int) -> int:
+    """Step k's trailing tiles (I, J), k < J ≤ I, of one element."""
+    ntc, ntr = tiles_of(dy), tiles_of(height)
+    return sum(ntr - J for J in range(k + 1, ntc))
+
+
+def factor_tasks(dy: int, height: int, B: int) -> int:
+    """``factor_tasks``: the most tasks of any phase (step 0 or the last)."""
+    most = max(tiles_of(height) - last_from(dy, height), step_tasks(0, dy,
+                                                                   height))
+    return max(most, 1) * B
+
+
+def factor_barriers(dy: int, height: int, epilogue: bool) -> int:
+    """The grid barriers of one launch: after the first phase, after each
+    step, and before an epilogue that follows a last phase."""
+    last = tiles_of(height) > last_from(dy, height)
+    return 1 + (tiles_of(dy) - 1) + (1 if last and epilogue else 0)
+
+
+H100_L2_BYTES = 50 * 2 ** 20
+
+
+def factor_launch(dy: int, height: int, B: int, itemsize: int,
+                  epilogue: str = "none", sms: int = 132) -> dict:
+    """How ``launch_factor`` runs the factor of a W of ``height`` × dy rows
+    over a batch of B: one cooperative launch (the route: a persistent
+    grid, the working W in L2 between the steps) on min(SMs, tasks)
+    blocks, the tasks being the most of any phase, the epilogue's included
+    (``"points"``: K6t's tiles of the 2n × n points; ``"gain"``: a warp a
+    row of μ and one for ll, eight warps a block; ``"none"``: K7t's), and
+    ``factor_barriers`` grid barriers; whether the element's W and L fit
+    the H100's 50 MB L2 at ``itemsize`` bytes an entry."""
+    dx = height - 2 * dy - 1
+    epi = {"none": 0, "points": B * tiles_of(dy) ** 2,
+           "gain": -(-B * (dx + 1) // 8)}[epilogue]
+    lay = aug_layout(0, dy, height) if height == dy else aug_layout(dx, dy)
+    return {"route": "grid", "launches": 1,
+            "blocks": min(sms, max(factor_tasks(dy, height, B), epi)),
+            "barriers": factor_barriers(dy, height, epilogue != "none"),
+            "in_l2": B * (lay["li"] - lay["w"]) * itemsize <= H100_L2_BYTES}
+
+
+# The per-element (K1t, K8t) or per-launch (K6t, K7t) scratch that the C
+# entry points ask for, in elements: bft_ekf_update_tiled_scratch_elems,
+# bft_ut_update_tiled_scratch_elems, bft_ut_sigma_tiled_scratch_elems and
+# bft_ut_sigma_aug_tiled_scratch_elems.
+def k1t_scratch(dx: int, dy: int) -> int:
+    end = aug_layout(dx, dy)["end"]  # then sym(Rt), A, K Rs, A P
+    return end + dy * dy + 2 * dx * dx + dx * dy
+
+
+def k8t_scratch(rows: int, dx: int, dy: int) -> int:
+    end = aug_layout(dx, dy)["end"]  # then Cᵀ, K, K C, K L, Yc, Xc, d0
+    return end + 3 * dx * dy + dx * dx + rows * (dx + dy) + dy
+
+
+def k6t_scratch(B: int, n: int, method: str) -> int:
+    if method == "sqrtm":  # Y, Z, T and a spare, the traces after the batch
+        return B * 4 * n * n + B
+    return B * aug_layout(0, n, n)["end"]
+
+
+def k7t_scratch(B: int, dx: int, dn: int, method: str) -> int:
+    return k6t_scratch(B, dx, method) + k6t_scratch(1, dn, method)
+
+
+def block_tasks(total: int, blocks: int) -> list:
+    """``for_tasks``: block g's task positions, in turns over the blocks,
+    the order reversed every other round."""
+    out = [[] for _ in range(blocks)]
+    rnd = 0
+    while rnd * blocks < total:
+        for g in range(blocks):
+            p = rnd * blocks + (blocks - 1 - g if rnd % 2 else g)
+            if p < total:
+                out[g].append(p)
+        rnd += 1
+    return out
+
+
+def warp_cholesky_inverse(a, n: int):
+    """``warp_cholesky_inverse`` on a 32 × 32 tile, lane i as row i: the
+    lower ``a`` (zeros above and on rows ≥ n) → (L, L⁻ᵀ, bad), column by
+    column, the identity's rows eliminated with the same l_cj; columns
+    past n act as the identity's. Runs in a's dtype."""
+    dt = a.dtype.type
+    a = a.copy()
+    e = np.eye(NB, dtype=a.dtype)
+    rows = np.arange(NB)[:, None]
+    bad = False
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for j in range(NB):
+            d = a[j, j] if j < n else dt(1)
+            bad = bad or not d > 0 or np.isinf(d)
+            r = dt(1) / np.sqrt(d)
+            lij = np.where(np.arange(NB) == j, d * r,
+                           np.where(np.arange(NB) > j, a[:, j] * r, dt(0)))
+            a[:, j] = lij
+            eij = e[:, j] * r
+            e[:, j] = eij
+            lc = lij[j + 1:]  # lane c's l_cj
+            upd = np.outer(lij, lc).astype(a.dtype)
+            cols = np.arange(j + 1, NB)[None, :]
+            a[:, j + 1:] -= np.where(cols <= rows, upd, dt(0))
+            e[:, j + 1:] -= np.outer(eij, lc).astype(a.dtype)
+    return a, e, bad
+
+
+class TiledFactor:
+    """``tiled_factor_kernel`` of csrc/tiled_chol.cuh in numpy, phase by
+    phase and task by task, on NaN-seeded scratch: the first phase (the
+    floor, the first diagonal tile), the steps (every trailing tile (I, J),
+    k < J ≤ I, with its own panel tiles; the look-ahead's diagonal tiles
+    handed out first and factored by their tasks), the last phase (the rows
+    under the last panel) and the gain's epilogue. Blocks take their tasks
+    as ``for_tasks`` hands them out over ``blocks`` blocks; each phase's
+    tasks read the state at the phase's start, and the model checks that no
+    task reads a tile or an inverse another task of the same phase writes,
+    and that no two write the same one, so that the blocks' order does not
+    matter.
+
+    ``first_touch(b, i, j)`` gives W's entries at their first touch for
+    index arrays i, j (S's lower part with sym(R) where i < dy — the model
+    adds the floor —, X, vᵀ and I below); ``s_diag(b)`` diag(S) before the
+    floor, for it. The results: ``W``, ``L`` (B, height, dy), ``Li`` (B,
+    tiles, 32, 32), ``floor`` and ``flag`` (B,), ``owner`` (phase → {task:
+    block})."""
+
+    def __init__(self, first_touch, B: int, dy: int, height: int, dtype,
+                 blocks: int = 132, s_diag=None, jitter: float = 0.0):
+        self.src, self.B, self.dy, self.height = first_touch, B, dy, height
+        self.dt = np.dtype(dtype).type
+        self.blocks = blocks
+        self.ntc, self.ntr = tiles_of(dy), tiles_of(height)
+        nan = np.nan
+        self.W = np.full((B, height, dy), nan, dtype)
+        self.L = np.full((B, height, dy), nan, dtype)
+        self.Li = np.full((B, self.ntc, NB, NB), nan, dtype)
+        self.floor = np.full(B, nan, dtype)
+        self.flag = np.full(B, nan, dtype)
+        self.owner = []
+        self._first_phase(s_diag, jitter)
+        for k in range(self.ntc - 1):
+            self._step(k)
+        self._last_phase()
+
+    # -- tiles --------------------------------------------------------------
+    def _idx(self, I, J):
+        i = I * NB + np.arange(NB)[:, None]
+        j = J * NB + np.arange(NB)[None, :]
+        return i, j, (i < self.height) & (j < self.dy)
+
+    def _entries(self, W, b, I, J, first, lower, reads):
+        """W's tile (I, J) as load_tile reads it (zeros outside, and above
+        the diagonal where lower)."""
+        i, j, inside = self._idx(I, J)
+        if lower:
+            inside = inside & (j <= i)
+        out = np.zeros((NB, NB), W.dtype)
+        ii, jj = np.broadcast_to(i, inside.shape)[inside], \
+            np.broadcast_to(j, inside.shape)[inside]
+        if first:
+            v = np.asarray(self.src(b, ii, jj), W.dtype).copy()
+            on_diag = (ii == jj) & (ii < self.dy)
+            if self._floor and on_diag.any():
+                reads.add(("floor", b))
+                v[on_diag] += self.floor[b]
+            out[inside] = v
+        else:
+            reads.add(("W", b, I, J))
+            out[inside] = W[b][ii, jj]
+        return out
+
+    def _factor_diag(self, b, K, C, first, writes):
+        n = min(NB, self.dy - K * NB)
+        lower = np.tril(C)
+        lower[n:] = 0
+        lower[:, n:] = 0
+        x, e, bad = warp_cholesky_inverse(lower.astype(self.W.dtype), n)
+        if bad:
+            x = np.full_like(x, np.nan)
+            e = np.full_like(e, np.nan)
+        r0 = K * NB
+        self.L[b, r0:r0 + n, r0:r0 + n] = np.where(np.tri(n, dtype=bool),
+                                                   x[:n, :n], 0)
+        self.Li[b, K] = e
+        self.flag[b] = 1 if bad or (not first and self.flag[b] != 0) else 0
+        writes |= {("Ldiag", b, K), ("Li", b, K), ("flag", b)}
+
+    def _store_l(self, b, I, J, v, writes, row_lo=0, tag="L"):
+        i, j, inside = self._idx(I, J)
+        inside = inside & (i >= row_lo)
+        ii = np.broadcast_to(i, inside.shape)[inside]
+        jj = np.broadcast_to(j, inside.shape)[inside]
+        self.L[b][ii, jj] = v[inside]
+        writes.add((tag, b, I, J))
+
+    # -- phases -------------------------------------------------------------
+    def _run(self, tasks, fn):
+        """One phase: tasks (a list) run against the phase's starting state,
+        with the hazard checks."""
+        W0 = self.W.copy()
+        owner, reads, writes = {}, [], []
+        for g, mine in enumerate(block_tasks(len(tasks), self.blocks)):
+            for p in mine:
+                owner[p] = g
+                r, w = set(), set()
+                fn(W0, tasks[p], r, w)
+                reads.append(r)
+                writes.append(w)
+        writer = {}
+        for x, w in enumerate(writes):
+            for key in w:
+                assert key not in writer, f"two tasks write {key}"
+                writer[key] = x
+        for x, r in enumerate(reads):
+            for key in r:
+                assert writer.get(key, x) == x, f"a task reads {key}, " \
+                    "which another task of its phase writes"
+        self.owner.append(owner)
+
+    def _first_phase(self, s_diag, jitter):
+        self._floor = s_diag is not None
+        for b in range(self.B):
+            if self._floor:
+                d = np.asarray(s_diag(b), self.W.dtype)
+                self.floor[b] = self.dt(jitter) + self.dt(1e-6) * np.abs(d).max()
+
+        def task(W0, b, reads, writes):
+            C = self._entries(W0, b, 0, 0, True, True, reads)
+            self._factor_diag(b, 0, C, True, writes)
+        self._run(list(range(self.B)), task)
+
+    def _step(self, k):
+        first = k == 0
+        tasks = [(b, k + 1, k + 1) for b in range(self.B)]
+        for b in range(self.B):
+            for J in range(k + 1, self.ntc):
+                for I in range(J, self.ntr):
+                    if (I, J) != (k + 1, k + 1):
+                        tasks.append((b, I, J))
+
+        def task(W0, t, reads, writes):
+            b, I, J = t
+            same = I == J
+            Ta = self._entries(W0, b, I, k, first, False, reads)
+            Tb = Ta if same else self._entries(W0, b, J, k, first, False, reads)
+            reads.add(("Li", b, k))
+            li = self.Li[b, k]
+            pi = Ta @ li
+            pj = pi if same else Tb @ li
+            C = self._entries(W0, b, I, J, first, same, reads)
+            C = C - pi @ pj.T
+            i, j, inside = self._idx(I, J)
+            if same:
+                inside = inside & (j <= i)
+            ii = np.broadcast_to(i, inside.shape)[inside]
+            jj = np.broadcast_to(j, inside.shape)[inside]
+            self.W[b][ii, jj] = C[inside]
+            writes.add(("W", b, I, J))
+            if J == k + 1:
+                self._store_l(b, I, k, pi, writes)
+            if same and I == k + 1:
+                self._factor_diag(b, k + 1, C, False, writes)
+        self._run(tasks, task)
+
+    def _last_phase(self):
+        frm, last = last_from(self.dy, self.height), self.ntc - 1
+        tasks = [(b, I) for b in range(self.B) for I in range(frm, self.ntr)]
+
+        def task(W0, t, reads, writes):
+            b, I = t
+            Ta = self._entries(W0, b, I, last, last == 0, False, reads)
+            reads.add(("Li", b, last))
+            self._store_l(b, I, last, Ta @ self.Li[b, last], writes,
+                          row_lo=self.dy, tag="Lunder")
+        if tasks:
+            self._run(tasks, task)
+
+    # -- the gain's epilogue --------------------------------------------------
+    def gain(self, dx: int, m):
+        """ll = log N(v | 0, S) and μ = m + Zᵀ z of each element, from its
+        factor: ``GainEpilogue``."""
+        dy = self.dy
+        Zt = self.L[:, dy:dy + dx]
+        z = self.L[:, dy + dx]
+        diag = np.diagonal(self.L[:, :dy], axis1=1, axis2=2)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            ll = self.dt(-0.5) * (self.dt(dy * np.log(2 * np.pi))
+                                  + self.dt(2) * np.log(diag).sum(-1)
+                                  + (z * z).sum(-1))
+        mean = m + np.einsum("bic,bc->bi", Zt, z)
+        return ll, mean
+
+
+def augmented_factor(S, X, inn, R=None, jitter: float = 0.0, blocks=132,
+                     zero_upper: bool = False):
+    """K1t's and K8t's factor of W = [S; X; vᵀ; I] for a batch, as the
+    launch computes it (:class:`TiledFactor`): ``S`` (B, dy, dy) holds G in
+    its lower part (the rest is never read), ``X`` (B, dx, dy), ``inn``
+    (B, dy), ``R`` (B, dy, dy), (dy, dy) shared, or None; S = G + sym(R) +
+    (jitter + 1e-6·max|diag(G + R)|)·I as the first touch assembles it.
+    Returns the TiledFactor, whose ``L`` has its strict upper top square
+    zeroed where ``zero_upper`` (NaN, never written, otherwise)."""
+    B, dx, dy = X.shape
+    Rb = None if R is None else np.broadcast_to(R, (B, dy, dy))
+
+    def first_touch(b, i, j):
+        out = np.empty(i.shape, X.dtype)
+        s_rows = i < dy
+        ii, jj = i[s_rows], j[s_rows]
+        v = S[b][ii, jj]
+        if Rb is not None:
+            v = v + X.dtype.type(0.5) * (Rb[b][ii, jj] + Rb[b][jj, ii])
+        out[s_rows] = v
+        x_rows = (i >= dy) & (i < dy + dx)
+        out[x_rows] = X[b][i[x_rows] - dy, j[x_rows]]
+        v_row = i == dy + dx
+        out[v_row] = inn[b][j[v_row]]
+        e_rows = i > dy + dx
+        out[e_rows] = (i[e_rows] - dy - dx - 1 == j[e_rows])
+        return out
+
+    def s_diag(b):
+        d = np.diagonal(S[b]).copy()
+        if Rb is not None:
+            d = d + np.diagonal(Rb[b])
+        return d
+
+    f = TiledFactor(first_touch, B, dy, 2 * dy + dx + 1, X.dtype, blocks,
+                    s_diag, jitter)
+    if zero_upper:
+        upper = np.arange(dy)[None, :] // NB > np.arange(dy)[:, None] // NB
+        f.L[:, :dy][:, upper] = 0
+    return f
+
+
+def square_factor(P, blocks=132):
+    """K6t's and K7t's factor of P (B, n, n): :class:`TiledFactor` on a W
+    of height n whose first touch reads lower(P) (no floor)."""
+    B, n, _ = P.shape
+    return TiledFactor(lambda b, i, j: P[b][i, j], B, n, n, P.dtype, blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +573,17 @@ def put_mirrored(X, C, mask, tm: int = 4):
     X[at[1], at[0]] = v[at]
     sq_mask = mask[:n, :n]
     assert (sq_mask | sq_mask.T).all()
+
+
+def _chol_lower_nan(a):
+    """Cholesky factor of the symmetric matrix whose lower triangle ``a``
+    holds (its strict upper part is never read), NaN throughout where it
+    is not positive definite."""
+    lo = np.tril(a)
+    try:
+        return np.linalg.cholesky(lo + np.tril(lo, -1).T)
+    except np.linalg.LinAlgError:
+        return np.full_like(a, np.nan)
 
 
 def panel_cholesky(W, n: int, width: int = PANEL) -> bool:
@@ -549,7 +881,11 @@ PARENT_PROFILES = ("dirichlet", "last", "first", "spread", "tail")
 
 
 __all__ = ["to_torch", "Group", "spd", "update_inputs", "predict_inputs",
-           "augmented_prep", "augmented_factor", "PANEL", "tiling",
+           "NB", "TiledFactor", "augmented_factor", "square_factor",
+           "tiles_of", "aug_layout", "last_from", "step_tasks",
+           "factor_tasks", "factor_barriers", "block_tasks",
+           "warp_cholesky_inverse", "factor_launch", "k1t_scratch",
+           "k8t_scratch", "k6t_scratch", "k7t_scratch", "PANEL", "tiling",
            "tile_stored", "tile_mm", "lower_stored", "tile_mm_lower", "put",
            "put_t", "put_mirrored",
            "panel_cholesky", "tri_solve",

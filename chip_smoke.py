@@ -248,17 +248,17 @@ SLICE_UT_BANKS = ((3, "update"), (3, "predict"), (6, "predict"),
                   (12, "update"))
 # path F's and G's bootstrap PFs: K5 at n = 100 and 20,000
 SLICE_PARENTS = (100, 20_000)
-SIGMA_TILED_SYMBOLS = ("sigma_tiled_prep_kernel", "sigma_tiled_trace_kernel",
-                       "chol_diag_kernel", "tiled_gemm_kernel",
-                       "sigma_tiled_root_kernel", "sigma_tiled_points_kernel")
+SIGMA_TILED_SYMBOLS = ("tiled_factor_kernel", "sigma_tiled_trace_kernel",
+                       "tiled_gemm_kernel", "sigma_tiled_root_kernel",
+                       "sigma_tiled_points_kernel")
 # each kernel's CUDA symbols (K7 is its points kernel and the one-block
 # factor of the shared noise covariance; K6t and K7t share the same
-# launches, K7t running them for P and for C)
+# launches, K7t running the factor for P and for C; K6t's Cholesky is one
+# tiled_factor_kernel launch with its points as the epilogue)
 KERNEL_SYMBOLS = {
     "bft_ekf_update": ("ekf_update_kernel",),
     "bft_ekf_predict_cov": ("ekf_predict_cov_kernel",),
-    "bft_ekf_update_tiled": ("tiled_gemm_kernel", "chol_prep_kernel",
-                             "chol_diag_kernel", "chol_loglik_kernel"),
+    "bft_ekf_update_tiled": ("tiled_gemm_kernel", "tiled_factor_kernel"),
     "bft_ekf_predict_cov_tiled": ("tiled_gemm_kernel",),
     "bft_bank_update": ("bank_update_kernel",),
     "bft_bank_predict_cov": ("bank_predict_cov_kernel",),
@@ -268,8 +268,7 @@ KERNEL_SYMBOLS = {
     "bft_ut_update": ("ut_update_kernel",),
     "bft_ut_predict": ("ut_predict_kernel",),
     "bft_ut_update_tiled": ("tiled_gemm_kernel", "ut_tiled_centre_kernel",
-                            "chol_prep_kernel", "chol_diag_kernel",
-                            "chol_loglik_kernel", "ut_tiled_cov_kernel"),
+                            "tiled_factor_kernel", "ut_tiled_cov_kernel"),
     "bft_ut_predict_tiled": ("tiled_gemm_kernel", "ut_tiled_mean_kernel",
                              "ut_tiled_centre_rows_kernel"),
     "bft_ut_sigma_tiled": SIGMA_TILED_SYMBOLS,
@@ -2497,10 +2496,12 @@ def compare_slice(dev) -> None:
 
 def ukf_split(prof) -> dict:
     """Device ms of K6t, K8t and K9t in a trace of config 5's UKF. They
-    share the product and diagonal-factor kernels, so their launches are
-    told apart in launch order: K6t runs from its preparation pass to its
-    points pass, K8t from its centring pass to its covariance pass, K9t
-    from its mean pass to its one product."""
+    share the product and factor kernels, so their launches are told apart
+    by name and launch order: K6t's Cholesky is one launch (the factor with
+    the points as its epilogue, ``PointsEpilogue`` in its name), its
+    Newton–Schulz route runs from its trace pass to its points pass; K8t
+    runs from its centring pass to its covariance pass, K9t from its mean
+    pass to its one product."""
     from torch.autograd import DeviceType
 
     events = sorted((e for e in prof.events()
@@ -2514,8 +2515,10 @@ def ukf_split(prof) -> dict:
         if "ut_sigma_kernel" in name:
             split["K6"] += us
             continue
-        if owner is None and ("sigma_tiled_prep_kernel" in name
-                              or "sigma_tiled_trace_kernel" in name):
+        if "PointsEpilogue" in name:
+            split["K6t"] += us
+            continue
+        if owner is None and "sigma_tiled_trace_kernel" in name:
             owner = "K6t"
         elif "ut_tiled_centre_kernel" in name:
             owner = "K8t"
@@ -3077,13 +3080,17 @@ def ut_times(root: str) -> None:
 
 
 def sigma_times(root: str) -> None:
-    """Float32 and float64, the device time per call of K6
-    (Cholesky; Newton–Schulz in float32 only) and K7 (dn = 64 and 32; also
-    by CUDA events, since its two launches may overlap) at the batched
-    Lorenz-96 UKF's shapes, of the sigma points at config 5 beside
-    ``torch.linalg.cholesky_ex`` of the same P, and of K1t and K8t at
-    config 5 with their max abs error against their plain versions; inputs
-    from ``testing`` with SEED."""
+    """Float32 and float64, the device time per call of K6 (Cholesky;
+    Newton–Schulz in float32 only) and K7 (dn = 64 and 32; also by CUDA
+    events, since its two launches may overlap) at the batched Lorenz-96
+    UKF's shapes; then at config 5, with the max abs error against the
+    plain version: the sigma points (K6t, Cholesky) beside
+    ``torch.linalg.cholesky_ex`` of the same P, K6t by Newton–Schulz, K7t
+    at the augmented widths (dn = 512 in the predict, 256 in the update),
+    K1t at dy = 256 and 128 (``update_chunk=128``), K2t, K8t and K9t; last,
+    config 5's three walls (``ekf512``, its chunked update, ``ukf512``;
+    T = 200, float32; the median and range of REPS calls after a warm-up).
+    Inputs from ``testing`` with SEED."""
     import numpy as np
     import torch
 
@@ -3094,7 +3101,9 @@ def sigma_times(root: str) -> None:
 
     _build.load()
     dev = torch.device("cuda", 0)
-    w_side, _, w0c = ut_weights(C5_DX, ParamsUKF(1.0, 2.0, 0.0))[1]
+    up = ParamsUKF(1.0, 2.0, 0.0)
+    w_side, _, w0c = ut_weights(C5_DX, up)[1]
+    wp = ut_weights(C5_DX, up)[1]
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[-1]
         rng = np.random.default_rng(SEED)
@@ -3127,18 +3136,39 @@ def sigma_times(root: str) -> None:
                  lambda: fu.fused_sigma_aug(m, P, b, C, 1.0, "cholesky"),
                  event=True)
         m, P = on_card(testing.sigma_inputs(rng, 1, C5_DX))
-        show("sigma points B=1 n=512 cholesky",
-             lambda: fu.fused_sigma(m, P, 1.0, "cholesky"))
+        for method in ("cholesky", "sqrtm"):
+            show(f"sigma points B=1 n=512 {method}",
+                 lambda: fu.fused_sigma(m, P, 1.0, method),
+                 plain=lambda: fu._sigma_plain(m, P, 1.0, method))
         show("torch.linalg.cholesky_ex B=1 n=512",
              lambda: torch.linalg.cholesky_ex(P))
-        a = on_card(testing.update_inputs(rng, 1, C5_DX, C5_DY))
-        show("K1t B=1 dx=512 dy=256", lambda: fe.fused_update(*a, 0.0),
-             plain=lambda: fe._update_plain(*a, 0.0))
+        for dn in (C5_DX, C5_DY):
+            a = on_card(testing.sigma_aug_inputs(rng, 1, C5_DX, dn))
+            show(f"K7t B=1 dx=512 dn={dn} cholesky",
+                 lambda: fu.fused_sigma_aug(*a, 1.0, "cholesky"),
+                 plain=lambda: fu._sigma_aug_plain(*a, 1.0, "cholesky"))
+        for dy in (C5_DY, C5_CHUNK):
+            a = on_card(testing.update_inputs(rng, 1, C5_DX, dy))
+            show(f"K1t B=1 dx=512 dy={dy}", lambda: fe.fused_update(*a, 0.0),
+                 plain=lambda: fe._update_plain(*a, 0.0))
+        a = on_card(testing.predict_inputs(rng, 1, C5_DX, C5_DX))
+        show("K2t B=1 dx=dq=512", lambda: fe.fused_predict_cov(*a),
+             plain=lambda: fe._predict_plain(*a))
         a = on_card(testing.ut_update_inputs(rng, 1, 2 * C5_DX, C5_DX, C5_DX,
                                              C5_DY))
         show("K8t B=1 rows=1024 dx=512 dy=256",
              lambda: fu.fused_ut_update(*a, w_side, w0c, True),
              plain=lambda: fu._ut_update_plain(*a, w_side, w0c, True))
+        a = on_card(testing.ut_predict_inputs(rng, 1, 2 * C5_DX, C5_DX))
+        show("K9t B=1 rows=1024 dx=512",
+             lambda: fu.fused_ut_predict(*a, *wp, True),
+             plain=lambda: fu._ut_predict_plain(*a, *wp, True))
+    params, _, em = config5_data(C5_T, torch.float32, dev)
+    for label, run, _ in config5_runs():
+        run(params, em[:20])  # warm-up
+        secs = [timed(lambda: run(params, em))[1] for _ in range(REPS)]
+        log(f"{root} {label} lorenz96 dx={C5_DX} dy={C5_DY} B=1 T={C5_T} "
+            f"float32: {spread(secs)}")
 
 
 def ab(parent: str, parts=AB_PARTS) -> int:

@@ -2,8 +2,10 @@
 twin, and the filters' kernel path against their plain path on the CPU.
 
 Needs a CUDA device; every test skips without one. Covers K1–K12, with
-the tiled variants K1t/K2t and K6t–K9t, the block variants of K10–K12 and
-the wide bands of K1 and K6–K9. This file imports no
+the tiled variants K1t/K2t and K6t–K9t (and the one-launch blocked factor
+under K6t, K7t, K1t and K8t at config 5, the bands' edges and a failing
+pivot in the first, a middle or the last panel), the block variants of
+K10–K12 and the wide bands of K1 and K6–K9. This file imports no
 JAX, so it also runs where JAX is not installed (the repository's
 conftest.py imports JAX, hence ``--noconftest``):
 
@@ -651,6 +653,107 @@ def test_wide_band_kernel_matches_plain(dev, dtype, case):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         assert_close(g, w, WIDE_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# The one-launch blocked factor (csrc/tiled_chol.cuh) under K6t, K7t, K1t
+# and K8t: config 5's shapes, ragged last panels, batches, the bands'
+# edges, a non-PD P or S failing in the first, a middle or the last panel.
+# One wrapper call is one launch of its kernel and of no other.
+# ---------------------------------------------------------------------------
+
+def _one_launch(kernel, wrapper, args):
+    before = {k.name: k.launches for k in _build.KERNELS}
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    after = {k.name: k.launches for k in _build.KERNELS}
+    assert after[kernel.name] == before[kernel.name] + 1
+    assert all(after[n] == before[n] for n in after if n != kernel.name)
+    return got if isinstance(got, tuple) else (got,)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method", ["cholesky", "sqrtm"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n", [241, 512, 1024])
+def test_tiled_sigma_points_match_plain(dev, dtype, method, B, n):
+    args = _dev(testing.sigma_inputs(np.random.default_rng(n + B), B, n),
+                dtype, dev)
+    assert fu.sigma_kernel(n, method, args[0].element_size(),
+                           _build.smem_optin(dev)) is fu.K6T
+    got = _one_launch(fu.K6T, lambda *a: fu.fused_sigma(*a, 1.2, method),
+                      args)
+    want = fu._sigma_plain(*args, 1.2, method)
+    assert torch.isfinite(got[0]).all()
+    assert_close(got[0], want, WIDE_TOL[dtype])
+
+
+FACTOR_UPDATES = [(1, 512, 256), (1, 512, 128), (1, 64, 512), (3, 130, 97)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,dx,dy", FACTOR_UPDATES)
+def test_tiled_ekf_update_at_config_5_and_the_edge(dev, dtype, B, dx, dy):
+    args = _dev(testing.update_inputs(np.random.default_rng(dy), B, dx, dy),
+                dtype, dev)
+    got = _one_launch(fe.K1T, lambda *a: fe.fused_update(*a, 1e-4), args)
+    for g, w in zip(got, fe._update_plain(*args, 1e-4)):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dn", [512, 256])
+def test_tiled_sigma_aug_at_config_5(dev, dtype, dn):
+    args = _dev(testing.sigma_aug_inputs(np.random.default_rng(dn), 1, 512,
+                                         dn), dtype, dev)
+    got = _one_launch(fu.K7T,
+                      lambda *a: fu.fused_sigma_aug(*a, 0.9, "cholesky"),
+                      args)
+    want = fu._sigma_aug_plain(*args, 0.9, "cholesky")
+    assert torch.isfinite(got[0]).all()
+    assert_close(got[0], want, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("add_r", [True, False])
+def test_tiled_ut_update_at_config_5(dev, dtype, add_r):
+    args = _dev(testing.ut_update_inputs(np.random.default_rng(5), 1, 1024,
+                                         512, 512, 256), dtype, dev)
+    got = _one_launch(fu.K8T, lambda *a: fu.fused_ut_update(
+        *a, 1 / 1024, 0.1, add_r), args)
+    want = fu._ut_update_plain(*args, 1 / 1024, 0.1, add_r)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fail_at", [0, 150, 299])
+def test_tiled_factor_nans_a_non_pd_element(dev, dtype, fail_at):
+    """A failing pivot in the first, a middle or the last (ragged) panel:
+    K6t NaNs that element's points, K1t and K8t every output of theirs; the
+    other element stays finite and equal to its plain version."""
+    rng = np.random.default_rng(fail_at)
+    m, P = _dev(testing.sigma_inputs(rng, 2, 300), dtype, dev)
+    P[1, fail_at, fail_at] = -1e3
+    got = _one_launch(fu.K6T, lambda *a: fu.fused_sigma(*a, 1.0, "cholesky"),
+                      (m, P))[0]
+    want = fu._sigma_plain(m, P, 1.0, "cholesky")
+    assert torch.isnan(got[1]).all() and torch.isnan(want[1]).all()
+    assert_close(got[0], want[0], WIDE_TOL[dtype])
+    a = _dev(testing.update_inputs(rng, 2, 40, 300), dtype, dev)
+    a[3][1, fail_at, fail_at] = -1e3
+    got = _one_launch(fe.K1T, lambda *x: fe.fused_update(*x, 0.0), a)
+    for g, w in zip(got, fe._update_plain(*a, 0.0)):
+        assert torch.isnan(g[1]).all() and torch.isnan(w[1]).all()
+        assert_close(g[0], w[0], WIDE_TOL[dtype])
+    u = _dev(testing.ut_update_inputs(rng, 1, 600, 300, 300, 300), dtype, dev)
+    u[6][fail_at, fail_at] = -1e3
+    got = _one_launch(fu.K8T, lambda *x: fu.fused_ut_update(
+        *x, 1 / 600, 0.0, True), u)
+    for g in got:
+        assert torch.isnan(g).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

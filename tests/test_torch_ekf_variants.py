@@ -6,15 +6,19 @@ otherwise. The rule is held at its edges with the H100's shared-memory
 opt-in (232,448 bytes per block) and with a smaller one.
 
 K1t (``csrc/ekf_tiled.cu``) factors the augmented matrix
-[S; (H P)ᵀ; innovᵀ; I] right-looking in panels of 32 and forms the gain as
-K = Zᵀ L⁻¹. That schedule is written out below in numpy, step for step as
-the launches compute it (the preparation and the factorisation, shared
-with K8t, in ``testing.augmented_prep`` and ``testing.augmented_factor``), and held to the JAX package's XLA twin
-(``fused_ekf._update_xla``) at shapes that are not multiples of the panel
-or of a tile, with a non-positive-definite S failing in the first or in a
-later panel. The port's wrappers on CPU tensors (the plain twins) are held
-to JAX at the same shapes. The CUDA kernels themselves run only on the
-card (tests/test_torch_cuda.py).
+[S; (H P)ᵀ; innovᵀ; I] in one launch (``csrc/tiled_chol.cuh``: panels of
+32, a grid barrier between them, S's preparation folded into the first
+touch of each tile, log N and μ = m + Zᵀ z in the epilogue) and forms the
+gain as K = Zᵀ L⁻¹. That schedule is written out below in numpy, phase by
+phase as the launch computes it (the factor, shared with K8t, in
+``testing.augmented_factor``: on NaN-seeded scratch, its tasks checked to
+read nothing another task of their phase writes), and held to the JAX
+package's XLA twin (``fused_ekf._update_xla``) at shapes that are not
+multiples of the panel or of a tile and at config 5's (dx, dy) = (512,
+256) and (512, 128), with a non-positive-definite S failing in the first,
+a middle or the last panel. The port's wrappers on CPU tensors (the plain
+twins) are held to JAX at the same shapes. The CUDA kernels themselves run
+only on the card (tests/test_torch_cuda.py).
 
 The references run in float64. Tolerances (relative to max(1,
 max|reference|)): float64 1e-9, float32 1e-4, as
@@ -139,30 +143,27 @@ def test_the_rule_flips_once_along_each_dimension():
 # K1t's schedule
 # ---------------------------------------------------------------------------
 
-def tiled_update(m, P, H, R, inn, jitter, nb=NB):
-    """One element of K1t, launch by launch, on scratch seeded with NaN."""
+def tiled_batch(args, jitter, blocks=132):
+    """K1t over a batch, launch by launch, on scratch seeded with NaN: the
+    products (H P)ᵀ and G = lower((H P) Hᵀ), the one-launch factor with
+    its epilogue (ll, μ), K = Zᵀ L⁻¹, then the Joseph covariance."""
+    m, P, H, R, inn = args
     dx, dy = P.shape[-1], inn.shape[-1]
-    rows = 2 * dy + dx + 1
-    W, L = np.full((rows, dy), np.nan), np.full((rows, dy), np.nan)
-    W[dy:dy + dx] = P.T @ H.T                      # (H P)ᵀ
+    HPt = np.swapaxes(P, -1, -2) @ np.swapaxes(H, -1, -2)     # (H P)ᵀ
+    G = np.full(HPt.shape[:-2] + (dy, dy), np.nan, P.dtype)
     lower = np.tri(dy, dtype=bool)
-    L[:dy][lower] = ((W[dy:dy + dx]).T @ H.T)[lower]  # lower(H P Hᵀ)
-    Rs = testing.augmented_prep(W, L, R, inn, jitter)
-    testing.augmented_factor(W, L, dy, nb)
-    Zt, z, Linv_t = L[dy:dy + dx], L[dy + dx], L[dy + dx + 1:]
-    K = Zt @ Linv_t.T
-    ll = -0.5 * (dy * math.log(2 * math.pi)
-                 + 2 * np.log(np.diag(L[:dy])).sum() + (z ** 2).sum())
+    G[:, lower] = (np.swapaxes(HPt, -1, -2) @ np.swapaxes(H, -1, -2))[:,
+                                                                     lower]
+    f = testing.augmented_factor(G, HPt, inn, R, jitter, blocks)
+    ll, mean = f.gain(dx, m)
+    Zt, Linv_t = f.L[:, dy:dy + dx], f.L[:, dy + dx + 1:]
+    K = Zt @ np.swapaxes(Linv_t, -1, -2)
+    Rs = 0.5 * (R + np.swapaxes(R, -1, -2))
     A = np.eye(dx) - K @ H
-    cov = np.tril((A @ P) @ A.T + (K @ Rs) @ K.T)
-    cov = cov + np.tril(cov, -1).T                  # mirrored
-    return ll, m + K @ inn, cov, K
-
-
-def _tiled_batch(args, jitter):
-    outs = [tiled_update(*(a[b] for a in args), jitter)
-            for b in range(args[0].shape[0])]
-    return [np.stack(x) for x in zip(*outs)]
+    cov = np.tril((A @ P) @ np.swapaxes(A, -1, -2)
+                  + (K @ Rs) @ np.swapaxes(K, -1, -2))
+    cov = cov + np.swapaxes(np.tril(cov, -1), -1, -2)          # mirrored
+    return ll, mean, cov, K
 
 
 TILED_SHAPES = [(2, 9, 1), (1, 65, 33), (3, 100, 40)]
@@ -171,7 +172,7 @@ TILED_SHAPES = [(2, 9, 1), (1, 65, 33), (3, 100, 40)]
 @pytest.mark.parametrize("B,dx,dy", TILED_SHAPES)
 def test_tiled_update_schedule_matches_the_reference(B, dx, dy):
     args, want = update_case(B, dx, dy)
-    for g, w in zip(_tiled_batch(args, JITTER), want):
+    for g, w in zip(tiled_batch(args, JITTER), want):
         assert_close(g, w, "float64")
 
 
@@ -183,21 +184,38 @@ def test_tiled_update_schedule_over_more_panels_matches_the_plain_twin(
     compiles slowly at these widths)."""
     args = testing.update_inputs(np.random.default_rng(dy), B, dx, dy)
     want = fe._update_plain(*(torch.as_tensor(a) for a in args), JITTER)
-    for g, w in zip(_tiled_batch(args, JITTER), want):
+    for g, w in zip(tiled_batch(args, JITTER), want):
         assert_close(g, w, "float64")
 
 
-@pytest.mark.parametrize("fail_at", [0, 69])
+@pytest.mark.parametrize("fail_at", [0, 40, 69])
 def test_tiled_update_schedule_gives_nan_on_a_non_pd_s(fail_at):
-    """A negative pivot in the first panel, or only in the third: every
-    output is NaN, as in the plain twin."""
+    """A negative pivot in the first panel, the middle one or only in the
+    last (ragged) one: every output is NaN, as in the plain twin."""
     m, P, H, R, inn = testing.update_inputs(np.random.default_rng(3), 1, 12,
                                             70)
     R[0, fail_at, fail_at] = -1e3
-    got = _tiled_batch((m, P, H, R, inn), 0.0)
+    got = tiled_batch((m, P, H, R, inn), 0.0)
     want = fe._update_plain(*(torch.as_tensor(a) for a in (m, P, H, R, inn)))
     for g, w in zip(got, want):
         assert np.isnan(g).all() and torch.isnan(w).all()
+
+
+# config 5's joint and chunked updates, held to the XLA twin in float64
+# (1e-10) and in float32 (1e-3), the bound chip_smoke.py holds K1t to
+CONFIG5_TOL = {"float64": 1e-10, "float32": 1e-3}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("dy", [256, 128])
+def test_tiled_update_schedule_at_config_5_matches_jax(dtype, dy):
+    args, want = update_case(1, 512, dy)
+    got = tiled_batch([a.astype(dtype) for a in args], JITTER)
+    for g, w in zip(got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=CONFIG5_TOL[dtype] * scale)
 
 
 # ---------------------------------------------------------------------------

@@ -6,17 +6,25 @@ and their tiled variants K6t and K7t otherwise. The rules are held at
 their edges with the H100's shared-memory opt-in (232,448 bytes per
 block) and with a smaller one.
 
-K6t (``csrc/sigma_tiled.cu``) copies lower(P) into a square W and factors
-it with K1t's panel loop (``testing.augmented_factor`` on a W of height n:
-no rows below S), or runs 14 Newton–Schulz rounds of three products; its
-points pass reads only the factor's lower part and writes NaN throughout
-unless every pivot is finite and positive. K7t composes K6t's factor of P
+K6t (``csrc/sigma_tiled.cu``) factors P with the one-launch blocked
+Cholesky of ``csrc/tiled_chol.cuh`` (``testing.square_factor``: its first
+touch reads lower(P), its steps run every trailing tile with its own panel
+tiles, the look-ahead factors the next diagonal tile; the blocks take their
+tasks in turns) and writes the points in that launch's epilogue, NaN
+throughout unless the factor's flag is clear; or it runs 14 Newton–Schulz
+rounds of three products and a points pass. K7t composes the factor of P
 over the batch, of the shared C, and one pass that writes the four blocks
-of the augmented points. Both schedules are written out below in numpy,
-launch by launch, on scratch seeded with NaN (the panel loop never writes
-the factor's strict upper part, so a read of it would show), and held to
-the JAX package's XLA twins (``fused_ut._sigma_xla``,
-``_sigma_aug_xla``). K6's and K7's own in-block factor (``csrc/common.cuh``
+of the augmented points, each block NaN unless its pivots are finite and
+positive. Both schedules are written out below in numpy, phase by phase,
+on scratch seeded with NaN (the factor never writes the strict upper part
+of its off-diagonal tiles, so a read of it would show; the model also
+checks that no task reads what another task of its phase writes), and
+held to the JAX package's XLA twins (``fused_ut._sigma_xla``,
+``_sigma_aug_xla``) at n = 33, 64, 241, 512 and 1,024 (ragged last panels
+at 33 and 241). The C functions that size the factor's scratch and its
+phases (``AugLayout``, ``factor_tasks``, ``factor_elems``), compiled by
+the host compiler, are held to ``testing``'s mirror at config 5 and at the
+band's edges. K6's and K7's own in-block factor (``csrc/common.cuh``
 ``block_cholesky_panels``: one warp factors each 32-column diagonal
 block, each thread substitutes whole rows below it, then a lower trailing
 update) is written out too and held to ``torch.linalg.cholesky_ex``. The
@@ -27,6 +35,10 @@ Tolerances (relative to max(1, max|reference|)): float64 1e-10, float32
 another order.
 """
 import functools
+import re
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -168,18 +180,15 @@ def test_the_sigma_rules_flip_once_along_each_dimension():
 # K6t's and K7t's schedules
 # ---------------------------------------------------------------------------
 
-def tiled_factor(P, method):
-    """One element's factor as K6t computes it, launch by launch, on
-    scratch seeded with NaN: the row-major lower L (strict upper part
-    unwritten) or the Newton–Schulz root."""
+def tiled_factor(P, method, blocks=132):
+    """One element's factor as K6t computes it, on scratch seeded with NaN:
+    (the row-major lower L (the strict upper part of its off-diagonal tiles
+    unwritten) and the factor's failed-pivot flag) or (the Newton–Schulz
+    root, False)."""
     n = P.shape[-1]
     if method == "cholesky":
-        W = np.full((n, n), np.nan, P.dtype)  # sigma_tiled_prep_kernel
-        lower = np.tri(n, dtype=bool)
-        W[lower] = P[lower]
-        L = np.full_like(W, np.nan)           # tiled_chol.cuh's panel loop
-        testing.augmented_factor(W, L, n)
-        return L
+        f = testing.square_factor(P[None], blocks)
+        return f.L[0], bool(f.flag[0])
     # trace pass, 14 rounds of three products, the root pass
     s = np.trace(P) + P.dtype.type(1e-30)
     Y = (P.dtype.type(0.5) * (P + P.T)) / s
@@ -188,29 +197,38 @@ def tiled_factor(P, method):
         T = P.dtype.type(-0.5) * (Z @ Y) + P.dtype.type(1.5) * np.eye(n)
         Y, Z = Y @ T, T @ Z
     rs = np.sqrt(s)
-    return P.dtype.type(0.5) * (Y * rs + Y.T * rs)
+    return P.dtype.type(0.5) * (Y * rs + Y.T * rs), False
 
 
-def offsets(F, scale, lower):
+def offsets(F, scale, lower, bad=None):
     """scale·F read as the points pass reads it: entry (r, c) is
     scale·F[c][r], zero where c < r for a Cholesky factor (never read),
-    NaN throughout unless every pivot is finite and positive."""
+    NaN throughout where ``bad`` (K6t's epilogue: the factor's flag) or,
+    where bad is None, unless every pivot is finite and positive (K7t's
+    points pass)."""
     n = F.shape[-1]
     if not lower:
         return scale * F.T
     d = np.diag(F)
-    if not (np.isfinite(d) & (d > 0)).all():
+    if bad is None:
+        bad = not (np.isfinite(d) & (d > 0)).all()
+    if bad:
         return np.full_like(F, np.nan)
     keep = np.tri(n, dtype=bool)  # F[c][r] with c ≥ r
     return np.where(keep, F, 0).T * scale
 
 
 def tiled_sigma(m, P, scale, method):
-    """K6t over a batch."""
+    """K6t over a batch: the factor of every element in one model (the
+    launch's task order over the batch), then the points."""
+    if method == "cholesky":
+        f = testing.square_factor(P)
+        factors = [(f.L[b], bool(f.flag[b])) for b in range(m.shape[0])]
+    else:
+        factors = [tiled_factor(P[b], method) for b in range(m.shape[0])]
     out = []
-    for b in range(m.shape[0]):
-        off = offsets(tiled_factor(P[b], method), scale,
-                      method == "cholesky")
+    for b, (F, bad) in enumerate(factors):
+        off = offsets(F, scale, method == "cholesky", bad)
         out.append(np.concatenate([m[b] + off, m[b] - off]))
     return np.stack(out)
 
@@ -219,12 +237,12 @@ def tiled_sigma_aug(m, P, bias, C, scale, method):
     """K7t: K6t's factors of P (per element) and C (once), then the
     assembly of [mA + off; mA − off], off = blkdiag(state, noise)."""
     lower = method == "cholesky"
-    noise = offsets(tiled_factor(C, method), scale, lower)
+    noise = offsets(tiled_factor(C, method)[0], scale, lower)
     dx, dn = m.shape[-1], bias.shape[-1]
     out = []
     for b in range(m.shape[0]):
         off = np.zeros((dx + dn, dx + dn), m.dtype)
-        off[:dx, :dx] = offsets(tiled_factor(P[b], method), scale, lower)
+        off[:dx, :dx] = offsets(tiled_factor(P[b], method)[0], scale, lower)
         off[dx:, dx:] = noise
         mA = np.concatenate([m[b], bias])
         out.append(np.concatenate([mA + off, mA - off]))
@@ -232,9 +250,11 @@ def tiled_sigma_aug(m, P, bias, C, scale, method):
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("B,n", [(2, 33), (2, 64), (1, 512)])
+@pytest.mark.parametrize("B,n", [(2, 33), (2, 64), (1, 512), (3, 241),
+                                 (1, 1024)])
 def test_tiled_sigma_schedule_matches_jax(dtype, B, n):
-    """One panel and one more column, two panels, config 5's sixteen."""
+    """One panel and one more column, two panels, config 5's sixteen, eight
+    with a ragged last panel over a batch of three, the band's 32."""
     (m, P), scale, want = sigma_case(B, n, "cholesky")
     got = tiled_sigma(m.astype(dtype), P.astype(dtype), scale, "cholesky")
     assert_close(got, want, dtype)
@@ -249,22 +269,50 @@ def test_tiled_newton_schulz_schedule_matches_jax(dtype):
     assert_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("fail_at", [0, 69])
+@pytest.mark.parametrize("fail_at", [0, 40, 69])
 def test_tiled_sigma_schedule_gives_nan_everywhere_on_a_non_pd_p(fail_at):
-    """A negative pivot in the first panel, or only in the third: the
-    panel loop NaNs only from the failing block on, the points pass all of
-    them, as the port's plain version does."""
+    """A negative pivot in the first panel, the middle one or only in the
+    last (ragged) one: the factor NaNs only from the failing diagonal tile
+    on and sets the element's flag, the points epilogue NaNs all of them,
+    as the port's plain version does."""
     m, P = testing.sigma_inputs(np.random.default_rng(3), 2, 70)
     P[1, fail_at, fail_at] = -1e3
-    L = tiled_factor(P[1], "cholesky")
+    L, bad = tiled_factor(P[1], "cholesky")
+    assert bad and not tiled_factor(P[0], "cholesky")[1]
     assert np.isnan(np.diag(L)[fail_at:]).all()
-    if fail_at:
-        assert np.isfinite(np.tril(L)[:64, :64]).all()
+    start = fail_at // NB * NB  # the failing tile's first column
+    assert np.isfinite(np.tril(L)[:start, :start]).all()
     got = tiled_sigma(m, P, 1.0, "cholesky")
     want = fu._sigma_plain(torch.as_tensor(m), torch.as_tensor(P), 1.0,
                            "cholesky").numpy()
     assert np.isnan(got[1]).all() and np.isnan(want[1]).all()
     assert_close(got[0], want[0], "float64")
+
+
+def test_the_factor_hands_out_its_tasks_in_turns():
+    """Over 5 blocks, a batch of 3 at n = 241 (8 panels): every phase's
+    tasks go to the blocks in turns, each task once, the order reversed
+    every other round; the look-ahead's diagonal tiles, handed out first,
+    go to blocks 0–2, which take no second task of a step that has at
+    most 2·5 − 3 tasks; the result does not depend on the blocks' number
+    (the model checks that no task reads what another of its phase
+    writes)."""
+    P = testing.sigma_inputs(np.random.default_rng(7), 3, 241)[1]
+    f5 = testing.square_factor(P, blocks=5)
+    f132 = testing.square_factor(P, blocks=132)
+    np.testing.assert_array_equal(np.nan_to_num(f5.L, nan=7.0),
+                                  np.nan_to_num(f132.L, nan=7.0))
+    assert len(f5.owner) == testing.tiles_of(241)  # first phase + 7 steps
+    for k, owner in enumerate(f5.owner[1:]):
+        total = 3 * testing.step_tasks(k, 241, 241)
+        assert sorted(owner) == list(range(total))
+        for p, g in owner.items():
+            rnd, off = divmod(p, 5)
+            assert g == (4 - off if rnd % 2 else off)
+        assert [owner[b] for b in range(3)] == [0, 1, 2]
+        if total <= 2 * 5 - 3:
+            assert all(g > 2 for p, g in owner.items() if p >= 3)
+    assert testing.block_tasks(7, 3) == [[0, 5, 6], [1, 4], [2, 3]]
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -390,3 +438,134 @@ def test_sigma_aug_wrapper_at_a_tiled_shape_matches_jax(dtype):
     got = fu.fused_sigma_aug(*(torch.as_tensor(a.astype(dtype))
                                for a in args), scale, "cholesky")
     assert_close(got.numpy(), want, dtype)
+
+
+# ---------------------------------------------------------------------------
+# The factor's launch and scratch, held to the CUDA source
+# ---------------------------------------------------------------------------
+
+CSRC = (Path(__file__).resolve().parents[1] / "bayesianfiltering_tpu_torch"
+        / "csrc")
+
+
+def _cxx_block(src: str, head: str) -> str:
+    """The definition that starts with the line matching ``head`` (a
+    regular expression), to its closing brace (and ';' for a struct)."""
+    found = re.search(rf"^{head}[^;{{]*{{", src, re.M)
+    assert found is not None, f"no definition matching {head}"
+    start, depth, i = found.start(), 0, found.end() - 1
+    while True:
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            end = src[start:i + 1]
+            return end + (";" if head.startswith("struct") else "")
+        i += 1
+
+
+# (kind, shape): config 5's and the bands' edges (K1 to dy = 512, K6–K9 to
+# every dimension 1,024)
+PLAN_CASES = [("k6t", (1, 512, "cholesky")), ("k6t", (1, 1024, "cholesky")),
+              ("k6t", (3, 241, "cholesky")), ("k6t", (1, 512, "sqrtm")),
+              ("k6t", (1, 1024, "sqrtm")), ("k7t", (1, 512, 512, "cholesky")),
+              ("k7t", (2, 1000, 24, "cholesky")), ("k1t", (512, 256)),
+              ("k1t", (512, 128)), ("k1t", (64, 512)), ("k1t", (512, 512)),
+              ("k1t", (9, 1)), ("k8t", (1024, 512, 256)),
+              ("k8t", (2048, 1024, 1024)), ("k8t", (130, 100, 33))]
+
+
+@pytest.fixture(scope="module")
+def cuda_plan(tmp_path_factory):
+    """The scratch sizes and the factor's task counts as the CUDA sources
+    compute them (``AugLayout``, ``factor_tasks``, ``factor_elems`` and
+    the update scratches), compiled by the host compiler."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    chol = (CSRC / "tiled_chol.cuh").read_text()
+    sigma = (CSRC / "sigma_tiled.cu").read_text()
+    ekf = (CSRC / "ekf_tiled.cu").read_text()
+    ut = (CSRC / "ut_tiled.cu").read_text()
+    lines = []
+    for kind, shape in PLAN_CASES:
+        if kind in ("k6t", "k7t"):
+            *dims, method = shape
+            code = 1 if method == "sqrtm" else 0
+            args = ", ".join(map(str, dims))
+            fn = "factor_elems" if kind == "k6t" else "aug_elems"
+            lines.append(f'  std::printf("%lld\\n", {fn}({args}, {code}));')
+        elif kind == "k1t":
+            lines.append('  std::printf("%lld\\n", UpdateScratch({}, {}).f.'
+                         'total);'.format(*shape))
+        else:
+            lines.append('  std::printf("%lld\\n", UtUpdateScratch({}, {}, '
+                         '{}).f.total);'.format(*shape))
+    tasks = [(dy, h, B) for dy, h, B in
+             ((512, 512, 1), (1024, 1024, 1), (241, 241, 3), (256, 1025, 1),
+              (128, 897, 1), (512, 1089, 1), (33, 99, 2), (1, 11, 1))]
+    for dy, h, B in tasks:
+        lines.append(f'  std::printf("%lld\\n", factor_tasks(AugLayout(0, '
+                     f'{dy}, {h}), {B}));')
+    prog = "\n".join(
+        ["#include <cstdio>", "#define __host__", "#define __device__",
+         "constexpr int kNb = 32;", "constexpr int kSqrtm = 1;",
+         _cxx_block(chol, r"__host__ __device__ inline int tiles_of"),
+         _cxx_block(chol, r"struct AugLayout"),
+         _cxx_block(chol, r"inline long long factor_tasks"),
+         _cxx_block(sigma, r"long long factor_stride"),
+         _cxx_block(sigma, r"long long factor_elems"),
+         "long long aug_elems(int B, int dx, int dn, int method) {",
+         "  return factor_elems(B, dx, method) + factor_elems(1, dn, "
+         "method);", "}",
+         _cxx_block(ekf, r"struct UpdateScratch"),
+         _cxx_block(ut, r"struct UtUpdateScratch"),
+         "int main() {"] + lines + ["}"])
+    tmp = tmp_path_factory.mktemp("plan")
+    (tmp / "plan.cpp").write_text(prog)
+    subprocess.run([cxx, "-std=c++17", "-o", str(tmp / "plan"),
+                    str(tmp / "plan.cpp")], check=True)
+    out = subprocess.run([str(tmp / "plan")], check=True, capture_output=True,
+                         text=True).stdout.split()
+    values = list(map(int, out))
+    assert len(values) == len(PLAN_CASES) + len(tasks)
+    return (dict(zip(PLAN_CASES, values[:len(PLAN_CASES)])),
+            dict(zip(tasks, values[len(PLAN_CASES):])))
+
+
+MIRRORS = {"k6t": testing.k6t_scratch, "k7t": testing.k7t_scratch,
+           "k1t": testing.k1t_scratch, "k8t": testing.k8t_scratch}
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: f"{c[0]}{c[1]}")
+def test_the_scratch_mirror_matches_the_cuda_source(cuda_plan, case):
+    kind, shape = case
+    assert MIRRORS[kind](*shape) == cuda_plan[0][case]
+
+
+def test_the_task_counts_match_the_cuda_source(cuda_plan):
+    for (dy, h, B), got in cuda_plan[1].items():
+        assert testing.factor_tasks(dy, h, B) == got
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("dy,height,B,epi,blocks,barriers,in_l2", [
+    (512, 512, 1, "points", 132, 16, (True, True)),   # K6t, config 5
+    (512, 512, 1, "none", 120, 16, (True, True)),     # K7t's factor of P
+    (256, 1025, 1, "gain", 132, 9, (True, True)),     # K1t, config 5
+    (128, 897, 1, "gain", 81, 5, (True, True)),       # update_chunk=128
+    (256, 1281, 1, "gain", 132, 9, (True, True)),     # K8t, config 5
+    (1024, 1024, 1, "points", 132, 32, (True, True)),  # K6t, band's edge
+    (512, 1089, 1, "gain", 132, 17, (True, True)),    # K1t, dx=64, dy=512
+    (1024, 3073, 1, "gain", 132, 33, (True, True)),   # K8t, band's edge
+    (241, 241, 3, "points", 132, 8, (True, True)),    # a batch, ragged
+])
+def test_the_factor_launch_at_config_5_and_the_edges(itemsize, dy, height,
+                                                      B, epi, blocks,
+                                                      barriers, in_l2):
+    """One cooperative launch on min(SMs, tasks) blocks, one barrier a
+    panel (and one before the epilogue where a last phase runs), in both
+    dtypes; W and L stay in the H100's 50 MiB L2 at every shape of the band
+    (K8t's edge in float64 takes 48 MiB of it)."""
+    plan = testing.factor_launch(dy, height, B, itemsize, epi)
+    assert plan == {"route": "grid", "launches": 1, "blocks": blocks,
+                    "barriers": barriers,
+                    "in_l2": in_l2[itemsize == 8]}

@@ -7,17 +7,18 @@ opt-in (232,448 bytes per block) and with smaller ones.
 
 K8t (``csrc/ut_tiled.cu``) centres the sigma points, forms
 S = lower(w_side·Ycᵀ Yc + w0c·d0 d0ᵀ) and Cᵀ = w_side·Xcᵀ Yc as products,
-factors [S; Cᵀ; innovᵀ; I] with K1t's blocked Cholesky and keeps the plain
-version's grouping of the covariance, P − KC − (KC)ᵀ + (KL)(KL)ᵀ. K9t
-centres the points and forms lower(w_side·Xcᵀ Xc + w0c·d0 d0ᵀ) + sym(Q),
-mirrored. Both schedules are written out below in numpy, step for step as
-the launches compute them, on scratch seeded with NaN (K L reads L's top
-square whole, whose strict upper part only the preparation writes), and
+factors [S; Cᵀ; innovᵀ; I] with K1t's one-launch blocked Cholesky
+(``testing.augmented_factor``) and keeps the plain version's grouping of
+the covariance, P − KC − (KC)ᵀ + (KL)(KL)ᵀ. K9t centres the points and
+forms lower(w_side·Xcᵀ Xc + w0c·d0 d0ᵀ) + sym(Q), mirrored. Both schedules
+are written out below in numpy, step for step as the launches compute
+them, on scratch seeded with NaN (K L reads L's top square whole, whose
+strict upper part the factor zeroes for K8t), and
 held to the JAX package's XLA twins (``fused_ut._ut_update_xla``,
 ``_ut_predict_xla``) at shapes that are not multiples of the panel (32) or
 of a tile, with and without R or Q, with points wider than the state
 (augmented points), and with a non-positive-definite S failing in the
-first or in a later panel. The port's wrappers on CPU tensors (the plain
+first, a middle or the last panel. The port's wrappers on CPU tensors (the plain
 versions) are held to JAX at shapes the rule sends to the tiled variants.
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
 
@@ -185,28 +186,26 @@ def tiled_ut_update(pts, hpts, center_y, mu_y, m, P, R, innov, w, add_r):
     dx, dy = m.shape[-1], hpts.shape[-1]
     # 1. centre
     Yc, Xc, d0 = hpts - mu_y, pts[:, :dx] - m, center_y - mu_y
-    W = np.full((2 * dy + dx + 1, dy), np.nan)
-    L = np.full_like(W, np.nan)
-    # 2. G = lower(w_side·Ycᵀ Yc + w0c·d0 d0ᵀ) into L's top square
+    # 2. G = lower(w_side·Ycᵀ Yc + w0c·d0 d0ᵀ) into W's top square
     lower = np.tri(dy, dtype=bool)
-    L[:dy][lower] = (w_side * Yc.T @ Yc + w0c * np.outer(d0, d0))[lower]
-    # 3. Cᵀ into its own slot, 4. the prep (which copies it into W)
+    G = np.full((dy, dy), np.nan)
+    G[lower] = (w_side * Yc.T @ Yc + w0c * np.outer(d0, d0))[lower]
+    # 3. Cᵀ into its own slot; 4–6. the one-launch factor (S and Cᵀ at their
+    #    first touch, L's strict upper top square zeroed), ll, μ; K
     Ct = w_side * Xc.T @ Yc
-    W[dy:dy + dx] = Ct
-    testing.augmented_prep(W, L, R if add_r else None, innov)
-    # 5. the factorisation, 6. K, ll, μ
-    testing.augmented_factor(W, L, dy)
-    Zt, z, Linv_t = L[dy:dy + dx], L[dy + dx], L[dy + dx + 1:]
+    f = testing.augmented_factor(G[None], Ct[None], innov[None],
+                                 R if add_r else None, zero_upper=True)
+    ll, mean = f.gain(dx, m[None])
+    L = f.L[0]
+    Zt, Linv_t = L[dy:dy + dx], L[dy + dx + 1:]
     K = Zt @ Linv_t.T
-    ll = -0.5 * (dy * math.log(2 * math.pi)
-                 + 2 * np.log(np.diag(L[:dy])).sum() + (z ** 2).sum())
     # 7. K C, K L (L's top square read whole), lower((KL)(KL)ᵀ) mirrored,
     #    then the element-wise rest
     KC, KL = K @ Ct.T, K @ L[:dy]
     cov = np.tril(KL @ KL.T)
     cov = cov + np.tril(cov, -1).T
     cov = (0.5 * (P + P.T) - (KC + KC.T)) + cov
-    return ll, m + K @ innov, cov
+    return ll[0], mean[0], cov
 
 
 def tiled_ut_predict(fpts, center, Q, w, add_q):
@@ -265,10 +264,10 @@ def test_tiled_ut_update_schedule_over_more_panels_matches_the_plain_version(
         assert_close(g, wt, "float64")
 
 
-@pytest.mark.parametrize("fail_at", [0, 69])
+@pytest.mark.parametrize("fail_at", [0, 40, 69])
 def test_tiled_ut_update_schedule_gives_nan_on_a_non_pd_s(fail_at):
-    """A negative pivot in the first panel, or only in the third: every
-    output is NaN, as in the plain version."""
+    """A negative pivot in the first panel, the middle one or only in the
+    last (ragged) one: every output is NaN, as in the plain version."""
     args = list(testing.ut_update_inputs(np.random.default_rng(3), 2, 24, 12,
                                          12, 70))
     args[6] = args[6].copy()
