@@ -29,10 +29,14 @@
 //   are folded into that launch, and the gain is one more product,
 //   K = Zᵀ L⁻¹ = (S⁻¹ H P)ᵀ.
 // - The Joseph covariance is A P, then lower(A P Aᵀ + (K Rs) Kᵀ) mirrored,
-//   two products of one pass; K2t is F_x P and F_q Q, then lower(F_x P F_xᵀ
-//   + F_q Q F_qᵀ) mirrored.
+//   two products of one pass.
 // - K1t is eight launches at any dy: (H P)ᵀ, G, the factor, K, A, K Rs,
 //   A P and Σ.
+// - K2t is two launches: F_x P and F_q Q, which do not depend on each
+//   other, as one grouped launch (at B = 1 and dx = dq = 512 their 2 × 128
+//   tiles of 64 × 32 fill the card's 132 SMs without a k-split, where each
+//   product alone took a cluster split of 2), then lower(F_x P F_xᵀ +
+//   F_q Q F_qᵀ) mirrored, one two-term product.
 //
 // Math and constants follow ops/ekf.py chol_update_precomputed and
 // predict_cov_precomputed: S is symmetrised before the relative floor
@@ -93,8 +97,8 @@ int launch_update_tiled(const void* m_, const void* P_, const void* H_,
   // S = G + sym(Rt) + floor as the factor reads it (sym(Rt) into Rs), the
   // factorisation, ll and μ; then K
   keep(factor_and_gain<T>(ws, sc.f, B, static_cast<const T*>(R_),
-                          1LL * dy * dy, T(jitter), HPt, st, inn, sc.rs, 0,
-                          K, 1LL * dx * dy, static_cast<const T*>(m_),
+                          1LL * dy * dy, T(jitter), HPt, st, inn, sc.rs, K,
+                          1LL * dx * dy, static_cast<const T*>(m_),
                           static_cast<T*>(ll_), static_cast<T*>(mean_),
                           stream));
   // A = I − K H, K Rs, A P
@@ -123,6 +127,11 @@ int launch_update_tiled(const void* m_, const void* P_, const void* H_,
   return err;
 }
 
+// K2t's per-element scratch: F_x P (dx × dx), then F_q Q (dx × dq).
+long long predict_scratch(int dx, int dq) {
+  return 1LL * dx * dx + 1LL * dx * dq;
+}
+
 template <typename T>
 int launch_predict_tiled(const void* Fx_, const void* P_, const void* Fq_,
                          const void* Q_, void* cov_, void* scratch_, int B,
@@ -132,18 +141,16 @@ int launch_predict_tiled(const void* Fx_, const void* P_, const void* Fq_,
   T* FP = static_cast<T*>(scratch_);
   T* FQ = FP + 1LL * dx * dx;
   const cudaStream_t stream = cudaStream_t(stream_);
-  const long long st = 1LL * dx * dx + 1LL * dx * dq;
+  const long long st = predict_scratch(dx, dq);
   const long long xx = 1LL * dx * dx, xq = 1LL * dx * dq;
-  int err = gemm(gemm_of<T>(dx, dx, dx, B, {Fx, dx, xx, 0},
-                            {static_cast<const T*>(P_), dx, xx, 0}, FP, dx,
-                            st),
-                 stream);
-  // Q is shared by the batch: batch stride 0
-  const int e2 = gemm(gemm_of<T>(dx, dq, dq, B, {Fq, dq, xq, 0},
-                                 {static_cast<const T*>(Q_), dq, 0, 0}, FQ,
-                                 dq, st),
-                      stream);
-  if (err == 0) err = e2;
+  // F_x P and F_q Q in one launch (Q is shared by the batch: batch
+  // stride 0)
+  const int err = gemm2(
+      gemm_of<T>(dx, dx, dx, B, {Fx, dx, xx, 0},
+                 {static_cast<const T*>(P_), dx, xx, 0}, FP, dx, st),
+      gemm_of<T>(dx, dq, dq, B, {Fq, dq, xq, 0},
+                 {static_cast<const T*>(Q_), dq, 0, 0}, FQ, dq, st),
+      stream);
   Gemm<T> g = gemm_of<T>(dx, dx, dx, B, {FP, dx, st, 0}, {Fx, dx, xx, 1},
                          static_cast<T*>(cov_), dx, xx);
   g.K[1] = dq;
@@ -164,7 +171,7 @@ long long bft_ekf_update_tiled_scratch_elems(int dx, int dy) {
 }
 
 long long bft_ekf_predict_cov_tiled_scratch_elems(int dx, int dq) {
-  return 1LL * dx * dx + 1LL * dx * dq;
+  return predict_scratch(dx, dq);
 }
 
 int bft_ekf_update_tiled_f32(const void* m, const void* P, const void* H,

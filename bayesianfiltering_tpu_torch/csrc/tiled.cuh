@@ -8,7 +8,11 @@
 // accumulates into the same register tile, so sym(X Y Xᵀ + U V Uᵀ) is one
 // pass over (X Y) and (U V). A lower mode computes only the tiles that
 // touch the lower triangle and writes only i ≥ j; a mirrored lower mode
-// also writes C[j][i] = C[i][j], for symmetric outputs.
+// also writes C[j][i] = C[i][j], for symmetric outputs. Cin may be taken
+// symmetrised, β·½(Cin + Cinᵀ), so that sym(P) − ZᵀZ is one product.
+// Two independent products of one batch can share a launch (gemm2: a
+// grouped launch, the product picked by block index), so that together
+// they fill the card where each alone would leave SMs idle.
 //
 // What bounds a product on an H100: one element of a dx = 512 filter is a
 // few 512³ products, ~0.1–0.3 GFLOP each, which one SM could not finish in
@@ -16,7 +20,8 @@
 // TF32 is off by the precision policy, so float32 runs on the CUDA cores;
 // float64 runs on the float64 tensor cores (mma.m8n8k4.f64, full float64
 // precision, ~2× the float64 CUDA-core rate). The grid is (row tiles ×
-// k-splits, column tiles, batch): a single element's product runs on every
+// k-splits, column tiles, batch), a grouped launch's (both products'
+// tiles × k-splits, 1, batch): a single element's product runs on every
 // SM. A tile's operands are staged by cp.async, one k-slab ahead, into
 // padded shared memory. In float32 each thread reuses every loaded value 4
 // times from a 4 × 4 register tile: per k, two 16-byte shared loads feed
@@ -67,11 +72,12 @@ struct Gemm {
   const T* Cin;    // + beta·Cin (may be C itself); nullptr for none
   long long ldcin, bcin;
   T beta;
+  int sym_cin;     // + beta·½(Cin + Cinᵀ) instead (square C)
   T diag;          // + diag on the diagonal
   T* C;
   long long ldc, bc;
   int tri;         // Tri
-  int split;       // k-splits (the cluster's size); set by gemm()
+  int split;       // k-splits (the cluster's size); set by the launch
 };
 
 // A product C = alpha·op(A)·op(B), to be completed field by field.
@@ -267,18 +273,27 @@ __device__ void gemm_accumulate(T (&acc)[kGemmTM][kGemmTM], const Mat<T>& A,
     for (int j = 0; j < kGemmTM; ++j) acc[i][j] += alpha * part[i][j];
 }
 
-// Grid (row tiles × g.split, column tiles, batch); a cluster of g.split
-// blocks along x shares one output tile, block rank s summing the s-th
-// share of every inner dimension.
+// Two products of one batch in a launch: block x of the grid belongs to
+// product 1 from first1 on, to product 0 before it; both have the same
+// tile shape and k-split.
+template <typename T>
+struct GemmPair {
+  Gemm<T> g[2];
+  int first1;  // product 1's first block: product 0's tiles × its split
+};
+
+// The output tile at (i0, j0) of product g for batch elements b0, b0 +
+// bstep, …: block rank s of a cluster of g.split blocks on the tile sums
+// the s-th share of every inner dimension, and the first block adds the
+// others' partial tiles before the epilogue.
 template <typename T, int BM, int BN, int NT>
-__global__ void __launch_bounds__(NT) tiled_gemm_kernel(const Gemm<T> g) {
+__device__ __forceinline__ void gemm_tile(const Gemm<T>& g, int i0, int j0,
+                                          int s, long long b0,
+                                          long long bstep, T* smem) {
   using Cfg = GemmCfg<T, BM, BN, NT>;
-  __shared__ __align__(16) T smem[Cfg::kSmem];
-  const int split = g.split, s = blockIdx.x % split;
-  const int i0 = (blockIdx.x / split) * BM, j0 = blockIdx.y * BN;
-  if (g.tri != kFull && i0 + BM - 1 < j0) return;  // the whole cluster
+  const int split = g.split;
   const int tx = threadIdx.x % Cfg::TX, ty = threadIdx.x / Cfg::TX;
-  for (long long b = blockIdx.z; b < g.batch; b += gridDim.z) {
+  for (long long b = b0; b < g.batch; b += bstep) {
     T acc[kGemmTM][kGemmTM];
 #pragma unroll
     for (int i = 0; i < kGemmTM; ++i)
@@ -333,13 +348,47 @@ __global__ void __launch_bounds__(NT) tiled_gemm_kernel(const Gemm<T> g) {
         c += j0;
         if (r >= g.M || c >= g.N || (g.tri != kFull && c > r)) continue;
         T v = acc[i][j];
-        if (Cin != nullptr) v += g.beta * Cin[r * g.ldcin + c];
+        if (Cin != nullptr)
+          v += g.sym_cin ? g.beta * (T(0.5) * (Cin[r * g.ldcin + c] +
+                                               Cin[c * g.ldcin + r]))
+                         : g.beta * Cin[r * g.ldcin + c];
         if (r == c) v += g.diag;
         C[r * g.ldc + c] = v;
         if (g.tri == kLowerMirror && c < r) C[c * g.ldc + r] = v;
       }
     }
   }
+}
+
+// Grid (row tiles × g.split, column tiles, batch); a cluster of g.split
+// blocks along x shares one output tile.
+template <typename T, int BM, int BN, int NT>
+__global__ void __launch_bounds__(NT) tiled_gemm_kernel(const Gemm<T> g) {
+  using Cfg = GemmCfg<T, BM, BN, NT>;
+  __shared__ __align__(16) T smem[Cfg::kSmem];
+  const int i0 = (blockIdx.x / g.split) * BM, j0 = blockIdx.y * BN;
+  if (g.tri != kFull && i0 + BM - 1 < j0) return;  // the whole cluster
+  gemm_tile<T, BM, BN, NT>(g, i0, j0, blockIdx.x % g.split, blockIdx.z,
+                           gridDim.z, smem);
+}
+
+// The grouped launch: grid (Σ tiles × split, 1, batch), each product's
+// tiles in row-major order. (Reaching the product by a branch instead of
+// an index, each with its fields at fixed parameter offsets, was slower
+// at config 5 on an H100.)
+template <typename T, int BM, int BN, int NT>
+__global__ void __launch_bounds__(NT)
+    tiled_gemm_pair_kernel(const __grid_constant__ GemmPair<T> pair) {
+  using Cfg = GemmCfg<T, BM, BN, NT>;
+  __shared__ __align__(16) T smem[Cfg::kSmem];
+  const int p = int(blockIdx.x) >= pair.first1 ? 1 : 0;
+  const Gemm<T>& g = pair.g[p];
+  const int local = int(blockIdx.x) - (p ? pair.first1 : 0);
+  const int tile = local / g.split, nt = (g.N + BN - 1) / BN;
+  const int i0 = (tile / nt) * BM, j0 = (tile % nt) * BN;
+  if (g.tri != kFull && i0 + BM - 1 < j0) return;  // the whole cluster
+  gemm_tile<T, BM, BN, NT>(g, i0, j0, local % g.split, blockIdx.z, gridDim.z,
+                           smem);
 }
 
 inline int sm_count() {
@@ -364,15 +413,14 @@ long long live_tiles(const Gemm<T>& g, int BM, int BN) {
   return tiles * g.batch;
 }
 
-template <typename T, int BM, int BN, int NT>
-int launch_gemm(Gemm<T> g, int split, cudaStream_t stream) {
-  g.split = split;
-  const dim3 grid(unsigned((g.M + BM - 1) / BM * split),
-                  unsigned((g.N + BN - 1) / BN),
-                  unsigned(g.batch < 65535 ? g.batch : 65535));
+// Launch `kernel` on `grid` blocks of nt threads, in clusters of `split`
+// blocks along x; returns the launch's error.
+template <typename Kernel, typename Arg>
+int launch_tiles(Kernel kernel, const Arg& arg, dim3 grid, int nt, int split,
+                 cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(NT);
+  cfg.blockDim = dim3(nt);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   if (split > 1) {
@@ -383,7 +431,34 @@ int launch_gemm(Gemm<T> g, int split, cudaStream_t stream) {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
   }
-  return int(cudaLaunchKernelEx(&cfg, tiled_gemm_kernel<T, BM, BN, NT>, g));
+  return int(cudaLaunchKernelEx(&cfg, kernel, arg));
+}
+
+inline unsigned batch_grid(int batch) {
+  return unsigned(batch < 65535 ? batch : 65535);
+}
+
+template <typename T, int BM, int BN, int NT>
+int launch_gemm(Gemm<T> g, int split, cudaStream_t stream) {
+  g.split = split;
+  const dim3 grid(unsigned((g.M + BM - 1) / BM * split),
+                  unsigned((g.N + BN - 1) / BN), batch_grid(g.batch));
+  return launch_tiles(tiled_gemm_kernel<T, BM, BN, NT>, g, grid, NT, split,
+                      stream);
+}
+
+template <typename T, int BM, int BN, int NT>
+int launch_gemm_pair(GemmPair<T> pair, int split, cudaStream_t stream) {
+  long long blocks = 0;
+  for (int p = 0; p < 2; ++p) {
+    Gemm<T>& g = pair.g[p];
+    g.split = split;
+    if (p == 1) pair.first1 = int(blocks);
+    blocks += 1LL * ((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN) * split;
+  }
+  return launch_tiles(tiled_gemm_pair_kernel<T, BM, BN, NT>, pair,
+                      dim3(unsigned(blocks), 1u, batch_grid(pair.g[0].batch)),
+                      NT, split, stream);
 }
 
 // The k-split of a product whose 64 × 32 tiles number `tiles`: 4 where
@@ -397,16 +472,39 @@ inline int gemm_split(long long tiles, int K, int sms) {
   return split;
 }
 
-// Enqueue one product on `stream`; returns the launch's error.
+inline bool empty_product(int M, int N, int batch) {
+  return M <= 0 || N <= 0 || batch <= 0;
+}
+
+// Enqueue one product on `stream`: 64 × 64 tiles where they fill the card,
+// else 64 × 32 with a k-split. Returns the launch's error.
 template <typename T>
 int gemm(const Gemm<T>& g, cudaStream_t stream) {
-  if (g.M <= 0 || g.N <= 0 || g.batch <= 0) return 0;
+  if (empty_product(g.M, g.N, g.batch)) return 0;
   const int sms = sm_count();
   if (live_tiles(g, 64, 64) >= sms)
     return launch_gemm<T, 64, 64, 256>(g, 1, stream);
   const int K = g.K[0] > g.K[1] ? g.K[0] : g.K[1];
   return launch_gemm<T, 64, 32, 128>(
       g, gemm_split(live_tiles(g, 64, 32), K, sms), stream);
+}
+
+// Enqueue two independent products of one batch as one grouped launch,
+// the tile shape and k-split chosen as gemm's from their tiles together.
+template <typename T>
+int gemm2(const Gemm<T>& a, const Gemm<T>& b, cudaStream_t stream) {
+  if (empty_product(b.M, b.N, b.batch)) return gemm(a, stream);
+  if (empty_product(a.M, a.N, a.batch)) return gemm(b, stream);
+  const GemmPair<T> pair{{a, b}, 0};
+  const int sms = sm_count();
+  if (live_tiles(a, 64, 64) + live_tiles(b, 64, 64) >= sms)
+    return launch_gemm_pair<T, 64, 64, 256>(pair, 1, stream);
+  int K = a.K[0] > a.K[1] ? a.K[0] : a.K[1];
+  K = b.K[0] > K ? b.K[0] : K;
+  K = b.K[1] > K ? b.K[1] : K;
+  return launch_gemm_pair<T, 64, 32, 128>(
+      pair, gemm_split(live_tiles(a, 64, 32) + live_tiles(b, 64, 32), K, sms),
+      stream);
 }
 
 }  // namespace bft

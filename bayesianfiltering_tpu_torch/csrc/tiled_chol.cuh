@@ -5,14 +5,17 @@
 //
 // The updates factor
 //
-//   W = [S; X; vᵀ; I]   ((2dy + dx + 1) × dy, row-major)
+//   W = [S; X; vᵀ; I]   ((2dy + dx + 1) × dy, row-major; K1t)
+//   W = [S; X; vᵀ]      ((dy + dx + 1) × dy; K8t)
 //
 // with S the innovation covariance (its lower part), X the transposed
 // cross-covariance (dx × dy: (H P)ᵀ for K1t, Cᵀ for K8t) and v the
 // innovation. Below L (S = L Lᵀ) the same panel steps carry the rows of X,
 // vᵀ and I, so they come out as (L⁻¹ Xᵀ)ᵀ = Zᵀ, (L⁻¹ v)ᵀ = zᵀ and L⁻ᵀ: the
 // forward substitutions are tiled products inside the factorisation, and
-// the gain is one more product, K = Zᵀ L⁻¹.
+// K1t's gain is one more product, K = Zᵀ L⁻¹ (factor_and_gain). K8t needs
+// no gain: its covariance is sym(P) − ZᵀZ and μ = m + Zᵀz, so its W has no
+// I rows (factor_update).
 //
 // What bounds it on an H100. At config 5 the factor is 45 MFLOP (K6t, n =
 // 512) or ~60 MFLOP (K1t, a 1,025 × 256 W): microseconds at the card's
@@ -59,8 +62,7 @@
 //   reads W(I, k) while another stores L(I, k)), the diagonal tiles'
 //   inverses transposed, the floor and the flag, at the offsets of an
 //   AugLayout; the caller's own slots follow them (AugLayout::end), and
-//   AugLayout::total is the element stride. L's strict upper top square is
-//   zeroed where the caller reads it whole (K8t).
+//   AugLayout::total is the element stride.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -83,14 +85,15 @@ __host__ __device__ inline int tiles_of(long long n) {
 
 struct AugLayout {
   int dx, dy;
-  long long height;     // rows of W: 2dy + dx + 1, or dy for S alone
+  long long height;     // rows of W: 2dy + dx + 1, dy + dx + 1 or dy
   long long w, l, li;   // W, its factor L, the diagonal tiles' L⁻ᵀ
   long long misc;       // the floor, then the failed-pivot flag
   long long end;        // the first element after them
   long long total;      // the per-element stride of the scratch (≥ end)
   AugLayout() : AugLayout(0, 0, 0) {}
   AugLayout(int dx_, int dy_) : AugLayout(dx_, dy_, 2LL * dy_ + dx_ + 1) {}
-  // W of `height` rows: dy for the factor of S alone (no X, vᵀ or I)
+  // W of `height` rows: dy + dx + 1 for no I rows, dy for the factor of S
+  // alone (no X, vᵀ or I)
   AugLayout(int dx_, int dy_, long long height_)
       : dx(dx_), dy(dy_), height(height_) {
     w = 0;
@@ -199,7 +202,6 @@ struct FactorArgs {
   long long x_batch;
   const T* inn;      // v (B × dy)
   long long rs;      // sym(R) to this offset of the element's scratch; < 0
-  int zero_upper;    // zero L's strict upper top square
   const T* m;        // the gain epilogue: ll, mean = m + Zᵀ z (B × dx)
   T* ll;
   T* mean;
@@ -585,7 +587,7 @@ __global__ void __launch_bounds__(kThreads) tiled_factor_kernel(
   const int dy = sc.dy, ntc = tiles_of(dy), ntr = tiles_of(sc.height);
   const long long B = a.B;
 
-  // the first phase: the first diagonal tiles, sym(R), L's zero upper part
+  // the first phase: the first diagonal tiles, sym(R)
   for_tasks(B, [&](long long b) { first_diag(a, b, sm); });
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -595,12 +597,6 @@ __global__ void __launch_bounds__(kThreads) tiled_factor_kernel(
       const int e = int(idx % (1LL * dy * dy)), i = e / dy, j = e % dy;
       const T* R = a.R + b * a.r_batch;
       a.ws[b * a.st + a.rs + e] = T(0.5) * (R[i * dy + j] + R[j * dy + i]);
-    }
-  if (a.zero_upper)
-    for (long long idx = first; idx < B * dy * dy; idx += stride) {
-      const long long b = idx / (1LL * dy * dy);
-      const int e = int(idx % (1LL * dy * dy)), i = e / dy, j = e % dy;
-      if (j / kNb > i / kNb) a.ws[b * a.st + sc.l + e] = T(0);
     }
   grid.sync();
 
@@ -669,30 +665,42 @@ int launch_factor(const FactorArgs<T>& a, const Epi& epi, long long tasks,
 
 // Factor the augmented W of every element (its G, the lower part of S
 // before sym(R) and the floor, in W's top square; X at x_src) and finish
-// the update's common part: sym(R) into the slot at rs (≥ 0), ll, μ and
-// the gain K = Zᵀ L⁻¹ (dx × dy, leading dimension dy, batch stride
-// k_batch). Two launches. Returns the first error.
+// the update's common part: sym(R) into the slot at rs (≥ 0), ll and
+// μ = m + Zᵀ z. One launch; returns its error.
 template <typename T>
-int factor_and_gain(T* ws, const AugLayout& sc, int B, const T* R,
-                    long long r_batch, T jitter, const T* x_src,
-                    long long x_batch, const T* inn, long long rs,
-                    int zero_upper, T* K, long long k_batch, const T* m,
-                    T* ll, T* mean, cudaStream_t stream) {
+int factor_update(T* ws, const AugLayout& sc, int B, const T* R,
+                  long long r_batch, T jitter, const T* x_src,
+                  long long x_batch, const T* inn, long long rs, const T* m,
+                  T* ll, T* mean, cudaStream_t stream) {
   const int dx = sc.dx, dy = sc.dy;
   const long long st = sc.total;
   FactorArgs<T> a{};
   a.ws = ws; a.st = st; a.sc = sc; a.B = B;
   a.s_src = ws + sc.w; a.s_ld = dy; a.s_batch = st;
   a.R = R; a.r_batch = r_batch; a.add_floor = 1; a.jitter = jitter;
-  a.x_src = x_src; a.x_batch = x_batch; a.inn = inn;
-  a.rs = rs; a.zero_upper = zero_upper;
+  a.x_src = x_src; a.x_batch = x_batch; a.inn = inn; a.rs = rs;
   a.m = m; a.ll = ll; a.mean = mean;
   const long long rows = 1LL * B * (dx + 1);  // the epilogue's warps
   long long tasks = factor_tasks(sc, B);
   const long long epi_blocks =
       (rows + kThreads / kWarp - 1) / (kThreads / kWarp);
   if (epi_blocks > tasks) tasks = epi_blocks;
-  int err = launch_factor(a, GainEpilogue{}, tasks, stream);
+  return launch_factor(a, GainEpilogue{}, tasks, stream);
+}
+
+// factor_update on W = [S; X; vᵀ; I], then the gain K = Zᵀ L⁻¹ (dx × dy,
+// leading dimension dy, batch stride k_batch). Two launches. Returns the
+// first error.
+template <typename T>
+int factor_and_gain(T* ws, const AugLayout& sc, int B, const T* R,
+                    long long r_batch, T jitter, const T* x_src,
+                    long long x_batch, const T* inn, long long rs, T* K,
+                    long long k_batch, const T* m, T* ll, T* mean,
+                    cudaStream_t stream) {
+  const int dx = sc.dx, dy = sc.dy;
+  const long long st = sc.total;
+  const int err = factor_update(ws, sc, B, R, r_batch, jitter, x_src,
+                                x_batch, inn, rs, m, ll, mean, stream);
   // K = Zᵀ L⁻¹ = Zᵀ (L⁻ᵀ)ᵀ
   const int e = gemm(gemm_of<T>(dx, dy, dy, B,
                                 {ws + sc.l + sc.xrow(), dy, st, 0},

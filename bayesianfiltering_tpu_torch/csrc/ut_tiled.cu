@@ -11,68 +11,67 @@
 // edges at 1,024).
 //
 // What bounds them on an H100. At dx = 512, dy = 256 and 1,024 sigma
-// points the update is ~0.6 GFLOP of moment and gain products around a
-// dy = 256 Cholesky, the predict ~0.3 GFLOP of one moment product; the
-// per-element kernels ran each on one SM with the workspace in global
-// scratch, one dependent load-and-FMA chain per output. Here every product
-// is a tiled product over the whole card (tiled.cuh), and the update's
-// Cholesky is K1t's one-launch blocked factor (tiled_chol.cuh):
+// points the update is ~0.44 GFLOP, nearly all of it the moments [S; Cᵀ]
+// (0.40 GFLOP) around a dy = 256 Cholesky, the predict ~0.3 GFLOP of one
+// moment product; the per-element kernels ran each on one SM with the
+// workspace in global scratch, one dependent load-and-FMA chain per
+// output. Here every product is a tiled product over the whole card
+// (tiled.cuh), and the update's Cholesky is K1t's one-launch blocked
+// factor (tiled_chol.cuh):
 //
 // - Each entry point enqueues its launches on the caller's stream and
 //   returns the first CUDA error. The scratch comes from the wrapper (a
 //   few MB at dx = 512, resident in L2).
-// - The sigma points are centred once, by an element-wise pass into the
-//   scratch, so that the moments are plain products: S = w_side·Ycᵀ Yc +
-//   w0c·d0 d0ᵀ is one two-term product (the center's outer product is a
-//   product of inner dimension 1), Cᵀ = w_side·Xcᵀ Yc another.
-// - K8t factors W = [S; Cᵀ; innovᵀ; I] as K1t factors [S; (H P)ᵀ; innovᵀ;
-//   I]: the rows below S become Zᵀ = (L⁻¹ C)ᵀ, zᵀ and L⁻ᵀ, the gain is
-//   K = Zᵀ L⁻¹, and log N and μ are K1t's, in the factor's launch. The
-//   factorisation overwrites W's Cᵀ rows, so Cᵀ is kept in a slot of its
-//   own, from which the factor's first touch reads it.
-// - The covariance keeps the plain version's grouping, P − KC − (KC)ᵀ +
-//   (KL)(KL)ᵀ: K C and K L are products, lower((KL)(KL)ᵀ) mirrored a third,
-//   and one element-wise pass adds the symmetrised rest. The factor zeroes
-//   L's strict upper part, which it otherwise never writes, so that K L
-//   can read L as a full square.
+// - K8t is four launches. The sigma points are centred once, by an
+//   element-wise pass into the scratch, side by side: V = [Yc | Xc]
+//   (rows × (dy + dx)) and [d0; 0], so that the moments are one two-term
+//   product, [S; Cᵀ] = lower(w_side·Vᵀ Yc + w0c·[d0; 0] d0ᵀ) (the center's
+//   outer product is a product of inner dimension 1), written straight
+//   into W's rows 0 … dy + dx (the lower mode skips only the top square's
+//   upper tiles).
+// - The factor of W = [S; Cᵀ; innovᵀ] (K1t's, without its I rows) turns
+//   the rows below S into Zᵀ = (L⁻¹ C)ᵀ and zᵀ, with log N and
+//   μ = m + Zᵀ z in its epilogue. Since K = Cᵀ S⁻¹ = Zᵀ L⁻¹, the grouped
+//   Joseph form P − KC − (KC)ᵀ + (KL)(KL)ᵀ is sym(P) − ZᵀZ, as K8 computes
+//   it: one product over L's rows of Zᵀ, lower(Zᵀ Z) mirrored, whose
+//   epilogue adds ½(P + Pᵀ), so that each entry is a symmetric function of
+//   (i, j) and Σ is exactly symmetric. No gain, no L⁻ᵀ.
 //
 // Math and constants follow ops/fused_ut.py's plain versions: S is
 // symmetrised before the relative floor 1e-6·max|diag S| (no jitter); the
 // wrapper supplies μy and the innovation (so a model's residual function
-// applies); a non-PD S gives NaN in every output. Nothing here raises.
+// applies); a non-PD S gives NaN in every output (the failed panel's Zᵀ
+// columns are NaN, and every entry of ZᵀZ sums over them). Nothing here
+// raises.
 #include "tiled_chol.cuh"
 
 namespace {
 
 using namespace bft;
 
-// Per-element scratch of K8t: W, L, the diagonal tiles' inverses, the
-// floor and flag (AugLayout), then Cᵀ, K, K C, K L, the centred images Yc
-// and points Xc, and d0 = center − μy.
+// Per-element scratch of K8t: W = [S; Cᵀ; innovᵀ], L, the diagonal
+// tiles' inverses, the floor and flag (AugLayout, no I rows), then the
+// centred points V = [Yc | Xc] (rows × (dy + dx)) and [d0; 0] (dy + dx).
 struct UtUpdateScratch {
   AugLayout f;
-  long long ct, k, kc, kl, yc, xc, d0;
-  UtUpdateScratch(int rows, int dx, int dy) : f(dx, dy) {
-    ct = f.end;
-    k = ct + 1LL * dx * dy;
-    kc = k + 1LL * dx * dy;
-    kl = kc + 1LL * dx * dx;
-    yc = kl + 1LL * dx * dy;
-    xc = yc + 1LL * rows * dy;
-    d0 = xc + 1LL * rows * dx;
-    f.total = d0 + dy;
+  long long v, d0;
+  UtUpdateScratch(int rows, int dx, int dy)
+      : f(dx, dy, 1LL * dy + dx + 1) {
+    v = f.end;
+    d0 = v + 1LL * rows * (dy + dx);
+    f.total = d0 + dy + dx;
   }
 };
 
-// Yc = hpts − μy (rows × dy), Xc = pts[:, :dx] − m (rows × dx, points of
-// leading dimension ld) and d0 = center − μy. Grid (blocks, batch).
+// V = [hpts − μy | pts[:, :dx] − m] (rows × (dy + dx); points of leading
+// dimension ld) and [center − μy; 0]. Grid (blocks, batch).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ut_tiled_centre_kernel(
     const T* __restrict__ pts_all, const T* __restrict__ hpts_all,
     const T* __restrict__ center_all, const T* __restrict__ mu_all,
     const T* __restrict__ m_all, T* scratch, UtUpdateScratch sc, int B,
     int rows, int ld) {
-  const int dx = sc.f.dx, dy = sc.f.dy;
+  const int dx = sc.f.dx, dy = sc.f.dy, w = dy + dx;
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   for (long long b = blockIdx.y; b < B; b += gridDim.y) {
@@ -81,37 +80,13 @@ __global__ void __launch_bounds__(kThreads) ut_tiled_centre_kernel(
     const T* m = m_all + b * dx;
     const T* hp = hpts_all + b * rows * dy;
     const T* pts = pts_all + b * rows * ld;
-    for (int idx = first; idx < rows * dy; idx += stride)
-      ws[sc.yc + idx] = hp[idx] - mu[idx % dy];
-    for (int idx = first; idx < rows * dx; idx += stride) {
-      const int r = idx / dx, j = idx % dx;
-      ws[sc.xc + idx] = pts[(long long)r * ld + j] - m[j];
+    for (int idx = first; idx < rows * w; idx += stride) {
+      const int r = idx / w, j = idx % w;
+      ws[sc.v + idx] = j < dy ? hp[r * dy + j] - mu[j]
+                              : pts[(long long)r * ld + j - dy] - m[j - dy];
     }
-    for (int i = first; i < dy; i += stride)
-      ws[sc.d0 + i] = center_all[b * dy + i] - mu[i];
-  }
-}
-
-// Σ = ½(P + Pᵀ) − (KC + KCᵀ) + Σ, over the whole square: Σ holds the
-// mirrored (KL)(KL)ᵀ on entry; each entry is a symmetric function of the
-// pair (i, j), so the result is exactly symmetric. Grid (blocks, batch).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ut_tiled_cov_kernel(
-    const T* __restrict__ P_all, const T* scratch, T* cov_all,
-    UtUpdateScratch sc, int B) {
-  const int dx = sc.f.dx;
-  const int stride = gridDim.x * blockDim.x;
-  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
-    const T* P = P_all + b * dx * dx;
-    const T* KC = scratch + b * sc.f.total + sc.kc;
-    T* cov = cov_all + b * dx * dx;
-    for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < dx * dx;
-         idx += stride) {
-      const int i = idx / dx, j = idx % dx;
-      const int t = j * dx + i;
-      const T p = T(0.5) * (P[idx] + P[t]);
-      cov[idx] = (p - (KC[idx] + KC[t])) + cov[idx];
-    }
+    for (int i = first; i < w; i += stride)
+      ws[sc.d0 + i] = i < dy ? center_all[b * dy + i] - mu[i] : T(0);
   }
 }
 
@@ -177,66 +152,55 @@ int launch_update_tiled(const void* pts_, const void* hpts_,
                         void* ll_, void* mean_, void* cov_, void* scratch_,
                         int B, int rows, int ld, int dx, int dy,
                         double w_side, double w0c, cudaStream_t stream) {
-  const T* P = static_cast<const T*>(P_);
-  const T* inn = static_cast<const T*>(inn_);
-  T* cov = static_cast<T*>(cov_);
   T* ws = static_cast<T*>(scratch_);
   const UtUpdateScratch sc(rows, dx, dy);
   const long long st = sc.f.total, xx = 1LL * dx * dx;
+  const int w = dy + dx;
   int err = 0;
   auto keep = [&](int e) {
     if (err == 0) err = e;
   };
 
-  // 1. centre
-  ut_tiled_centre_kernel<T><<<elementwise_grid(1LL * rows * (dx + dy), B),
-                              kThreads, 0, stream>>>(
+  // 1. centre: V = [Yc | Xc] and [d0; 0]
+  ut_tiled_centre_kernel<T><<<elementwise_grid(1LL * rows * w, B), kThreads,
+                              0, stream>>>(
       static_cast<const T*>(pts_), static_cast<const T*>(hpts_),
       static_cast<const T*>(center_), static_cast<const T*>(mu_),
       static_cast<const T*>(m_), ws, sc, B, rows, ld);
   keep(int(cudaGetLastError()));
-  // 2. G = lower(w_side·Ycᵀ Yc + w0c·d0 d0ᵀ) into W's top square
+  // 2. [G; Cᵀ] = lower(w_side·Vᵀ Yc + w0c·[d0; 0] d0ᵀ) into W's rows
+  //    0 … dy + dx
   {
-    Gemm<T> g = gemm_of<T>(dy, dy, rows, B, {ws + sc.yc, dy, st, 1},
-                           {ws + sc.yc, dy, st, 0}, ws + sc.f.w, dy, st,
+    Gemm<T> g = gemm_of<T>(w, dy, rows, B, {ws + sc.v, w, st, 1},
+                           {ws + sc.v, w, st, 0}, ws + sc.f.w, dy, st,
                            T(w_side));
     g.K[1] = 1;
     g.A[1] = {ws + sc.d0, 1, st, 0};
-    g.B[1] = {ws + sc.d0, dy, st, 0};
+    g.B[1] = {ws + sc.d0, w, st, 0};
     g.alpha[1] = T(w0c);
     g.tri = kLower;
     keep(gemm(g, stream));
   }
-  // 3. Cᵀ = w_side·Xcᵀ Yc (dx × dy) into its own slot
-  keep(gemm(gemm_of<T>(dx, dy, rows, B, {ws + sc.xc, dx, st, 1},
-                       {ws + sc.yc, dy, st, 0}, ws + sc.ct, dy, st,
-                       T(w_side)),
-            stream));
-  // 4–6. the factorisation of W = [S; Cᵀ; innovᵀ; I], S = G (+ sym(R),
-  //      shared) + floor and Cᵀ read at its first touch, with ll and μ;
-  //      then K = Zᵀ L⁻¹. L's top square is read whole below: its strict
-  //      upper part is zeroed.
-  keep(factor_and_gain<T>(ws, sc.f, B, static_cast<const T*>(R_), 0, T(0),
-                          ws + sc.ct, st, inn, -1, 1, ws + sc.k, st,
-                          static_cast<const T*>(m_), static_cast<T*>(ll_),
-                          static_cast<T*>(mean_), stream));
-  // 7. K C (C = (Cᵀ)ᵀ), K L, then lower((KL)(KL)ᵀ) mirrored into Σ and the
-  //    element-wise rest
-  keep(gemm(gemm_of<T>(dx, dx, dy, B, {ws + sc.k, dy, st, 0},
-                       {ws + sc.ct, dy, st, 1}, ws + sc.kc, dx, st),
-            stream));
-  keep(gemm(gemm_of<T>(dx, dy, dy, B, {ws + sc.k, dy, st, 0},
-                       {ws + sc.f.l, dy, st, 0}, ws + sc.kl, dy, st),
-            stream));
+  // 3. the factorisation of W = [S; Cᵀ; innovᵀ], S = G (+ sym(R), shared)
+  //    + floor as its first touch reads it, with ll and μ = m + Zᵀ z
+  keep(factor_update<T>(ws, sc.f, B, static_cast<const T*>(R_), 0, T(0),
+                        ws + sc.f.w + sc.f.xrow(), st,
+                        static_cast<const T*>(inn_), -1,
+                        static_cast<const T*>(m_), static_cast<T*>(ll_),
+                        static_cast<T*>(mean_), stream));
+  // 4. Σ = sym(P) − lower(Zᵀ Z), mirrored; Zᵀ is L's rows dy … dy + dx
   {
-    Gemm<T> g = gemm_of<T>(dx, dx, dy, B, {ws + sc.kl, dy, st, 0},
-                           {ws + sc.kl, dy, st, 1}, cov, dx, xx);
+    const T* Zt = ws + sc.f.l + sc.f.xrow();
+    Gemm<T> g = gemm_of<T>(dx, dx, dy, B, {Zt, dy, st, 0}, {Zt, dy, st, 1},
+                           static_cast<T*>(cov_), dx, xx, T(-1));
+    g.Cin = static_cast<const T*>(P_);
+    g.ldcin = dx;
+    g.bcin = xx;
+    g.beta = T(1);
+    g.sym_cin = 1;
     g.tri = kLowerMirror;
     keep(gemm(g, stream));
   }
-  ut_tiled_cov_kernel<T><<<elementwise_grid(xx, B), kThreads, 0, stream>>>(
-      P, ws, cov, sc, B);
-  keep(int(cudaGetLastError()));
   return err;
 }
 

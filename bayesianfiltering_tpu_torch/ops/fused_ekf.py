@@ -15,8 +15,10 @@ K1t and K2t (``csrc/ekf_tiled.cu``) replace the same TPU kernels for
 elements whose workspace does not fit there: every product is tiled over
 the whole card (``csrc/tiled.cuh``) and the Cholesky is blocked, in one
 cooperative launch (``csrc/tiled_chol.cuh``), so one sequence at
-dx = 512 uses every SM. The choice is by shape alone
-(:func:`update_kernel`, :func:`predict_kernel`).
+dx = 512 uses every SM. K2t is two launches: F_x P and F_q Q as one
+grouped launch (two products in one grid), then lower(F_x P F_xᵀ +
+F_q Q F_qᵀ) mirrored. The choice is by shape alone (:func:`update_kernel`,
+:func:`predict_kernel`); the C entry points size the scratch.
 
 On CUDA tensors the wrappers launch a kernel or raise; on CPU tensors
 they run the plain twins beside them. The band is dx, dy ≤ 512 for the

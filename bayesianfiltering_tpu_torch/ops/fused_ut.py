@@ -22,11 +22,13 @@ factors P with the EKF's blocked Cholesky in one launch
 (``csrc/tiled_chol.cuh``, on P alone; the points are that launch's
 epilogue) or runs the Newton–Schulz rounds as tiled products and a points
 pass, and K7t composes the factors of P and of the shared C with one pass
-that writes the augmented points; in ``csrc/ut_tiled.cu`` K8t centres the
-points, forms S and Cᵀ as products over the whole card and factors
-[S; Cᵀ; innovᵀ; I] with K1t's blocked Cholesky, and K9t centres the points
-and forms Σ as one product. The factor's route and scratch are decided in
-C; the wrappers ask only for the scratch size. The choice is by shape alone (:func:`sigma_kernel`,
+that writes the augmented points; in ``csrc/ut_tiled.cu`` K8t is four
+launches: it centres the points, forms [S; Cᵀ] as one product over the
+whole card, factors [S; Cᵀ; innovᵀ] with K1t's blocked Cholesky (log N
+and μ = m + Zᵀz in its epilogue) and forms Σ = sym(P) − ZᵀZ as one
+product, as K8 does; K9t centres the points and forms Σ as one product.
+The factor's route and scratch are decided in C; the wrappers ask only
+for the scratch size. The choice is by shape alone (:func:`sigma_kernel`,
 :func:`sigma_aug_kernel`, :func:`update_kernel`, :func:`predict_kernel`).
 
 The model evaluations f(pts), h(pts) run between them in PyTorch. K8 takes

@@ -5,7 +5,10 @@ port can be fed the very same arrays; :func:`to_torch` moves them over.
 :class:`TiledFactor` writes out, in numpy, the one-launch blocked
 Cholesky of ``csrc/tiled_chol.cuh`` that K1t, K8t (:func:`augmented_factor`),
 K6t and K7t (:func:`square_factor`) share, phase by phase on scratch seeded
-with NaN, and :func:`tile_mm` and :func:`tile_mm_lower` (with
+with NaN, :func:`run_gemms` the multi-block products of ``csrc/tiled.cuh``
+(one product, or two in a grouped launch) block by block on flat buffers
+addressed as the kernel addresses them, and :func:`tile_mm` and
+:func:`tile_mm_lower` (with
 their epilogues :func:`put`, :func:`put_t` and :func:`put_mirrored`),
 :func:`panel_cholesky` and
 :func:`tri_solve` the in-block product, panel factor and panel triangular
@@ -17,6 +20,7 @@ built on, with their board seeded with NaN.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -133,19 +137,22 @@ H100_L2_BYTES = 50 * 2 ** 20
 
 
 def factor_launch(dy: int, height: int, B: int, itemsize: int,
-                  epilogue: str = "none", sms: int = 132) -> dict:
+                  epilogue: str = "none", sms: int = 132,
+                  identity: bool = True) -> dict:
     """How ``launch_factor`` runs the factor of a W of ``height`` × dy rows
     over a batch of B: one cooperative launch (the route: a persistent
     grid, the working W in L2 between the steps) on min(SMs, tasks)
     blocks, the tasks being the most of any phase, the epilogue's included
     (``"points"``: K6t's tiles of the 2n × n points; ``"gain"``: a warp a
-    row of μ and one for ll, eight warps a block; ``"none"``: K7t's), and
-    ``factor_barriers`` grid barriers; whether the element's W and L fit
-    the H100's 50 MB L2 at ``itemsize`` bytes an entry."""
-    dx = height - 2 * dy - 1
+    row of μ and one for ll, eight warps a block, over the dx rows of X
+    that W = [S; X; vᵀ; I] holds, or [S; X; vᵀ] where not ``identity``;
+    ``"none"``: K7t's), and ``factor_barriers`` grid barriers; whether the
+    element's W and L fit the H100's 50 MB L2 at ``itemsize`` bytes an
+    entry."""
+    dx = height - dy - 1 - (dy if identity else 0)
     epi = {"none": 0, "points": B * tiles_of(dy) ** 2,
            "gain": -(-B * (dx + 1) // 8)}[epilogue]
-    lay = aug_layout(0, dy, height) if height == dy else aug_layout(dx, dy)
+    lay = aug_layout(dx, dy, height)
     return {"route": "grid", "launches": 1,
             "blocks": min(sms, max(factor_tasks(dy, height, B), epi)),
             "barriers": factor_barriers(dy, height, epilogue != "none"),
@@ -161,9 +168,23 @@ def k1t_scratch(dx: int, dy: int) -> int:
     return end + dy * dy + 2 * dx * dx + dx * dy
 
 
+def k8t_layout(rows: int, dx: int, dy: int) -> dict:
+    """``UtUpdateScratch``: the factor's layout of W = [S; Cᵀ; vᵀ] (no I
+    rows), then V = [Yc | Xc] (rows × (dy + dx)) and [d0; 0] (dy + dx)."""
+    lay = aug_layout(dx, dy, dy + dx + 1)
+    lay["v"] = lay["end"]
+    lay["d0"] = lay["v"] + rows * (dy + dx)
+    lay["total"] = lay["d0"] + dy + dx
+    return lay
+
+
 def k8t_scratch(rows: int, dx: int, dy: int) -> int:
-    end = aug_layout(dx, dy)["end"]  # then Cᵀ, K, K C, K L, Yc, Xc, d0
-    return end + 3 * dx * dy + dx * dx + rows * (dx + dy) + dy
+    return k8t_layout(rows, dx, dy)["total"]
+
+
+def k2t_scratch(dx: int, dq: int) -> int:
+    """K2t's per-element scratch (``predict_scratch``): F_x P, F_q Q."""
+    return dx * dx + dx * dq
 
 
 def k6t_scratch(B: int, n: int, method: str) -> int:
@@ -406,14 +427,15 @@ class TiledFactor:
 
 
 def augmented_factor(S, X, inn, R=None, jitter: float = 0.0, blocks=132,
-                     zero_upper: bool = False):
-    """K1t's and K8t's factor of W = [S; X; vᵀ; I] for a batch, as the
+                     identity: bool = True):
+    """K1t's factor of W = [S; X; vᵀ; I], or K8t's of W = [S; X; vᵀ]
+    (height dy + dx + 1) where not ``identity``, for a batch, as the
     launch computes it (:class:`TiledFactor`): ``S`` (B, dy, dy) holds G in
     its lower part (the rest is never read), ``X`` (B, dx, dy), ``inn``
     (B, dy), ``R`` (B, dy, dy), (dy, dy) shared, or None; S = G + sym(R) +
     (jitter + 1e-6·max|diag(G + R)|)·I as the first touch assembles it.
-    Returns the TiledFactor, whose ``L`` has its strict upper top square
-    zeroed where ``zero_upper`` (NaN, never written, otherwise)."""
+    Returns the TiledFactor (the strict upper part of L's top square is
+    never written: NaN)."""
     B, dx, dy = X.shape
     Rb = None if R is None else np.broadcast_to(R, (B, dy, dy))
 
@@ -439,12 +461,9 @@ def augmented_factor(S, X, inn, R=None, jitter: float = 0.0, blocks=132,
             d = d + np.diagonal(Rb[b])
         return d
 
-    f = TiledFactor(first_touch, B, dy, 2 * dy + dx + 1, X.dtype, blocks,
-                    s_diag, jitter)
-    if zero_upper:
-        upper = np.arange(dy)[None, :] // NB > np.arange(dy)[:, None] // NB
-        f.L[:, :dy][:, upper] = 0
-    return f
+    height = dy + dx + 1 + (dy if identity else 0)
+    return TiledFactor(first_touch, B, dy, height, X.dtype, blocks, s_diag,
+                       jitter)
 
 
 def square_factor(P, blocks=132):
@@ -452,6 +471,173 @@ def square_factor(P, blocks=132):
     of height n whose first touch reads lower(P) (no floor)."""
     B, n, _ = P.shape
     return TiledFactor(lambda b, i, j: P[b][i, j], B, n, n, P.dtype, blocks)
+
+
+# ---------------------------------------------------------------------------
+# csrc/tiled.cuh's products, block by block
+# ---------------------------------------------------------------------------
+
+GEMM_BK = 16        # kGemmBK: the k-slab, and a k-split share's granule
+GEMM_MAX_SPLIT = 4  # kMaxSplit
+FULL, LOWER, LOWER_MIRROR = 0, 1, 2  # Tri
+
+
+@dataclasses.dataclass
+class Mat:
+    """``Mat<T>``: element (r, c) of op(X) for batch element b is
+    buf[off + b·batch + r·ld + c], or buf[off + b·batch + c·ld + r] when
+    ``trans``; ``buf`` is a flat array (a scratch, an input)."""
+
+    buf: np.ndarray
+    off: int
+    ld: int
+    batch: int
+    trans: bool = False
+
+    def block(self, b: int, rows: range, cols: range) -> np.ndarray:
+        r = np.asarray(rows)[:, None]
+        c = np.asarray(cols)[None, :]
+        at = (c * self.ld + r) if self.trans else (r * self.ld + c)
+        return self.buf[self.off + b * self.batch + at]
+
+
+@dataclasses.dataclass
+class Gemm:
+    """``Gemm<T>`` (``gemm_of`` and the fields set after it): C = Σ_t
+    α_t·op(A_t)·op(B_t) + β·Cin (β·½(Cin + Cinᵀ) where ``sym_cin``) + δ·I,
+    M × N, into ``C`` (a flat buffer at ``c_off``, leading dimension
+    ``ldc``, batch stride ``bc``); ``K[1] = 0`` for a single product."""
+
+    M: int
+    N: int
+    batch: int
+    K: tuple
+    A: tuple
+    B: tuple
+    alpha: tuple
+    C: np.ndarray
+    c_off: int
+    ldc: int
+    bc: int
+    Cin: Mat = None
+    beta: float = 0.0
+    sym_cin: bool = False
+    diag: float = 0.0
+    tri: int = FULL
+
+
+def live_tiles(g: Gemm, BM: int, BN: int) -> int:
+    """``live_tiles``: the BM × BN output tiles a product computes (the
+    lower modes skip those above the diagonal), over the batch."""
+    mt, nt = -(-g.M // BM), -(-g.N // BN)
+    tiles = sum(min(nt, (i * BM + BM - 1) // BN + 1) if g.tri != FULL
+                else nt for i in range(mt))
+    return tiles * g.batch
+
+
+def gemm_split(tiles: int, K: int, sms: int) -> int:
+    """``gemm_split``: the k-split of a launch whose 64 × 32 tiles number
+    ``tiles``."""
+    split = (GEMM_MAX_SPLIT if tiles * GEMM_MAX_SPLIT <= sms
+             else 2 if tiles <= sms else 1)
+    while split > 1 and K < 2 * split * 2 * GEMM_BK:
+        split //= 2
+    return split
+
+
+def gemm_plan(gs, sms: int = 132):
+    """``gemm`` / ``launch_gemm`` for one product, ``gemm2`` /
+    ``launch_gemm_pair`` for two of one batch: (BM, BN, threads, split,
+    blocks), ``blocks`` listing each block of a batch element as (product,
+    i0, j0, rank) in launch order: one product's grid is (row tiles ×
+    split, column tiles), blockIdx.x the faster; a pair's is flat, each
+    product's tiles row-major, ``split`` blocks a tile, product 1 from
+    ``first1`` on."""
+    assert 1 <= len(gs) <= 2 and len({g.batch for g in gs}) == 1
+    if sum(live_tiles(g, 64, 64) for g in gs) >= sms:
+        BM, BN, nt, split = 64, 64, 256, 1
+    else:
+        K = max(max(g.K) for g in gs)
+        BM, BN, nt = 64, 32, 128
+        split = gemm_split(sum(live_tiles(g, 64, 32) for g in gs), K, sms)
+    blocks = []
+    if len(gs) == 1:
+        g = gs[0]
+        for y in range(-(-g.N // BN)):
+            for x in range(-(-g.M // BM) * split):
+                blocks.append((0, (x // split) * BM, y * BN, x % split))
+        return BM, BN, nt, split, blocks
+    for p, g in enumerate(gs):
+        ntc = -(-g.N // BN)
+        for x in range(-(-g.M // BM) * ntc * split):
+            tile = x // split
+            blocks.append((p, (tile // ntc) * BM, (tile % ntc) * BN,
+                           x % split))
+    return BM, BN, nt, split, blocks
+
+
+def run_gemms(gs, sms: int = 132) -> dict:
+    """One launch of ``tiled_gemm_kernel`` over the products ``gs`` (one,
+    or two grouped), block by block as :func:`gemm_plan` lays them out:
+    each block reads only its tile's rows of op(A_t) and columns of op(B_t)
+    over its rank's share of every inner dimension (whole slabs); a
+    cluster's rank 0 adds the other ranks' partial tiles in rank order and
+    stores the epilogue (skipping the tiles above the diagonal in the lower
+    modes, writing i ≥ j there and mirroring in ``LOWER_MIRROR``). Checks
+    that no two blocks store the same entry. Returns the plan's fields."""
+    BM, BN, nt, split, blocks = gemm_plan(gs, sms)
+    stored = {}
+    for b in range(gs[0].batch):
+        partial = {}
+        for p, i0, j0, s in blocks:
+            g = gs[p]
+            if g.tri != FULL and i0 + BM - 1 < j0:
+                continue
+            rows = range(i0, min(i0 + BM, g.M))
+            cols = range(j0, min(j0 + BN, g.N))
+            acc = np.zeros((len(rows), len(cols)), g.C.dtype)
+            for t in range(2):
+                if g.K[t] <= 0:
+                    continue
+                per = -(-g.K[t] // (split * GEMM_BK)) * GEMM_BK
+                ks = range(s * per, min(g.K[t], s * per + per))
+                if len(ks):
+                    part = g.A[t].block(b, rows, ks) @ g.B[t].block(b, ks,
+                                                                   cols)
+                    acc += g.C.dtype.type(g.alpha[t]) * part
+            partial[(p, i0, j0, s)] = acc
+            if s != split - 1:
+                continue
+            acc = sum(partial.pop((p, i0, j0, r)) for r in range(split))
+            r_ = np.asarray(rows)[:, None]
+            c_ = np.asarray(cols)[None, :]
+            v = acc.copy()
+            if g.Cin is not None:
+                beta = g.C.dtype.type(g.beta)
+                cin = g.Cin.block(b, rows, cols)
+                if g.sym_cin:
+                    cin = g.C.dtype.type(0.5) * (
+                        cin + g.Cin.block(b, cols, rows).T)
+                v = v + beta * cin
+            v = v + np.where(r_ == c_, g.C.dtype.type(g.diag), 0)
+            keep = np.ones(v.shape, bool) if g.tri == FULL else c_ <= r_
+            keep = np.broadcast_to(keep, v.shape)
+            rr = np.broadcast_to(r_, v.shape)[keep]
+            cc = np.broadcast_to(c_, v.shape)[keep]
+            at = g.c_off + b * g.bc + rr * g.ldc + cc
+            if g.tri == LOWER_MIRROR:
+                off = cc < rr
+                at = np.concatenate([at, g.c_off + b * g.bc
+                                     + cc[off] * g.ldc + rr[off]])
+                vals = np.concatenate([v[keep], v[keep][off]])
+            else:
+                vals = v[keep]
+            count = stored.setdefault(id(g.C), np.zeros(g.C.size, np.int32))
+            np.add.at(count, at, 1)
+            assert (count[at] == 1).all(), "two blocks store one entry"
+            g.C[at] = vals
+    return {"tile": (BM, BN), "threads": nt, "split": split,
+            "blocks": len(blocks)}
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,9 @@ and prints no result):
    above dx = 8) from
    ``bayesianfiltering_tpu_torch/csrc``, one nvcc per source, in
    parallel.
-3. Each kernel against its plain PyTorch version on the card, float32 and
+3. First, the CUDA launches a call of K8t (at most 4) and K2t (at most 2),
+   counted by torch.profiler. Each kernel against its plain PyTorch
+   version on the card, float32 and
    float64, at the main paths' shapes and at its size band's edge (K1/K1t
    to dy = 512, K6–K9/K6t–K9t to 1,024, the block combines at dx = 9, 64
    and 512; the EKF, sigma-point and UT update and predict kernels also at
@@ -259,7 +261,8 @@ KERNEL_SYMBOLS = {
     "bft_ekf_update": ("ekf_update_kernel",),
     "bft_ekf_predict_cov": ("ekf_predict_cov_kernel",),
     "bft_ekf_update_tiled": ("tiled_gemm_kernel", "tiled_factor_kernel"),
-    "bft_ekf_predict_cov_tiled": ("tiled_gemm_kernel",),
+    "bft_ekf_predict_cov_tiled": ("tiled_gemm_pair_kernel",
+                                  "tiled_gemm_kernel"),
     "bft_bank_update": ("bank_update_kernel",),
     "bft_bank_predict_cov": ("bank_predict_cov_kernel",),
     "bft_resample_parents": ("resample_parents_kernel",),
@@ -268,7 +271,7 @@ KERNEL_SYMBOLS = {
     "bft_ut_update": ("ut_update_kernel",),
     "bft_ut_predict": ("ut_predict_kernel",),
     "bft_ut_update_tiled": ("tiled_gemm_kernel", "ut_tiled_centre_kernel",
-                            "tiled_factor_kernel", "ut_tiled_cov_kernel"),
+                            "tiled_factor_kernel"),
     "bft_ut_predict_tiled": ("tiled_gemm_kernel", "ut_tiled_mean_kernel",
                              "ut_tiled_centre_rows_kernel"),
     "bft_ut_sigma_tiled": SIGMA_TILED_SYMBOLS,
@@ -505,13 +508,14 @@ def factor_flops(n, method):
 
 
 def ut_update_flops(rows, dx, dy):
-    """K8, K8t: centring (rows·(dx + dy)), S over the rows (rows·dy²), C
-    (2rows·dx·dy), chol S and L⁻¹ (dy³/3 each), L⁻¹C and Kᵀ (dy²·dx
-    each), K L (dx·dy²), the symmetric KC and (KL)(KL)ᵀ (dx²·dy each), μ
-    and z."""
+    """K8, K8t, which form the grouped Joseph form as sym(P) − ZᵀZ (no
+    gain, no L⁻¹): centring (rows·(dx + dy)), S over the rows (rows·dy²),
+    C (2rows·dx·dy), chol S (dy³/3), Zᵀ = (L⁻¹C)ᵀ (dx·dy², a triangular
+    solve), the symmetric ZᵀZ (dx²·dy), z = L⁻¹ v (dy²), μ = m + Zᵀz
+    (2dx·dy) and sym(P) − ZᵀZ (dx²)."""
     return (rows * dy * dy + 2 * rows * dx * dy + rows * (dx + dy)
-            + 2 * dy ** 3 / 3 + 3 * dx * dy * dy + 2 * dx * dx * dy
-            + 2 * dx * dy + 3 * dy * dy)
+            + dy ** 3 / 3 + dx * dy * dy + dx * dx * dy + dy * dy
+            + 2 * dx * dy + dx * dx)
 
 
 def ut_predict_flops(rows, dx):
@@ -1156,6 +1160,19 @@ def check_parents(dev) -> dict:
 
 # K6's rows get torch.linalg.cholesky_ex's time as their library time
 FACTOR_LIBRARY = ("bft_ut_sigma", "bft_ut_sigma_tiled")
+
+# The CUDA launches a wrapper call makes, at most: K8t centres, forms the
+# moments, factors and forms sym(P) − ZᵀZ; K2t forms F_x P and F_q Q in
+# one grouped launch, then the covariance.
+CUDA_LAUNCHES = {"bft_ut_update_tiled": 4, "bft_ekf_predict_cov_tiled": 2}
+
+
+def predict_chain(Fx, P, Fq, Q):
+    """K2t's function as torch.matmul calls: F_x P F_xᵀ + F_q Q F_qᵀ,
+    symmetrised (a chain of cuBLAS calls, not one call; the port never
+    calls it)."""
+    cov = Fx @ P @ Fx.mT + Fq @ Q @ Fq.mT
+    return 0.5 * (cov + cov.mT)
 # the sigma-point kernels' Cholesky reads only lower(P) (and lower(C)):
 # the indices of those operands in (m, P) and (m, P, bias, C)
 LOWER_READ = {"bft_ut_sigma": (1,), "bft_ut_sigma_tiled": (1,),
@@ -1191,6 +1208,7 @@ def check_kernels(dev) -> dict:
     import torch
 
     report = {}
+    cuda_launch_checks(dev)
     for (pick, wrapper, plain, shape, make, static, flops,
          timed) in kernel_cases():
         raw = make(np.random.default_rng(SEED))
@@ -1243,6 +1261,16 @@ def check_kernels(dev) -> dict:
                     log(f"  torch.linalg.cholesky_ex on the same P: device "
                         f"{entry['library_ms']} ms, event "
                         f"{entry['library_event_ms']:.4f} ms")
+                if kernel.name == "bft_ekf_predict_cov_tiled":
+                    chain = lambda: predict_chain(*args)
+                    entry.update(library_chain_ms=device_ms(chain, ("",)),
+                                 library_chain=(
+                                     "torch.matmul: F_x P F_xᵀ + F_q Q F_qᵀ, "
+                                     "symmetrised; a chain of cuBLAS calls, "
+                                     "not one call"))
+                    log(f"  the torch.matmul chain on the same inputs (a "
+                        f"chain of cuBLAS calls, not one call): device "
+                        f"{entry['library_chain_ms']} ms")
                 if timed == "main" and dtype == torch.float32:
                     report.setdefault(kernel.name, {}).update(entry)
                 else:
@@ -1256,6 +1284,46 @@ def check_kernels(dev) -> dict:
     guard_checks(dev)
     report["bft_resample_parents"] = check_parents(dev)
     return report
+
+
+def cuda_launch_checks(dev, calls: int = 5) -> None:
+    """The CUDA launches a call of K8t and K2t at config 5 (float32),
+    counted by torch.profiler over ``calls`` calls: at most
+    ``CUDA_LAUNCHES`` a call. The profiler may drop records (late in a
+    long process it kept 3 of K8t's 20), never add one, so only the upper
+    bound is held; phase 3 runs this first, before its other traces."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesianfiltering_tpu_torch import testing
+    from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
+    from bayesianfiltering_tpu_torch.ops import fused_ut as fu
+
+    rng = np.random.default_rng(SEED)
+    on = lambda xs: [torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                     device=dev) for x in xs]
+    u = on(testing.ut_update_inputs(rng, 1, 2 * C5_DX, C5_DX, C5_DX, C5_DY))
+    p = on(testing.predict_inputs(rng, 1, C5_DX, C5_DX))
+    for kernel, fn in (
+            (fu.K8T, lambda: fu.fused_ut_update(*u, 1 / 1024, 0.0, True)),
+            (fe.K2T, lambda: fe.fused_predict_cov(*p))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type != DeviceType.CPU
+                 and any(k in e.name for k in KERNEL_SYMBOLS[kernel.name])]
+        most = CUDA_LAUNCHES[kernel.name]
+        log(f"kernel {kernel.name}: {len(names)} CUDA launches recorded over "
+            f"{calls} calls (at most {most} a call)")
+        if len(names) > most * calls:
+            raise RuntimeError(f"{kernel.name}: {len(names)} CUDA launches "
+                               f"over {calls} calls, more than {most} a call")
 
 
 # ---------------------------------------------------------------------------
@@ -2500,8 +2568,9 @@ def ukf_split(prof) -> dict:
     by name and launch order: K6t's Cholesky is one launch (the factor with
     the points as its epilogue, ``PointsEpilogue`` in its name), its
     Newton–Schulz route runs from its trace pass to its points pass; K8t
-    runs from its centring pass to its covariance pass, K9t from its mean
-    pass to its one product."""
+    is its centring pass and the three launches after it (the moments,
+    the factor, the covariance), K9t runs from its mean pass to its one
+    product."""
     from torch.autograd import DeviceType
 
     events = sorted((e for e in prof.events()
@@ -2509,7 +2578,7 @@ def ukf_split(prof) -> dict:
                     key=lambda e: e.time_range.start)
     split = {"K6": 0.0, "K6t": 0.0, "K8t": 0.0, "K9t": 0.0,
              "other": 0.0}
-    owner = None
+    owner, k8t_left = None, 0
     for e in events:
         name, us = e.name, e.time_range.elapsed_us()
         if "ut_sigma_kernel" in name:
@@ -2521,11 +2590,14 @@ def ukf_split(prof) -> dict:
         if owner is None and "sigma_tiled_trace_kernel" in name:
             owner = "K6t"
         elif "ut_tiled_centre_kernel" in name:
-            owner = "K8t"
+            owner, k8t_left = "K8t", CUDA_LAUNCHES["bft_ut_update_tiled"]
         elif "ut_tiled_mean_kernel" in name:
             owner = "K9t"
         split[owner or "other"] += us
-        if ("sigma_tiled_points_kernel" in name or "ut_tiled_cov_kernel" in name
+        if owner == "K8t":
+            k8t_left -= 1
+        if ("sigma_tiled_points_kernel" in name or (owner == "K8t"
+                                                    and k8t_left == 0)
                 or (owner == "K9t" and "tiled_gemm_kernel" in name)):
             owner = None
     return {k: v / 1e3 for k, v in split.items()}
@@ -3087,7 +3159,9 @@ def sigma_times(root: str) -> None:
     plain version: the sigma points (K6t, Cholesky) beside
     ``torch.linalg.cholesky_ex`` of the same P, K6t by Newton–Schulz, K7t
     at the augmented widths (dn = 512 in the predict, 256 in the update),
-    K1t at dy = 256 and 128 (``update_chunk=128``), K2t, K8t and K9t; last,
+    K1t at dy = 256 and 128 (``update_chunk=128``), K2t (beside the
+    torch.matmul chain of its function) and K8t, each also launch by launch
+    (``launch_split``), and K9t; last,
     config 5's three walls (``ekf512``, its chunked update, ``ukf512``;
     T = 200, float32; the median and range of REPS calls after a warm-up).
     Inputs from ``testing`` with SEED."""
@@ -3154,11 +3228,18 @@ def sigma_times(root: str) -> None:
         a = on_card(testing.predict_inputs(rng, 1, C5_DX, C5_DX))
         show("K2t B=1 dx=dq=512", lambda: fe.fused_predict_cov(*a),
              plain=lambda: fe._predict_plain(*a))
+        log(f"{root} K2t launch by launch {name}: "
+            f"{launch_split(lambda: fe.fused_predict_cov(*a))}")
+        show("torch.matmul chain for K2t's function (a chain of cuBLAS "
+             "calls, not one call) B=1 dx=dq=512",
+             lambda: predict_chain(*a))
         a = on_card(testing.ut_update_inputs(rng, 1, 2 * C5_DX, C5_DX, C5_DX,
                                              C5_DY))
         show("K8t B=1 rows=1024 dx=512 dy=256",
              lambda: fu.fused_ut_update(*a, w_side, w0c, True),
              plain=lambda: fu._ut_update_plain(*a, w_side, w0c, True))
+        log(f"{root} K8t launch by launch {name}: "
+            f"{launch_split(lambda: fu.fused_ut_update(*a, w_side, w0c, True))}")
         a = on_card(testing.ut_predict_inputs(rng, 1, 2 * C5_DX, C5_DX))
         show("K9t B=1 rows=1024 dx=512",
              lambda: fu.fused_ut_predict(*a, *wp, True),
@@ -3169,6 +3250,35 @@ def sigma_times(root: str) -> None:
         secs = [timed(lambda: run(params, em))[1] for _ in range(REPS)]
         log(f"{root} {label} lorenz96 dx={C5_DX} dy={C5_DY} B=1 T={C5_T} "
             f"float32: {spread(secs)}")
+
+
+def launch_split(fn, calls: int = 5) -> str:
+    """Each CUDA launch of one call of ``fn``, in launch order, with its
+    device ms (the median over ``calls`` calls traced back to back by
+    torch.profiler), and their sum; or what the profiler recorded, where
+    it dropped records (a count that is not a multiple of the calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type != DeviceType.CPU),
+                    key=lambda e: e.time_range.start)
+    names = [re.search(r"(\w+_kernel)", e.name) for e in events]
+    names = [n[1] if n else e.name[:40] for n, e in zip(names, events)]
+    if not events or len(events) % calls:
+        return f"{len(events)} launches recorded over {calls} calls"
+    per = len(events) // calls
+    ms = [sorted(events[c * per + i].time_range.elapsed_us() / 1e3
+                 for c in range(calls))[calls // 2] for i in range(per)]
+    return (", ".join(f"{n} {m:.4f}" for n, m in zip(names[:per], ms))
+            + f"; sum {sum(ms):.4f} ms over {per} launches")
 
 
 def ab(parent: str, parts=AB_PARTS) -> int:
@@ -3266,7 +3376,9 @@ def main() -> int:
                         "shape": t["shape"], "also": t.get("also", []),
                         **{key: t[key] for key in ("graph_ms",
                                                    "library_graph_ms",
-                                                   "library_device_ms")
+                                                   "library_device_ms",
+                                                   "library_chain_ms",
+                                                   "library_chain")
                            if key in t}})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

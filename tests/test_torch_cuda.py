@@ -1280,6 +1280,45 @@ def test_tiled_ut_update_nan_on_non_pd(dev, fail_at):
         assert torch.isnan(g).all() and torch.isnan(w).all()
 
 
+# K8t as sym(P) − ZᵀZ and K2t's grouped first launch: config 5's shapes
+# and ragged ones (a last panel of 1 or 6, tiles cut by dx and dq), B = 1
+# and 3; the covariance exactly symmetric, one wrapper launch a call
+K8T_SHAPES = [(1, 1024, 512, 512, 256, True), (3, 400, 200, 190, 33, True),
+              (1, 400, 240, 200, 70, False), (2, 300, 150, 130, 97, True),
+              (3, 1024, 512, 512, 256, False)]
+K2T_SHAPES = [(1, 512, 512), (3, 512, 512), (3, 200, 70), (2, 511, 1),
+              (3, 130, 97), (1, 129, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,rows,ld,dx,dy,add_r", K8T_SHAPES)
+def test_tiled_ut_update_matches_plain(dev, dtype, B, rows, ld, dx, dy,
+                                       add_r):
+    args = _dev(testing.ut_update_inputs(np.random.default_rng(rows + dy), B,
+                                         rows, ld, dx, dy), dtype, dev)
+    assert fu.update_kernel(dx, dy, args[0].element_size(),
+                            _build.smem_optin(dev)) is fu.K8T
+    static = (1 / rows, 2.0, add_r)
+    got = _one_launch(fu.K8T, lambda *a: fu.fused_ut_update(*a, *static),
+                      args)
+    assert torch.equal(got[2], got[2].mT)
+    for g, w in zip(got, fu._ut_update_plain(*args, *static)):
+        assert torch.isfinite(g).all()
+        assert_close(g, w, WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,dx,dq", K2T_SHAPES)
+def test_tiled_predict_matches_plain(dev, dtype, B, dx, dq):
+    args = _dev(testing.predict_inputs(np.random.default_rng(dx + dq), B, dx,
+                                       dq), dtype, dev)
+    assert fe.predict_kernel(dx, dq, args[0].element_size(),
+                             _build.smem_optin(dev)) is fe.K2T
+    got = _one_launch(fe.K2T, fe.fused_predict_cov, args)[0]
+    assert torch.isfinite(got).all() and torch.equal(got, got.mT)
+    assert_close(got, fe._predict_plain(*args), WIDE_TOL[dtype])
+
+
 # K8 and K9 at the batched Lorenz-96 UKF's augmented shapes (192 rows,
 # ld = 96; 256 rows), with a ragged S (dy = 33: C starts at column 36), at
 # dy = 33, dx = 65 with rows that are not a multiple of the 64-row chunk,

@@ -16,7 +16,14 @@ read nothing another task of their phase writes), and held to the JAX
 package's XLA twin (``fused_ekf._update_xla``) at shapes that are not
 multiples of the panel or of a tile and at config 5's (dx, dy) = (512,
 256) and (512, 128), with a non-positive-definite S failing in the first,
-a middle or the last panel. The port's wrappers on CPU tensors (the plain
+a middle or the last panel. K2t is two launches: F_x P and F_q Q as one
+grouped launch (two products in one grid, the product picked by block
+index), then lower(F_x P F_xᵀ + F_q Q F_qᵀ) mirrored; both are written out
+block by block (``testing.run_gemms``: each block's tile, its share of
+the inner dimension and the cluster's sum, on a NaN-seeded scratch
+addressed as the kernel addresses it, no entry stored twice) and held to
+``fused_ekf._predict_xla`` at config 5's dx = dq = 512 and at ragged
+shapes, at B = 1 and 3. The port's wrappers on CPU tensors (the plain
 twins) are held to JAX at the same shapes. The CUDA kernels themselves run
 only on the card (tests/test_torch_cuda.py).
 
@@ -216,6 +223,66 @@ def test_tiled_update_schedule_at_config_5_matches_jax(dtype, dy):
         scale = max(1.0, float(np.abs(w).max()))
         np.testing.assert_allclose(g, w, rtol=0,
                                    atol=CONFIG5_TOL[dtype] * scale)
+
+
+# ---------------------------------------------------------------------------
+# K2t's schedule
+# ---------------------------------------------------------------------------
+
+def tiled_predict(Fx, P, Fq, Q):
+    """K2t over a batch, launch by launch, on its scratch (F_x P, then
+    F_q Q an element) seeded with NaN, in the inputs' dtype. Returns Σ and
+    the two launches' plans."""
+    B, dx, dq = Fq.shape
+    dt = P.dtype
+    st = testing.k2t_scratch(dx, dq)
+    xx, xq = dx * dx, dx * dq
+    fx, p, fq, q = (np.ascontiguousarray(a).ravel() for a in (Fx, P, Fq, Q))
+    ws = np.full(B * st, np.nan, dt)
+    Mat, Gemm = testing.Mat, testing.Gemm
+    # 1. F_x P and F_q Q, one grouped launch (Q shared: batch stride 0)
+    phase1 = testing.run_gemms([
+        Gemm(dx, dx, B, (dx, 0), (Mat(fx, 0, dx, xx), None),
+             (Mat(p, 0, dx, xx), None), (1.0, 0.0), ws, 0, dx, st),
+        Gemm(dx, dq, B, (dq, 0), (Mat(fq, 0, dq, xq), None),
+             (Mat(q, 0, dq, 0), None), (1.0, 0.0), ws, xx, dq, st)])
+    # 2. Σ = lower(F_x P F_xᵀ + F_q Q F_qᵀ), mirrored
+    cov = np.full(B * xx, np.nan, dt)
+    phase2 = testing.run_gemms([Gemm(
+        dx, dx, B, (dx, dq), (Mat(ws, 0, dx, st), Mat(ws, xx, dq, st)),
+        (Mat(fx, 0, dx, xx, True), Mat(fq, 0, dq, xq, True)), (1.0, 1.0),
+        cov, 0, dx, xx, tri=testing.LOWER_MIRROR)])
+    return cov.reshape(B, dx, dx), phase1, phase2
+
+
+@functools.lru_cache(maxsize=None)
+def predict_case(B, dx, dq):
+    """Inputs and the JAX reference of the covariance predict."""
+    args = testing.predict_inputs(np.random.default_rng(dx + dq), B, dx, dq)
+    want = _jax_run(jax.vmap(lambda *a: (jfe._predict_xla(*a),),
+                             in_axes=(0, 0, 0, None)), *args)[0]
+    return args, want
+
+
+# config 5's (dx = dq = 512), a panel and a tile ragged, dq = 1, dq > dx;
+# held as config 5's update (1e-10 / 1e-3)
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("dx,dq", [(512, 512), (200, 70), (100, 1),
+                                   (33, 97)])
+def test_tiled_predict_schedule_matches_jax(dtype, B, dx, dq):
+    args, want = predict_case(B, dx, dq)
+    got, phase1, _ = tiled_predict(*(a.astype(dtype) for a in args))
+    assert np.isfinite(got).all() and got.shape == want.shape
+    np.testing.assert_array_equal(got, np.swapaxes(got, -1, -2))
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.astype(np.float64), want, rtol=0,
+                               atol=CONFIG5_TOL[dtype] * scale)
+    if (B, dx, dq) == (1, 512, 512):
+        # 2 × 128 tiles of 64 × 32 in one launch fill the card without a
+        # k-split, where each product alone took a split of 2
+        assert phase1 == {"tile": (64, 32), "threads": 128, "split": 1,
+                          "blocks": 256}
 
 
 # ---------------------------------------------------------------------------

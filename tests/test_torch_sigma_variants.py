@@ -470,14 +470,24 @@ PLAN_CASES = [("k6t", (1, 512, "cholesky")), ("k6t", (1, 1024, "cholesky")),
               ("k7t", (2, 1000, 24, "cholesky")), ("k1t", (512, 256)),
               ("k1t", (512, 128)), ("k1t", (64, 512)), ("k1t", (512, 512)),
               ("k1t", (9, 1)), ("k8t", (1024, 512, 256)),
-              ("k8t", (2048, 1024, 1024)), ("k8t", (130, 100, 33))]
+              ("k8t", (2048, 1024, 1024)), ("k8t", (130, 100, 33)),
+              ("k2t", (512, 512)), ("k2t", (200, 70)), ("k2t", (100, 1)),
+              ("k2t", (33, 97))]
+# (tiles, K, SMs) of tiled.cuh's k-split rule: K2t's two products grouped
+# and apart, K8t's moments and covariance, K1t's gain, the edges
+SPLIT_CASES = [(256, 512, 132), (128, 512, 132), (84, 1024, 132),
+               (72, 1024, 132), (20, 256, 132), (33, 256, 132),
+               (34, 256, 132), (132, 64, 132), (133, 4096, 132),
+               (8, 63, 132), (8, 64, 132), (8, 127, 132), (8, 128, 132),
+               (1, 1, 132), (30, 512, 114)]
 
 
 @pytest.fixture(scope="module")
 def cuda_plan(tmp_path_factory):
     """The scratch sizes and the factor's task counts as the CUDA sources
-    compute them (``AugLayout``, ``factor_tasks``, ``factor_elems`` and
-    the update scratches), compiled by the host compiler."""
+    compute them (``AugLayout``, ``factor_tasks``, ``factor_elems``, the
+    update scratches and K2t's), and tiled.cuh's k-split rule
+    (``gemm_split``), compiled by the host compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -485,6 +495,7 @@ def cuda_plan(tmp_path_factory):
     sigma = (CSRC / "sigma_tiled.cu").read_text()
     ekf = (CSRC / "ekf_tiled.cu").read_text()
     ut = (CSRC / "ut_tiled.cu").read_text()
+    tiled = (CSRC / "tiled.cuh").read_text()
     lines = []
     for kind, shape in PLAN_CASES:
         if kind in ("k6t", "k7t"):
@@ -496,18 +507,27 @@ def cuda_plan(tmp_path_factory):
         elif kind == "k1t":
             lines.append('  std::printf("%lld\\n", UpdateScratch({}, {}).f.'
                          'total);'.format(*shape))
+        elif kind == "k2t":
+            lines.append('  std::printf("%lld\\n", predict_scratch({}, {}));'
+                         .format(*shape))
         else:
             lines.append('  std::printf("%lld\\n", UtUpdateScratch({}, {}, '
                          '{}).f.total);'.format(*shape))
     tasks = [(dy, h, B) for dy, h, B in
              ((512, 512, 1), (1024, 1024, 1), (241, 241, 3), (256, 1025, 1),
-              (128, 897, 1), (512, 1089, 1), (33, 99, 2), (1, 11, 1))]
+              (128, 897, 1), (512, 1089, 1), (33, 99, 2), (1, 11, 1),
+             (256, 769, 1), (1024, 2049, 1), (33, 134, 2))]
     for dy, h, B in tasks:
         lines.append(f'  std::printf("%lld\\n", factor_tasks(AugLayout(0, '
                      f'{dy}, {h}), {B}));')
+    for tiles, K, sms in SPLIT_CASES:
+        lines.append(f'  std::printf("%lld\\n", (long long)gemm_split('
+                     f'{tiles}, {K}, {sms}));')
     prog = "\n".join(
         ["#include <cstdio>", "#define __host__", "#define __device__",
          "constexpr int kNb = 32;", "constexpr int kSqrtm = 1;",
+         "constexpr int kGemmBK = 16;", "constexpr int kMaxSplit = 4;",
+         _cxx_block(tiled, r"inline int gemm_split"),
          _cxx_block(chol, r"__host__ __device__ inline int tiles_of"),
          _cxx_block(chol, r"struct AugLayout"),
          _cxx_block(chol, r"inline long long factor_tasks"),
@@ -517,6 +537,7 @@ def cuda_plan(tmp_path_factory):
          "  return factor_elems(B, dx, method) + factor_elems(1, dn, "
          "method);", "}",
          _cxx_block(ekf, r"struct UpdateScratch"),
+         _cxx_block(ekf, r"long long predict_scratch"),
          _cxx_block(ut, r"struct UtUpdateScratch"),
          "int main() {"] + lines + ["}"])
     tmp = tmp_path_factory.mktemp("plan")
@@ -526,13 +547,16 @@ def cuda_plan(tmp_path_factory):
     out = subprocess.run([str(tmp / "plan")], check=True, capture_output=True,
                          text=True).stdout.split()
     values = list(map(int, out))
-    assert len(values) == len(PLAN_CASES) + len(tasks)
-    return (dict(zip(PLAN_CASES, values[:len(PLAN_CASES)])),
-            dict(zip(tasks, values[len(PLAN_CASES):])))
+    n_plan, n_tasks = len(PLAN_CASES), len(tasks)
+    assert len(values) == n_plan + n_tasks + len(SPLIT_CASES)
+    return (dict(zip(PLAN_CASES, values[:n_plan])),
+            dict(zip(tasks, values[n_plan:n_plan + n_tasks])),
+            dict(zip(SPLIT_CASES, values[n_plan + n_tasks:])))
 
 
 MIRRORS = {"k6t": testing.k6t_scratch, "k7t": testing.k7t_scratch,
-           "k1t": testing.k1t_scratch, "k8t": testing.k8t_scratch}
+           "k1t": testing.k1t_scratch, "k8t": testing.k8t_scratch,
+           "k2t": testing.k2t_scratch}
 
 
 @pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: f"{c[0]}{c[1]}")
@@ -546,16 +570,21 @@ def test_the_task_counts_match_the_cuda_source(cuda_plan):
         assert testing.factor_tasks(dy, h, B) == got
 
 
+def test_the_product_split_matches_the_cuda_source(cuda_plan):
+    for (tiles, K, sms), got in cuda_plan[2].items():
+        assert testing.gemm_split(tiles, K, sms) == got
+
+
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("dy,height,B,epi,blocks,barriers,in_l2", [
     (512, 512, 1, "points", 132, 16, (True, True)),   # K6t, config 5
     (512, 512, 1, "none", 120, 16, (True, True)),     # K7t's factor of P
     (256, 1025, 1, "gain", 132, 9, (True, True)),     # K1t, config 5
     (128, 897, 1, "gain", 81, 5, (True, True)),       # update_chunk=128
-    (256, 1281, 1, "gain", 132, 9, (True, True)),     # K8t, config 5
+    (256, 1281, 1, "gain", 132, 9, (True, True)),     # K1t at dx = 768
     (1024, 1024, 1, "points", 132, 32, (True, True)),  # K6t, band's edge
     (512, 1089, 1, "gain", 132, 17, (True, True)),    # K1t, dx=64, dy=512
-    (1024, 3073, 1, "gain", 132, 33, (True, True)),   # K8t, band's edge
+    (1024, 3073, 1, "gain", 132, 33, (True, True)),   # I rows at 1,024²
     (241, 241, 3, "points", 132, 8, (True, True)),    # a batch, ragged
 ])
 def test_the_factor_launch_at_config_5_and_the_edges(itemsize, dy, height,
@@ -569,3 +598,22 @@ def test_the_factor_launch_at_config_5_and_the_edges(itemsize, dy, height,
     assert plan == {"route": "grid", "launches": 1, "blocks": blocks,
                     "barriers": barriers,
                     "in_l2": in_l2[itemsize == 8]}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("dx,dy,B,blocks,barriers", [
+    (512, 256, 1, 132, 9),     # config 5: W of 769 rows
+    (1024, 1024, 1, 132, 33),  # the band's edge: 2,049 rows
+    (100, 33, 2, 26, 3),       # ragged: 134 rows; the epilogue's 202 warps
+    (9, 1, 3, 4, 2),           # one pivot: the last phase alone
+])
+def test_the_k8t_factor_launch_has_no_identity_rows(itemsize, dx, dy, B,
+                                                    blocks, barriers):
+    """K8t's W = [S; Cᵀ; innovᵀ] (dy + dx + 1 rows): one cooperative
+    launch, with the gain's epilogue over its dx rows of Zᵀ, in L2."""
+    height = dy + dx + 1
+    plan = testing.factor_launch(dy, height, B, itemsize, "gain",
+                                 identity=False)
+    assert plan == {"route": "grid", "launches": 1, "blocks": blocks,
+                    "barriers": barriers, "in_l2": True}
+    assert testing.k8t_layout(1, dx, dy)["l"] == height * dy

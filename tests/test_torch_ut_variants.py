@@ -5,15 +5,18 @@ workspace fits in a block's shared memory and the tiled variants K8t/K9t
 otherwise. The rule is held at its edges with the H100's shared-memory
 opt-in (232,448 bytes per block) and with smaller ones.
 
-K8t (``csrc/ut_tiled.cu``) centres the sigma points, forms
-S = lower(w_side·Ycᵀ Yc + w0c·d0 d0ᵀ) and Cᵀ = w_side·Xcᵀ Yc as products,
-factors [S; Cᵀ; innovᵀ; I] with K1t's one-launch blocked Cholesky
-(``testing.augmented_factor``) and keeps the plain version's grouping of
-the covariance, P − KC − (KC)ᵀ + (KL)(KL)ᵀ. K9t centres the points and
-forms lower(w_side·Xcᵀ Xc + w0c·d0 d0ᵀ) + sym(Q), mirrored. Both schedules
-are written out below in numpy, step for step as the launches compute
-them, on scratch seeded with NaN (K L reads L's top square whole, whose
-strict upper part the factor zeroes for K8t), and
+K8t (``csrc/ut_tiled.cu``) is four launches: it centres the sigma points
+side by side, V = [Yc | Xc], forms [S; Cᵀ] = lower(w_side·Vᵀ Yc +
+w0c·[d0; 0] d0ᵀ) as one product straight into W's rows, factors
+W = [S; Cᵀ; innovᵀ] (no I rows) with K1t's one-launch blocked Cholesky
+(``testing.augmented_factor``), and forms the covariance as
+sym(P) − lower(Zᵀ Z), mirrored, one product over L's rows of Zᵀ whose
+epilogue adds ½(P + Pᵀ): the grouped Joseph form, since K = Zᵀ L⁻¹. K9t
+centres the points and forms lower(w_side·Xcᵀ Xc + w0c·d0 d0ᵀ) + sym(Q),
+mirrored. Both schedules are written out below in numpy, step for step as
+the launches compute them, K8t's on its scratch seeded with NaN and
+addressed as the kernel addresses it (its products block by block,
+``testing.run_gemms``), and
 held to the JAX package's XLA twins (``fused_ut._ut_update_xla``,
 ``_ut_predict_xla``) at shapes that are not multiples of the panel (32) or
 of a tile, with and without R or Q, with points wider than the state
@@ -25,7 +28,10 @@ The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
 The references run in float64. Tolerances (relative to max(1,
 max|reference|)): float64 1e-9, float32 1e-4, as
 tests/test_torch_ekf_variants.py: the same formulas in another order, and
-float32 rounding through a Cholesky of S.
+float32 rounding through a Cholesky of S. At config 5's shapes in float32
+the schedule's error against the float64 reference is held to 1.25× that
+of the port's float32 plain version (the Joseph form): sym(P) − ZᵀZ costs
+no accuracy.
 """
 import functools
 import math
@@ -181,31 +187,42 @@ def test_the_rule_flips_once_along_each_dimension():
 # ---------------------------------------------------------------------------
 
 def tiled_ut_update(pts, hpts, center_y, mu_y, m, P, R, innov, w, add_r):
-    """One element of K8t, launch by launch, on scratch seeded with NaN."""
+    """One element of K8t, launch by launch, on its scratch
+    (``testing.k8t_layout``) seeded with NaN, in the inputs' dtype."""
     w_side, _, w0c = w
-    dx, dy = m.shape[-1], hpts.shape[-1]
-    # 1. centre
-    Yc, Xc, d0 = hpts - mu_y, pts[:, :dx] - m, center_y - mu_y
-    # 2. G = lower(w_side·Ycᵀ Yc + w0c·d0 d0ᵀ) into W's top square
-    lower = np.tri(dy, dtype=bool)
-    G = np.full((dy, dy), np.nan)
-    G[lower] = (w_side * Yc.T @ Yc + w0c * np.outer(d0, d0))[lower]
-    # 3. Cᵀ into its own slot; 4–6. the one-launch factor (S and Cᵀ at their
-    #    first touch, L's strict upper top square zeroed), ll, μ; K
-    Ct = w_side * Xc.T @ Yc
-    f = testing.augmented_factor(G[None], Ct[None], innov[None],
-                                 R if add_r else None, zero_upper=True)
+    dt = m.dtype
+    rows, dx, dy = hpts.shape[0], m.shape[-1], hpts.shape[-1]
+    wd = dy + dx
+    lay = testing.k8t_layout(rows, dx, dy)
+    ws = np.full(lay["total"], np.nan, dt)
+    Mat = testing.Mat
+    # 1. centre: V = [Yc | Xc], [d0; 0]
+    ws[lay["v"]:lay["d0"]] = np.concatenate(
+        [hpts - mu_y, pts[:, :dx] - m], axis=1).ravel()
+    ws[lay["d0"]:lay["total"]] = np.concatenate([center_y - mu_y,
+                                                 np.zeros(dx, dt)])
+    # 2. [G; Cᵀ] = lower(w_side·Vᵀ Yc + w0c·[d0; 0] d0ᵀ) into W's rows
+    testing.run_gemms([testing.Gemm(
+        wd, dy, 1, (rows, 1),
+        (Mat(ws, lay["v"], wd, 0, True), Mat(ws, lay["d0"], 1, 0)),
+        (Mat(ws, lay["v"], wd, 0), Mat(ws, lay["d0"], wd, 0)),
+        (w_side, w0c), ws, lay["w"], dy, 0, tri=testing.LOWER)])
+    # 3. the factor of W = [S; Cᵀ; innovᵀ] (S = G + sym(R) + floor and Cᵀ
+    #    read at the first touch), ll and μ = m + Zᵀ z
+    W = ws[lay["w"]:lay["w"] + wd * dy].reshape(wd, dy)
+    f = testing.augmented_factor(W[None, :dy], W[None, dy:], innov[None],
+                                 R if add_r else None, identity=False)
     ll, mean = f.gain(dx, m[None])
-    L = f.L[0]
-    Zt, Linv_t = L[dy:dy + dx], L[dy + dx + 1:]
-    K = Zt @ Linv_t.T
-    # 7. K C, K L (L's top square read whole), lower((KL)(KL)ᵀ) mirrored,
-    #    then the element-wise rest
-    KC, KL = K @ Ct.T, K @ L[:dy]
-    cov = np.tril(KL @ KL.T)
-    cov = cov + np.tril(cov, -1).T
-    cov = (0.5 * (P + P.T) - (KC + KC.T)) + cov
-    return ll[0], mean[0], cov
+    ws[lay["l"]:lay["l"] + (wd + 1) * dy] = f.L[0].ravel()
+    # 4. Σ = sym(P) − lower(Zᵀ Z), mirrored; Zᵀ is L's rows dy … dy + dx
+    cov = np.full(dx * dx, np.nan, dt)
+    zt = lay["l"] + dy * dy
+    testing.run_gemms([testing.Gemm(
+        dx, dx, 1, (dy, 0), (Mat(ws, zt, dy, 0), None),
+        (Mat(ws, zt, dy, 0, True), None), (-1.0, 0.0), cov, 0, dx, 0,
+        Cin=Mat(np.ascontiguousarray(P).ravel(), 0, dx, 0), beta=1.0,
+        sym_cin=True, tri=testing.LOWER_MIRROR)])
+    return ll[0], mean[0], cov.reshape(dx, dx)
 
 
 def tiled_ut_predict(fpts, center, Q, w, add_q):
@@ -278,6 +295,23 @@ def test_tiled_ut_update_schedule_gives_nan_on_a_non_pd_s(fail_at):
                                w[2], True)
     for g, wt in zip(got, want):
         assert np.isnan(g).all() and torch.isnan(wt).all()
+
+
+def test_tiled_ut_update_schedule_at_config_5_costs_no_float32_accuracy():
+    """Config 5's update (1,024 points, dx = 512, dy = 256, R added) in
+    float32: each output of the schedule (sym(P) − ZᵀZ) is as close to the
+    float64 JAX twin as the port's float32 plain version (the grouped
+    Joseph form P − KC − (KC)ᵀ + (KL)(KL)ᵀ), within a factor 1.25."""
+    args, w, want = update_case(1, 1024, 512, 512, 256, True)
+    f32 = [np.asarray(a, np.float32) for a in args]
+    got = _update_batch(f32, w, True)
+    plain = fu._ut_update_plain(*(torch.as_tensor(a) for a in f32), w[0],
+                                w[2], True)
+    for g, pl, wt in zip(got, plain, want):
+        err = np.abs(np.asarray(g, np.float64) - wt).max()
+        err_plain = np.abs(pl.double().numpy() - wt).max()
+        assert np.isfinite(g).all() and err <= 1.25 * err_plain, (
+            err, err_plain)
 
 
 PREDICT_SHAPES = [(3, 18, 9, True), (2, 130, 100, True), (1, 70, 33, False)]
