@@ -22,7 +22,10 @@
 // - Newton–Schulz: a trace pass (Y = sym(P)/s, Z = I, s = tr P + 1e-30),
 //   14 rounds of three tiled products (T = 1.5·I − 0.5·Z Y is one product
 //   with 1.5 on the diagonal; Y ← Y T; Z ← T Z), a pass for sym(Y·√s),
-//   with fused_ut.cu's constants, and the points pass.
+//   with fused_ut.cu's constants, and the points pass. K7t runs P's and
+//   C's rounds together: one trace pass and one root pass for both, and
+//   each of the 42 products as one grouped launch of P's and C's (gemm2,
+//   a batch per product): 45 launches, not 89.
 // - Points: 32 × 32 tiles staged through padded shared memory, so that the
 //   factor's columns are read and the points' rows written coalesced; both
 //   halves at once. A Cholesky factor's entries above the diagonal are
@@ -30,13 +33,17 @@
 //   The factor NaNs only a failing diagonal tile and what later steps
 //   compute from it, so every tile that touches a Cholesky block writes
 //   NaN throughout it unless every pivot is finite and positive (the plain
-//   versions' cholesky_ex info): in K6t's epilogue from the factor's flag,
-//   in the points kernel from the block's pivots.
-// - K7t is a composition: the factor of P over the batch and of the shared
-//   C (B = 1), one launch each, and one points pass that writes the four
-//   blocks of the (2na, na) augmented points; a non-PD P NaNs that
-//   element's state block, a non-PD C the noise block, as in the plain
-//   points_blockdiag.
+//   versions' cholesky_ex info), from the factor's flag. The Newton–Schulz
+//   routes write their points in a pass of their own.
+// - K7t's Cholesky is one cooperative launch too: the factor of P over
+//   the batch and of the shared C (B = 1) side by side in the same phases
+//   (tiled_chol.cuh's two-problem mode: chol(blkdiag(P, C)) =
+//   blkdiag(chol P, chol C), and the two chains of panels, 16 steps each
+//   at dx = dn = 512, run at once instead of one after the other), and
+//   the four blocks of the (2na, na) augmented points as its epilogue
+//   (SigmaAugEpilogue); a non-PD P NaNs that element's state block (its
+//   flag in P's problem), a non-PD C the noise block (C's flag), as in
+//   the plain points_blockdiag.
 //
 // Each entry point enqueues its launches on the caller's stream and
 // returns the first CUDA error; the wrapper supplies the scratch (a few MB
@@ -54,10 +61,12 @@ constexpr int kTileRows = kThreads / kTile;
 
 // Per-element scratch of one factor: a square AugLayout (W, L, the
 // diagonal tiles' inverses, the flag) for the Cholesky; Y, Z, T and a
-// spare n × n for Newton–Schulz, whose traces (one per element) follow
-// the batch.
+// spare n × n for Newton–Schulz (ns_stride), whose traces (one per
+// element) follow the batch.
+__host__ __device__ inline long long ns_stride(int n) { return 4LL * n * n; }
+
 long long factor_stride(int n, int method) {
-  return method == kSqrtm ? 4LL * n * n : AugLayout(0, n, n).total;
+  return method == kSqrtm ? ns_stride(n) : AugLayout(0, n, n).total;
 }
 
 long long factor_elems(int B, int n, int method) {
@@ -79,17 +88,48 @@ FactorArgs<T> square_factor(const T* P, T* ws, int B, int n) {
   return a;
 }
 
-// Newton–Schulz's start: s = tr P + 1e-30 (into s_all from the first block
-// of each element), Y = sym(P)/s, Z = I. Every block finds s itself (n
-// reads). Grid (blocks, batch).
+// One Newton–Schulz problem: B matrices P (n × n, row-major) and their
+// scratch (Y, Z, T and a spare, factor_stride apart; the traces after
+// the batch).
+template <typename T>
+struct NsProblem {
+  const T* P;
+  T* ws;
+  int B, n;
+};
+
+// Row y of a grid over a's elements, then c's: that element's P, scratch
+// and trace slot, and its n.
+template <typename T>
+__device__ __forceinline__ void ns_element(const NsProblem<T>& a,
+                                           const NsProblem<T>& c, long long y,
+                                           const T** P, T** ws, T** s,
+                                           int* n) {
+  const bool in_a = y < a.B;
+  const long long b = in_a ? y : y - a.B;
+  const int m = in_a ? a.n : c.n;
+  const long long st = ns_stride(m);
+  T* base = in_a ? a.ws : c.ws;
+  *n = m;
+  *P = (in_a ? a.P : c.P) + b * m * m;
+  *ws = base + b * st;
+  *s = base + (in_a ? a.B : c.B) * st + b;
+}
+
+// Newton–Schulz's start for every element of a and c (c.B = 0 for none):
+// s = tr P + 1e-30 (into the trace slot from the first block of each
+// element), Y = sym(P)/s, Z = I. Every block finds s itself (n reads).
+// Grid (blocks, a.B + c.B).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sigma_tiled_trace_kernel(
-    const T* __restrict__ P_all, T* scratch, long long st, T* s_all, int n,
-    int B) {
+    const NsProblem<T> a, const NsProblem<T> c) {
   __shared__ T s_sum;
   const int stride = gridDim.x * blockDim.x;
-  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
-    const T* P = P_all + b * n * n;
+  for (long long y = blockIdx.y; y < a.B + c.B; y += gridDim.y) {
+    const T* P;
+    T *Y, *s_out;
+    int n;
+    ns_element(a, c, y, &P, &Y, &s_out, &n);
     if (threadIdx.x < kWarp) {
       T s = T(0);
       for (int i = threadIdx.x; i < n; i += kWarp) s += P[i * n + i];
@@ -99,8 +139,7 @@ __global__ void __launch_bounds__(kThreads) sigma_tiled_trace_kernel(
     }
     __syncthreads();
     const T s = s_sum;
-    if (blockIdx.x == 0 && threadIdx.x == 0) s_all[b] = s;
-    T* Y = scratch + b * st;
+    if (blockIdx.x == 0 && threadIdx.x == 0) *s_out = s;
     T* Z = Y + n * n;
     for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n * n;
          idx += stride) {
@@ -112,17 +151,21 @@ __global__ void __launch_bounds__(kThreads) sigma_tiled_trace_kernel(
   }
 }
 
-// Newton–Schulz's end: root = sym(Y·√s) from the Y at offset y into the
-// slot at offset out. Grid (blocks, batch).
+// Newton–Schulz's end for every element of a and c: root = sym(Y·√s)
+// from the Y at slot y into slot out of the element's scratch (slots in
+// units of n²). Grid (blocks, a.B + c.B).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sigma_tiled_root_kernel(
-    T* scratch, long long st, long long y, long long out,
-    const T* __restrict__ s_all, int n, int B) {
+    const NsProblem<T> a, const NsProblem<T> c, int y, int out) {
   const int stride = gridDim.x * blockDim.x;
-  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
-    const T* Y = scratch + b * st + y;
-    T* R = scratch + b * st + out;
-    const T rs = dsqrt(s_all[b]);
+  for (long long e = blockIdx.y; e < a.B + c.B; e += gridDim.y) {
+    const T* P;
+    T *ws, *s;
+    int n;
+    ns_element(a, c, e, &P, &ws, &s, &n);
+    const T* Y = ws + 1LL * y * n * n;
+    T* R = ws + 1LL * out * n * n;
+    const T rs = dsqrt(*s);
     for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n * n;
          idx += stride) {
       const int i = idx / n, j = idx % n;
@@ -131,56 +174,51 @@ __global__ void __launch_bounds__(kThreads) sigma_tiled_root_kernel(
   }
 }
 
-// Newton–Schulz's root of P (B × n × n, row-major) in ws
-// (factor_elems(B, n, kSqrtm) elements): *F is element 0's root, element
-// b's at *F + b·factor_stride. Returns the first CUDA error.
+// One round's product of problem q over its batch: slot out = alpha·(slot
+// x)·(slot y) + diag·I, slots in units of n² of each element's scratch.
 template <typename T>
-int ns_factor(const T* P, T* ws, int B, int n, const T** F,
+Gemm<T> ns_product(const NsProblem<T>& q, int x, int y, int out, T alpha,
+                   T diag) {
+  const long long n2 = 1LL * q.n * q.n, st = factor_stride(q.n, kSqrtm);
+  Gemm<T> g = gemm_of<T>(q.n, q.n, q.n, q.B, {q.ws + x * n2, q.n, st, 0},
+                         {q.ws + y * n2, q.n, st, 0}, q.ws + out * n2, q.n,
+                         st, alpha);
+  g.diag = diag;
+  return g;
+}
+
+// Newton–Schulz's root of a's matrices and, where c.B > 0, of c's, their
+// rounds side by side: each product one launch for a alone, or one
+// grouped launch of a's and c's (gemm2). The roots land in slot *F of
+// each element's scratch. Returns the first CUDA error.
+template <typename T>
+int ns_factor(const NsProblem<T>& a, const NsProblem<T>& c, int* F,
               cudaStream_t stream) {
   int err = 0;
   auto keep = [&](int e) {
     if (err == 0) err = e;
   };
-  const long long st = factor_stride(n, kSqrtm);
-  const dim3 grid = elementwise_grid(1LL * n * n, B);
-  const long long n2 = 1LL * n * n;
-  long long y = 0, z = n2, t = 2 * n2, w = 3 * n2;
-  T* s_all = ws + B * st;
-  sigma_tiled_trace_kernel<T><<<grid, kThreads, 0, stream>>>(P, ws, st,
-                                                              s_all, n, B);
+  auto product = [&](int x, int y, int out, T alpha, T diag) {
+    const Gemm<T> ga = ns_product(a, x, y, out, alpha, diag);
+    return c.B > 0 ? gemm2(ga, ns_product(c, x, y, out, alpha, diag), stream)
+                   : gemm(ga, stream);
+  };
+  const int n = a.n > c.n ? a.n : c.n;
+  const dim3 grid = elementwise_grid(1LL * n * n, a.B + c.B);
+  int y = 0, z = 1, t = 2, w = 3;  // the slots of Y, Z, T and the spare
+  sigma_tiled_trace_kernel<T><<<grid, kThreads, 0, stream>>>(a, c);
   keep(int(cudaGetLastError()));
   for (int it = 0; it < kNsIters; ++it) {
-    // T = 1.5·I − 0.5·Z Y
-    Gemm<T> g = gemm_of<T>(n, n, n, B, {ws + z, n, st, 0}, {ws + y, n, st, 0},
-                           ws + t, n, st, T(-0.5));
-    g.diag = T(1.5);
-    keep(gemm(g, stream));
-    // Y ← Y T, Z ← T Z
-    keep(gemm(gemm_of<T>(n, n, n, B, {ws + y, n, st, 0}, {ws + t, n, st, 0},
-                         ws + w, n, st),
-              stream));
-    long long swap = y; y = w; w = swap;
-    keep(gemm(gemm_of<T>(n, n, n, B, {ws + t, n, st, 0}, {ws + z, n, st, 0},
-                         ws + w, n, st),
-              stream));
+    keep(product(z, y, t, T(-0.5), T(1.5)));  // T = 1.5·I − 0.5·Z Y
+    keep(product(y, t, w, T(1), T(0)));        // Y ← Y T
+    int swap = y; y = w; w = swap;
+    keep(product(t, z, w, T(1), T(0)));        // Z ← T Z
     swap = z; z = w; w = swap;
   }
-  sigma_tiled_root_kernel<T><<<grid, kThreads, 0, stream>>>(ws, st, y, t,
-                                                            s_all, n, B);
+  sigma_tiled_root_kernel<T><<<grid, kThreads, 0, stream>>>(a, c, y, t);
   keep(int(cudaGetLastError()));
-  *F = ws + t;
+  *F = t;
   return err;
-}
-
-// The Cholesky of P (B × n × n) into ws (factor_elems(B, n, 0) elements),
-// one launch; *F as ns_factor's (the lower L, its strict upper part never
-// written).
-template <typename T>
-int chol_factor(const T* P, T* ws, int B, int n, const T** F,
-                cudaStream_t stream) {
-  const FactorArgs<T> a = square_factor(P, ws, B, n);
-  *F = ws + a.sc.l;
-  return launch_factor(a, NoEpilogue{}, factor_tasks(a.sc, B), stream);
 }
 
 // The points pass's operands: the state factor per element (dx × dx,
@@ -198,18 +236,6 @@ struct PointsArgs {
   T scale;
   int lower;
 };
-
-// Whether some pivot of the n × n factor L is not finite and positive;
-// the whole block calls it.
-template <typename T>
-__device__ bool pivots_bad(const T* L, int n) {
-  bool bad = false;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const T d = L[(long long)i * n + i];
-    bad = bad || !(d > T(0)) || isinf(d);
-  }
-  return __syncthreads_or(bad) != 0;
-}
 
 // One kTile × kTile tile (output rows r0.., columns c0..) of both halves
 // of element b's (2na, na) points, na = dx + dn: row r, column c of the
@@ -256,21 +282,15 @@ __device__ void points_tile(const PointsArgs<T>& a, long long b, int r0,
   __syncthreads();
 }
 
-// The points of every element from their factors: grid (column tiles, row
-// tiles, batch), kThreads threads.
+// The points of every element from its Newton–Schulz roots (nothing to
+// flag): grid (column tiles, row tiles, batch), kThreads threads.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sigma_tiled_points_kernel(
     PointsArgs<T> a, T* pts_all, int B) {
   __shared__ T tile[kTile][kTile + 1];
-  const int dx = a.dx, dn = a.dn;
   const int c0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
-  const bool on_x = a.lower && r0 < dx && c0 < dx;
-  const bool on_c = a.lower && dn > 0 && r0 + kTile > dx && c0 + kTile > dx;
-  for (long long b = blockIdx.z; b < B; b += gridDim.z) {
-    const bool bad_x = on_x && pivots_bad(a.Fx + b * a.fx_batch, dx);
-    const bool bad_c = on_c && pivots_bad(a.Fc, dn);
-    points_tile(a, b, r0, c0, bad_x, bad_c, pts_all, tile);
-  }
+  for (long long b = blockIdx.z; b < B; b += gridDim.z)
+    points_tile(a, b, r0, c0, false, false, pts_all, tile);
 }
 
 template <typename T>
@@ -282,11 +302,34 @@ int launch_points(const PointsArgs<T>& a, T* pts, int B,
   return int(cudaGetLastError());
 }
 
-// K6t's Cholesky epilogue: the points from the factor, the tiles of every
-// element in turns over the factor's blocks; the factor's flag says
-// whether a pivot failed.
+// The factor's epilogues: the points from the factor, the tiles of every
+// element in turns over the factor's blocks, in the factor's first tile
+// buffer (read with points_tile's stride). The flags of the factor say
+// whether a pivot failed: K6t's PointsEpilogue reads P's; K7t's
+// SigmaAugEpilogue reads P's for the element's state block and C's (its
+// one element) for every noise block.
 static_assert(kNb * kTilePad >= kTile * (kTile + 1),
               "the factor's tile buffer holds a points tile");
+
+template <typename T>
+__device__ bool factor_failed(const FactorArgs<T>& a, long long b) {
+  return a.ws[b * a.st + a.sc.misc + 1] != T(0);
+}
+
+template <typename T>
+__device__ void epilogue_points(const PointsArgs<T>& p, T* pts,
+                                const FactorArgs<T>& a, bool bad_c,
+                                FactorSmem<T>& sm) {
+  const int tiles = tiles_of(p.dx + p.dn);
+  const long long per = 1LL * tiles * tiles;
+  for_tasks(a.B * per, [&](long long q) {
+    const long long b = q / per;
+    const int t = int(q % per);
+    points_tile(p, b, (t / tiles) * kTile, (t % tiles) * kTile,
+                factor_failed(a, b), bad_c, pts,
+                reinterpret_cast<T(*)[kTile + 1]>(&sm.a[0][0]));
+  });
+}
 
 template <typename T>
 struct PointsEpilogue {
@@ -295,18 +338,25 @@ struct PointsEpilogue {
   static constexpr bool kAny = true;
   __device__ void operator()(const FactorArgs<T>& a,
                              FactorSmem<T>& sm) const {
-    const int tiles = tiles_of(a.sc.dy);
-    const long long per = 1LL * tiles * tiles;
-    for_tasks(a.B * per, [&](long long q) {
-      const long long b = q / per;
-      const int t = int(q % per);
-      const bool bad = a.ws[b * a.st + a.sc.misc + 1] != T(0);
-      // the factor's first tile buffer, read with points_tile's stride
-      points_tile(p, b, (t / tiles) * kTile, (t % tiles) * kTile, bad, false,
-                  pts, reinterpret_cast<T(*)[kTile + 1]>(&sm.a[0][0]));
-    });
+    epilogue_points(p, pts, a, false, sm);
   }
 };
+
+template <typename T>
+struct SigmaAugEpilogue {
+  PointsArgs<T> p;
+  T* pts;
+  static constexpr bool kAny = true;
+  __device__ void operator()(const FactorArgs<T>& a, const FactorArgs<T>& c,
+                             FactorSmem<T>& sm) const {
+    epilogue_points(p, pts, a, c.B > 0 && factor_failed(c, 0), sm);
+  }
+};
+
+// The points' tiles of B elements at na = dx + dn, as tasks.
+inline long long points_tasks(int B, int na) {
+  return 1LL * B * tiles_of(na) * tiles_of(na);
+}
 
 template <typename T>
 int launch_sigma_tiled(const void* m, const void* P, void* pts,
@@ -319,20 +369,22 @@ int launch_sigma_tiled(const void* m, const void* P, void* pts,
         {static_cast<const T*>(m), ws + a.sc.l, a.st, n, nullptr, nullptr, 0,
          T(scale), 1},
         static_cast<T*>(pts)};
-    const int tiles = tiles_of(n);
     long long tasks = factor_tasks(a.sc, B);
-    if (1LL * B * tiles * tiles > tasks) tasks = 1LL * B * tiles * tiles;
+    if (points_tasks(B, n) > tasks) tasks = points_tasks(B, n);
     return launch_factor(a, epi, tasks, stream);
   }
-  const T* F = nullptr;
-  int err = ns_factor<T>(static_cast<const T*>(P), ws, B, n, &F, stream);
-  const PointsArgs<T> a{static_cast<const T*>(m), F,
+  int F = 0;
+  const int err = ns_factor<T>({static_cast<const T*>(P), ws, B, n},
+                               {nullptr, nullptr, 0, 0}, &F, stream);
+  const PointsArgs<T> a{static_cast<const T*>(m), ws + 1LL * F * n * n,
                         factor_stride(n, method), n, nullptr, nullptr, 0,
                         T(scale), 0};
   const int e = launch_points<T>(a, static_cast<T*>(pts), B, stream);
   return err ? err : e;
 }
 
+// K7t: P's per-element factors and C's shared one in the scratch's two
+// parts (factor_elems(B, dx, method), then factor_elems(1, dn, method)).
 template <typename T>
 int launch_sigma_aug_tiled(const void* m, const void* P, const void* bias,
                            const void* C, void* pts, void* scratch, int B,
@@ -340,24 +392,28 @@ int launch_sigma_aug_tiled(const void* m, const void* P, const void* bias,
                            cudaStream_t stream) {
   T* ws = static_cast<T*>(scratch);
   T* wc = ws + factor_elems(B, dx, method);
-  const T* Fx = nullptr;
-  const T* Fc = nullptr;
-  const bool chol = method != kSqrtm;
-  int err = chol ? chol_factor<T>(static_cast<const T*>(P), ws, B, dx, &Fx,
-                                  stream)
-                 : ns_factor<T>(static_cast<const T*>(P), ws, B, dx, &Fx,
-                                stream);
-  const int e = chol ? chol_factor<T>(static_cast<const T*>(C), wc, 1, dn,
-                                      &Fc, stream)
-                     : ns_factor<T>(static_cast<const T*>(C), wc, 1, dn, &Fc,
-                                    stream);
-  if (err == 0) err = e;
-  const PointsArgs<T> a{static_cast<const T*>(m), Fx,
+  const int bc = dn > 0 ? 1 : 0;
+  if (method != kSqrtm) {  // one launch: both factors, then the points
+    const FactorArgs<T> a = square_factor(static_cast<const T*>(P), ws, B, dx);
+    const FactorArgs<T> c = square_factor(static_cast<const T*>(C), wc, bc, dn);
+    const SigmaAugEpilogue<T> epi{
+        {static_cast<const T*>(m), ws + a.sc.l, a.st, dx,
+         static_cast<const T*>(bias), wc + c.sc.l, dn, T(scale), 1},
+        static_cast<T*>(pts)};
+    long long tasks = factor_tasks(a.sc, B, c.sc, bc);
+    if (points_tasks(B, dx + dn) > tasks) tasks = points_tasks(B, dx + dn);
+    return launch_factor<2>(a, epi, tasks, stream, c);
+  }
+  int F = 0;
+  const int err = ns_factor<T>({static_cast<const T*>(P), ws, B, dx},
+                               {static_cast<const T*>(C), wc, bc, dn}, &F,
+                               stream);
+  const PointsArgs<T> a{static_cast<const T*>(m), ws + 1LL * F * dx * dx,
                         factor_stride(dx, method), dx,
-                        static_cast<const T*>(bias), Fc, dn, T(scale),
-                        int(chol)};
-  const int e2 = launch_points<T>(a, static_cast<T*>(pts), B, stream);
-  return err ? err : e2;
+                        static_cast<const T*>(bias), wc + 1LL * F * dn * dn,
+                        dn, T(scale), 0};
+  const int e = launch_points<T>(a, static_cast<T*>(pts), B, stream);
+  return err ? err : e;
 }
 
 }  // namespace

@@ -10,9 +10,9 @@
 // touch the lower triangle and writes only i ≥ j; a mirrored lower mode
 // also writes C[j][i] = C[i][j], for symmetric outputs. Cin may be taken
 // symmetrised, β·½(Cin + Cinᵀ), so that sym(P) − ZᵀZ is one product.
-// Two independent products of one batch can share a launch (gemm2: a
-// grouped launch, the product picked by block index), so that together
-// they fill the card where each alone would leave SMs idle.
+// Two independent products can share a launch (gemm2: a grouped launch,
+// the product picked by block index, each with its own batch), so that
+// together they fill the card where each alone would leave SMs idle.
 //
 // What bounds a product on an H100: one element of a dx = 512 filter is a
 // few 512³ products, ~0.1–0.3 GFLOP each, which one SM could not finish in
@@ -273,9 +273,9 @@ __device__ void gemm_accumulate(T (&acc)[kGemmTM][kGemmTM], const Mat<T>& A,
     for (int j = 0; j < kGemmTM; ++j) acc[i][j] += alpha * part[i][j];
 }
 
-// Two products of one batch in a launch: block x of the grid belongs to
-// product 1 from first1 on, to product 0 before it; both have the same
-// tile shape and k-split.
+// Two products in a launch, each over its own batch: block x of the grid
+// belongs to product 1 from first1 on, to product 0 before it; both have
+// the same tile shape and k-split.
 template <typename T>
 struct GemmPair {
   Gemm<T> g[2];
@@ -447,6 +447,8 @@ int launch_gemm(Gemm<T> g, int split, cudaStream_t stream) {
                       stream);
 }
 
+// The grid's batch rows cover the larger batch; the other product's
+// blocks in the rows past its own batch find no element and return.
 template <typename T, int BM, int BN, int NT>
 int launch_gemm_pair(GemmPair<T> pair, int split, cudaStream_t stream) {
   long long blocks = 0;
@@ -456,9 +458,11 @@ int launch_gemm_pair(GemmPair<T> pair, int split, cudaStream_t stream) {
     if (p == 1) pair.first1 = int(blocks);
     blocks += 1LL * ((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN) * split;
   }
+  const int batch = pair.g[0].batch > pair.g[1].batch ? pair.g[0].batch
+                                                      : pair.g[1].batch;
   return launch_tiles(tiled_gemm_pair_kernel<T, BM, BN, NT>, pair,
-                      dim3(unsigned(blocks), 1u, batch_grid(pair.g[0].batch)),
-                      NT, split, stream);
+                      dim3(unsigned(blocks), 1u, batch_grid(batch)), NT,
+                      split, stream);
 }
 
 // The k-split of a product whose 64 × 32 tiles number `tiles`: 4 where
@@ -489,8 +493,24 @@ int gemm(const Gemm<T>& g, cudaStream_t stream) {
       g, gemm_split(live_tiles(g, 64, 32), K, sms), stream);
 }
 
-// Enqueue two independent products of one batch as one grouped launch,
-// the tile shape and k-split chosen as gemm's from their tiles together.
+// The k-split of a grouped launch of two products whose 64 × 32 tiles
+// number ta and tb: gemm_split of both, or 2 where the pair's tiles just
+// pass the SMs but the larger product's alone do not, so that it keeps
+// its share of k as it would have alone, the pair's blocks staying within
+// 2.5 an SM. (K7t's Newton–Schulz rounds at dx = 512, dn = 256 on an
+// H100: 1.36 → 1.07 ms in float32. At dn = 512, and K2t, the pair's tiles
+// fill the card twice and keep a split of 1.)
+inline int pair_split(long long ta, long long tb, int K, int sms) {
+  const int split = gemm_split(ta + tb, K, sms);
+  if (split == 1 && (ta > tb ? ta : tb) <= sms && 4 * (ta + tb) <= 5LL * sms &&
+      K >= 2 * 2 * 2 * kGemmBK)
+    return 2;
+  return split;
+}
+
+// Enqueue two independent products as one grouped launch (each with its
+// own batch), the tile shape and k-split chosen as gemm's from their
+// tiles together.
 template <typename T>
 int gemm2(const Gemm<T>& a, const Gemm<T>& b, cudaStream_t stream) {
   if (empty_product(b.M, b.N, b.batch)) return gemm(a, stream);
@@ -503,7 +523,7 @@ int gemm2(const Gemm<T>& a, const Gemm<T>& b, cudaStream_t stream) {
   K = b.K[0] > K ? b.K[0] : K;
   K = b.K[1] > K ? b.K[1] : K;
   return launch_gemm_pair<T, 64, 32, 128>(
-      pair, gemm_split(live_tiles(a, 64, 32) + live_tiles(b, 64, 32), K, sms),
+      pair, pair_split(live_tiles(a, 64, 32), live_tiles(b, 64, 32), K, sms),
       stream);
 }
 

@@ -36,6 +36,13 @@
 //   it: one product over L's rows of Zᵀ, lower(Zᵀ Z) mirrored, whose
 //   epilogue adds ½(P + Pᵀ), so that each entry is a symmetric function of
 //   (i, j) and Σ is exactly symmetric. No gain, no L⁻ᵀ.
+// - K9t is two launches. One pass over the card (a block a 32-byte strip
+//   of columns over all the rows: 64 blocks in float32, 128 in float64 at
+//   dx = 512) sums μ in a fixed order and writes Xc = fpts − μ and d0;
+//   then Σ = lower(w_side·Xcᵀ Xc + w0c·d0 d0ᵀ) + sym(Q), mirrored, is one
+//   two-term product by tiled.cuh's gemm rule (at config 5 its 64 × 32
+//   lower tiles with the rows split over a cluster of 2), with sym(Q)
+//   taken in its epilogue (Gemm::sym_cin).
 //
 // Math and constants follow ops/fused_ut.py's plain versions: S is
 // symmetrised before the relative floor 1e-6·max|diag S| (no jitter); the
@@ -90,58 +97,60 @@ __global__ void __launch_bounds__(kThreads) ut_tiled_centre_kernel(
   }
 }
 
-// K9t's first pass: μ = w_side·Σ_r fpts[r] + w0m·center into mu, and
-// d0 = center − μ. Block: 32 columns, 8 row groups summed in shared
-// memory. Grid (column blocks, batch).
+// K9t's first pass, spread over the card: a block owns a strip of S =
+// strip_cols columns (32 bytes: 8 float32 or 4 float64, one sector a row)
+// over all the rows. Thread (tx, ty) sums column tx of the rows ty,
+// ty + G, … (G = kThreads / S row groups) in order, the block adds the groups'
+// sums in a fixed tree (so that a run repeats bit for bit: no atomics),
+// and writes μ = w_side·Σ_r fpts[r] + w0m·center into mu, then Xc =
+// fpts − μ (the strip of every row, read again from L1) and d0 =
+// center − μ into the element's scratch (Xc: rows × dx, then d0). Grid
+// (strips, batch).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ut_tiled_mean_kernel(
-    const T* __restrict__ fpts_all, const T* __restrict__ center_all,
-    T* mu_all, T* d0_all, long long d0_batch, int B, int rows, int dx,
-    T w_side, T w0m) {
-  constexpr int kCols = 32, kGroups = kThreads / kCols;
-  __shared__ T part[kGroups][kCols + 1];
-  const int tx = threadIdx.x % kCols, ty = threadIdx.x / kCols;
-  const int j = blockIdx.x * kCols + tx;
-  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
-    const T* fp = fpts_all + b * rows * dx;
-    T s = T(0);
-    if (j < dx)
-      for (int r = ty; r < rows; r += kGroups) s += fp[(long long)r * dx + j];
-    part[ty][tx] = s;
-    __syncthreads();
-    if (ty == 0 && j < dx) {
-      T total = T(0);
-      for (int g = 0; g < kGroups; ++g) total += part[g][tx];
-      const T c = center_all[b * dx + j];
-      const T u = w_side * total + w0m * c;
-      mu_all[b * dx + j] = u;
-      d0_all[b * d0_batch + j] = c - u;
-    }
-    __syncthreads();
-  }
+__host__ __device__ constexpr int strip_cols() {
+  return 32 / int(sizeof(T));
 }
 
-// K9t's second pass: Xc = fpts − μ (rows × dx) per element and, from the
-// first batch row of blocks, sym(Q) (dx × dx, shared) when Q is given.
-// Grid (blocks, batch).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ut_tiled_centre_rows_kernel(
-    const T* __restrict__ fpts_all, const T* __restrict__ mu_all,
-    const T* __restrict__ Q, T* Xc_all, long long xc_batch, T* Qs, int B,
-    int rows, int dx) {
-  const int stride = gridDim.x * blockDim.x;
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  if (Q != nullptr && blockIdx.y == 0)
-    for (int idx = first; idx < dx * dx; idx += stride) {
-      const int i = idx / dx, j = idx % dx;
-      Qs[idx] = T(0.5) * (Q[idx] + Q[j * dx + i]);
-    }
+__global__ void __launch_bounds__(kThreads) ut_tiled_mean_centre_kernel(
+    const T* __restrict__ fpts_all, const T* __restrict__ center_all,
+    T* mu_all, T* xc_all, long long st, int B, int rows, int dx, T w_side,
+    T w0m) {
+  constexpr int S = strip_cols<T>(), G = kThreads / S;
+  __shared__ T part[G][S];
+  __shared__ T mu_s[S];
+  const int tx = threadIdx.x % S, ty = threadIdx.x / S;
+  const int j = blockIdx.x * S + tx;
+  const bool in = j < dx;
   for (long long b = blockIdx.y; b < B; b += gridDim.y) {
-    const T* fp = fpts_all + b * rows * dx;
-    const T* mu = mu_all + b * dx;
-    T* Xc = Xc_all + b * xc_batch;
-    for (int idx = first; idx < rows * dx; idx += stride)
-      Xc[idx] = fp[idx] - mu[idx % dx];
+    const T* fp = fpts_all + b * rows * dx + j;
+    T* xc = xc_all + b * st + j;
+    T s = T(0);
+    if (in)
+#pragma unroll 8
+      for (int r = ty; r < rows; r += G) s += fp[(long long)r * dx];
+    part[ty][tx] = s;
+    __syncthreads();
+#pragma unroll
+    for (int h = G / 2; h > 0; h >>= 1) {
+      if (ty < h) part[ty][tx] += part[ty + h][tx];
+      __syncthreads();
+    }
+    if (ty == 0 && in) {
+      const T c = center_all[b * dx + j];
+      const T u = w_side * part[0][tx] + w0m * c;
+      mu_all[b * dx + j] = u;
+      xc[(long long)rows * dx] = c - u;  // d0
+      mu_s[tx] = u;
+    }
+    __syncthreads();
+    if (in) {
+      const T u = mu_s[tx];
+#pragma unroll 8
+      for (int r = ty; r < rows; r += G)
+        xc[(long long)r * dx] = fp[(long long)r * dx] - u;
+    }
+    __syncthreads();
   }
 }
 
@@ -204,10 +213,9 @@ int launch_update_tiled(const void* pts_, const void* hpts_,
   return err;
 }
 
-// K9t's scratch: sym(Q) (dx × dx, shared), then per element Xc (rows × dx)
-// and d0 (dx).
+// K9t's scratch: per element Xc (rows × dx) and d0 (dx).
 long long predict_scratch_elems(int B, int rows, int dx) {
-  return 1LL * dx * dx + 1LL * B * (1LL * rows * dx + dx);
+  return 1LL * B * (1LL * rows * dx + dx);
 }
 
 template <typename T>
@@ -216,28 +224,18 @@ int launch_predict_tiled(const void* fpts_, const void* center_,
                          void* scratch_, int B, int rows, int dx,
                          double w_side, double w0m, double w0c,
                          cudaStream_t stream) {
-  const T* fpts = static_cast<const T*>(fpts_);
   const T* Q = static_cast<const T*>(Q_);
-  T* mu = static_cast<T*>(mu_);
-  T* Qs = static_cast<T*>(scratch_);
-  T* Xc = Qs + 1LL * dx * dx;
-  const long long st = 1LL * rows * dx + dx;  // per element: Xc, d0
+  T* Xc = static_cast<T*>(scratch_);
   T* d0 = Xc + 1LL * rows * dx;
-  int err = 0;
-  auto keep = [&](int e) {
-    if (err == 0) err = e;
-  };
-  ut_tiled_mean_kernel<T><<<dim3(unsigned((dx + 31) / 32),
-                                 unsigned(grid_1d(B))),
-                            kThreads, 0, stream>>>(
-      fpts, static_cast<const T*>(center_), mu, d0, st, B, rows, dx,
-      T(w_side), T(w0m));
-  keep(int(cudaGetLastError()));
-  ut_tiled_centre_rows_kernel<T><<<elementwise_grid(1LL * rows * dx, B),
+  const long long st = 1LL * rows * dx + dx;  // per element: Xc, d0
+  ut_tiled_mean_centre_kernel<T><<<dim3(unsigned((dx + strip_cols<T>() - 1) /
+                                                 strip_cols<T>()),
+                                        unsigned(grid_1d(B))),
                                    kThreads, 0, stream>>>(
-      fpts, mu, Q, Xc, st, Qs, B, rows, dx);
-  keep(int(cudaGetLastError()));
-  // Σ = lower(w_side·Xcᵀ Xc + w0c·d0 d0ᵀ) (+ sym(Q)), mirrored
+      static_cast<const T*>(fpts_), static_cast<const T*>(center_),
+      static_cast<T*>(mu_), Xc, st, B, rows, dx, T(w_side), T(w0m));
+  const int err = int(cudaGetLastError());
+  // Σ = lower(w_side·Xcᵀ Xc + w0c·d0 d0ᵀ) + sym(Q), mirrored
   Gemm<T> g = gemm_of<T>(dx, dx, rows, B, {Xc, dx, st, 1}, {Xc, dx, st, 0},
                          static_cast<T*>(cov_), dx, 1LL * dx * dx,
                          T(w_side));
@@ -246,11 +244,11 @@ int launch_predict_tiled(const void* fpts_, const void* center_,
   g.B[1] = {d0, dx, st, 0};
   g.alpha[1] = T(w0c);
   if (Q != nullptr) {
-    g.Cin = Qs; g.ldcin = dx; g.bcin = 0; g.beta = T(1);
+    g.Cin = Q; g.ldcin = dx; g.bcin = 0; g.beta = T(1); g.sym_cin = 1;
   }
   g.tri = kLowerMirror;
-  keep(gemm(g, stream));
-  return err;
+  const int e = gemm(g, stream);
+  return err ? err : e;
 }
 
 }  // namespace

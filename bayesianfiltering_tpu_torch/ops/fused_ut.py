@@ -21,12 +21,15 @@ variants replace the same TPU kernels: in ``csrc/sigma_tiled.cu`` K6t
 factors P with the EKF's blocked Cholesky in one launch
 (``csrc/tiled_chol.cuh``, on P alone; the points are that launch's
 epilogue) or runs the Newton–Schulz rounds as tiled products and a points
-pass, and K7t composes the factors of P and of the shared C with one pass
-that writes the augmented points; in ``csrc/ut_tiled.cu`` K8t is four
+pass, and K7t factors P and the shared C side by side in one such launch,
+the augmented points its epilogue (by Newton–Schulz: both roots' rounds
+as grouped products); in ``csrc/ut_tiled.cu`` K8t is four
 launches: it centres the points, forms [S; Cᵀ] as one product over the
 whole card, factors [S; Cᵀ; innovᵀ] with K1t's blocked Cholesky (log N
 and μ = m + Zᵀz in its epilogue) and forms Σ = sym(P) − ZᵀZ as one
-product, as K8 does; K9t centres the points and forms Σ as one product.
+product, as K8 does; K9t is two: one pass over the card forms μ and the
+centred points, and Σ is one symmetric rank-k product split along the
+points.
 The factor's route and scratch are decided in C; the wrappers ask only
 for the scratch size. The choice is by shape alone (:func:`sigma_kernel`,
 :func:`sigma_aug_kernel`, :func:`update_kernel`, :func:`predict_kernel`).

@@ -4,10 +4,12 @@ Inputs are made with a numpy ``Generator`` so that the JAX package and the
 port can be fed the very same arrays; :func:`to_torch` moves them over.
 :class:`TiledFactor` writes out, in numpy, the one-launch blocked
 Cholesky of ``csrc/tiled_chol.cuh`` that K1t, K8t (:func:`augmented_factor`),
-K6t and K7t (:func:`square_factor`) share, phase by phase on scratch seeded
+K6t (:func:`square_factor`) and K7t (:func:`square_factor_pair`: P and C
+side by side, :func:`run_factors`) share, phase by phase on scratch seeded
 with NaN, :func:`run_gemms` the multi-block products of ``csrc/tiled.cuh``
-(one product, or two in a grouped launch) block by block on flat buffers
-addressed as the kernel addresses them, and :func:`tile_mm` and
+(one product, or two in a grouped launch) block by block on flat buffers addressed as the kernel
+addresses them, :func:`tiled_ut_predict` K9t's two launches, and
+:func:`tile_mm` and
 :func:`tile_mm_lower` (with
 their epilogues :func:`put`, :func:`put_t` and :func:`put_mirrored`),
 :func:`panel_cholesky` and
@@ -114,16 +116,22 @@ def last_from(dy: int, height: int) -> int:
 
 
 def step_tasks(k: int, dy: int, height: int) -> int:
-    """Step k's trailing tiles (I, J), k < J ≤ I, of one element."""
+    """``step_tasks``: step k's trailing tiles (I, J), k < J ≤ I, of one
+    element (none once its chain has ended)."""
     ntc, ntr = tiles_of(dy), tiles_of(height)
     return sum(ntr - J for J in range(k + 1, ntc))
 
 
-def factor_tasks(dy: int, height: int, B: int) -> int:
-    """``factor_tasks``: the most tasks of any phase (step 0 or the last)."""
-    most = max(tiles_of(height) - last_from(dy, height), step_tasks(0, dy,
-                                                                   height))
-    return max(most, 1) * B
+def factor_tasks(dy: int, height: int, B: int, second=None) -> int:
+    """``factor_tasks``: the most tasks of any phase — the first, a step,
+    the last — of B elements, and, side by side where ``second`` = (dn,
+    B2), of B2 of a square problem of size dn (K7t's C)."""
+    dn, B2 = second if second else (0, 0)
+    phases = [B + B2, B * (tiles_of(height) - last_from(dy, height))]
+    for k in range(max(tiles_of(dy), tiles_of(dn) if B2 else 0) - 1):
+        phases.append(B * step_tasks(k, dy, height)
+                      + B2 * step_tasks(k, dn, dn))
+    return max(max(phases), 1)
 
 
 def factor_barriers(dy: int, height: int, epilogue: bool) -> int:
@@ -137,26 +145,31 @@ H100_L2_BYTES = 50 * 2 ** 20
 
 
 def factor_launch(dy: int, height: int, B: int, itemsize: int,
-                  epilogue: str = "none", sms: int = 132,
-                  identity: bool = True) -> dict:
+                  epilogue: str = "points", sms: int = 132,
+                  identity: bool = True, dn: int = 0) -> dict:
     """How ``launch_factor`` runs the factor of a W of ``height`` × dy rows
-    over a batch of B: one cooperative launch (the route: a persistent
-    grid, the working W in L2 between the steps) on min(SMs, tasks)
-    blocks, the tasks being the most of any phase, the epilogue's included
-    (``"points"``: K6t's tiles of the 2n × n points; ``"gain"``: a warp a
-    row of μ and one for ll, eight warps a block, over the dx rows of X
-    that W = [S; X; vᵀ; I] holds, or [S; X; vᵀ] where not ``identity``;
-    ``"none"``: K7t's), and ``factor_barriers`` grid barriers; whether the
-    element's W and L fit the H100's 50 MB L2 at ``itemsize`` bytes an
-    entry."""
+    over a batch of B (and, where dn > 0, K7t's square C of size dn side
+    by side): one cooperative launch (the route: a persistent grid, the
+    working W in L2 between the steps) on min(SMs, tasks) blocks, the
+    tasks being the most of any phase, the epilogue's included
+    (``"points"``: K6t's tiles of the 2n × n points, K7t's of the
+    2(n + dn) × (n + dn) points; ``"gain"``: a warp a row of μ and one for
+    ll, eight warps a block, over the dx rows of X that W = [S; X; vᵀ; I]
+    holds, or [S; X; vᵀ] where not ``identity``), and ``factor_barriers``
+    grid barriers of the longer chain; whether the problems' W and L fit
+    the H100's 50 MB L2 at ``itemsize`` bytes an entry."""
     dx = height - dy - 1 - (dy if identity else 0)
-    epi = {"none": 0, "points": B * tiles_of(dy) ** 2,
+    epi = {"points": B * tiles_of(dy + dn) ** 2,
            "gain": -(-B * (dx + 1) // 8)}[epilogue]
     lay = aug_layout(dx, dy, height)
+    longer = (dy, height) if dy >= dn else (dn, dn)
     return {"route": "grid", "launches": 1,
-            "blocks": min(sms, max(factor_tasks(dy, height, B), epi)),
-            "barriers": factor_barriers(dy, height, epilogue != "none"),
-            "in_l2": B * (lay["li"] - lay["w"]) * itemsize <= H100_L2_BYTES}
+            "blocks": min(sms, max(factor_tasks(dy, height, B,
+                                                (dn, 1) if dn else None),
+                                   epi)),
+            "barriers": factor_barriers(*longer, True),
+            "in_l2": (B * (lay["li"] - lay["w"]) + 2 * dn * dn) * itemsize
+            <= H100_L2_BYTES}
 
 
 # The per-element (K1t, K8t) or per-launch (K6t, K7t) scratch that the C
@@ -194,7 +207,19 @@ def k6t_scratch(B: int, n: int, method: str) -> int:
 
 
 def k7t_scratch(B: int, dx: int, dn: int, method: str) -> int:
+    """P's part (as K6t's), then C's (one element)."""
     return k6t_scratch(B, dx, method) + k6t_scratch(1, dn, method)
+
+
+def k9t_layout(rows: int, dx: int) -> dict:
+    """K9t's per-element scratch: the centred points Xc (rows × dx), then
+    d0 (dx)."""
+    return {"xc": 0, "d0": rows * dx, "total": rows * dx + dx}
+
+
+def k9t_scratch(B: int, rows: int, dx: int) -> int:
+    """``predict_scratch_elems``: B elements' :func:`k9t_layout`."""
+    return B * k9t_layout(rows, dx)["total"]
 
 
 def block_tasks(total: int, blocks: int) -> list:
@@ -250,7 +275,8 @@ class TiledFactor:
     tasks read the state at the phase's start, and the model checks that no
     task reads a tile or an inverse another task of the same phase writes,
     and that no two write the same one, so that the blocks' order does not
-    matter.
+    matter. With ``run=False`` the phases wait for :func:`run_factors`,
+    which runs two problems side by side (K7t).
 
     ``first_touch(b, i, j)`` gives W's entries at their first touch for
     index arrays i, j (S's lower part with sym(R) where i < dy — the model
@@ -260,10 +286,10 @@ class TiledFactor:
     block})."""
 
     def __init__(self, first_touch, B: int, dy: int, height: int, dtype,
-                 blocks: int = 132, s_diag=None, jitter: float = 0.0):
+                 blocks: int = 132, s_diag=None, jitter: float = 0.0,
+                 run: bool = True):
         self.src, self.B, self.dy, self.height = first_touch, B, dy, height
         self.dt = np.dtype(dtype).type
-        self.blocks = blocks
         self.ntc, self.ntr = tiles_of(dy), tiles_of(height)
         nan = np.nan
         self.W = np.full((B, height, dy), nan, dtype)
@@ -272,10 +298,12 @@ class TiledFactor:
         self.floor = np.full(B, nan, dtype)
         self.flag = np.full(B, nan, dtype)
         self.owner = []
-        self._first_phase(s_diag, jitter)
-        for k in range(self.ntc - 1):
-            self._step(k)
-        self._last_phase()
+        self._floor = s_diag is not None
+        for b in range(B if self._floor else 0):
+            d = np.asarray(s_diag(b), self.W.dtype)
+            self.floor[b] = self.dt(jitter) + self.dt(1e-6) * np.abs(d).max()
+        if run:
+            run_factors([self], blocks)
 
     # -- tiles --------------------------------------------------------------
     def _idx(self, I, J):
@@ -329,86 +357,63 @@ class TiledFactor:
         writes.add((tag, b, I, J))
 
     # -- phases -------------------------------------------------------------
-    def _run(self, tasks, fn):
-        """One phase: tasks (a list) run against the phase's starting state,
-        with the hazard checks."""
-        W0 = self.W.copy()
-        owner, reads, writes = {}, [], []
-        for g, mine in enumerate(block_tasks(len(tasks), self.blocks)):
-            for p in mine:
-                owner[p] = g
-                r, w = set(), set()
-                fn(W0, tasks[p], r, w)
-                reads.append(r)
-                writes.append(w)
-        writer = {}
-        for x, w in enumerate(writes):
-            for key in w:
-                assert key not in writer, f"two tasks write {key}"
-                writer[key] = x
-        for x, r in enumerate(reads):
-            for key in r:
-                assert writer.get(key, x) == x, f"a task reads {key}, " \
-                    "which another task of its phase writes"
-        self.owner.append(owner)
+    def phase(self, kind: str, k: int = 0):
+        """One phase's tasks as (diagonal, rest): lists of (fn, task),
+        ``fn(W0, task, reads, writes)``. ``"first"``: every element's first
+        diagonal tile; ``"step"`` k: the look-ahead's diagonal tiles, then
+        the other trailing tiles element by element, column by column (none
+        once the chain has ended); ``"last"``: the rows under the last
+        panel."""
+        if kind == "first":
+            return [(self._first_task, b) for b in range(self.B)], []
+        if kind == "last":
+            frm = last_from(self.dy, self.height)
+            return [], [(self._last_task, (b, I)) for b in range(self.B)
+                        for I in range(frm, self.ntr)]
+        if k + 1 >= self.ntc:
+            return [], []
+        fn = functools.partial(self._step_task, k)
+        diag = [(fn, (b, k + 1, k + 1)) for b in range(self.B)]
+        rest = [(fn, (b, I, J)) for b in range(self.B)
+                for J in range(k + 1, self.ntc) for I in range(J, self.ntr)
+                if (I, J) != (k + 1, k + 1)]
+        return diag, rest
 
-    def _first_phase(self, s_diag, jitter):
-        self._floor = s_diag is not None
-        for b in range(self.B):
-            if self._floor:
-                d = np.asarray(s_diag(b), self.W.dtype)
-                self.floor[b] = self.dt(jitter) + self.dt(1e-6) * np.abs(d).max()
+    def _first_task(self, W0, b, reads, writes):
+        C = self._entries(W0, b, 0, 0, True, True, reads)
+        self._factor_diag(b, 0, C, True, writes)
 
-        def task(W0, b, reads, writes):
-            C = self._entries(W0, b, 0, 0, True, True, reads)
-            self._factor_diag(b, 0, C, True, writes)
-        self._run(list(range(self.B)), task)
-
-    def _step(self, k):
+    def _step_task(self, k, W0, t, reads, writes):
         first = k == 0
-        tasks = [(b, k + 1, k + 1) for b in range(self.B)]
-        for b in range(self.B):
-            for J in range(k + 1, self.ntc):
-                for I in range(J, self.ntr):
-                    if (I, J) != (k + 1, k + 1):
-                        tasks.append((b, I, J))
+        b, I, J = t
+        same = I == J
+        Ta = self._entries(W0, b, I, k, first, False, reads)
+        Tb = Ta if same else self._entries(W0, b, J, k, first, False, reads)
+        reads.add(("Li", b, k))
+        li = self.Li[b, k]
+        pi = Ta @ li
+        pj = pi if same else Tb @ li
+        C = self._entries(W0, b, I, J, first, same, reads)
+        C = C - pi @ pj.T
+        i, j, inside = self._idx(I, J)
+        if same:
+            inside = inside & (j <= i)
+        ii = np.broadcast_to(i, inside.shape)[inside]
+        jj = np.broadcast_to(j, inside.shape)[inside]
+        self.W[b][ii, jj] = C[inside]
+        writes.add(("W", b, I, J))
+        if J == k + 1:
+            self._store_l(b, I, k, pi, writes)
+        if same and I == k + 1:
+            self._factor_diag(b, k + 1, C, False, writes)
 
-        def task(W0, t, reads, writes):
-            b, I, J = t
-            same = I == J
-            Ta = self._entries(W0, b, I, k, first, False, reads)
-            Tb = Ta if same else self._entries(W0, b, J, k, first, False, reads)
-            reads.add(("Li", b, k))
-            li = self.Li[b, k]
-            pi = Ta @ li
-            pj = pi if same else Tb @ li
-            C = self._entries(W0, b, I, J, first, same, reads)
-            C = C - pi @ pj.T
-            i, j, inside = self._idx(I, J)
-            if same:
-                inside = inside & (j <= i)
-            ii = np.broadcast_to(i, inside.shape)[inside]
-            jj = np.broadcast_to(j, inside.shape)[inside]
-            self.W[b][ii, jj] = C[inside]
-            writes.add(("W", b, I, J))
-            if J == k + 1:
-                self._store_l(b, I, k, pi, writes)
-            if same and I == k + 1:
-                self._factor_diag(b, k + 1, C, False, writes)
-        self._run(tasks, task)
-
-    def _last_phase(self):
-        frm, last = last_from(self.dy, self.height), self.ntc - 1
-        tasks = [(b, I) for b in range(self.B) for I in range(frm, self.ntr)]
-
-        def task(W0, t, reads, writes):
-            b, I = t
-            Ta = self._entries(W0, b, I, last, last == 0, False, reads)
-            reads.add(("Li", b, last))
-            self._store_l(b, I, last, Ta @ self.Li[b, last], writes,
-                          row_lo=self.dy, tag="Lunder")
-        if tasks:
-            self._run(tasks, task)
+    def _last_task(self, W0, t, reads, writes):
+        b, I = t
+        last = self.ntc - 1
+        Ta = self._entries(W0, b, I, last, last == 0, False, reads)
+        reads.add(("Li", b, last))
+        self._store_l(b, I, last, Ta @ self.Li[b, last], writes,
+                      row_lo=self.dy, tag="Lunder")
 
     # -- the gain's epilogue --------------------------------------------------
     def gain(self, dx: int, m):
@@ -424,6 +429,52 @@ class TiledFactor:
                                   + (z * z).sum(-1))
         mean = m + np.einsum("bic,bc->bi", Zt, z)
         return ll, mean
+
+
+def run_factors(factors, blocks: int = 132) -> list:
+    """One launch of ``tiled_factor_kernel`` over one problem or two side
+    by side (K7t's P and C; the second square, with no last phase): phase
+    by phase, each phase's tasks ordered as the kernel hands them out —
+    both problems' diagonal tasks, then both problems' other tasks — and
+    given to the blocks by ``for_tasks`` (:func:`block_tasks`). Every task
+    reads the state of its phase's start; the hazard checks span both
+    problems. Returns (and stores as each factor's ``owner``) the blocks
+    of every phase's tasks, phases without tasks left out."""
+    assert len(factors) <= 2 and all(
+        not f.phase("last")[1] for f in factors[1:])
+    steps = max(f.ntc for f in factors) - 1
+    kinds = [("first", 0)] + [("step", k) for k in range(steps)] \
+        + [("last", 0)]
+    owner_all = []
+    for kind, k in kinds:
+        parts = [f.phase(kind, k) for f in factors]
+        tasks = [(x, fn, t) for x, (d, _) in enumerate(parts) for fn, t in d]
+        tasks += [(x, fn, t) for x, (_, r) in enumerate(parts) for fn, t in r]
+        if not tasks:
+            continue
+        W0 = [f.W.copy() for f in factors]
+        owner, reads, writes = {}, [], []
+        for g, mine in enumerate(block_tasks(len(tasks), blocks)):
+            for p in mine:
+                owner[p] = g
+                x, fn, t = tasks[p]
+                r, w = set(), set()
+                fn(W0[x], t, r, w)
+                reads.append({(x, key) for key in r})
+                writes.append({(x, key) for key in w})
+        writer = {}
+        for n, w in enumerate(writes):
+            for key in w:
+                assert key not in writer, f"two tasks write {key}"
+                writer[key] = n
+        for n, r in enumerate(reads):
+            for key in r:
+                assert writer.get(key, n) == n, f"a task reads {key}, " \
+                    "which another task of its phase writes"
+        owner_all.append(owner)
+    for f in factors:
+        f.owner = owner_all
+    return owner_all
 
 
 def augmented_factor(S, X, inn, R=None, jitter: float = 0.0, blocks=132,
@@ -466,11 +517,22 @@ def augmented_factor(S, X, inn, R=None, jitter: float = 0.0, blocks=132,
                        jitter)
 
 
-def square_factor(P, blocks=132):
-    """K6t's and K7t's factor of P (B, n, n): :class:`TiledFactor` on a W
-    of height n whose first touch reads lower(P) (no floor)."""
+def square_factor(P, blocks=132, run=True):
+    """K6t's factor of P (B, n, n): :class:`TiledFactor` on a W of height n
+    whose first touch reads lower(P) (no floor)."""
     B, n, _ = P.shape
-    return TiledFactor(lambda b, i, j: P[b][i, j], B, n, n, P.dtype, blocks)
+    return TiledFactor(lambda b, i, j: P[b][i, j], B, n, n, P.dtype, blocks,
+                       run=run)
+
+
+def square_factor_pair(P, C, blocks=132):
+    """K7t's one launch: the factors of P (B, n, n) and of the shared C
+    (dn, dn) side by side (:func:`run_factors`). Returns both
+    :class:`TiledFactor` s (C's of one element)."""
+    fp = square_factor(P, run=False)
+    fc = square_factor(C[None], run=False)
+    run_factors([fp, fc], blocks)
+    return fp, fc
 
 
 # ---------------------------------------------------------------------------
@@ -545,21 +607,33 @@ def gemm_split(tiles: int, K: int, sms: int) -> int:
     return split
 
 
+def pair_split(ta: int, tb: int, K: int, sms: int) -> int:
+    """``gemm2``'s k-split of two products whose 64 × 32 tiles number ta
+    and tb: ``gemm_split`` of both, or 2 where the pair's tiles just pass
+    the SMs but the larger product's alone do not."""
+    split = gemm_split(ta + tb, K, sms)
+    if (split == 1 and max(ta, tb) <= sms and 4 * (ta + tb) <= 5 * sms
+            and K >= 8 * GEMM_BK):
+        split = 2
+    return split
+
+
 def gemm_plan(gs, sms: int = 132):
-    """``gemm`` / ``launch_gemm`` for one product, ``gemm2`` /
-    ``launch_gemm_pair`` for two of one batch: (BM, BN, threads, split,
-    blocks), ``blocks`` listing each block of a batch element as (product,
-    i0, j0, rank) in launch order: one product's grid is (row tiles ×
-    split, column tiles), blockIdx.x the faster; a pair's is flat, each
-    product's tiles row-major, ``split`` blocks a tile, product 1 from
-    ``first1`` on."""
-    assert 1 <= len(gs) <= 2 and len({g.batch for g in gs}) == 1
+    """``gemm`` / ``launch_gemm`` for one product, ``gemm2`` / ``launch_gemm_pair`` for two (each with its
+    own batch): (BM, BN, threads, split, blocks), ``blocks`` listing each
+    block of a batch element as (product, i0, j0, rank) in launch order:
+    one product's grid is (row tiles × split, column tiles), blockIdx.x
+    the faster; a pair's is flat, each product's tiles row-major, ``split``
+    blocks a tile, product 1 from ``first1`` on."""
+    assert 1 <= len(gs) <= 2
     if sum(live_tiles(g, 64, 64) for g in gs) >= sms:
         BM, BN, nt, split = 64, 64, 256, 1
     else:
         K = max(max(g.K) for g in gs)
         BM, BN, nt = 64, 32, 128
-        split = gemm_split(sum(live_tiles(g, 64, 32) for g in gs), K, sms)
+        tiles = [live_tiles(g, 64, 32) for g in gs]
+        split = (gemm_split(tiles[0], K, sms) if len(gs) == 1
+                 else pair_split(*tiles, K, sms))
     blocks = []
     if len(gs) == 1:
         g = gs[0]
@@ -578,7 +652,7 @@ def gemm_plan(gs, sms: int = 132):
 
 def run_gemms(gs, sms: int = 132) -> dict:
     """One launch of ``tiled_gemm_kernel`` over the products ``gs`` (one,
-    or two grouped), block by block as :func:`gemm_plan` lays them out:
+    or two grouped, each over its own batch), block by block as :func:`gemm_plan` lays them out:
     each block reads only its tile's rows of op(A_t) and columns of op(B_t)
     over its rank's share of every inner dimension (whole slabs); a
     cluster's rank 0 adds the other ranks' partial tiles in rank order and
@@ -587,11 +661,11 @@ def run_gemms(gs, sms: int = 132) -> dict:
     that no two blocks store the same entry. Returns the plan's fields."""
     BM, BN, nt, split, blocks = gemm_plan(gs, sms)
     stored = {}
-    for b in range(gs[0].batch):
+    for b in range(max(g.batch for g in gs)):
         partial = {}
         for p, i0, j0, s in blocks:
             g = gs[p]
-            if g.tri != FULL and i0 + BM - 1 < j0:
+            if b >= g.batch or (g.tri != FULL and i0 + BM - 1 < j0):
                 continue
             rows = range(i0, min(i0 + BM, g.M))
             cols = range(j0, min(j0 + BN, g.N))
@@ -638,6 +712,54 @@ def run_gemms(gs, sms: int = 132) -> dict:
             g.C[at] = vals
     return {"tile": (BM, BN), "threads": nt, "split": split,
             "blocks": len(blocks)}
+
+
+def k9t_mean_centre(fpts, center, w_side: float, w0m: float):
+    """``ut_tiled_mean_centre_kernel`` in the inputs' dtype: each column's
+    sum by row groups (G = 256 / strip columns, a strip 32 bytes wide),
+    group ty summing rows ty, ty + G, … in order, the groups added in the
+    kernel's fixed tree; μ = w_side·Σ + w0m·center, Xc = fpts − μ,
+    d0 = center − μ. ``fpts`` (B, rows, dx), ``center`` (B, dx)."""
+    B, rows, dx = fpts.shape
+    dt = fpts.dtype.type
+    G = FACTOR_THREADS // (32 // fpts.itemsize)
+    part = np.zeros((B, G, dx), fpts.dtype)
+    for r0 in range(0, rows, G):
+        chunk = fpts[:, r0:r0 + G]
+        part[:, :chunk.shape[1]] += chunk
+    h = G // 2
+    while h:
+        part[:, :h] += part[:, h:2 * h]
+        h //= 2
+    mu = dt(w_side) * part[:, 0] + dt(w0m) * center
+    return mu, fpts - mu[:, None], center - mu
+
+
+def tiled_ut_predict(fpts, center, Q, w, add_q: bool, sms: int = 132):
+    """K9t over a batch, launch by launch, in the inputs' dtype: the mean
+    and centring pass (:func:`k9t_mean_centre`) into the scratch
+    (:func:`k9t_layout`, seeded with NaN), then Σ = lower(w_side·Xcᵀ Xc +
+    w0c·d0 d0ᵀ) + sym(Q), mirrored, as ``gemm`` runs it block by block
+    (:func:`run_gemms`: at config 5 its row shares over a cluster).
+    Returns (μ, Σ, the product's plan)."""
+    w_side, w0m, w0c = w
+    B, rows, dx = fpts.shape
+    lay = k9t_layout(rows, dx)
+    st = lay["total"]
+    ws = np.full(B * st, np.nan, fpts.dtype)
+    mu, xc, d0 = k9t_mean_centre(fpts, center, w_side, w0m)
+    for b in range(B):
+        ws[b * st:b * st + lay["d0"]] = xc[b].ravel()
+        ws[b * st + lay["d0"]:(b + 1) * st] = d0[b]
+    cov = np.full(B * dx * dx, np.nan, fpts.dtype)
+    cin = Mat(np.ascontiguousarray(Q).ravel(), 0, dx, 0) if add_q else None
+    plan = run_gemms([Gemm(
+        dx, dx, B, (rows, 1),
+        (Mat(ws, lay["xc"], dx, st, True), Mat(ws, lay["d0"], 1, st)),
+        (Mat(ws, lay["xc"], dx, st), Mat(ws, lay["d0"], dx, st)),
+        (w_side, w0c), cov, 0, dx, dx * dx, Cin=cin,
+        beta=1.0 if add_q else 0.0, sym_cin=True, tri=LOWER_MIRROR)], sms)
+    return mu, cov.reshape(B, dx, dx), plan
 
 
 # ---------------------------------------------------------------------------

@@ -26,9 +26,14 @@ def symmetrize(a: torch.Tensor) -> torch.Tensor:
 
 def cholesky_nan(a: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor, NaN wherever the matrix is not positive
-    definite (JAX's contract; never raises, never synchronises)."""
+    definite (JAX's contract; never raises, never synchronises). A factor
+    counts as failed where ``info`` says so or where a pivot is not
+    positive (NaN included): on an H100 ``cholesky_ex`` of a single matrix
+    that fails only at its last pivot was seen to report ``info`` = 0."""
     chol, info = torch.linalg.cholesky_ex(a)
-    return torch.where((info != 0)[..., None, None],
+    pivots = chol.diagonal(dim1=-2, dim2=-1)
+    bad = (info != 0) | ~(pivots > 0).all(dim=-1)
+    return torch.where(bad[..., None, None],
                        torch.full_like(chol, float("nan")), chol)
 
 

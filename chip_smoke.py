@@ -30,8 +30,8 @@ and prints no result):
    above dx = 8) from
    ``bayesianfiltering_tpu_torch/csrc``, one nvcc per source, in
    parallel.
-3. First, the CUDA launches a call of K8t (at most 4) and K2t (at most 2),
-   counted by torch.profiler. Each kernel against its plain PyTorch
+3. First, the CUDA launches a call of K8t (at most 4), K2t (at most 2),
+   K9t (at most 2) and K7t (Cholesky, 1), counted by torch.profiler. Each kernel against its plain PyTorch
    version on the card, float32 and
    float64, at the main paths' shapes and at its size band's edge (K1/K1t
    to dy = 512, K6–K9/K6t–K9t to 1,024, the block combines at dx = 9, 64
@@ -254,9 +254,10 @@ SIGMA_TILED_SYMBOLS = ("tiled_factor_kernel", "sigma_tiled_trace_kernel",
                        "tiled_gemm_kernel", "sigma_tiled_root_kernel",
                        "sigma_tiled_points_kernel")
 # each kernel's CUDA symbols (K7 is its points kernel and the one-block
-# factor of the shared noise covariance; K6t and K7t share the same
-# launches, K7t running the factor for P and for C; K6t's Cholesky is one
-# tiled_factor_kernel launch with its points as the epilogue)
+# factor of the shared noise covariance; K6t's and K7t's Cholesky is one
+# tiled_factor_kernel launch each, with the points as its epilogue —
+# PointsEpilogue, SigmaAugEpilogue —, K7t's Newton–Schulz rounds grouped
+# launches of P's and C's products)
 KERNEL_SYMBOLS = {
     "bft_ekf_update": ("ekf_update_kernel",),
     "bft_ekf_predict_cov": ("ekf_predict_cov_kernel",),
@@ -272,10 +273,10 @@ KERNEL_SYMBOLS = {
     "bft_ut_predict": ("ut_predict_kernel",),
     "bft_ut_update_tiled": ("tiled_gemm_kernel", "ut_tiled_centre_kernel",
                             "tiled_factor_kernel"),
-    "bft_ut_predict_tiled": ("tiled_gemm_kernel", "ut_tiled_mean_kernel",
-                             "ut_tiled_centre_rows_kernel"),
+    "bft_ut_predict_tiled": ("tiled_gemm_kernel",
+                             "ut_tiled_mean_centre_kernel"),
     "bft_ut_sigma_tiled": SIGMA_TILED_SYMBOLS,
-    "bft_ut_sigma_aug_tiled": SIGMA_TILED_SYMBOLS,
+    "bft_ut_sigma_aug_tiled": SIGMA_TILED_SYMBOLS + ("tiled_gemm_pair_kernel",),
     "bft_bank_combine": ("bank_combine_kernel",),
     "bft_bank_smoother_elements": ("bank_smoother_elements_kernel",),
     "bft_bank_smoother_combine": ("bank_smoother_combine_kernel",),
@@ -313,10 +314,14 @@ TIMED_FLOAT64 = ("bft_ekf_update", "bft_ekf_predict_cov",
 
 # Roofline of an H100 SXM at its 700 W limit (NVIDIA's data sheet): memory
 # 3.35 TB/s; CUDA-core (non-tensor) peaks 67 TFLOP/s in float32 and
-# 34 TFLOP/s in float64. TF32 and the tensor cores are off by the precision
-# policy, so they are not the bound.
+# 34 TFLOP/s in float64; the float64 tensor cores 67 TFLOP/s. TF32 is off
+# by the precision policy, so float32 is bound at the CUDA-core peak; a
+# kernel whose source issues the float64 tensor-core product (tiled.cuh's
+# mma.m8n8k4, in the tiled variants) is bound in float64 at the tensor
+# cores' peak, the others at the CUDA cores'.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS_FLOAT64_MMA = 67e12
 
 
 def log(msg: str) -> None:
@@ -545,12 +550,31 @@ def scombine_flops(n):
     return 5 * n ** 3 + 2 * n * n
 
 
-def bound(tensors, outputs, flops, dtype_name, lower=()):
+def issues_float64_mma(source: str) -> bool:
+    """Whether the kernel source (a path in the repo) or a header that it
+    includes, directly or through another, issues the float64 tensor-core
+    product."""
+    seen, todo = set(), [ROOT / source]
+    while todo:
+        path = todo.pop()
+        if path in seen or not path.is_file():
+            continue
+        seen.add(path)
+        text = path.read_text()
+        if "mma.sync.aligned.m8n8k4" in text and ".f64" in text:
+            return True
+        todo += [path.parent / h for h in re.findall(r'#include "([^"]+)"',
+                                                     text)]
+    return False
+
+
+def bound(tensors, outputs, flops, dtype_name, lower=(), mma64=False):
     """(bound_ms, bound_by): every input read once and every output written
-    once at the memory rate, or the operations at the CUDA-core peak. The
-    inputs whose indices are in ``lower`` are stacks of n × n matrices of
-    which the function reads only the lower triangle: n(n + 1)/2 entries
-    each."""
+    once at the memory rate, or the operations at the peak of their type
+    (float64 at the tensor cores' where ``mma64``: the kernel issues the
+    float64 tensor-core product). The inputs whose indices are in
+    ``lower`` are stacks of n × n matrices of which the function reads only
+    the lower triangle: n(n + 1)/2 entries each."""
     def entries(i, t):
         n = t.shape[-1]
         return t.numel() * (n + 1) / (2 * n) if i in lower else t.numel()
@@ -559,7 +583,8 @@ def bound(tensors, outputs, flops, dtype_name, lower=()):
                   for i, t in enumerate(tensors))
               + sum(t.numel() * t.element_size() for t in outputs))
     t_mem = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_ops = flops / (PEAK_FLOPS_FLOAT64_MMA if mma64 and dtype_name ==
+                     "float64" else PEAK_FLOPS[dtype_name])
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else
                                      "operations")
 
@@ -676,12 +701,13 @@ def kernel_cases():
                       (w_side, w0c, add_r),
                       B * ut_update_flops(rows, dx, dy), timed))
 
-    def ut_predict(B, rows, dx, add_q, timed=None):
-        w_side, w0m, w0c = ut_weights(rows // 2, up)[1]
+    def ut_predict(B, rows, dx, add_q, timed=None, params=up):
+        w_side, w0m, w0c = ut_weights(rows // 2, params)[1]
         rule = lambda a: fu.predict_kernel(dx, a.element_size(),
                                            _build.smem_optin(a.device))
         cases.append((rule, fu.fused_ut_predict, fu._ut_predict_plain,
-                      f"B={B},rows={rows},dx={dx},{'+Q' if add_q else 'no Q'}",
+                      f"B={B},rows={rows},dx={dx},{'+Q' if add_q else 'no Q'}"
+                      + ("" if params is up else f",w0m={w0m:g},w0c={w0c:g}"),
                       lambda r: testing.ut_predict_inputs(r, B, rows, dx),
                       (w_side, w0m, w0c, add_q),
                       B * ut_predict_flops(rows, dx), timed))
@@ -805,6 +831,8 @@ def kernel_cases():
     sigma_aug(1, C5_DX, C5_DX, "cholesky", "main")
     sigma_aug(2, C5_DX, C5_DY, "cholesky")
     sigma_aug(2, 300, 45, "sqrtm")
+    sigma_aug(1, C5_DX, C5_DY, "sqrtm")
+    sigma_aug(1, 121, C5_DX, "cholesky")
     ut_update(1, 2 * C5_DX, C5_DX, C5_DX, C5_DY, True, "main")
     ut_update(1, 2 * (C5_DX + C5_DY), C5_DX + C5_DY, C5_DX, C5_DY, False)
     ut_update(1, 2048, 1024, 1024, 1024, True)
@@ -814,6 +842,10 @@ def kernel_cases():
     ut_predict(1, 2 * C5_DX, C5_DX, True, "main")
     ut_predict(1, 4 * C5_DX, C5_DX, False)
     ut_predict(1, 2048, 1024, True)
+    # K9t at non-zero, negative centre weights (w0m = −3, w0c = −0.25)
+    for B, rows, dx in ((1, 2 * C5_DX, C5_DX), (1, 2048, 1024),
+                        (3, 600, 300)):
+        ut_predict(B, rows, dx, True, params=ParamsUKF(0.5, 2.0, 0.0))
     ut_predict(3, 600, 300, False)
     for dx in (192, 193, 128, 129):
         ut_predict(1, 2 * dx, dx, True)
@@ -886,10 +918,16 @@ def nan_checks(dev) -> None:
     K8t's S fail at their first pivot, or only at a pivot of their third
     panel; K1's at its first, at a pivot of its second panel, or in its
     one narrow panel at dy = 2;
-    K6t's P (n = 512) at its first or at a pivot of its tenth panel; K7t's
-    P or C at config 5's widths."""
+    K6t's P (n = 512) at its first or at a pivot of its tenth panel, and
+    a single P at its last pivot; K7t's P or C at config 5's widths (dn =
+    512 and 256, P and C factored side by side in one launch), and a
+    single P at its last pivot. First, ``cholesky_ex`` of one matrix and of
+    two failing at their last pivot, on the card and on the CPU (logged),
+    and ``cholesky_nan`` NaNs each on both."""
     import numpy as np
     import torch
+
+    from bayesianfiltering_tpu_torch.utils.linalg import cholesky_nan
 
     from bayesianfiltering_tpu_torch import testing
     from bayesianfiltering_tpu_torch.ops import associative as tas
@@ -904,6 +942,22 @@ def nan_checks(dev) -> None:
                                 device=x.device).expand_as(x).contiguous()
 
     rng = np.random.default_rng(SEED)
+    for n in (64, C5_DX):
+        P = torch.as_tensor(testing.sigma_inputs(rng, 2, n)[1],
+                            dtype=torch.float64)
+        P[:, n - 1, n - 1] = -1e3
+        for where in ("cpu", dev):
+            for B in (1, 2):
+                x = P[:B].to(where)
+                L, info = torch.linalg.cholesky_ex(x)
+                nan = bool(torch.isnan(cholesky_nan(x)).all())
+                log(f"cholesky_ex n={n} B={B} on {where}: info "
+                    f"{info.tolist()}, L[n-1, n-1] "
+                    f"{L[:, n - 1, n - 1].tolist()}; cholesky_nan all NaN "
+                    f"{nan}")
+                if not nan:
+                    raise RuntimeError("cholesky_nan kept a factor that "
+                                       "fails at its last pivot")
     f64 = lambda arrays: [torch.as_tensor(a, dtype=torch.float64, device=dev)
                           for a in arrays]
     checks = []
@@ -937,13 +991,16 @@ def nan_checks(dev) -> None:
     a[3][5, 5] = -1e3
     checks.append((fu.K7, fu.fused_sigma_aug, fu._sigma_aug_plain,
                    a + [2.0, "cholesky"]))
-    for fail_at in (0, 300):
-        a = f64(testing.sigma_inputs(rng, 2, C5_DX))
-        a[1][1, fail_at, fail_at] = -1e3
+    for B, fail_at in ((2, 0), (2, 300), (1, C5_DX - 1)):
+        a = f64(testing.sigma_inputs(rng, B, C5_DX))
+        a[1][B - 1, fail_at, fail_at] = -1e3
         checks.append((fu.K6T, fu.fused_sigma, fu._sigma_plain,
                        a + [2.0, "cholesky"]))
-    for part, fail_at in ((1, 0), (1, 400), (3, 100)):
-        a = f64(testing.sigma_aug_inputs(rng, 2, C5_DX, C5_DX))
+    for B, part, fail_at, dn in ((2, 1, 0, C5_DX), (2, 1, 400, C5_DX),
+                                 (2, 3, 100, C5_DX), (2, 1, 300, C5_DY),
+                                 (2, 3, 200, C5_DY),
+                                 (1, 1, C5_DX - 1, C5_DY)):
+        a = f64(testing.sigma_aug_inputs(rng, B, C5_DX, dn))
         if part == 1:
             a[1][0, fail_at, fail_at] = -1e3
         else:
@@ -1163,8 +1220,11 @@ FACTOR_LIBRARY = ("bft_ut_sigma", "bft_ut_sigma_tiled")
 
 # The CUDA launches a wrapper call makes, at most: K8t centres, forms the
 # moments, factors and forms sym(P) − ZᵀZ; K2t forms F_x P and F_q Q in
-# one grouped launch, then the covariance.
-CUDA_LAUNCHES = {"bft_ut_update_tiled": 4, "bft_ekf_predict_cov_tiled": 2}
+# one grouped launch, then the covariance; K9t forms μ and the centred
+# points in one pass, then Σ as one product; K7t (Cholesky) factors P and
+# C side by side with the points as the epilogue, one launch.
+CUDA_LAUNCHES = {"bft_ut_update_tiled": 4, "bft_ekf_predict_cov_tiled": 2,
+                 "bft_ut_predict_tiled": 2, "bft_ut_sigma_aug_tiled": 1}
 
 
 def predict_chain(Fx, P, Fq, Q):
@@ -1242,8 +1302,9 @@ def check_kernels(dev) -> dict:
                 lower = (LOWER_READ[kernel.name] if kernel.name in LOWER_READ
                          and static[-1] == "cholesky" else ())
                 reads = READS.get(kernel.name, lambda a, _: a)(args, static)
-                bound_ms, bound_by = bound(reads, list(got), flops, name,
-                                           lower)
+                bound_ms, bound_by = bound(
+                    reads, list(got), flops, name, lower,
+                    issues_float64_mma(kernel.source))
                 entry = dict(shape=f"{shape},{name}", max_abs_err=abs_err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bound_share=bound_ms / ms,
@@ -1261,6 +1322,19 @@ def check_kernels(dev) -> dict:
                     log(f"  torch.linalg.cholesky_ex on the same P: device "
                         f"{entry['library_ms']} ms, event "
                         f"{entry['library_event_ms']:.4f} ms")
+                if (kernel.name == "bft_ut_sigma_aug_tiled"
+                        and static[-1] == "cholesky"):
+                    # the factors of P and of C, the PyTorch calls in the
+                    # plain version's body (two calls, not one)
+                    P, C = args[1], args[3]
+                    chain = lambda: (torch.linalg.cholesky_ex(P),
+                                     torch.linalg.cholesky_ex(C))
+                    entry.update(library_chain_ms=device_ms(chain, ("",)),
+                                 library_chain=(
+                                     "torch.linalg.cholesky_ex of P and of "
+                                     "C; two calls, not one"))
+                    log(f"  torch.linalg.cholesky_ex of P and of C (two "
+                        f"calls): device {entry['library_chain_ms']} ms")
                 if kernel.name == "bft_ekf_predict_cov_tiled":
                     chain = lambda: predict_chain(*args)
                     entry.update(library_chain_ms=device_ms(chain, ("",)),
@@ -1287,9 +1361,10 @@ def check_kernels(dev) -> dict:
 
 
 def cuda_launch_checks(dev, calls: int = 5) -> None:
-    """The CUDA launches a call of K8t and K2t at config 5 (float32),
-    counted by torch.profiler over ``calls`` calls: at most
-    ``CUDA_LAUNCHES`` a call. The profiler may drop records (late in a
+    """The CUDA launches a call of K8t, K2t, K9t and K7t (Cholesky, at the
+    augmented widths dx = dn = 512) at config 5 (float32), counted by
+    torch.profiler over ``calls`` calls: at most ``CUDA_LAUNCHES`` a
+    call. The profiler may drop records (late in a
     long process it kept 3 of K8t's 20), never add one, so only the upper
     bound is held; phase 3 runs this first, before its other traces."""
     import numpy as np
@@ -1306,9 +1381,14 @@ def cuda_launch_checks(dev, calls: int = 5) -> None:
                                      device=dev) for x in xs]
     u = on(testing.ut_update_inputs(rng, 1, 2 * C5_DX, C5_DX, C5_DX, C5_DY))
     p = on(testing.predict_inputs(rng, 1, C5_DX, C5_DX))
+    f = on(testing.ut_predict_inputs(rng, 1, 2 * C5_DX, C5_DX))
+    a = on(testing.sigma_aug_inputs(rng, 1, C5_DX, C5_DX))
     for kernel, fn in (
             (fu.K8T, lambda: fu.fused_ut_update(*u, 1 / 1024, 0.0, True)),
-            (fe.K2T, lambda: fe.fused_predict_cov(*p))):
+            (fe.K2T, lambda: fe.fused_predict_cov(*p)),
+            (fu.K9T, lambda: fu.fused_ut_predict(*f, 1 / 1024, 0.0, 2.0,
+                                                 True)),
+            (fu.K7T, lambda: fu.fused_sigma_aug(*a, 1.0, "cholesky"))):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2562,36 +2642,49 @@ def compare_slice(dev) -> None:
                 {}, names)
 
 
+# K9t's first launch, the pass that forms μ and the centred points
+K9T_FIRST = "ut_tiled_mean_centre_kernel"
+
+
 def ukf_split(prof) -> dict:
-    """Device ms of K6t, K8t and K9t in a trace of config 5's UKF. They
-    share the product and factor kernels, so their launches are told apart
-    by name and launch order: K6t's Cholesky is one launch (the factor with
-    the points as its epilogue, ``PointsEpilogue`` in its name), its
-    Newton–Schulz route runs from its trace pass to its points pass; K8t
-    is its centring pass and the three launches after it (the moments,
-    the factor, the covariance), K9t runs from its mean pass to its one
-    product."""
+    """Device ms of K6t, K7t, K8t and K9t in a trace of config 5's UKF.
+    They share the product and factor kernels, so their launches are told
+    apart by name and launch order: K6t's and K7t's Cholesky are one launch
+    each (the factor with the points as its epilogue: ``PointsEpilogue``
+    in K6t's name, ``SigmaAugEpilogue`` in K7t's), the Newton–Schulz
+    routes run from their trace pass to their points pass, booked to K7t
+    where their first product is a grouped launch (P's and C's rounds
+    paired, ``tiled_gemm_pair_kernel``), else to K6t; K8t is its centring pass and the three launches after it (the moments,
+    the factor, the covariance), K9t its mean-and-centre pass
+    (``K9T_FIRST``) and the one product after it."""
     from torch.autograd import DeviceType
 
     events = sorted((e for e in prof.events()
                      if e.device_type != DeviceType.CPU),
                     key=lambda e: e.time_range.start)
-    split = {"K6": 0.0, "K6t": 0.0, "K8t": 0.0, "K9t": 0.0,
+    split = {"K6": 0.0, "K6t": 0.0, "K7t": 0.0, "K8t": 0.0, "K9t": 0.0,
              "other": 0.0}
-    owner, k8t_left = None, 0
+    owner, k8t_left, ns_trace = None, 0, 0.0
     for e in events:
         name, us = e.name, e.time_range.elapsed_us()
         if "ut_sigma_kernel" in name:
             split["K6"] += us
             continue
+        if "SigmaAugEpilogue" in name:
+            split["K7t"] += us
+            continue
         if "PointsEpilogue" in name:
             split["K6t"] += us
             continue
         if owner is None and "sigma_tiled_trace_kernel" in name:
-            owner = "K6t"
+            owner, ns_trace = "NS", us  # K6t's or K7t's: its product says
+            continue
+        if owner == "NS":
+            owner = "K7t" if "tiled_gemm_pair_kernel" in name else "K6t"
+            split[owner] += ns_trace
         elif "ut_tiled_centre_kernel" in name:
             owner, k8t_left = "K8t", CUDA_LAUNCHES["bft_ut_update_tiled"]
-        elif "ut_tiled_mean_kernel" in name:
+        elif K9T_FIRST in name:
             owner = "K9t"
         split[owner or "other"] += us
         if owner == "K8t":
@@ -3158,10 +3251,14 @@ def sigma_times(root: str) -> None:
     UKF's shapes; then at config 5, with the max abs error against the
     plain version: the sigma points (K6t, Cholesky) beside
     ``torch.linalg.cholesky_ex`` of the same P, K6t by Newton–Schulz, K7t
-    at the augmented widths (dn = 512 in the predict, 256 in the update),
-    K1t at dy = 256 and 128 (``update_chunk=128``), K2t (beside the
-    torch.matmul chain of its function) and K8t, each also launch by launch
-    (``launch_split``), and K9t; last,
+    at the augmented widths (dn = 512 in the predict, 256 in the update)
+    by Cholesky (also launch by launch, and beside ``cholesky_ex`` of P
+    and of C) and by Newton–Schulz, K1t at dy = 256 and 128
+    (``update_chunk=128``), K2t (beside the torch.matmul chain of its
+    function), K8t and K9t, each also launch by launch (``launch_split``),
+    K9t also at negative centre weights (``ParamsUKF(0.5, 2, 0)``'s
+    w0m = −3, w0c = −0.25) and at the band's edge (2,048 rows,
+    dx = 1,024); last,
     config 5's three walls (``ekf512``, its chunked update, ``ukf512``;
     T = 200, float32; the median and range of REPS calls after a warm-up).
     Inputs from ``testing`` with SEED."""
@@ -3178,6 +3275,9 @@ def sigma_times(root: str) -> None:
     up = ParamsUKF(1.0, 2.0, 0.0)
     w_side, _, w0c = ut_weights(C5_DX, up)[1]
     wp = ut_weights(C5_DX, up)[1]
+    # non-zero, negative centre weights (w0m = −3, w0c = −0.25)
+    wn = ut_weights(C5_DX, ParamsUKF(0.5, 2.0, 0.0))[1]
+    we = ut_weights(1024, up)[1]
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[-1]
         rng = np.random.default_rng(SEED)
@@ -3218,9 +3318,16 @@ def sigma_times(root: str) -> None:
              lambda: torch.linalg.cholesky_ex(P))
         for dn in (C5_DX, C5_DY):
             a = on_card(testing.sigma_aug_inputs(rng, 1, C5_DX, dn))
-            show(f"K7t B=1 dx=512 dn={dn} cholesky",
-                 lambda: fu.fused_sigma_aug(*a, 1.0, "cholesky"),
-                 plain=lambda: fu._sigma_aug_plain(*a, 1.0, "cholesky"))
+            for method in ("cholesky", "sqrtm"):
+                fn = lambda: fu.fused_sigma_aug(*a, 1.0, method)
+                show(f"K7t B=1 dx=512 dn={dn} {method}", fn,
+                     plain=lambda: fu._sigma_aug_plain(*a, 1.0, method))
+                if method == "cholesky":
+                    log(f"{root} K7t dn={dn} launch by launch {name}: "
+                        f"{launch_split(fn)}")
+            show(f"torch.linalg.cholesky_ex of P and of C B=1 dx=512 "
+                 f"dn={dn}", lambda: (torch.linalg.cholesky_ex(a[1]),
+                                      torch.linalg.cholesky_ex(a[3])))
         for dy in (C5_DY, C5_CHUNK):
             a = on_card(testing.update_inputs(rng, 1, C5_DX, dy))
             show(f"K1t B=1 dx=512 dy={dy}", lambda: fe.fused_update(*a, 0.0),
@@ -3244,6 +3351,15 @@ def sigma_times(root: str) -> None:
         show("K9t B=1 rows=1024 dx=512",
              lambda: fu.fused_ut_predict(*a, *wp, True),
              plain=lambda: fu._ut_predict_plain(*a, *wp, True))
+        log(f"{root} K9t launch by launch {name}: "
+            f"{launch_split(lambda: fu.fused_ut_predict(*a, *wp, True))}")
+        show(f"K9t B=1 rows=1024 dx=512 w0m={wn[1]:g} w0c={wn[2]:g}",
+             lambda: fu.fused_ut_predict(*a, *wn, True),
+             plain=lambda: fu._ut_predict_plain(*a, *wn, True))
+        a = on_card(testing.ut_predict_inputs(rng, 1, 2048, 1024))
+        show("K9t B=1 rows=2048 dx=1024 (the band's edge)",
+             lambda: fu.fused_ut_predict(*a, *we, True),
+             plain=lambda: fu._ut_predict_plain(*a, *we, True))
     params, _, em = config5_data(C5_T, torch.float32, dev)
     for label, run, _ in config5_runs():
         run(params, em[:20])  # warm-up

@@ -4,8 +4,10 @@ twin, and the filters' kernel path against their plain path on the CPU.
 Needs a CUDA device; every test skips without one. Covers K1–K12, with
 the tiled variants K1t/K2t and K6t–K9t (and the one-launch blocked factor
 under K6t, K7t, K1t and K8t at config 5, the bands' edges and a failing
-pivot in the first, a middle or the last panel), the block variants of
-K10–K12 and the wide bands of K1 and K6–K9. This file imports no
+pivot in the first, a middle or the last panel; K7t's P and C side by
+side at dx ≠ dn; K9t at negative centre weights), the block variants of
+K10–K12 and the wide bands of K1 and K6–K9, and the smoothing side and
+the AGSF's options against the CPU in float64. This file imports no
 JAX, so it also runs where JAX is not installed (the repository's
 conftest.py imports JAX, hence ``--noconftest``):
 
@@ -29,7 +31,7 @@ from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
 from bayesianfiltering_tpu_torch.ops import fused_ut as fu
 from bayesianfiltering_tpu_torch.ops import linear
 from bayesianfiltering_tpu_torch.ops import resample_gather as rg
-from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
+from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF, ut_weights
 
 pytestmark = pytest.mark.cuda
 
@@ -1528,3 +1530,246 @@ def test_batched_lorenz96_keeps_the_per_element_sigma_kernels(dev,
     assert sigma.launches == 6
     assert fu.K6T.launches == fu.K7T.launches == 0
     assert torch.isfinite(post.filtered_means).all()
+
+
+# ---------------------------------------------------------------------------
+# K9t at non-zero, negative centre weights (``ParamsUKF(0.5, 2, 0)``:
+# w0m = −3, w0c = −0.25), and K7t's one launch at dx ≠ dn both ways, with
+# a non-PD P or C: the NaN block on both sides in the same places.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,rows,dx,add_q", [(1, 1024, 512, True),
+                                             (2, 600, 300, False),
+                                             (1, 2048, 1024, True)])
+def test_tiled_ut_predict_at_negative_centre_weights(dev, dtype, B, rows, dx,
+                                                     add_q):
+    w = ut_weights(rows // 2, ParamsUKF(0.5, 2.0, 0.0))[1]
+    assert (w[1], w[2]) == (-3.0, -0.25)
+    args = _dev(testing.ut_predict_inputs(np.random.default_rng(rows), B,
+                                          rows, dx), dtype, dev)
+    got = _one_launch(fu.K9T, lambda *a: fu.fused_ut_predict(*a, *w, add_q),
+                      args)
+    for g, want in zip(got, fu._ut_predict_plain(*args, *w, add_q)):
+        assert torch.isfinite(g).all()
+        assert_close(g, want, WIDE_TOL[dtype])
+
+
+K7T_PAIRS = [(1, 512, 256), (2, 121, 512), (3, 300, 45), (1, 64, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,dx,dn", K7T_PAIRS)
+@pytest.mark.parametrize("part", ["none", "P", "C"])
+def test_tiled_sigma_aug_factors_p_and_c_side_by_side(dev, dtype, B, dx, dn,
+                                                      part):
+    """One launch factors P and C, of different sizes, side by side; a
+    non-PD P (element 0, its last pivot) NaNs that element's state block,
+    a non-PD C (a pivot in its first panel) every noise block, as the
+    plain version does on the CPU, where ``cholesky_ex`` flags every
+    failing pivot."""
+    raw = list(testing.sigma_aug_inputs(np.random.default_rng(dx + dn), B,
+                                        dx, dn))
+    if part == "P":
+        raw[1][0, dx - 1, dx - 1] = -1e3
+    elif part == "C":
+        raw[3][2, 2] = -1e3
+    args = _dev(raw, dtype, dev)
+    assert fu.sigma_aug_kernel(dx, dn, "cholesky", args[0].element_size(),
+                               _build.smem_optin(dev)) is fu.K7T
+    got = _one_launch(fu.K7T,
+                      lambda *a: fu.fused_sigma_aug(*a, 0.9, "cholesky"),
+                      args)[0]
+    want = fu._sigma_aug_plain(*(a.cpu() for a in args), 0.9,
+                               "cholesky").to(dev)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(nan.any()) == (part != "none")
+    assert_close(torch.where(nan, 0, got), torch.where(nan, 0, want),
+                 WIDE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,dx,dn", K7T_PAIRS[:2])
+def test_tiled_sigma_aug_newton_schulz_pairs_the_rounds(dev, dtype, B, dx,
+                                                        dn):
+    """K7t by Newton–Schulz, P's and C's rounds in grouped launches (each
+    product with its own batch), against the plain version."""
+    args = _dev(testing.sigma_aug_inputs(np.random.default_rng(dx), B, dx,
+                                         dn), dtype, dev)
+    got = _one_launch(fu.K7T, lambda *a: fu.fused_sigma_aug(*a, 1.1, "sqrtm"),
+                      args)[0]
+    assert torch.isfinite(got).all()
+    assert_close(got, fu._sigma_aug_plain(*args, 1.1, "sqrtm"),
+                 WIDE_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# The smoothing side and the AGSF's options on the card against the CPU,
+# float64 at 1e-8 (as chip_smoke.py's phase 4), small T and 2 iterations:
+# the time-varying parallel smoother, ERTS and URTS, the parallel iterated
+# smoothers (IEKS plain and LM, IPLS), the steady-state filter and
+# smoother, and the AGSF with "trace" and "sdp" splitting and with the
+# optimal reduction, each with the kernels it should launch.
+# ---------------------------------------------------------------------------
+
+SMOOTH_TOL = 1e-8
+F64 = torch.float64
+SMOOTHED = ("filtered_means", "filtered_covariances", "smoothed_means",
+            "smoothed_covariances", "marginal_loglik")
+MIXTURE = ("means", "covariances", "weights", "marginal_loglik")
+
+
+def _field(x, name):
+    return x[name] if isinstance(x, dict) else getattr(x, name)
+
+
+def _card_vs_cpu(run, names, launched, quiet=()):
+    """run(device) on the card (every counter reset before it) and on the
+    CPU: each field finite and within SMOOTH_TOL; the kernels in
+    ``launched`` launched, those in ``quiet`` not."""
+    _build.reset_launch_counts()
+    got = run("cuda")
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _build.KERNELS}
+    assert all(counts[k.name] > 0 for k in launched), counts
+    assert all(counts[k.name] == 0 for k in quiet), counts
+    want = run("cpu")
+    for n in names:
+        g, w = _field(got, n), _field(want, n)
+        assert torch.isfinite(g).all(), n
+        assert_close(g, w, SMOOTH_TOL)
+
+
+def _tv_arrays(T, dx, dy):
+    """A random time-varying model and emissions (chip_smoke.py's
+    ``tv_problem``): (m0, P0, Fs, cs, Qs, Hs, ds, Rs, ys)."""
+    rng = np.random.default_rng(dx * 100 + T)
+    f = 1.0 / np.sqrt(dx)
+    eye = np.eye(dx)
+    mats = f * rng.standard_normal((T, dx, dx))
+    em = rng.standard_normal((T, dy, dy)) / np.sqrt(dy)
+    return (rng.standard_normal(dx), eye,
+            0.7 * eye + 0.1 * f * rng.standard_normal((T, dx, dx)),
+            0.1 * rng.standard_normal((T, dx)),
+            0.5 * mats @ np.swapaxes(mats, -1, -2) + eye,
+            f * rng.standard_normal((T, dy, dx)),
+            0.1 * rng.standard_normal((T, dy)),
+            0.5 * em @ np.swapaxes(em, -1, -2) + np.eye(dy),
+            rng.standard_normal((T, dy)))
+
+
+@pytest.mark.parametrize("dx,dy,chunk,kernels", [
+    (4, 2, "auto", (bc.K10, bs.K11, bs.K12)),
+    (12, 5, 8, (bc.K10B, bs.K11B, bs.K12B))])
+def test_tv_smoother_kernel_path_matches_cpu(dev, dx, dy, chunk, kernels):
+    arrays = _tv_arrays(40, dx, dy)
+    other = [k for k in (bc.K10, bs.K11, bs.K12, bc.K10B, bs.K11B, bs.K12B)
+             if k not in kernels]
+    _card_vs_cpu(lambda d: tas.parallel_kalman_smoother_tv(
+        *_dev(arrays, F64, dev if d == "cuda" else "cpu"), chunk=chunk),
+        SMOOTHED, kernels, other)
+
+
+@pytest.fixture(scope="module")
+def rb_track():
+    """Range-bearing tracking at T = 30, sampled on the CPU from a seed:
+    (the model's parameters on the card and on the CPU, inputs,
+    emissions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    T = 30
+    model, cpu, _ = zoo.range_bearing_tracking(dtype=F64, device="cpu")
+    card = zoo.range_bearing_tracking(dtype=F64, device="cuda")[1]
+    inputs = zoo.bot_experiment_inputs(T, device="cpu")
+    _, em = model.sample(cpu, T, inputs=inputs,
+                         generator=torch.Generator().manual_seed(30))
+    return {"cuda": card, "cpu": cpu}, inputs, em
+
+
+UP = ParamsUKF(1.0, 0.0, 0.0, "cholesky")
+ITERATED = {
+    "ieks": lambda p, u, e: inference.parallel_iterated_extended_smoother(
+        p, e, num_iter=2, inputs=u, nominal="filter", damping=0.7)[0],
+    "lm-ieks": lambda p, u, e: inference.parallel_iterated_extended_smoother(
+        p, e, num_iter=2, inputs=u, nominal="filter", lm_lambda=100.0)[0],
+    "ipls": lambda p, u, e: inference.parallel_iterated_sigma_point_smoother(
+        p, UP, e, num_iter=2, inputs=u, nominal="filter")[0],
+    "erts": lambda p, u, e: inference.extended_rts_smoother(p, e, inputs=u),
+    "urts": lambda p, u, e: inference.unscented_rts_smoother(p, UP, e,
+                                                             inputs=u),
+}
+ITERATED_KERNELS = {"ieks": (fe.K1, fe.K2, bc.K10, bs.K11, bs.K12),
+                    "erts": (fe.K1, fe.K2), "urts": (fu.K7, fu.K8, fu.K9)}
+
+
+@pytest.mark.parametrize("label", list(ITERATED))
+def test_nonlinear_smoother_kernel_path_matches_cpu(dev, rb_track, label):
+    params, inputs, em = rb_track
+    run = ITERATED[label]
+    kernels = ITERATED_KERNELS.get(label, ITERATED_KERNELS["ieks"])
+    _card_vs_cpu(lambda d: run(params[d], inputs.to(d), em.to(d)), SMOOTHED,
+                 kernels)
+
+
+@pytest.mark.parametrize("kind", ["filter", "smoother"])
+def test_steady_state_kalman_matches_cpu(dev, kind):
+    """Path B's model at T = 400 (a head of 64, then the steady gain): no
+    kernel launches."""
+    from bayesianfiltering_tpu_torch.ops import steady_state as ss
+
+    rng = np.random.default_rng(40)
+    fields = testing.lgssm_fields(rng, 4, 2)
+    ys = rng.standard_normal((400, 2))
+
+    def run(d):
+        params = linear.ParamsLGSSM(**{k: testing.to_torch(v, F64, d)
+                                       for k, v in fields.items()})
+        return getattr(ss, f"steady_state_kalman_{kind}")(
+            params, testing.to_torch(ys, F64, d))
+    names = SMOOTHED if kind == "smoother" else (
+        "filtered_means", "filtered_covariances", "marginal_loglik")
+    _card_vs_cpu(run, names, (), _build.KERNELS)
+
+
+@pytest.mark.parametrize("autocov", ["trace", "sdp"])
+def test_agsf_splitting_rules_match_cpu(dev, autocov):
+    """The AGSF [3,2,2] on the quadratic-measurement model (f = 0.8·x + q,
+    g = 0.1·x² + r; T = 20, opt_args (0.8, 1.0), the top-k reduction, as
+    tests/test_torch_agsf_options.py) with the same draws on both sides.
+    (Experiment A's sin(10x) stretches a last-digit difference tenfold a
+    step: its "sdp" run parted from the CPU's within 20 steps.)"""
+    T = 20
+    model, cpu, _ = zoo.quadratic_measurement(dtype=F64, device="cpu")
+    card = zoo.quadratic_measurement(dtype=F64, device="cuda")[1]
+    _, em = model.sample(cpu, T, generator=torch.Generator().manual_seed(20))
+    draws = inference.agsf_draws(torch.Generator().manual_seed(21), T,
+                                 [3, 2, 2], 1, "topk", em)
+
+    def run(d):
+        moved = type(draws)(*(None if x is None else x.to(d) for x in draws))
+        return inference.augmented_gaussian_sum_filter(
+            card if d == "cuda" else cpu, em.to(d), [3, 2, 2],
+            opt_args=(0.8, 1.0), autocov=autocov, reduction="topk",
+            draws=moved)[0]
+    _card_vs_cpu(run, MIXTURE, (bu.K3, bu.K4))
+
+
+def test_agsf_optimal_matches_cpu(dev):
+    """The AGSF-optimal [4,2,2] on the stochastic-volatility model, its
+    regime input switching at T/2 (T = 20), with the same draws."""
+    T, M = 20, 4
+    model, cpu, _ = zoo.stochastic_volatility(dtype=F64, device="cpu")
+    card = zoo.stochastic_volatility(dtype=F64, device="cuda")[1]
+    inputs = torch.cat([torch.zeros(T // 2), torch.ones(T - T // 2)])
+    _, em = model.sample(cpu, T, inputs=inputs,
+                         generator=torch.Generator().manual_seed(22))
+    draws = inference.agsf_draws(torch.Generator().manual_seed(23), T,
+                                 [M, 2, 2], 3, "optimal", em)
+
+    def run(d):
+        moved = type(draws)(*(None if x is None else x.to(d) for x in draws))
+        return inference.augmented_gaussian_sum_filter_optimal(
+            card if d == "cuda" else cpu, em.to(d), [M, 2, 2],
+            opt_args=(0.1, 0.1), inputs=inputs.to(d), draws=moved)[0]
+    _card_vs_cpu(run, MIXTURE, (bu.K3, bu.K4))

@@ -155,6 +155,25 @@ def test_sample_with_injected_noise(name):
     assert_close(got_y, want_y)
 
 
+@pytest.mark.parametrize("last_pivot", [float("nan"), -1.0, 0.0])
+def test_cholesky_nan_fails_a_factor_whose_info_misses_a_bad_pivot(
+        monkeypatch, last_pivot):
+    """A factor that ``cholesky_ex`` returns with ``info`` = 0 but a last
+    pivot that is not positive (as on an H100 for one matrix failing only
+    at its last pivot) is NaN throughout; its good neighbour is kept."""
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal((2, 5, 5))
+    spd = t(a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(5))
+    exact = torch.linalg.cholesky(spd)
+    missed = exact.clone()
+    missed[1, 4, 4] = last_pivot
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", lambda x: (
+        missed, torch.zeros(2, dtype=torch.int32)))
+    got = linalg.cholesky_nan(spd)
+    assert torch.isnan(got[1]).all()
+    assert torch.equal(got[0], exact[0])
+
+
 def test_numerical_base_matches_jax():
     rng = np.random.default_rng(1)
     a = rng.standard_normal((3, 4, 4))

@@ -12,19 +12,23 @@ touch reads lower(P), its steps run every trailing tile with its own panel
 tiles, the look-ahead factors the next diagonal tile; the blocks take their
 tasks in turns) and writes the points in that launch's epilogue, NaN
 throughout unless the factor's flag is clear; or it runs 14 Newton–Schulz
-rounds of three products and a points pass. K7t composes the factor of P
-over the batch, of the shared C, and one pass that writes the four blocks
-of the augmented points, each block NaN unless its pivots are finite and
-positive. Both schedules are written out below in numpy, phase by phase,
+rounds of three products and a points pass. K7t factors P over the batch
+and the shared C side by side in one such launch (``testing.run_factors``:
+both problems' tasks in every phase, their look-ahead diagonal tiles
+first), whose epilogue writes the four blocks of the augmented points,
+each block NaN where its factor's flag is set; by Newton–Schulz it pairs
+P's and C's rounds. Both schedules are written out below in numpy, phase
+by phase,
 on scratch seeded with NaN (the factor never writes the strict upper part
 of its off-diagonal tiles, so a read of it would show; the model also
 checks that no task reads what another task of its phase writes), and
 held to the JAX package's XLA twins (``fused_ut._sigma_xla``,
 ``_sigma_aug_xla``) at n = 33, 64, 241, 512 and 1,024 (ragged last panels
 at 33 and 241). The C functions that size the factor's scratch and its
-phases (``AugLayout``, ``factor_tasks``, ``factor_elems``), compiled by
-the host compiler, are held to ``testing``'s mirror at config 5 and at the
-band's edges. K6's and K7's own in-block factor (``csrc/common.cuh``
+phases (``AugLayout``, ``step_tasks``, ``factor_tasks`` of one problem
+and of two, ``factor_elems``), and ``tiled.cuh``'s split rules, compiled
+by the host compiler, are held to ``testing``'s mirror at config 5 and at
+the band's edges. K6's and K7's own in-block factor (``csrc/common.cuh``
 ``block_cholesky_panels``: one warp factors each 32-column diagonal
 block, each thread substitutes whole rows below it, then a lower trailing
 update) is written out too and held to ``torch.linalg.cholesky_ex``. The
@@ -200,18 +204,14 @@ def tiled_factor(P, method, blocks=132):
     return P.dtype.type(0.5) * (Y * rs + Y.T * rs), False
 
 
-def offsets(F, scale, lower, bad=None):
-    """scale·F read as the points pass reads it: entry (r, c) is
+def offsets(F, scale, lower, bad=False):
+    """scale·F read as the points are written: entry (r, c) is
     scale·F[c][r], zero where c < r for a Cholesky factor (never read),
-    NaN throughout where ``bad`` (K6t's epilogue: the factor's flag) or,
-    where bad is None, unless every pivot is finite and positive (K7t's
-    points pass)."""
+    NaN throughout where ``bad`` (the factor's flag, in K6t's and K7t's
+    epilogues)."""
     n = F.shape[-1]
     if not lower:
         return scale * F.T
-    d = np.diag(F)
-    if bad is None:
-        bad = not (np.isfinite(d) & (d > 0)).all()
     if bad:
         return np.full_like(F, np.nan)
     keep = np.tri(n, dtype=bool)  # F[c][r] with c ≥ r
@@ -234,15 +234,24 @@ def tiled_sigma(m, P, scale, method):
 
 
 def tiled_sigma_aug(m, P, bias, C, scale, method):
-    """K7t: K6t's factors of P (per element) and C (once), then the
+    """K7t: by Cholesky, one launch that factors P (per element) and C
+    (once) side by side (``testing.square_factor_pair``), each block NaN
+    where its factor's flag is set; by Newton–Schulz, both roots (their
+    rounds paired in grouped launches: the same arithmetic). Then the
     assembly of [mA + off; mA − off], off = blkdiag(state, noise)."""
     lower = method == "cholesky"
-    noise = offsets(tiled_factor(C, method)[0], scale, lower)
+    if lower:
+        fp, fc = testing.square_factor_pair(P, C)
+        state = [(fp.L[b], bool(fp.flag[b])) for b in range(m.shape[0])]
+        noise = offsets(fc.L[0], scale, True, bool(fc.flag[0]))
+    else:
+        state = [tiled_factor(P[b], method) for b in range(m.shape[0])]
+        noise = offsets(tiled_factor(C, method)[0], scale, False)
     dx, dn = m.shape[-1], bias.shape[-1]
     out = []
-    for b in range(m.shape[0]):
+    for b, (F, bad) in enumerate(state):
         off = np.zeros((dx + dn, dx + dn), m.dtype)
-        off[:dx, :dx] = offsets(tiled_factor(P[b], method)[0], scale, lower)
+        off[:dx, :dx] = offsets(F, scale, lower, bad)
         off[dx:, dx:] = noise
         mA = np.concatenate([m[b], bias])
         out.append(np.concatenate([mA + off, mA - off]))
@@ -313,6 +322,38 @@ def test_the_factor_hands_out_its_tasks_in_turns():
         if total <= 2 * 5 - 3:
             assert all(g > 2 for p, g in owner.items() if p >= 3)
     assert testing.block_tasks(7, 3) == [[0, 5, 6], [1, 4], [2, 3]]
+
+
+@pytest.mark.parametrize("dx,dn,B", [(100, 45, 2), (40, 130, 1)])
+def test_the_pair_factor_runs_both_chains_side_by_side(dx, dn, B):
+    """K7t's one launch over 7 blocks: P's chain (B elements) and C's (one)
+    share every phase, the longer setting the phases' number; a step
+    hands out both problems' look-ahead diagonal tiles first (P's, then
+    C's), then P's other tiles, then C's; a chain that has ended adds no
+    task; the factors equal those of each problem alone (the model checks
+    that no task reads what another of its phase writes, across both)."""
+    _, P, _, C = testing.sigma_aug_inputs(np.random.default_rng(dx), B, dx,
+                                          dn)
+    fp, fc = testing.square_factor_pair(P, C, blocks=7)
+    alone = (testing.square_factor(P, blocks=7),
+             testing.square_factor(C[None], blocks=7))
+    for f, g in zip((fp, fc), alone):
+        np.testing.assert_array_equal(np.nan_to_num(f.L, nan=7.0),
+                                      np.nan_to_num(g.L, nan=7.0))
+        assert (f.flag == 0).all()
+    ntp, ntn = testing.tiles_of(dx), testing.tiles_of(dn)
+    assert len(fp.owner) == max(ntp, ntn) and fp.owner is fc.owner
+    assert sorted(fp.owner[0]) == list(range(B + 1))
+    for k, owner in enumerate(fp.owner[1:]):
+        sp, sn = (testing.step_tasks(k, n, n) for n in (dx, dn))
+        assert sorted(owner) == list(range(B * sp + sn))
+        diag = (B if sp else 0) + (1 if sn else 0)
+        rnd0 = [g for p, g in sorted(owner.items()) if p < diag]
+        assert rnd0 == list(range(diag))
+    assert testing.factor_tasks(dx, dx, B, (dn, 1)) == max(
+        [B + 1] + [B * testing.step_tasks(k, dx, dx)
+                   + testing.step_tasks(k, dn, dn)
+                   for k in range(max(ntp, ntn) - 1)])
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -467,14 +508,42 @@ def _cxx_block(src: str, head: str) -> str:
 PLAN_CASES = [("k6t", (1, 512, "cholesky")), ("k6t", (1, 1024, "cholesky")),
               ("k6t", (3, 241, "cholesky")), ("k6t", (1, 512, "sqrtm")),
               ("k6t", (1, 1024, "sqrtm")), ("k7t", (1, 512, 512, "cholesky")),
-              ("k7t", (2, 1000, 24, "cholesky")), ("k1t", (512, 256)),
+              ("k7t", (2, 1000, 24, "cholesky")),
+              ("k7t", (1, 512, 256, "cholesky")),
+              ("k7t", (145, 64, 64, "cholesky")),
+              ("k7t", (1, 512, 512, "sqrtm")), ("k7t", (2, 300, 45, "sqrtm")),
+              ("k9t", (1, 1024, 512)), ("k9t", (1, 2048, 1024)),
+              ("k9t", (3, 600, 300)), ("k1t", (512, 256)),
               ("k1t", (512, 128)), ("k1t", (64, 512)), ("k1t", (512, 512)),
               ("k1t", (9, 1)), ("k8t", (1024, 512, 256)),
               ("k8t", (2048, 1024, 1024)), ("k8t", (130, 100, 33)),
               ("k2t", (512, 512)), ("k2t", (200, 70)), ("k2t", (100, 1)),
               ("k2t", (33, 97))]
+# (dy, height, B, dn, B2) of the factor's task plan: K6t, K1t and K8t
+# alone (B2 = 0), K7t's P and C side by side at config 5's dn = 512 and
+# 256, at dx ≠ dn both ways and ragged
+TASK_CASES = [(512, 512, 1, 0, 0), (1024, 1024, 1, 0, 0), (241, 241, 3, 0, 0),
+              (256, 1025, 1, 0, 0), (128, 897, 1, 0, 0), (512, 1089, 1, 0, 0),
+              (33, 99, 2, 0, 0), (1, 11, 1, 0, 0), (256, 769, 1, 0, 0),
+              (1024, 2049, 1, 0, 0), (33, 134, 2, 0, 0),
+              (512, 512, 1, 512, 1), (512, 512, 1, 256, 1),
+              (64, 64, 145, 64, 1), (121, 121, 1, 512, 1),
+              (100, 100, 2, 45, 1), (5, 5, 3, 70, 1)]
+# (dy, height, k) of ``step_tasks``: the first, a middle and the last
+# steps, past the chain's end, and with rows under S
+STEP_CASES = [(512, 512, 0), (512, 512, 7), (512, 512, 14), (512, 512, 15),
+              (256, 256, 9), (241, 241, 3), (256, 769, 0), (33, 99, 0),
+              (1, 11, 0)]
+# (ta, tb, K, SMs) of gemm2's split: K2t at config 5 (128 + 128 tiles of
+# 64 × 32), at dx = 200, dq = 70, K7t's Newton–Schulz pairs at dn = 512,
+# 256 and 45 (dx = 300), the edges of the split-of-2 rule
+PAIR_CASES = [(128, 128, 512, 132), (28, 12, 200, 132),
+              (128, 32, 512, 132), (45, 2, 300, 132), (132, 33, 512, 132),
+              (132, 34, 512, 132), (133, 20, 512, 132), (100, 40, 64, 132),
+              (100, 40, 128, 132)]
 # (tiles, K, SMs) of tiled.cuh's k-split rule: K2t's two products grouped
-# and apart, K8t's moments and covariance, K1t's gain, the edges
+# and apart, K8t's moments and covariance, K9t's product (config 5's 72
+# lower tiles over 1,024 rows), K1t's gain, the edges
 SPLIT_CASES = [(256, 512, 132), (128, 512, 132), (84, 1024, 132),
                (72, 1024, 132), (20, 256, 132), (33, 256, 132),
                (34, 256, 132), (132, 64, 132), (133, 4096, 132),
@@ -485,9 +554,10 @@ SPLIT_CASES = [(256, 512, 132), (128, 512, 132), (84, 1024, 132),
 @pytest.fixture(scope="module")
 def cuda_plan(tmp_path_factory):
     """The scratch sizes and the factor's task counts as the CUDA sources
-    compute them (``AugLayout``, ``factor_tasks``, ``factor_elems``, the
-    update scratches and K2t's), and tiled.cuh's k-split rule
-    (``gemm_split``), compiled by the host compiler."""
+    compute them (``AugLayout``, ``step_tasks``, ``factor_tasks`` of one
+    problem or two, ``factor_elems``, the update scratches, K2t's and
+    K9t's), and tiled.cuh's k-split rules (``gemm_split``,
+    ``pair_split``), compiled by the host compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -510,27 +580,35 @@ def cuda_plan(tmp_path_factory):
         elif kind == "k2t":
             lines.append('  std::printf("%lld\\n", predict_scratch({}, {}));'
                          .format(*shape))
+        elif kind == "k9t":
+            lines.append('  std::printf("%lld\\n", predict_scratch_elems({}, '
+                         '{}, {}));'.format(*shape))
         else:
             lines.append('  std::printf("%lld\\n", UtUpdateScratch({}, {}, '
                          '{}).f.total);'.format(*shape))
-    tasks = [(dy, h, B) for dy, h, B in
-             ((512, 512, 1), (1024, 1024, 1), (241, 241, 3), (256, 1025, 1),
-              (128, 897, 1), (512, 1089, 1), (33, 99, 2), (1, 11, 1),
-             (256, 769, 1), (1024, 2049, 1), (33, 134, 2))]
-    for dy, h, B in tasks:
+    for dy, h, B, dn, B2 in TASK_CASES:
         lines.append(f'  std::printf("%lld\\n", factor_tasks(AugLayout(0, '
-                     f'{dy}, {h}), {B}));')
+                     f'{dy}, {h}), {B}, AugLayout(0, {dn}, {dn}), {B2}));')
     for tiles, K, sms in SPLIT_CASES:
         lines.append(f'  std::printf("%lld\\n", (long long)gemm_split('
                      f'{tiles}, {K}, {sms}));')
+    for dy, h, k in STEP_CASES:
+        lines.append(f'  std::printf("%lld\\n", step_tasks(AugLayout(0, '
+                     f'{dy}, {h}), {k}));')
+    for ta, tb, K, sms in PAIR_CASES:
+        lines.append(f'  std::printf("%lld\\n", (long long)pair_split('
+                     f'{ta}, {tb}, {K}, {sms}));')
     prog = "\n".join(
         ["#include <cstdio>", "#define __host__", "#define __device__",
          "constexpr int kNb = 32;", "constexpr int kSqrtm = 1;",
          "constexpr int kGemmBK = 16;", "constexpr int kMaxSplit = 4;",
          _cxx_block(tiled, r"inline int gemm_split"),
+         _cxx_block(tiled, r"inline int pair_split"),
          _cxx_block(chol, r"__host__ __device__ inline int tiles_of"),
          _cxx_block(chol, r"struct AugLayout"),
+         _cxx_block(chol, r"__host__ __device__ inline long long step_tasks"),
          _cxx_block(chol, r"inline long long factor_tasks"),
+         _cxx_block(sigma, r"__host__ __device__ inline long long ns_stride"),
          _cxx_block(sigma, r"long long factor_stride"),
          _cxx_block(sigma, r"long long factor_elems"),
          "long long aug_elems(int B, int dx, int dn, int method) {",
@@ -539,6 +617,7 @@ def cuda_plan(tmp_path_factory):
          _cxx_block(ekf, r"struct UpdateScratch"),
          _cxx_block(ekf, r"long long predict_scratch"),
          _cxx_block(ut, r"struct UtUpdateScratch"),
+         _cxx_block(ut, r"long long predict_scratch_elems"),
          "int main() {"] + lines + ["}"])
     tmp = tmp_path_factory.mktemp("plan")
     (tmp / "plan.cpp").write_text(prog)
@@ -546,17 +625,17 @@ def cuda_plan(tmp_path_factory):
                     str(tmp / "plan.cpp")], check=True)
     out = subprocess.run([str(tmp / "plan")], check=True, capture_output=True,
                          text=True).stdout.split()
-    values = list(map(int, out))
-    n_plan, n_tasks = len(PLAN_CASES), len(tasks)
-    assert len(values) == n_plan + n_tasks + len(SPLIT_CASES)
-    return (dict(zip(PLAN_CASES, values[:n_plan])),
-            dict(zip(tasks, values[n_plan:n_plan + n_tasks])),
-            dict(zip(SPLIT_CASES, values[n_plan + n_tasks:])))
+    values = iter(map(int, out))
+    got = [{case: next(values) for case in cases}
+           for cases in (PLAN_CASES, TASK_CASES, SPLIT_CASES, STEP_CASES,
+                         PAIR_CASES)]
+    assert next(values, None) is None
+    return got
 
 
 MIRRORS = {"k6t": testing.k6t_scratch, "k7t": testing.k7t_scratch,
            "k1t": testing.k1t_scratch, "k8t": testing.k8t_scratch,
-           "k2t": testing.k2t_scratch}
+           "k2t": testing.k2t_scratch, "k9t": testing.k9t_scratch}
 
 
 @pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: f"{c[0]}{c[1]}")
@@ -566,8 +645,8 @@ def test_the_scratch_mirror_matches_the_cuda_source(cuda_plan, case):
 
 
 def test_the_task_counts_match_the_cuda_source(cuda_plan):
-    for (dy, h, B), got in cuda_plan[1].items():
-        assert testing.factor_tasks(dy, h, B) == got
+    for (dy, h, B, dn, B2), got in cuda_plan[1].items():
+        assert testing.factor_tasks(dy, h, B, (dn, B2) if B2 else None) == got
 
 
 def test_the_product_split_matches_the_cuda_source(cuda_plan):
@@ -575,10 +654,24 @@ def test_the_product_split_matches_the_cuda_source(cuda_plan):
         assert testing.gemm_split(tiles, K, sms) == got
 
 
+def test_the_step_tasks_match_the_cuda_source(cuda_plan):
+    for (dy, h, k), got in cuda_plan[3].items():
+        assert testing.step_tasks(k, dy, h) == got
+
+
+def test_the_pair_split_matches_the_cuda_source(cuda_plan):
+    """gemm2's split: K2t at config 5 keeps 1, K7t's Newton–Schulz pair at
+    dn = 256 takes 2."""
+    got = cuda_plan[4]
+    for (ta, tb, K, sms), split in got.items():
+        assert testing.pair_split(ta, tb, K, sms) == split
+    assert got[(128, 128, 512, 132)] == 1 and got[(128, 32, 512, 132)] == 2
+
+
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("dy,height,B,epi,blocks,barriers,in_l2", [
     (512, 512, 1, "points", 132, 16, (True, True)),   # K6t, config 5
-    (512, 512, 1, "none", 120, 16, (True, True)),     # K7t's factor of P
+    (512, 512, 1, "points:512", 132, 16, (True, True)),  # K7t, P and C
     (256, 1025, 1, "gain", 132, 9, (True, True)),     # K1t, config 5
     (128, 897, 1, "gain", 81, 5, (True, True)),       # update_chunk=128
     (256, 1281, 1, "gain", 132, 9, (True, True)),     # K1t at dx = 768
@@ -594,7 +687,9 @@ def test_the_factor_launch_at_config_5_and_the_edges(itemsize, dy, height,
     panel (and one before the epilogue where a last phase runs), in both
     dtypes; W and L stay in the H100's 50 MiB L2 at every shape of the band
     (K8t's edge in float64 takes 48 MiB of it)."""
-    plan = testing.factor_launch(dy, height, B, itemsize, epi)
+    epi, _, dn = epi.partition(":")
+    plan = testing.factor_launch(dy, height, B, itemsize, epi,
+                                 dn=int(dn or 0))
     assert plan == {"route": "grid", "launches": 1, "blocks": blocks,
                     "barriers": barriers,
                     "in_l2": in_l2[itemsize == 8]}

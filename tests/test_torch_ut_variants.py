@@ -12,16 +12,20 @@ W = [S; Cᵀ; innovᵀ] (no I rows) with K1t's one-launch blocked Cholesky
 (``testing.augmented_factor``), and forms the covariance as
 sym(P) − lower(Zᵀ Z), mirrored, one product over L's rows of Zᵀ whose
 epilogue adds ½(P + Pᵀ): the grouped Joseph form, since K = Zᵀ L⁻¹. K9t
-centres the points and forms lower(w_side·Xcᵀ Xc + w0c·d0 d0ᵀ) + sym(Q),
-mirrored. Both schedules are written out below in numpy, step for step as
-the launches compute them, K8t's on its scratch seeded with NaN and
-addressed as the kernel addresses it (its products block by block,
-``testing.run_gemms``), and
+is two launches: one pass forms μ (each column summed by row groups in
+order, the groups added in a fixed tree), Xc and d0; one product, split
+along the points over a cluster at config 5, forms
+lower(w_side·Xcᵀ Xc + w0c·d0 d0ᵀ) + sym(Q), mirrored. Both schedules are
+written out in numpy, step for step as the launches compute them, on
+scratch seeded with NaN and addressed as the kernels address it (the
+products block by block, ``testing.run_gemms``; K9t's whole schedule is
+``testing.tiled_ut_predict``), and
 held to the JAX package's XLA twins (``fused_ut._ut_update_xla``,
 ``_ut_predict_xla``) at shapes that are not multiples of the panel (32) or
 of a tile, with and without R or Q, with points wider than the state
-(augmented points), and with a non-positive-definite S failing in the
-first, a middle or the last panel. The port's wrappers on CPU tensors (the plain
+(augmented points), with negative centre weights (``ParamsUKF(0.5, 2,
+0)``: w0m = −3, w0c = −0.25), and with a non-positive-definite S failing
+in the first, a middle or the last panel. The port's wrappers on CPU tensors (the plain
 versions) are held to JAX at shapes the rule sends to the tiled variants.
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
 
@@ -29,9 +33,9 @@ The references run in float64. Tolerances (relative to max(1,
 max|reference|)): float64 1e-9, float32 1e-4, as
 tests/test_torch_ekf_variants.py: the same formulas in another order, and
 float32 rounding through a Cholesky of S. At config 5's shapes in float32
-the schedule's error against the float64 reference is held to 1.25× that
-of the port's float32 plain version (the Joseph form): sym(P) − ZᵀZ costs
-no accuracy.
+the schedules' error against the float64 reference is held to 1.25× that
+of the port's float32 plain version: sym(P) − ZᵀZ (against the Joseph
+form) and K9t's row split cost no accuracy.
 """
 import functools
 import math
@@ -108,13 +112,14 @@ def update_case(B, rows, ld, dx, dy, add_r):
 
 
 @functools.lru_cache(maxsize=None)
-def predict_case(B, rows, dx, add_q):
+def predict_case(B, rows, dx, add_q, alpha=1.0):
     """The predict's inputs (fpts, center, Q) with an asymmetric Q, the
-    weights, and the JAX reference (μ, Σ)."""
+    weights (α = 0.5 gives non-zero, negative centre weights: w0m = −3,
+    w0c = −0.25), and the JAX reference (μ, Σ)."""
     rng = np.random.default_rng(rows + dx)
     fpts, center, Q = testing.ut_predict_inputs(rng, B, rows, dx)
     Q = Q + 0.1 * np.triu(rng.standard_normal((dx, dx)), 1)
-    w = weights(rows)
+    w = ut_weights(rows // 2, ParamsUKF(alpha, 2.0, 0.0))[1]
     predict = jax.vmap(lambda f, c, q: jfu._ut_predict_xla(f, c, q, w, add_q),
                        in_axes=(0, 0, None))
     return (fpts, center, Q), w, _jax_run(predict, fpts, center, Q)
@@ -225,17 +230,6 @@ def tiled_ut_update(pts, hpts, center_y, mu_y, m, P, R, innov, w, add_r):
     return ll[0], mean[0], cov.reshape(dx, dx)
 
 
-def tiled_ut_predict(fpts, center, Q, w, add_q):
-    """One element of K9t, launch by launch."""
-    w_side, w0m, w0c = w
-    mu = w_side * fpts.sum(0) + w0m * center
-    d0, Xc = center - mu, fpts - mu
-    cov = np.tril(w_side * Xc.T @ Xc + w0c * np.outer(d0, d0))
-    if add_q:
-        cov = cov + np.tril(0.5 * (Q + Q.T))
-    return mu, cov + np.tril(cov, -1).T
-
-
 def _update_batch(args, w, add_r):
     pts, hpts, cy, mu_y, m, P, R, innov = args
     outs = [tiled_ut_update(pts[b], hpts[b], cy[b], mu_y[b], m[b], P[b], R,
@@ -245,10 +239,10 @@ def _update_batch(args, w, add_r):
 
 
 def _predict_batch(args, w, add_q):
-    fpts, center, Q = args
-    outs = [tiled_ut_predict(fpts[b], center[b], Q, w, add_q)
-            for b in range(fpts.shape[0])]
-    return [np.stack(x) for x in zip(*outs)]
+    """K9t over the batch, launch by launch (``testing.tiled_ut_predict``:
+    the mean-and-centre pass, then the product, split along the rows at
+    config 5): (μ, Σ)."""
+    return testing.tiled_ut_predict(*args, w, add_q)[:2]
 
 
 # (B, rows, ld, dx, dy, add_r): one panel of 1 row and of 33 (a panel and
@@ -322,6 +316,64 @@ def test_tiled_ut_predict_schedule_matches_the_reference(B, rows, dx, add_q):
     args, w, want = predict_case(B, rows, dx, add_q)
     for g, wt in zip(_predict_batch(args, w, add_q), want):
         assert_close(g, wt, "float64")
+
+
+@pytest.mark.parametrize("B,rows,dx,add_q", PREDICT_SHAPES)
+def test_tiled_ut_predict_schedule_at_negative_centre_weights(B, rows, dx,
+                                                             add_q):
+    """``ParamsUKF(0.5, 2, 0)``'s weights: w0m = −3 and w0c = −0.25 (at
+    any n), so the centre point's terms subtract."""
+    args, w, want = predict_case(B, rows, dx, add_q, 0.5)
+    assert w[1] == -3.0 and w[2] == -0.25
+    for g, wt in zip(_predict_batch(args, w, add_q), want):
+        assert_close(g, wt, "float64")
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+def test_tiled_ut_predict_schedule_at_config_5_costs_no_float32_accuracy(
+        alpha):
+    """Config 5's predict (1,024 points, dx = 512, Q added) in float32, at
+    the UKF's weights (w0m = 0, w0c = 2) and at negative centre weights:
+    the schedule's row split is a cluster of 2 on 64 × 32 lower tiles, and
+    each output is as close to the float64 JAX twin as the port's float32
+    plain version, within a factor 1.25."""
+    args, w, want = predict_case(1, 1024, 512, True, alpha)
+    f32 = [np.asarray(a, np.float32) for a in args]
+    mu, cov, plan = testing.tiled_ut_predict(*f32, w, True)
+    assert plan["tile"] == (64, 32) and plan["split"] == 2
+    plain = fu._ut_predict_plain(*(torch.as_tensor(a) for a in f32), *w,
+                                 True)
+    for g, pl, wt in zip((mu, cov), plain, want):
+        err = np.abs(np.asarray(g, np.float64) - wt).max()
+        err_plain = np.abs(pl.double().numpy() - wt).max()
+        assert np.isfinite(g).all() and err <= 1.25 * err_plain, (
+            err, err_plain)
+
+
+def test_the_mean_pass_sums_in_a_fixed_order():
+    """K9t's first pass: the row groups (32 in float32, a strip of 8
+    columns; 64 in float64, 4 columns) each sum their rows in order and the
+    tree adds the groups, so that a float32 run is bit for bit the same
+    whatever the column; Xc and d0 come from the same μ."""
+    rng = np.random.default_rng(11)
+    fpts = rng.standard_normal((2, 100, 9)).astype(np.float32)
+    center = rng.standard_normal((2, 9)).astype(np.float32)
+    mu, xc, d0 = testing.k9t_mean_centre(fpts, center, 0.01, -0.5)
+    groups = np.zeros((2, 32, 9), np.float32)
+    for r in range(100):
+        groups[:, r % 32] += fpts[:, r]
+    h = 16
+    while h:
+        groups[:, :h] = groups[:, :h] + groups[:, h:2 * h]
+        h //= 2
+    want = np.float32(0.01) * groups[:, 0] + np.float32(-0.5) * center
+    np.testing.assert_array_equal(mu, want)
+    np.testing.assert_array_equal(xc, fpts - mu[:, None])
+    np.testing.assert_array_equal(d0, center - mu)
+    f64 = testing.k9t_mean_centre(fpts.astype(np.float64),
+                                  center.astype(np.float64), 0.01, -0.5)[0]
+    np.testing.assert_allclose(f64, 0.01 * fpts.astype(np.float64).sum(1)
+                               - 0.5 * center, rtol=0, atol=1e-12)
 
 
 # ---------------------------------------------------------------------------
