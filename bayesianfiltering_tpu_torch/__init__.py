@@ -3,7 +3,8 @@
 Same module layout and public names as the JAX package, which stays the
 reference. The EKF and UKF, the Gaussian-sum filters, the AGSF family, the
 bootstrap particle filter's resampling and the temporally parallel Kalman
-filter and smoother run their hot loops in hand-written CUDA kernels
+filter and smoother — and so the model layer's EM and SGD fitting and the
+streaming steppers built on them — run their hot loops in hand-written CUDA kernels
 (``csrc/``, built at first use by
 :mod:`bayesianfiltering_tpu_torch._build`) on CUDA tensors, and in plain
 PyTorch twins on CPU tensors. Importing the package applies the precision
@@ -12,10 +13,12 @@ policy of :mod:`bayesianfiltering_tpu_torch.config`.
 from bayesianfiltering_tpu_torch import config  # noqa: F401  (precision policy)
 from bayesianfiltering_tpu_torch import (
     containers,
+    diagnostics,
     distributions,
     inference,
     models,
     ops,
+    streaming,
     utils,
 )
 from bayesianfiltering_tpu_torch.containers import GaussianSum
@@ -34,6 +37,7 @@ from bayesianfiltering_tpu_torch.inference import (
 )
 from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
 from bayesianfiltering_tpu_torch.models import (
+    NonlinearGaussianSSM,
     NonlinearSSM,
     ParamsBPF,
     ParamsNLSSM,
@@ -44,10 +48,12 @@ from bayesianfiltering_tpu_torch.models import (
 __all__ = [
     "config",
     "containers",
+    "diagnostics",
     "distributions",
     "inference",
     "models",
     "ops",
+    "streaming",
     "utils",
     "GaussianSum",
     "PosteriorGaussianSumFiltered",
@@ -62,6 +68,7 @@ __all__ = [
     "unscented_agsf",
     "speedy_unscented_agsf",
     "ParamsUKF",
+    "NonlinearGaussianSSM",
     "NonlinearSSM",
     "ParamsBPF",
     "ParamsNLSSM",

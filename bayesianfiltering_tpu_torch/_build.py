@@ -52,6 +52,11 @@ def register(name: str, source: str, replaces: str) -> Kernel:
     return k
 
 
+# Set by ``diagnostics.debug_nans`` for the span of its block: called with
+# each kernel op's name and outputs after the op runs.
+nan_check: Optional[Callable] = None
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
@@ -299,7 +304,10 @@ def kernel_op(plain: Callable, launch: Callable, num_tensors: int) -> Callable:
             ctx.static = static
             ctx.save_for_backward(*tensors)
             run = launch if tensors[0].is_cuda else plain
-            return run(*tensors, *static)
+            out = run(*tensors, *static)
+            if nan_check is not None:
+                nan_check(getattr(launch, "__name__", "kernel_op"), out)
+            return out
 
         @staticmethod
         def backward(ctx, *cts):

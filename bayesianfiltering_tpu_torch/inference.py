@@ -316,16 +316,53 @@ def unscented_kalman_filter(
 def _rts_smoothed(post: PosteriorGaussianFiltered,
                   G: torch.Tensor) -> PosteriorGaussianSmoothed:
     """The RTS recursion backwards from the last filtered marginal, with
-    the gains ``G`` (T−1, dx, dx) of every step formed beforehand:
+    the gains ``G`` (..., T−1, dx, dx) of every step formed beforehand:
     ``m_s = m_f + G (m_s' − m_p)``, ``P_s = sym(P_f + G (P_s' − P_p) Gᵀ)``.
-    Only this affine recursion is a loop."""
+    The time axis follows any batch axis. Only this affine recursion is a
+    loop."""
     _, fm, fP, pm, pP = post
-    sm, sP = [fm[-1]], [fP[-1]]
-    for t in range(len(fm) - 2, -1, -1):
-        sm.append(fm[t] + G[t] @ (sm[-1] - pm[t]))
-        sP.append(symmetrize(fP[t] + G[t] @ (sP[-1] - pP[t]) @ G[t].mT))
-    return PosteriorGaussianSmoothed(*post, torch.stack(sm[::-1]),
-                                     torch.stack(sP[::-1]))
+    T = fm.shape[-2]
+    sm, sP = [fm[..., -1, :]], [fP[..., -1, :, :]]
+    for t in range(T - 2, -1, -1):
+        Gt = G[..., t, :, :]
+        sm.append(fm[..., t, :]
+                  + (Gt @ (sm[-1] - pm[..., t, :])[..., None])[..., 0])
+        sP.append(symmetrize(fP[..., t, :, :]
+                             + Gt @ (sP[-1] - pP[..., t, :, :]) @ Gt.mT))
+    return PosteriorGaussianSmoothed(*post, torch.stack(sm[::-1], dim=-2),
+                                     torch.stack(sP[::-1], dim=-3))
+
+
+def _over_steps(fn, x, noise, u):
+    """``fn(x, noise, u)`` at every step of ``x`` (..., n, d): the noise
+    (n, dn) and the inputs (n, ...) are per step and shared by any batch
+    axes of ``x``. Returns (..., n) + the output's shape."""
+    lead, n = x.shape[:-2], x.shape[-2]
+    k = math.prod(lead)
+    flat = x.reshape((k * n,) + x.shape[-1:])
+    rep = lambda a: a.expand((k,) + a.shape).reshape((k * n,) + a.shape[1:])
+    out = _steps(fn)(flat, rep(noise), rep(u))
+    return out.reshape(lead + (n,) + out.shape[1:])
+
+
+def _extended_rts(params: ParamsNLSSM, emissions: torch.Tensor,
+                  num_iter: int = 1, inputs: Optional[torch.Tensor] = None,
+                  jitter: float = 0.0):
+    """:func:`extended_rts_smoother` and its gains (..., T−1, dx, dx)."""
+    post = extended_kalman_filter(params, emissions, num_iter, inputs,
+                                  jitter)
+    fm, fP, pm, pP = post[1:]
+    T, dx = fm.shape[-2:]
+    if T < 2:
+        return (PosteriorGaussianSmoothed(*post, *post[1:3]),
+                fP[..., :0, :, :])
+    F_x = _jacobians(params)[2]
+    inputs = _process_input(inputs, T, emissions)
+    _, q0, _, _ = _noise_steps(params, torch.arange(T - 1, device=fm.device))
+    Fx = _over_steps(F_x, fm[..., :-1, :], q0, inputs[1:]).reshape(
+        fm.shape[:-2] + (T - 1, dx, dx))
+    G = psd_solve(pP[..., :-1, :, :], Fx @ fP[..., :-1, :, :]).mT
+    return _rts_smoothed(post, G), G
 
 
 def extended_rts_smoother(
@@ -335,27 +372,17 @@ def extended_rts_smoother(
     inputs: Optional[torch.Tensor] = None,
     jitter: float = 0.0,
 ) -> PosteriorGaussianSmoothed:
-    """Extended Rauch–Tung–Striebel smoother (ERTS) of one sequence
-    ``emissions`` (T, dy).
+    """Extended Rauch–Tung–Striebel smoother (ERTS) of ``emissions``
+    (T, dy) or of a batch of sequences (B, T, dy); ``inputs`` (T, ...) is
+    shared by the batch.
 
     The forward pass is :func:`extended_kalman_filter` (K1 and K2 on CUDA
     tensors). The backward pass relinearises the dynamics at each filtered
     mean with the filter's ``u_{t+1}`` input, ``G_t = P_f F_x(m_f)ᵀ
-    P_p⁻¹``, all T−1 gains in one batched solve, then runs the affine
+    P_p⁻¹``, all gains in one batched solve, then runs the affine
     recursion of the smoothed moments. The predicted covariance already
     carries ``F_q Q F_qᵀ``."""
-    post = extended_kalman_filter(params, emissions, num_iter, inputs,
-                                  jitter)
-    T, dx = post.filtered_means.shape
-    if T < 2:
-        return PosteriorGaussianSmoothed(*post, *post[1:3])
-    F_x = _jacobians(params)[2]
-    inputs = _process_input(inputs, T, emissions)
-    fm, fP, pm, pP = post[1:]
-    _, q0, _, _ = _noise_steps(params, torch.arange(T - 1, device=fm.device))
-    Fx = _steps(F_x)(fm[:-1], q0, inputs[1:]).reshape(T - 1, dx, dx)
-    G = psd_solve(pP[:-1], Fx @ fP[:-1]).mT
-    return _rts_smoothed(post, G)
+    return _extended_rts(params, emissions, num_iter, inputs, jitter)[0]
 
 
 def _ut_dynamics_moments(f, m, P, Q, q0, u, uparams: ParamsUKF,
@@ -391,6 +418,32 @@ def _ut_dynamics_cross_cov(f, m, P, Q, q0, u, uparams: ParamsUKF,
                                 additive)[2].mT
 
 
+def _unscented_rts(params: ParamsNLSSM, uparams: ParamsUKF,
+                   emissions: torch.Tensor,
+                   inputs: Optional[torch.Tensor] = None,
+                   additive: bool = False):
+    """:func:`unscented_rts_smoother` and its gains (..., T−1, dx, dx)."""
+    post = unscented_kalman_filter(params, uparams, emissions, inputs,
+                                   additive)
+    fm, fP, pm, pP = post[1:]
+    T, dx = fm.shape[-2:]
+    if T < 2:
+        return (PosteriorGaussianSmoothed(*post, *post[1:3]),
+                fP[..., :0, :, :])
+    lead = fm.shape[:-2]
+    k = math.prod(lead)
+    inputs = _process_input(inputs, T, emissions)
+    Q, q0, _, _ = _noise_steps(params, torch.arange(T - 1, device=fm.device))
+    rep = lambda a: a.expand((k,) + a.shape).reshape((k * (T - 1),)
+                                                     + a.shape[1:])
+    D = _ut_dynamics_cross_cov(
+        params.dynamics_function, fm[..., :-1, :].reshape(-1, dx),
+        fP[..., :-1, :, :].reshape(-1, dx, dx), rep(Q), rep(q0),
+        rep(inputs[1:]), uparams, additive).reshape(lead + (T - 1, dx, dx))
+    G = psd_solve(pP[..., :-1, :, :], D.mT).mT
+    return _rts_smoothed(post, G), G
+
+
 def unscented_rts_smoother(
     params: ParamsNLSSM,
     uparams: ParamsUKF,
@@ -398,27 +451,16 @@ def unscented_rts_smoother(
     inputs: Optional[torch.Tensor] = None,
     additive: bool = False,
 ) -> PosteriorGaussianSmoothed:
-    """Unscented Rauch–Tung–Striebel smoother (URTS) of one sequence
-    ``emissions`` (T, dy).
+    """Unscented Rauch–Tung–Striebel smoother (URTS) of ``emissions``
+    (T, dy) or of a batch of sequences (B, T, dy); ``inputs`` (T, ...) is
+    shared by the batch.
 
     The forward pass is :func:`unscented_kalman_filter` (K6 or K7, K8 and
     K9 on CUDA tensors). The backward gains ``G_t = D_t P_p⁻¹`` take the
     unscented cross-covariance ``D_t`` recomputed from sigma points at the
     filtered moments with the filter's ``u_{t+1}`` input (Särkkä 2008),
-    all T−1 at once; then the affine recursion of the smoothed
-    moments."""
-    post = unscented_kalman_filter(params, uparams, emissions, inputs,
-                                   additive)
-    T = post.filtered_means.shape[0]
-    if T < 2:
-        return PosteriorGaussianSmoothed(*post, *post[1:3])
-    inputs = _process_input(inputs, T, emissions)
-    fm, fP, pm, pP = post[1:]
-    Q, q0, _, _ = _noise_steps(params, torch.arange(T - 1, device=fm.device))
-    D = _ut_dynamics_cross_cov(params.dynamics_function, fm[:-1], fP[:-1],
-                               Q, q0, inputs[1:], uparams, additive)
-    G = psd_solve(pP[:-1], D.mT).mT
-    return _rts_smoothed(post, G)
+    all at once; then the affine recursion of the smoothed moments."""
+    return _unscented_rts(params, uparams, emissions, inputs, additive)[0]
 
 
 # ---------------------------------------------------------------------------

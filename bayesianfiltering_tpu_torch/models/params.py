@@ -20,6 +20,12 @@ import torch
 
 from bayesianfiltering_tpu_torch.distributions import mvn_sample
 
+# Function-signature aliases of the model callables.
+FnStateToState = Callable
+FnStateAndInputToState = Callable
+FnStateToEmission = Callable
+FnStateAndInputToEmission = Callable
+
 
 class ParamsNLSSM(NamedTuple):
     """Nonlinear SSM parameters. The optional ``*_jacobian_*`` callables
@@ -108,4 +114,6 @@ def params_from_jax(arrays: Any, template, *, dtype: torch.dtype, device):
     return template._replace(**fields)
 
 
-__all__ = ["ParamsNLSSM", "ParamsBPF", "ARRAY_FIELDS", "params_from_jax"]
+__all__ = ["ParamsNLSSM", "ParamsBPF", "ARRAY_FIELDS", "params_from_jax",
+           "FnStateToState", "FnStateAndInputToState", "FnStateToEmission",
+           "FnStateAndInputToEmission"]

@@ -86,8 +86,13 @@ and prints no result):
    stochastic-volatility model (regime switch at T/2), the reference-exact
    EKF (``compat_scalar``) on the quadratic-measurement model,
    ``ekf_step`` over 16 Lorenz-63 states, and the steady-state filter and
-   smoother on path B's model at T=4,096 (no launches); each with its
-   exact launches.
+   smoother on path B's model at T=4,096 (no launches); and, for paths
+   I–K and the streaming steppers, in float64 at 1e-8:
+   ``LinearGaussianSSM.fit_em`` on path B's model at T=8,192 (K10–K12),
+   extended EM and ``fit_sgd`` on the Lorenz-96 model at B=2, T=20 (K1,
+   K2), the unscented E-step on the UNGM at T=100 (K7–K9), the EKF, GSF
+   and BPF steppers in chunks with a checkpoint round trip (K1/K2, K3/K4,
+   K5 with the same draws); each with its exact launches.
 5. The main paths, each with every launch counter reset just before it and
    read just after: the batched EKF on Lorenz-96 (dx=64, dy=32, B=512
    sequences, T=1000; data from the RK4 model, filter on the Euler model);
@@ -122,10 +127,19 @@ and prints no result):
    particles), each filter on 3 sequences with its wall's median and range
    and its mean RMSE; path H, the steady-state filter and smoother on path
    B's model and data (T=1M, head 64, 128 Riccati iterations: no kernel),
-   with the largest gap to path B's parallel smoother. Config 5, paths
-   C, D and H run three times each in one process and report the median
-   and the range. Checks finiteness, shapes and the launch counts of
-   every kernel.
+   with the largest gap to path B's parallel smoother; path I, exact EM
+   (``LinearGaussianSSM.fit_em``) on path B's model and data at T=1M, 3
+   iterations (K10/K12 960 times, K11 3); path J, extended EM on the
+   Lorenz-96 EKF's model and data at B=64, T=1000, 2 iterations (K1/K2
+   2,000 each); path K, ``fit_sgd`` on the same model at B=64, T=200, Q
+   and R under RealToPSD, Adam, 2 steps (K1/K2 400 each forward, the plain
+   versions backward); the EKF stepper on the Lorenz-96 batch (B=512,
+   T=200), the GSF stepper on bearings-only tracking (M=50, T=100) and the
+   BPF stepper at 1M particles (T=100), each in chunks of 50 with a
+   checkpoint round trip after the second, against the whole-sequence
+   filter. Config 5, paths C, D and H run three times each in one process
+   and report the median and the range. Checks finiteness, shapes and the
+   launch counts of every kernel.
 6. The device's busy and idle share, and the kernels with the most
    device time, under torch.profiler: the batched UKF step, ten steps of
    the 1M-particle BPF (with the split of its resampling steps between
@@ -1934,6 +1948,7 @@ def compare_paths(dev) -> None:
 
     compare_smoothers(dev)
     compare_slice(dev)
+    compare_fitting(dev)
 
 
 def run_path(label, fn, expect, others_zero=False):
@@ -2236,7 +2251,9 @@ def main_path(dev, card: str) -> dict:
     # switch; path H: the steady-state filter and smoother at T = 1M
     for name, run in (("F", lambda: slice_path("F", dev, card, add)),
                       ("G", lambda: slice_path("G", dev, card, add)),
-                      ("H", lambda: path_h(dev, card, add))):
+                      ("H", lambda: path_h(dev, card, add)),
+                      ("I-K and the steppers",
+                       lambda: fitting_paths(dev, card, add))):
         t0 = time.perf_counter()
         run()
         log(f"path {name} took {time.perf_counter() - t0:.1f} s")
@@ -2640,6 +2657,487 @@ def compare_slice(dev) -> None:
                     params if device != "cpu" else cpu_params,
                     ys.to(device), head=SS_HEAD, num_iters=SS_ITERS),
                 {}, names)
+
+
+# ---------------------------------------------------------------------------
+# Paths I, J and K and the streaming steppers: fitting and streaming
+# ---------------------------------------------------------------------------
+
+# path I: LinearGaussianSSM.fit_em on path B's model and emissions (T = 1M,
+# one sequence, every field trained, from F = 0.5·I, Q = R = I as
+# tests/test_models.py:197-201); card vs CPU at T = 8,192 (above the
+# 4,096-step dispatch to the parallel smoother), float64
+PI_ITERS, PI_CMP_T, PI_CMP_ITERS = 3, 8192, 2
+# path J: extended EM on the Lorenz-96 EKF batch's model and data (dx = 64,
+# dy = 32, T = 1,000), B cut from 512 to 64 sequences (each (B, T, 64, 64)
+# float32 stack is 1.05 GB at B = 64, and the E-step holds about ten), Q
+# and R trained; path K: fit_sgd on the same model at B = 64, T = 200, Q
+# and R under RealToPSD, the default Adam, one minibatch of B a step;
+# card vs CPU at B = 2, T = 20, float64
+PJ_B, PJ_T, PJ_ITERS = 64, 1000, 2
+PK_B, PK_T, PK_EPOCHS = 64, 200, 2
+FIT_CMP_B, FIT_CMP_T = 2, 20
+# the unscented E-step's check: the UNGM (path E's model), inputs arange(T)
+# (tests/test_models.py:338-345)
+UNGM_EM_T = 100
+# the steppers: the EKF on the Lorenz-96 batch (B = 512, T = 200, chunks of
+# 50, a checkpoint round trip after the second), the GSF on bearings-only
+# tracking (M = 50, T = 100) and the BPF at path A's size (1M particles,
+# T = 100), each in chunks of 50 against the whole-sequence filter
+STREAM_EKF_T, STREAM_CHUNK = 200, 50
+STREAM_GSF_M, STREAM_GSF_T = 50, 100
+STREAM_CMP_T, STREAM_CMP_B, STREAM_CMP_M = 20, 4, 5
+FIT_TOL = 1e-8
+
+
+def lgssm_em_start(params):
+    """Path I's starting point: path B's model with F = 0.5·I, Q = R = I."""
+    import torch
+
+    eye = lambda n: torch.eye(n, dtype=params.dynamics_matrix.dtype,
+                              device=params.dynamics_matrix.device)
+    return params._replace(dynamics_matrix=0.5 * eye(KF_DX),
+                           dynamics_covariance=eye(KF_DX),
+                           emission_covariance=eye(KF_DY))
+
+
+def noise_props(params, constrainer=None):
+    """Q and R trained (under ``constrainer(n)`` if given), every other
+    field of ``params`` frozen (tests/test_models.py:260-271)."""
+    from bayesianfiltering_tpu_torch.models import ParameterProperties as PP
+
+    frozen = PP(trainable=False)
+    make = ((lambda n: PP()) if constrainer is None
+            else (lambda n: PP(constrainer=constrainer(n))))
+    return params._replace(**{k: frozen for k in params._fields})._replace(
+        dynamics_noise_covariance=make(
+            params.dynamics_noise_covariance.shape[-1]),
+        emission_noise_covariance=make(
+            params.emission_noise_covariance.shape[-1]))
+
+
+def lgssm_fit(params, ys, iters):
+    from bayesianfiltering_tpu_torch.models import (
+        LinearGaussianSSM,
+        PropsLGSSM,
+    )
+
+    return LinearGaussianSSM(KF_DX, KF_DY).fit_em(
+        lgssm_em_start(params), PropsLGSSM(), ys, num_iters=iters,
+        verbose=False)
+
+
+def l96_model(dtype, dev):
+    from bayesianfiltering_tpu_torch.models import zoo
+
+    model, params, _ = zoo.lorenz96(EKF_DX, EKF_DY, dtype=dtype, device=dev)
+    return model, params
+
+
+def extended_em(model, params, em, iters):
+    return model.fit_em(params, noise_props(params), em, num_iters=iters,
+                        verbose=False)
+
+
+def sgd_fit(model, params, em, epochs):
+    from bayesianfiltering_tpu_torch.models.bijectors import RealToPSD
+
+    return model.fit_sgd(params, noise_props(params, RealToPSD), em,
+                         batch_size=em.shape[0], num_epochs=epochs)
+
+
+def ungm_problem(T, dtype, dev):
+    """The UNGM with em_moments="ukf" and one sequence sampled on the CPU
+    from the seed, inputs arange(T): (model, params, inputs, emissions)."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models import zoo
+
+    model, params, _ = zoo.scalar_growth(dtype=dtype, device=dev)
+    cpu = zoo.scalar_growth(dtype=dtype, device="cpu")[1]
+    model.em_moments = "ukf"
+    inputs = torch.arange(float(T), dtype=dtype)[:, None]
+    _, em = model.sample(cpu, T, inputs=inputs,
+                         generator=torch.Generator().manual_seed(SEED + 10))
+    return model, params, inputs.to(dev), em.to(dev)
+
+
+def ekf_kernels(dx, dy, dtype, dev) -> tuple:
+    """The names of the EKF update and predict kernels the rules pick at
+    (dx, dy) and dq = dx in ``dtype`` on ``dev``."""
+    import torch
+
+    from bayesianfiltering_tpu_torch import _build
+    from bayesianfiltering_tpu_torch.ops import fused_ekf as fe
+
+    size, optin = torch.empty((), dtype=dtype).element_size(), \
+        _build.smem_optin(dev)
+    return (fe.update_kernel(dx, dy, size, optin).name,
+            fe.predict_kernel(dx, dx, size, optin).name)
+
+
+def stepper_runs(stepper, state, em, inputs, chunk, ckpt, axis=0, **kw):
+    """``stepper`` over ``em`` in chunks of ``chunk`` steps, the carry
+    saved to ``ckpt`` and restored after the second chunk; the outputs
+    concatenated along the time axis."""
+    import torch
+
+    from bayesianfiltering_tpu_torch import streaming
+
+    T = em.shape[axis]
+    outs = []
+    for i, lo in enumerate(range(0, T, chunk)):
+        hi = min(lo + chunk, T)
+        state, out = stepper.run_chunk(
+            state, em.narrow(axis, lo, hi - lo),
+            None if inputs is None else inputs[lo:hi], t0=lo,
+            **{k: v[lo:hi] for k, v in kw.items()})
+        outs.append(out)
+        if i == 1:
+            streaming.save_state(ckpt, state)
+            state = streaming.restore_state(ckpt, state)
+    return state, {k: torch.cat([o[k] for o in outs], dim=axis)
+                   for k in outs[0]}
+
+
+def stream_ekf(params, em, chunk, ckpt):
+    from bayesianfiltering_tpu_torch import streaming
+
+    stepper = streaming.make_ekf_stepper(params)
+    return stepper_runs(stepper, stepper.init(), em, None, chunk, ckpt, 1)
+
+
+def stream_gsf(params, inputs, em, M, eps, chunk, ckpt):
+    from bayesianfiltering_tpu_torch import streaming
+
+    stepper = streaming.make_gsf_stepper(params, M)
+    return stepper_runs(stepper, stepper.init(eps=eps), em, inputs, chunk,
+                        ckpt)
+
+
+def stream_bpf(bpf, em, P, chunk, ckpt, generator=None, init=None,
+               draws=None):
+    from bayesianfiltering_tpu_torch import streaming
+
+    stepper = streaming.make_bpf_stepper(bpf, P)
+    kw = {} if draws is None else {"draws": draws}
+    return stepper_runs(stepper, stepper.init(generator, init), em, None,
+                        chunk, ckpt, **kw)
+
+
+def checkpoint(name: str) -> str:
+    path = ROOT / "build" / "streaming"
+    path.mkdir(parents=True, exist_ok=True)
+    return str(path / f"{name}.pt")
+
+
+def compare_fitting(dev) -> None:
+    """Phase 4 for paths I–K and the steppers: card against CPU in
+    float64 at FIT_TOL with exact launches — LinearGaussianSSM.fit_em at
+    T = 8,192 (K10–K12), extended EM and fit_sgd on the Lorenz-96 model at
+    B = 2, T = 20 (K1, K2), the unscented E-step on the UNGM at T = 100
+    (K7–K9), and the EKF, GSF and BPF steppers with a checkpoint round
+    trip (K1/K2, K3/K4, K5)."""
+    import torch
+
+    from bayesianfiltering_tpu_torch import inference as inf
+    from bayesianfiltering_tpu_torch.models import zoo
+    from bayesianfiltering_tpu_torch.models.nonlinear import SuffStatsNLSSM
+
+    f64 = torch.float64
+
+    def compare(label, run, expect, outputs):
+        """run(device) on the card under exact launches, then on the CPU;
+        ``outputs(result)`` names the tensors to hold to FIT_TOL."""
+        got, _ = run_path(f"{label} float64 card", lambda: run(dev), expect,
+                          others_zero=True)
+        want = run("cpu")
+        errs = {n: rel_err(g, w) for (n, g), (_, w) in
+                zip(outputs(got), outputs(want))}
+        bad = [n for n, e in errs.items() if not e <= FIT_TOL
+               or not torch.isfinite(dict(outputs(got))[n]).all()]
+        log(f"{label} float64 card vs cpu: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (tol {FIT_TOL:.0e}) {'FAIL' if bad else 'ok'}")
+        if bad:
+            raise RuntimeError(f"{label}: card disagrees with the CPU on "
+                               f"{bad}")
+
+    def fitted(names):
+        def outputs(result):
+            params, trace = result
+            return [("trace", trace)] + [(n, getattr(params, n))
+                                         for n in names]
+        return outputs
+
+    # path I: exact EM above the parallel dispatch
+    params, ys = kf_problem(PI_CMP_T, f64, dev)
+    cpu_params = type(params)(*(x.cpu() for x in params[:6]))
+    compare(f"path I lgssm fit_em T={PI_CMP_T} {PI_CMP_ITERS} iterations",
+            lambda d: lgssm_fit(params if d != "cpu" else cpu_params,
+                                ys.to(d), PI_CMP_ITERS),
+            scan_expect(PI_CMP_T, "auto", PI_CMP_ITERS),
+            fitted(("dynamics_matrix", "dynamics_covariance",
+                    "emission_matrix", "emission_covariance",
+                    "initial_mean", "initial_covariance")))
+
+    # paths J and K at B = 2, T = 20
+    _, _, em = lorenz96_data(dev, f64)
+    em = em[:FIT_CMP_B, :FIT_CMP_T]
+    models = {d: l96_model(f64, d) for d in (dev, "cpu")}
+    k1, k2 = ekf_kernels(EKF_DX, EKF_DY, f64, dev)
+    pick = lambda d: models[dev if d != "cpu" else "cpu"]
+    noise = ("dynamics_noise_covariance", "emission_noise_covariance")
+    compare(f"path J extended em lorenz96 B={FIT_CMP_B} T={FIT_CMP_T} "
+            f"{PJ_ITERS} iterations",
+            lambda d: extended_em(*pick(d), em.to(d), PJ_ITERS),
+            {k1: PJ_ITERS * FIT_CMP_T, k2: PJ_ITERS * FIT_CMP_T},
+            fitted(noise))
+    compare(f"path K fit_sgd lorenz96 B={FIT_CMP_B} T={FIT_CMP_T} "
+            f"{PK_EPOCHS} epochs",
+            lambda d: sgd_fit(*pick(d), em.to(d), PK_EPOCHS),
+            {k1: PK_EPOCHS * FIT_CMP_T, k2: PK_EPOCHS * FIT_CMP_T},
+            fitted(noise))
+
+    # the unscented E-step: the URTS forward pass runs K7 (update and
+    # predict), K8 and K9 a step
+    model, params, inputs, em = ungm_problem(UNGM_EM_T, f64, dev)
+    cpu_params = zoo.scalar_growth(dtype=f64, device="cpu")[1]
+    compare(f"unscented e_step scalar growth T={UNGM_EM_T}",
+            lambda d: model.e_step(params if d != "cpu" else cpu_params,
+                                   em.to(d), inputs.to(d)),
+            {"bft_ut_sigma_aug": 2 * UNGM_EM_T, "bft_ut_update": UNGM_EM_T,
+             "bft_ut_predict": UNGM_EM_T},
+            lambda r: [("loglik", r[1])] + [(n, getattr(r[0], n))
+                                            for n in SuffStatsNLSSM._fields])
+
+    # the steppers: chunks of 10 steps, a checkpoint round trip after the
+    # second; the EKF over a batch of sequences
+    _, params, _ = zoo.lorenz96(EKF_DX, EKF_DY, dtype=f64, device=dev)
+    cpu_params = zoo.lorenz96(EKF_DX, EKF_DY, dtype=f64, device="cpu")[1]
+    _, _, em = lorenz96_data(dev, f64)
+    em = em[:STREAM_CMP_B, :STREAM_CMP_T]
+    compare(f"ekf stepper lorenz96 B={STREAM_CMP_B} T={STREAM_CMP_T}",
+            lambda d: stream_ekf(params if d != "cpu" else cpu_params,
+                                 em.to(d), 10, checkpoint("ekf64")),
+            {k1: STREAM_CMP_T, k2: STREAM_CMP_T - 1},
+            lambda r: [("loglik", r[0].marginal_loglik)]
+            + list(r[1].items()))
+    params, inputs, _, em = bot_problem(STREAM_CMP_T, f64, dev)
+    cpu_params = zoo.bearings_only_tracking(dtype=f64, device="cpu")[1]
+    eps = torch.randn(STREAM_CMP_M, 4, dtype=f64,
+                      generator=torch.Generator().manual_seed(SEED + 11))
+    compare(f"gsf stepper bot M={STREAM_CMP_M} T={STREAM_CMP_T}",
+            lambda d: stream_gsf(params if d != "cpu" else cpu_params,
+                                 inputs.to(d), em.to(d), STREAM_CMP_M,
+                                 eps.to(d), 10, checkpoint("gsf64")),
+            {"bft_bank_update": STREAM_CMP_T,
+             "bft_bank_predict_cov": STREAM_CMP_T - 1},
+            lambda r: [("loglik", r[0].marginal_loglik)]
+            + list(r[1].items()))
+    bpf, _, em = bpf_problem(STREAM_CMP_T, f64, dev)
+    cpu_bpf = zoo.lorenz96(BPF_DX, BPF_DY, dtype=f64, device="cpu")[2]
+    draws = inf.bpf_draws(torch.Generator().manual_seed(SEED + 12),
+                          STREAM_CMP_T, BPF_CMP_P, BPF_DX, BPF_DX,
+                          "systematic", em.cpu())
+    whole = inf.bootstrap_particle_filter(cpu_bpf, em.cpu(), BPF_CMP_P,
+                                          store="summary", draws=draws)
+    resampled = int((whole["ess"] < 0.5 * BPF_CMP_P).sum())
+
+    def bpf_run(d):
+        return stream_bpf(bpf if d != "cpu" else cpu_bpf, em.to(d),
+                          BPF_CMP_P, 10, checkpoint("bpf64"),
+                          init=draws.init.to(d),
+                          draws=list(zip(draws.dynamics.to(d),
+                                         draws.resample.to(d))))
+    compare(f"bpf stepper lorenz96 dx={BPF_DX} P={BPF_CMP_P} "
+            f"T={STREAM_CMP_T} ({resampled} resampling steps)", bpf_run,
+            {"bft_resample_parents": resampled},
+            lambda r: list(r[1].items()))
+
+
+def fitting_paths(dev, card: str, add) -> None:
+    """Phase 5 for paths I, J and K and the streaming steppers, each with
+    exact launches and every other counter held to 0; logs each wall
+    (CUDA events) with the card, and checks the outputs."""
+    import torch
+
+    from bayesianfiltering_tpu_torch import inference as inf
+
+    def path(label, fn, expect):
+        (out, secs), counts = run_path(label, lambda: timed(fn), expect,
+                                       others_zero=True)
+        add(counts)
+        return out, secs, counts
+
+    def finite(label, *tensors):
+        if not all(torch.isfinite(x).all() for x in tensors):
+            raise RuntimeError(f"{label}: outputs are not finite")
+
+    # path I: exact EM on path B's model at T = 1M
+    params, ys = kf_problem(KF_T, torch.float32, dev)
+    lgssm_fit(params, ys[:PI_CMP_T], 1)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (fit, lps), secs, counts = path(
+        f"path I lgssm fit_em T={KF_T}",
+        lambda: lgssm_fit(params, ys, PI_ITERS),
+        scan_expect(KF_T, "auto", PI_ITERS))
+    finite("path I", lps, *fit[:6])
+    if not bool((lps[1:] - lps[:-1] > -1e-2).all()):
+        raise RuntimeError(f"path I: EM log-likelihoods fell: {lps}")
+    log(f"path I lgssm fit_em dx={KF_DX} dy={KF_DY} T={KF_T} {PI_ITERS} "
+        f"iterations float32: {secs:.4f} s, {secs / PI_ITERS:.4f} s an "
+        f"iteration, log-likelihoods {[round(float(x), 3) for x in lps]}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({card})")
+
+    # path J: extended EM at Lorenz-96's widths, B = 64
+    model, params = l96_model(torch.float32, dev)
+    _, _, em_all = lorenz96_data(dev, torch.float32)
+    extended_em(model, params, em_all[:2, :10], 1)         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    em = em_all[:PJ_B, :PJ_T]
+    (fit, lps), secs, counts = path(
+        f"path J extended em lorenz96 B={PJ_B} T={PJ_T}",
+        lambda: extended_em(model, params, em, PJ_ITERS),
+        {"bft_ekf_update": PJ_ITERS * PJ_T,
+         "bft_ekf_predict_cov": PJ_ITERS * PJ_T})
+    finite("path J", lps, fit.dynamics_noise_covariance,
+           fit.emission_noise_covariance)
+    log(f"path J extended em lorenz96 dx={EKF_DX} dy={EKF_DY} B={PJ_B} "
+        f"T={PJ_T} {PJ_ITERS} iterations float32: {secs:.4f} s, "
+        f"{secs / PJ_ITERS:.4f} s an iteration, log-likelihoods "
+        f"{[round(float(x), 2) for x in lps]}, trace(Q) "
+        f"{float(fit.dynamics_noise_covariance.trace()):.4f}, trace(R) "
+        f"{float(fit.emission_noise_covariance.trace()):.4f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    # the E-step's parts at this size, one call each after the path
+    fp = model._filter_params(params)
+    _, secs_rts = timed(lambda: inf._extended_rts(fp, em))
+    Gq = torch.eye(EKF_DX, device=dev).expand(PJ_B, PJ_T - 1, EKF_DX,
+                                              EKF_DX)
+    _, secs_pinv = timed(lambda: torch.linalg.pinv(Gq))
+    log(f"path J parts: the ERTS over the batch {secs_rts:.4f} s, pinv of "
+        f"the {PJ_B * (PJ_T - 1)} noise Jacobians ({EKF_DX} x {EKF_DX}) "
+        f"{secs_pinv:.4f} s ({card})")
+
+    # path K: SGD through the EKF kernels
+    em = em_all[:PK_B, :PK_T]
+    sgd_fit(model, params, em_all[:2, :10], 1)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (fit, losses), secs, counts = path(
+        f"path K fit_sgd lorenz96 B={PK_B} T={PK_T}",
+        lambda: sgd_fit(model, params, em, PK_EPOCHS),
+        {"bft_ekf_update": PK_EPOCHS * PK_T,
+         "bft_ekf_predict_cov": PK_EPOCHS * PK_T})
+    finite("path K", losses, fit.dynamics_noise_covariance,
+           fit.emission_noise_covariance)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    Q = fit.dynamics_noise_covariance.clone().requires_grad_()
+    loss = -model.marginal_log_prob(
+        fit._replace(dynamics_noise_covariance=Q), em).sum() / em.numel()
+    loss.backward()
+    finite("path K gradient", Q.grad)
+    log(f"path K fit_sgd lorenz96 dx={EKF_DX} dy={EKF_DY} B={PK_B} T={PK_T} "
+        f"{PK_EPOCHS} epochs (Adam 1e-3, one step an epoch) float32: "
+        f"{secs:.4f} s, {secs / PK_EPOCHS:.4f} s a step (forward K1/K2, "
+        f"backward the plain versions), losses "
+        f"{[round(float(x), 5) for x in losses]}, |grad Q| "
+        f"{float(Q.grad.norm()):.4e} at the fit, peak memory {peak:.2f} GiB "
+        f"({card})")
+
+    # the steppers against the whole-sequence filters
+    def against(label, pairs, tol=EKF_TOL["float32"]):
+        errs = {n: rel_err(g, w) for n, (g, w) in pairs.items()}
+        ok = max(errs.values()) <= tol
+        log(f"{label}: chunked with a restore vs one-shot: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: the chunked run disagrees")
+
+    params = l96_model(torch.float32, dev)[1]
+    em = em_all[:, :STREAM_EKF_T]
+    (state, out), secs, counts = path(
+        f"ekf stepper lorenz96 B={EKF_B} T={STREAM_EKF_T}",
+        lambda: stream_ekf(params, em, STREAM_CHUNK, checkpoint("ekf")),
+        {"bft_ekf_update": STREAM_EKF_T,
+         "bft_ekf_predict_cov": STREAM_EKF_T - 1})
+    whole = inf.extended_kalman_filter(params, em)
+    against(f"ekf stepper lorenz96 B={EKF_B} T={STREAM_EKF_T}",
+            {"means": (out["mean"], whole.filtered_means),
+             "covs": (out["cov"], whole.filtered_covariances),
+             "loglik": (state.marginal_loglik, whole.marginal_loglik)})
+    log(f"ekf stepper lorenz96 dx={EKF_DX} dy={EKF_DY} B={EKF_B} "
+        f"T={STREAM_EKF_T} chunks of {STREAM_CHUNK} float32: {secs:.4f} s "
+        f"({card})")
+
+    params, inputs, _, em = bot_problem(STREAM_GSF_T, torch.float32, dev)
+    eps = torch.randn(STREAM_GSF_M, 4, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          SEED + 13))
+    (state, out), secs, counts = path(
+        f"gsf stepper bot M={STREAM_GSF_M} T={STREAM_GSF_T}",
+        lambda: stream_gsf(params, inputs, em, STREAM_GSF_M, eps,
+                           STREAM_CHUNK, checkpoint("gsf")),
+        {"bft_bank_update": STREAM_GSF_T,
+         "bft_bank_predict_cov": STREAM_GSF_T - 1})
+    whole = inf.gaussian_sum_filter(params, em, STREAM_GSF_M, inputs=inputs,
+                                    init_eps=eps)
+    against(f"gsf stepper bot M={STREAM_GSF_M} T={STREAM_GSF_T}",
+            {"weights": (out["weights"], whole.weights.mT),
+             "means": (out["means"], whole.means.transpose(0, 1)),
+             "loglik": (state.marginal_loglik, whole.marginal_loglik)})
+    log(f"gsf stepper bot M={STREAM_GSF_M} T={STREAM_GSF_T} chunks of "
+        f"{STREAM_CHUNK} float32: {secs:.4f} s ({card})")
+
+    # the BPF at 1M particles: float32 sums over the bank (the systematic
+    # counts' torch.cumsum on the card) are not the same from run to run,
+    # so two runs from one seed part after their first resampling step
+    # (the whole-sequence filter against itself as well): the stepper
+    # equals the whole filter exactly up to that step, and tracks the
+    # states as closely after it; float64 with the same draws is exact
+    # (phase 4)
+    bpf, states, em = bpf_problem(BPF_T, torch.float32, dev)
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED + 14)
+    torch.cuda.reset_peak_memory_stats()
+    (state, out), secs, counts = path(
+        f"bpf stepper lorenz96 P={BPF_P} T={BPF_T}",
+        lambda: stream_bpf(bpf, em, BPF_P, STREAM_CHUNK, checkpoint("bpf"),
+                           generator=gen()),
+        {"bft_resample_parents": None})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    resampled = out["ess"] < 0.5 * BPF_P
+    if counts["bft_resample_parents"] != int(resampled.sum()):
+        raise RuntimeError(f"bpf stepper: K5 launched "
+                           f"{counts['bft_resample_parents']} times for "
+                           f"{int(resampled.sum())} resampling steps")
+    wholes = [inf.bootstrap_particle_filter(bpf, em, BPF_P, gen(),
+                                            store="summary")
+              for _ in range(2)]
+    first = int(resampled.nonzero()[0, 0]) if resampled.any() else BPF_T
+    rmse = lambda means: float(((means - states) ** 2).mean().sqrt())
+    self_gap = rel_err(wholes[0]["means"], wholes[1]["means"])
+    exact = (torch.equal(out["mean"][:first], wholes[0]["means"][:first])
+             and torch.equal(out["ess"][:first + 1],
+                             wholes[0]["ess"][:first + 1]))
+    gap = abs(rmse(out["mean"]) - rmse(wholes[0]["means"]))
+    ok = exact and gap <= 0.1 * rmse(wholes[0]["means"])
+    log(f"bpf stepper lorenz96 P={BPF_P} T={BPF_T}: chunked with a restore "
+        f"vs one-shot: equal through the first resampling step ({first}): "
+        f"{exact}; rmse {rmse(out['mean']):.4f} vs {rmse(wholes[0]['means']):.4f}"
+        f" (within 10%); afterwards means {rel_err(out['mean'], wholes[0]['means']):.3e}"
+        f", the one-shot against itself {self_gap:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("bpf stepper: the chunked run disagrees")
+    log(f"bpf stepper lorenz96 dx={BPF_DX} dy={BPF_DY} P={BPF_P} T={BPF_T} "
+        f"chunks of {STREAM_CHUNK} float32: {secs:.4f} s, "
+        f"{int(resampled.sum())} resampling steps, peak memory {peak:.2f} "
+        f"GiB ({card})")
 
 
 # K9t's first launch, the pass that forms μ and the centred points

@@ -1773,3 +1773,174 @@ def test_agsf_optimal_matches_cpu(dev):
             card if d == "cuda" else cpu, em.to(d), [M, 2, 2],
             opt_args=(0.1, 0.1), inputs=inputs.to(d), draws=moved)[0]
     _card_vs_cpu(run, MIXTURE, (bu.K3, bu.K4))
+
+
+# ---------------------------------------------------------------------------
+# Fitting and streaming: card against CPU, float64
+# ---------------------------------------------------------------------------
+
+def _card_vs_cpu_values(run, launched, quiet=()):
+    """run(device) -> list of (name, tensor) on the card (every counter
+    reset before it) and on the CPU: each finite and within SMOOTH_TOL;
+    the kernels in ``launched`` launched, those in ``quiet`` not."""
+    _build.reset_launch_counts()
+    got = run("cuda")
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _build.KERNELS}
+    assert all(counts[k.name] > 0 for k in launched), counts
+    assert all(counts[k.name] == 0 for k in quiet), counts
+    for (n, g), (_, w) in zip(got, run("cpu")):
+        assert torch.isfinite(g).all(), n
+        assert_close(g, w, SMOOTH_TOL)
+
+
+def _noise_props(params, constrainer=None):
+    from bayesianfiltering_tpu_torch.models import ParameterProperties as PP
+
+    frozen = PP(trainable=False)
+    make = ((lambda n: PP()) if constrainer is None
+            else (lambda n: PP(constrainer=constrainer(n))))
+    return params._replace(**{k: frozen for k in params._fields})._replace(
+        dynamics_noise_covariance=make(
+            params.dynamics_noise_covariance.shape[-1]),
+        emission_noise_covariance=make(
+            params.emission_noise_covariance.shape[-1]))
+
+
+@pytest.fixture(scope="module")
+def l96_small():
+    """Lorenz-96 dx = 8, dy = 4 (float64) on both devices and 3 sequences
+    of 15 steps sampled on the CPU from a seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model, cpu, _ = zoo.lorenz96(8, 4, dtype=F64, device="cpu")
+    card = zoo.lorenz96(8, 4, dtype=F64, device="cuda")[1]
+    _, em = model.sample(cpu, 15, generator=torch.Generator().manual_seed(50),
+                         batch_shape=(3,))
+    return model, {"cuda": card, "cpu": cpu}, em
+
+
+def test_lgssm_fit_em_matches_cpu(dev):
+    """LinearGaussianSSM.fit_em on path B's model at T = 4,200 (above the
+    4,096-step dispatch: the parallel smoother), 2 iterations, every field
+    trained."""
+    from bayesianfiltering_tpu_torch.models import (
+        LinearGaussianSSM,
+        PropsLGSSM,
+    )
+
+    rng = np.random.default_rng(51)
+    fields = testing.lgssm_fields(rng, 4, 2)
+    fields.update(dynamics_matrix=0.5 * np.eye(4))
+    ys = rng.standard_normal((4200, 2))
+
+    def run(d):
+        params = linear.ParamsLGSSM(**{k: testing.to_torch(v, F64, d)
+                                       for k, v in fields.items()})
+        fit, lps = LinearGaussianSSM(4, 2).fit_em(
+            params, PropsLGSSM(), testing.to_torch(ys, F64, d), num_iters=2,
+            verbose=False)
+        return [("lps", lps)] + list(zip(fit._fields[:6], fit[:6]))
+    _card_vs_cpu_values(run, (bc.K10, bs.K11, bs.K12), (fe.K1, fe.K2))
+
+
+@pytest.mark.parametrize("moments", ["ekf", "ukf"])
+def test_nonlinear_fit_em_matches_cpu(dev, l96_small, moments):
+    """Extended (K1, K2) and unscented (K7, K8, K9) EM over the batch of
+    three sequences, 2 iterations, Q and R trained."""
+    model, params, em = l96_small
+    model.em_moments = moments
+    try:
+        def run(d):
+            fit, lps = model.fit_em(params[d], _noise_props(params[d]),
+                                    em.to(d), num_iters=2, verbose=False)
+            return [("lps", lps), ("Q", fit.dynamics_noise_covariance),
+                    ("R", fit.emission_noise_covariance)]
+        kernels = ((fe.K1, fe.K2) if moments == "ekf"
+                   else (fu.K7, fu.K8, fu.K9))
+        _card_vs_cpu_values(run, kernels)
+    finally:
+        model.em_moments = "ekf"
+
+
+def test_fit_sgd_matches_cpu(dev, l96_small):
+    """fit_sgd with Q and R under RealToPSD, Adam, one minibatch of the
+    three sequences, 2 epochs: K1 and K2 forward, the plain versions
+    backward."""
+    from bayesianfiltering_tpu_torch.models.bijectors import RealToPSD
+
+    model, params, em = l96_small
+
+    def run(d):
+        fit, losses = model.fit_sgd(
+            params[d], _noise_props(params[d], RealToPSD), em.to(d),
+            batch_size=3, num_epochs=2)
+        return [("losses", losses), ("Q", fit.dynamics_noise_covariance),
+                ("R", fit.emission_noise_covariance)]
+    _card_vs_cpu_values(run, (fe.K1, fe.K2))
+
+
+def _chunks(stepper, state, em, inputs=None, axis=0, **per_step):
+    """Chunks of 5 steps, the carry saved and restored after the
+    second."""
+    import tempfile
+
+    from bayesianfiltering_tpu_torch import streaming
+
+    outs, T = [], em.shape[axis]
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, lo in enumerate(range(0, T, 5)):
+            n = min(5, T - lo)
+            state, out = stepper.run_chunk(
+                state, em.narrow(axis, lo, n),
+                None if inputs is None else inputs[lo:lo + n], t0=lo,
+                **{k: v[lo:lo + n] for k, v in per_step.items()})
+            outs.append(out)
+            if i == 1:
+                streaming.save_state(f"{tmp}/carry.pt", state)
+                state = streaming.restore_state(f"{tmp}/carry.pt", state)
+    return [(k, torch.cat([o[k] for o in outs], axis)) for k in outs[0]]
+
+
+@pytest.mark.parametrize("kind", ["ekf", "gsf", "bpf"])
+def test_steppers_match_cpu(dev, l96_small, kind):
+    """The EKF stepper over the batch (K1, K2), the GSF stepper on
+    bearings-only tracking with M = 5 (K3, K4) and the BPF stepper with
+    4,096 particles and handed-in draws (K5), each in chunks with a
+    checkpoint round trip."""
+    from bayesianfiltering_tpu_torch import streaming
+
+    model, params, em = l96_small
+    if kind == "ekf":
+        run = lambda d: _chunks(streaming.make_ekf_stepper(params[d]),
+                                streaming.make_ekf_stepper(params[d]).init(),
+                                em.to(d), axis=1)
+        kernels = (fe.K1, fe.K2)
+    elif kind == "gsf":
+        bot, cpu, _ = zoo.bearings_only_tracking(dtype=F64, device="cpu")
+        card = zoo.bearings_only_tracking(dtype=F64, device="cuda")[1]
+        inputs = zoo.bot_maneuver_inputs(15, device="cpu")
+        _, y = bot.sample(cpu, 15, inputs=inputs,
+                          generator=torch.Generator().manual_seed(52))
+        eps = torch.randn(5, 4, dtype=F64,
+                          generator=torch.Generator().manual_seed(53))
+
+        def run(d):
+            stepper = streaming.make_gsf_stepper(card if d == "cuda" else cpu,
+                                                 5)
+            return _chunks(stepper, stepper.init(eps=eps.to(d)), y.to(d),
+                           inputs.to(d))
+        kernels = (bu.K3, bu.K4)
+    else:
+        bpf = {"cuda": zoo.lorenz96(8, 4, dtype=F64, device="cuda")[2],
+               "cpu": zoo.lorenz96(8, 4, dtype=F64, device="cpu")[2]}
+        draws = inference.bpf_draws(torch.Generator().manual_seed(54), 15,
+                                    4096, 8, 8, "systematic", em)
+
+        def run(d):
+            stepper = streaming.make_bpf_stepper(bpf[d], 4096)
+            return _chunks(stepper, stepper.init(eps=draws.init.to(d)),
+                           em[0].to(d), draws=list(zip(
+                               draws.dynamics.to(d), draws.resample.to(d))))
+        kernels = (rg.K5,)
+    _card_vs_cpu_values(run, kernels)

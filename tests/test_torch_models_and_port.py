@@ -248,6 +248,9 @@ def test_importing_the_port_loads_no_jax():
         "import bayesianfiltering_tpu_torch.ops.bank_update\n"
         "import bayesianfiltering_tpu_torch.ops.fused_ut\n"
         "import bayesianfiltering_tpu_torch.utils.metrics\n"
+        "import bayesianfiltering_tpu_torch.models\n"
+        "import bayesianfiltering_tpu_torch.streaming\n"
+        "import bayesianfiltering_tpu_torch.diagnostics\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0]"
         ".startswith('jax'))\n"
         "print(loaded)\n"
@@ -260,14 +263,14 @@ def test_importing_the_port_loads_no_jax():
 
 
 # Names of the JAX package's __all__ that the port does not implement yet
-# (ROADMAP.md queue 1: the state-space-model layer's Gaussian SSM and the
-# parallel, streaming, diagnostics and legacy subpackages).
-NOT_PORTED = {"NonlinearGaussianSSM", "parallel", "streaming", "diagnostics",
-              "legacy"}
+# (ROADMAP.md queue 1: the parallel (multi-device) and legacy
+# subpackages).
+NOT_PORTED = {"parallel", "legacy"}
 
 # The same for the subpackages' __all__, each name against its ROADMAP.md
 # queue 1 item ("not ported": the TPU-only factorisations that queue 1
-# leaves out of the port). ``ops`` and ``containers`` export every name.
+# leaves out of the port). ``ops``, ``models``, ``containers``,
+# ``streaming`` and ``diagnostics`` export every name.
 SUBPACKAGE_NOT_PORTED = {
     "utils": {
         "fast_cholesky": "not ported", "cholesky_blocked": "not ported",
@@ -275,18 +278,10 @@ SUBPACKAGE_NOT_PORTED = {
         "sdp_opt_legacy": "item 8", "sdp_opt_test": "item 8",
     },
     "ops": {},
-    "models": {
-        "FnStateToState": "item 5", "FnStateAndInputToState": "item 5",
-        "FnStateToEmission": "item 5", "FnStateAndInputToEmission": "item 5",
-        "ParameterSet": "item 5", "PropertySet": "item 5",
-        "ParameterProperties": "item 5", "to_unconstrained": "item 5",
-        "from_unconstrained": "item 5", "log_det_jac_constrain": "item 5",
-        "SSM": "item 5", "NonlinearGaussianSSM": "item 5",
-        "LinearGaussianSSM": "item 5", "PropsLGSSM": "item 5",
-        "bijectors": "item 5", "ensure_array_has_batch_dim": "item 5",
-        "run_sgd": "item 5",
-    },
+    "models": {},
     "containers": {},
+    "streaming": {},
+    "diagnostics": {},
 }
 
 
@@ -308,9 +303,9 @@ def test_the_port_exports_every_ported_name_of_the_jax_package():
 
 @pytest.mark.parametrize("sub", sorted(SUBPACKAGE_NOT_PORTED))
 def test_the_subpackages_export_every_ported_name_of_the_jax_package(sub):
-    """``ops``, ``utils``, ``models`` and ``containers``: every name of the
-    JAX subpackage's ``__all__`` is in the port's, except those not ported
-    yet."""
+    """``ops``, ``utils``, ``models``, ``containers``, ``streaming`` and
+    ``diagnostics``: every name of the JAX subpackage's ``__all__`` is in
+    the port's, except those not ported yet."""
     import importlib
 
     _assert_exports(
