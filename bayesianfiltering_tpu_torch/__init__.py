@@ -4,7 +4,8 @@ Same module layout and public names as the JAX package, which stays the
 reference. The EKF and UKF, the Gaussian-sum filters, the AGSF family, the
 bootstrap particle filter's resampling and the temporally parallel Kalman
 filter and smoother — and so the model layer's EM and SGD fitting and the
-streaming steppers built on them — run their hot loops in hand-written CUDA kernels
+streaming steppers built on them — and the legacy bootstrap PF run their
+hot loops in hand-written CUDA kernels
 (``csrc/``, built at first use by
 :mod:`bayesianfiltering_tpu_torch._build`) on CUDA tensors, and in plain
 PyTorch twins on CPU tensors. Importing the package applies the precision
@@ -16,6 +17,7 @@ from bayesianfiltering_tpu_torch import (
     diagnostics,
     distributions,
     inference,
+    legacy,
     models,
     ops,
     streaming,
@@ -51,6 +53,7 @@ __all__ = [
     "diagnostics",
     "distributions",
     "inference",
+    "legacy",
     "models",
     "ops",
     "streaming",

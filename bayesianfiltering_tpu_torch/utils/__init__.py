@@ -46,6 +46,8 @@ from bayesianfiltering_tpu_torch.utils.sdp import (
     gradient_descent,
     sdp_opt,
     sdp_opt2,
+    sdp_opt_legacy,
+    sdp_opt_test,
 )
 from bayesianfiltering_tpu_torch.utils.sigma_points import (
     _get_sigma_points,
@@ -71,7 +73,8 @@ __all__ = [
     "stratified_resample", "get_resampler", "_resample", "optimal_resampling",
     "resample", "retain", "split_by_sampling",
     # sdp
-    "sdp_opt", "sdp_opt2", "gradient_descent",
+    "sdp_opt", "sdp_opt2", "gradient_descent", "sdp_opt_legacy",
+    "sdp_opt_test",
     # angles
     "wrap_angle", "angular_residual",
 ]

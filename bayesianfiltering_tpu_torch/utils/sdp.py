@@ -7,7 +7,9 @@ P). :func:`sdp_opt` and :func:`sdp_opt2` iterate the stationarity
 condition of ``(β/N)·tr((P − Δ) JᵀJ) + (1/4)·Σ_i tr(Δ H_i)²`` with the
 double PSD projection Δ ← P − proj(P − Δ), using the evidently intended
 second-order operator ``Σ_i vec(H_i) vec(H_i)ᵀ`` over the output
-dimension, as the JAX package does.
+dimension, as the JAX package does. :func:`sdp_opt_legacy` and
+:func:`sdp_opt_test` are the legacy projected-gradient generation that the
+legacy filters' selection modes call.
 
 Every function takes one problem or a batch of them (leading axes of
 ``P``). A batch runs as the JAX package's ``vmap`` of its
@@ -102,4 +104,40 @@ def gradient_descent(dim: int, N, L, X0, P, H, Nsteps: int, eta):
     return X
 
 
-__all__ = ["sdp_opt", "sdp_opt2", "gradient_descent"]
+def sdp_opt_legacy(dim: int, N, L, X0, P, H, Nsteps: int, eta):
+    """The legacy projected-gradient solver: ``Nsteps`` steps, the i-th a
+    gradient step of size ``eta**i`` followed by the double projection onto
+    {0 ⪯ X ⪯ P}. ``X0``, ``P`` and ``H`` may carry the same leading batch
+    axes; returns X (..., dim, dim)."""
+    X = X0
+    for i in range(Nsteps):
+        X = gradient_descent(dim, N, L, X, P, H, 1, eta ** i)
+        X = _double_projection(X, P)
+    return X.reshape(X.shape[:-2] + (dim, dim))
+
+
+def sdp_opt_test(dim_in: int, dim_out: int, num_prt, lip, X0, cutoff_cov,
+                 hess_array, Nsteps: int, eta):
+    """The projected-gradient solver over a stack of Hessians, the legacy
+    AGSF's "test" selection: ``hess_array`` (..., num_prt, dim_out, n, n),
+    or (..., num_prt, n, n) for a scalar output, with the leading batch
+    axes of ``X0``; ``Nsteps`` unprojected steps, then one double
+    projection onto {0 ⪯ X ⪯ cutoff_cov}."""
+    X = X0
+    batch = X0.ndim - 2
+    if hess_array.ndim == batch + 3:  # (num_prt, n, n): one output
+        hess_array = hess_array[..., None, :, :]
+    sum_hess = hess_array.sum(batch)  # (..., dim_out, n, n)
+    eye = torch.eye(dim_in, dtype=X0.dtype, device=X0.device)
+    for _ in range(Nsteps):
+        coeffs = torch.diagonal(X[..., None, None, :, :] @ hess_array,
+                                dim1=-2,
+                                dim2=-1).sum(-1).sum(batch)  # (..., dim_out)
+        term_two = torch.einsum("...j,...jab->...ab", coeffs, sum_hess)
+        X = X - eta * (-(2.0 * lip ** 2 / num_prt) * eye
+                       + 0.5 / num_prt ** 2 * term_two)
+    return _double_projection(X, cutoff_cov)
+
+
+__all__ = ["sdp_opt", "sdp_opt2", "gradient_descent", "sdp_opt_legacy",
+           "sdp_opt_test"]

@@ -77,7 +77,7 @@ and prints no result):
    dx=512, dy=256, float64, T=20: the EKF's joint and chunked updates and
    the additive UKF), path C (the parallel smoother at dx=64, dy=32,
    T=1,024, both solvers, float32 and float64), the time-varying parallel
-   filter and smoother at the BOT widths (dx=4, T=500) and at path C's
+   filter and smoother at the BOT widths (dx=4, T=250) and at path C's
    (T=1,024, per-step F: K10b, K11b with F banked, K12b), float32 and
    float64, path D's five smoothers at T=100 with 3 iterations in
    float64, and, in float64 at T=20: the AGSF [3,2,2] on Experiment A's
@@ -92,7 +92,13 @@ and prints no result):
    extended EM and ``fit_sgd`` on the Lorenz-96 model at B=2, T=20 (K1,
    K2), the unscented E-step on the UNGM at T=100 (K7–K9), the EKF, GSF
    and BPF steppers in chunks with a checkpoint round trip (K1/K2, K3/K4,
-   K5 with the same draws); each with its exact launches.
+   K5 with the same draws); and every legacy (v0) class and estimator in
+   float64 at T=20 with the same draws, at 1e-8: ``SSM.simulate``, MCF,
+   EKF of order 1 and 2, UKF, MCLAF, the composite and the standalone
+   Gaussian-sum banks, the original AGSF [3,2,2] in each selection mode,
+   the legacy BPF at 4,096 particles (K5 once a step), the mean
+   estimators' comparison, ``AugmentedJointApproximation`` and the oldest
+   ALA API; each with its exact launches (none but the BPF's).
 5. The main paths, each with every launch counter reset just before it and
    read just after: the batched EKF on Lorenz-96 (dx=64, dy=32, B=512
    sequences, T=1000; data from the RK4 model, filter on the Euler model);
@@ -113,10 +119,10 @@ and prints no result):
    on ``zoo.linear_gaussian_lgssm(64, 32)`` at T=65,536, chunk 128, both
    solvers: only the block combines launch); path D, the BOT smoothing
    comparison of experiments/smoother_experiment.py (range-bearing
-   tracking, T=500, 8 iterations: the ERTS, the URTS, the IEKS, the
+   tracking, T=250, 8 iterations: the ERTS, the URTS, the IEKS, the
    LM-IEKS and the IPLS, with their RMSE against the sampled states);
    path E, the IEKS row of experiments/parallel_kf_bench.py (the UNGM,
-   3 iterations, chunk 128, the rollout nominal, T=2^18; the rollout
+   3 iterations, chunk 128, the rollout nominal, T=2^16; the rollout
    alone timed at 65,536 steps); path F, Experiment A of
    experiments/expa_experiment.py (``zoo.sine_quadratic()``, T=100: the
    GSF M=5, the UGSF M=3, the AGSF [3,2,2] with autocov "prop", "trace"
@@ -130,16 +136,24 @@ and prints no result):
    with the largest gap to path B's parallel smoother; path I, exact EM
    (``LinearGaussianSSM.fit_em``) on path B's model and data at T=1M, 3
    iterations (K10/K12 960 times, K11 3); path J, extended EM on the
-   Lorenz-96 EKF's model and data at B=64, T=1000, 2 iterations (K1/K2
+   Lorenz-96 EKF's model and data at B=32, T=1000, 2 iterations (K1/K2
    2,000 each); path K, ``fit_sgd`` on the same model at B=64, T=200, Q
    and R under RealToPSD, Adam, 2 steps (K1/K2 400 each forward, the plain
    versions backward); the EKF stepper on the Lorenz-96 batch (B=512,
    T=200), the GSF stepper on bearings-only tracking (M=50, T=100) and the
    BPF stepper at 1M particles (T=100), each in chunks of 50 with a
    checkpoint round trip after the second, against the whole-sequence
-   filter. Config 5, paths C, D and H run three times each in one process
-   and report the median and the range. Checks finiteness, shapes and the
-   launch counts of every kernel.
+   filter; path L, the legacy (v0) API at the sizes of
+   experiments/legacy_experiment.py (its particle-filter table: the legacy
+   BPF at N=10 and 1,000 on the scalar sin/x² model, T=100; its
+   Gaussian-filter table: MCF, EKF of order 1 and 2, UKF, MCLAF and the
+   composite EKF bank on the dx=2 sinusoid, T=100), the original AGSF
+   [3,2,2] in its "prop", "opt_lip" and "test" selection modes, and the
+   legacy BPF at path A's model and size (1M particles, T=100; K5 once a
+   step), each three times with its walls and RMSE. Config 5, paths C, D,
+   H and L run three times each in one process and report the median and
+   the range. Checks finiteness, shapes and the launch counts of every
+   kernel.
 6. The device's busy and idle share, and the kernels with the most
    device time, under torch.profiler: the batched UKF step, ten steps of
    the 1M-particle BPF (with the split of its resampling steps between
@@ -217,22 +231,26 @@ PC_COMBINES = 128 + 128 + 4 + 1 + 1
 PC_LANES = PC_T // KF_CHUNK                           # 512
 PC_NARROW = PC_LANES // KF_CHUNK                      # 4: the next level
 # path D: experiments/smoother_experiment.py:36-75, the BOT smoothing
-# comparison (range-bearing tracking, T=500, 8 iterations, ParamsUKF(1, 0,
-# 0, "cholesky")); ERTS, URTS, the IEKS (EKF seed, damping 0.7), the
-# LM-IEKS (EKF seed, lambda 100) and the IPLS (EKF seed)
-PD_T, PD_ITER, PD_DAMPING, PD_LM_LAMBDA = 500, 8, 0.7, 100.0
+# comparison (range-bearing tracking, 8 iterations, ParamsUKF(1, 0, 0,
+# "cholesky")); ERTS, URTS, the IEKS (EKF seed, damping 0.7), the LM-IEKS
+# (EKF seed, lambda 100) and the IPLS (EKF seed); T cut from the source's
+# 500 to 250: its host-bound smoothers took ~150 s of the run's time limit
+# at 500 (three calls each), and the run with path L came within 45 s of
+# the limit
+PD_T, PD_ITER, PD_DAMPING, PD_LM_LAMBDA = 250, 8, 0.7, 100.0
 PD_CMP_T, PD_CMP_ITER, PD_PROFILE_T = 100, 3, 20
 # path E: experiments/parallel_kf_bench.py:141-152, the IEKS row (the UNGM,
 # N(0, 1) emissions, 3 iterations, chunk 128, the rollout nominal); T cut
-# from the source's 1M (:70) to 2^18, the largest power of two whose run
-# stays under 60 s: the rollout is a loop of T model calls of ~11 launches
-# each, ~140 us a step on the H100 machine's host, so that 1M steps would
-# take ~140 s (PERF.md section 4). The rollout alone is timed at 65,536
-# steps, and phase 6 traces the path at 2,048.
-PE_T, PE_ITER, PE_ROLLOUT_T, PE_PROFILE_T = 2 ** 18, 3, 65_536, 2_048
-PE_LANES = PE_T // KF_CHUNK                           # 2,048
+# from the source's 1M (:70) to 2^16: the rollout is a loop of T model
+# calls of ~11 launches each, ~140-180 us a step on the H100 machine's
+# host, so that 1M steps would take ~180 s (PERF.md section 4), and 2^18
+# (~49 s) and 2^17 (~23 s) no longer fit the run's time limit beside
+# path L. The rollout
+# alone is timed at 65,536 steps, and phase 6 traces the path at 2,048.
+PE_T, PE_ITER, PE_ROLLOUT_T, PE_PROFILE_T = 2 ** 16, 3, 65_536, 2_048
+PE_LANES = PE_T // KF_CHUNK                           # 512
 # the time-varying filter and smoother on the card against the CPU: the
-# BOT widths (dx=4, dy=2, T=500, the flat scan) and path C's (dx=64,
+# BOT widths (dx=4, dy=2, T=250, the flat scan) and path C's (dx=64,
 # dy=32, T=1,024, chunk 128: K10b, K11b with F banked, K12b)
 TV_CMP = ((4, 2, PD_T, "auto"), (PC_DX, PC_DY, PC_CMP_T, KF_CHUNK))
 REPS = 3  # calls of each new path in one process: median and range
@@ -2218,7 +2236,7 @@ def main_path(dev, card: str) -> dict:
             f"dy={PC_DY} T={PC_T} chunk={KF_CHUNK} float32: {spread(secs)}, "
             f"{PC_T / med:.1f} steps/s at the median, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
-    # path D: the BOT smoothing comparison at T=500, 8 iterations
+    # path D: the BOT smoothing comparison at T=250, 8 iterations
     params_d, inputs_d, states_d, em_d = rb_problem(PD_T, torch.float32,
                                                     dev)
     runs = smoother_runs(PD_T, PD_ITER)
@@ -2253,7 +2271,8 @@ def main_path(dev, card: str) -> dict:
                       ("G", lambda: slice_path("G", dev, card, add)),
                       ("H", lambda: path_h(dev, card, add)),
                       ("I-K and the steppers",
-                       lambda: fitting_paths(dev, card, add))):
+                       lambda: fitting_paths(dev, card, add)),
+                      ("L", lambda: legacy_path(dev, card, add))):
         t0 = time.perf_counter()
         run()
         log(f"path {name} took {time.perf_counter() - t0:.1f} s")
@@ -2669,12 +2688,13 @@ def compare_slice(dev) -> None:
 # 4,096-step dispatch to the parallel smoother), float64
 PI_ITERS, PI_CMP_T, PI_CMP_ITERS = 3, 8192, 2
 # path J: extended EM on the Lorenz-96 EKF batch's model and data (dx = 64,
-# dy = 32, T = 1,000), B cut from 512 to 64 sequences (each (B, T, 64, 64)
-# float32 stack is 1.05 GB at B = 64, and the E-step holds about ten), Q
-# and R trained; path K: fit_sgd on the same model at B = 64, T = 200, Q
+# dy = 32, T = 1,000), B cut from 512 to 32 sequences (each (B, T, 64, 64)
+# float32 stack is 1.05 GB at B = 64, and the E-step holds about ten; 64
+# ran ~40 s of the run's time limit, cut to 32 beside path L), Q and R
+# trained; path K: fit_sgd on the same model at B = 64, T = 200, Q
 # and R under RealToPSD, the default Adam, one minibatch of B a step;
 # card vs CPU at B = 2, T = 20, float64
-PJ_B, PJ_T, PJ_ITERS = 64, 1000, 2
+PJ_B, PJ_T, PJ_ITERS = 32, 1000, 2
 PK_B, PK_T, PK_EPOCHS = 64, 200, 2
 FIT_CMP_B, FIT_CMP_T = 2, 20
 # the unscented E-step's check: the UNGM (path E's model), inputs arange(T)
@@ -3142,6 +3162,310 @@ def fitting_paths(dev, card: str, add) -> None:
 
 # K9t's first launch, the pass that forms μ and the centred points
 K9T_FIRST = "ut_tiled_mean_centre_kernel"
+
+
+# ---------------------------------------------------------------------------
+# The legacy (v0) API: phase 4's card-vs-CPU checks and path L
+# ---------------------------------------------------------------------------
+
+# path L: experiments/legacy_experiment.py's two tables at their sizes
+# (particlefilt_table :65-82: the scalar sin/x² model, Q = 4, R = 1, P0 = 10,
+# m0 = 0.1, T = 100, N = 10 and 1,000; gaussfilt_table :85-114: the dx = 2
+# sinusoid f = [x0 + sin(x1), 0.9 x0], g = Hx/ΣH, Q = I, R = 0.1, T = 100,
+# MCF / EKF 1 and 2 / UKF(1, 2, 0) / MCLAF with 10 particles and
+# GaussSumFilt(EKF, 10)); the AGSF [3, 2, 2] on tests/test_legacy.py's
+# scalar model (:34-40) in three selection modes; and the legacy BPF at path
+# A's model and size (Lorenz-96 dx = 8, dy = 4, Q = 0.1 I, R = I, 1M
+# particles, T = 100), built from legacy.nonlinearities.make_lorenz96 with a
+# zero noise argument
+LEG_T, LEG_CMP_T, LEG_CMP_P = 100, 20, 4096
+LEG_PF_N, LEG_PARTICLES, LEG_BANK = (10, 1000), 10, 10
+LEG_AGSF = (3, 2, 2)
+LEG_AGSF_MODES = (("prop", (0.2, 0.2)), ("opt_lip", (1.0, 0.2)),
+                  ("test", (0.1, 0.2)))
+
+
+def legacy_models(dtype, dev, H):
+    """The legacy SSMs of path L on ``dev``: "pf" (sin/x²), "sinusoid"
+    (dx = 2, ``H`` (1, 2) the emission row) and "scalar"."""
+    import torch
+
+    from bayesianfiltering_tpu_torch import legacy
+
+    kw = dict(dtype=dtype, device=dev)
+    eye = lambda n: torch.eye(n, **kw)
+    zeros = lambda n: torch.zeros(n, **kw)
+    Hm = H.to(**kw)
+    return {
+        "pf": legacy.SSM(1, 1, zeros(1), 4.0 * eye(1), zeros(1), eye(1),
+                         f=torch.sin, g=lambda x: x ** 2),
+        # width-1 slices: jacfwd keeps float32 (ROADMAP.md queue 3)
+        "sinusoid": legacy.SSM(
+            2, 1, zeros(2), eye(2), zeros(1), 0.1 * eye(1),
+            f=lambda x: torch.cat([x[..., 0:1] + torch.sin(x[..., 1:2]),
+                                   0.9 * x[..., 0:1]], -1),
+            g=lambda x: (x @ Hm.T) / Hm.sum()),
+        "scalar": legacy.SSM(1, 1, zeros(1), 0.5 * eye(1), zeros(1),
+                             0.5 * eye(1),
+                             f=lambda x: 0.8 * x + 0.1 * torch.sin(x),
+                             g=lambda x: 0.5 * x + 0.05 * x ** 2),
+    }
+
+
+def legacy_filters(ssm, gen=None):
+    """gaussfilt_table's roster on ``ssm`` (the bank last)."""
+    from bayesianfiltering_tpu_torch import legacy
+
+    return {
+        "MCF": legacy.MCF(ssm, LEG_PARTICLES, generator=gen),
+        "EKF (order=1)": legacy.EKF(ssm, order=1),
+        "EKF (order=2)": legacy.EKF(ssm, order=2),
+        "UKF": legacy.UKF(ssm, alpha=1.0, beta=2.0, kappa=0.0),
+        "MCLAF": legacy.MCLAF(ssm, LEG_PARTICLES, generator=gen),
+        "GaussSumFilt(EKF,10)": legacy.CompositeGaussSumFilt(
+            legacy.EKF(ssm, order=1), LEG_BANK),
+    }
+
+
+def leaves(x):
+    """The tensors of a nested result (tuples, lists, dicts)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in leaves(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in leaves(v)]
+    return []
+
+
+def moved(x, dev):
+    """Draws (a tensor or a NamedTuple of tensors and None) on ``dev``."""
+    import torch
+
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return type(x)(*(moved(v, dev) for v in x))
+
+
+def compare_legacy(dev) -> None:
+    """Phase 4, the legacy API: every class and estimator on the card
+    against the CPU in float64 with the same draws, T = LEG_CMP_T, held to
+    MIXTURE_TOL; the Gaussian filters and estimators launch no kernel (as
+    the JAX package's are plain XLA), the BPF at LEG_CMP_P particles
+    exactly one K5 a step."""
+    import torch
+
+    from bayesianfiltering_tpu_torch import legacy
+    from bayesianfiltering_tpu_torch.inference import BPFDraws
+    from bayesianfiltering_tpu_torch.legacy import ala, mean_estimators as me
+    from bayesianfiltering_tpu_torch.legacy.gaussfilt import (
+        BankDraws,
+        SimulateDraws,
+    )
+    from bayesianfiltering_tpu_torch.legacy.gausssumfilt import AugDraws
+
+    f64, T = torch.float64, LEG_CMP_T
+    gen = torch.Generator().manual_seed(SEED + 23)
+    normal = lambda *shape: torch.randn(shape, generator=gen, dtype=f64)
+    H = torch.rand((1, 2), generator=torch.Generator().manual_seed(SEED + 7),
+                   dtype=f64)
+    models = {d: legacy_models(f64, d, H) for d in (dev, "cpu")}
+    on = lambda x, d: torch.as_tensor(x, dtype=f64, device=d)
+
+    def check(label, run, expect=None):
+        got, _ = run_path(f"legacy {label} card", lambda: run(dev),
+                          expect or {}, others_zero=True)
+        want = run("cpu")
+        got, want = leaves(got), leaves(want)
+        if len(got) != len(want) or any(g.shape != w.shape
+                                        for g, w in zip(got, want)):
+            raise RuntimeError(f"legacy {label}: outputs differ in shape")
+        err = max(rel_err(g, w) for g, w in zip(got, want))
+        ok = err <= MIXTURE_TOL and all(bool(torch.isfinite(w).all())
+                                        for w in want)
+        log(f"legacy {label} float64 T={T} card vs cpu: {err:.3e} (tol "
+            f"{MIXTURE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"legacy {label}: card and CPU disagree")
+        return want
+
+    sim = SimulateDraws(normal(T, 2), normal(T, 1))
+    xs, ys = check("SSM.simulate sinusoid", lambda d: models[d][
+        "sinusoid"].simulate(T, on([0.0, 0.0], d), draws=moved(sim, d)))
+    m0, P0 = torch.zeros(2, dtype=f64), torch.eye(2, dtype=f64)
+    steps = normal(T, 2, LEG_PARTICLES, 2)
+    for name in legacy_filters(models["cpu"]["sinusoid"]):
+        stochastic = name in ("MCF", "MCLAF")
+        if name.startswith("GaussSumFilt"):
+            draws = BankDraws(normal(LEG_BANK, 2))
+        else:
+            draws = steps if stochastic else None
+        check(f"{name} sinusoid", lambda d, name=name, draws=draws:
+              legacy_filters(models[d]["sinusoid"])[name].run(
+                  ys.to(d), m0.to(d), P0.to(d), draws=moved(draws, d)))
+    init = normal(4, 2)
+    check("GaussSumFilt (standalone, M=4) sinusoid",
+          lambda d: legacy.GaussSumFilt(models[d]["sinusoid"], 4).run(
+              ys.to(d), m0.to(d), P0.to(d), init_eps=init.to(d)))
+
+    sim1 = SimulateDraws(normal(T, 1), normal(T, 1))
+    _, ys1 = models["cpu"]["scalar"].simulate(T, on([1.0], "cpu"),
+                                              draws=sim1)
+    M, N, L = LEG_AGSF
+    aug = AugDraws(normal(T, M, 3, 1), normal(T, M, N, 1),
+                   normal(T, M * N, 3, 1), normal(T, M * N, L, 1),
+                   torch.rand((T, M), generator=gen, dtype=f64))
+    for modes, args in ((("prop", "prop"), (0.2, 0.2)),
+                        (("opt_lip", "prop"), (1.0, 0.2)),
+                        (("opt_max_grad", "prop"), (0.5, 0.2)),
+                        (("test", "test"), (0.1, 0.1)),
+                        (("input", "input"), (0.05, 0.05))):
+        def run(d, modes=modes, args=args):
+            agsf = legacy.AugGaussSumFilt(models[d]["scalar"], M, N, L)
+            if modes[0] == "input":
+                args = tuple(a * torch.eye(1, dtype=f64, device=d)
+                             for a in args)
+            agsf.set_aug_selection_params(*args, mode1=modes[0],
+                                          mode2=modes[1])
+            return agsf.run(ys1.to(d), on([0.0], d), on([[1.0]], d),
+                            draws=moved(aug, d))
+        check(f"AugGaussSumFilt {list(LEG_AGSF)} {'/'.join(modes)} scalar",
+              run)
+
+    P = LEG_CMP_P
+    bdraws = BPFDraws(normal(P, 1), normal(T, P, 1),
+                      torch.rand(T, generator=gen, dtype=f64))
+    _, ypf = models["cpu"]["pf"].simulate(T, on([0.1], "cpu"), draws=sim1)
+    check(f"BootstrapPF N={P} systematic sin/x^2",
+          lambda d: legacy.BootstrapPF(models[d]["pf"], P).run(
+              ypf.to(d), on([0.1], d), on([[10.0]], d),
+              draws=moved(bdraws, d)),
+          {"bft_resample_parents": T})
+
+    g = lambda x: (x ** 2).sum(-1) + torch.sin(x[..., 0])
+    ns, trials, base = 10, 20, 10_000
+    cdraws = me.CompareDraws(normal(base, 2), normal(trials, ns, 2),
+                             normal(trials, ns, 2), normal(trials, ns, ns, 2))
+    check("mean_estimators.compare_estimators",
+          lambda d: me.compare_estimators(
+              g, on([1.0, -1.0], d), on([[0.5, 0.1], [0.1, 0.25]], d),
+              num_samples=ns, num_trials=trials, baseline_samples=base,
+              draws=moved(cdraws, d)))
+    aeps = normal(8, 2)
+    check("AugmentedJointApproximation",
+          lambda d: legacy.AugmentedJointApproximation(
+              8, lambda x: (x ** 2).sum(-1, keepdim=True), 2, 1,
+              on([0.0, 0.0], d), torch.eye(2, dtype=f64, device=d),
+              on([[0.1]], d), 0.3 * torch.eye(2, dtype=f64, device=d)
+          ).return_posterior(on([1.0], d), eps=aeps.to(d)))
+
+    freq, lat = 10.0, normal(T, 10, 1)
+    f = lambda x: torch.sin(x) * torch.sin(freq * x)
+    jd = lambda x: (torch.sin(x) * freq * torch.cos(freq * x)
+                    + torch.cos(x) * torch.sin(freq * x))
+    jo = lambda x: torch.ones((), dtype=x.dtype, device=x.device)
+    params = ala.LinearModelParameters(0.0, 0.0, 0.1, 0.1)
+
+    def ala_run(d):
+        ssm = ala.StateSpaceModel(1, 1, f, lambda x: x, dtype=f64, device=d)
+        _, obs = ssm.simulate(T, on([0.0], d), params, draws=moved(sim1, d))
+        init = [on([0.0], d), on([[1.0]], d)]
+        return (obs, ssm.extended_kalman_filter(obs, jd, jo, params, init),
+                ssm.latent_ekf(obs, 10, on([[0.05]], d), jd, jo, params, init,
+                               eps=lat.to(d)),
+                ssm.unscented_kalman_filter(obs, init, params, 10, 2, 1))
+    check("ala.StateSpaceModel (simulate, EKF, latent EKF, UKF)", ala_run)
+
+
+def legacy_path(dev, card: str, add) -> None:
+    """Path L: experiments/legacy_experiment.py's tables, the AGSF's
+    selection modes and the legacy BPF at path A's size; REPS calls each
+    (``repeated``: every counter reset per call, the BPF's K5 exactly once
+    a step, every other kernel 0), walls and RMSEs (``utils.metrics.rmse``)
+    against the simulated states."""
+    import torch
+
+    from bayesianfiltering_tpu_torch import legacy
+    from bayesianfiltering_tpu_torch.legacy import nonlinearities as lnl
+    from bayesianfiltering_tpu_torch.models import zoo
+    from bayesianfiltering_tpu_torch.utils import metrics
+
+    f32 = torch.float32
+    kw = dict(dtype=f32, device=dev)
+    H = torch.rand((1, 2), generator=torch.Generator().manual_seed(SEED + 7),
+                   dtype=torch.float64)
+    models = legacy_models(f32, dev, H)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rmse = lambda est, xs: float(metrics.rmse(est, xs))
+
+    def table(label, run, ys, xs, point, expect):
+        """``run(ys)`` warmed up on 5 steps (these loops are host-bound:
+        a short warm-up builds what the first call builds), then REPS
+        calls at LEG_T."""
+        run(ys[:5])
+        torch.cuda.synchronize()
+        out, secs = repeated(f"path L {label}", lambda: run(ys), expect, add)
+        log(f"path L {label} T={LEG_T} float32: {spread(secs)}, rmse "
+            f"{rmse(point(out), xs):.4f} (utils.metrics.rmse) ({card})")
+
+    # particlefilt_table
+    m0, P0 = 0.1 * torch.ones(1, **kw), 10.0 * torch.eye(1, **kw)
+    xs, ys = models["pf"].simulate(LEG_T, m0, generator=gen)
+    for n in LEG_PF_N:
+        bpf = legacy.BootstrapPF(models["pf"], n, generator=gen)
+        table(f"BPF (N={n}) sin/x^2", lambda y: bpf.run(y, m0, P0), ys, xs,
+              lambda hist: hist.mean(1), {"bft_resample_parents": LEG_T})
+
+    # gaussfilt_table
+    m0, P0 = torch.zeros(2, **kw), torch.eye(2, **kw)
+    xs, ys = models["sinusoid"].simulate(LEG_T, m0, generator=gen)
+    for name, filt in legacy_filters(models["sinusoid"], gen).items():
+        bank = name.startswith("GaussSumFilt")
+        table(f"{name} dx=2 sinusoid",
+              lambda y: (filt.run(y, m0, P0, generator=gen) if bank
+                         else filt.run(y, m0, P0)), ys, xs,
+              (lambda out: out[3]) if bank else (lambda out: out[1]), {})
+
+    # the AGSF's selection modes on the scalar model
+    m0, P0 = torch.zeros(1, **kw), torch.eye(1, **kw)
+    xs, ys = models["scalar"].simulate(LEG_T, torch.ones(1, **kw),
+                                       generator=gen)
+    for mode, args in LEG_AGSF_MODES:
+        agsf = legacy.AugGaussSumFilt(models["scalar"], *LEG_AGSF,
+                                      generator=gen)
+        agsf.set_aug_selection_params(*args, mode1=mode, mode2="prop")
+        table(f"AugGaussSumFilt {list(LEG_AGSF)} {mode} scalar",
+              lambda y: agsf.run(y, m0, P0), ys, xs, lambda out: out[2], {})
+
+    # the legacy BPF at path A's model and size
+    f96, g96, _ = lnl.make_lorenz96(BPF_DX, BPF_DY, **kw)
+    qz, rz = torch.zeros(BPF_DX, **kw), torch.zeros(BPF_DY, **kw)
+    _, lp, _ = zoo.lorenz96(BPF_DX, BPF_DY, **kw)
+    ssm = legacy.SSM(BPF_DX, BPF_DY, qz, lp.dynamics_noise_covariance, rz,
+                     lp.emission_noise_covariance,
+                     f=lambda x: f96(x, qz, None),
+                     g=lambda x: g96(x, rz, None))
+    _, states, em = bpf_problem(BPF_T, f32, dev)
+    bpf = legacy.BootstrapPF(ssm, BPF_P, generator=gen)
+    bpf.run(em[:5], lp.initial_mean, lp.initial_covariance)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist, secs = repeated(
+        f"path L legacy BPF lorenz96 P={BPF_P}",
+        lambda: bpf.run(em, lp.initial_mean, lp.initial_covariance),
+        {"bft_resample_parents": BPF_T}, add)
+    if tuple(hist.shape) != (BPF_T, BPF_P, BPF_DX) or not bool(
+            torch.isfinite(hist).all()):
+        raise RuntimeError("path L legacy BPF: history not finite or "
+                           "misshapen")
+    log(f"path L legacy BPF lorenz96 dx={BPF_DX} dy={BPF_DY} P={BPF_P} "
+        f"T={BPF_T} float32: {spread(secs)}, {BPF_T} resampling steps, rmse "
+        f"{rmse(hist.mean(1), states):.4f} (utils.metrics.rmse), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
 
 
 def ukf_split(prof) -> dict:
@@ -3958,6 +4282,7 @@ def main() -> int:
     log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     compare_paths(dev)
+    compare_legacy(dev)
     log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts = main_path(dev, card)

@@ -47,9 +47,20 @@ def x64():
     jax.config.update("jax_enable_x64", old)
 
 
+class LazyCases(dict):
+    """Each case's (JAX, port) results, run when a test first asks for
+    them and kept for the module: a case's JAX compile is charged to its
+    own test, not all of them to the first."""
+
+    def __missing__(self, label):
+        i, c = next((i, c) for i, c in enumerate(CASES) if c[0] == label)
+        self[label] = run_case(*c[1:], seed=i + 1)
+        return self[label]
+
+
 @pytest.fixture(scope="module")
 def results(x64):
-    return {c[0]: run_case(*c[1:], seed=i + 1) for i, c in enumerate(CASES)}
+    return LazyCases()
 
 
 @pytest.mark.parametrize("label", [c[0] for c in CASES])

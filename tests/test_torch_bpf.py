@@ -2,8 +2,9 @@
 version (K5) against the JAX package, on the CPU.
 
 K5: the parents are integers, so the port's plain version must equal the
-JAX scatter formulation and the JAX Pallas kernel (interpret mode) index
-for index, at every weight profile of ``testing.PARENT_PROFILES``.
+JAX scatter formulation and the kernel's XLA twin index for index, at
+every weight profile of ``testing.PARENT_PROFILES``, and the JAX Pallas
+kernel (interpret mode) once, at the smallest shape.
 
 BPF: JAX's threefry streams cannot be reproduced in torch, so the tests
 rebuild the JAX key schedule (``inference.bootstrap_particle_filter``:
@@ -42,6 +43,16 @@ TOL = 1e-10
 PROFILES = testing.PARENT_PROFILES
 
 
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def jax_fast(fn, *args):
+    """``fn(*args)`` jitted and compiled at XLA's lowest backend
+    optimisation level: the reference's time here is its compile."""
+    return jax.jit(fn).lower(*args).compile(FAST_COMPILE)(*args)
+
+
 def port_parents(counts, n):
     return rg.windowed_parents(torch.as_tensor(counts), n).numpy()
 
@@ -63,15 +74,22 @@ class TestParents:
     @pytest.mark.parametrize("profile", PROFILES)
     @pytest.mark.parametrize("n", [4096, 5000])
     def test_plain_equals_jax_pallas_kernel(self, profile, n):
-        """The JAX entry point in interpret mode: its kernel where the
-        window covers the tile's parents, its scatter fallback where not
-        ("spread")."""
+        """The kernel's XLA twin (``_parents_xla``) on the clipped int32
+        counts; and once, at the smallest shape, the JAX entry point in
+        interpret mode (its kernel, the window covering every tile's
+        parents): interpret mode costs seconds a call."""
         counts = testing.resampling_counts(profile, n,
                                            np.random.default_rng(n + 1))
-        with pltpu.force_tpu_interpret_mode():
-            want = np.asarray(jrg.windowed_parents(
-                jnp.asarray(counts, jnp.float32), n))
-        np.testing.assert_array_equal(port_parents(counts, n), want)
+        got = port_parents(counts, n)
+        c32 = jnp.clip(jnp.asarray(counts, jnp.float32), 0, n).astype(
+            jnp.int32)
+        np.testing.assert_array_equal(got, np.asarray(jrg._parents_xla(c32,
+                                                                       n)))
+        if (profile, n) == ("dirichlet", 4096):
+            with pltpu.force_tpu_interpret_mode():
+                want = np.asarray(jrg.windowed_parents(
+                    jnp.asarray(counts, jnp.float32), n))
+            np.testing.assert_array_equal(got, want)
 
     def test_tail_slot_is_clamped(self):
         n = 4096
@@ -214,9 +232,9 @@ BPF_CASES = [
 def test_bpf_matches_jax_float64(l96, P, threshold, resampler, store):
     jbpf, tbpf, em = l96
     key = jr.PRNGKey(P + int(threshold))
-    want = jgf.bootstrap_particle_filter(
-        jbpf, jnp.asarray(em), P, key, ess_threshold=threshold,
-        resampler=resampler, store=store)
+    want = jax_fast(lambda e: jgf.bootstrap_particle_filter(
+        jbpf, e, P, key, ess_threshold=threshold, resampler=resampler,
+        store=store), jnp.asarray(em))
     draws = jax_bpf_draws(key, len(em), P, 4, 4, resampler)
     got = inf.bootstrap_particle_filter(
         tbpf, torch.as_tensor(em), P, ess_threshold=threshold,

@@ -27,6 +27,16 @@ torch.set_num_threads(1)
 TOL = {"float64": 1e-9, "float32": 1e-4}
 
 
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def jax_fast(fn, *args):
+    """``fn(*args)`` jitted and compiled at XLA's lowest backend
+    optimisation level: the reference's time here is its compile."""
+    return jax.jit(fn).lower(*args).compile(FAST_COMPILE)(*args)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def x64():
     old = jax.config.jax_enable_x64
@@ -79,8 +89,8 @@ def run_both(jmodel_fn, tmodel_fn, emissions, dtype, inputs=None, **kw):
         _, jp, _ = jmodel_fn()
         jp = jax_params(jp, dtype)
         j_in = None if inputs is None else jnp.asarray(inputs)
-        want = jax.jit(jax.vmap(
-            lambda e: jgf.extended_kalman_filter(jp, e, inputs=j_in, **kw)))(
+        want = jax_fast(jax.vmap(
+            lambda e: jgf.extended_kalman_filter(jp, e, inputs=j_in, **kw)),
             jnp.asarray(emissions, dtype))
         want = jax.tree_util.tree_map(np.asarray, want)
     _, tp, _ = tmodel_fn(dtype=getattr(torch, dtype), device="cpu")
@@ -157,7 +167,7 @@ def test_unported_options_raise(lorenz96_case):
     jp = jzoo.lorenz96(8, 4)[1]
     e = torch.as_tensor(lorenz96_case)
     got = inf.extended_kalman_filter(tp, e, compat_scalar=True)
-    want = jax.vmap(lambda y: jgf.extended_kalman_filter(
-        jp, y, compat_scalar=True))(jnp.asarray(lorenz96_case))
+    want = jax_fast(jax.vmap(lambda y: jgf.extended_kalman_filter(
+        jp, y, compat_scalar=True)), jnp.asarray(lorenz96_case))
     for g, w in zip(got, want):
         assert_close(g.numpy(), w, "float64")

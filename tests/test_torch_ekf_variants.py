@@ -81,13 +81,36 @@ def _jax_run(fn, *args):
     compiled = jax.jit(fn).lower(*args).compile(FAST_COMPILE)
     return [np.asarray(x) for x in compiled(*args)]
 
+def _jax_each(fn, *args, in_axes=None, wide=True):
+    """``fn`` (one element's twin) over the batch in float64. Where
+    ``wide`` (a factored dimension above 16) and the batch is at most 4:
+    element by element, eagerly, stacked; on a concrete single element the
+    JAX package factors by its native route
+    (``utils/linalg._effectively_unbatched``), where the jitted, vmapped
+    batch unrolls its blocked factorisation and compiled for 10-20 s at the
+    wide shapes; the two agree to rounding. Else vmapped and jitted (the
+    unrolled factor of a small matrix runs slowly op by op)."""
+    in_axes = in_axes or (0,) * len(args)
+    B = next(a.shape[0] for a, ax in zip(args, in_axes) if ax == 0)
+    if not wide or B > 4:
+        return _jax_run(jax.vmap(fn, in_axes=in_axes), *args)
+    f64 = lambda a: jnp.asarray(a, jnp.float64)
+    outs = [fn(*(f64(a[b]) if ax == 0 else f64(a)
+                 for a, ax in zip(args, in_axes)))
+            for b in range(B)]
+    if not isinstance(outs[0], (tuple, list)):
+        return np.stack([np.asarray(o) for o in outs])
+    return [np.stack([np.asarray(o[k]) for o in outs])
+            for k in range(len(outs[0]))]
+
+
 
 @functools.lru_cache(maxsize=None)
 def update_case(B, dx, dy):
     """Inputs and the JAX reference of the update at one shape."""
     args = testing.update_inputs(np.random.default_rng(dx + dy), B, dx, dy)
-    update = jax.vmap(lambda *a: jfe._update_xla(*a, JITTER))
-    return args, _jax_run(update, *args)
+    return args, _jax_each(lambda *a: jfe._update_xla(*a, JITTER), *args,
+                           wide=max(dx, dy) > 16)
 
 
 # ---------------------------------------------------------------------------

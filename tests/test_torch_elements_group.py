@@ -163,16 +163,20 @@ def test_k11_schedule_matches_jax(dx, dtype, shared):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("dx", [2, 4])
 def test_k11_schedule_matches_the_pallas_kernel(dx, dtype):
-    """The TPU kernel in interpret mode (its 1e-30 diagonal floor is far
-    below either dtype's rounding)."""
+    """The kernel's XLA twin in each dtype, and the TPU kernel itself in
+    interpret mode once, at the smallest shape (dx = 2, float32; its 1e-30
+    diagonal floor is far below either dtype's rounding)."""
     (fm, fP, pm, pP, F), _, _ = case(dx)
     dt = np.dtype(dtype)
-    with pltpu.force_tpu_interpret_mode():
-        want = jbs._elements_pallas(*(jnp.asarray(a, dt) for a in
-                                      (fm, fP, pm, pP, F)))
+    args = tuple(jnp.asarray(a, dt) for a in (fm, fP, pm, pP, F))
     got = k11_model(fm, fP, pm, pP, F, dt.type)
-    for gv, w in zip(got, want):
+    for gv, w in zip(got, jbs._elements_xla(*args)):
         assert_matches(gv, np.asarray(w), dtype)
+    if (dx, dtype) == (2, "float32"):
+        with pltpu.force_tpu_interpret_mode():
+            want = jbs._elements_pallas(*args)
+        for gv, w in zip(got, want):
+            assert_matches(gv, np.asarray(w), dtype)
 
 
 @pytest.mark.parametrize("dx,fail_at", [(4, 0), (4, 3), (2, 1), (5, 4),

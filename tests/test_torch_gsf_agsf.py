@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import bayesianfiltering_tpu.inference as jgf
+from agsf_parity import jax_filter
 from bayesianfiltering_tpu import containers as jcont
 from bayesianfiltering_tpu.models import zoo as jzoo
 from bayesianfiltering_tpu.utils import resampling as jrs
@@ -65,9 +66,9 @@ def t(x):
 
 def test_gsf_with_injected_initial_means(bot):
     M, key = 4, jr.PRNGKey(3)
-    want = jgf.gaussian_sum_filter(bot["jparams"], jnp.asarray(bot["emissions"]),
-                                   M, inputs=jnp.asarray(bot["inputs"]),
-                                   key=key)
+    want = jax_filter(lambda e: jgf.gaussian_sum_filter(
+        bot["jparams"], e, M, inputs=jnp.asarray(bot["inputs"]), key=key),
+        bot["emissions"])
     # JAX's _init_mixture draws mvn_sample(key, m0, S0, (M,)): normals (M, dx)
     eps = jr.normal(key, (M, 4), jnp.float64)
     got = inf.gaussian_sum_filter(bot["tparams"], t(bot["emissions"]), M,
@@ -100,9 +101,10 @@ def test_agsf_flagship_with_injected_draws(bot, reduction, T):
     step with its uniform injected."""
     rng_key = jr.PRNGKey(1)
     emissions, inputs = bot["emissions"][:T], bot["inputs"][:T]
-    want_post, want_aux = jgf.augmented_gaussian_sum_filter(
-        bot["jparams"], jnp.asarray(emissions), [8, 2, 2], rng_key, 1,
-        (0.1, 0.1), jnp.asarray(inputs), reduction=reduction)
+    want_post, want_aux = jax_filter(
+        lambda e: jgf.augmented_gaussian_sum_filter(
+            bot["jparams"], e, [8, 2, 2], rng_key, 1, (0.1, 0.1),
+            jnp.asarray(inputs), reduction=reduction), emissions)
     draws = jax_agsf_draws(rng_key, T, 8, 2, 2, 4, reduction)
     got_post, got_aux = inf.augmented_gaussian_sum_filter(
         bot["tparams"], t(emissions), [8, 2, 2], num_iter=1,
@@ -153,11 +155,11 @@ def test_split_collapses_non_psd_onto_the_mean():
     np.testing.assert_allclose(out.means.numpy(), np.asarray(jout.means))
 
 
-def test_unported_options_raise(bot):
-    """The options the port once raised NotImplementedError for,
-    ``autocov="sdp"`` and ``reduction="optimal"``, run on the graft
-    entry's BOT problem and match the JAX package with its draws (AGSF
-    [2,2,2], three steps)."""
+def test_sdp_topk_and_optimal_reduction_match_jax(bot):
+    """``autocov="sdp"`` with the top-k reduction, and
+    ``reduction="optimal"``, on the graft entry's BOT problem, match the
+    JAX package with its draws (AGSF [2,2,2], three steps; the JAX filters
+    compiled at XLA's lowest backend optimisation level)."""
     for option in (dict(autocov="sdp", reduction="topk"),
                    dict(reduction="optimal")):
         agsf_option_matches_jax(bot, option)
@@ -166,9 +168,10 @@ def test_unported_options_raise(bot):
 def agsf_option_matches_jax(bot, option):
     T, rng_key = 3, jr.PRNGKey(2)
     emissions, inputs = bot["emissions"][:T], bot["inputs"][:T]
-    want_post, want_aux = jgf.augmented_gaussian_sum_filter(
-        bot["jparams"], jnp.asarray(emissions), [2, 2, 2], rng_key, 1,
-        (0.1, 0.1), jnp.asarray(inputs), **option)
+    want_post, want_aux = jax_filter(
+        lambda e: jgf.augmented_gaussian_sum_filter(
+            bot["jparams"], e, [2, 2, 2], rng_key, 1, (0.1, 0.1),
+            jnp.asarray(inputs), **option), emissions)
     reduction = option["reduction"]
     init_key, scan_key = jr.split(rng_key)
     split1, split2, reduce = [], [], []

@@ -1,12 +1,13 @@
 """The port's parallel iterated smoothers (IEKS, LM-IEKS, IPLS) against the
 JAX package and against float64 numpy oracles, on the CPU.
 
-The JAX package's four iterated-smoother results are computed once for
-the module (each JAX call compiles for seconds): the damped IEKS and the
+The JAX package's four iterated-smoother results are computed once each
+for the module, by the case that needs it (each JAX call traces and
+compiles for seconds): the damped IEKS and the
 LM-IEKS on the BOT experiment's range-bearing model (wrapped bearings,
 dq = 2 < dx = 4, the EKF filter seed), the augmented IPLS on the same
 model and the additive IPLS on the UNGM (``zoo.scalar_growth``, whose
-dq = dx), all at T = 40 with 3 iterations in float64, held to 1e-8
+dq = dx), all at T = 10 with 2 iterations in float64, held to 1e-8
 relative to max(1, max|reference|). The other variants (recentering off,
 the rollout and array nominals, the chunked schedule, the native solver)
 are held to the sequential float64 oracles of
@@ -42,7 +43,7 @@ from bayesianfiltering_tpu_torch.ops.ukf import ParamsUKF
 
 torch.set_num_threads(1)
 
-T, NUM_ITER = 40, 3
+T, NUM_ITER = 10, 2
 JAX_TOL = 1e-8
 ORACLE_TOL = {"native": 1e-9, "woodbury": 1e-6}
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
@@ -173,21 +174,28 @@ def problems():
 
 @pytest.fixture(scope="module")
 def jax_results(problems):
-    """The four JAX iterated-smoother calls of this PR's tests, jitted and
-    compiled at XLA's lowest backend optimisation level."""
+    """The four JAX iterated-smoother calls of this file's tests, each
+    jitted and compiled at XLA's lowest backend optimisation level when
+    its case first asks for it, and kept for the module."""
     results = {}
-    for name, model, smoother, kw in JAX_CASES:
-        jp, _, inputs, em = problems[model]
-        ju = None if inputs is None else jnp.asarray(inputs.numpy())
-        if smoother == "extended":
-            fn = lambda e: jax_ieks(jp, e, num_iter=NUM_ITER, inputs=ju,
-                                    **kw)
-        else:
-            fn = lambda e: jax_ipls(jp, JParamsUKF(*UP), e,
-                                    num_iter=NUM_ITER, inputs=ju, **kw)
-        je = jnp.asarray(em.numpy())
-        results[name] = jax.jit(fn).lower(je).compile(FAST_COMPILE)(je)
-    return results
+
+    def result(name):
+        if name not in results:
+            _, model, smoother, kw = next(c for c in JAX_CASES
+                                          if c[0] == name)
+            jp, _, inputs, em = problems[model]
+            ju = None if inputs is None else jnp.asarray(inputs.numpy())
+            if smoother == "extended":
+                fn = lambda e: jax_ieks(jp, e, num_iter=NUM_ITER, inputs=ju,
+                                        **kw)
+            else:
+                fn = lambda e: jax_ipls(jp, JParamsUKF(*UP), e,
+                                        num_iter=NUM_ITER, inputs=ju, **kw)
+            je = jnp.asarray(em.numpy())
+            results[name] = jax.jit(fn).lower(je).compile(FAST_COMPILE)(je)
+        return results[name]
+
+    return result
 
 
 @pytest.mark.parametrize("name,model,smoother,kw", JAX_CASES,
@@ -201,7 +209,7 @@ def test_iterated_smoothers_match_jax(problems, jax_results, name, model,
     else:
         got, aux = inf.parallel_iterated_sigma_point_smoother(
             tp, ParamsUKF(*UP), em, num_iter=NUM_ITER, inputs=inputs, **kw)
-    want, want_aux = jax_results[name]
+    want, want_aux = jax_results(name)
     assert isinstance(got, inf.PosteriorGaussianSmoothed)
     assert isinstance(aux, pi.IteratedSmootherAux)
     for field in POSTERIOR:

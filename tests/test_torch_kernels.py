@@ -54,13 +54,40 @@ def as_pair(arrays, dtype):
             [torch.as_tensor(np.asarray(a, dtype)) for a in arrays])
 
 
-_jax_update_single = jax.jit(
-    jax.vmap(jfe._update_xla, in_axes=(0, 0, 0, 0, 0, None)),
-    static_argnums=5)
-_jax_predict_single = jax.jit(jax.vmap(jfe._predict_xla,
-                                       in_axes=(0, 0, 0, None)))
-_jax_bank_update = jax.jit(jbu._update_xla, static_argnums=5)
-_jax_bank_predict = jax.jit(jbu._predict_cov_xla)
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def fast_jit(fn, static_argnums=()):
+    """``jax.jit(fn)`` compiled at XLA's lowest backend optimisation level,
+    once per static values and argument shapes: the twins' time here is
+    their compile."""
+    cache = {}
+
+    def call(*args):
+        key = tuple(a if i in static_argnums else (a.shape, a.dtype)
+                    for i, a in enumerate(args))
+        if key not in cache:
+            cache[key] = jax.jit(fn, static_argnums=static_argnums).lower(
+                *args).compile(FAST_COMPILE)
+        return cache[key](*(a for i, a in enumerate(args)
+                            if i not in static_argnums))
+    return call
+
+
+_update_single = jax.vmap(jfe._update_xla, in_axes=(0, 0, 0, 0, 0, None))
+_predict_single = jax.vmap(jfe._predict_xla, in_axes=(0, 0, 0, None))
+_jax_update_single = fast_jit(_update_single, static_argnums=(5,))
+_jax_predict_single = fast_jit(_predict_single)
+_jax_bank_update = fast_jit(jbu._update_xla, static_argnums=(5,))
+_jax_bank_predict = fast_jit(jbu._predict_cov_xla)
+
+
+def jax_vjp(fn, primals, cotangent):
+    """``jax.vjp(fn, *primals)``'s pullback of ``cotangent``, compiled at
+    XLA's lowest backend optimisation level."""
+    return jax.jit(lambda p, c: jax.vjp(fn, *p)[1](c)).lower(
+        primals, cotangent).compile(FAST_COMPILE)(primals, cotangent)
 
 
 class TestFusedTwins:
@@ -135,8 +162,8 @@ class TestBackward:
     must match ``jax.vjp`` of the XLA twin (float64, 1e-9)."""
 
     @pytest.mark.parametrize("update,jax_update,B,dx,dy", [
-        (fe.fused_update, lambda *a: _jax_update_single(*a, 0.0), 2, 5, 3),
-        (bu.bank_chol_update, lambda *a: _jax_bank_update(*a, 0.0), 7, 4, 2),
+        (fe.fused_update, lambda *a: _update_single(*a, 0.0), 2, 5, 3),
+        (bu.bank_chol_update, lambda *a: jbu._update_xla(*a, 0.0), 7, 4, 2),
     ])
     def test_update_vjp(self, update, jax_update, B, dx, dy):
         rng = np.random.default_rng(4)
@@ -148,13 +175,14 @@ class TestBackward:
             x.requires_grad_(True)
         outs = update(*t)
         torch.autograd.backward(outs, [torch.as_tensor(c) for c in cts])
-        _, vjp = jax.vjp(jax_update, *j)
-        for x, w in zip(t, vjp(tuple(jnp.asarray(c) for c in cts))):
+        want = jax_vjp(jax_update, tuple(j),
+                       tuple(jnp.asarray(c) for c in cts))
+        for x, w in zip(t, want):
             assert_close(x.grad, w, "float64")
 
     @pytest.mark.parametrize("predict,jax_predict,B,dx,dq", [
-        (fe.fused_predict_cov, _jax_predict_single, 2, 6, 3),
-        (bu.bank_predict_cov, _jax_bank_predict, 9, 4, 2),
+        (fe.fused_predict_cov, _predict_single, 2, 6, 3),
+        (bu.bank_predict_cov, jbu._predict_cov_xla, 9, 4, 2),
     ])
     def test_predict_vjp(self, predict, jax_predict, B, dx, dq):
         rng = np.random.default_rng(5)
@@ -163,8 +191,8 @@ class TestBackward:
         for x in t:
             x.requires_grad_(True)
         predict(*t).backward(torch.as_tensor(ct))
-        _, vjp = jax.vjp(jax_predict, *j)
-        for x, w in zip(t, vjp(jnp.asarray(ct))):
+        for x, w in zip(t, jax_vjp(jax_predict, tuple(j),
+                                   jnp.asarray(ct))):
             assert_close(x.grad, w, "float64")
 
 

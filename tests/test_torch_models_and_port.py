@@ -251,6 +251,7 @@ def test_importing_the_port_loads_no_jax():
         "import bayesianfiltering_tpu_torch.models\n"
         "import bayesianfiltering_tpu_torch.streaming\n"
         "import bayesianfiltering_tpu_torch.diagnostics\n"
+        "import bayesianfiltering_tpu_torch.legacy\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0]"
         ".startswith('jax'))\n"
         "print(loaded)\n"
@@ -263,25 +264,24 @@ def test_importing_the_port_loads_no_jax():
 
 
 # Names of the JAX package's __all__ that the port does not implement yet
-# (ROADMAP.md queue 1: the parallel (multi-device) and legacy
-# subpackages).
-NOT_PORTED = {"parallel", "legacy"}
+# (ROADMAP.md queue 1: the parallel (multi-device) subpackage).
+NOT_PORTED = {"parallel"}
 
 # The same for the subpackages' __all__, each name against its ROADMAP.md
 # queue 1 item ("not ported": the TPU-only factorisations that queue 1
 # leaves out of the port). ``ops``, ``models``, ``containers``,
-# ``streaming`` and ``diagnostics`` export every name.
+# ``streaming``, ``diagnostics`` and ``legacy`` export every name.
 SUBPACKAGE_NOT_PORTED = {
     "utils": {
         "fast_cholesky": "not ported", "cholesky_blocked": "not ported",
         "tri_inv_lower": "not ported",
-        "sdp_opt_legacy": "item 8", "sdp_opt_test": "item 8",
     },
     "ops": {},
     "models": {},
     "containers": {},
     "streaming": {},
     "diagnostics": {},
+    "legacy": {},
 }
 
 
@@ -303,9 +303,9 @@ def test_the_port_exports_every_ported_name_of_the_jax_package():
 
 @pytest.mark.parametrize("sub", sorted(SUBPACKAGE_NOT_PORTED))
 def test_the_subpackages_export_every_ported_name_of_the_jax_package(sub):
-    """``ops``, ``utils``, ``models``, ``containers``, ``streaming`` and
-    ``diagnostics``: every name of the JAX subpackage's ``__all__`` is in
-    the port's, except those not ported yet."""
+    """``ops``, ``utils``, ``models``, ``containers``, ``streaming``,
+    ``diagnostics`` and ``legacy``: every name of the JAX subpackage's
+    ``__all__`` is in the port's, except those not ported yet."""
     import importlib
 
     _assert_exports(

@@ -198,8 +198,11 @@ def test_the_constants_are_the_wrapper_s():
 @pytest.mark.parametrize("n", [STRETCH + 1, 5000, 8192])
 @pytest.mark.parametrize("profile", PROFILES)
 def test_the_schedule_equals_the_scatter_and_the_jax_kernel(profile, n):
+    """The scatter forms at every size; the JAX entry point in interpret
+    mode (compiled once, seconds a call) at the smallest."""
     counts = testing.resampling_counts(profile, n, np.random.default_rng(n))
-    assert_all_equal(counts, n)
+    assert_all_equal(counts, n, jax_refs=("scatter", "windowed")
+                     if n == STRETCH + 1 else ("scatter",))
 
 
 @pytest.mark.parametrize("m,n", [(200, 50), (32, 8), (64, 16), (1, 1),

@@ -87,14 +87,37 @@ def _jax_run(fn, *args):
     args = [jnp.asarray(a, jnp.float64) for a in args]
     return np.asarray(jax.jit(fn).lower(*args).compile(FAST_COMPILE)(*args))
 
+def _jax_each(fn, *args, in_axes=None, wide=True):
+    """``fn`` (one element's twin) over the batch in float64. Where
+    ``wide`` (a factored dimension above 16) and the batch is at most 4:
+    element by element, eagerly, stacked; on a concrete single element the
+    JAX package factors by its native route
+    (``utils/linalg._effectively_unbatched``), where the jitted, vmapped
+    batch unrolls its blocked factorisation and compiled for 10-20 s at the
+    wide shapes; the two agree to rounding. Else vmapped and jitted (the
+    unrolled factor of a small matrix runs slowly op by op)."""
+    in_axes = in_axes or (0,) * len(args)
+    B = next(a.shape[0] for a, ax in zip(args, in_axes) if ax == 0)
+    if not wide or B > 4:
+        return _jax_run(jax.vmap(fn, in_axes=in_axes), *args)
+    f64 = lambda a: jnp.asarray(a, jnp.float64)
+    outs = [fn(*(f64(a[b]) if ax == 0 else f64(a)
+                 for a, ax in zip(args, in_axes)))
+            for b in range(B)]
+    if not isinstance(outs[0], (tuple, list)):
+        return np.stack([np.asarray(o) for o in outs])
+    return [np.stack([np.asarray(o[k]) for o in outs])
+            for k in range(len(outs[0]))]
+
+
 
 @functools.lru_cache(maxsize=None)
 def sigma_case(B, n, method):
     """(m, P), the scale, and JAX's points."""
     m, P = testing.sigma_inputs(np.random.default_rng(n), B, n)
     scale = 1.3
-    want = _jax_run(jax.vmap(lambda a, b: jfu._sigma_xla(a, b, scale,
-                                                         method)), m, P)
+    want = _jax_each(lambda a, b: jfu._sigma_xla(a, b, scale, method), m,
+                     P, wide=n > 16)
     return (m, P), scale, want
 
 
@@ -104,8 +127,9 @@ def aug_case(B, dx, dn, method):
     args = testing.sigma_aug_inputs(np.random.default_rng(dx + dn), B, dx,
                                     dn)
     scale = 0.9
-    want = _jax_run(jax.vmap(lambda m, P, b, C: jfu._sigma_aug_xla(
-        m, P, b, C, scale, method), in_axes=(0, 0, None, None)), *args)
+    want = _jax_each(lambda m, P, b, C: jfu._sigma_aug_xla(
+        m, P, b, C, scale, method), *args, in_axes=(0, 0, None, None),
+        wide=max(dx, dn) > 16)
     return args, scale, want
 
 

@@ -309,11 +309,12 @@ def test_rts_smoothers_match_jax(model, smoother, additive):
     ju, je = jnp.asarray(inputs.numpy()), jnp.asarray(em.numpy())
     with jax_in("float64"):
         if smoother == "extended":
-            want = jgf.extended_rts_smoother(jp, je, inputs=ju)
+            run = lambda e: jgf.extended_rts_smoother(jp, e, inputs=ju)
         else:
-            want = jgf.unscented_rts_smoother(
-                jp, JParamsUKF(1.0, 0.0, 0.0, "cholesky"), je, inputs=ju,
+            run = lambda e: jgf.unscented_rts_smoother(
+                jp, JParamsUKF(1.0, 0.0, 0.0, "cholesky"), e, inputs=ju,
                 additive=additive)
+        want = jax.jit(run).lower(je).compile(FAST_COMPILE)(je)
     if smoother == "extended":
         got = inf.extended_rts_smoother(tp, em, inputs=inputs)
     else:

@@ -5,10 +5,10 @@ JAX's own draws (the key schedule of tests/test_torch_gsf_agsf.py).
 Covered: the PSD square roots and projections, the sigma points, ``MVN``
 and the metrics, every ``ops/ukf.py`` primitive (with and without a
 residual function), the IPLF at ``num_iter=2``, the plain versions of the
-UT kernels K6–K9 against the JAX kernels (Pallas in interpret mode) and
-their XLA twins, the batched UKF on Lorenz-96, the UGSF and UAGSF on
-bearings-only and range-bearing tracking, and ``params_from_jax`` for the
-range-bearing model.
+UT kernels K6–K9 against their XLA twins (and once each, at its smallest
+shape, against the JAX kernel in Pallas interpret mode), the batched UKF
+on Lorenz-96, the UGSF and UAGSF on bearings-only and range-bearing
+tracking, and ``params_from_jax`` for the range-bearing model.
 
 Tolerances, relative to max(1, max|reference|): float64 1e-9 — the same
 formulas through other factorisation routines and summation orders;
@@ -88,6 +88,16 @@ def t(x, dtype="float64"):
     return torch.as_tensor(np.asarray(x, dtype))
 
 
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def jax_fast(fn, *args):
+    """``fn(*args)`` jitted and compiled at XLA's lowest backend
+    optimisation level: the references' time here is their compile."""
+    return jax.jit(fn).lower(*args).compile(FAST_COMPILE)(*args)
+
+
 # ---------------------------------------------------------------------------
 # numerical base
 # ---------------------------------------------------------------------------
@@ -120,24 +130,23 @@ def test_sigma_points_match_jax(method):
     rng = np.random.default_rng(11)
     m, P = testing.sigma_inputs(rng, 3, 5)
     _, _, bias, C = testing.sigma_aug_inputs(rng, 1, 1, 2)
-    want = jax.vmap(lambda a, b: jsp.sigma_points(a, b, 0.7, method))(
+    jb, jC = jnp.asarray(bias), jnp.asarray(C)
+    # the JAX side compiled as one program
+    pts, block, split, aug = jax_fast(lambda a, b: (
+        jax.vmap(lambda x, y: jsp.sigma_points(x, y, 0.7, method))(a, b),
+        jax.vmap(lambda x, y: jsp.sigma_points_blockdiag(
+            x, y, jb, jC, -0.4, method))(a, b),
+        jsp.split_to_sigma_points(a[0], b[0], 0.7),
+        jax.vmap(lambda x, y: juk._augment(x, y, jb, jC))(a, b)),
         jnp.asarray(m), jnp.asarray(P))
-    assert_close(sp.sigma_points(t(m), t(P), 0.7, method), want)
-    want = jax.vmap(lambda a, b: jsp.sigma_points_blockdiag(
-        a, b, jnp.asarray(bias), jnp.asarray(C), -0.4, method))(
-        jnp.asarray(m), jnp.asarray(P))
+    assert_close(sp.sigma_points(t(m), t(P), 0.7, method), pts)
     assert_close(sp.sigma_points_blockdiag(t(m), t(P), t(bias), t(C), -0.4,
-                                           method), want)
-    assert_close(sp.split_to_sigma_points(t(m[0]), t(P[0]), 0.7),
-                 jsp.split_to_sigma_points(jnp.asarray(m[0]),
-                                           jnp.asarray(P[0]), 0.7))
+                                           method), block)
+    assert_close(sp.split_to_sigma_points(t(m[0]), t(P[0]), 0.7), split)
     for got, want in zip(sp.unscented_weights(5, 0.5, 2.0, 1.0),
                          jsp.unscented_weights(5, 0.5, 2.0, 1.0)):
         assert_close(torch.as_tensor(got), want)
-    for got, want in zip(ukf._augment(t(m), t(P), t(bias), t(C)),
-                         jax.vmap(lambda a, b: juk._augment(
-                             a, b, jnp.asarray(bias), jnp.asarray(C)))(
-                             jnp.asarray(m), jnp.asarray(P))):
+    for got, want in zip(ukf._augment(t(m), t(P), t(bias), t(C)), aug):
         assert_close(got, want)
 
 
@@ -159,42 +168,52 @@ def test_mvn_and_metrics_match_jax():
     mean, cov = rng.standard_normal(3), testing.spd(rng, 1, 3)[0]
     mean2, cov2 = rng.standard_normal(3), testing.spd(rng, 1, 3)[0]
     x = rng.standard_normal((4, 3))
-    jmvn, tmvn = jdist.MVN(jnp.asarray(mean), jnp.asarray(cov)), \
-        distributions.MVN(t(mean), t(cov))
-    assert_close(tmvn.log_prob(t(x)), jmvn.log_prob(jnp.asarray(x)))
     eps = rng.standard_normal((5, 3))
-    assert_close(tmvn.sample(5, eps=t(eps)),
-                 jnp.asarray(mean) + eps @ np.linalg.cholesky(cov).T)
-    assert_close(tmvn.mean(), jmvn.mean())
-    assert_close(tmvn.covariance(), jmvn.covariance())
-    with pytest.raises(ValueError):
-        distributions.MVN(t(mean))
-
     est, base = rng.standard_normal((6, 3)), rng.standard_normal((6, 3))
-    assert_close(metrics.mse(t(est), t(base)), jmet.mse(est, base))
-    assert_close(metrics.rmse(t(est), t(base)), jmet.rmse(est, base))
     means, covs = rng.standard_normal((4, 3)), testing.spd(rng, 4, 3)
     w = rng.uniform(size=4)
     w = w / w.sum()
-    for g, j in zip(metrics.collapse(t(means), t(covs), t(w)),
-                    jmet.collapse(means, covs, w)):
-        assert_close(g, j)
-    args = (mean, mean2, cov, cov2)
-    assert_close(metrics.normal_KL_div(*map(t, args)),
-                 jmet.normal_KL_div(*map(jnp.asarray, args)))
-    assert_close(metrics.normal_kl(*map(t, args)),
-                 jmet.normal_kl(*map(jnp.asarray, args)))
     parts = rng.standard_normal(7)
+
+    def jax_side(mean, cov, mean2, cov2, x, est, base, means, covs, w,
+                 parts):
+        jmvn = jdist.MVN(mean, cov)
+        return (jmvn.log_prob(x), jmvn.mean(), jmvn.covariance(),
+                jmet.mse(est, base), jmet.rmse(est, base),
+                jmet.collapse(means, covs, w),
+                jmet.normal_KL_div(mean, mean2, cov, cov2),
+                jmet.normal_kl(mean, mean2, cov, cov2),
+                jmet.W_distance(means[:, 0], covs[:, 0, 0], parts, w),
+                jmet.gaussian_logpdf(x[0], mean, cov),
+                jmet.gm(0.3, means[:, 0], 0.5, 4),
+                jmet.loss(covs[0], covs[1], 2.0, 3.0, covs[2]))
+
+    # the JAX side compiled as one program
+    (log_prob, jmean, jcov, mse, rmse, collapse, kl_div, kl, w_dist, logpdf,
+     gm, loss) = jax_fast(jax_side, *map(jnp.asarray, (
+         mean, cov, mean2, cov2, x, est, base, means, covs, w, parts)))
+    tmvn = distributions.MVN(t(mean), t(cov))
+    assert_close(tmvn.log_prob(t(x)), log_prob)
+    assert_close(tmvn.sample(5, eps=t(eps)),
+                 mean + eps @ np.linalg.cholesky(cov).T)
+    assert_close(tmvn.mean(), jmean)
+    assert_close(tmvn.covariance(), jcov)
+    with pytest.raises(ValueError):
+        distributions.MVN(t(mean))
+
+    assert_close(metrics.mse(t(est), t(base)), mse)
+    assert_close(metrics.rmse(t(est), t(base)), rmse)
+    for g, j in zip(metrics.collapse(t(means), t(covs), t(w)), collapse):
+        assert_close(g, j)
+    args = tuple(map(t, (mean, mean2, cov, cov2)))
+    assert_close(metrics.normal_KL_div(*args), kl_div)
+    assert_close(metrics.normal_kl(*args), kl)
     assert_close(metrics.W_distance(t(means[:, 0]), t(covs[:, 0, 0]),
-                                    t(parts), t(w)),
-                 jmet.W_distance(means[:, 0], covs[:, 0, 0], parts, w))
-    assert_close(metrics.gaussian_logpdf(t(x[0]), t(mean), t(cov)),
-                 jmet.gaussian_logpdf(x[0], mean, cov))
-    assert_close(metrics.gm(0.3, t(means[:, 0]), 0.5, 4),
-                 jmet.gm(0.3, means[:, 0], 0.5, 4))
+                                    t(parts), t(w)), w_dist)
+    assert_close(metrics.gaussian_logpdf(t(x[0]), t(mean), t(cov)), logpdf)
+    assert_close(metrics.gm(0.3, t(means[:, 0]), 0.5, 4), gm)
     assert_close(metrics.loss(*map(t, (covs[0], covs[1])), 2.0, 3.0,
-                              t(covs[2])),
-                 jmet.loss(covs[0], covs[1], 2.0, 3.0, covs[2]))
+                              t(covs[2])), loss)
     assert metrics.dec_to_base(255, 16) == jmet.dec_to_base(255, 16) == "FF"
 
 
@@ -236,29 +255,51 @@ UKF_SETTINGS = [("float64", (1e-3, 2.0, 0.0)), ("float64", (1.0, 0.0, 0.0)),
                 ("float32", (1.0, 0.0, 0.0))]
 
 
+STEPS = ["predict_additive", "predict_nonadditive", "condition_additive",
+         "condition_nonadditive"]
+_PRIMITIVES = {}
+
+
+def jax_primitives(method, dtype, weights):
+    """The four JAX primitives' results on ``_step_inputs(1)`` for one
+    setting, vmapped over the batch and compiled as one program (a
+    compile a setting, not a step), kept for the module."""
+    key = (method, dtype, weights)
+    if key not in _PRIMITIVES:
+        x = _step_inputs(1)
+        with jax_precision(dtype):
+            jf_add, jf_aug, jh = _models("jax")
+            up = juk.ParamsUKF(*weights, method)
+            J = {k: jnp.asarray(v, dtype) for k, v in x.items()}
+
+            def one(m, P):
+                # the residual function on the condition steps with sqrtm
+                jres = (jangles.angular_residual((0,))
+                        if method == "sqrtm" else None)
+                return (
+                    juk.ukf_predict_additive(m, P, jf_add, None, J["Qa"], up,
+                                             J["q0"]),
+                    juk.ukf_predict_nonadditive(m, P, jf_aug, None, J["Qn"],
+                                                up, J["q0"]),
+                    juk.ukf_condition_on_additive(m, P, jh, J["R"], None,
+                                                  J["y"], up, J["r0"], jres),
+                    juk.ukf_condition_on_nonadditive(m, P, jh, J["R"], None,
+                                                     J["y"], up, J["r0"],
+                                                     jres))
+
+            out = jax_fast(jax.vmap(one), J["m"], J["P"])
+        _PRIMITIVES[key] = {s: [np.asarray(w) for w in o]
+                            for s, o in zip(STEPS, out)}
+    return _PRIMITIVES[key]
+
+
 @pytest.mark.parametrize("dtype,weights", UKF_SETTINGS)
 @pytest.mark.parametrize("method", ["cholesky", "sqrtm"])
-@pytest.mark.parametrize("step", ["predict_additive", "predict_nonadditive",
-                                  "condition_additive",
-                                  "condition_nonadditive"])
+@pytest.mark.parametrize("step", STEPS)
 def test_ukf_primitives_match_jax(step, method, dtype, weights):
     x = _step_inputs(1)
     residual = step.startswith("condition") and method == "sqrtm"
-    with jax_precision(dtype):
-        jf_add, jf_aug, jh = _models("jax")
-        jres = jangles.angular_residual((0,)) if residual else None
-        up = juk.ParamsUKF(*weights, method)
-        J = {k: jnp.asarray(v, dtype) for k, v in x.items()}
-        fn = getattr(juk, f"ukf_{step.replace('condition', 'condition_on')}")
-        if step == "predict_additive":
-            call = lambda m, P: fn(m, P, jf_add, None, J["Qa"], up, J["q0"])
-        elif step == "predict_nonadditive":
-            call = lambda m, P: fn(m, P, jf_aug, None, J["Qn"], up, J["q0"])
-        else:
-            call = lambda m, P: fn(m, P, jh, J["R"], None, J["y"], up,
-                                   J["r0"], jres)
-        want = jax.vmap(call)(J["m"], J["P"])
-        want = [np.asarray(w) for w in want]
+    want = jax_primitives(method, dtype, weights)[step]
     tf_add, tf_aug, th = _models("torch")
     tres = angles.angular_residual((0,)) if residual else None
     up = ukf.ParamsUKF(*weights, method)
@@ -285,9 +326,10 @@ def test_iterated_posterior_linearization_matches_jax():
     J = {k: jnp.asarray(v) for k, v in x.items()}
     T = {k: t(v) for k, v in x.items()}
     for num_iter in (1, 2):
-        want = jax.vmap(lambda m, P: juk.ukf_condition_on_nonadditive_iterated(
-            m, P, jh, J["R"], None, J["y"], juk.ParamsUKF(1.0, 0.0, 0.0),
-            J["r0"], num_iter, jres))(J["m"], J["P"])
+        want = jax_fast(jax.vmap(
+            lambda m, P: juk.ukf_condition_on_nonadditive_iterated(
+                m, P, jh, J["R"], None, J["y"], juk.ParamsUKF(1.0, 0.0, 0.0),
+                J["r0"], num_iter, jres)), J["m"], J["P"])
         got = ukf.ukf_condition_on_nonadditive_iterated(
             T["m"], T["P"], th, T["R"], None, T["y"],
             ukf.ParamsUKF(1.0, 0.0, 0.0), T["r0"], num_iter, tres)
@@ -304,75 +346,98 @@ def _interpret(fn, *args):
         return fn(*args)
 
 
-def _both_jax(pallas, xla, args, batched_args):
-    """The JAX kernel (interpret mode, one element at a time) and its XLA
-    twin (vmapped) on the batch."""
-    B = batched_args[0].shape[0]
-    xla_out = jax.vmap(lambda *b: xla(*b, *args))(*batched_args)
-    pallas_out = [_interpret(pallas, *(b[i] for b in batched_args), *args)
-                  for i in range(B)]
-    if isinstance(xla_out, (tuple, list)):
-        pallas_out = [jnp.stack(o) for o in zip(*pallas_out)]
-    else:
-        pallas_out = jnp.stack(pallas_out)
-    return pallas_out, xla_out
+def _xla_twin(xla, args, batched_args):
+    """The kernel's XLA twin, vmapped over the batch: the reference the
+    plain versions are held to (tests/test_pallas.py holds each Pallas body
+    to the same twin)."""
+    return jax_fast(jax.vmap(lambda *b: xla(*b, *args)), *batched_args)
 
 
-def _check_twins(got, outs):
-    for want in outs:
-        got_t = got if isinstance(got, tuple) else (got,)
-        want_t = tuple(want) if isinstance(want, (tuple, list)) else (want,)
-        for g, w in zip(got_t, want_t):
-            assert_close(g, w)
+def _check_twin(got, want):
+    got_t = got if isinstance(got, tuple) else (got,)
+    want_t = tuple(want) if isinstance(want, (tuple, list)) else (want,)
+    for g, w in zip(got_t, want_t):
+        assert_close(g, w)
+
+
+def _check_pallas(pallas, args, batched_args, got):
+    """The JAX kernel itself in interpret mode on one element (batch 1, the
+    smallest shape): once a kernel, since interpret mode costs seconds a
+    call."""
+    want = _interpret(pallas, *(b[0] for b in batched_args), *args)
+    got_t = got if isinstance(got, tuple) else (got,)
+    want_t = tuple(want) if isinstance(want, (tuple, list)) else (want,)
+    for g, w in zip(got_t, want_t):
+        assert_close(g[0], w)
 
 
 @pytest.mark.parametrize("method", ["cholesky", "sqrtm"])
 def test_sigma_kernels_plain_match_jax(method):
     rng = np.random.default_rng(21)
     m, P = testing.sigma_inputs(rng, 2, 6)
-    outs = _both_jax(jfu._sigma_pallas, jfu._sigma_xla, (1.7, method),
+    want = _xla_twin(jfu._sigma_xla, (1.7, method),
                      (jnp.asarray(m), jnp.asarray(P)))
-    _check_twins(fu.fused_sigma(t(m), t(P), 1.7, method), outs)
+    _check_twin(fu.fused_sigma(t(m), t(P), 1.7, method), want)
     m, P, bias, C = testing.sigma_aug_inputs(rng, 2, 5, 3)
-    outs = _both_jax(
-        lambda a, b, *s: jfu._sigma_aug_pallas(a, b, jnp.asarray(bias),
-                                               jnp.asarray(C), *s),
-        lambda a, b, *s: jfu._sigma_aug_xla(a, b, jnp.asarray(bias),
-                                            jnp.asarray(C), *s),
-        (1.3, method), (jnp.asarray(m), jnp.asarray(P)))
-    _check_twins(fu.fused_sigma_aug(t(m), t(P), t(bias), t(C), 1.3, method),
-                 outs)
+    aug = lambda k: (lambda a, b, *s: k(a, b, jnp.asarray(bias),
+                                        jnp.asarray(C), *s))
+    want = _xla_twin(aug(jfu._sigma_aug_xla), (1.3, method),
+                     (jnp.asarray(m), jnp.asarray(P)))
+    _check_twin(fu.fused_sigma_aug(t(m), t(P), t(bias), t(C), 1.3, method),
+                want)
+    if method == "cholesky":
+        # K6 and K7 in interpret mode at their smallest shapes
+        m, P = testing.sigma_inputs(rng, 1, 2)
+        _check_pallas(jfu._sigma_pallas, (1.7, method),
+                      (jnp.asarray(m), jnp.asarray(P)),
+                      fu.fused_sigma(t(m), t(P), 1.7, method))
+        m, P, bias, C = testing.sigma_aug_inputs(rng, 1, 2, 1)
+        _check_pallas(aug(jfu._sigma_aug_pallas), (1.3, method),
+                      (jnp.asarray(m), jnp.asarray(P)),
+                      fu.fused_sigma_aug(t(m), t(P), t(bias), t(C), 1.3,
+                                         method))
+
+
+def _moment_cases(rng, add_noise, B, rows, ld, dx, dy, prows, pdx):
+    """The UT update's and predict's JAX arguments and the port's results
+    on one set of inputs: ``((pallas, xla, args, batched), got)`` each."""
+    w_side, w0m, w0c = 1.0 / rows, -0.5, 1.2
+    consts = (w_side, w0m, w0c)
+    pts, hpts, cy, _, m, P, R, _ = testing.ut_update_inputs(rng, B, rows, ld,
+                                                           dx, dy)
+    ptsx = pts[..., :dx] if add_noise else pts  # the strided state part
+    y = rng.standard_normal(dy)
+    mu_y = w_side * hpts.sum(-2) + w0m * cy
+    update = (
+        lambda *a: jfu._ut_update_pallas(*a[:6], jnp.asarray(y), *a[6:]),
+        lambda *a: jfu._ut_update_xla(*a[:6], jnp.asarray(y), *a[6:]),
+        (consts, add_noise),
+        tuple(jnp.asarray(a) for a in (pts[..., :dx], hpts, cy, m, P))
+        + (jnp.broadcast_to(jnp.asarray(R), (B, dy, dy)),))
+    got_u = fu.fused_ut_update(t(ptsx), t(hpts), t(cy), t(mu_y), t(m), t(P),
+                               t(R), t(y - mu_y), w_side, w0c, add_noise)
+    fpts, center, Q = testing.ut_predict_inputs(rng, B, prows, pdx)
+    pconsts = (1.0 / prows, -0.5, 1.2)
+    predict = (
+        lambda a, b, *s: jfu._ut_predict_pallas(a, b, jnp.asarray(Q), *s),
+        lambda a, b, *s: jfu._ut_predict_xla(a, b, jnp.asarray(Q), *s),
+        (pconsts, add_noise), (jnp.asarray(fpts), jnp.asarray(center)))
+    got_p = fu.fused_ut_predict(t(fpts), t(center), t(Q), *pconsts,
+                                add_noise)
+    return (update, got_u), (predict, got_p)
 
 
 @pytest.mark.parametrize("add_noise", [True, False])
 def test_moment_kernels_plain_match_jax(add_noise):
     rng = np.random.default_rng(22)
-    consts = (1.0 / 12, -0.5, 1.2)
-    w_side, w0m, w0c = consts
-    pts, hpts, cy, _, m, P, R, _ = testing.ut_update_inputs(rng, 2, 12, 7,
-                                                           5, 3)
-    ptsx = pts[..., :5] if add_noise else pts  # the strided state part
-    y = rng.standard_normal(3)
-    mu_y = w_side * hpts.sum(-2) + w0m * cy
-    outs = _both_jax(
-        lambda *a: jfu._ut_update_pallas(*a[:6], jnp.asarray(y), *a[6:]),
-        lambda *a: jfu._ut_update_xla(*a[:6], jnp.asarray(y), *a[6:]),
-        (consts, add_noise),
-        tuple(jnp.asarray(a) for a in (pts[..., :5], hpts, cy, m, P))
-        + (jnp.broadcast_to(jnp.asarray(R), (2, 3, 3)),))
-    got = fu.fused_ut_update(t(ptsx), t(hpts), t(cy), t(mu_y), t(m), t(P),
-                             t(R), t(y - mu_y), w_side, w0c, add_noise)
-    _check_twins(got, outs)
-
-    fpts, center, Q = testing.ut_predict_inputs(rng, 2, 10, 4)
-    outs = _both_jax(
-        lambda a, b, *s: jfu._ut_predict_pallas(a, b, jnp.asarray(Q), *s),
-        lambda a, b, *s: jfu._ut_predict_xla(a, b, jnp.asarray(Q), *s),
-        ((1.0 / 10, -0.5, 1.2), add_noise),
-        (jnp.asarray(fpts), jnp.asarray(center)))
-    got = fu.fused_ut_predict(t(fpts), t(center), t(Q), 1.0 / 10, -0.5, 1.2,
-                              add_noise)
-    _check_twins(got, outs)
+    for (pallas, xla, args, batched), got in _moment_cases(
+            rng, add_noise, 2, 12, 7, 5, 3, 10, 4):
+        _check_twin(got, _xla_twin(xla, args, batched))
+    if add_noise:
+        # K8 and K9 in interpret mode at their smallest shapes
+        for (pallas, xla, args, batched), got in _moment_cases(
+                rng, add_noise, 1, 4, 3, 2, 1, 4, 2):
+            _check_pallas(pallas, args, batched, got)
 
 
 def test_kernel_ops_backward_matches_jax_vjp():
@@ -383,19 +448,21 @@ def test_kernel_ops_backward_matches_jax_vjp():
     ct = rng.standard_normal((2, 8, 4))
     tm, tP = t(m).requires_grad_(), t(P).requires_grad_()
     fu.fused_sigma(tm, tP, 1.5, "sqrtm").backward(t(ct))
-    _, vjp = jax.vjp(jax.vmap(lambda a, b: jfu._sigma_xla(a, b, 1.5, "sqrtm")),
-                     jnp.asarray(m), jnp.asarray(P))
-    for g, w in zip((tm.grad, tP.grad), vjp(jnp.asarray(ct))):
+    want = jax_fast(lambda a, b, c: jax.vjp(jax.vmap(
+        lambda a, b: jfu._sigma_xla(a, b, 1.5, "sqrtm")), a, b)[1](c),
+        jnp.asarray(m), jnp.asarray(P), jnp.asarray(ct))
+    for g, w in zip((tm.grad, tP.grad), want):
         assert_close(g, w)
     fpts, center, Q = testing.ut_predict_inputs(rng, 2, 8, 3)
     cts = (rng.standard_normal((2, 3)), rng.standard_normal((2, 3, 3)))
     ins = [t(a).requires_grad_() for a in (fpts, center, Q)]
     torch.autograd.backward(fu.fused_ut_predict(*ins, 0.125, 0.0, 0.0, True),
                             [t(c) for c in cts])
-    _, vjp = jax.vjp(jax.vmap(lambda a, b, q: jfu._ut_predict_xla(
-        a, b, q, (0.125, 0.0, 0.0), True), in_axes=(0, 0, None)),
-        *map(jnp.asarray, (fpts, center, Q)))
-    for g, w in zip((x.grad for x in ins), vjp(tuple(map(jnp.asarray, cts)))):
+    want = jax_fast(lambda a, b, q, c: jax.vjp(jax.vmap(
+        lambda a, b, q: jfu._ut_predict_xla(a, b, q, (0.125, 0.0, 0.0), True),
+        in_axes=(0, 0, None)), a, b, q)[1](c),
+        *map(jnp.asarray, (fpts, center, Q)), tuple(map(jnp.asarray, cts)))
+    for g, w in zip((x.grad for x in ins), want):
         assert_close(g, w)
 
 
@@ -438,8 +505,8 @@ def test_ukf_lorenz96_batched(lorenz96_emissions, additive, dtype, weights,
         _, jp, _ = jzoo.lorenz96(8, 4)
         jp = jax_params(jp, dtype)
         up = juk.ParamsUKF(*weights, method)
-        want = jax.jit(jax.vmap(lambda e: jgf.unscented_kalman_filter(
-            jp, up, e, additive=additive)))(jnp.asarray(em, dtype))
+        want = jax_fast(jax.vmap(lambda e: jgf.unscented_kalman_filter(
+            jp, up, e, additive=additive)), jnp.asarray(em, dtype))
         want = jax.tree_util.tree_map(np.asarray, want)
     _, tp, _ = zoo.lorenz96(8, 4, dtype=getattr(torch, dtype), device="cpu")
     got = inf.unscented_kalman_filter(tp, ukf.ParamsUKF(*weights, method),
@@ -453,8 +520,8 @@ def test_ukf_single_sequence_iplf_and_options(lorenz96_emissions):
     _, jp, _ = jzoo.lorenz96(8, 4)
     _, tp, _ = zoo.lorenz96(8, 4, **CPU64)
     up = ukf.ParamsUKF(1.0, 0.0, 0.0)
-    want = jgf.unscented_kalman_filter(jp, juk.ParamsUKF(1.0, 0.0, 0.0),
-                                       jnp.asarray(em[1]), num_iter=2)
+    want = jax_fast(lambda e: jgf.unscented_kalman_filter(
+        jp, juk.ParamsUKF(1.0, 0.0, 0.0), e, num_iter=2), jnp.asarray(em[1]))
     got = inf.unscented_kalman_filter(tp, up, t(em[1]), num_iter=2)
     assert got.filtered_means.shape == (15, 8)
     for name in want._fields:
@@ -490,9 +557,9 @@ UP = (1.0, 0.0, 0.0)
 
 def test_ugsf_with_injected_initial_means(mixture_problem):
     p, M, key = mixture_problem, 4, jr.PRNGKey(3)
-    want = jgf.unscented_gaussian_sum_filter(
-        p["jparams"], juk.ParamsUKF(*UP), jnp.asarray(p["emissions"]), M,
-        inputs=jnp.asarray(p["inputs"]), key=key)
+    want = jax_fast(lambda e, u: jgf.unscented_gaussian_sum_filter(
+        p["jparams"], juk.ParamsUKF(*UP), e, M, inputs=u, key=key),
+        jnp.asarray(p["emissions"]), jnp.asarray(p["inputs"]))
     got = inf.unscented_gaussian_sum_filter(
         p["tparams"], ukf.ParamsUKF(*UP), t(p["emissions"]), M,
         inputs=t(p["inputs"]), init_eps=t(jr.normal(key, (M, 4), jnp.float64)))
@@ -520,10 +587,10 @@ def jax_agsf_draws(rng_key, T, M, N, L, dx, reduction):
 @pytest.mark.parametrize("reduction,T", [("topk", T_MIX), ("systematic", 1)])
 def test_uagsf_with_injected_draws(mixture_problem, reduction, T):
     p, rng_key = mixture_problem, jr.PRNGKey(1)
-    want_post, want_aux = jgf.unscented_agsf(
-        p["jparams"], juk.ParamsUKF(*UP), jnp.asarray(p["emissions"][:T]),
-        [4, 2, 2], rng_key, 1, (0.9, 0.9), jnp.asarray(p["inputs"][:T]),
-        reduction=reduction)
+    want_post, want_aux = jax_fast(lambda e, u: jgf.unscented_agsf(
+        p["jparams"], juk.ParamsUKF(*UP), e, [4, 2, 2], rng_key, 1,
+        (0.9, 0.9), u, reduction=reduction),
+        jnp.asarray(p["emissions"][:T]), jnp.asarray(p["inputs"][:T]))
     got_post, got_aux = inf.speedy_unscented_agsf(
         p["tparams"], ukf.ParamsUKF(*UP), t(p["emissions"][:T]), [4, 2, 2],
         opt_args=(0.9, 0.9), inputs=t(p["inputs"][:T]), reduction=reduction,

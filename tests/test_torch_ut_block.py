@@ -72,6 +72,29 @@ def _jax_run(fn, *args):
     compiled = jax.jit(fn).lower(*args).compile(FAST_COMPILE)
     return [np.asarray(x) for x in compiled(*args)]
 
+def _jax_update_each(pts, hpts, cy, m, P, R, y, w, add_r):
+    """``fused_ut._ut_update_xla`` in float64. Above dy = 16, for a few
+    elements, element by element, eagerly, stacked: on a concrete single
+    element the JAX package factors S by its native route
+    (``utils/linalg._effectively_unbatched``), where the jitted, vmapped
+    batch unrolls its blocked factorisation and compiled for 10-20 s at the
+    wide shapes; the two agree to rounding. Else vmapped and jitted (the
+    unrolled factor of a small S runs slowly op by op)."""
+    if y.shape[-1] <= 16 or m.shape[0] > 4:
+        update = jax.vmap(
+            lambda p, h, c, m_, P_, R_, y_: jfu._ut_update_xla(
+                p, h, c, m_, P_, R_, y_, w, add_r),
+            in_axes=(0, 0, 0, 0, 0, None, 0))
+        return _jax_run(update, pts, hpts, cy, m, P, R, y)
+    f64 = lambda a: jnp.asarray(a, jnp.float64)
+    outs = [jfu._ut_update_xla(f64(pts[b]), f64(hpts[b]), f64(cy[b]),
+                               f64(m[b]), f64(P[b]), f64(R), f64(y[b]), w,
+                               add_r)
+            for b in range(m.shape[0])]
+    return [np.stack([np.asarray(o[k]) for o in outs])
+            for k in range(len(outs[0]))]
+
+
 
 def assert_close(got, want, dtype):
     got = np.asarray(got, np.float64)
@@ -193,11 +216,7 @@ def k8_batch(args, w, add_r, dtype):
 
 def _jax_update(args, y, w, add_r, dx):
     pts, hpts, cy, _, m, P, R, _ = args
-    update = jax.vmap(
-        lambda p, h, c, m_, P_, R_, y_: jfu._ut_update_xla(
-            p, h, c, m_, P_, R_, y_, w, add_r),
-        in_axes=(0, 0, 0, 0, 0, None, 0))
-    return _jax_run(update, pts[..., :dx], hpts, cy, m, P, R, y)
+    return _jax_update_each(pts[..., :dx], hpts, cy, m, P, R, y, w, add_r)
 
 
 @functools.lru_cache(maxsize=None)

@@ -36,6 +36,10 @@ from bayesianfiltering_tpu_torch.utils import resampling as rs
 torch.set_num_threads(1)
 
 TOL = {"float64": 1e-10, "float32": 1e-4}
+# the compat-scalar EKF reference is compiled at XLA's lowest backend
+# optimisation level: its time here is its compile
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 FILTER_TOL = {"float64": 1e-8, "float32": 1e-4}
 
 
@@ -359,8 +363,10 @@ def test_compat_scalar_ekf_matches(name, dtype):
         ys = np.asarray(ys)
     with jax_in(dtype):
         jparams = getattr(jzoo, name)()[1]
-        want = jgf.extended_kalman_filter(jparams, jnp.asarray(ys, dtype),
-                                          inputs=inputs, compat_scalar=True)
+        want = jax.jit(lambda y: jgf.extended_kalman_filter(
+            jparams, y, inputs=inputs, compat_scalar=True)).lower(
+                jnp.asarray(ys, dtype)).compile(FAST_COMPILE)(
+                    jnp.asarray(ys, dtype))
     tparams = getattr(zoo, name)(dtype=getattr(torch, dtype), device="cpu")[1]
     got = inf.extended_kalman_filter(tparams, t(ys, dtype),
                                      inputs=t(np.asarray(inputs), dtype),
