@@ -8,7 +8,8 @@ streaming steppers built on them — and the legacy bootstrap PF run their
 hot loops in hand-written CUDA kernels
 (``csrc/``, built at first use by
 :mod:`bayesianfiltering_tpu_torch._build`) on CUDA tensors, and in plain
-PyTorch twins on CPU tensors. Importing the package applies the precision
+PyTorch twins on CPU tensors; :mod:`~bayesianfiltering_tpu_torch.parallel`
+runs them as the ranks of a ``torch.distributed`` group. Importing the package applies the precision
 policy of :mod:`bayesianfiltering_tpu_torch.config`.
 """
 from bayesianfiltering_tpu_torch import config  # noqa: F401  (precision policy)
@@ -20,6 +21,7 @@ from bayesianfiltering_tpu_torch import (
     legacy,
     models,
     ops,
+    parallel,
     streaming,
     utils,
 )
@@ -56,6 +58,7 @@ __all__ = [
     "legacy",
     "models",
     "ops",
+    "parallel",
     "streaming",
     "utils",
     "GaussianSum",

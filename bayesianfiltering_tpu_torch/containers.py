@@ -112,21 +112,31 @@ def reduce_gaussian_sum(mixture: GaussianSum, num_keep: int,
     returns). ``u`` are the uniforms, see
     :data:`~bayesianfiltering_tpu_torch.utils.resampling.UNIFORM_SHAPES`.
     """
+    idx, weights = reduction_indices(mixture.weights, num_keep, method,
+                                     generator, u)
+    return GaussianSum(mixture.means[idx], mixture.covariances[idx], weights)
+
+
+def reduction_indices(weights: torch.Tensor, num_keep: int,
+                      method: str = "multinomial",
+                      generator: Optional[torch.Generator] = None,
+                      u: Optional[torch.Tensor] = None):
+    """The components :func:`reduce_gaussian_sum` keeps of a mixture with
+    these ``weights``, and their new weights: ``(indices (num_keep,),
+    weights (num_keep,))``."""
     if method in ("multinomial", "systematic", "stratified"):
-        idx = rs.get_resampler(method)(mixture.weights, num_keep, generator, u)
-        weights = mixture.weights.new_full((num_keep,), 1.0 / num_keep)
+        idx = rs.get_resampler(method)(weights, num_keep, generator, u)
+        kept = weights.new_full((num_keep,), 1.0 / num_keep)
     elif method == "topk":
-        idx = torch.topk(mixture.weights, num_keep).indices
-        weights = mixture.weights.new_full((num_keep,), 1.0 / num_keep)
+        idx = torch.topk(weights, num_keep).indices
+        kept = weights.new_full((num_keep,), 1.0 / num_keep)
     elif method == "optimal":
-        idx, weights = rs.optimal_resampling(mixture.weights, num_keep,
-                                             generator, u)
+        idx, kept = rs.optimal_resampling(weights, num_keep, generator, u)
     else:
         raise ValueError(f"unknown reduction method {method!r}")
     # every resampler yields indices in range by construction; the clamp
     # keeps a gather on the device from faulting if that ever broke
-    idx = idx.clamp(0, mixture.num_components - 1)
-    return GaussianSum(mixture.means[idx], mixture.covariances[idx], weights)
+    return idx.clamp(0, weights.shape[0] - 1), kept
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +198,7 @@ __all__ = [
     "gaussian_sum",
     "split_gaussian_sum",
     "reduce_gaussian_sum",
+    "reduction_indices",
     "num_prt1",
     "num_prt2",
     "_gaussian_sum_to_components",

@@ -98,7 +98,18 @@ and prints no result):
    Gaussian-sum banks, the original AGSF [3,2,2] in each selection mode,
    the legacy BPF at 4,096 particles (K5 once a step), the mean
    estimators' comparison, ``AugmentedJointApproximation`` and the oldest
-   ALA API; each with its exact launches (none but the BPF's).
+   ALA API; each with its exact launches (none but the BPF's); and the
+   multi-device layer: two ranks sharing the card over gloo (spawned
+   after phase 2's build, so that they load its library) run every
+   function of ``parallel/`` in float64 at a small size on the card and
+   on the CPU with the same draws, at 1e-8, and against the
+   single-process function on the card (``batched_filter`` of the EKF,
+   the BPF in both modes at 4,096 particles, the GSF M=8, the AGSF
+   [4,2,2] gathered, local and with UKF moments, the time-sharded filter
+   and smoother at T=4,096 and the time-sharded IEKS at T=64), each rank
+   with its exact launches; the dry run in one rank over NCCL and on four
+   ranks over gloo. These spawned jobs run beside the phase's other
+   checks.
 5. The main paths, each with every launch counter reset just before it and
    read just after: the batched EKF on Lorenz-96 (dx=64, dy=32, B=512
    sequences, T=1000; data from the RK4 model, filter on the Euler model);
@@ -123,7 +134,7 @@ and prints no result):
    LM-IEKS and the IPLS, with their RMSE against the sampled states);
    path E, the IEKS row of experiments/parallel_kf_bench.py (the UNGM,
    3 iterations, chunk 128, the rollout nominal, T=2^16; the rollout
-   alone timed at 65,536 steps); path F, Experiment A of
+   alone timed at 16,384 steps); path F, Experiment A of
    experiments/expa_experiment.py (``zoo.sine_quadratic()``, T=100: the
    GSF M=5, the UGSF M=3, the AGSF [3,2,2] with autocov "prop", "trace"
    and "sdp", the UAGSF [3,2,2] with "trace", a BPF of 100 particles) and
@@ -136,8 +147,8 @@ and prints no result):
    with the largest gap to path B's parallel smoother; path I, exact EM
    (``LinearGaussianSSM.fit_em``) on path B's model and data at T=1M, 3
    iterations (K10/K12 960 times, K11 3); path J, extended EM on the
-   Lorenz-96 EKF's model and data at B=32, T=1000, 2 iterations (K1/K2
-   2,000 each); path K, ``fit_sgd`` on the same model at B=64, T=200, Q
+   Lorenz-96 EKF's model and data at B=32, T=1000, 1 iteration (K1/K2
+   1,000 each); path K, ``fit_sgd`` on the same model at B=64, T=200, Q
    and R under RealToPSD, Adam, 2 steps (K1/K2 400 each forward, the plain
    versions backward); the EKF stepper on the Lorenz-96 batch (B=512,
    T=200), the GSF stepper on bearings-only tracking (M=50, T=100) and the
@@ -150,10 +161,21 @@ and prints no result):
    composite EKF bank on the dx=2 sinusoid, T=100), the original AGSF
    [3,2,2] in its "prop", "opt_lip" and "test" selection modes, and the
    legacy BPF at path A's model and size (1M particles, T=100; K5 once a
-   step), each three times with its walls and RMSE. Config 5, paths C, D,
-   H and L run three times each in one process and report the median and
-   the range. Checks finiteness, shapes and the launch counts of every
-   kernel.
+   step), each three times (MCLAF and "opt_lip" once) with its walls and
+   RMSE; path M, the multi-device layer on two ranks sharing the card over
+   gloo, float32, each rank's launches exact: ``batched_filter`` of the
+   EKF L96 cell (256 sequences a rank; equal to the single-process EKF),
+   path A's BPF in both modes (500,000 particles a rank), the GSF M=50 on
+   bearings-only tracking (T=100), the AGSF [6400,4,4] of
+   experiments/sharded_agsf_scale.py (T=12) gathered and local, path B's
+   time-sharded smoother (T=1M), path E's time-sharded IEKS at T=2^14 and
+   path K's data-parallel gradient (32 sequences a rank), each with its
+   wall, its collectives' calls, bytes and host seconds, and its gap to
+   the single-process result (and the gathered AGSF again in float64,
+   equal to the single-process one). Config 5,
+   paths C, H and L run three times each in one process and report the
+   median and the range. Checks finiteness, shapes and the launch counts
+   of every kernel.
 6. The device's busy and idle share, and the kernels with the most
    device time, under torch.profiler: the batched UKF step, ten steps of
    the 1M-particle BPF (with the split of its resampling steps between
@@ -238,6 +260,9 @@ PC_NARROW = PC_LANES // KF_CHUNK                      # 4: the next level
 # at 500 (three calls each), and the run with path L came within 45 s of
 # the limit
 PD_T, PD_ITER, PD_DAMPING, PD_LM_LAMBDA = 250, 8, 0.7, 100.0
+# one call of each smoother on the main path: the five host-bound
+# smoothers take ~25 s a round on the H100, and the run has a time limit
+PD_REPS = 1
 PD_CMP_T, PD_CMP_ITER, PD_PROFILE_T = 100, 3, 20
 # path E: experiments/parallel_kf_bench.py:141-152, the IEKS row (the UNGM,
 # N(0, 1) emissions, 3 iterations, chunk 128, the rollout nominal); T cut
@@ -246,8 +271,10 @@ PD_CMP_T, PD_CMP_ITER, PD_PROFILE_T = 100, 3, 20
 # host, so that 1M steps would take ~180 s (PERF.md section 4), and 2^18
 # (~49 s) and 2^17 (~23 s) no longer fit the run's time limit beside
 # path L. The rollout
-# alone is timed at 65,536 steps, and phase 6 traces the path at 2,048.
-PE_T, PE_ITER, PE_ROLLOUT_T, PE_PROFILE_T = 2 ** 16, 3, 65_536, 2_048
+# alone is timed at 16,384 steps (65,536 until the multi-device path M
+# joined the run: its rate a step is the same), and phase 6 traces the
+# path at 2,048.
+PE_T, PE_ITER, PE_ROLLOUT_T, PE_PROFILE_T = 2 ** 16, 3, 2 ** 14, 2_048
 PE_LANES = PE_T // KF_CHUNK                           # 512
 # the time-varying filter and smoother on the card against the CPU: the
 # BOT widths (dx=4, dy=2, T=250, the flat scan) and path C's (dx=64,
@@ -1993,14 +2020,14 @@ def run_path(label, fn, expect, others_zero=False):
     return out, counts
 
 
-def repeated(label, fn, expect, add):
-    """``REPS`` calls of one path in one process, each with every counter
+def repeated(label, fn, expect, add, reps=REPS):
+    """``reps`` calls of one path in one process, each with every counter
     reset just before it and read just after (``run_path``, every kernel
     outside ``expect`` held to 0). Adds the first call's launches to the
     totals; returns the last output and each call's seconds (CUDA
     events)."""
     secs = []
-    for i in range(REPS):
+    for i in range(reps):
         (out, sec), counts = run_path(f"{label} (call {i + 1})",
                                       lambda: timed(fn), expect,
                                       others_zero=True)
@@ -2061,12 +2088,14 @@ def main_path(dev, card: str) -> dict:
     from bayesianfiltering_tpu_torch.utils import metrics
 
     total = {k.name: 0 for k in _build.KERNELS}
+    refs = {}  # the single-process outputs path M is held to
 
     def add(counts):
         for name, n in counts.items():
             total[name] += n
 
     params, _, emissions = lorenz96_data(dev, torch.float32)
+    refs["l96"] = emissions
     bot = {T: bot_problem(T, torch.float32, dev) for _, _, T in MIXTURE_RUNS}
     draws = {label: mixture_draws(comps, T, 4, bot[T][3])
              for label, comps, T in MIXTURE_RUNS}
@@ -2085,6 +2114,7 @@ def main_path(dev, card: str) -> dict:
          "bft_ekf_update_tiled": 0, "bft_ekf_predict_cov_tiled": 0})
     add(counts)
     check_gaussian_posterior("ekf", post, (EKF_B, EKF_T, EKF_DX))
+    refs["ekf_means"] = post.filtered_means
     log(f"ekf lorenz96 dx={EKF_DX} dy={EKF_DY} B={EKF_B} T={EKF_T} float32: "
         f"{secs:.3f} s, timestep-equiv/s: {EKF_B * EKF_T / secs:.1f} ({card})")
 
@@ -2103,6 +2133,8 @@ def main_path(dev, card: str) -> dict:
         wall = time.perf_counter() - t0
         add(counts)
         est = check_mixture(label, post, T)
+        if label == f"gsf M={PM_GSF_M}" and T == PM_GSF_T:
+            refs.update(gsf=post, gsf_eps=draws[label].init, bot100=bot[T])
         rmse = float(((est - states) ** 2).mean().sqrt())
         log(f"{label} bot T={T} float32: wall {wall:.3f} s, rmse {rmse:.4f}, "
             f"loglik {float(post.marginal_loglik):.3f}")
@@ -2166,6 +2198,8 @@ def main_path(dev, card: str) -> dict:
             or tuple(out["ess"].shape) != (BPF_T,)
             or not torch.isfinite(out["means"]).all()):
         raise RuntimeError("bpf: outputs not finite or misshapen")
+    refs.update(bpf_em=em, bpf_states=states,
+                bpf_rmse=float(metrics.rmse(out["means"], states)))
     log(f"bpf lorenz96 dx={BPF_DX} dy={BPF_DY} P={BPF_P} T={BPF_T} float32: "
         f"{secs:.4f} s, {BPF_T / secs:.1f} steps/s, "
         f"{BPF_P * BPF_T / secs:.4e} particle-steps/s, {resampled} "
@@ -2192,6 +2226,7 @@ def main_path(dev, card: str) -> dict:
         if x.shape[0] != KF_T or not torch.isfinite(x).all():
             raise RuntimeError(f"parallel smoother: {name} not finite or "
                                "misshapen")
+    refs.update(kf_ys=ys, kf_smoothed_means=post.smoothed_means)
     log(f"parallel kalman smoother dx={KF_DX} dy={KF_DY} T={KF_T} "
         f"chunk={KF_CHUNK} float32: {secs:.4f} s, {KF_T / secs:.1f} steps/s, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -2246,7 +2281,7 @@ def main_path(dev, card: str) -> dict:
     for label, run, expect in runs:
         post, secs = repeated(
             f"path D {label} range-bearing",
-            lambda: run(params_d, inputs_d, em_d), expect, add)
+            lambda: run(params_d, inputs_d, em_d), expect, add, PD_REPS)
         for name in ("smoothed_means", "smoothed_covariances"):
             x = getattr(post, name)
             if x.shape[0] != PD_T or not torch.isfinite(x).all():
@@ -2272,7 +2307,8 @@ def main_path(dev, card: str) -> dict:
                       ("H", lambda: path_h(dev, card, add)),
                       ("I-K and the steppers",
                        lambda: fitting_paths(dev, card, add)),
-                      ("L", lambda: legacy_path(dev, card, add))):
+                      ("L", lambda: legacy_path(dev, card, add)),
+                      ("M", lambda: path_m(dev, card, add, refs))):
         t0 = time.perf_counter()
         run()
         log(f"path {name} took {time.perf_counter() - t0:.1f} s")
@@ -2691,10 +2727,11 @@ PI_ITERS, PI_CMP_T, PI_CMP_ITERS = 3, 8192, 2
 # dy = 32, T = 1,000), B cut from 512 to 32 sequences (each (B, T, 64, 64)
 # float32 stack is 1.05 GB at B = 64, and the E-step holds about ten; 64
 # ran ~40 s of the run's time limit, cut to 32 beside path L), Q and R
-# trained; path K: fit_sgd on the same model at B = 64, T = 200, Q
+# trained, one iteration on the main path (phase 4's check runs two);
+# path K: fit_sgd on the same model at B = 64, T = 200, Q
 # and R under RealToPSD, the default Adam, one minibatch of B a step;
 # card vs CPU at B = 2, T = 20, float64
-PJ_B, PJ_T, PJ_ITERS = 32, 1000, 2
+PJ_B, PJ_T, PJ_ITERS, PJ_CMP_ITERS = 32, 1000, 1, 2
 PK_B, PK_T, PK_EPOCHS = 64, 200, 2
 FIT_CMP_B, FIT_CMP_T = 2, 20
 # the unscented E-step's check: the UNGM (path E's model), inputs arange(T)
@@ -2909,9 +2946,9 @@ def compare_fitting(dev) -> None:
     pick = lambda d: models[dev if d != "cpu" else "cpu"]
     noise = ("dynamics_noise_covariance", "emission_noise_covariance")
     compare(f"path J extended em lorenz96 B={FIT_CMP_B} T={FIT_CMP_T} "
-            f"{PJ_ITERS} iterations",
-            lambda d: extended_em(*pick(d), em.to(d), PJ_ITERS),
-            {k1: PJ_ITERS * FIT_CMP_T, k2: PJ_ITERS * FIT_CMP_T},
+            f"{PJ_CMP_ITERS} iterations",
+            lambda d: extended_em(*pick(d), em.to(d), PJ_CMP_ITERS),
+            {k1: PJ_CMP_ITERS * FIT_CMP_T, k2: PJ_CMP_ITERS * FIT_CMP_T},
             fitted(noise))
     compare(f"path K fit_sgd lorenz96 B={FIT_CMP_B} T={FIT_CMP_T} "
             f"{PK_EPOCHS} epochs",
@@ -3183,6 +3220,10 @@ LEG_PF_N, LEG_PARTICLES, LEG_BANK = (10, 1000), 10, 10
 LEG_AGSF = (3, 2, 2)
 LEG_AGSF_MODES = (("prop", (0.2, 0.2)), ("opt_lip", (1.0, 0.2)),
                   ("test", (0.1, 0.2)))
+# path L's slowest host-bound calls run once, not REPS times (MCLAF ~12 s
+# a call on the H100, the AGSF's "opt_lip" ~7.6 s), to keep the run within
+# its time limit
+LEG_ONE_CALL = ("MCLAF", "opt_lip")
 
 
 def legacy_models(dtype, dev, H):
@@ -3405,10 +3446,12 @@ def legacy_path(dev, card: str, add) -> None:
     def table(label, run, ys, xs, point, expect):
         """``run(ys)`` warmed up on 5 steps (these loops are host-bound:
         a short warm-up builds what the first call builds), then REPS
-        calls at LEG_T."""
+        calls at LEG_T (one for the slowest, ``LEG_ONE_CALL``)."""
         run(ys[:5])
         torch.cuda.synchronize()
-        out, secs = repeated(f"path L {label}", lambda: run(ys), expect, add)
+        reps = 1 if any(k in label for k in LEG_ONE_CALL) else REPS
+        out, secs = repeated(f"path L {label}", lambda: run(ys), expect, add,
+                             reps)
         log(f"path L {label} T={LEG_T} float32: {spread(secs)}, rmse "
             f"{rmse(point(out), xs):.4f} (utils.metrics.rmse) ({card})")
 
@@ -3466,6 +3509,733 @@ def legacy_path(dev, card: str, add) -> None:
         f"T={BPF_T} float32: {spread(secs)}, {BPF_T} resampling steps, rmse "
         f"{rmse(hist.mean(1), states):.4f} (utils.metrics.rmse), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer (parallel/): phase 4's ranks on the card against
+# the CPU, path M and the dry runs
+# ---------------------------------------------------------------------------
+
+# Several ranks share the one card over gloo (NCCL refuses two ranks on one
+# GPU); NCCL runs the dry run at world size 1. Each job's ranks are spawned
+# processes (parallel.launch.run_ranks), started after phase 2's build, so
+# that they load the built library and never run nvcc.
+PAR_RANKS, PAR_DRY_RANKS, PAR_TIMEOUT = 2, 4, 900
+# phase 4, float64, card vs the CPU ranks at MIXTURE_TOL and vs the
+# single-process function on the card at the CPU tests' tolerance: the
+# batched EKF on path A's Lorenz-96 (dx=8, dy=4, B=8, T=20), the BPF at
+# 4,096 particles in both modes, the GSF M=8 and the AGSF [4,2,2]
+# (gathered, local, UKF moments) on BOT at T=20, the time-sharded filter
+# and smoother on path B's model at T=4,096 (chunk 128), the time-sharded
+# IEKS on the quadratic-measurement model at T=64, 3 iterations
+PAR_CMP_B, PAR_CMP_T, PAR_CMP_P, PAR_CMP_M = 8, 20, 4096, 8
+PAR_CMP_COMPS = [4, 2, 2]
+PAR_CMP_KF_T, PAR_CMP_IEKS_T, PAR_CMP_ITERS = 4096, 64, 3
+# the single-process twins' tolerances, as the CPU tests state them:
+# 1e-10 for the batched EKF (the same per-sequence kernels), 1e-8 for the
+# mixtures (the normaliser summed in another order) and the time-sharded
+# scans (the cross-rank level changes the combine tree)
+PAR_SINGLE_TOL = {"batched ekf": 1e-10}
+# path M, float32, two ranks: the EKF L96 cell through batched_filter (B =
+# 512 -> 256 a rank), path A's BPF in both modes (1M particles -> 500,000
+# a rank), the README quick start's GSF M=50 on BOT at T=100,
+# experiments/sharded_agsf_scale.py's AGSF (BOT [6400,4,4]: 102,400
+# components in flight, T=12) gathered and local, path B's time-sharded
+# smoother (T=1M -> 500,000 a rank), path E's IEKS at T=2^14 (the
+# rollout as a pipeline), path K's data-parallel gradient (B=64 -> 32 a
+# rank, T=200)
+PM_GSF_M, PM_GSF_T = 50, 100
+PM_AGSF, PM_AGSF_T = [6400, 4, 4], 12
+PM_IEKS_T = 2 ** 14
+PM_SGD_B, PM_SGD_T = 64, 200
+# the mixture point estimates' gap over the posterior spread that
+# experiments/sharded_agsf_scale.py allows between the two reductions
+PM_AGSF_GAP = 1.25
+
+
+def par_launches():
+    from bayesianfiltering_tpu_torch import _build
+
+    return {k.name: k.launches for k in _build.KERNELS if k.launches}
+
+
+def par_collectives():
+    from bayesianfiltering_tpu_torch.parallel import mesh as pm
+
+    return {k: dict(v) for k, v in pm.STATS.items()}
+
+
+def par_path(fn):
+    """``fn()`` on this rank with every launch counter and the collective
+    statistics reset just before it and read just after; returns (output,
+    {"launches", "seconds" (CUDA events), "collectives"})."""
+    from bayesianfiltering_tpu_torch import _build
+    from bayesianfiltering_tpu_torch.parallel import mesh as pm
+
+    _build.reset_launch_counts()
+    pm.reset_stats()
+    out, secs = timed(fn)
+    return out, {"launches": par_launches(), "seconds": secs,
+                 "collectives": par_collectives()}
+
+
+def gloo_cuda_probe(dev) -> dict:
+    """Each collective of the layer called by torch.distributed itself on
+    CUDA tensors of this gloo group, its result checked (the layer passes
+    CUDA tensors to gloo as they are)."""
+    import torch
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    seen = {}
+    for op in ("all_reduce", "broadcast", "all_gather"):
+        x = torch.full((3,), float(r + 1), device=dev)
+        if op == "all_reduce":
+            dist.all_reduce(x)
+            ok = bool((x == n * (n + 1) / 2).all())
+        elif op == "broadcast":
+            dist.broadcast(x, 0)
+            ok = bool((x == 1).all())
+        else:
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x)
+            ok = all(bool((p == i + 1).all()) for i, p in enumerate(parts))
+        if not ok:
+            raise RuntimeError(f"gloo {op} on CUDA tensors gave wrong values")
+        seen[op] = "CUDA tensors"
+    return seen
+
+
+def compare_parallel_ranks(device):
+    """Phase 4's multi-device rank job (a ``run_ranks`` target): every
+    function of the layer at a small size on the card (launches counted)
+    and on the CPU with the same draws, in float64; and, where it has one,
+    the single-process function on the card. Returns each case's largest
+    errors, launches and finiteness."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bayesianfiltering_tpu_torch import _build, testing
+    from bayesianfiltering_tpu_torch import inference as inf
+    from bayesianfiltering_tpu_torch.models import zoo
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+    from bayesianfiltering_tpu_torch.ops.linear import ParamsLGSSM
+    from bayesianfiltering_tpu_torch.parallel import (
+        batched_filter,
+        gather_time_blocks,
+        make_mesh,
+        sharded_agsf,
+        sharded_bootstrap_particle_filter,
+        sharded_gaussian_sum_filter,
+        time_sharded_iterated_extended_smoother,
+        time_sharded_kalman_filter,
+        time_sharded_kalman_smoother,
+    )
+
+    _build.load()
+    report = {"build_seconds": _build.build_seconds,
+              "gloo": gloo_cuda_probe(device), "cases": {}}
+    rank, world = dist.get_rank(), dist.get_world_size()
+    f64, cpu, T = torch.float64, torch.device("cpu"), PAR_CMP_T
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    mesh = lambda axis, d: make_mesh((world,), (axis,), device=d)
+    on = lambda x, d: None if x is None else x.to(d)
+
+    def case(label, run, single=None):
+        _build.reset_launch_counts()
+        got = run(device)
+        torch.cuda.synchronize()
+        counts = par_launches()
+        want = run(cpu)
+        g, w = leaves(got), leaves(want)
+        entry = {"cpu_err": max(rel_err(a, b) for a, b in zip(g, w)),
+                 "launches": counts, "shapes_match": len(g) == len(w) and all(
+                     a.shape == b.shape for a, b in zip(g, w)),
+                 "finite": all(bool(torch.isfinite(x).all()) for x in w)}
+        if single is not None:
+            s = leaves(single(device))
+            entry["single_err"] = max(rel_err(a, b) for a, b in zip(g, s))
+        report["cases"][label] = entry
+        return want
+
+    # the batched EKF on path A's Lorenz-96
+    dm, dp, _ = zoo.lorenz96(BPF_DX, BPF_DY, integrator="rk4", dtype=f64,
+                             device=cpu)
+    _, l96_em = dm.sample(dp, T, generator=gen(SEED + 40),
+                          batch_shape=(PAR_CMP_B,))
+    l96 = lambda d: zoo.lorenz96(BPF_DX, BPF_DY, dtype=f64, device=d)
+    posterior = lambda p: (p.filtered_means, p.filtered_covariances,
+                           p.marginal_loglik)
+    case("batched ekf",
+         lambda d: posterior(batched_filter(
+             inf.extended_kalman_filter, l96(d)[1], l96_em.to(d),
+             mesh=mesh("batch", d))),
+         lambda d: posterior(inf.extended_kalman_filter(l96(d)[1],
+                                                        l96_em.to(d))))
+
+    # the BPF in both modes, each rank its own draws (the global comb's
+    # uniforms in gather mode, the same on every rank)
+    local_n = PAR_CMP_P // world
+    like = torch.zeros((), dtype=f64)
+    draws = inf.bpf_draws(gen(SEED + 50 + rank), T, local_n, BPF_DX,
+                          BPF_DX, "systematic", like)
+    comb = torch.rand(T, generator=gen(SEED + 60), dtype=f64)
+    for mode in ("local", "gather"):
+        d_mode = draws if mode == "local" else draws._replace(resample=comb)
+        want = case(f"bpf {mode}", lambda d: sharded_bootstrap_particle_filter(
+            l96(d)[2], l96_em[0].to(d), PAR_CMP_P, mesh("particle", d),
+            draws=type(d_mode)(*(x.to(d) for x in d_mode)),
+            resampling_mode=mode))
+        report["cases"][f"bpf {mode}"]["resampled"] = int(
+            (want["ess"] < 0.5 * PAR_CMP_P).sum())
+
+    # the GSF and the AGSF on BOT
+    bm, bp, _ = zoo.bearings_only_tracking(dtype=f64, device=cpu)
+    inputs = zoo.bot_maneuver_inputs(T, device=cpu)
+    _, bot_em = bm.sample(bp, T, inputs=inputs, generator=gen(SEED + 70))
+    bot = lambda d: zoo.bearings_only_tracking(dtype=f64, device=d)[1]
+    mix = lambda p: (p.means, p.covariances, p.weights, p.marginal_loglik)
+    eps = torch.randn(PAR_CMP_M, 4, generator=gen(SEED + 71), dtype=f64)
+    case("gsf",
+         lambda d: mix(sharded_gaussian_sum_filter(
+             bot(d), bot_em.to(d), PAR_CMP_M, mesh("mixture", d),
+             inputs=inputs.to(d), init_eps=eps.to(d))),
+         lambda d: mix(inf.gaussian_sum_filter(
+             bot(d), bot_em.to(d), PAR_CMP_M, inputs=inputs.to(d),
+             init_eps=eps.to(d))))
+    adraws = inf.agsf_draws(gen(SEED + 72), T, PAR_CMP_COMPS, 4,
+                            "systematic", like)
+    moved_draws = lambda d, dr: type(dr)(*(on(x, d) for x in dr))
+    up = ukf_params()
+    for label, kw, single in (
+            ("agsf", {}, lambda d: inf.augmented_gaussian_sum_filter(
+                bot(d), bot_em.to(d), PAR_CMP_COMPS, inputs=inputs.to(d),
+                reduction="systematic", draws=moved_draws(d, adraws))[0]),
+            ("uagsf", {"moments": "ukf", "uparams": up},
+             lambda d: inf.unscented_agsf(
+                 bot(d), up, bot_em.to(d), PAR_CMP_COMPS,
+                 inputs=inputs.to(d), reduction="systematic",
+                 draws=moved_draws(d, adraws))[0]),
+            ("agsf local", {"reduction": "local"}, None)):
+        dr = adraws if label != "agsf local" else adraws._replace(
+            reduce=torch.rand(T, generator=gen(SEED + 80 + rank), dtype=f64))
+        case(label, lambda d: mix(sharded_agsf(
+            bot(d), bot_em.to(d), PAR_CMP_COMPS, mesh("mixture", d),
+            inputs=inputs.to(d), draws=moved_draws(d, dr),
+            **{"reduction": "systematic", **kw})),
+            None if single is None else (lambda d: mix(single(d))))
+
+    # the time-sharded filter and smoother on path B's model
+    fields = testing.lgssm_fields(np.random.default_rng(SEED), KF_DX, KF_DY)
+    lg = lambda d: ParamsLGSSM(**{k: torch.as_tensor(v, dtype=f64, device=d)
+                                  for k, v in fields.items()})
+    ys = torch.as_tensor(np.random.default_rng(SEED + 1).standard_normal(
+        (PAR_CMP_KF_T, KF_DY)))
+    kf = lambda p: (p.filtered_means, p.filtered_covariances,
+                    p.marginal_loglik)
+    ks = lambda p: kf(p) + (p.smoothed_means, p.smoothed_covariances)
+    case("time-sharded filter",
+         lambda d: kf(gather_time_blocks(time_sharded_kalman_filter(
+             lg(d), ys.to(d), mesh("time", d), chunk=KF_CHUNK),
+             mesh("time", d))),
+         lambda d: kf(tas.parallel_kalman_filter(lg(d), ys.to(d),
+                                                 chunk=KF_CHUNK)))
+    case("time-sharded smoother",
+         lambda d: ks(gather_time_blocks(time_sharded_kalman_smoother(
+             lg(d), ys.to(d), mesh("time", d), chunk=KF_CHUNK),
+             mesh("time", d))),
+         lambda d: ks(tas.parallel_kalman_smoother(lg(d), ys.to(d),
+                                                   chunk=KF_CHUNK)))
+
+    # the time-sharded IEKS on the quadratic-measurement model
+    qm, qp, _ = zoo.quadratic_measurement(dtype=f64, device=cpu)
+    _, q_ys = qm.sample(qp, PAR_CMP_IEKS_T, generator=gen(SEED + 90))
+    qpar = lambda d: zoo.quadratic_measurement(dtype=f64, device=d)[1]
+    ieks = lambda out: (out[0].smoothed_means, out[0].smoothed_covariances,
+                        out[0].marginal_loglik, out[1].step_norms)
+
+    def sharded_ieks(d):
+        post, aux = time_sharded_iterated_extended_smoother(
+            qpar(d), q_ys.to(d), mesh("time", d), num_iter=PAR_CMP_ITERS)
+        return gather_time_blocks(post, mesh("time", d)), aux
+
+    case("time-sharded ieks", lambda d: ieks(sharded_ieks(d)),
+         lambda d: ieks(inf.parallel_iterated_extended_smoother(
+             qpar(d), q_ys.to(d), num_iter=PAR_CMP_ITERS)))
+    return report
+
+
+def par_expected(label: str, rank: int, world: int, case: dict,
+                 ekf_names) -> dict:
+    """The exact launches a rank of phase 4's job must show for a case:
+    the time-sharded scans' local combines plus the cross-rank level (rank
+    r: r filtering combines, world − 1 − r smoothing ones); K5 on rank 0
+    only where rank 0 picks the global parents."""
+    T, first = PAR_CMP_T, rank == 0
+    k5 = "bft_resample_parents"
+    kf_local = chunked_combines(PAR_CMP_KF_T // world)
+    ieks_local = flat_combines(PAR_CMP_IEKS_T // world)
+    passes = PAR_CMP_ITERS + 1
+    table = {
+        "batched ekf": {ekf_names[0]: T, ekf_names[1]: T},
+        "bpf local": {k5: case.get("resampled", 0)},
+        "bpf gather": {k5: T if first else 0},
+        "gsf": {"bft_bank_update": T, "bft_bank_predict_cov": T},
+        "agsf": {"bft_bank_update": T, "bft_bank_predict_cov": T,
+                 k5: T if first else 0},
+        "agsf local": {"bft_bank_update": T, "bft_bank_predict_cov": T,
+                       k5: T},
+        "uagsf": {"bft_ut_sigma_aug": 2 * T, "bft_ut_update": T,
+                  "bft_ut_predict": T, k5: T if first else 0},
+        "time-sharded filter": {"bft_bank_combine": kf_local + rank},
+        "time-sharded smoother": {
+            "bft_bank_combine": kf_local + rank,
+            "bft_bank_smoother_elements": 1,
+            "bft_bank_smoother_combine": kf_local + world - 1 - rank},
+        "time-sharded ieks": {
+            "bft_bank_combine": passes * (ieks_local + rank),
+            "bft_bank_smoother_elements": passes,
+            "bft_bank_smoother_combine": passes * (ieks_local + world - 1
+                                                   - rank)},
+    }
+    return {k: v for k, v in table[label].items() if v}
+
+
+def start_parallel_jobs(dev) -> dict:
+    """The multi-device jobs that measure no time but their walls, started
+    before phase 4's other card-vs-CPU checks and run beside them: the
+    two-rank job on the card over gloo, the dry run at world size 1 over
+    NCCL and the dry run at four ranks over gloo, each a thread waiting on
+    its spawned ranks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from bayesianfiltering_tpu_torch.parallel import (
+        dryrun_multichip,
+        run_ranks,
+    )
+
+    def walled(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        return out, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    pool = ThreadPoolExecutor(3)
+    jobs = {"ranks": pool.submit(walled, run_ranks, compare_parallel_ranks,
+                                 PAR_RANKS, device=dev,
+                                 timeout_s=PAR_TIMEOUT),
+            "nccl": pool.submit(walled, dryrun_multichip, 1, device=dev,
+                                timeout_s=PAR_TIMEOUT),
+            "dry": pool.submit(walled, dryrun_multichip, PAR_DRY_RANKS,
+                               device=dev, timeout_s=PAR_TIMEOUT)}
+    pool.shutdown(wait=False)
+    return jobs
+
+
+def compare_parallel(dev, jobs: dict) -> None:
+    """Phase 4, the multi-device layer: the results of
+    :func:`start_parallel_jobs`: the two-rank job on the card over gloo
+    against the CPU ranks (float64, MIXTURE_TOL) and the single-process
+    functions, with each rank's exact launches; then the dry runs at world
+    size 1 over NCCL and at four ranks over gloo."""
+    import torch
+
+    reports, wall = jobs["ranks"].result()
+    ekf_names = ekf_kernels(BPF_DX, BPF_DY, torch.float64, dev)
+    log(f"parallel: {PAR_RANKS} ranks on {dev} over gloo, {wall:.1f} s "
+        f"(beside phase 4's other checks); each rank's library load "
+        f"{[round(r['build_seconds'], 2) for r in reports]} s (the build "
+        f"reused); gloo collectives: {reports[0]['gloo']}")
+    failed = []
+    for label in reports[0]["cases"]:
+        for rank, rep in enumerate(reports):
+            c = rep["cases"][label]
+            want = par_expected(label, rank, PAR_RANKS, c, ekf_names)
+            single_tol = PAR_SINGLE_TOL.get(label, MIXTURE_TOL)
+            ok = (c["cpu_err"] <= MIXTURE_TOL and c["finite"]
+                  and c["shapes_match"] and c["launches"] == want
+                  and c.get("single_err", 0.0) <= single_tol)
+            single = ("" if "single_err" not in c else
+                      f", vs single-process {c['single_err']:.3e} (tol "
+                      f"{single_tol:.0e})")
+            log(f"parallel {label} rank {rank} float64: card vs cpu "
+                f"{c['cpu_err']:.3e} (tol {MIXTURE_TOL:.0e}){single}, "
+                f"launches {c['launches']} (expected {want}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{label} rank {rank}")
+    if failed:
+        raise RuntimeError(f"parallel: {failed} disagree")
+    out, wall = jobs["nccl"].result()
+    log(f"parallel dry run, 1 rank over NCCL on {dev}: {wall:.1f} s "
+        f"(beside phase 4's other checks), stage-1 gradient "
+        f"{[round(float(g), 4) for g in out['grads']]}")
+    out, wall = jobs["dry"].result()
+    log(f"parallel dry run, {PAR_DRY_RANKS} ranks on {dev} over gloo: "
+        f"{wall:.1f} s (beside phase 4's other checks), stage-1 gradient "
+        f"{[round(float(g), 4) for g in out['grads']]}")
+
+
+def sgd_loss_grads(model, params, em, size):
+    """Path K's loss gradient on a slice of the minibatch: ``fit_sgd``'s
+    −(log p(y of the slice))/size with respect to the unconstrained Q and
+    R (RealToPSD), whose sum over the slices is the minibatch's."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models.bijectors import RealToPSD
+    from bayesianfiltering_tpu_torch.models.parameters import (
+        from_unconstrained,
+        to_unconstrained,
+    )
+
+    props = noise_props(params, RealToPSD)
+    unc = to_unconstrained(params, props)
+    names = ("dynamics_noise_covariance", "emission_noise_covariance")
+    leaves_ = {k: getattr(unc, k).detach().requires_grad_() for k in names}
+    fitted = from_unconstrained(unc._replace(**leaves_), props)
+    loss = -model.marginal_log_prob(fitted, em).sum() / size
+    return torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+        loss, list(leaves_.values()))])
+
+
+def path_m_ranks(data, device):
+    """Path M on this rank (a ``run_ranks`` target; ``data`` the CPU
+    tensors the parent made): M1–M7, each with this rank's launch counters
+    and collective statistics reset just before it and read just after.
+    Rank 0 also returns the gathered outputs the parent compares."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bayesianfiltering_tpu_torch import _build, testing
+    from bayesianfiltering_tpu_torch import inference as inf
+    from bayesianfiltering_tpu_torch.models import zoo
+    from bayesianfiltering_tpu_torch.ops.linear import ParamsLGSSM
+    from bayesianfiltering_tpu_torch.parallel import (
+        batched_filter,
+        gather_time_blocks,
+        make_mesh,
+        sharded_agsf,
+        sharded_bootstrap_particle_filter,
+        sharded_gaussian_sum_filter,
+        time_sharded_iterated_extended_smoother,
+        time_sharded_kalman_smoother,
+    )
+    from bayesianfiltering_tpu_torch.parallel.mesh import all_gather, psum
+
+    t_start = time.time()
+    _build.load()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    f32, dev = torch.float32, device
+    mesh = lambda axis: make_mesh((world,), (axis,), device=dev)
+    d = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+         for k, v in data.items()}
+    report = {"build_seconds": _build.build_seconds, "paths": {},
+              "outputs": {}, "start": t_start}
+    keep = lambda name, x: report["outputs"].__setitem__(
+        name, x.detach().cpu()) if rank == 0 else None
+
+    def path(label, fn):
+        out, stats = par_path(fn)
+        report["paths"][label] = stats
+        return out
+
+    # M1: the EKF L96 cell through batched_filter; each rank keeps its
+    # slice of the (512, 1000, 64, 64) covariance histories (two of 8.4 GB
+    # whole), and the filtered means are gathered apart
+    params = zoo.lorenz96(EKF_DX, EKF_DY, dtype=f32, device=dev)[1]
+    batched_filter(inf.extended_kalman_filter, params, d["l96"][:, :20],
+                   mesh=mesh("batch"))                     # warm-up
+    post = path("M1 batched ekf", lambda: batched_filter(
+        inf.extended_kalman_filter, params, d["l96"], mesh=mesh("batch"),
+        gather=False))
+    keep("ekf_means", all_gather(post.filtered_means, mesh("batch"),
+                                 tiled=True))
+    del post
+
+    # M2: path A's BPF in both modes
+    bpf = zoo.lorenz96(BPF_DX, BPF_DY, dtype=f32, device=dev)[2]
+    for mode in ("local", "gather"):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7 + rank)
+        sharded_bootstrap_particle_filter(bpf, d["bpf_em"][:5], BPF_P,
+                                          mesh("particle"), gen,
+                                          resampling_mode=mode)
+        out = path(f"M2 bpf {mode}", lambda: sharded_bootstrap_particle_filter(
+            bpf, d["bpf_em"], BPF_P, mesh("particle"), gen,
+            resampling_mode=mode))
+        report["paths"][f"M2 bpf {mode}"]["resampled"] = int(
+            (out["ess"] < 0.5 * BPF_P).sum())
+        keep(f"bpf_{mode}_means", out["means"])
+
+    # M3: the README's GSF M=50 on BOT
+    bot = zoo.bearings_only_tracking(dtype=f32, device=dev)[1]
+    sharded_gaussian_sum_filter(bot, d["gsf_em"][:5], PM_GSF_M,
+                                mesh("mixture"), inputs=d["gsf_inputs"],
+                                init_eps=d["gsf_eps"])     # warm-up
+    post = path("M3 gsf", lambda: sharded_gaussian_sum_filter(
+        bot, d["gsf_em"], PM_GSF_M, mesh("mixture"),
+        inputs=d["gsf_inputs"], init_eps=d["gsf_eps"]))
+    for name in ("means", "weights", "marginal_loglik"):
+        keep(f"gsf_{name}", getattr(post, name))
+
+    # M4: the AGSF at 102,400 components in flight, both reductions
+    draws = inf.AGSFDraws(d["agsf_init"], d["agsf_split1"],
+                          d["agsf_split2"], d["agsf_reduce"])
+    local_reduce = torch.rand(PM_AGSF_T, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 100 + rank))
+    sharded_agsf(bot, d["agsf_em"][:2], PM_AGSF, mesh("mixture"),
+                 inputs=d["agsf_inputs"], draws=draws)     # warm-up
+    for reduction, dr in (("systematic", draws),
+                          ("local", draws._replace(reduce=local_reduce))):
+        post = path(f"M4 agsf {reduction}", lambda: sharded_agsf(
+            bot, d["agsf_em"], PM_AGSF, mesh("mixture"),
+            inputs=d["agsf_inputs"], reduction=reduction, draws=dr))
+        for name in ("means", "covariances", "weights", "marginal_loglik"):
+            keep(f"agsf_{reduction}_{name}", getattr(post, name))
+        del post
+    # the gathered AGSF again in float64, at the same width and draws: the
+    # single-process engine's result to rounding (in float32 a weight's
+    # last bit moves a comb's pick, and the runs part)
+    bot64 = zoo.bearings_only_tracking(dtype=torch.float64, device=dev)[1]
+    post = path("M4 agsf systematic float64", lambda: sharded_agsf(
+        bot64, d["agsf_em"].double(), PM_AGSF, mesh("mixture"),
+        inputs=d["agsf_inputs"], reduction="systematic",
+        draws=inf.AGSFDraws(*(x.double() for x in draws))))
+    for name in ("means", "weights", "marginal_loglik"):
+        keep(f"agsf64_{name}", getattr(post, name))
+    del post
+
+    # M5: path B's time-sharded smoother at T = 1M
+    fields = testing.lgssm_fields(np.random.default_rng(SEED), KF_DX, KF_DY)
+    lg = ParamsLGSSM(**{k: torch.as_tensor(v, dtype=f32, device=dev)
+                        for k, v in fields.items()})
+    time_sharded_kalman_smoother(lg, d["kf_ys"][:KF_CMP_T], mesh("time"),
+                                 chunk=KF_CHUNK)           # warm-up
+    post = path("M5 time-sharded smoother", lambda: time_sharded_kalman_smoother(
+        lg, d["kf_ys"], mesh("time"), chunk=KF_CHUNK))
+    whole = gather_time_blocks(post, mesh("time"))
+    keep("kf_smoothed_means", whole.smoothed_means)
+    keep("kf_loglik", whole.marginal_loglik)
+    del post, whole
+
+    # M6: path E's IEKS at T = 2^14, the rollout as a pipeline
+    ungm = zoo.scalar_growth(device=dev)[1]
+    time_sharded_iterated_extended_smoother(
+        ungm, d["ieks_ys"][:4096], mesh("time"), num_iter=PE_ITER,
+        chunk=KF_CHUNK)                                    # warm-up
+    post, aux = path("M6 time-sharded ieks", lambda: (
+        time_sharded_iterated_extended_smoother(
+            ungm, d["ieks_ys"], mesh("time"), num_iter=PE_ITER,
+            chunk=KF_CHUNK)))
+    keep("ieks_smoothed_means",
+         gather_time_blocks(post, mesh("time")).smoothed_means)
+    keep("ieks_norms", aux.step_norms)
+
+    # M7: path K's data-parallel gradient
+    model, params = l96_model(f32, dev)
+    em = d["l96"][:PM_SGD_B, :PM_SGD_T]
+    start, stop = mesh("batch").block(PM_SGD_B, "batch size")
+    sgd_loss_grads(model, params, em[start:stop, :10], em.numel())  # warm-up
+    grads = path("M7 dp gradient", lambda: psum(sgd_loss_grads(
+        model, params, em[start:stop], em.numel()), mesh("batch")))
+    keep("sgd_grads", grads)
+    report["end"] = time.time()
+    return report
+
+
+def path_m_expected(label: str, rank: int, world: int, stats: dict) -> dict:
+    """The exact launches of a rank on path M."""
+    first, T = rank == 0, PM_AGSF_T
+    k5 = "bft_resample_parents"
+    kf = chunked_combines(KF_T // world)
+    ieks = chunked_combines(PM_IEKS_T // world)
+    passes = PE_ITER + 1
+    table = {
+        "M1 batched ekf": {"bft_ekf_update": EKF_T,
+                           "bft_ekf_predict_cov": EKF_T},
+        "M2 bpf local": {k5: stats.get("resampled", 0)},
+        "M2 bpf gather": {k5: BPF_T if first else 0},
+        "M3 gsf": {"bft_bank_update": PM_GSF_T,
+                   "bft_bank_predict_cov": PM_GSF_T},
+        "M4 agsf systematic": {"bft_bank_update": T,
+                               "bft_bank_predict_cov": T,
+                               k5: T if first else 0},
+        "M4 agsf systematic float64": {"bft_bank_update": T,
+                                       "bft_bank_predict_cov": T,
+                                       k5: T if first else 0},
+        "M4 agsf local": {"bft_bank_update": T, "bft_bank_predict_cov": T,
+                          k5: T},
+        "M5 time-sharded smoother": {
+            "bft_bank_combine": kf + rank, "bft_bank_smoother_elements": 1,
+            "bft_bank_smoother_combine": kf + world - 1 - rank},
+        "M6 time-sharded ieks": {
+            "bft_bank_combine": passes * (ieks + rank),
+            "bft_bank_smoother_elements": passes,
+            "bft_bank_smoother_combine": passes * (ieks + world - 1 - rank)},
+        "M7 dp gradient": {"bft_ekf_update": PM_SGD_T,
+                           "bft_ekf_predict_cov": PM_SGD_T},
+    }
+    return {k: v for k, v in table[label].items() if v}
+
+
+def agsf_gap(ref_w, ref_m, ref_P, w, m) -> float:
+    """experiments/sharded_agsf_scale.py's agreement measure: the largest
+    gap between two mixtures' point estimates over the reference's
+    posterior spread (+0.05)."""
+    import torch
+
+    pt_ref = torch.einsum("mt,mtd->td", ref_w, ref_m)
+    pt = torch.einsum("mt,mtd->td", w, m)
+    spread = torch.einsum("mt,mtdd->td", ref_w, ref_P).clamp_min(0).sqrt()
+    return float(((pt_ref - pt).abs() / (spread + 0.05)).max())
+
+
+def path_m(dev, card: str, add, refs: dict) -> None:
+    """Phase 5, path M: the single-process references it is held to (made
+    here on the card, or kept from the earlier paths in ``refs``), then
+    the two-rank job on the card over gloo, each rank's exact launches,
+    walls, collective bytes and seconds."""
+    import torch
+
+    from bayesianfiltering_tpu_torch import inference as inf
+    from bayesianfiltering_tpu_torch.models import zoo
+    from bayesianfiltering_tpu_torch.parallel import run_ranks
+    from bayesianfiltering_tpu_torch.utils import metrics
+
+    f32 = torch.float32
+    params_b, inputs_a, states_a, em_a = bot_problem(PM_AGSF_T, f32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 99)
+    draws = inf.agsf_draws(gen, PM_AGSF_T, PM_AGSF, 4, "systematic", em_a)
+    (single_agsf, _), secs_agsf = timed(lambda: inf.augmented_gaussian_sum_filter(
+        params_b, em_a, PM_AGSF, inputs=inputs_a, reduction="systematic",
+        draws=draws))
+    again, _ = inf.augmented_gaussian_sum_filter(
+        params_b, em_a, PM_AGSF, inputs=inputs_a, reduction="systematic",
+        draws=draws)
+    log(f"path M the single-process AGSF {PM_AGSF} float32 called twice on "
+        f"the same draws: share of equal component means "
+        f"{float((again.means == single_agsf.means).all(-1).float().mean()):.4f}"
+        f", loglik {float(single_agsf.marginal_loglik):.4f} and "
+        f"{float(again.marginal_loglik):.4f} ({card})")
+    del again
+    params_b64 = zoo.bearings_only_tracking(dtype=torch.float64,
+                                            device=dev)[1]
+    (single_agsf64, _), secs_agsf64 = timed(
+        lambda: inf.augmented_gaussian_sum_filter(
+            params_b64, em_a.double(), PM_AGSF, inputs=inputs_a,
+            reduction="systematic",
+            draws=inf.AGSFDraws(*(x.double() for x in draws))))
+    ungm, ieks_ys = path_e_problem(PM_IEKS_T, dev)
+    (single_ieks, _), secs_ieks = timed(lambda: path_e_run(ungm, ieks_ys))
+    model, params = l96_model(f32, dev)
+    em = refs["l96"][:PM_SGD_B, :PM_SGD_T]
+    single_grads, secs_sgd = timed(lambda: sgd_loss_grads(model, params, em,
+                                                          em.numel()))
+    log(f"path M single-process references on one card: agsf {PM_AGSF} "
+        f"T={PM_AGSF_T} {secs_agsf:.4f} s (float64 {secs_agsf64:.4f} s), ieks T={PM_IEKS_T} "
+        f"{secs_ieks:.4f} s, the path K gradient B={PM_SGD_B} T={PM_SGD_T} "
+        f"{secs_sgd:.4f} s ({card})")
+    gsf_params, gsf_inputs, _, gsf_em = refs["bot100"]
+    data = {"l96": refs["l96"], "bpf_em": refs["bpf_em"],
+            "gsf_em": gsf_em, "gsf_inputs": gsf_inputs,
+            "gsf_eps": refs["gsf_eps"], "agsf_em": em_a,
+            "agsf_inputs": inputs_a, "agsf_init": draws.init,
+            "agsf_split1": draws.split1, "agsf_split2": draws.split2,
+            "agsf_reduce": draws.reduce, "kf_ys": refs["kf_ys"],
+            "ieks_ys": ieks_ys}
+    data = {k: v.cpu() for k, v in data.items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0, w0 = time.perf_counter(), time.time()
+    reports = run_ranks(path_m_ranks, PAR_RANKS, data, device=dev,
+                        timeout_s=PAR_TIMEOUT)
+    w1 = time.time()
+    log(f"path M: {PAR_RANKS} ranks on {dev} over gloo, job wall "
+        f"{time.perf_counter() - t0:.1f} s: from the call to each rank's "
+        f"first line {[round(r['start'] - w0, 1) for r in reports]} s, "
+        f"each rank's work {[round(r['end'] - r['start'], 1) for r in reports]}"
+        f" s, from its return to the parent's "
+        f"{[round(w1 - r['end'], 1) for r in reports]} s; each rank's "
+        f"library load {[round(r['build_seconds'], 2) for r in reports]} s "
+        f"({card})")
+
+    failed = []
+    for label in reports[0]["paths"]:
+        for rank, rep in enumerate(reports):
+            st = rep["paths"][label]
+            want = path_m_expected(label, rank, PAR_RANKS, st)
+            ok = st["launches"] == want
+            coll = ", ".join(
+                f"{op} {c['calls']} calls {c['bytes'] / 1e6:.3f} MB "
+                f"{c['seconds']:.4f} s" for op, c in
+                sorted(st["collectives"].items()))
+            log(f"path {label} rank {rank} float32: {st['seconds']:.4f} s, "
+                f"launches {st['launches']} (expected {want}) "
+                f"{'ok' if ok else 'FAIL'}; collectives: {coll or 'none'} "
+                f"({card})")
+            if not ok:
+                failed.append(f"{label} rank {rank}")
+        for r in reports:
+            for name, n in r["paths"][label]["launches"].items():
+                add({name: n})
+    if failed:
+        raise RuntimeError(f"path M: {failed} launched other counts")
+
+    out = reports[0]["outputs"]
+    checks = []
+
+    def held(label, err, tol):
+        ok = err <= tol
+        checks.append(ok)
+        log(f"path M {label}: {err:.3e} (tol {tol:.0e}) "
+            f"{'ok' if ok else 'FAIL'} ({card})")
+
+    held("M1 batched ekf vs the single-process EKF L96 (filtered means)",
+         rel_err(out["ekf_means"], refs["ekf_means"]), EKF_TOL["float32"])
+    for mode in ("local", "gather"):
+        log(f"path M2 bpf {mode} rmse "
+            f"{float(metrics.rmse(out[f'bpf_{mode}_means'], refs['bpf_states'].cpu())):.4f}"
+            f" beside path A's {refs['bpf_rmse']:.4f} (utils.metrics.rmse) "
+            f"({card})")
+    held("M3 gsf M=50 vs the single-process GSF (weighted means)",
+         rel_err((out["gsf_weights"][..., None] * out["gsf_means"]).sum(0),
+                 (refs["gsf"].weights[..., None] * refs["gsf"].means).sum(0)),
+         EKF_TOL["float32"])
+    w, m, P = (getattr(single_agsf, k).cpu() for k in
+               ("weights", "means", "covariances"))
+    for reduction in ("systematic", "local"):
+        gap = agsf_gap(w, m, P, out[f"agsf_{reduction}_weights"],
+                       out[f"agsf_{reduction}_means"])
+        same = float((out[f"agsf_{reduction}_means"] == m).all(-1).float()
+                     .mean())
+        held(f"M4 agsf {reduction} vs the single-process AGSF: point "
+             f"estimate gap over the posterior spread (share of equal "
+             f"component means {same:.4f}, loglik "
+             f"{float(out[f'agsf_{reduction}_marginal_loglik']):.4f} vs "
+             f"{float(single_agsf.marginal_loglik):.4f})", gap, PM_AGSF_GAP)
+        mass = float((out[f"agsf_{reduction}_weights"].sum(0) - 1).abs().max())
+        held(f"M4 agsf {reduction} weights' sum - 1", mass, 1e-4)
+    held(f"M4 agsf systematic float64 vs the single-process AGSF in float64 "
+         f"(component means and weights; loglik "
+         f"{float(out['agsf64_marginal_loglik']):.6f} vs "
+         f"{float(single_agsf64.marginal_loglik):.6f})",
+         max(rel_err(out["agsf64_means"], single_agsf64.means),
+             rel_err(out["agsf64_weights"], single_agsf64.weights)),
+         MIXTURE_TOL)
+    held("M5 time-sharded smoother vs path B's single-process smoother "
+         "(smoothed means)", rel_err(out["kf_smoothed_means"],
+                                     refs["kf_smoothed_means"]),
+         EKF_TOL["float32"])
+    held("M6 time-sharded ieks vs the single-process IEKS (smoothed means)",
+         rel_err(out["ieks_smoothed_means"], single_ieks.smoothed_means),
+         EKF_TOL["float32"])
+    held("M7 all-reduced gradient vs the single-process gradient",
+         rel_err(out["sgd_grads"], single_grads), 1e-4)
+    if not all(checks):
+        raise RuntimeError("path M: a result disagrees with its reference")
 
 
 def ukf_split(prof) -> dict:
@@ -4281,8 +5051,10 @@ def main() -> int:
     timing = check_kernels(dev)
     log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    jobs = start_parallel_jobs(dev)
     compare_paths(dev)
     compare_legacy(dev)
+    compare_parallel(dev, jobs)
     log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     counts = main_path(dev, card)

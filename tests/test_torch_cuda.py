@@ -1944,3 +1944,126 @@ def test_steppers_match_cpu(dev, l96_small, kind):
                                draws.dynamics.to(d), draws.resample.to(d))))
         kernels = (rg.K5,)
     _card_vs_cpu_values(run, kernels)
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer: two ranks sharing the card over gloo against two
+# CPU ranks, and the dry run at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+
+def _parallel_cases():
+    """Every function of ``parallel/`` at a small size, float64, its inputs
+    and each rank's draws from seeds (``tests/parallel_ranks.py`` kinds)."""
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    like = torch.zeros((), dtype=F64)
+    lg2 = ("linear_gaussian", {"state_dim": 2, "emission_dim": 2, "r": 0.5})
+    model, params, _ = zoo.linear_gaussian(2, 2, r=0.5, dtype=F64,
+                                           device="cpu")
+    _, ys = model.sample(params, 12, generator=gen(60))
+    _, batch = model.sample(params, 10, generator=gen(61), batch_shape=(4,))
+    # the local BPF's data: sharp enough emissions that the ESS falls below
+    # half the bank on some steps (four of the twelve), so K5 runs
+    sharp = ("linear_gaussian", {"state_dim": 2, "emission_dim": 2,
+                                 "r": 0.05})
+    smodel, sparams, _ = zoo.linear_gaussian(2, 2, r=0.05, dtype=F64,
+                                             device="cpu")
+    _, sys_ = smodel.sample(sparams, 12, generator=gen(60))
+    comb = torch.rand(12, generator=gen(62), dtype=F64)
+    bpf_draws = [tuple(inference.bpf_draws(gen(63 + r), 12, 256, 2, 2,
+                                           "systematic", like))
+                 for r in range(2)]
+    bot, bparams, _ = zoo.bearings_only_tracking(dtype=F64, device="cpu")
+    inputs = zoo.bot_maneuver_inputs(8, device="cpu")
+    _, bys = bot.sample(bparams, 8, inputs=inputs, generator=gen(64))
+    draws = inference.agsf_draws(gen(65), 8, [4, 2, 2], 4, "systematic",
+                                 like)
+    local = [torch.rand(8, generator=gen(66 + r), dtype=F64)
+             for r in range(2)]
+    lgssm = ("linear_gaussian_lgssm", {"state_dim": 3, "emission_dim": 2})
+    _, kys = zoo.linear_gaussian(3, 2, dtype=F64, device="cpu")[0].sample(
+        zoo.linear_gaussian(3, 2, dtype=F64, device="cpu")[1], 256,
+        generator=gen(67))
+    qm, qp, _ = zoo.quadratic_measurement(dtype=F64, device="cpu")
+    _, qys = qm.sample(qp, 64, generator=gen(68))
+    bot_kw = dict(model=("bearings_only_tracking", {}), ys=bys,
+                  inputs=inputs, comps=[4, 2, 2], draws=tuple(draws[:3]))
+    return [
+        ("ekf", "batched_ekf", dict(model=lg2, ys=batch)),
+        ("bpf local", "bpf", dict(model=sharp, ys=sys_, P=512,
+                                  mode="local", draws=bpf_draws)),
+        ("bpf gather", "bpf", dict(
+            model=lg2, ys=ys, P=512, mode="gather",
+            draws=[d[:2] + (comb,) for d in bpf_draws])),
+        ("gsf", "gsf", dict(model=("bearings_only_tracking", {}), ys=bys,
+                            M=8, inputs=inputs,
+                            eps=torch.randn(8, 4, generator=gen(69),
+                                            dtype=F64))),
+        ("agsf", "agsf", dict(reduce=draws.reduce,
+                              reduction="systematic", **bot_kw)),
+        ("agsf local", "agsf", dict(reduce=local, reduction="local",
+                                    **bot_kw)),
+        ("uagsf", "agsf", dict(reduce=draws.reduce, reduction="systematic",
+                               moments="ukf", uparams=(1.0, 0.0, 0.0),
+                               **bot_kw)),
+        ("smoother", "kalman", dict(model=lgssm, ys=kys, smoother=True,
+                                    chunk=16)),
+        ("ieks", "ieks", dict(model=("quadratic_measurement", {}), ys=qys,
+                              num_iter=3, chunk="auto")),
+    ]
+
+
+def test_two_ranks_on_the_card_match_two_cpu_ranks(dev):
+    """Two ranks on ``cuda:0`` over gloo against two CPU ranks on the same
+    inputs and draws, float64 at 1e-8; each rank of the card launched the
+    kernels of its path (the time-sharded scans' combines, K11; K3/K4 or
+    K7–K9 for the mixtures, K5 for the resampling where the rank draws
+    parents; K1/K2 for the EKF)."""
+    from bayesianfiltering_tpu_torch.parallel import run_ranks
+    from parallel_ranks import run_cases
+
+    cases = _parallel_cases()
+    card = run_ranks(run_cases, 2, cases, device=dev, timeout_s=600)
+    cpu = run_ranks(run_cases, 2, cases, device="cpu", timeout_s=600)
+    for rank in range(2):
+        for key, _, _ in cases:
+            got, want = card[rank][key], cpu[rank][key]
+            flat = lambda tree: [x for x in _leaves(tree)]
+            for g, w in zip(flat(got), flat(want)):
+                assert_close(g, w, 1e-8)
+            launched = card[rank]["launches"][key]
+            # in gather mode only rank 0 draws the parents (K5)
+            assert launched or (key, rank) == ("bpf gather", 1), (key, rank)
+            assert not cpu[rank]["launches"][key]
+    resampled = int((cpu[0]["bpf local"]["ess"] < 0.5 * 512).sum())
+    assert resampled > 0
+    for rank in range(2):
+        assert card[rank]["launches"]["bpf local"] == {
+            "bft_resample_parents": resampled}
+    assert card[0]["launches"]["bpf gather"] == {"bft_resample_parents": 12}
+    assert "bft_resample_parents" not in card[1]["launches"]["bpf gather"]
+    assert card[1]["launches"]["agsf local"]["bft_resample_parents"] == 8
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree, key=str) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return []
+
+
+def test_dryrun_at_world_size_1_over_nccl(dev, capfd):
+    """The dry run's five stages in one rank on the card: the NCCL
+    backend, which one rank a card would use."""
+    from bayesianfiltering_tpu_torch.parallel import dryrun_multichip
+    from bayesianfiltering_tpu_torch.parallel.launch import backend_for
+
+    assert backend_for(1, dev) == "nccl"
+    out = dryrun_multichip(1, device=dev, timeout_s=600)
+    lines = capfd.readouterr().out
+    for k in range(1, 6):
+        assert f"dryrun stage {k}/5 ok" in lines
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())

@@ -252,6 +252,7 @@ def test_importing_the_port_loads_no_jax():
         "import bayesianfiltering_tpu_torch.streaming\n"
         "import bayesianfiltering_tpu_torch.diagnostics\n"
         "import bayesianfiltering_tpu_torch.legacy\n"
+        "import bayesianfiltering_tpu_torch.parallel\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0]"
         ".startswith('jax'))\n"
         "print(loaded)\n"
@@ -263,14 +264,15 @@ def test_importing_the_port_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-# Names of the JAX package's __all__ that the port does not implement yet
-# (ROADMAP.md queue 1: the parallel (multi-device) subpackage).
-NOT_PORTED = {"parallel"}
+# Names of the JAX package's __all__ that the port does not implement: none
+# (the parallel (multi-device) subpackage was the last, ROADMAP.md queue 1).
+NOT_PORTED = set()
 
 # The same for the subpackages' __all__, each name against its ROADMAP.md
 # queue 1 item ("not ported": the TPU-only factorisations that queue 1
 # leaves out of the port). ``ops``, ``models``, ``containers``,
-# ``streaming``, ``diagnostics`` and ``legacy`` export every name.
+# ``streaming``, ``diagnostics``, ``legacy`` and ``parallel`` export every
+# name.
 SUBPACKAGE_NOT_PORTED = {
     "utils": {
         "fast_cholesky": "not ported", "cholesky_blocked": "not ported",
@@ -282,6 +284,7 @@ SUBPACKAGE_NOT_PORTED = {
     "streaming": {},
     "diagnostics": {},
     "legacy": {},
+    "parallel": {},
 }
 
 
@@ -304,7 +307,7 @@ def test_the_port_exports_every_ported_name_of_the_jax_package():
 @pytest.mark.parametrize("sub", sorted(SUBPACKAGE_NOT_PORTED))
 def test_the_subpackages_export_every_ported_name_of_the_jax_package(sub):
     """``ops``, ``utils``, ``models``, ``containers``, ``streaming``,
-    ``diagnostics`` and ``legacy``: every name of the JAX subpackage's
+    ``diagnostics``, ``legacy`` and ``parallel``: every name of the JAX subpackage's
     ``__all__`` is in the port's, except those not ported yet."""
     import importlib
 
