@@ -1,7 +1,8 @@
 // The associative Kalman filtering combine (K10), the RTS smoothing
 // elements (K11) and the smoothing combine (K12), each over a bank of M
 // lanes, in two size bands: dx ≤ 8 (the group kernels, `bank_*_kernel`)
-// and 8 < dx ≤ 512, one thread block per lane (the block kernels after the
+// and dx > 8, one thread block per lane at any width whose operands and
+// global scratch fit in the device's memory (the block kernels after the
 // group kernels below: K10b `tiled_combine_kernel`, K11b
 // `block_smoother_elements_kernel` and K12b `tiled_smoother_combine_kernel`,
 // built on csrc/block_mm.cuh).
@@ -509,8 +510,18 @@ int launch_scombine(const void* E1, const void* g1, const void* L1,
 }
 
 // ---------------------------------------------------------------------------
-// The block kernels, 8 < dx ≤ 512: the same three functions, one thread
-// block per lane.
+// The block kernels, dx > 8: the same three functions, one thread block
+// per lane.
+//
+// Above dx = 64 the workspace lies in global scratch (tile 0). Its
+// offsets stay in int where ld × ld does (at M = 1 K10b's operands,
+// outputs and six ld² matrices fill 80 GB in float32 at ld ≈ 36,500, K12b's
+// at ≈ 42,600, both below ld = 46,341 where ld² passes an int); K11b's
+// block X of ld × (3 ld + 32) passes an int from ld = 26,750 on, so K11b
+// addresses it in long long on the global route (Ix), through the panel
+// factor, the panel solve, stage and mv_cols, which take the leading
+// dimension's type. At dx = 1,024 one lane is ~25 GFLOP in K10b, ~0.38 s
+// on one SM of an H100 in float32 (path N's smoother).
 //
 // The chunked scan launches these over anything from one lane (its top
 // level) to T lanes (its last broadcast, 65,536 at T = 65,536), so the grid
@@ -992,7 +1003,11 @@ __global__ void __launch_bounds__(NT, (NT == 256 && sizeof(T) == 4) ? 2 : 1)
   constexpr int W = kElementsPanel<T>;
   __shared__ int s_bad;
   const int tid = threadIdx.x;
-  const int ld = tiled_ld(TILE, n), ldx = elements_ldx(ld);
+  // X's offsets: its ld × (3ld + 32) entries pass what an int counts from
+  // ld = 26,749 on, which a global workspace reaches
+  using Ix = std::conditional_t<kSmem, int, long long>;
+  const int ld = tiled_ld(TILE, n);
+  const Ix ldx = elements_ldx(ld);
   const size_t LL = size_t(ld) * ld, dd = size_t(n) * n;
   T* Fs = kSmem ? shared_workspace<T>()
                 : scratch + size_t(blockIdx.x) * tiled_ws(1, ld);

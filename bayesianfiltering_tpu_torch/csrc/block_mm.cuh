@@ -1,8 +1,10 @@
 // Block-wide building blocks of the block-per-lane combines K10b and K12b
-// and the RTS elements K11b (csrc/bank_combine.cu), of the UT update and
-// predict K8 and K9 (csrc/fused_ut.cu) and of the EKF update and predict K1
-// and K2 (csrc/fused_ekf.cu): a register-tiled product on operands held in a
-// per-block workspace (and its packed lower-triangle form), staging from
+// and the RTS elements K11b (csrc/bank_combine.cu), of the sigma points K6
+// and K7 (their Newton–Schulz rounds) and the UT update and predict K8 and
+// K9 (csrc/fused_ut.cu) and of the EKF update and predict K1 and K2
+// (csrc/fused_ekf.cu): a register-tiled product on operands held in a
+// per-block workspace (its packed lower-triangle form, and an in-place
+// form that holds its tiles in registers), staging from
 // global memory (cp.async into shared memory), a bank-conflict-free
 // diagonal walk for transposes and symmetric passes (an in-place
 // symmetrisation), matrix-vector products over the whole block and a panel
@@ -100,9 +102,10 @@ __device__ void symmetrize(T* X, int ld, int n) {
 // dst (ld) ← the rows × cols matrix at src (row stride src_ld): 16 bytes a
 // copy where the rows allow it (dst and ld aligned to 16 bytes, as the
 // workspace's are). The caller commits and waits (kAsync) and
-// synchronises.
-template <typename T, bool kAsync>
-__device__ void stage(T* dst, int ld, const T* src, size_t src_ld, int rows,
+// synchronises. dst's offsets are computed in ld's type I (long long for
+// a global workspace larger than an int counts).
+template <typename T, bool kAsync, typename I = int>
+__device__ void stage(T* dst, I ld, const T* src, size_t src_ld, int rows,
                       int cols) {
   constexpr int V = 16 / sizeof(T);
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -122,8 +125,8 @@ __device__ void stage(T* dst, int ld, const T* src, size_t src_ld, int rows,
 }
 
 // dst (ld) ← the n × n row-major matrix at src.
-template <typename T, bool kAsync>
-__device__ void stage(T* dst, int ld, const T* src, int n) {
+template <typename T, bool kAsync, typename I = int>
+__device__ void stage(T* dst, I ld, const T* src, int n) {
   stage<T, kAsync>(dst, ld, src, size_t(n), n, n);
 }
 
@@ -278,6 +281,38 @@ __device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
     }
 }
 
+// tile_mm's product with A row-major (tile_acc's kAt = false) for a block
+// in which every thread owns at most S × S super-tiles (M ≤ S·16·TM,
+// N ≤ S·(NT/16)·TN): each thread's tiles stay in registers until the
+// whole block has read A and B (one barrier), so that epi(i0, j0, acc)
+// may store over either operand, an in-place product (K6's and K7's
+// Newton–Schulz rounds, Y ← Y T and Z ← T Z, in three buffers). The caller
+// synchronises after.
+template <typename T, int NT, int TM, int TN, int S, typename Epi>
+__device__ __forceinline__ void tile_mm_held(const T* A, int lda, const T* B,
+                                             int ldb, int M, int N, int K,
+                                             Epi epi) {
+  constexpr int CX = NT / 16;
+  const int tx = threadIdx.x % CX, ty = threadIdx.x / CX;
+  T acc[S][S][TM][TN];
+#pragma unroll
+  for (int a = 0; a < S; ++a)
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+      const int i0 = a * 16 * TM + ty * TM, j0 = b * CX * TN + tx * TN;
+      if (i0 < M && j0 < N)
+        tile_acc<T, TM, TN, false>(A, lda, B, ldb, i0, j0, K, acc[a][b]);
+    }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < S; ++a)
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+      const int i0 = a * 16 * TM + ty * TM, j0 = b * CX * TN + tx * TN;
+      if (i0 < M && j0 < N) epi(i0, j0, acc[a][b]);
+    }
+}
+
 // The lower tiles of an n × n product (TM × TM tiles (ti, tj), tj ≤ ti),
 // numbered row by row and taken by consecutive threads: a warp holds only
 // tiles below the diagonal and threads past the last tile skip the
@@ -374,10 +409,11 @@ __device__ void mv_rows(const T* X, int ld, const T* v, int n, F f) {
 // block split into P = max(1, blockDim/n) parts along k, each thread one
 // (part, i) partial sum (consecutive threads on consecutive i), summed
 // after a barrier from part[] (max(blockDim, n) elements). Every thread
-// calls it; the caller synchronises before part[] is reused.
-template <typename T, typename F>
-__device__ void mv_cols(const T* X, int ld, const T* v, int n, T* part, F f,
-                        int vs = 1) {
+// calls it; the caller synchronises before part[] is reused. Offsets in
+// ld's type I, as stage's.
+template <typename T, typename F, typename I = int>
+__device__ void mv_cols(const T* X, I ld, const T* v, int n, T* part, F f,
+                        I vs = 1) {
   const int P = max(1, int(blockDim.x) / n), chunk = (n + P - 1) / P;
   for (int idx = threadIdx.x; idx < P * n; idx += blockDim.x) {
     const int p = idx / n, i = idx - p * n;
@@ -411,10 +447,11 @@ __device__ void mv_cols(const T* X, int ld, const T* v, int n, T* part, F f,
 // tiled product a right-hand side (R's rows aligned to 16 bytes, and
 // columns readable to the next multiple of TN). Two barriers a panel
 // (n = 64, W = kWarp: 3). The block must have synchronised after R1, R2,
-// Lc and dinv were written; ends synchronised.
-template <typename T, int NT, int TM, int TN, int W = kWarp>
+// Lc and dinv were written; ends synchronised. Offsets in ld's type I, as
+// block_cholesky_panels'.
+template <typename T, int NT, int TM, int TN, int W = kWarp, typename I = int>
 __device__ void block_tri_solve(const T* Lc, const T* dinv, T* R1, int c1,
-                                T* R2, int c2, int n, int ld) {
+                                T* R2, int c2, int n, I ld) {
   for (int k = 0; k < n; k += W) {
     const int nb = min(W, n - k);
     for (int c = threadIdx.x; c < c1 + c2; c += NT) {

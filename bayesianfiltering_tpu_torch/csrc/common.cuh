@@ -1,6 +1,7 @@
 // Shared helpers for the filter kernels: constants, the per-block
-// workspace in dynamic shared memory, a block-wide small matrix product,
-// the panel Cholesky factorisation, and vector stores.
+// workspace in dynamic shared memory, the panel Cholesky factorisation,
+// and vector stores. (The block-wide matrix products are block_mm.cuh's
+// register-tiled tile_mm.)
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,21 +43,6 @@ template <> __device__ inline float qnan<float>() {
 }
 template <> __device__ inline double qnan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
-}
-
-// C[M,N] = A[M,K] B[K,N], row-major, over a whole thread block: each
-// output element is one dot product owned by one thread; the caller
-// synchronises afterwards. Its caller: K6's Newton–Schulz rounds
-// (fused_ut.cu block_factor); the other block kernels use block_mm.cuh's
-// register-tiled tile_mm.
-template <typename T>
-__device__ void block_mm_nn(T* C, const T* A, const T* B, int M, int N, int K) {
-  for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
-    const int i = idx / N, j = idx % N;
-    T acc = T(0);
-    for (int k = 0; k < K; ++k) acc += A[i * K + k] * B[k * N + j];
-    C[idx] = acc;
-  }
 }
 
 constexpr int kWarp = 32;
@@ -119,9 +105,11 @@ __device__ bool warp_cholesky(T (&a)[W], int n, T* rinv) {
 // it (or must zero it) and handles a failed factor itself (K6/K7 NaN their
 // points; K10b zeroes one factor and NaNs the other's solves). Sets *s_bad unless every pivot is
 // positive. The block must have synchronised after Lc was written and
-// *s_bad cleared; ends synchronised.
-template <typename T, int W = kWarp>
-__device__ void block_cholesky_panels(T* Lc, int n, int* s_bad, int ld) {
+// *s_bad cleared; ends synchronised. The offsets are computed in ld's
+// type I: int in shared memory, long long where a global workspace's
+// n × ld passes what an int counts (K11b's global route).
+template <typename T, int W = kWarp, typename I = int>
+__device__ void block_cholesky_panels(T* Lc, int n, int* s_bad, I ld) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int k = 0; k < n; k += W) {
     const int nb = min(W, n - k);

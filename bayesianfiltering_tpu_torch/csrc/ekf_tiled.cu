@@ -7,7 +7,9 @@
 // `_predict_kernel` (K2t). ops/fused_ekf.py picks K1/K2 or K1t/K2t by shape
 // alone: the per-element kernels where their workspace fits in a block's
 // shared memory (the batched Lorenz-96 filter at dx = 64), these otherwise
-// (Lorenz-96 at dx = 512, the chunked update, the bands' edges).
+// (Lorenz-96 at dx = 512 and 2,048, the chunked update), at any width whose
+// operands and scratch fit in the device's memory: every offset is 64-bit
+// (tiled.cuh's Mat and Gemm, tiled_chol.cuh's AugLayout and at64).
 //
 // What bounds them on an H100. At dx = 512, dy = 256 one update is ~0.9
 // GFLOP of dense products (A P alone is 2dx³) and a dy = 256 Cholesky; the

@@ -17,8 +17,8 @@
 // 2n × n (2na × na) points per element: at the Lorenz-96 batch (B = 512,
 // n = 64, na = 128) K7's 64 MB of points is its bound. The moments (K8,
 // K9) are 2n-row reductions (rows·d² flops) over sigma-point tensors that
-// do not fit one block's shared memory (2,048 rows × 1,024 columns at the
-// band edge): at the Lorenz-96 batch (128 rows, dx = 64, dy = 32) the
+// do not fit one block's shared memory (8,192 rows × 4,096 columns at
+// path N's widths): at the Lorenz-96 batch (128 rows, dx = 64, dy = 32) the
 // schedules below do ~0.5 M multiply-adds an element in K8 (~1 MFLOP
 // against ~80 KB moved) and ~0.28 M in K9 (against 48 KB), both below the
 // card's ratio of 20 flops a byte in float32: bytes-bound at full width.
@@ -32,7 +32,7 @@
 // - One workspace per block in dynamic shared memory (opted in above
 //   48 KB), addressed as shared memory only. Where it does not fit (the
 //   Cholesky above n = 240 in float32 and 170 in float64, Newton–Schulz
-//   above 120 and 85; config 5's n = 512), ops/fused_ut.py runs the tiled
+//   above 128 and 96; config 5's n = 512), ops/fused_ut.py runs the tiled
 //   variants K6t/K7t (sigma_tiled.cu) instead, and K8/K9 hand over to
 //   K8t/K9t (ut_tiled.cu) where theirs does not (K9 above dx = 192 in
 //   float32 and 128 in float64; K8 above dx = 188 and 105 at dy = 32, and
@@ -49,9 +49,15 @@
 //   where the widths allow, one rectangle at a time, so that the
 //   broadcast blocks of K7 (the bias columns of the state rows, the mean
 //   columns of the noise rows) cost no division or branch per entry.
-// - K6/K7's products (Newton–Schulz) follow fused_ekf.cu's layout rule:
-//   consecutive threads own consecutive output columns, so one operand is
-//   a broadcast and the other consecutive words.
+// - K6/K7's Newton–Schulz rounds run on block_mm.cuh's register-tiled
+//   product (4 × 4 outputs a thread, 16-byte operand loads, A row-major),
+//   in three buffers Y, Z, T with padded leading dimensions: T = (3I −
+//   Z Y)/2 is the first product's epilogue, and Y T and T Z are stored
+//   over Y and Z once every thread holds its tiles in registers
+//   (tile_mm_held: one super-tile a thread to n = 64, 2 × 2 to 128). At
+//   the Lorenz-96 batch (n = 64) the 48 KB float32 workspace and a
+//   64-register budget hold four elements an SM, so B = 512 is one wave
+//   over 132 SMs (four buffers of one dot product a thread had held two).
 // - K8 and K9 are built from block_mm.cuh, as K10b/K12b are. Sigma-point
 //   rows are staged by cp.async in chunks of kRowChunk = 64 into a
 //   workspace whose rows are aligned to 16 bytes, centred in place, and
@@ -109,9 +115,35 @@ constexpr int kNarrowPanel = 8;  // K8's factor and solve panel at dy ≤ 8
 constexpr int kNsIters = 14;   // utils/linalg.py sqrtm_psd_ns
 constexpr int kCholesky = 0;   // ops/fused_ut.py _METHODS
 constexpr int kSqrtm = 1;
+// The register-tiled products (block_mm.cuh tile_mm): 4 × 4 outputs a
+// thread over kUtThreads = 256 threads, a 64 × 64 super-tile. K8 and K9
+// run them on their staged rows, K6 and K7 on the Newton–Schulz rounds.
+constexpr int kTM = 4, kTN = 4;
+constexpr int kSuper = 64;
+// The widest Newton–Schulz factor in a block: each thread holds its
+// tiles of 2 × 2 super-tiles through an in-place product
+// (ops/fused_ut.py _NS_MAX)
+constexpr int kNsMax = 2 * kSuper;
 
-__host__ __device__ size_t factor_ws_elems(int n, int method) {
-  return size_t(n) * n * (method == kSqrtm ? 4 : 1);
+// Newton–Schulz's buffers Y, Z and T in the block's workspace: each
+// round_up(n, kTM) rows (a product's last row tile reads inside its
+// buffer) with a leading dimension of round_up(n, 32), so that every row
+// is aligned to 16 bytes (ops/fused_ut.py _factor_ws).
+__host__ __device__ inline int ns_ld(int n) { return round_up(n, 32); }
+__host__ __device__ inline size_t ns_buf(int n) {
+  return size_t(round_up(n, kTM)) * ns_ld(n);
+}
+
+__host__ __device__ inline size_t factor_ws_elems(int n, int method) {
+  return method == kSqrtm ? 3 * ns_buf(n) : size_t(n) * n;
+}
+
+// The factor's variant: 0 for the Cholesky; for Newton–Schulz the super-
+// tiles a thread holds along each side (1 to n = 64, 2 to kNsMax), or -1
+// past kNsMax.
+inline int factor_variant(int n, int method) {
+  if (method != kSqrtm) return 0;
+  return n <= kSuper ? 1 : n <= kNsMax ? 2 : -1;
 }
 
 // K8's workspace (ops/fused_ut.py _update_ws): leading dimensions are
@@ -151,18 +183,20 @@ size_t update_ws_elems(int dx, int dy) { return UpdateWs(dx, dy).elems(dx); }
 size_t predict_ws_elems(int dx) { return PredictWs(dx).elems(dx); }
 
 // The sigma-point factor of the n×n matrix P (global, row-major) in the
-// block's workspace ws (factor_ws_elems(n, method) elements), stored
-// transposed: F[k*n + i] = L[i][k] for the Cholesky factor (F's entries
-// with i < k are not written: read them as 0; *s_bad says whether a pivot
-// failed), or the symmetric Newton–Schulz root. Right after its first
-// barrier (everything written before the call is then visible to the
-// block) it calls between(), work that the factor does not wait for.
-// Returns F; ends synchronised.
-template <typename T, typename G>
-__device__ T* block_factor(const T* P, int n, int method, T* ws, int* s_bad,
-                           T* s_trace, G between) {
+// block's workspace ws (factor_ws_elems(n, method) elements): with
+// kNs = 0 the Cholesky factor stored transposed, F[k*ld + i] = L[i][k]
+// with ld = n (F's entries with i < k are not written: read them as 0;
+// *s_bad says whether a pivot failed); with kNs = 1 or 2 (the super-tiles
+// a thread holds along a side, n ≤ 64 or ≤ kNsMax) the symmetric
+// Newton–Schulz root, ld = ns_ld(n). Right after its first barrier
+// (everything written before the call is then visible to the block) it
+// calls between(), work that the factor does not wait for. Returns F and
+// sets *ld; ends synchronised.
+template <typename T, int kNs, typename G>
+__device__ T* block_factor(const T* P, int n, T* ws, int* s_bad, T* s_trace,
+                           int* ld, G between) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  if (method == kCholesky) {
+  if constexpr (kNs == 0) {
     // Lc[j*n + i] = P[i][j]: the lower triangle, column-major
     if (tid == 0) *s_bad = 0;
     for (int idx = tid; idx < n * n; idx += nt) {
@@ -172,65 +206,79 @@ __device__ T* block_factor(const T* P, int n, int method, T* ws, int* s_bad,
     __syncthreads();
     between();
     block_cholesky_panels(ws, n, s_bad, n);
+    *ld = n;
     return ws;
-  }
-  // Trace-normalised coupled Newton–Schulz: T = (3I − Z Y)/2, Y ← Y T,
-  // Z ← T Z, root = sym(Y·√s), with Y = sym(P)/s, Z = I, s = tr P + 1e-30.
-  T* Y = ws;
-  T* Z = Y + n * n;
-  T* Tm = Z + n * n;
-  T* W = Tm + n * n;
-  if (tid == 0) {
-    T s = T(0);
-    for (int i = 0; i < n; ++i) s += P[i * n + i];
-    *s_trace = s + T(1e-30);
-  }
-  __syncthreads();
-  between();
-  const T s = *s_trace;
-  for (int idx = tid; idx < n * n; idx += nt) {
-    const int i = idx / n, j = idx % n;
-    Y[idx] = (T(0.5) * (P[i * n + j] + P[j * n + i])) / s;
-    Z[idx] = i == j ? T(1) : T(0);
-  }
-  __syncthreads();
-  for (int it = 0; it < kNsIters; ++it) {
-    for (int idx = tid; idx < n * n; idx += nt) {
-      const int i = idx / n, j = idx % n;
-      T acc = T(0);
-      for (int k = 0; k < n; ++k) acc += Z[i * n + k] * Y[k * n + j];
-      Tm[idx] = T(0.5) * ((i == j ? T(3) : T(0)) - acc);
+  } else {
+    // Trace-normalised coupled Newton–Schulz: T = (3I − Z Y)/2, Y ← Y T,
+    // Z ← T Z, root = sym(Y·√s), with Y = sym(P)/s, Z = I,
+    // s = tr P + 1e-30; every product a register-tiled tile_mm, T formed
+    // in the first one's epilogue, Y T and T Z stored over Y and Z once
+    // the whole block has read them (tile_mm_held), so that three buffers
+    // hold a round
+    constexpr int NT = kUtThreads;
+    const int L = ns_ld(n);
+    T* Y = ws;
+    T* Z = Y + ns_buf(n);
+    T* Tm = Z + ns_buf(n);
+    if (tid == 0) {
+      T s = T(0);
+      for (int i = 0; i < n; ++i) s += P[i * n + i];
+      *s_trace = s + T(1e-30);
     }
     __syncthreads();
-    block_mm_nn(W, Y, Tm, n, n, n);
+    between();
+    const T s = *s_trace;
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int i = idx / n, j = idx % n;
+      Y[i * L + j] = (T(0.5) * (P[i * n + j] + P[j * n + i])) / s;
+      Z[i * L + j] = i == j ? T(1) : T(0);
+    }
     __syncthreads();
-    T* t = Y; Y = W; W = t;
-    block_mm_nn(W, Tm, Z, n, n, n);
+    const auto into = [&](T* X) {
+      return [=](int i0, int j0, const T (&acc)[kTM][kTN]) {
+        put_rows<false>(X, L, i0, j0, acc, n, n, 0, true,
+                        [](T v, int, int) { return v; });
+      };
+    };
+    for (int it = 0; it < kNsIters; ++it) {
+      tile_mm<T, NT, kTM, kTN, false>(
+          Z, L, Y, L, n, n, n, 0, false,
+          [&](int i0, int j0, const T (&acc)[kTM][kTN]) {
+            put_rows<false>(Tm, L, i0, j0, acc, n, n, 0, true,
+                            [](T v, int i, int j) {
+                              return T(0.5) * ((i == j ? T(3) : T(0)) - v);
+                            });
+          });
+      __syncthreads();
+      tile_mm_held<T, NT, kTM, kTN, kNs>(Y, L, Tm, L, n, n, n, into(Y));
+      __syncthreads();
+      tile_mm_held<T, NT, kTM, kTN, kNs>(Tm, L, Z, L, n, n, n, into(Z));
+      __syncthreads();
+    }
+    const T rs = dsqrt(s);
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int i = idx / n, j = idx % n;
+      Tm[i * L + j] = T(0.5) * (Y[i * L + j] * rs + Y[j * L + i] * rs);
+    }
     __syncthreads();
-    t = Z; Z = W; W = t;
+    *ld = L;
+    return Tm;
   }
-  const T rs = dsqrt(s);
-  for (int idx = tid; idx < n * n; idx += nt) {
-    const int i = idx / n, j = idx % n;
-    Tm[idx] = T(0.5) * (Y[i * n + j] * rs + Y[j * n + i] * rs);
-  }
-  __syncthreads();
-  return Tm;
 }
 
 // One element's factor, read as the points need it: entry (r, c) of the
-// scaled offsets scale·Fᵀ is scale·F[r*n + c], zero above a Cholesky
+// scaled offsets scale·Fᵀ is scale·F[r*ld + c], zero above a Cholesky
 // factor's diagonal (c < r, never written), NaN throughout where a pivot
 // failed.
 template <typename T>
 struct Offsets {
   const T* F;
-  int n;
+  int n, ld;
   T scale;
   bool lower, bad;
   __device__ T at(int r, int c) const {
     if (bad) return qnan<T>();
-    return lower && c < r ? T(0) : scale * F[r * n + c];
+    return lower && c < r ? T(0) : scale * F[r * ld + c];
   }
 };
 
@@ -253,44 +301,53 @@ __device__ void write_state_points(const T* __restrict__ m, Offsets<T> off,
 }
 
 // pts[b] = [m + scale·Fᵀ; m − scale·Fᵀ], (2n, n) for this block's element.
-template <typename T>
+template <typename T, int kNs>
 __device__ void sigma_block(const T* __restrict__ m_all,
                             const T* __restrict__ P_all, T* pts_all, int n,
-                            T scale, int method) {
+                            T scale) {
   __shared__ int s_bad;
   __shared__ T s_trace;
   constexpr int V = 16 / sizeof(T);
   const size_t b = blockIdx.x;
   const T* m = m_all + b * n;
   T* pts = pts_all + b * 2 * n * n;
-  const T* F = block_factor(P_all + b * n * n, n, method,
-                            shared_workspace<T>(), &s_bad, &s_trace, [] {});
-  const bool chol = method == kCholesky;
-  const Offsets<T> off{F, n, scale, chol, chol && s_bad != 0};
+  int ld = n;
+  const T* F = block_factor<T, kNs>(P_all + b * n * n, n,
+                                    shared_workspace<T>(), &s_bad, &s_trace,
+                                    &ld, [] {});
+  const bool chol = kNs == 0;
+  const Offsets<T> off{F, n, ld, scale, chol, chol && s_bad != 0};
   if (n % V == 0)
     write_state_points<T, V>(m, off, 0, pts);
   else
     write_state_points<T, 1>(m, off, 0, pts);
 }
 
-// K6: one block per batch element.
-template <typename T>
-__global__ void __launch_bounds__(kUtThreads) ut_sigma_kernel(
-    const T* __restrict__ m_all, const T* __restrict__ P_all, T* pts_all,
-    int n, T scale, int method) {
-  sigma_block(m_all, P_all, pts_all, n, scale, method);
+// K6: one block per batch element. The register budget follows the
+// blocks an SM that shared memory holds: Newton–Schulz with one super-tile
+// a thread fits four float32 elements an SM (three 64 × 64 buffers, 48 KB)
+// or two float64 ones, the two-super-tile variant two and one; the
+// Cholesky two float32 elements an SM at 128 registers (left alone, the
+// compiler took 167 for it, one block an SM) and one float64.
+template <typename T, int kNs>
+__global__ void __launch_bounds__(
+    kUtThreads,
+    sizeof(T) == 4 ? (kNs == 1 ? 4 : 2) : (kNs == 1 ? 2 : 1))
+    ut_sigma_kernel(const T* __restrict__ m_all, const T* __restrict__ P_all,
+                    T* pts_all, int n, T scale) {
+  sigma_block<T, kNs>(m_all, P_all, pts_all, n, scale);
 }
 
 // K7's first launch: the points of the shared noise block (bias, C), one
 // block. A symbol of its own, so that a profile charges it to K7, not K6.
-template <typename T>
+template <typename T, int kNs>
 __global__ void __launch_bounds__(kUtThreads) ut_noise_sigma_kernel(
     const T* __restrict__ bias, const T* __restrict__ C, T* noise_pts,
-    int dn, T scale, int method) {
+    int dn, T scale) {
   // let the points kernel start now: it waits for this grid only where it
   // reads noise_pts
   asm volatile("griddepcontrol.launch_dependents;");
-  sigma_block(bias, C, noise_pts, dn, scale, method);
+  sigma_block<T, kNs>(bias, C, noise_pts, dn, scale);
 }
 
 // K7's broadcast blocks of one element, V columns a store: the bias
@@ -337,18 +394,18 @@ __device__ void write_aug_noise(const T* ns, int dx, int dn, T* pts) {
 // stores the broadcast blocks and stages P first, then waits for the noise
 // points (griddepcontrol.wait), stages them and stores the noise block
 // while P's factor runs, and stores the state block last.
-template <typename T>
+template <typename T, int kNs>
 __global__ void __launch_bounds__(kUtThreads) ut_sigma_aug_kernel(
     const T* __restrict__ m_all, const T* __restrict__ P_all,
     const T* __restrict__ bias, const T* __restrict__ noise_pts, T* pts_all,
-    int dx, int dn, T scale, int method) {
+    int dx, int dn, T scale) {
   __shared__ int s_bad;
   __shared__ T s_trace;
   constexpr int V = 16 / sizeof(T);
   const size_t b = blockIdx.x;
   const int na = dx + dn;
   T* ws = shared_workspace<T>();
-  T* ns = ws + factor_ws_elems(dx, method);
+  T* ns = ws + factor_ws_elems(dx, kNs == 0 ? kCholesky : kSqrtm);
   const T* m = m_all + b * dx;
   T* pts = pts_all + b * 2 * na * na;
   const bool vec = dx % V == 0 && dn % V == 0;
@@ -356,31 +413,30 @@ __global__ void __launch_bounds__(kUtThreads) ut_sigma_aug_kernel(
     write_aug_broadcasts<T, V>(m, bias, dx, dn, pts);
   else
     write_aug_broadcasts<T, 1>(m, bias, dx, dn, pts);
-  const T* F = block_factor(P_all + b * dx * dx, dx, method, ws, &s_bad,
-                            &s_trace, [&] {
-                              asm volatile("griddepcontrol.wait;" ::
-                                               : "memory");
-                              for (int idx = threadIdx.x; idx < 2 * dn * dn;
-                                   idx += blockDim.x)
-                                ns[idx] = noise_pts[idx];
-                              __syncthreads();
-                              if (vec)
-                                write_aug_noise<T, V>(ns, dx, dn, pts);
-                              else
-                                write_aug_noise<T, 1>(ns, dx, dn, pts);
-                            });
-  const bool chol = method == kCholesky;
-  const Offsets<T> off{F, dx, scale, chol, chol && s_bad != 0};
+  int ld = dx;
+  const T* F = block_factor<T, kNs>(P_all + b * dx * dx, dx, ws, &s_bad,
+                                    &s_trace, &ld, [&] {
+                                      asm volatile("griddepcontrol.wait;" ::
+                                                       : "memory");
+                                      for (int idx = threadIdx.x;
+                                           idx < 2 * dn * dn;
+                                           idx += blockDim.x)
+                                        ns[idx] = noise_pts[idx];
+                                      __syncthreads();
+                                      if (vec)
+                                        write_aug_noise<T, V>(ns, dx, dn,
+                                                              pts);
+                                      else
+                                        write_aug_noise<T, 1>(ns, dx, dn,
+                                                              pts);
+                                    });
+  const bool chol = kNs == 0;
+  const Offsets<T> off{F, dx, ld, scale, chol, chol && s_bad != 0};
   if (vec)
     write_state_points<T, V>(m, off, dn, pts);
   else
     write_state_points<T, 1>(m, off, dn, pts);
 }
-
-// K8 and K9 run one register-tiled product shape (block_mm.cuh tile_mm):
-// 4 × 4 outputs a thread over kUtThreads = 256 threads, a 64 × 64
-// super-tile.
-constexpr int kTM = 4, kTN = 4;
 
 // f(X[r·ld + c], c) for r < nr, c < w: the block split into max(1,
 // blockDim/w) parts along the rows, consecutive threads on consecutive
@@ -671,29 +727,38 @@ __global__ void __launch_bounds__(kUtThreads) ut_predict_kernel(
   }
 }
 
-template <typename T, typename K>
-int launch_sigma(K kernel, const void* m, const void* P, void* pts, int B,
-                 int n, double scale, int method, cudaStream_t stream) {
+// K6 over B elements, the variant (factor_variant) picked from n and the
+// method: a template argument each, so that the Cholesky, one super-tile
+// and two super-tiles a thread compile to kernels of their own.
+template <typename T>
+int launch_sigma(const void* m, const void* P, void* pts, int B, int n,
+                 double scale, int method, cudaStream_t stream) {
   const size_t smem = factor_ws_elems(n, method) * sizeof(T);
-  if (int err = set_smem(kernel, smem)) return err;
-  kernel<<<B, kUtThreads, smem, stream>>>(
-      static_cast<const T*>(m), static_cast<const T*>(P),
-      static_cast<T*>(pts), n, T(scale), method);
-  return int(cudaGetLastError());
+  const auto run = [&](auto kernel) {
+    if (int err = set_smem(kernel, smem)) return err;
+    kernel<<<B, kUtThreads, smem, stream>>>(
+        static_cast<const T*>(m), static_cast<const T*>(P),
+        static_cast<T*>(pts), n, T(scale));
+    return int(cudaGetLastError());
+  };
+  switch (factor_variant(n, method)) {
+    case 0: return run(ut_sigma_kernel<T, 0>);
+    case 1: return run(ut_sigma_kernel<T, 1>);
+    case 2: return run(ut_sigma_kernel<T, 2>);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
-template <typename T>
-int launch_sigma_aug(const void* m, const void* P, const void* bias,
-                     const void* C, void* pts, void* noise_pts, int B,
-                     int dx, int dn, double scale, int method,
-                     cudaStream_t stream) {
-  // the shared noise block's points, once per launch
-  if (int err = launch_sigma<T>(ut_noise_sigma_kernel<T>, bias, C, noise_pts,
-                                1, dn, scale, method, stream))
-    return err;
+// K7's noise launch (one block) and points launch, each kernel's variant
+// picked from its own width: dn for the noise, dx for the points.
+template <typename T, int kNs>
+int launch_sigma_aug_points(const void* m, const void* P, const void* bias,
+                            const void* noise_pts, void* pts, int B, int dx,
+                            int dn, double scale, int method,
+                            cudaStream_t stream) {
   const size_t smem =
       (factor_ws_elems(dx, method) + 2 * size_t(dn) * dn) * sizeof(T);
-  if (int err = set_smem(ut_sigma_aug_kernel<T>, smem)) return err;
+  if (int err = set_smem(ut_sigma_aug_kernel<T, kNs>, smem)) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
@@ -705,10 +770,46 @@ int launch_sigma_aug(const void* m, const void* P, const void* bias,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return int(cudaLaunchKernelEx(
-      &cfg, ut_sigma_aug_kernel<T>, static_cast<const T*>(m),
+      &cfg, ut_sigma_aug_kernel<T, kNs>, static_cast<const T*>(m),
       static_cast<const T*>(P), static_cast<const T*>(bias),
       static_cast<const T*>(noise_pts), static_cast<T*>(pts), dx, dn,
-      T(scale), method));
+      T(scale)));
+}
+
+template <typename T>
+int launch_sigma_aug(const void* m, const void* P, const void* bias,
+                     const void* C, void* pts, void* noise_pts, int B,
+                     int dx, int dn, double scale, int method,
+                     cudaStream_t stream) {
+  // the shared noise block's points, once per launch
+  const size_t smem = factor_ws_elems(dn, method) * sizeof(T);
+  const auto noise = [&](auto kernel) {
+    if (int err = set_smem(kernel, smem)) return err;
+    kernel<<<1, kUtThreads, smem, stream>>>(
+        static_cast<const T*>(bias), static_cast<const T*>(C),
+        static_cast<T*>(noise_pts), dn, T(scale));
+    return int(cudaGetLastError());
+  };
+  int err = 0;
+  switch (factor_variant(dn, method)) {
+    case 0: err = noise(ut_noise_sigma_kernel<T, 0>); break;
+    case 1: err = noise(ut_noise_sigma_kernel<T, 1>); break;
+    case 2: err = noise(ut_noise_sigma_kernel<T, 2>); break;
+    default: err = int(cudaErrorInvalidValue);
+  }
+  if (err) return err;
+  switch (factor_variant(dx, method)) {
+    case 0:
+      return launch_sigma_aug_points<T, 0>(m, P, bias, noise_pts, pts, B, dx,
+                                           dn, scale, method, stream);
+    case 1:
+      return launch_sigma_aug_points<T, 1>(m, P, bias, noise_pts, pts, B, dx,
+                                           dn, scale, method, stream);
+    case 2:
+      return launch_sigma_aug_points<T, 2>(m, P, bias, noise_pts, pts, B, dx,
+                                           dn, scale, method, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
@@ -749,14 +850,14 @@ extern "C" {
 
 int bft_ut_sigma_f32(const void* m, const void* P, void* pts, int B, int n,
                      double scale, int method, void* stream) {
-  return launch_sigma<float>(ut_sigma_kernel<float>, m, P, pts, B, n, scale,
-                             method, cudaStream_t(stream));
+  return launch_sigma<float>(m, P, pts, B, n, scale, method,
+                             cudaStream_t(stream));
 }
 
 int bft_ut_sigma_f64(const void* m, const void* P, void* pts, int B, int n,
                      double scale, int method, void* stream) {
-  return launch_sigma<double>(ut_sigma_kernel<double>, m, P, pts, B, n,
-                              scale, method, cudaStream_t(stream));
+  return launch_sigma<double>(m, P, pts, B, n, scale, method,
+                              cudaStream_t(stream));
 }
 
 int bft_ut_sigma_aug_f32(const void* m, const void* P, const void* bias,

@@ -7,8 +7,9 @@
 // `_sigma_aug_kernel` (K7t). ops/fused_ut.py picks K6/K7 or K6t/K7t by
 // shape alone: the per-element kernels where their workspace fits in a
 // block's shared memory (the batched Lorenz-96 UKF at n = 64, the
-// UGSF/UAGSF banks), these otherwise (config 5's n = 512, the band's
-// edges at 1,024).
+// UGSF/UAGSF banks), these otherwise (config 5's n = 512, path N's 2,048),
+// at any width whose operands and scratch fit in the device's memory: the
+// element-wise passes index in 64 bits (n² passes an int at n = 46,341).
 //
 // What bounds them on an H100. At config 5 (B = 1, n = 512) the Cholesky
 // is 45 MFLOP and the points 2 MB in float32: ~1 µs at the card's rates.
@@ -119,12 +120,11 @@ __device__ __forceinline__ void ns_element(const NsProblem<T>& a,
 // Newton–Schulz's start for every element of a and c (c.B = 0 for none):
 // s = tr P + 1e-30 (into the trace slot from the first block of each
 // element), Y = sym(P)/s, Z = I. Every block finds s itself (n reads).
-// Grid (blocks, a.B + c.B).
+// Grid (blocks, a.B + c.B), a block a row in turns (rows_grid).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sigma_tiled_trace_kernel(
     const NsProblem<T> a, const NsProblem<T> c) {
   __shared__ T s_sum;
-  const int stride = gridDim.x * blockDim.x;
   for (long long y = blockIdx.y; y < a.B + c.B; y += gridDim.y) {
     const T* P;
     T *Y, *s_out;
@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(kThreads) sigma_tiled_trace_kernel(
     ns_element(a, c, y, &P, &Y, &s_out, &n);
     if (threadIdx.x < kWarp) {
       T s = T(0);
-      for (int i = threadIdx.x; i < n; i += kWarp) s += P[i * n + i];
+      for (int i = threadIdx.x; i < n; i += kWarp) s += P[at64(i, i, n)];
       for (int o = kWarp / 2; o > 0; o >>= 1)
         s += __shfl_xor_sync(0xffffffffu, s, o);
       if (threadIdx.x == 0) s_sum = s + T(1e-30);
@@ -140,24 +140,23 @@ __global__ void __launch_bounds__(kThreads) sigma_tiled_trace_kernel(
     __syncthreads();
     const T s = s_sum;
     if (blockIdx.x == 0 && threadIdx.x == 0) *s_out = s;
-    T* Z = Y + n * n;
-    for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n * n;
-         idx += stride) {
-      const int i = idx / n, j = idx % n;
-      Y[idx] = (T(0.5) * (P[idx] + P[j * n + i])) / s;
-      Z[idx] = i == j ? T(1) : T(0);
-    }
+    T* Z = Y + 1LL * n * n;
+    for (int i = blockIdx.x; i < n; i += gridDim.x)
+      for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        Y[at64(i, j, n)] =
+            (T(0.5) * (P[at64(i, j, n)] + P[at64(j, i, n)])) / s;
+        Z[at64(i, j, n)] = i == j ? T(1) : T(0);
+      }
     __syncthreads();
   }
 }
 
 // Newton–Schulz's end for every element of a and c: root = sym(Y·√s)
 // from the Y at slot y into slot out of the element's scratch (slots in
-// units of n²). Grid (blocks, a.B + c.B).
+// units of n²). Grid (blocks, a.B + c.B), a block a row in turns.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sigma_tiled_root_kernel(
     const NsProblem<T> a, const NsProblem<T> c, int y, int out) {
-  const int stride = gridDim.x * blockDim.x;
   for (long long e = blockIdx.y; e < a.B + c.B; e += gridDim.y) {
     const T* P;
     T *ws, *s;
@@ -166,11 +165,10 @@ __global__ void __launch_bounds__(kThreads) sigma_tiled_root_kernel(
     const T* Y = ws + 1LL * y * n * n;
     T* R = ws + 1LL * out * n * n;
     const T rs = dsqrt(*s);
-    for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n * n;
-         idx += stride) {
-      const int i = idx / n, j = idx % n;
-      R[idx] = T(0.5) * (Y[idx] * rs + Y[j * n + i] * rs);
-    }
+    for (int i = blockIdx.x; i < n; i += gridDim.x)
+      for (int j = threadIdx.x; j < n; j += blockDim.x)
+        R[at64(i, j, n)] =
+            T(0.5) * (Y[at64(i, j, n)] * rs + Y[at64(j, i, n)] * rs);
   }
 }
 
@@ -204,7 +202,7 @@ int ns_factor(const NsProblem<T>& a, const NsProblem<T>& c, int* F,
                    : gemm(ga, stream);
   };
   const int n = a.n > c.n ? a.n : c.n;
-  const dim3 grid = elementwise_grid(1LL * n * n, a.B + c.B);
+  const dim3 grid = rows_grid(n, a.B + c.B);
   int y = 0, z = 1, t = 2, w = 3;  // the slots of Y, Z, T and the spare
   sigma_tiled_trace_kernel<T><<<grid, kThreads, 0, stream>>>(a, c);
   keep(int(cudaGetLastError()));

@@ -89,6 +89,14 @@ __host__ __device__ inline int tiles_of(long long n) {
   return int((n + kNb - 1) / kNb);
 }
 
+// The offset of entry (i, j) of a row-major matrix with leading dimension
+// ld, in 64 bits: at n ≥ 46,341 an n × n matrix has more entries than an
+// int counts.
+__host__ __device__ inline long long at64(long long i, long long j,
+                                          long long ld) {
+  return i * ld + j;
+}
+
 struct AugLayout {
   int dx, dy;
   long long height;     // rows of W: 2dy + dx + 1, dy + dx + 1 or dy
@@ -135,11 +143,11 @@ __host__ __device__ inline long long step_tasks(const AugLayout& sc, int k) {
 
 inline int grid_1d(long long B) { return B < 65535 ? int(B) : 65535; }
 
-// Element-wise grids: enough blocks for `work` elements, at most 256 (a
-// few per SM) per batch row.
-inline dim3 elementwise_grid(long long work, int B) {
-  const long long blocks = (work + kThreads - 1) / kThreads;
-  return dim3(unsigned(blocks < 256 ? (blocks > 0 ? blocks : 1) : 256),
+// Row-wise grids: a block a row in turns (at most 256 blocks) per batch
+// row, the block's threads along the row, so that a pass over a matrix
+// with more entries than an int counts needs no 64-bit division.
+inline dim3 rows_grid(int rows, int B) {
+  return dim3(unsigned(rows < 256 ? (rows > 0 ? rows : 1) : 256),
               unsigned(grid_1d(B)));
 }
 
@@ -243,7 +251,7 @@ __device__ T first_touch(const FactorArgs<T>& a, long long b, int i, int j) {
     T v = a.s_src[b * a.s_batch + (long long)i * a.s_ld + j];
     if (a.R != nullptr) {
       const T* R = a.R + b * a.r_batch;
-      v += T(0.5) * (R[i * dy + j] + R[j * dy + i]);
+      v += T(0.5) * (R[at64(i, j, dy)] + R[at64(j, i, dy)]);
     }
     if (a.add_floor && i == j) v += a.ws[b * a.st + a.sc.misc];
     return v;
@@ -441,7 +449,7 @@ __device__ void first_diag(const FactorArgs<T>& a, long long b,
     T mx = T(0);
     for (int i = threadIdx.x; i < dy; i += blockDim.x) {
       T d = a.s_src[b * a.s_batch + (long long)i * a.s_ld + i];
-      if (a.R != nullptr) d += a.R[b * a.r_batch + i * dy + i];
+      if (a.R != nullptr) d += a.R[b * a.r_batch + at64(i, i, dy)];
       mx = dabs(d) > mx ? dabs(d) : mx;
     }
     for (int o = kWarp / 2; o > 0; o >>= 1) {
@@ -639,14 +647,14 @@ __global__ void __launch_bounds__(kThreads) tiled_factor_kernel(
     const bool in_c = kProblems == 2 && p >= B;
     first_diag(in_c ? c : a, in_c ? p - B : p, sm);
   });
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (a.rs >= 0)
-    for (long long idx = first; idx < B * dy * dy; idx += stride) {
-      const long long b = idx / (1LL * dy * dy);
-      const int e = int(idx % (1LL * dy * dy)), i = e / dy, j = e % dy;
+  if (a.rs >= 0)  // a block a row of sym(R) in turns
+    for (long long row = blockIdx.x; row < B * dy; row += gridDim.x) {
+      const long long b = row / dy;
+      const int i = int(row % dy);
       const T* R = a.R + b * a.r_batch;
-      a.ws[b * a.st + a.rs + e] = T(0.5) * (R[i * dy + j] + R[j * dy + i]);
+      T* out = a.ws + b * a.st + a.rs + at64(i, 0, dy);
+      for (int j = threadIdx.x; j < dy; j += blockDim.x)
+        out[j] = T(0.5) * (R[at64(i, j, dy)] + R[at64(j, i, dy)]);
     }
   grid.sync();
 

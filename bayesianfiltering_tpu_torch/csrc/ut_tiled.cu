@@ -7,8 +7,10 @@
 // `_ut_predict_kernel` (K9t). ops/fused_ut.py picks K8/K9 or K8t/K9t by
 // shape alone: the per-element kernels where their workspace fits in a
 // block's shared memory (the batched Lorenz-96 UKF at dx = 64, the
-// UGSF/UAGSF banks), these otherwise (Lorenz-96 at dx = 512, the band's
-// edges at 1,024).
+// UGSF/UAGSF banks), these otherwise (Lorenz-96 at dx = 512 and 2,048), at
+// any width whose operands and scratch fit in the device's memory: the
+// centring pass indexes in 64 bits (2n rows of 2n columns pass an int at
+// n = 23,171).
 //
 // What bounds them on an H100. At dx = 512, dy = 256 and 1,024 sigma
 // points the update is ~0.44 GFLOP, nearly all of it the moments [S; Cᵀ]
@@ -71,7 +73,8 @@ struct UtUpdateScratch {
 };
 
 // V = [hpts − μy | pts[:, :dx] − m] (rows × (dy + dx); points of leading
-// dimension ld) and [center − μy; 0]. Grid (blocks, batch).
+// dimension ld) and [center − μy; 0]. Grid (blocks, batch): a block a
+// row in turns, its threads along the row (rows_grid).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ut_tiled_centre_kernel(
     const T* __restrict__ pts_all, const T* __restrict__ hpts_all,
@@ -79,21 +82,22 @@ __global__ void __launch_bounds__(kThreads) ut_tiled_centre_kernel(
     const T* __restrict__ m_all, T* scratch, UtUpdateScratch sc, int B,
     int rows, int ld) {
   const int dx = sc.f.dx, dy = sc.f.dy, w = dy + dx;
-  const int stride = gridDim.x * blockDim.x;
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
   for (long long b = blockIdx.y; b < B; b += gridDim.y) {
     T* ws = scratch + b * sc.f.total;
     const T* mu = mu_all + b * dy;
     const T* m = m_all + b * dx;
     const T* hp = hpts_all + b * rows * dy;
     const T* pts = pts_all + b * rows * ld;
-    for (int idx = first; idx < rows * w; idx += stride) {
-      const int r = idx / w, j = idx % w;
-      ws[sc.v + idx] = j < dy ? hp[r * dy + j] - mu[j]
-                              : pts[(long long)r * ld + j - dy] - m[j - dy];
+    for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+      T* v = ws + sc.v + at64(r, 0, w);
+      const T* hr = hp + at64(r, 0, dy);
+      const T* pr = pts + at64(r, 0, ld);
+      for (int j = threadIdx.x; j < w; j += blockDim.x)
+        v[j] = j < dy ? hr[j] - mu[j] : pr[j - dy] - m[j - dy];
     }
-    for (int i = first; i < w; i += stride)
-      ws[sc.d0 + i] = i < dy ? center_all[b * dy + i] - mu[i] : T(0);
+    if (blockIdx.x == 0)
+      for (int i = threadIdx.x; i < w; i += blockDim.x)
+        ws[sc.d0 + i] = i < dy ? center_all[b * dy + i] - mu[i] : T(0);
   }
 }
 
@@ -171,8 +175,7 @@ int launch_update_tiled(const void* pts_, const void* hpts_,
   };
 
   // 1. centre: V = [Yc | Xc] and [d0; 0]
-  ut_tiled_centre_kernel<T><<<elementwise_grid(1LL * rows * w, B), kThreads,
-                              0, stream>>>(
+  ut_tiled_centre_kernel<T><<<rows_grid(rows, B), kThreads, 0, stream>>>(
       static_cast<const T*>(pts_), static_cast<const T*>(hpts_),
       static_cast<const T*>(center_), static_cast<const T*>(mu_),
       static_cast<const T*>(m_), ws, sc, B, rows, ld);

@@ -11,9 +11,8 @@ combines batched over thousands of lanes.
 On CUDA tensors every Woodbury filtering combine runs the CUDA kernel K10
 (``ops.bank_combine``), the smoothing elements K11 and every smoothing
 combine K12 (``ops.bank_smoother``), each as a lane over a group of 4 or
-8 threads at dx ≤ 8 and one thread block per lane at 8 < dx ≤ 512, in
-float32 or
-float64; a CUDA input outside that band raises NotImplementedError. On CPU
+8 threads at dx ≤ 8 and one thread block per lane above, at every width
+(float16 and bfloat16 run in float32). On CPU
 tensors the plain PyTorch combines below run. The ``"native"`` solver has
 no kernel in the JAX package either and runs ``torch.linalg.solve``.
 
@@ -273,7 +272,7 @@ def _resolve_chunk(chunk, T):
 def _run_filter_scan(elems, solver: str, chunk):
     """The filtering prefix scan: chunked two-level, or the flat log-depth
     scan for ``chunk=None``. The Woodbury combine runs K10 on CUDA tensors
-    in its band (``ops.bank_combine``)."""
+    (``ops.bank_combine``)."""
     fn = functools.partial(_combine, solver=solver)
     if solver == "woodbury":
         from bayesianfiltering_tpu_torch.ops.bank_combine import (
@@ -335,7 +334,7 @@ def parallel_kalman_filter(params: ParamsLGSSM, emissions: torch.Tensor,
     moments from the scan, predicted moments by one extra propagation,
     marginal log-likelihood in innovation form).
 
-    ``solver``: "woodbury" (default; K10 on CUDA in its band) or "native"
+    ``solver``: "woodbury" (default; K10 on CUDA) or "native"
     (``torch.linalg.solve``, plain PyTorch). ``chunk``: "auto" (default)
     picks the schedule by length; an int runs
     :func:`chunked_associative_scan` with that chunk; ``None`` the flat
@@ -362,7 +361,7 @@ def _run_smoother_scan(elems, chunk):
     """Reverse suffix scan of smoothing elements over the chunked / flat
     schedule. In both, the reverse scan's left operand is the later-time
     partial product, so the time-ordered combine's roles are swapped. The
-    combine runs K12 on CUDA tensors in its band (``ops.bank_smoother``)."""
+    combine runs K12 on CUDA tensors (``ops.bank_smoother``)."""
     from bayesianfiltering_tpu_torch.ops.bank_smoother import (
         bank_smoother_combine,
     )
@@ -380,7 +379,7 @@ def _run_smoother_scan(elems, chunk):
 
 def _smoother_elements(fm, fP, pm, pP, F):
     """Per-step RTS elements ``(G, g, L)`` for t < T−1: K11 on CUDA tensors
-    in its band (``ops.bank_smoother``)."""
+    (``ops.bank_smoother``)."""
     from bayesianfiltering_tpu_torch.ops.bank_smoother import (
         bank_smoother_elements,
     )

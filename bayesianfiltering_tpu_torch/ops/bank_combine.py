@@ -8,10 +8,14 @@ K10 (``csrc/bank_combine.cu``) replaces the TPU kernel ``_combine_kernel``
 launch, in float32 and float64, in two size bands with a symbol and a
 launch counter each: ``bank_combine_kernel`` (:data:`K10`), a lane over a
 group of 4 or 8 threads, for dx ≤ 8, and ``tiled_combine_kernel``
-(:data:`K10B`), one thread block per lane on a persistent grid, for
-8 < dx ≤ 512. The choice is by
-size alone (:func:`band_kernel`); outside the band a CUDA input raises
-NotImplementedError (the port has no plain path on the card). K10B's
+(:data:`K10B`), one thread block per lane on a persistent grid, above.
+The choice is by size alone (:func:`band_kernel`); every width runs on the
+card (the port has no plain path there): above dx = 64 the block kernels
+keep their workspace in global scratch (bounded by the blocks in flight),
+so a width whose operands and scratch fit in the device's memory runs, and
+one that does not fails with PyTorch's out-of-memory error. Float16 and
+bfloat16 operands, which the JAX package's XLA combine takes, run in
+float32 and are rounded back (:func:`half_in_float32`). K10B's
 launch (and K11B's and K12B's, ``ops/bank_smoother.py``) is planned here
 from the width, the dtype and the lanes: :func:`block_tile` picks its
 workspace's route, :func:`block_threads` its block size.
@@ -38,8 +42,8 @@ import torch
 from bayesianfiltering_tpu_torch import _build
 from bayesianfiltering_tpu_torch.ops.associative import _combine
 
-_LANE_MAX = 8     # group kernels: a lane over a group of 4 or 8 threads
-_BLOCK_MAX = 512  # block kernels: one thread block per lane
+_LANE_MAX = 8  # group kernels: a lane over a group of 4 or 8 threads
+_HALF = (torch.float16, torch.bfloat16)
 
 _SRC = "bayesianfiltering_tpu_torch/csrc/bank_combine.cu"
 K10 = _build.register("bft_bank_combine", _SRC,
@@ -103,21 +107,38 @@ def block_threads(kind: int, M: int, tile: int, itemsize: int,
 
 def band_kernel(lane: _build.Kernel, block: _build.Kernel, dx: int,
                 *arrays):
-    """The band check of the combine kernels K10–K12 (the counterpart of
-    the JAX package's ``should_use_pallas``): for CUDA operands in float32
-    or float64, ``lane`` at dx ≤ 8 and ``block`` at 8 < dx ≤ 512; None for
-    CPU operands (the plain version runs); a CUDA operand outside the band
-    raises NotImplementedError."""
+    """The kernel of the combines K10–K12 for CUDA operands (the
+    counterpart of the JAX package's ``should_use_pallas``): ``lane`` at
+    dx ≤ 8, ``block`` above; None for CPU operands (the plain version
+    runs)."""
     if not any(a.is_cuda for a in arrays):
         return None
-    dtypes = {a.dtype for a in arrays}
-    if dx > _BLOCK_MAX or not dtypes <= {torch.float32, torch.float64}:
-        raise NotImplementedError(
-            f"{lane.name}/{block.name} kernel band is dx <= {_BLOCK_MAX} "
-            f"(a lane over a group of threads to dx = {_LANE_MAX}, one "
-            f"block a lane above), "
-            f"float32/float64; got dx={dx}, {sorted(map(str, dtypes))}")
     return lane if dx <= _LANE_MAX else block
+
+
+def _tree_map(f, x):
+    if isinstance(x, (tuple, list)):
+        return tuple(_tree_map(f, y) for y in x)
+    return f(x)
+
+
+def half_in_float32(fn):
+    """``fn`` (a combine or the elements over tensors and tuples of them)
+    run in float32 where an operand is float16 or bfloat16, its outputs
+    rounded to the operands' promoted dtype. The JAX package's XLA combine
+    and elements compute at those dtypes; torch has no half Cholesky on
+    either device, so the port accumulates in float32: on the card the
+    float32 kernel runs, on the CPU the plain version."""
+    @functools.wraps(fn)
+    def run(*args):
+        dtypes = set()
+        _tree_map(lambda t: dtypes.add(t.dtype), args)
+        if not dtypes & set(_HALF):
+            return fn(*args)
+        out_dtype = functools.reduce(torch.promote_types, dtypes)
+        out = fn(*_tree_map(lambda t: t.float(), args))
+        return _tree_map(lambda t: t.to(out_dtype), out)
+    return run
 
 
 def block_scratch(kind: int, kernel: _build.Kernel, M: int, like):
@@ -206,6 +227,7 @@ _block_combine = _build.kernel_op(_combine_lanes,
                                   functools.partial(_launch, K10B), 10)
 
 
+@half_in_float32
 def bank_filter_combine(left, right):
     """Associative Kalman-filtering combine over banks of elements.
 
@@ -213,8 +235,8 @@ def bank_filter_combine(left, right):
     leading batch axes (matrices batch+(dx, dx), vectors batch+(dx,)).
     Semantics of ``ops.associative._combine(..., solver="woodbury")``; on
     CUDA tensors the whole combine is one K10 launch (the lane kernel at
-    dx ≤ 8, the block kernel at 8 < dx ≤ 512, float32 or float64, else
-    NotImplementedError), on CPU tensors the plain combine runs.
+    dx ≤ 8, the block kernel above), on CPU tensors the plain combine
+    runs; float16 and bfloat16 in float32 (:func:`half_in_float32`).
     """
     dx = left[0].shape[-1]
     kernel = band_kernel(K10, K10B, dx, *left, *right)
@@ -228,4 +250,4 @@ def bank_filter_combine(left, right):
 
 
 __all__ = ["bank_filter_combine", "band_kernel", "block_threads", "block_tile",
-           "K10", "K10B"]
+           "half_in_float32", "K10", "K10B"]

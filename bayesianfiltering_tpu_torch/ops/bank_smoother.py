@@ -6,7 +6,7 @@ Both live in ``csrc/bank_combine.cu``, float32 and float64, each in two
 size bands with a symbol and a launch counter each: a lane over a group of
 4 or 8 threads at dx ≤ 8 (``bank_smoother_*_kernel``, :data:`K11`,
 :data:`K12`, on ``csrc/lane_group.cuh``) and one thread block per lane on
-a persistent grid at 8 < dx ≤ 512 (``block_smoother_elements_kernel``,
+a persistent grid above (``block_smoother_elements_kernel``,
 :data:`K11B`, and ``tiled_smoother_combine_kernel``, :data:`K12B`, whose
 launches ``ops.bank_combine.tiled_plan`` plans as K10B's):
 
@@ -26,9 +26,10 @@ launches ``ops.bank_combine.tiled_plan`` plans as K10B's):
   ``_smoother_combine_kernel`` (``:169``): ``E = E1 E2``,
   ``g = E1 g2 + g1``, ``L = sym(E1 L2 E1ᵀ + L1)``.
 
-On CUDA tensors the wrappers launch the kernels, or raise
-NotImplementedError outside the band; on CPU tensors the plain versions
-run.
+On CUDA tensors the wrappers launch the kernels at every width; on CPU
+tensors the plain versions run. Float16 and bfloat16 operands run in
+float32 and are rounded back (``ops.bank_combine.half_in_float32``), as
+the JAX package's XLA versions take them.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from bayesianfiltering_tpu_torch.ops.bank_combine import (
     BLOCK_SCOMBINE,
     as_lanes,
     band_kernel,
+    half_in_float32,
     periodic_views,
     tiled_plan,
 )
@@ -104,14 +106,19 @@ def bank_smoother_elements(fm, fP, pm, pP, F):
     ``fm``, ``pm`` (M, dx), ``fP``, ``pP`` (M, dx, dx), ``F`` (M, dx, dx) —
     a shared transition expanded to M (stride 0) goes to K11 once, not
     copied M times. One K11 launch on CUDA tensors (the lane kernel at
-    dx ≤ 8, the block kernel at 8 < dx ≤ 512, float32 or float64, else
-    NotImplementedError), the plain version on CPU tensors."""
+    dx ≤ 8, the block kernel above), the plain version on CPU tensors;
+    float16 and bfloat16 in float32."""
+    if F.ndim == 3 and F.stride(0) == 0 and F.shape[0]:
+        F = F[0]
+    return _elements(fm, fP, pm, pP, F)
+
+
+@half_in_float32
+def _elements(fm, fP, pm, pP, F):
     dx = fm.shape[-1]
     kernel = band_kernel(K11, K11B, dx, fm, fP, pm, pP, F)
     if kernel is None:
         return _elements_plain(fm, fP, pm, pP, F)
-    if F.ndim == 3 and F.stride(0) == 0:
-        F = F[0]
     op = _bank_elements if kernel is K11 else _block_elements
     return op(fm.contiguous(), fP.contiguous(), pm.contiguous(),
               pP.contiguous(), F.contiguous())
@@ -158,13 +165,13 @@ _block_scombine = _build.kernel_op(
     _scombine_lanes, functools.partial(_launch_combine, K12B), 6)
 
 
+@half_in_float32
 def bank_smoother_combine(earlier, later):
     """Affine smoothing composition ``earlier ∘ later`` over banks with
     broadcastable leading batch axes (semantics of
     ``ops.associative._smoother_combine``): one K12 launch on CUDA tensors
-    (the lane kernel at dx ≤ 8, the block kernel at 8 < dx ≤ 512, float32
-    or float64, else NotImplementedError), the plain version on CPU
-    tensors."""
+    (the lane kernel at dx ≤ 8, the block kernel above), the plain version
+    on CPU tensors; float16 and bfloat16 in float32."""
     dx = earlier[0].shape[-1]
     kernel = band_kernel(K12, K12B, dx, *earlier, *later)
     if kernel is None:

@@ -21,13 +21,16 @@ F_q Q F_qᵀ) mirrored. The choice is by shape alone (:func:`update_kernel`,
 :func:`predict_kernel`); the C entry points size the scratch.
 
 On CUDA tensors the wrappers launch a kernel or raise; on CPU tensors
-they run the plain twins beside them. The band is dx, dy ≤ 512 for the
-update and dx, dq ≤ 512 for the predict; a CUDA input outside it raises
-NotImplementedError. (The TPU package caps its update kernel at dy ≤ 128,
-where its in-kernel factorisation was verified on the TPU, and offers the
-sequential chunked update for larger dy; here both the joint update and
-the chunked one, :func:`fused_ekf_condition_on_chunked`, run on the card
-at dy = 256.)
+they run the plain twins beside them. Every width runs on the card, in
+float32 and float64: K1t and K2t keep their working set in global scratch
+(64-bit offsets), so a width whose operands and scratch fit in the
+device's memory runs, and one that does not fails with PyTorch's
+out-of-memory error when the scratch is allocated. (The TPU package runs
+its update kernel to dy ≤ 128, where its in-kernel factorisation was
+verified on the TPU, and XLA above, with the sequential chunked update
+for larger dy; here both the joint update and the chunked one,
+:func:`fused_ekf_condition_on_chunked`, run on the card at dy = 256 and
+1,024.)
 """
 from __future__ import annotations
 
@@ -45,8 +48,6 @@ from bayesianfiltering_tpu_torch.ops.ekf import (
     predict_cov_precomputed,
 )
 
-_DIM_MAX = 512
-_DY_MAX = 512
 _CHUNK = 128  # the JAX package's default chunk (its kernel's dy band)
 
 _SRC = "bayesianfiltering_tpu_torch/csrc/fused_ekf.cu"
@@ -168,11 +169,6 @@ def fused_update(m, P, Hx, Rt, innov, jitter=0.0):
     ``innov`` (B, dy). Returns ``(ll, mean, cov, gain)`` with the gain
     (B, dx, dy). K1 or K1t on CUDA (:func:`update_kernel`), the plain twin
     on CPU."""
-    dx, dy = P.shape[-1], innov.shape[-1]
-    if m.is_cuda and (dx > _DIM_MAX or dy > _DY_MAX):
-        raise NotImplementedError(
-            f"update kernel band is dx <= {_DIM_MAX}, dy <= {_DY_MAX}; got "
-            f"dx={dx}, dy={dy}")
     return _fused_update(m.contiguous(), P.contiguous(), Hx.contiguous(),
                          Rt.contiguous(), innov.contiguous(), float(jitter))
 
@@ -181,11 +177,6 @@ def fused_predict_cov(Fx, P, Fq, Q):
     """Batched Σ⁺ = sym(F_x P F_xᵀ + F_q Q F_qᵀ) with ``Q`` (dq, dq)
     shared. K2 or K2t on CUDA (:func:`predict_kernel`), the plain twin on
     CPU."""
-    dx, dq = P.shape[-1], Fq.shape[-1]
-    if P.is_cuda and (dx > _DIM_MAX or dq > _DIM_MAX):
-        raise NotImplementedError(
-            f"predict kernel band is dx, dq <= {_DIM_MAX}; got dx={dx}, "
-            f"dq={dq}")
     return _fused_predict_cov(Fx.contiguous(), P.contiguous(),
                               Fq.contiguous(), Q.contiguous())
 

@@ -16,7 +16,7 @@
   Σ = sym(Σw ccᵀ (+Q)), the lower half mirrored.
 
 All four keep their workspace in one block's shared memory. Where it
-does not fit (config 5's Lorenz-96 dx=512, the band's edges), tiled
+does not fit (config 5's Lorenz-96 dx=512 and every wider shape), tiled
 variants replace the same TPU kernels: in ``csrc/sigma_tiled.cu`` K6t
 factors P with the EKF's blocked Cholesky in one launch
 (``csrc/tiled_chol.cuh``, on P alone; the points are that launch's
@@ -41,11 +41,13 @@ function (e.g. a wrapped bearing), so the models with an
 kernel for them).
 
 On CUDA tensors the wrappers launch the kernel or raise; on CPU tensors
-they run the plain versions beside them. The band is every factor and
-moment dimension ≤ 1,024 (the TPU package caps its kernels at 128 for TPU
-reasons and runs XLA above; here K6–K9 hand over to K6t–K9t, so the
-Lorenz-96 dx=512 configuration runs through kernels); a CUDA input
-outside it raises NotImplementedError.
+they run the plain versions beside them. Every width runs on the card, in
+float32 and float64 (the TPU package caps its kernels at 128 for TPU
+reasons and runs XLA above; here K6–K9 hand over to K6t–K9t, whose
+working set lies in global scratch with 64-bit offsets, so the Lorenz-96
+dx = 512 and 2,048 configurations run through kernels): a width whose
+operands and scratch fit in the device's memory runs, and one that does
+not fails with PyTorch's out-of-memory error.
 """
 from __future__ import annotations
 
@@ -71,7 +73,6 @@ from bayesianfiltering_tpu_torch.utils.sigma_points import (
     points_from_factor,
 )
 
-_DIM_MAX = 1024
 _METHODS = {"cholesky": 0, "sqrtm": 1}  # csrc/fused_ut.cu kCholesky, kSqrtm
 
 _SRC = "bayesianfiltering_tpu_torch/csrc/fused_ut.cu"
@@ -96,6 +97,9 @@ K7T = _build.register("bft_ut_sigma_aug_tiled", _SIGMA_TILED_SRC,
 
 _ROW_CHUNK = 64  # csrc/fused_ut.cu kRowChunk
 _THREADS = 256  # csrc/fused_ut.cu kUtThreads
+# K6/K7's widest Newton–Schulz factor (csrc/fused_ut.cu kNsMax): a thread
+# holds its tiles of 2 × 2 super-tiles of 64 through an in-place product
+_NS_MAX = 128
 
 
 def _round_up(x: int, m: int) -> int:
@@ -104,10 +108,14 @@ def _round_up(x: int, m: int) -> int:
 
 # The per-element kernels' shared-memory workspaces, in elements
 # (``factor_ws_elems``, ``UpdateWs`` and ``PredictWs`` of
-# csrc/fused_ut.cu). K7's points kernel holds P's factor workspace and the
+# csrc/fused_ut.cu). The Cholesky factors P in an n × n block; Newton–Schulz
+# keeps Y, Z and T, each n rows rounded up to 4 with a leading dimension of
+# n rounded up to 32. K7's points kernel holds P's factor workspace and the
 # 2dn × dn noise points, its noise launch C's factor workspace.
 def _factor_ws(n: int, method: str) -> int:
-    return n * n * (4 if method == "sqrtm" else 1)
+    if method == "sqrtm":
+        return 3 * _round_up(n, 4) * _round_up(n, 32)
+    return n * n
 
 
 def _aug_ws(dx: int, dn: int, method: str) -> int:
@@ -137,17 +145,20 @@ def sigma_kernel(n: int, method: str, itemsize: int,
                  smem_optin: int) -> _build.Kernel:
     """The sigma-point kernel for one shape: K6 (one block per element)
     where its factor's workspace fits in a block's shared memory,
-    ``smem_optin`` bytes, K6t (tiled over the card) otherwise."""
-    fits = _build.fits_smem(_factor_ws(n, method), itemsize, smem_optin)
+    ``smem_optin`` bytes (and Newton–Schulz's n ≤ ``_NS_MAX``), K6t (tiled
+    over the card) otherwise."""
+    fits = (_build.fits_smem(_factor_ws(n, method), itemsize, smem_optin)
+            and (method != "sqrtm" or n <= _NS_MAX))
     return K6 if fits else K6T
 
 
 def sigma_aug_kernel(dx: int, dn: int, method: str, itemsize: int,
                      smem_optin: int) -> _build.Kernel:
     """The augmented sigma-point kernel for one shape: K7 where both of its
-    launches' workspaces fit in ``smem_optin`` bytes of shared memory, K7t
-    otherwise."""
-    fits = _build.fits_smem(_aug_ws(dx, dn, method), itemsize, smem_optin)
+    launches' workspaces fit in ``smem_optin`` bytes of shared memory (and
+    Newton–Schulz's dx, dn ≤ ``_NS_MAX``), K7t otherwise."""
+    fits = (_build.fits_smem(_aug_ws(dx, dn, method), itemsize, smem_optin)
+            and (method != "sqrtm" or max(dx, dn) <= _NS_MAX))
     return K7 if fits else K7T
 
 
@@ -325,13 +336,6 @@ _update_op = _build.kernel_op(_ut_update_plain, _launch_update, 8)
 _predict_op = _build.kernel_op(_ut_predict_plain, _launch_predict, 3)
 
 
-def _band(x: torch.Tensor, kernel, **dims) -> None:
-    if x.is_cuda and any(d > _DIM_MAX for d in dims.values()):
-        raise NotImplementedError(
-            f"{kernel.name} band is every dimension <= {_DIM_MAX}; got "
-            + ", ".join(f"{k}={v}" for k, v in dims.items()))
-
-
 def _method(uparams: ParamsUKF) -> str:
     if uparams.sqrt_method not in _METHODS:
         raise ValueError(f"unknown sqrt_method {uparams.sqrt_method!r}")
@@ -345,7 +349,6 @@ def _method(uparams: ParamsUKF) -> str:
 def fused_sigma(m, P, scale: float, method: str):
     """Sigma points (B, 2n, n) of ``m`` (B, n), ``P`` (B, n, n). K6 or K6t
     on CUDA (:func:`sigma_kernel`), the plain version on CPU."""
-    _band(m, K6, n=m.shape[-1])
     return _sigma_op(m.contiguous(), P.contiguous(), float(scale), method)
 
 
@@ -353,7 +356,6 @@ def fused_sigma_aug(m, P, bias, C, scale: float, method: str):
     """Augmented sigma points (B, 2na, na) of ``N([m; bias], blkdiag(P,
     C))``, ``bias`` (dn,) and ``C`` (dn, dn) shared. K7 or K7t on CUDA
     (:func:`sigma_aug_kernel`), the plain version on CPU."""
-    _band(m, K7, na=m.shape[-1] + bias.shape[-1])
     return _sigma_aug_op(m.contiguous(), P.contiguous(), bias.contiguous(),
                          C.contiguous(), float(scale), method)
 
@@ -363,7 +365,6 @@ def fused_ut_update(pts, hpts, center_y, mu_y, m, P, R, innov, w_side, w0c,
     """UT measurement update from propagated sigma points. ``R`` (dy, dy)
     is added to S only when ``add_r``. Returns ``(ll, mean, cov)``. K8 or
     K8t on CUDA (:func:`update_kernel`), the plain version on CPU."""
-    _band(m, K8, dx=m.shape[-1], dy=hpts.shape[-1])
     return _update_op(pts.contiguous(), hpts.contiguous(),
                       center_y.contiguous(), mu_y.contiguous(),
                       m.contiguous(), P.contiguous(), R.contiguous(),
@@ -375,7 +376,6 @@ def fused_ut_predict(fpts, center, Q, w_side, w0m, w0c, add_q: bool):
     """UT predict moments ``(μ, Σ)`` of propagated sigma points; ``Q``
     (dx, dx) is added only when ``add_q``. K9 or K9t on CUDA
     (:func:`predict_kernel`), the plain version on CPU."""
-    _band(fpts, K9, dx=fpts.shape[-1])
     return _predict_op(fpts.contiguous(), center.contiguous(), Q.contiguous(),
                        float(w_side), float(w0m), float(w0c), bool(add_q))
 

@@ -33,8 +33,10 @@ and prints no result):
 3. First, the CUDA launches a call of K8t (at most 4), K2t (at most 2),
    K9t (at most 2) and K7t (Cholesky, 1), counted by torch.profiler. Each kernel against its plain PyTorch
    version on the card, float32 and
-   float64, at the main paths' shapes and at its size band's edge (K1/K1t
-   to dy = 512, K6–K9/K6t–K9t to 1,024, the block combines at dx = 9, 64
+   float64, at the main paths' shapes and at path N's (K1t at dx = 2,048,
+   dy = 1,024 and 128, K2t at dx = dq = 2,048, K6t at n = 2,048, K7t at
+   dx = dn = 1,024, K8t and K9t at 4,096 points, the block combines and
+   elements at dx = 1,024; the block combines also at dx = 9, 64
    and 512; the EKF, sigma-point and UT update and predict kernels also at
    shapes that are not multiples of a tile and on both sides of the rules
    that pick K1/K2 or K1t/K2t, K6/K7 or K6t/K7t and K8/K9 or K8t/K9t, each
@@ -75,7 +77,10 @@ and prints no result):
    65,536 particles, so K5 runs) on Lorenz-96 dx=8, the parallel
    Kalman smoother at T=4,096, chunk 128, BASELINE config 5 (Lorenz-96
    dx=512, dy=256, float64, T=20: the EKF's joint and chunked updates and
-   the additive UKF), path C (the parallel smoother at dx=64, dy=32,
+   the additive UKF), path N (the same three filters at dx=2,048,
+   dy=1,024, T=3, and the parallel smoother at dx=1,024, dy=512, T=8,
+   float64, each with its exact launches), path C (the parallel smoother
+   at dx=64, dy=32,
    T=1,024, both solvers, float32 and float64), the time-varying parallel
    filter and smoother at the BOT widths (dx=4, T=250) and at path C's
    (T=1,024, per-step F: K10b, K11b with F banked, K12b), float32 and
@@ -125,7 +130,12 @@ and prints no result):
    320 times each, K11 once); BASELINE config 5 (Lorenz-96 dx=512,
    dy=256, one sequence, T=200: the EKF with the joint update, the EKF with
    ``update_chunk=128`` — K1t/K2t, never K1/K2 — and the additive UKF —
-   K6t, K8t and K9t, never K6/K8/K9);
+   K6t, K8t and K9t, never K6/K8/K9); path N, config 5's model at
+   dx=2,048, dy=1,024, T=20 (``ekf2048``: K1t at dy = 1,024 and K2t at
+   dx = dq = 2,048; with ``update_chunk=128`` 8 × 128; ``ukf2048``: K6t at
+   n = 2,048, K8t and K9t at 4,096 points) and the parallel smoother on
+   ``zoo.linear_gaussian_lgssm(1024, 512)`` (Woodbury, chunk 128,
+   T=PN_S_T: K10b, K11b and K12b at dx = 1,024);
    path C (the parallel smoother
    on ``zoo.linear_gaussian_lgssm(64, 32)`` at T=65,536, chunk 128, both
    solvers: only the block combines launch); path D, the BOT smoothing
@@ -133,7 +143,7 @@ and prints no result):
    tracking, T=250, 8 iterations: the ERTS, the URTS, the IEKS, the
    LM-IEKS and the IPLS, with their RMSE against the sampled states);
    path E, the IEKS row of experiments/parallel_kf_bench.py (the UNGM,
-   3 iterations, chunk 128, the rollout nominal, T=2^16; the rollout
+   3 iterations, chunk 128, the rollout nominal, T=2^15; the rollout
    alone timed at 16,384 steps); path F, Experiment A of
    experiments/expa_experiment.py (``zoo.sine_quadratic()``, T=100: the
    GSF M=5, the UGSF M=3, the AGSF [3,2,2] with autocov "prop", "trace"
@@ -141,14 +151,14 @@ and prints no result):
    path G, the regime switch of experiments/adaptive_experiment.py
    (``zoo.stochastic_volatility()``, T=100, inputs 1 from T/2: the GSF
    M=20, the AGSF [20,2,2], the AGSF-optimal [20,2,2], a BPF of 20,000
-   particles), each filter on 3 sequences with its wall's median and range
+   particles), each filter on 2 sequences with its wall's median and range
    and its mean RMSE; path H, the steady-state filter and smoother on path
    B's model and data (T=1M, head 64, 128 Riccati iterations: no kernel),
    with the largest gap to path B's parallel smoother; path I, exact EM
    (``LinearGaussianSSM.fit_em``) on path B's model and data at T=1M, 3
    iterations (K10/K12 960 times, K11 3); path J, extended EM on the
-   Lorenz-96 EKF's model and data at B=32, T=1000, 1 iteration (K1/K2
-   1,000 each); path K, ``fit_sgd`` on the same model at B=64, T=200, Q
+   Lorenz-96 EKF's model and data at B=16, T=1000, 1 iteration (K1/K2
+   1,000 each); path K, ``fit_sgd`` on the same model at B=32, T=200, Q
    and R under RealToPSD, Adam, 2 steps (K1/K2 400 each forward, the plain
    versions backward); the EKF stepper on the Lorenz-96 batch (B=512,
    T=200), the GSF stepper on bearings-only tracking (M=50, T=100) and the
@@ -242,6 +252,17 @@ KF_NARROW = -(-KF_LANES // KF_CHUNK)                  # 62: the next level
 # dx=512, dy=256, one sequence, T=200, RK4 data, Euler filter
 C5_DX, C5_DY, C5_T, C5_CMP_T, C5_CHUNK = 512, 256, 200, 20, 128
 C5_PROFILE_T = 10
+# path N: config 5's model at twice its width (Lorenz-96 dx=2,048,
+# dy=1,024, one sequence, RK4 data, Euler filter; T=20), the widths at
+# which the reference's own wrappers route to XLA; card vs CPU at T=3 in
+# float64. Its smoother: path C's model at zoo.linear_gaussian_lgssm(1024,
+# 512), Woodbury, chunk 128, T cut from 256 to PN_S_T: K10b and K12b give
+# one thread block to a lane, and the chunked scan's in-chunk combines run
+# over 2 lanes at T = 256 (a chain of 128 combines on 2 SMs, ~0.38 s of
+# K10b and ~0.05 s of K12b each at dx = 1,024 on an H100), so T = 256
+# would take ~60 s a call; card vs CPU at T=8 in float64
+PN_DX, PN_DY, PN_T, PN_CMP_T = 2048, 1024, 20, 3
+PN_SDX, PN_SDY, PN_S_T, PN_S_CMP_T = 1024, 512, 16, 8
 # path C: the parallel smoother above the lane band, at bench.py's
 # Lorenz-96 filter widths; T cut from path B's 1M to 65,536 (the elements
 # at dx=64 take ~256x the bytes of dx=4)
@@ -266,16 +287,16 @@ PD_REPS = 1
 PD_CMP_T, PD_CMP_ITER, PD_PROFILE_T = 100, 3, 20
 # path E: experiments/parallel_kf_bench.py:141-152, the IEKS row (the UNGM,
 # N(0, 1) emissions, 3 iterations, chunk 128, the rollout nominal); T cut
-# from the source's 1M (:70) to 2^16: the rollout is a loop of T model
+# from the source's 1M (:70) to 2^15: the rollout is a loop of T model
 # calls of ~11 launches each, ~140-180 us a step on the H100 machine's
 # host, so that 1M steps would take ~180 s (PERF.md section 4), and 2^18
 # (~49 s) and 2^17 (~23 s) no longer fit the run's time limit beside
-# path L. The rollout
-# alone is timed at 16,384 steps (65,536 until the multi-device path M
-# joined the run: its rate a step is the same), and phase 6 traces the
-# path at 2,048.
-PE_T, PE_ITER, PE_ROLLOUT_T, PE_PROFILE_T = 2 ** 16, 3, 2 ** 14, 2_048
-PE_LANES = PE_T // KF_CHUNK                           # 512
+# path L, and 2^16 (~11 s) was cut to 2^15 when path N joined it. The
+# rollout alone is timed at 16,384 steps (65,536 until the multi-device
+# path M joined the run: its rate a step is the same), and phase 6 traces
+# the path at 2,048.
+PE_T, PE_ITER, PE_ROLLOUT_T, PE_PROFILE_T = 2 ** 15, 3, 2 ** 14, 2_048
+PE_LANES = PE_T // KF_CHUNK                           # 256
 # the time-varying filter and smoother on the card against the CPU: the
 # BOT widths (dx=4, dy=2, T=250, the flat scan) and path C's (dx=64,
 # dy=32, T=1,024, chunk 128: K10b, K11b with F banked, K12b)
@@ -291,8 +312,9 @@ BANK_PREDICTS = ((50, 4, 2), (100, 4, 2), (16, 4, 2))
 # sine_quadratic, T = 100, ParamsUKF(1, 0, 0), opt_args (0.8, 1.0), a BPF of
 # 100 particles) and experiments/adaptive_experiment.py:26-70 (the
 # stochastic-volatility regime switch at T/2: M = 20, a BPF of 20,000
-# particles); SLICE_SEEDS sequences each (the sources run 100 and 10)
-SLICE_T, SLICE_SEEDS, SLICE_CMP_T, SLICE_PROFILE_T = 100, 3, 20, 20
+# particles); SLICE_SEEDS sequences each (the sources run 100 and 10; 3
+# until path N joined the run, which has a time limit)
+SLICE_T, SLICE_SEEDS, SLICE_CMP_T, SLICE_PROFILE_T = 100, 2, 20, 20
 EXPA_OPT_ARGS, EXPA_PARTICLES = (0.8, 1.0), 100
 MSV_M, MSV_PARTICLES = 20, 20_000
 # path H: experiments/profile_chunked.py:13-20,49-56, the steady-state filter
@@ -345,7 +367,7 @@ KERNEL_SYMBOLS = {
 }
 # the kernels' IDs, in the order of the kernel table; K1t/K2t and K6t–K9t
 # are the tiled variants of K1/K2 and K6–K9, K10b–K12b the block variants
-# (8 < dx ≤ 512) of K10–K12
+# (dx > 8) of K10–K12
 KERNEL_IDS = {"bft_ekf_update": "K1", "bft_ekf_update_tiled": "K1t",
               "bft_ekf_predict_cov": "K2", "bft_ekf_predict_cov_tiled": "K2t",
               "bft_bank_update": "K3", "bft_bank_predict_cov": "K4",
@@ -825,18 +847,20 @@ def kernel_cases():
         pred(bu.K4, bu.bank_predict_cov, bu._predict_cov_plain, M, dx, dq,
              "also")
     # Lorenz-96 UKF (dx=64, dy=32, augmented na = 128 and 96), the
-    # range-bearing banks (na = 6 at M = 32..100), n = 128 (Newton–Schulz:
-    # K6t) and both sides of K6's and K7's rules (K6's Cholesky at
-    # n = 240 | 241 in float32 and 170 | 171 in float64, Newton–Schulz at
-    # 120 | 121 and 85 | 86; K7's Cholesky at dx = 223 | 224 and 144 | 145
-    # beside dn = 64)
+    # range-bearing banks (na = 6 at M = 32..100), n = 128 and both sides
+    # of K6's and K7's rules (K6's Cholesky at n = 240 | 241 in float32
+    # and 170 | 171 in float64, Newton–Schulz at 128 | 129 and 96 | 97;
+    # K7's Cholesky at dx = 223 | 224 and 144 | 145 beside dn = 64);
+    # Newton–Schulz also at ragged widths on one super-tile a thread
+    # (n = 1, 37) and on two (65)
     sigma(512, 64, "cholesky", "main")
     sigma(512, 64, "sqrtm", "also")
     sigma(4, 128, "cholesky")
     sigma(4, 128, "sqrtm")
     for n, method in ((240, "cholesky"), (241, "cholesky"), (170, "cholesky"),
-                      (171, "cholesky"), (120, "sqrtm"), (121, "sqrtm"),
-                      (85, "sqrtm"), (86, "sqrtm")):
+                      (171, "cholesky"), (129, "sqrtm"), (96, "sqrtm"),
+                      (97, "sqrtm"), (1, "sqrtm"), (37, "sqrtm"),
+                      (65, "sqrtm")):
         sigma(2, n, method)
     for dx in (223, 224, 144, 145):
         sigma_aug(2, dx, 64, "cholesky")
@@ -848,6 +872,8 @@ def kernel_cases():
     sigma_aug(32, 4, 2, "sqrtm")
     sigma_aug(2, 100, 28, "cholesky")
     sigma_aug(2, 100, 28, "sqrtm")
+    sigma_aug(2, 128, 1, "sqrtm")
+    sigma_aug(2, 1, 128, "sqrtm")
     # path F: the UGSF M = 3 and the UAGSF [3,2,2] (predict over M·N = 6,
     # update over M·N·L = 12) at Experiment A's widths, dx = dq = dr = 1
     for M in sorted({m for m, _ in SLICE_UT_BANKS}):
@@ -908,6 +934,22 @@ def kernel_cases():
     ut_predict(3, 600, 300, False)
     for dx in (192, 193, 128, 129):
         ut_predict(1, 2 * dx, dx, True)
+    # path N: config 5's model at dx = 2,048, dy = 1,024 (K1t at dy =
+    # 1,024 and at update_chunk=128's 128, K2t at dx = dq = 2,048, K6t at
+    # n = 2,048, K8t and K9t at 4,096 points), K7t alone at dx = dn = 1,024
+    # (na = 2,048: no main path runs it), and the smoother's block kernels
+    # at dx = 1,024 at its shapes (PN_S_T ≤ 128 steps: one lane a combine,
+    # the elements over PN_S_T − 1 lanes)
+    ekf_upd(1, PN_DX, PN_DY, "also")
+    ekf_upd(1, PN_DX, C5_CHUNK, "also")
+    ekf_pred(1, PN_DX, PN_DX, "also")
+    sigma(1, PN_DX, "cholesky", "also")
+    sigma_aug(1, PN_SDX, PN_SDX, "cholesky", "also")
+    ut_update(1, 2 * PN_DX, PN_DX, PN_DX, PN_DY, True, "also")
+    ut_predict(1, 2 * PN_DX, PN_DX, True, "also")
+    fcombine(1, PN_SDX, timed="also")
+    scombine(1, PN_SDX, timed="also")
+    elements(PN_S_T - 1, PN_SDX, timed="also")
     # the parallel Kalman smoother at T = 1M, chunk 128, dx = 4: in-chunk
     # combines over 7,813 lanes (128 of the 320), over the next level's 62
     # (128) and over one lane (62), the broadcasts of step 4 over (128, 62)
@@ -1601,39 +1643,39 @@ def bpf_problem(T, dtype, dev):
     return bpf, states, emissions
 
 
-def config5_data(T, dtype, dev):
+def config5_data(T, dtype, dev, dx=C5_DX, dy=C5_DY):
     """BASELINE config 5 (experiments/headline_bench.py:90-98): the Euler
     filter model's parameters and one sequence of RK4 data, Lorenz-96
-    dx=512, dy=256."""
+    dx=512, dy=256 (path N: dx=2,048, dy=1,024)."""
     import torch
 
     from bayesianfiltering_tpu_torch.models import zoo
 
-    _, params, _ = zoo.lorenz96(C5_DX, C5_DY, dtype=dtype, device=dev)
-    dm, dp, _ = zoo.lorenz96(C5_DX, C5_DY, integrator="rk4", dtype=dtype,
+    _, params, _ = zoo.lorenz96(dx, dy, dtype=dtype, device=dev)
+    dm, dp, _ = zoo.lorenz96(dx, dy, integrator="rk4", dtype=dtype,
                              device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + C5_DX)
+    gen = torch.Generator(device=dev).manual_seed(SEED + dx)
     states, emissions = dm.sample(dp, T, generator=gen)
     if not torch.isfinite(emissions).all():
-        raise RuntimeError("config 5 RK4 data are not finite")
+        raise RuntimeError(f"Lorenz-96 dx={dx} RK4 data are not finite")
     return params, states, emissions
 
 
-def config5_runs():
-    """Config 5's three filters: (label, call on (params, emissions), the
-    exact launches per step of each kernel). The EKF's and the UKF's
-    elements do not fit one SM's shared memory, so they run the tiled
-    K1t/K2t, K6t, K8t and K9t."""
+def config5_runs(dx=C5_DX, dy=C5_DY):
+    """Config 5's three filters (path N's at dx=2,048): (label, call on
+    (params, emissions), the exact launches per step of each kernel). The
+    EKF's and the UKF's elements do not fit one SM's shared memory, so
+    they run the tiled K1t/K2t, K6t, K8t and K9t."""
     from bayesianfiltering_tpu_torch import inference as inf
 
     return [
-        ("ekf512", lambda p, e: inf.extended_kalman_filter(p, e),
+        (f"ekf{dx}", lambda p, e: inf.extended_kalman_filter(p, e),
          {"bft_ekf_update_tiled": 1, "bft_ekf_predict_cov_tiled": 1}),
-        ("ekf512 update_chunk=128",
+        (f"ekf{dx} update_chunk=128",
          lambda p, e: inf.extended_kalman_filter(p, e, update_chunk=C5_CHUNK),
-         {"bft_ekf_update_tiled": C5_DY // C5_CHUNK,
+         {"bft_ekf_update_tiled": -(-dy // C5_CHUNK),
           "bft_ekf_predict_cov_tiled": 1}),
-        ("ukf512 additive cholesky",
+        (f"ukf{dx} additive cholesky",
          lambda p, e: inf.unscented_kalman_filter(p, ukf_params(), e,
                                                   additive=True),
          {"bft_ut_sigma_tiled": 2, "bft_ut_update_tiled": 1,
@@ -1641,18 +1683,26 @@ def config5_runs():
     ]
 
 
-def path_c_problem(T, dtype, dev):
+def path_c_problem(T, dtype, dev, dx=PC_DX, dy=PC_DY):
     """Path C: ``zoo.linear_gaussian_lgssm(64, 32)`` (the widths of
-    bench.py's Lorenz-96 filter) with N(0, 1) emissions made on the device,
-    as path B's."""
+    bench.py's Lorenz-96 filter; path N's smoother at (1,024, 512)) with
+    N(0, 1) emissions made on the device, as path B's."""
     import torch
 
     from bayesianfiltering_tpu_torch.models import zoo
 
-    params = zoo.linear_gaussian_lgssm(PC_DX, PC_DY, dtype=dtype, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + PC_DX)
-    ys = torch.randn(T, PC_DY, generator=gen, dtype=dtype, device=dev)
+    params = zoo.linear_gaussian_lgssm(dx, dy, dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + dx)
+    ys = torch.randn(T, dy, generator=gen, dtype=dtype, device=dev)
     return params, ys
+
+
+def path_n_smoother_expect(T):
+    """Path N's smoother's exact launches at T steps (chunk 128): the block
+    kernels only, a combine of each scan a launch, the elements once."""
+    return {"bft_block_combine": chunked_combines(T),
+            "bft_block_smoother_elements": 1,
+            "bft_block_smoother_combine": chunked_combines(T)}
 
 
 def path_c_expect(solver):
@@ -1967,6 +2017,8 @@ def compare_paths(dev) -> None:
             raise RuntimeError(f"{label} kernel path disagrees with the "
                                "plain path")
 
+    compare_path_n(dev)
+
     # path C: the parallel smoother above the lane band, both solvers
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[-1]
@@ -1994,6 +2046,67 @@ def compare_paths(dev) -> None:
     compare_smoothers(dev)
     compare_slice(dev)
     compare_fitting(dev)
+
+
+def compare_path_n(dev) -> None:
+    """Phase 4's path N in float64: its three filters at T = PN_CMP_T and
+    its smoother at T = PN_S_CMP_T, card against CPU, each with its exact
+    launches."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.models import zoo
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+
+    params, _, em = config5_data(PN_CMP_T, torch.float64, dev, PN_DX, PN_DY)
+    cpu_params = zoo.lorenz96(PN_DX, PN_DY, dtype=torch.float64,
+                              device="cpu")[1]
+    for label, run, per_step in config5_runs(PN_DX, PN_DY):
+        t0 = time.perf_counter()
+        got, _ = run_path(f"path N {label} T={PN_CMP_T} float64",
+                          lambda: run(params, em),
+                          {n: k * PN_CMP_T for n, k in per_step.items()},
+                          others_zero=True)
+        t1 = time.perf_counter()
+        want = run(cpu_params, em.cpu())
+        t2 = time.perf_counter()
+        errs = {n: rel_err(getattr(got, n), getattr(want, n))
+                for n in ("filtered_means", "filtered_covariances",
+                          "marginal_loglik")}
+        ok = max(errs.values()) <= EKF_TOL["float64"]
+        log(f"path N {label} lorenz96 dx={PN_DX} dy={PN_DY} T={PN_CMP_T} "
+            "float64 card vs cpu: " + ", ".join(f"{n} {e:.3e}"
+                                                for n, e in errs.items())
+            + f" (tol {EKF_TOL['float64']:.0e}) {'ok' if ok else 'FAIL'}; "
+            f"card {t1 - t0:.1f} s, cpu {t2 - t1:.1f} s")
+        if not ok:
+            raise RuntimeError(f"path N {label}: kernel path disagrees with "
+                               "the plain path")
+    params, ys = path_c_problem(PN_S_CMP_T, torch.float64, dev, PN_SDX,
+                                PN_SDY)
+    cpu_params = type(params)(*(x.cpu() for x in params[:6]))
+    t0 = time.perf_counter()
+    got, _ = run_path(f"path N parallel kalman smoother T={PN_S_CMP_T} "
+                      "float64",
+                      lambda: tas.parallel_kalman_smoother(
+                          params, ys, solver="woodbury", chunk=KF_CHUNK),
+                      path_n_smoother_expect(PN_S_CMP_T), others_zero=True)
+    t1 = time.perf_counter()
+    want = tas.parallel_kalman_smoother(cpu_params, ys.cpu(),
+                                        solver="woodbury", chunk=KF_CHUNK)
+    t2 = time.perf_counter()
+    errs = {n: rel_err(getattr(got, n), getattr(want, n))
+            for n in ("filtered_means", "filtered_covariances",
+                      "smoothed_means", "smoothed_covariances",
+                      "marginal_loglik")}
+    ok = max(errs.values()) <= EKF_TOL["float64"]
+    log(f"path N parallel kalman smoother dx={PN_SDX} dy={PN_SDY} "
+        f"T={PN_S_CMP_T} chunk={KF_CHUNK} woodbury float64 card vs cpu: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {EKF_TOL['float64']:.0e}) {'ok' if ok else 'FAIL'}; "
+        f"card {t1 - t0:.1f} s, cpu {t2 - t1:.1f} s")
+    if not ok:
+        raise RuntimeError("path N smoother: kernel path disagrees with the "
+                           "plain path")
 
 
 def run_path(label, fn, expect, others_zero=False):
@@ -2248,6 +2361,8 @@ def main_path(dev, card: str) -> dict:
             f"{float(metrics.rmse(post.filtered_means, states)):.4f} "
             f"({card})")
 
+    path_n(dev, card, add)
+
     # path C: the parallel smoother at dx=64, T=65,536, both solvers
     params, ys = path_c_problem(PC_T, torch.float32, dev)
     for solver in ("woodbury", "native"):
@@ -2314,6 +2429,53 @@ def main_path(dev, card: str) -> dict:
         log(f"path {name} took {time.perf_counter() - t0:.1f} s")
     log(f"launches over the main paths: {total}")
     return total
+
+
+def path_n(dev, card: str, add) -> None:
+    """Phase 5's path N: config 5's three filters at dx = 2,048, dy =
+    1,024, T = PN_T (REPS calls each after a warm-up), and the parallel
+    smoother at dx = 1,024, T = PN_S_T (one call after a warm-up: ~7 s a
+    call), each with every counter reset and its exact launches."""
+    import torch
+
+    from bayesianfiltering_tpu_torch.ops import associative as tas
+    from bayesianfiltering_tpu_torch.utils import metrics
+
+    params, states, em = config5_data(PN_T, torch.float32, dev, PN_DX, PN_DY)
+    for _, run, _ in config5_runs(PN_DX, PN_DY):  # warm-up
+        run(params, em[:2])
+    torch.cuda.synchronize()
+    for label, run, per_step in config5_runs(PN_DX, PN_DY):
+        post, secs = repeated(
+            f"path N {label} lorenz96", lambda: run(params, em),
+            {name: n * PN_T for name, n in per_step.items()}, add)
+        check_gaussian_posterior(label, post, (PN_T, PN_DX))
+        med = statistics.median(secs)
+        log(f"path N {label} lorenz96 dx={PN_DX} dy={PN_DY} B=1 T={PN_T} "
+            f"float32: {spread(secs)}, {PN_T / med:.1f} steps/s at the "
+            f"median, rmse "
+            f"{float(metrics.rmse(post.filtered_means, states)):.4f} "
+            f"({card})")
+    params, ys = path_c_problem(PN_S_T, torch.float32, dev, PN_SDX, PN_SDY)
+    tas.parallel_kalman_smoother(params, ys[:2], solver="woodbury",
+                                 chunk=KF_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    post, secs = repeated(
+        "path N parallel kalman smoother woodbury",
+        lambda: tas.parallel_kalman_smoother(params, ys, solver="woodbury",
+                                             chunk=KF_CHUNK),
+        path_n_smoother_expect(PN_S_T), add, reps=1)
+    for name in ("filtered_means", "smoothed_means", "smoothed_covariances"):
+        x = getattr(post, name)
+        if x.shape[0] != PN_S_T or not torch.isfinite(x).all():
+            raise RuntimeError(f"path N smoother: {name} not finite or "
+                               "misshapen")
+    med = statistics.median(secs)
+    log(f"path N parallel kalman smoother woodbury dx={PN_SDX} dy={PN_SDY} "
+        f"T={PN_S_T} chunk={KF_CHUNK} float32: {spread(secs)}, "
+        f"{PN_S_T / med:.2f} steps/s at the median, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
 
 
 def path_e_problem(T, dev):
@@ -2724,15 +2886,16 @@ def compare_slice(dev) -> None:
 # 4,096-step dispatch to the parallel smoother), float64
 PI_ITERS, PI_CMP_T, PI_CMP_ITERS = 3, 8192, 2
 # path J: extended EM on the Lorenz-96 EKF batch's model and data (dx = 64,
-# dy = 32, T = 1,000), B cut from 512 to 32 sequences (each (B, T, 64, 64)
+# dy = 32, T = 1,000), B cut from 512 to 16 sequences (each (B, T, 64, 64)
 # float32 stack is 1.05 GB at B = 64, and the E-step holds about ten; 64
-# ran ~40 s of the run's time limit, cut to 32 beside path L), Q and R
-# trained, one iteration on the main path (phase 4's check runs two);
-# path K: fit_sgd on the same model at B = 64, T = 200, Q
-# and R under RealToPSD, the default Adam, one minibatch of B a step;
-# card vs CPU at B = 2, T = 20, float64
-PJ_B, PJ_T, PJ_ITERS, PJ_CMP_ITERS = 32, 1000, 1, 2
-PK_B, PK_T, PK_EPOCHS = 64, 200, 2
+# ran ~40 s of the run's time limit, cut to 32 beside path L and to 16
+# beside path N), Q and R trained, one iteration on the main path (phase
+# 4's check runs two); path K: fit_sgd on the same model at B = 32 (64
+# until path N joined the run), T = 200, Q and R under RealToPSD, the
+# default Adam, one minibatch of B a step; card vs CPU at B = 2, T = 20,
+# float64
+PJ_B, PJ_T, PJ_ITERS, PJ_CMP_ITERS = 16, 1000, 1, 2
+PK_B, PK_T, PK_EPOCHS = 32, 200, 2
 FIT_CMP_B, FIT_CMP_T = 2, 20
 # the unscented E-step's check: the UNGM (path E's model), inputs arange(T)
 # (tests/test_models.py:338-345)
@@ -3221,9 +3384,9 @@ LEG_AGSF = (3, 2, 2)
 LEG_AGSF_MODES = (("prop", (0.2, 0.2)), ("opt_lip", (1.0, 0.2)),
                   ("test", (0.1, 0.2)))
 # path L's slowest host-bound calls run once, not REPS times (MCLAF ~12 s
-# a call on the H100, the AGSF's "opt_lip" ~7.6 s), to keep the run within
-# its time limit
-LEG_ONE_CALL = ("MCLAF", "opt_lip")
+# a call on the H100, the AGSF's "opt_lip" ~7.6 s, its "test" ~2.6 s
+# since path N joined the run), to keep the run within its time limit
+LEG_ONE_CALL = ("MCLAF", "opt_lip", "test")
 
 
 def legacy_models(dtype, dev, H):
@@ -4837,10 +5000,13 @@ def ut_times(root: str) -> None:
 
 
 def sigma_times(root: str) -> None:
-    """Float32 and float64, the device time per call of K6 (Cholesky;
-    Newton–Schulz in float32 only) and K7 (dn = 64 and 32; also by CUDA
-    events, since its two launches may overlap) at the batched Lorenz-96
-    UKF's shapes; then at config 5, with the max abs error against the
+    """Float32 and float64, the device time per call of K6 (Cholesky and
+    Newton–Schulz; Newton–Schulz also at the top of its band, n = 120 and
+    128 in float32, 85 and 96 in float64) and K7 (dn = 64 and 32, by both
+    methods; also by CUDA events, since its two launches may overlap) at
+    the batched Lorenz-96 UKF's shapes, Newton–Schulz with the max abs
+    error against the plain version; then at config 5, with the max abs
+    error against the
     plain version: the sigma points (K6t, Cholesky) beside
     ``torch.linalg.cholesky_ex`` of the same P, K6t by Newton–Schulz, K7t
     at the augmented widths (dn = 512 in the predict, 256 in the update)
@@ -4849,8 +5015,7 @@ def sigma_times(root: str) -> None:
     (``update_chunk=128``), K2t (beside the torch.matmul chain of its
     function), K8t and K9t, each also launch by launch (``launch_split``),
     K9t also at negative centre weights (``ParamsUKF(0.5, 2, 0)``'s
-    w0m = −3, w0c = −0.25) and at the band's edge (2,048 rows,
-    dx = 1,024); last,
+    w0m = −3, w0c = −0.25) and at 2,048 rows, dx = 1,024; last,
     config 5's three walls (``ekf512``, its chunked update, ``ukf512``;
     T = 200, float32; the median and range of REPS calls after a warm-up).
     Inputs from ``testing`` with SEED."""
@@ -4892,15 +5057,27 @@ def sigma_times(root: str) -> None:
         m, P = on_card(testing.sigma_inputs(rng, EKF_B, EKF_DX))
         show("K6 B=512 n=64 cholesky",
              lambda: fu.fused_sigma(m, P, 1.0, "cholesky"))
-        if dtype == torch.float32:
-            show("K6 B=512 n=64 sqrtm",
-                 lambda: fu.fused_sigma(m, P, 1.0, "sqrtm"))
+        show("K6 B=512 n=64 sqrtm",
+             lambda: fu.fused_sigma(m, P, 1.0, "sqrtm"),
+             plain=lambda: fu._sigma_plain(m, P, 1.0, "sqrtm"))
+        # Newton–Schulz at the top of K6's band: n = 120 / 85 (K6 in the
+        # parent and in a checkout whose band ends at 128 / 96) and
+        # 128 / 96 (the kernel each checkout's rule picks)
+        for n in ((120, 128) if dtype == torch.float32 else (85, 96)):
+            mn, Pn = on_card(testing.sigma_inputs(rng, EKF_B, n))
+            show(f"K6 B=512 n={n} sqrtm ("
+                 f"{fu.sigma_kernel(n, 'sqrtm', mn.element_size(), _build.smem_optin(dev)).name})",
+                 lambda: fu.fused_sigma(mn, Pn, 1.0, "sqrtm"),
+                 plain=lambda: fu._sigma_plain(mn, Pn, 1.0, "sqrtm"))
         for dn in (EKF_DX, EKF_DY):
             m, P, b, C = on_card(testing.sigma_aug_inputs(rng, EKF_B, EKF_DX,
                                                           dn))
-            show(f"K7 B=512 dx=64 dn={dn} cholesky",
-                 lambda: fu.fused_sigma_aug(m, P, b, C, 1.0, "cholesky"),
-                 event=True)
+            for method in ("cholesky", "sqrtm"):
+                show(f"K7 B=512 dx=64 dn={dn} {method}",
+                     lambda: fu.fused_sigma_aug(m, P, b, C, 1.0, method),
+                     event=True,
+                     plain=lambda: fu._sigma_aug_plain(m, P, b, C, 1.0,
+                                                       method))
         m, P = on_card(testing.sigma_inputs(rng, 1, C5_DX))
         for method in ("cholesky", "sqrtm"):
             show(f"sigma points B=1 n=512 {method}",
@@ -4949,7 +5126,7 @@ def sigma_times(root: str) -> None:
              lambda: fu.fused_ut_predict(*a, *wn, True),
              plain=lambda: fu._ut_predict_plain(*a, *wn, True))
         a = on_card(testing.ut_predict_inputs(rng, 1, 2048, 1024))
-        show("K9t B=1 rows=2048 dx=1024 (the band's edge)",
+        show("K9t B=1 rows=2048 dx=1024",
              lambda: fu.fused_ut_predict(*a, *we, True),
              plain=lambda: fu._ut_predict_plain(*a, *we, True))
     params, _, em = config5_data(C5_T, torch.float32, dev)

@@ -6,7 +6,10 @@ the tiled variants K1t/K2t and K6t–K9t (and the one-launch blocked factor
 under K6t, K7t, K1t and K8t at config 5, the bands' edges and a failing
 pivot in the first, a middle or the last panel; K7t's P and C side by
 side at dx ≠ dn; K9t at negative centre weights), the block variants of
-K10–K12 and the wide bands of K1 and K6–K9, and the smoothing side and
+K10–K12, inputs past the old bands (dy = 513, n = 1,025, dx = 513 and
+float16 combines: one launch of the tiled, block or lane kernel each),
+K6 and K7 by Newton–Schulz at every width of K6's band, and the smoothing
+side and
 the AGSF's options against the CPU in float64. This file imports no
 JAX, so it also runs where JAX is not installed (the repository's
 conftest.py imports JAX, hence ``--noconftest``):
@@ -173,22 +176,31 @@ def test_agsf_kernel_path_matches_plain_path(dev):
 
 
 def test_outside_the_kernel_band_raises(dev):
-    """The band is dx ≤ 512, dy ≤ 512: a CUDA input outside it raises
-    instead of falling back to the plain twin."""
-    raw = testing.update_inputs(np.random.default_rng(1), 1, 4, 513)
-    args = [testing.to_torch(a, torch.float32, dev) for a in raw]
+    """The old band (dx, dy ≤ 512) is gone: dy = 513 and dx = dq = 600
+    launch K1t and K2t once each, on the card, and match the plain
+    versions; nothing raises and nothing falls back."""
+    rng = np.random.default_rng(1)
+    args = _dev(testing.update_inputs(rng, 1, 4, 513), torch.float32, dev)
     before = fe.K1.launches, fe.K1T.launches
-    with pytest.raises(NotImplementedError):
-        fe.fused_update(*args)
-    assert (fe.K1.launches, fe.K1T.launches) == before
+    got = fe.fused_update(*args)
+    torch.cuda.synchronize()
+    assert (fe.K1.launches, fe.K1T.launches) == (before[0], before[1] + 1)
+    for g, w in zip(got, fe._update_plain(*args, 0.0)):
+        assert_close(g, w, 1e-3)
+    args = _dev(testing.predict_inputs(rng, 1, 600, 600), torch.float32, dev)
+    before = fe.K2T.launches
+    got = fe.fused_predict_cov(*args)
+    torch.cuda.synchronize()
+    assert fe.K2T.launches == before + 1
+    assert_close(got, fe._predict_plain(*args), 1e-3)
 
 
 UT_CASES = [
     (fu.K6, lambda r: testing.sigma_inputs(r, 5, 16),
      lambda *a: fu.fused_sigma(*a, 2.0, "cholesky"),
      lambda *a: fu._sigma_plain(*a, 2.0, "cholesky")),
-    # Newton–Schulz at n = 128 does not fit K6's workspace: K6t
-    (fu.K6T, lambda r: testing.sigma_inputs(r, 3, 128),
+    # Newton–Schulz at n = 129 is past K6's widest (128): K6t
+    (fu.K6T, lambda r: testing.sigma_inputs(r, 3, 129),
      lambda *a: fu.fused_sigma(*a, 2.0, "sqrtm"),
      lambda *a: fu._sigma_plain(*a, 2.0, "sqrtm")),
     (fu.K7, lambda r: testing.sigma_aug_inputs(r, 7, 12, 5),
@@ -278,12 +290,59 @@ def test_uagsf_kernel_path_matches_plain_path(dev):
 
 
 def test_ut_outside_the_band_raises(dev):
+    """The old band (every dimension ≤ 1,024) is gone: n = 1,025 launches
+    K6t once and matches the plain version."""
     m, P = testing.sigma_inputs(np.random.default_rng(3), 1, 1025)
     args = [testing.to_torch(a, torch.float32, dev) for a in (m, P)]
     before = fu.K6.launches, fu.K6T.launches
-    with pytest.raises(NotImplementedError):
-        fu.fused_sigma(*args, 1.0, "cholesky")
-    assert (fu.K6.launches, fu.K6T.launches) == before
+    got = fu.fused_sigma(*args, 1.0, "cholesky")
+    torch.cuda.synchronize()
+    assert (fu.K6.launches, fu.K6T.launches) == (before[0], before[1] + 1)
+    assert_close(got, fu._sigma_plain(*args, 1.0, "cholesky"), 1e-3)
+
+
+# K6 and K7 by Newton–Schulz on block_mm.cuh's register-tiled products:
+# every width of K6's band (to 128 in float32 and 96 in float64), the
+# banks' na = 2–6, the Lorenz-96 UKF's K7 (dx = 64, dn = 64 and 32) and
+# ragged widths on both launches of K7
+NS_EDGE = {torch.float32: 128, torch.float64: 96}
+NS_AUG = [(1, 1), (2, 2), (4, 2), (3, 3), (64, 64), (64, 32), (33, 5),
+          (5, 33), (100, 28), (96, 1), (1, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_schulz_sigma_points_at_every_width(dev, dtype):
+    for n in range(1, NS_EDGE[dtype] + 1):
+        args = _dev(testing.sigma_inputs(np.random.default_rng(n), 3, n),
+                    dtype, dev)
+        assert fu.sigma_kernel(n, "sqrtm", args[0].element_size(),
+                               _build.smem_optin(dev)) is fu.K6
+        before = fu.K6.launches
+        got = fu.fused_sigma(*args, 1.1, "sqrtm")
+        torch.cuda.synchronize()
+        assert fu.K6.launches == before + 1, n
+        assert torch.isfinite(got).all(), n
+        assert_close(got, fu._sigma_plain(*args, 1.1, "sqrtm"),
+                     WIDE_TOL[dtype])
+    n = NS_EDGE[dtype] + 1
+    assert fu.sigma_kernel(n, "sqrtm", torch.tensor([], dtype=dtype)
+                           .element_size(), _build.smem_optin(dev)) is fu.K6T
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dx,dn", NS_AUG)
+def test_newton_schulz_aug_points(dev, dtype, dx, dn):
+    args = _dev(testing.sigma_aug_inputs(np.random.default_rng(dx + dn), 4,
+                                         dx, dn), dtype, dev)
+    kernel = fu.sigma_aug_kernel(dx, dn, "sqrtm", args[0].element_size(),
+                                 _build.smem_optin(dev))
+    before = kernel.launches
+    got = fu.fused_sigma_aug(*args, 0.9, "sqrtm")
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert_close(got, fu._sigma_aug_plain(*args, 0.9, "sqrtm"),
+                 WIDE_TOL[dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -581,25 +640,41 @@ def test_parallel_smoother_kernel_path_matches_plain_path(dev):
 @pytest.mark.parametrize("dx,dtype", [(513, torch.float64),
                                       (4, torch.float16)])
 def test_outside_the_combine_band_raises(dev, dx, dtype):
-    """dx = 513, or a half-precision operand, is outside K10–K12's band
-    (lane kernels to dx = 8, block kernels to 512): a CUDA input raises
-    instead of running the plain version."""
+    """The old band (dx ≤ 512, float32 and float64) is gone: dx = 513 runs
+    the block kernels K10b, K11b and K12b once each, and a float16
+    operand (which the JAX package's XLA combine takes) the lane kernels
+    once each in float32, rounded back; each matches its plain version
+    (for float16 the plain version in float32 on the CPU, rounded back:
+    one float16 rounding apart at most)."""
     rng = np.random.default_rng(5)
     fl = lambda: _dev(testing.filter_elements(rng, 4, dx), dtype, dev)
     sm = lambda: _dev(testing.smoother_elements(rng, 4, dx), dtype, dev)
     el = _dev(testing.smoother_element_inputs(rng, 4, dx), dtype, dev)
-    _build.reset_launch_counts()
-    for call in (lambda: bc.bank_filter_combine(fl(), fl()),
-                 lambda: bs.bank_smoother_combine(sm(), sm()),
-                 lambda: bs.bank_smoother_elements(*el)):
-        with pytest.raises(NotImplementedError, match="band"):
-            call()
-    assert all(k.launches == 0 for k in COMBINE_KERNELS)
+    cpu = lambda xs: tuple(x.cpu() for x in xs)
+    tol = 2e-3 if dtype == torch.float16 else 1e-10
+    block = dx > 8
+    for kernel, call, plain, args in (
+            (bc.K10B if block else bc.K10, bc.bank_filter_combine,
+             bc.bank_filter_combine, (fl(), fl())),
+            (bs.K12B if block else bs.K12, bs.bank_smoother_combine,
+             bs.bank_smoother_combine, (sm(), sm())),
+            (bs.K11B if block else bs.K11, bs.bank_smoother_elements,
+             bs.bank_smoother_elements, el)):
+        _build.reset_launch_counts()
+        got = call(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == 1
+        assert sum(k.launches for k in COMBINE_KERNELS) == 1
+        want = plain(*(cpu(a) if isinstance(a, (tuple, list)) else a.cpu()
+                       for a in args))
+        for g, w in zip(got, want):
+            assert g.dtype == dtype
+            assert_close(g, w, tol)
 
 
 # ---------------------------------------------------------------------------
-# The wide bands: K1 to dy = 512, K6–K9 to 1,024, K10–K12's block variants
-# (8 < dx ≤ 512). Tolerances at these widths: float64 1e-10 as above;
+# The wide shapes: K1t to dy = 512, K6t–K9t to 1,024, K10–K12's block
+# variants (dx > 8). Tolerances at these widths: float64 1e-10 as above;
 # float32 1e-3, the bound chip_smoke.py holds every kernel to, since a
 # float32 factor of a 256–1,024-wide S or P loses more digits than the
 # small shapes above.

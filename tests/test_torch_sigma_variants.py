@@ -147,10 +147,10 @@ def aug_case(B, dx, dn, method):
     (241, "cholesky", 4, H100_OPTIN, "K6T"),   # 58,081
     (170, "cholesky", 8, H100_OPTIN, "K6"),    # 28,900
     (171, "cholesky", 8, H100_OPTIN, "K6T"),   # 29,241
-    (120, "sqrtm", 4, H100_OPTIN, "K6"),       # 57,600
-    (121, "sqrtm", 4, H100_OPTIN, "K6T"),      # 58,564
-    (85, "sqrtm", 8, H100_OPTIN, "K6"),        # 28,900
-    (86, "sqrtm", 8, H100_OPTIN, "K6T"),       # 29,584
+    (128, "sqrtm", 4, H100_OPTIN, "K6"),       # 3 × 128 × 128 = 49,152
+    (129, "sqrtm", 4, H100_OPTIN, "K6T"),      # past _NS_MAX (63,360)
+    (96, "sqrtm", 8, H100_OPTIN, "K6"),        # 3 × 96 × 96 = 27,648
+    (97, "sqrtm", 8, H100_OPTIN, "K6T"),       # 3 × 100 × 128 = 38,400
     (512, "cholesky", 4, H100_OPTIN, "K6T"),   # config 5
     (512, "cholesky", 8, H100_OPTIN, "K6T"),
     (64, "cholesky", 4, 16 * 1024, "K6T"),     # a card with less
@@ -163,14 +163,14 @@ def test_sigma_variant_rule(n, method, itemsize, optin, want):
 @pytest.mark.parametrize("dx,dn,method,itemsize,optin,want", [
     (64, 64, "cholesky", 4, H100_OPTIN, "K7"),   # L96 predict
     (64, 32, "cholesky", 8, H100_OPTIN, "K7"),   # L96 update
-    (64, 64, "sqrtm", 8, H100_OPTIN, "K7"),      # 24,576 elements
+    (64, 64, "sqrtm", 8, H100_OPTIN, "K7"),      # 20,480 elements
     (4, 2, "cholesky", 4, H100_OPTIN, "K7"),     # the UGSF/UAGSF banks
     (223, 64, "cholesky", 4, H100_OPTIN, "K7"),  # 57,921
     (224, 64, "cholesky", 4, H100_OPTIN, "K7T"),  # 58,368
     (144, 64, "cholesky", 8, H100_OPTIN, "K7"),  # 28,928
     (145, 64, "cholesky", 8, H100_OPTIN, "K7T"),  # 29,217
-    (1, 120, "sqrtm", 4, H100_OPTIN, "K7"),      # the noise launch: 57,600
-    (1, 121, "sqrtm", 4, H100_OPTIN, "K7T"),     # 58,564
+    (1, 128, "sqrtm", 4, H100_OPTIN, "K7"),      # the noise launch: 49,152
+    (1, 129, "sqrtm", 4, H100_OPTIN, "K7T"),     # past _NS_MAX
     (512, 512, "cholesky", 4, H100_OPTIN, "K7T"),  # config 5 augmented
     (512, 256, "cholesky", 8, H100_OPTIN, "K7T"),
     (64, 64, "cholesky", 4, 32 * 1024, "K7T"),
@@ -479,6 +479,46 @@ def test_in_block_panel_factor_flags_a_failing_pivot(fail_at):
     _, bad, _ = block_cholesky_panels(P)
     assert bad
     assert torch.linalg.cholesky_ex(torch.as_tensor(P))[1] != 0
+
+
+def block_newton_schulz(P, dtype):
+    """K6's and K7's in-block Newton–Schulz root (csrc/fused_ut.cu
+    ``block_factor`` with kNs > 0) in numpy: Y, Z and T, each of
+    round_up(n, 4) rows and leading dimension round_up(n, 32), seeded with
+    NaN; T = (3I − Z Y)/2 in the first product's epilogue, Y T and T Z
+    stored over Y and Z (``tile_mm_held``: every tile computed before any
+    is stored), each product ``testing.tile_mm``'s tiles and stored mask;
+    the root sym(Y·√s) into T. Returns the root at T's stride."""
+    n = P.shape[0]
+    rows, ld = -(-n // 4) * 4, -(-n // NB) * NB
+    Y, Z, T = (np.full((rows, ld), np.nan, dtype) for _ in range(3))
+    s = dtype(np.sum(np.diag(P))) + dtype(1e-30)
+    Y[:n, :n] = (dtype(0.5) * (P + P.T)) / s
+    Z[:n, :n] = np.eye(n, dtype=dtype)
+    eye = np.eye(rows, ld, dtype=dtype)
+    for _ in range(NS_ITERS):
+        C, mask = testing.tile_mm(Z, Y, n, n, n, at=False)
+        testing.put(T, C, mask, lambda c: dtype(0.5) * (3 * eye - c))
+        C, mask = testing.tile_mm(Y, T, n, n, n, at=False)
+        testing.put(Y, C, mask)
+        C, mask = testing.tile_mm(T, Z, n, n, n, at=False)
+        testing.put(Z, C, mask)
+    rs = np.sqrt(s)
+    T[:n, :n] = dtype(0.5) * (Y[:n, :n] * rs + Y[:n, :n].T * rs)
+    return T
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n", [1, 5, 37, 64, 65, 128])
+def test_in_block_newton_schulz_matches_jax(dtype, n):
+    """One super-tile a thread to n = 64, 2 × 2 to 128; ragged n and n = 1
+    read their pad only into outputs that no epilogue stores."""
+    (m, P), scale, want = sigma_case(1, n, "sqrtm")
+    F = block_newton_schulz(P[0].astype(dtype), np.dtype(dtype).type)
+    assert np.isfinite(F[:n, :n]).all()
+    root = F[:n, :n].astype(np.float64)
+    got = np.concatenate([m[0] + scale * root.T, m[0] - scale * root.T])
+    assert_close(got, want[0], dtype)
 
 
 # ---------------------------------------------------------------------------
